@@ -1,0 +1,349 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch + CUDA port on one NVIDIA card, end to end.
+
+    python3 chip_smoke.py [--seed N]
+
+1. Set-up: exits non-zero without a CUDA card or without the port's
+   package beside this script; prints the card's name and power limit;
+   builds every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and prints each kernel's register and
+   shared-memory use.
+2. Each kernel against its plain PyTorch version on the card, at every
+   distinct shape of the B1@224 main path at batch 1 and 8:
+   ``max|d| <= 1e-4 * max(1, max|ref|)``.  Times are device times from
+   CUDA events over back-to-back launches (inputs warm in L2), median of
+   5 windows; the bound is max(bytes / 3.35 TB/s, flops / 67 TFLOP/s),
+   the H100 SXM's published memory rate and non-tensor fp32 rate, with
+   each input read once and each output written once.
+3. The main path: ``VisionEngine`` over B1@224 fp32 (random weights and
+   BN statistics from ``--seed``, microbatch 8) serves 12 requests with
+   mixed deadlines through its scheduler.  Every launch counter is
+   reset just before and read just after: each dispatched forward must
+   launch dsconv_fused 1x, mbconv_fused 14x and relu_attn_noncausal 7x.
+   The logits must match the port's reference forward (``execute`` with
+   ``plan=None``, plain torch ops, TF32 off) on the card within
+   rtol = atol = 1e-3, with the same top-1.
+4. One JSON line with every kernel's launches, error and times (ms are
+   per B1@224 batch-8 forward: the sum over that forward's launches).
+5. The last line: ``{"ok": true, "device": {...}}``.
+
+Any failure raises and the script exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SRC = os.path.join(ROOT, "src")
+
+PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32, non-tensor (data sheet)
+TOL = 1e-4
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    return 1
+
+
+def device_ms(fn, reps: int = 20, windows: int = 5) -> float:
+    """Median over ``windows`` of the mean device time of ``reps``
+    back-to-back calls, from CUDA events.  A sleep kernel queued first
+    keeps the card busy while the host enqueues the calls, so host
+    overhead between launches does not count."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(2e9 * (1.5 * host_s + 1e-3)))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / reps)
+    return statistics.median(out)
+
+
+def bound(nbytes: float, flops: float) -> tuple[float, str]:
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, flops / PEAK_FP32_FLOPS
+    return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
+
+
+def kernel_cases(batch: int, gen):
+    """(kernel, site names, shape label, kernel fn, plain fn, bytes,
+    flops) for every distinct fused shape of B1@224 at ``batch``."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.fusion import decision_shape
+    from repro_torch.core.program import lower
+    from repro_torch.kernels.dsconv.kernel import dsconv_fused
+    from repro_torch.kernels.dsconv.ref import dsconv_ref
+    from repro_torch.kernels.mbconv.kernel import mbconv_fused
+    from repro_torch.kernels.mbconv.ref import mbconv_ref
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+    from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda()
+
+    groups: dict = {}
+    for site in lower(B1, batch=batch).fusible():
+        groups.setdefault((site.kind, decision_shape(site)), []).append(site)
+    cases = []
+    for (kind, shape), sites in groups.items():
+        s = sites[0]
+        names = [x.name for x in sites]
+        if kind == "dsconv":
+            B, H, W, C, _, F, st = shape
+            x, dw, db = rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C)
+            pw, pb = rnd(C, F, scale=C ** -0.5), rnd(F)
+            args = (x, dw, db, pw, pb)
+            kfn = lambda a=args, st=st: dsconv_fused(*a, stride=st)
+            pfn = lambda a=args, st=st: dsconv_ref(*a, stride=st)
+            nbytes = 4 * (x.numel() + dw.numel() + db.numel() + pw.numel()
+                          + pb.numel() + B * (H // st) * (W // st) * F)
+            flops = 2 * B * (H // st) * (W // st) * (9 * C + C * F)
+            label = f"x{tuple(x.shape)} F={F} s={st}"
+            name = "dsconv_fused"
+        elif kind == "mbconv":
+            B, H, W, C, M, F, st = shape
+            Ho, Wo = H // st, W // st
+            x = rnd(B, H, W, C)
+            w1, b1 = rnd(C, M, scale=C ** -0.5), rnd(M)
+            dw, db = rnd(3, 3, M, scale=1 / 3), rnd(M)
+            w2, b2 = rnd(M, F, scale=M ** -0.5), rnd(F)
+            args = (x, w1, b1, dw, db, w2, b2)
+            kfn = lambda a=args, st=st: mbconv_fused(*a, stride=st)
+            pfn = lambda a=args, st=st: mbconv_ref(*a, stride=st)
+            nbytes = 4 * (sum(t.numel() for t in args) + B * Ho * Wo * F)
+            flops = 2 * B * (H * W * C * M + Ho * Wo * M * (9 + F))
+            label = f"x{tuple(x.shape)} M={M} F={F} s={st}"
+            name = "mbconv_fused"
+        else:
+            B, H, W, C = s.in_shape
+            heads, d = s.attrs["heads"], s.attrs["head_dim"]
+            G, N, T = s.attrs["n_branches"] * B, H * W, heads * d
+            t = rnd(G, N, 3 * T).reshape(G, N, 3, heads, d)
+            args = (t[:, :, 0], t[:, :, 1], t[:, :, 2])
+            kfn = lambda a=args: relu_attn_noncausal(*a)
+            pfn = lambda a=args: relu_attn_noncausal_ref(*a)
+            nbytes = 4 * 4 * G * N * T
+            flops = G * heads * (4 * N * d * d + 3 * N * d)
+            label = f"qkv({G},{N},3x{heads}x{d})"
+            name = "relu_attn_noncausal"
+        cases.append((name, names, label, kfn, pfn, nbytes, flops))
+    return cases
+
+
+def randomize_bn(tree, gen) -> None:
+    """Give every BatchNorm non-trivial statistics (init is identity,
+    which would leave BN folding untested)."""
+    import torch
+    if isinstance(tree, dict):
+        if set(tree) == {"scale", "bias", "mean", "var"}:
+            n = tree["scale"].shape[0]
+            dev = tree["scale"].device
+            tree["scale"] = (0.8 + 0.4 * torch.rand(n, generator=gen)).to(dev)
+            tree["bias"] = (0.1 * torch.randn(n, generator=gen)).to(dev)
+            tree["mean"] = (0.1 * torch.randn(n, generator=gen)).to(dev)
+            tree["var"] = (0.5 + torch.rand(n, generator=gen)).to(dev)
+            return
+        for v in tree.values():
+            randomize_bn(v, gen)
+    elif isinstance(tree, list):
+        for v in tree:
+            randomize_bn(v, gen)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        return fail("no CUDA device is available")
+    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+        return fail(f"the port's package is not at {SRC}/repro_torch")
+    sys.path.insert(0, SRC)
+    import numpy as np
+
+    from repro_torch.core.efficientvit import B1, init_efficientvit
+    from repro_torch.core.program import execute, lower
+    from repro_torch.kernels.build import build
+    from repro_torch.kernels.dsconv.kernel import dsconv_fused
+    from repro_torch.kernels.mbconv.kernel import mbconv_fused
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+    from repro_torch.serving.scheduler import Request
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    # -- 1. set-up ------------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}")
+    t0 = time.perf_counter()
+    logs = build()
+    print(f"[build] {len(logs)} kernel libraries built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    wrappers = {"dsconv_fused": dsconv_fused, "mbconv_fused": mbconv_fused,
+                "relu_attn_noncausal": relu_attn_noncausal}
+    expected = {"dsconv_fused": 1, "mbconv_fused": 14,
+                "relu_attn_noncausal": 7}
+    sources = {
+        "dsconv_fused": ("src/repro_torch/csrc/dsconv.cu",
+                         "src/repro/kernels/dsconv/kernel.py:57"),
+        "mbconv_fused": ("src/repro_torch/csrc/mbconv.cu",
+                         "src/repro/kernels/mbconv/kernel.py:69"),
+        "relu_attn_noncausal": ("src/repro_torch/csrc/relu_attn.cu",
+                                "src/repro/kernels/relu_attn/kernel.py:68"),
+    }
+
+    # -- 2. kernels against their plain versions -----------------------
+    gen = torch.Generator().manual_seed(args.seed)
+    per_fwd = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes_s": 0.0, "ops_s": 0.0} for k in wrappers}
+    max_err = {k: 0.0 for k in wrappers}
+    for batch in (1, 8):
+        for name, sites, label, kfn, pfn, nbytes, flops in \
+                kernel_cases(batch, gen):
+            got, ref = kfn(), pfn()
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            scale = max(1.0, ref.abs().max().item())
+            if not err <= TOL * scale:
+                raise AssertionError(
+                    f"{name} {label}: max|d| {err:.3e} > "
+                    f"{TOL} * {scale:.3e}")
+            max_err[name] = max(max_err[name], err)
+            ms, plain_ms = device_ms(kfn), device_ms(pfn)
+            b_ms, by = bound(nbytes, flops)
+            print(f"[kernel] {name} B={batch} {label} sites={len(sites)} "
+                  f"max|d|={err:.3e} ms={ms:.5f} plain_ms={plain_ms:.5f} "
+                  f"bound_ms={b_ms:.5f} ({by}) roofline="
+                  f"{b_ms / ms:.3f}")
+            if batch == 8:
+                acc = per_fwd[name]
+                n = len(sites)
+                acc["ms"] += n * ms
+                acc["plain_ms"] += n * plain_ms
+                acc["bound_ms"] += n * b_ms
+                acc["bytes_s"] += n * nbytes / PEAK_BYTES_PER_S
+                acc["ops_s"] += n * flops / PEAK_FP32_FLOPS
+
+    # -- 3. the main path ---------------------------------------------
+    params = init_efficientvit(gen, B1, "cuda")
+    randomize_bn(params, gen)
+    engine = VisionEngine(params, B1, VisionServeConfig(microbatch=8))
+    engine.warmup()
+    sched = engine.scheduler()
+    rng = np.random.default_rng(args.seed)
+    images = rng.standard_normal((12, 224, 224, 3)).astype(np.float32)
+    # request 2 is due at once (flushes 3 requests to bucket 4), requests
+    # 3..10 fill bucket 8, request 11 goes to bucket 1 at drain
+    deadlines = [60_000.0, None, 0.0] + [60_000.0, None] * 4 + [None]
+    reqs = [Request(i, images[i], deadline_ms=deadlines[i],
+                    timeout_ms=600_000.0) for i in range(12)]
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    for r in reqs:
+        sched.submit(r)
+        sched.step()
+    sched.step(drain=True)
+    t_fin = time.perf_counter()
+    sched.finalize()
+    wall = time.perf_counter() - t0
+    fin = time.perf_counter() - t_fin
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(r.status != "completed" for r in reqs):
+        raise AssertionError([(r.rid, r.status, r.error) for r in reqs])
+    dispatched = [(k[0], k[1]) for k, b in engine.telemetry.buckets.items()
+                  for _ in range(b.dispatches)]
+    n_fwd = len(dispatched)
+    print(f"[serve] dispatched (bucket, res): {sorted(dispatched)}; "
+          f"launches {launches}; {len(reqs)} images in {wall * 1e3:.2f} ms "
+          f"= {len(reqs) / wall:.1f} images/s")
+    print(f"[serve] host: submit + step (copy in, enqueue the forwards) "
+          f"{(wall - fin) * 1e3:.2f} ms, finalize (waiting on the card) "
+          f"{fin * 1e3:.2f} ms")
+    for name, per in expected.items():
+        if launches[name] != per * n_fwd:
+            raise AssertionError(f"{name}: {launches[name]} launches for "
+                                 f"{n_fwd} forwards, expected {per} each")
+    for key, b in sorted(engine.telemetry.buckets.items()):
+        s = b.snapshot()
+        print(f"[serve] bucket {key}: dispatches={b.dispatches} "
+              f"samples={b.samples} padded={b.padded} "
+              f"latency_ms p50={s['latency_ms_p50']:.3f} "
+              f"max={max(b.latency_ms):.3f}")
+    got = np.stack([r.logits for r in reqs])
+    with torch.inference_mode():
+        ref = execute(lower(B1, batch=12), engine.params,
+                      torch.from_numpy(images).cuda()).cpu().numpy()
+    if not np.all(np.isfinite(got)) or got.shape != (12, B1.num_classes):
+        raise AssertionError(f"bad logits: shape {got.shape}")
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+    if not np.array_equal(got.argmax(-1), ref.argmax(-1)):
+        raise AssertionError("top-1 differs from the reference forward")
+    print(f"[serve] logits vs reference forward: max|d| "
+          f"{np.abs(got - ref).max():.3e} (max|ref| "
+          f"{np.abs(ref).max():.3e}), top-1 equal")
+
+    # steady-state throughput of full buckets (not part of the counts)
+    batch64 = torch.from_numpy(
+        rng.standard_normal((64, 224, 224, 3)).astype(np.float32)).cuda()
+    engine.logits(batch64[:8])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.logits(batch64)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(f"[serve] steady state: 64 images in 8 buckets of 8: "
+          f"{wall * 1e3:.2f} ms = {64 / wall:.1f} images/s")
+
+    # -- 4. the kernels line --------------------------------------------
+    rows = []
+    for name in wrappers:
+        acc = per_fwd[name]
+        src, replaces = sources[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max_err[name], "ms": acc["ms"],
+            "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
+            "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]
+                         else "operations"),
+            "library_ms": None})
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,230 @@
+"""Fusion planning: freeze per-site kernel routing for one ``Program``.
+
+Counterpart of ``repro/core/fusion.py`` for fp trees.  ``plan_program``
+runs ONE loop over the lowered IR's fusible sites, consulting the
+kernel registry for each: which precision the site's params support,
+which blocks (band height, chunk, tile) to freeze, and whether one CTA
+of the Hopper kernel fits in shared memory with them.  ``execute`` then
+dispatches by table lookup.
+
+Blocks are frozen from each kernel's deterministic choice, as the JAX
+planner freezes its first candidate without a sweep.  Autotune sweeps,
+schedule overrides, fault demotion, the super-site grouping pass and
+int8 epilogue assignment are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+__all__ = ["SiteDecision", "FusionPlan", "plan_program", "plan_report",
+           "launch_counts", "decision_shape", "EXPECTED_B1_FUSED_LAUNCHES"]
+
+# Drift gate: one fused launch per fusible site of EfficientViT-B1
+# (1 stem DSConv + 2+3 MBConv + 2 downsamples + (3+4) x (MSA + MBConv)).
+EXPECTED_B1_FUSED_LAUNCHES = 22
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteDecision:
+    name: str              # e.g. "S3.evit0.msa"
+    kind: str              # dsconv | mbconv | msa
+    fused: bool
+    reason: str            # "ok" | "vmem" (does not fit in shared memory)
+    #                        | "quantized" | "not-quantized" | "mixed"
+    #                        | "disabled"
+    blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    shape: tuple = ()      # (B, H, W, C, mid, F, stride) / (BH, N, D, S, C)
+    precision: str = "fp"  # "fp" | "int8": which kernel family runs
+    reused: bool = False   # blocks inherited from a donor plan
+
+
+@dataclasses.dataclass(frozen=True)
+class FusionPlan:
+    decisions: Mapping[str, SiteDecision]
+
+    def get(self, name):
+        return self.decisions.get(name)
+
+    def n_fused(self) -> int:
+        return sum(d.fused for d in self.decisions.values())
+
+
+def decision_shape(site) -> tuple:
+    """A ``Site`` -> the ``SiteDecision.shape`` tuple the accounting
+    consumes: conv kinds (B, H, W, C, mid, F, stride); msa (BH, n_tok,
+    head_dim, n_branches, channels)."""
+    if site.kind == "msa":
+        B, H, W, C = site.in_shape
+        bh = site.attrs["n_branches"] * B * site.attrs["heads"]
+        return (bh, H * W, site.attrs["head_dim"],
+                site.attrs["n_branches"], C)
+    if len(site.in_shape) == 4:
+        B, H, W, C = site.in_shape
+        return (B, H, W, C, site.attrs.get("mid", C), site.out_shape[-1],
+                site.stride)
+    return tuple(site.in_shape) + tuple(site.out_shape)
+
+
+def _reusable_blocks(reuse, site, prec, impl):
+    """Donor blocks for this site, or None if no safe donor exists.
+
+    A donor qualifies when it fused the same-named site at the same
+    precision with identical per-sample geometry (the decision shape
+    without its leading batch axis); a family whose blocks follow the
+    batch (``batch_dependent_tiles``) needs the exact shape."""
+    d = reuse.get(site.name) if reuse is not None else None
+    if (d is None or not d.fused or d.kind != site.kind
+            or d.precision != prec):
+        return None
+    shape = decision_shape(site)
+    if getattr(impl, "batch_dependent_tiles", False):
+        if tuple(d.shape) != tuple(shape):
+            return None
+    elif tuple(d.shape[1:]) != tuple(shape[1:]):
+        return None
+    return dict(d.blocks)
+
+
+def _decide(site, params, *, enabled, precision, reuse=None):
+    from repro_torch.core.quantization import FIX8_SLICE
+    from repro_torch.kernels.registry import get_kernel, get_probe
+
+    shape = decision_shape(site)
+    if not enabled:
+        return SiteDecision(site.name, site.kind, False, "disabled",
+                            shape=shape)
+    probe = get_probe(site.kind)
+    prec, fail = probe.resolve_precision(probe.site_precision(params),
+                                         precision)
+    if fail is not None:
+        return SiteDecision(site.name, site.kind, False, fail, shape=shape)
+    if prec != "fp":
+        raise NotImplementedError(FIX8_SLICE)
+    impl = get_kernel(site.kind, prec)
+    blocks = _reusable_blocks(reuse, site, prec, impl)
+    reused = blocks is not None
+    if not reused:
+        blocks = impl.tune(site)
+    if impl.smem_bytes(site, blocks) > impl.smem_budget:
+        return SiteDecision(site.name, site.kind, False, "vmem",
+                            shape=shape, precision=prec)
+    return SiteDecision(site.name, site.kind, True, "ok", blocks, shape,
+                        precision=prec, reused=reused)
+
+
+def plan_program(program, params, *, fuse_dsconv: bool = True,
+                 fuse_mbconv: bool = True, fuse_msa: bool = True,
+                 precision: str = "auto",
+                 reuse: FusionPlan | None = None) -> FusionPlan:
+    """Freeze per-site routing for a lowered ``core.program.Program``.
+
+    ``precision``: "auto" matches each site's params; "fp"/"int8" force
+    one family and demote mismatched sites to the reference path.
+    ``reuse``: a donor plan (another batch bucket at the same
+    resolution); sites whose geometry matches a fused donor decision
+    inherit its blocks (``reused=True``).  A failure inside one site's
+    decision is re-raised as ``PlanError`` naming the site.
+    """
+    from repro_torch.common.errors import PlanError, ReproError
+    from repro_torch.core.program import params_at
+
+    if precision not in ("auto", "fp", "int8"):
+        raise ValueError(f"precision must be auto|fp|int8, got {precision!r}")
+    enabled = {"dsconv": fuse_dsconv, "mbconv": fuse_mbconv,
+               "msa": fuse_msa}
+    decisions: dict[str, SiteDecision] = {}
+    for site in program.fusible():
+        try:
+            decisions[site.name] = _decide(
+                site, params_at(params, site.param_path),
+                enabled=enabled.get(site.kind, True), precision=precision,
+                reuse=reuse)
+        except NotImplementedError:
+            raise
+        except Exception as e:
+            site_name = getattr(e, "site", None) if isinstance(
+                e, ReproError) else None
+            raise PlanError(f"planning {site.name} failed: {e}",
+                            site=site_name or site.name) from e
+    return FusionPlan(decisions=decisions)
+
+
+# ---------------------------------------------------------------------------
+# analytic accounting (device memory bytes + launch counts per site)
+# ---------------------------------------------------------------------------
+
+def _mbconv_bytes(B, H, W, C, mid, F, stride):
+    """Activation bytes: unfused = every op round-trips device memory;
+    fused = x in once, out once."""
+    Ho, Wo = H // stride, W // stride
+    xn, midn = B * H * W * C, B * H * W * mid
+    dwn, outn = B * Ho * Wo * mid, B * Ho * Wo * F
+    return (xn + 2 * midn + 2 * dwn + outn) * 4, (xn + outn) * 4
+
+
+def _dsconv_bytes(B, H, W, C, F):
+    xn, outn = B * H * W * C, B * H * W * F
+    return (3 * xn + outn) * 4, (xn + outn) * 4
+
+
+def _msa_bytes(BH, N, D):
+    """Attention-core traffic, all branches/heads folded: the unfused
+    dataflow materializes ReLU(Q)/ReLU(K), the state, numerator and
+    divisor; the fused kernel reads Q/K/V once and writes once."""
+    u = BH * N * D * 4
+    state = BH * (D * D + D) * 4
+    den = BH * N * 4
+    return 3 * u + 4 * u + 2 * state + 2 * u + 2 * den + u, 4 * u
+
+
+def _weight_bytes(kind, shape) -> int:
+    if kind == "mbconv":
+        _, _, _, C, mid, F, _ = shape
+        n = C * mid + 9 * mid + mid * F
+    elif kind == "dsconv":
+        _, _, _, C, _, F, _ = shape
+        n = 9 * C + C * F
+    else:
+        _, _, _, n_branches, C = shape
+        n = 3 * C * C + n_branches * C * C
+    return 4 * n
+
+
+def plan_report(plan: FusionPlan) -> list[dict]:
+    """Per-site analytic device-memory bytes (unfused vs fused) and
+    launch counts."""
+    rows = []
+    for d in plan.decisions.values():
+        if d.kind == "mbconv":
+            unf, fus = _mbconv_bytes(*d.shape)
+            launches = (3, 1)
+        elif d.kind == "dsconv":
+            B, H, W, C, _, F, _ = d.shape
+            unf, fus = _dsconv_bytes(B, H, W, C, F)
+            launches = (2, 1)
+        elif d.kind == "msa":
+            BH, N, D, n_branches = d.shape[:4]
+            unf, fus = _msa_bytes(BH, N, D)
+            launches = (2 * n_branches, 1)
+        else:
+            rows.append({"site": d.name, "kind": d.kind, "fused": d.fused,
+                         "reason": d.reason, "precision": d.precision,
+                         "hbm_unfused": 0, "hbm_fused": 0, "hbm_w": 0,
+                         "launches_ref": 1, "launches_fused": 1})
+            continue
+        rows.append({
+            "site": d.name, "kind": d.kind, "fused": d.fused,
+            "reason": d.reason, "precision": d.precision,
+            "hbm_unfused": unf, "hbm_fused": fus if d.fused else unf,
+            "hbm_w": _weight_bytes(d.kind, d.shape),
+            "launches_ref": launches[0],
+            "launches_fused": launches[1] if d.fused else launches[0],
+        })
+    return rows
+
+
+def launch_counts(plan: FusionPlan) -> dict:
+    rep = plan_report(plan)
+    return {"reference": sum(r["launches_ref"] for r in rep),
+            "fused": sum(r["launches_fused"] for r in rep)}

@@ -1,0 +1,345 @@
+"""Typed program IR: ONE lowering of EfficientViT that everything runs.
+
+Counterpart of ``repro/core/program.py``:
+
+    ``lower(cfg) -> Program``     architecture walk, done ONCE
+    ``execute(program, params, x, plan=...)``
+                                  the forward, interpreting the IR
+    ``manifest(program)``         hardware op records (MACs/shapes)
+
+``execute`` routes fusible sites (``dsconv | mbconv | msa``) through the
+kernel registry (``repro_torch.kernels.registry``) when a ``FusionPlan``
+decision fuses them; with ``plan=None`` it runs the reference ops.
+Super-site groups and per-site profiling belong to later slices of the
+port, and a quantized (FIX8) param tree raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Any, Mapping, Tuple
+
+from repro_torch.common.errors import LoweringError
+from repro_torch.core.efficientvit import (
+    B1, EfficientViTConfig, OpRecord, conv_bn_act, dsconv, hardswish, mbconv)
+from repro_torch.core.quantization import act_fp, reject_quantized
+from repro_torch.core.relu_attention import MSAConfig, msa
+
+__all__ = ["Epilogue", "EPILOGUE_FP", "Site", "Program", "lower",
+           "execute", "manifest", "site_records", "FUSIBLE_KINDS",
+           "params_at"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """Producer-side output descriptor of one ``Site``.  The fp32 path
+    only ever carries ``EPILOGUE_FP``; int8 emission is the FIX8 slice's.
+    """
+    out_dtype: str = "fp32"    # "fp32" | "int8"
+    scale: str = "none"        # "none" | "dynamic"
+    residual: str = "none"     # "none" | "post-add" | "keep-fp"
+
+
+EPILOGUE_FP = Epilogue()
+
+# Structural kinds ``execute`` interprets inline; every other kind is
+# fusible and plans through the kernel registry.
+STRUCTURAL_KINDS = ("conv_bn", "gap", "fc")
+FUSIBLE_KINDS = ("dsconv", "mbconv", "msa")
+
+
+@dataclasses.dataclass(frozen=True)
+class Site:
+    """One schedulable node of the lowered network.
+
+    ``name`` is the dotted site id shared with ``FusionPlan`` decisions
+    (e.g. ``"S3.evit0.msa"``); ``param_path`` indexes the param tree
+    (str = dict key, int = list index); ``attrs`` carries kind-specific
+    geometry (mbconv: ``mid``; msa: ``heads``/``head_dim``/``scales``/
+    ``n_branches``; conv_bn: ``k``).
+    """
+    name: str
+    kind: str                  # conv_bn | dsconv | mbconv | msa | gap | fc
+    stage: str                 # stem | S1..S4 | head
+    param_path: Tuple[Any, ...]
+    in_shape: Tuple[int, ...]  # (B, H, W, C) - (B, C) for fc
+    out_shape: Tuple[int, ...]
+    stride: int = 1
+    residual: bool = False     # out = x + op(x)
+    act: bool = False          # trailing Hardswish (conv_bn / fc sites)
+    attrs: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    epilogue: Epilogue = EPILOGUE_FP
+
+    @property
+    def local_name(self) -> str:
+        """Site name with the stage prefix stripped (manifest naming)."""
+        prefix = f"{self.stage}."
+        return self.name[len(prefix):] if self.name.startswith(prefix) \
+            else self.name
+
+
+@dataclasses.dataclass(frozen=True)
+class Program:
+    """Frozen, ordered lowering of one EfficientViT configuration."""
+    cfg: EfficientViTConfig
+    batch: int
+    image_size: int
+    sites: Tuple[Site, ...]
+
+    def site(self, name: str) -> Site:
+        for s in self.sites:
+            if s.name == name:
+                return s
+        raise KeyError(name)
+
+    def by_kind(self, *kinds: str) -> Tuple[Site, ...]:
+        return tuple(s for s in self.sites if s.kind in kinds)
+
+    def fusible(self) -> Tuple[Site, ...]:
+        """Sites the kernel registry can route: the fusion-plan keys."""
+        return tuple(s for s in self.sites
+                     if s.kind not in STRUCTURAL_KINDS)
+
+
+def params_at(params, path: Tuple[Any, ...]):
+    """Resolve a ``Site.param_path`` against a param tree."""
+    node = params
+    for key in path:
+        node = node[key]
+    return node
+
+
+# ---------------------------------------------------------------------------
+# lower: cfg -> Program (the single architecture walk)
+# ---------------------------------------------------------------------------
+
+_SEQ_FIELDS = ("widths", "depths", "msa_scales", "head_widths")
+
+
+def lower(cfg: EfficientViTConfig = B1, *, batch: int = 1,
+          image_size: int | None = None) -> Program:
+    """Lower a config to the frozen ``Site`` sequence (cached; list
+    fields are normalized to tuples so the config hashes)."""
+    repl = {f: tuple(v) for f in _SEQ_FIELDS
+            if not isinstance(v := getattr(cfg, f), tuple)}
+    if repl:
+        cfg = dataclasses.replace(cfg, **repl)
+    return _lower(cfg, batch, image_size)
+
+
+def _validate_geometry(sites: Tuple[Site, ...], size: int) -> None:
+    """Each site consumes exactly what its predecessor produced, residual
+    sites preserve shape, no extent collapses to zero; violations raise
+    ``LoweringError`` naming the site."""
+    prev = None
+    for s in sites:
+        if any(dim <= 0 for dim in s.out_shape):
+            raise LoweringError(
+                f"site {s.name}: out_shape {s.out_shape} has a "
+                f"non-positive dim at image_size={size}", site=s.name)
+        if prev is not None and s.in_shape != prev.out_shape:
+            raise LoweringError(
+                f"geometry break at {prev.name} -> {s.name}: "
+                f"{prev.out_shape} != {s.in_shape}", site=s.name)
+        if s.residual and s.in_shape != s.out_shape:
+            raise LoweringError(
+                f"residual site {s.name} is not shape-preserving: "
+                f"{s.in_shape} -> {s.out_shape}", site=s.name)
+        prev = s
+
+
+@functools.lru_cache(maxsize=64)
+def _lower(cfg: EfficientViTConfig, batch: int,
+           image_size: int | None) -> Program:
+    w, d = cfg.widths, cfg.depths
+    size = image_size or cfg.image_size
+    B = batch
+    if B < 1:
+        raise LoweringError(f"batch must be >= 1, got {B}")
+    if size % 32:
+        raise LoweringError(
+            f"image_size={size}: EfficientViT downsamples by 2 five "
+            f"times (stem, S1, S2, S3.down, S4.down), so serving "
+            f"resolutions must be multiples of 32 (192/224/256/...)")
+    sites: list[Site] = []
+    r = size // 2
+
+    sites.append(Site("stem.conv1", "conv_bn", "stem", ("stem_conv",),
+                      (B, size, size, 3), (B, r, r, w[0]), stride=2,
+                      act=True, attrs={"k": 3}))
+    for i in range(d[0]):
+        sites.append(Site(f"stem.ds{i}", "dsconv", "stem", ("stem_ds", i),
+                          (B, r, r, w[0]), (B, r, r, w[0]), residual=True))
+    for si in (1, 2):
+        c_in = w[si - 1]
+        for bi in range(d[si]):
+            stride = 2 if bi == 0 else 1
+            ro = r // stride
+            sites.append(Site(
+                f"S{si}.mb{bi}", "mbconv", f"S{si}", (f"stage{si}", bi),
+                (B, r, r, c_in), (B, ro, ro, w[si]), stride=stride,
+                residual=bi > 0, attrs={"mid": c_in * cfg.expand_ratio}))
+            r, c_in = ro, w[si]
+    for si in (3, 4):
+        c = w[si]
+        sites.append(Site(
+            f"S{si}.down", "mbconv", f"S{si}", (f"stage{si}", "down"),
+            (B, r, r, w[si - 1]), (B, r // 2, r // 2, c), stride=2,
+            attrs={"mid": w[si - 1] * cfg.expand_ratio}))
+        r //= 2
+        heads = c // cfg.head_dim
+        for bi in range(d[si]):
+            sites.append(Site(
+                f"S{si}.evit{bi}.msa", "msa", f"S{si}",
+                (f"stage{si}", "blocks", bi, "msa"),
+                (B, r, r, c), (B, r, r, c), residual=True,
+                attrs={"heads": heads, "head_dim": cfg.head_dim,
+                       "scales": tuple(cfg.msa_scales),
+                       "n_branches": 1 + len(cfg.msa_scales)}))
+            sites.append(Site(
+                f"S{si}.evit{bi}.mb", "mbconv", f"S{si}",
+                (f"stage{si}", "blocks", bi, "mbconv"),
+                (B, r, r, c), (B, r, r, c), residual=True,
+                attrs={"mid": c * cfg.expand_ratio}))
+    hw1, hw2 = cfg.head_widths
+    sites.append(Site("head.conv", "conv_bn", "head", ("head", "conv"),
+                      (B, r, r, w[4]), (B, r, r, hw1), act=True,
+                      attrs={"k": 1}))
+    sites.append(Site("head.gap", "gap", "head", (),
+                      (B, r, r, hw1), (B, hw1)))
+    sites.append(Site("head.fc1", "fc", "head", ("head", "fc1"),
+                      (B, hw1), (B, hw2), act=True))
+    sites.append(Site("head.fc2", "fc", "head", ("head", "fc2"),
+                      (B, hw2), (B, cfg.num_classes)))
+    _validate_geometry(tuple(sites), size)
+    return Program(cfg, B, size, tuple(sites))
+
+
+# ---------------------------------------------------------------------------
+# execute: interpret the IR (reference ops + registry dispatch)
+# ---------------------------------------------------------------------------
+
+def _fc(p, h):
+    reject_quantized(p)
+    return h @ p["w"].to(h.dtype)
+
+
+def _dispatch(site: Site, p, y, plan, cfg):
+    """Fusible site: the registry kernel when the plan fuses it, else
+    the reference op (the impl's ``ref`` for kinds beyond the built-ins).
+    """
+    d = plan.get(site.name) if plan is not None else None
+    if d is not None and d.fused:
+        from repro_torch.kernels.registry import get_kernel
+        return get_kernel(site.kind, d.precision).apply(p, y, site, d)
+    if site.kind == "dsconv":
+        return dsconv(p, y, stride=site.stride)
+    if site.kind == "mbconv":
+        return mbconv(p, y, stride=site.stride)
+    if site.kind == "msa":
+        return msa(p, y, MSAConfig(site.in_shape[-1], site.attrs["head_dim"],
+                                   site.attrs["scales"], cfg.dtype))
+    from repro_torch.kernels.registry import get_probe
+    return get_probe(site.kind).ref(p, y, site)
+
+
+def execute(program: Program, params, x, *, plan=None):
+    """Run the lowered program.  x: (B, H, W, 3) -> (B, num_classes).
+
+    ``plan`` is an optional ``core.fusion.FusionPlan`` over the same
+    ``Program``: fused sites launch the registry's CUDA kernels (their
+    plain versions on CPU tensors).  ``plan=None`` runs the reference
+    ops.  Eager: nothing here waits on the device.
+    """
+    y = x
+    for site in program.sites:
+        p = params_at(params, site.param_path) if site.param_path else None
+        if site.kind == "conv_bn":
+            y = conv_bn_act(p, y, stride=site.stride, act=site.act)
+        elif site.kind == "gap":
+            y = act_fp(y).mean(dim=(1, 2))
+        elif site.kind == "fc":
+            y = _fc(p, act_fp(y))
+            if site.act:
+                y = hardswish(y)
+        else:
+            out = _dispatch(site, p, y, plan, program.cfg)
+            y = y + out if site.residual else out
+    return y
+
+
+# ---------------------------------------------------------------------------
+# manifest: IR -> hardware op records
+# ---------------------------------------------------------------------------
+
+def _mbconv_records(site: Site) -> list[OpRecord]:
+    _, H, _, C = site.in_shape
+    _, Ho, _, F = site.out_shape
+    mid = site.attrs["mid"]
+    n = site.local_name
+    return [
+        OpRecord(site.stage, f"{n}.pw1", "pw", H, H, C, mid),
+        OpRecord(site.stage, f"{n}.dw", "dw", Ho, Ho, mid, mid, 3,
+                 fused_with_prev=False),
+        OpRecord(site.stage, f"{n}.pw2", "pw", Ho, Ho, mid, F,
+                 fused_with_prev=True),
+    ]
+
+
+def _msa_records(site: Site) -> list[OpRecord]:
+    _, r, _, c = site.in_shape
+    heads, head_dim = site.attrs["heads"], site.attrs["head_dim"]
+    scales = site.attrs["scales"]
+    total = heads * head_dim
+    n_tok = r * r
+    n_scales = 1 + len(scales)
+    pre = site.local_name[:-len(".msa")]         # "evit{bi}"
+    ops = [OpRecord(site.stage, f"{pre}.qkv", "pw", r, r, c, 3 * total)]
+    for s in scales:
+        ops.append(OpRecord(site.stage, f"{pre}.agg{s}.dw", "dw", r, r,
+                            3 * total, 3 * total, s))
+        ops.append(OpRecord(site.stage, f"{pre}.agg{s}.pw", "group_pw",
+                            r, r, head_dim, 3 * total, fused_with_prev=True))
+    ops.append(OpRecord(site.stage, f"{pre}.ktv", "matmul",
+                        n_scales * heads * head_dim, 1, n_tok, head_dim))
+    ops.append(OpRecord(site.stage, f"{pre}.qz", "matmul",
+                        n_scales * heads * n_tok, 1, head_dim,
+                        head_dim + 1, fused_with_prev=True))
+    ops.append(OpRecord(site.stage, f"{pre}.proj", "pw", r, r,
+                        n_scales * total, c))
+    return ops
+
+
+def site_records(program: Program) -> list[Tuple[Site, list[OpRecord]]]:
+    """Per-site hardware op records: ``[(site, [ops...]), ...]``; every
+    ``fused_with_prev`` pairing lies within one site's list."""
+    out: list[Tuple[Site, list[OpRecord]]] = []
+    for site in program.sites:
+        ops: list[OpRecord] = []
+        if site.kind == "conv_bn":
+            _, _, _, C = site.in_shape
+            _, r, _, F = site.out_shape
+            k = site.attrs.get("k", 1)
+            ops.append(OpRecord(site.stage, site.local_name,
+                                "conv" if k > 1 else "pw", r, r, C, F, k))
+        elif site.kind == "dsconv":
+            _, r, _, C = site.in_shape
+            F = site.out_shape[-1]
+            n = site.local_name
+            ops.append(OpRecord(site.stage, f"{n}.dw", "dw", r, r, C, C, 3))
+            ops.append(OpRecord(site.stage, f"{n}.pw", "pw", r, r, C, F,
+                                fused_with_prev=True))
+        elif site.kind == "mbconv":
+            ops.extend(_mbconv_records(site))
+        elif site.kind == "msa":
+            ops.extend(_msa_records(site))
+        elif site.kind == "fc":
+            ops.append(OpRecord(site.stage, site.local_name, "matmul", 1, 1,
+                                site.in_shape[-1], site.out_shape[-1]))
+        out.append((site, ops))
+    return out
+
+
+def manifest(program: Program) -> list[OpRecord]:
+    """Per-hardware-op records of one inference (batch excluded)."""
+    return [op for _, ops in site_records(program) for op in ops]

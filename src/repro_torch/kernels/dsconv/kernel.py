@@ -1,0 +1,84 @@
+"""``dsconv_fused``: the hand-written CUDA kernel (``csrc/dsconv.cu``).
+
+Replaces ``repro/kernels/dsconv/kernel.py::dsconv_fused``.  A CUDA
+tensor launches the kernel (or raises); a CPU tensor takes the plain
+version ``ref.dsconv_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels.build import check, check_input, library, stream_of
+from repro_torch.kernels.dsconv.ref import dsconv_ref
+from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
+
+__all__ = ["dsconv_fused", "dsconv_smem_bytes", "choose_blocks"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def dsconv_smem_bytes(w: int, c: int, stride: int, rows: int,
+                      block_f: int) -> int:
+    """One CTA's shared memory (mirrors ``dsconv_smem_bytes`` in the
+    CUDA source): the band's padded input rows + halo, the DW result,
+    one c_out tile of the 1x1 weights."""
+    t = (rows - 1) * stride + 3
+    return 4 * (t * (w + 2) * c + rows * (w // stride) * c + c * block_f)
+
+
+def choose_blocks(shape, f: int, stride: int) -> dict:
+    """Band height and c_out tile for an (B, H, W, C) input.
+
+    Bands are sized so the grid has about one CTA per SM, and halved
+    until one CTA needs at most half of the shared memory (two CTAs per
+    SM); the c_out tile is the JAX kernel's first candidate, 64."""
+    B, H, W, C = shape
+    ho = H // stride
+    bf = min(64, f)
+    rows = max(1, min(ho, B * ho // N_SM))
+    while rows > 1 and dsconv_smem_bytes(W, C, stride, rows, bf) \
+            > SMEM_LIMIT // 2:
+        rows //= 2
+    return {"block_rows": rows, "block_f": bf}
+
+
+def dsconv_fused(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
+                 act: bool = True, block_rows: int | None = None,
+                 block_f: int | None = None):
+    """x: (B, H, W, C); dw_w: (3, 3, C); pw_w: (C, F) -> (B, Ho, Wo, F)."""
+    B, H, W, C = x.shape
+    F = pw_w.shape[1]
+    if H % stride or W % stride:
+        raise ValueError(f"spatial {H}x{W} not divisible by stride {stride}")
+    if x.device.type == "cpu":
+        return dsconv_ref(x, dw_w, dw_b, pw_w, pw_b, stride=stride, act=act)
+    if x.device.type != "cuda":
+        raise ValueError(f"dsconv_fused runs on cuda or cpu, not {x.device}")
+    for t, name, shape in ((x, "x", (B, H, W, C)), (dw_w, "dw_w", (3, 3, C)),
+                           (dw_b, "dw_b", (C,)), (pw_w, "pw_w", (C, F)),
+                           (pw_b, "pw_b", (F,))):
+        check_input(t, name, shape, x.device)
+    blocks = choose_blocks(x.shape, F, stride)
+    rows = block_rows or blocks["block_rows"]
+    bf = block_f or blocks["block_f"]
+    if dsconv_smem_bytes(W, C, stride, rows, bf) > SMEM_LIMIT:
+        raise ValueError(f"dsconv_fused: band of {rows} rows does not fit "
+                         f"in {SMEM_LIMIT} B of shared memory")
+    out = torch.empty((B, H // stride, W // stride, F), dtype=torch.float32,
+                      device=x.device)
+    lib = library("dsconv")
+    fn = lib.dsconv_fused_f32
+    fn.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    fn.restype = _I
+    status = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(),
+                pw_w.data_ptr(), pw_b.data_ptr(), out.data_ptr(), B, H, W, C,
+                F, stride, int(act), rows, bf, stream_of(x))
+    check(lib, status, "dsconv_fused")
+    dsconv_fused.launches += 1
+    return out
+
+
+dsconv_fused.launches = 0

@@ -1,0 +1,168 @@
+"""Pluggable kernel registry, counterpart of ``repro/kernels/registry.py``.
+
+Every fused execution path registers a ``KernelImpl`` under a
+``(kind, precision)`` key; the planner (``core.fusion.plan_program``)
+and the executor (``core.program.execute``) consult the registry.
+
+Built-in registrations (loaded lazily from the kernel packages):
+
+    ("dsconv", "fp")   kernels/dsconv/ops.py     DW+PW CUDA kernel
+    ("mbconv", "fp")   kernels/mbconv/ops.py     PW+DW+PW CUDA kernel
+    ("msa",    "fp")   kernels/relu_attn/ops.py  one attention launch per
+                                                 MSA module
+
+The fit model is the Hopper kernel's shared memory: ``smem_bytes(site)``
+is what one CTA of the kernel needs with the blocks ``tune`` chooses,
+checked against ``smem_budget`` (227 KB, the most one CTA may have).  A
+site that does not fit is demoted with the reason ``"vmem"``, the JAX
+package's name for the same decision, so plan reports compare.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Protocol, Tuple
+
+__all__ = ["KernelImpl", "KernelBase", "register", "get_kernel",
+           "get_probe", "conv_block_precision", "resolve_conv_precision",
+           "SMEM_LIMIT", "N_SM"]
+
+SMEM_LIMIT = 232_448   # bytes of shared memory one CTA may use on an H100
+N_SM = 132             # streaming multiprocessors of an H100 SXM
+
+
+class KernelImpl(Protocol):
+    """The uniform kernel interface the planner and executor consume."""
+    kind: str
+    precision: str
+    dtype: str
+    smem_budget: float
+    batch_dependent_tiles: bool
+
+    def site_precision(self, params) -> str:
+        """Precision the site's param subtree carries: fp | int8 | mixed."""
+        ...
+
+    def resolve_precision(self, site_precision: str, requested: str
+                          ) -> Tuple[str, Optional[str]]:
+        """(site precision, requested) -> (run precision, fallback reason
+        or None to proceed)."""
+        ...
+
+    def smem_bytes(self, site, blocks: Dict[str, int]) -> int:
+        """Shared memory of one CTA for ``site`` with ``blocks``."""
+        ...
+
+    def tune(self, site) -> Dict[str, int]:
+        """Block choices to freeze into the site's decision."""
+        ...
+
+    def apply(self, params, x, site, decision=None):
+        """Run the fused kernel on one site."""
+        ...
+
+    def ref(self, params, x, site, **kw):
+        """The site's reference-path computation (parity oracle)."""
+        ...
+
+
+def conv_block_precision(block) -> str:
+    """Precision of a conv+BN (or qconv) block tree: every subblock
+    quantized -> int8, none -> fp, anything else -> mixed."""
+    kinds = {"int8" if (isinstance(v, dict) and "qconv" in v) else "fp"
+             for v in block.values() if isinstance(v, dict)}
+    if kinds == {"int8"}:
+        return "int8"
+    if kinds == {"fp"}:
+        return "fp"
+    return "mixed"
+
+
+def resolve_conv_precision(site_prec: str, requested: str
+                           ) -> Tuple[str, Optional[str]]:
+    """Conv-kind policy: the kernels consume one weight dtype, so a
+    forced mismatch (or a part-quantized tree) demotes to reference."""
+    if site_prec == "mixed":
+        return "fp", "mixed"
+    if requested in ("auto", site_prec):
+        return site_prec, None
+    return "fp", "quantized" if site_prec == "int8" else "not-quantized"
+
+
+class KernelBase:
+    """Default ``KernelImpl`` behavior: conv-style precision policy, no
+    shared-memory constraint, no blocks.  Impls override what differs."""
+    kind = ""
+    precision = "fp"
+    dtype = "f32"
+    smem_budget = SMEM_LIMIT
+    batch_dependent_tiles = False  # tune keys blocks on the batch axis
+
+    def site_precision(self, params) -> str:
+        return conv_block_precision(params)
+
+    def resolve_precision(self, site_prec, requested):
+        return resolve_conv_precision(site_prec, requested)
+
+    def smem_bytes(self, site, blocks) -> int:
+        return 0
+
+    def tune(self, site):
+        return {}
+
+    def apply(self, params, x, site, decision=None):
+        raise NotImplementedError(type(self).__name__)
+
+    def ref(self, params, x, site, **kw):
+        raise NotImplementedError(type(self).__name__)
+
+
+_REGISTRY: Dict[Tuple[str, str], Any] = {}
+_BUILTIN_MODULES = (
+    "repro_torch.kernels.dsconv.ops",
+    "repro_torch.kernels.mbconv.ops",
+    "repro_torch.kernels.relu_attn.ops",
+)
+_builtins_loaded = False
+
+
+def register(cls):
+    """Class decorator: instantiate and register under
+    ``(cls.kind, cls.precision)``.  Last registration wins."""
+    impl = cls()
+    assert impl.kind and impl.precision, cls
+    _REGISTRY[(impl.kind, impl.precision)] = impl
+    return cls
+
+
+def _ensure_builtins() -> None:
+    global _builtins_loaded
+    if _builtins_loaded:
+        return
+    import importlib
+    for mod in _BUILTIN_MODULES:
+        importlib.import_module(mod)
+    _builtins_loaded = True
+
+
+def get_kernel(kind: str, precision: str = "fp"):
+    """Look up the ``KernelImpl`` for a (kind, precision) pair."""
+    _ensure_builtins()
+    try:
+        return _REGISTRY[(kind, precision)]
+    except KeyError:
+        raise KeyError(
+            f"no kernel registered for {(kind, precision)!r}; "
+            f"available: {sorted(_REGISTRY)}") from None
+
+
+def get_probe(kind: str):
+    """The impl answering kind-level questions: the "fp" registration
+    when present, else any registration of that kind."""
+    _ensure_builtins()
+    impl = _REGISTRY.get((kind, "fp"))
+    if impl is not None:
+        return impl
+    for (k, _), candidate in sorted(_REGISTRY.items()):
+        if k == kind:
+            return candidate
+    raise KeyError(f"no kernel registered for kind {kind!r}; "
+                   f"available: {sorted(_REGISTRY)}")

@@ -1,0 +1,138 @@
+"""Vision serving: a thin façade over the serving runtime.
+
+Counterpart of ``repro/serving/vision.py``.  ``VisionEngine`` builds an
+``ExecutorCache`` (shape-bucketed executors, plans shared across
+buckets) and vends ``MicroBatchScheduler``s over it.  The primary
+executor (the full microbatch at the config's resolution) is built in
+the constructor, outside the request loop, and exposed as ``.program``
+/ ``.plan``.  Fault injection, sharding, result caching, the watchdog,
+schedule artifacts and tracing are later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import to_device
+from repro_torch.core.efficientvit import EfficientViTConfig
+from repro_torch.serving.executors import ExecutorCache
+from repro_torch.serving.scheduler import (
+    BucketedPolicy, FixedMicrobatchPolicy, MicroBatchScheduler, Request)
+from repro_torch.serving.telemetry import Telemetry
+
+__all__ = ["VisionServeConfig", "VisionEngine"]
+
+
+def _default_buckets(microbatch: int) -> tuple:
+    """Powers of two up to and including the microbatch: 8 -> (1,2,4,8)."""
+    out = {microbatch}
+    b = 1
+    while b < microbatch:
+        out.add(b)
+        b *= 2
+    return tuple(sorted(out))
+
+
+@dataclasses.dataclass(frozen=True)
+class VisionServeConfig:
+    microbatch: int = 8       # largest batch bucket (and the fixed size
+    #                           under policy="fixed")
+    use_plan: bool = True     # False -> reference path (A/B, debugging)
+    precision: str = "auto"   # "auto" | "fp" (FIX8 is a later slice)
+    policy: str = "bucketed"  # "bucketed" | "fixed" (pad to microbatch)
+    buckets: tuple | None = None   # None -> powers of 2 up to microbatch
+    capacity: int | None = None    # executor-cache LRU capacity
+
+
+class VisionEngine:
+    """``device`` defaults to the CUDA card; without a card, and without
+    ``device="cpu"``, the constructor raises."""
+
+    def __init__(self, params, cfg: EfficientViTConfig,
+                 serve_cfg: VisionServeConfig = VisionServeConfig(), *,
+                 device=None):
+        if serve_cfg.policy not in ("bucketed", "fixed"):
+            raise ValueError(f"policy must be bucketed|fixed, got "
+                             f"{serve_cfg.policy!r}")
+        self.cfg = cfg
+        self.serve_cfg = serve_cfg
+        mb = serve_cfg.microbatch
+        buckets = serve_cfg.buckets
+        if buckets is None:
+            buckets = (mb,) if serve_cfg.policy == "fixed" \
+                else _default_buckets(mb)
+        # the microbatch is always a bucket: chunking must never hand an
+        # n-row batch to an executor built for fewer rows
+        buckets = tuple(sorted(set(buckets) | {mb}))
+        self.microbatch = mb
+        self.telemetry = Telemetry()
+        self.cache = ExecutorCache(
+            params, cfg, buckets=buckets, precision=serve_cfg.precision,
+            use_plan=serve_cfg.use_plan, capacity=serve_cfg.capacity,
+            telemetry=self.telemetry, device=device)
+        self.params = self.cache.params
+        self.device = self.cache.device
+        primary = self.cache.get(mb, cfg.image_size)
+        self.program = primary.program
+        self.plan = primary.plan
+        self._scheduler: MicroBatchScheduler | None = None
+
+    # -- batch API -------------------------------------------------------
+    def logits(self, images) -> torch.Tensor:
+        """images: (n, H, W, 3), any n -> (n, num_classes) on the device.
+
+        Chunks dispatch without waiting on each other; the ragged tail
+        routes to the smallest bucket >= its size (policy "bucketed") or
+        pads to the microbatch (policy "fixed")."""
+        images = to_device(images, self.device)
+        n, res = int(images.shape[0]), int(images.shape[1])
+        mb = self.microbatch
+        if self.serve_cfg.policy == "fixed":
+            sizes = [mb] * -(-n // mb)
+        else:
+            sizes = self.cache.chunks_for(n)
+        outs = []
+        i = 0
+        for bucket in sizes:
+            take = min(bucket, n - i)
+            chunk = images[i:i + take]
+            if bucket > take:
+                chunk = torch.cat([chunk, chunk.new_zeros(
+                    (bucket - take,) + tuple(chunk.shape[1:]))])
+            ex = self.cache.get(bucket, res)
+            outs.append(ex(self.params, chunk)[:take])
+            self.telemetry.record_dispatch(
+                (bucket, res, self.cache.precision), take, bucket)
+            i += take
+        return torch.cat(outs)
+
+    def classify(self, images) -> np.ndarray:
+        """images: (n, H, W, 3) -> (n,) int top-1 labels."""
+        return self.logits(images).argmax(dim=-1).cpu().numpy()
+
+    # -- request API -----------------------------------------------------
+    def scheduler(self, *, clock=None, policy=None) -> MicroBatchScheduler:
+        """A micro-batching scheduler bound to this engine's executor
+        cache, params and telemetry."""
+        if policy is None:
+            policy = (FixedMicrobatchPolicy(self.microbatch)
+                      if self.serve_cfg.policy == "fixed"
+                      else BucketedPolicy())
+        return MicroBatchScheduler(self.cache, self.params, policy=policy,
+                                   telemetry=self.telemetry, clock=clock)
+
+    def serve(self, requests: list[Request]) -> np.ndarray:
+        """Serve ``Request``s (mixed resolutions and deadlines welcome);
+        logits stacked in request order."""
+        if self._scheduler is None:
+            self._scheduler = self.scheduler()
+        return self._scheduler.serve(requests)
+
+    def warmup(self, resolutions=None) -> "VisionEngine":
+        """Build and warm every bucket at the given resolutions
+        (default: the config's image size)."""
+        self.cache.warmup(resolutions if resolutions is not None
+                          else (self.cfg.image_size,))
+        return self

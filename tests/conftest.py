@@ -21,6 +21,12 @@ sys.path.insert(0, os.path.dirname(__file__))
 TEST_TIMEOUT_S = float(os.environ.get("REPRO_TEST_TIMEOUT", "600"))
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (launches the PyTorch port's "
+        "CUDA kernels); skips without one")
+
+
 @pytest.hookimpl(hookwrapper=True)
 def pytest_runtest_call(item):
     if TEST_TIMEOUT_S <= 0 or not hasattr(signal, "SIGALRM"):

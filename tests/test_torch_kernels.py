@@ -1,0 +1,231 @@
+"""The port's three kernels (``repro_torch.kernels``) on the CPU.
+
+On the CPU each wrapper takes its plain PyTorch version, which is held
+against the JAX package's ``ref.py`` oracle and its Pallas kernel in
+interpret mode, on numpy-seeded inputs (tolerance 1e-5: fp32 on both
+sides, summation order differs).  The CUDA kernels themselves are held
+against these plain versions on the card by ``test_torch_cuda.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from numpy.testing import assert_allclose
+
+from repro.core import efficientvit as jevit
+from repro.core import relu_attention as jra
+from repro.kernels.dsconv import kernel as jdk
+from repro.kernels.dsconv import ref as jdr
+from repro.kernels.mbconv import kernel as jmk
+from repro.kernels.mbconv import ref as jmr
+from repro.kernels.relu_attn import kernel as jak
+from repro.kernels.relu_attn import ref as jar
+from repro_torch.convert import params_from_jax
+from repro_torch.core import relu_attention as tra
+from repro_torch.core.efficientvit import B1
+from repro_torch.core.fusion import decision_shape
+from repro_torch.core.program import lower
+from repro_torch.kernels.dsconv.kernel import (
+    choose_blocks as ds_blocks, dsconv_fused, dsconv_smem_bytes)
+from repro_torch.kernels.dsconv.ops import dsconv_apply
+from repro_torch.kernels.mbconv.kernel import (
+    choose_blocks as mb_blocks, mbconv_fused, mbconv_smem_bytes)
+from repro_torch.kernels.mbconv.ops import mbconv_apply
+from repro_torch.kernels.registry import SMEM_LIMIT
+from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+from repro_torch.kernels.relu_attn.ops import msa_fused_apply
+from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _bn(rng, n):
+    return {"scale": rng.uniform(0.8, 1.2, n).astype(np.float32),
+            "bias": (0.1 * rng.standard_normal(n)).astype(np.float32),
+            "mean": (0.1 * rng.standard_normal(n)).astype(np.float32),
+            "var": rng.uniform(0.5, 1.5, n).astype(np.float32)}
+
+
+def _conv_bn(rng, k, c_in, c_out, groups=1):
+    w = rng.standard_normal((k, k, c_in // groups, c_out)) * (
+        k * k * c_in // groups) ** -0.5
+    return {"conv": {"w": w.astype(np.float32)}, "bn": _bn(rng, c_out)}
+
+
+def _dsconv_args(rng, B, H, C, F):
+    return (rng.standard_normal((B, H, H, C)).astype(np.float32),
+            (rng.standard_normal((3, 3, C)) / 3).astype(np.float32),
+            rng.standard_normal(C).astype(np.float32),
+            (rng.standard_normal((C, F)) * C ** -0.5).astype(np.float32),
+            rng.standard_normal(F).astype(np.float32))
+
+
+def _mbconv_args(rng, B, H, C, M, F):
+    return (rng.standard_normal((B, H, H, C)).astype(np.float32),
+            (rng.standard_normal((C, M)) * C ** -0.5).astype(np.float32),
+            rng.standard_normal(M).astype(np.float32),
+            (rng.standard_normal((3, 3, M)) / 3).astype(np.float32),
+            rng.standard_normal(M).astype(np.float32),
+            (rng.standard_normal((M, F)) * M ** -0.5).astype(np.float32),
+            rng.standard_normal(F).astype(np.float32))
+
+
+def _torch(args):
+    return [torch.from_numpy(a) for a in args]
+
+
+# ---------------------------------------------------------------------------
+# plain versions against the JAX oracles and Pallas kernels (interpret)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,C,F", [(1, 8, 8, 8), (2, 6, 16, 24)])
+def test_dsconv_plain_matches_jax(B, H, C, F):
+    args = _dsconv_args(np.random.default_rng(H * C), B, H, C, F)
+    jargs = [jnp.asarray(a) for a in args]
+    got = dsconv_fused(*_torch(args)).numpy()
+    assert_allclose(got, np.asarray(jdr.dsconv_ref(*jargs)), **TOL)
+    assert_allclose(got, np.asarray(jdk.dsconv_fused(*jargs, interpret=True)),
+                    **TOL)
+
+
+def test_dsconv_stride2_matches_jax_reference_forward():
+    """Stride 2 follows the reference dsconv (XLA SAME: offset s - 1),
+    not the JAX kernel's ``[::s]`` sampling."""
+    rng = np.random.default_rng(7)
+    C, F = 8, 12
+    p = {"dw": _conv_bn(rng, 3, C, C, groups=C), "pw": _conv_bn(rng, 1, C, F)}
+    x = rng.standard_normal((2, 8, 8, C)).astype(np.float32)
+    ref = jevit.dsconv(p, jnp.asarray(x), stride=2)
+    got = dsconv_apply(params_from_jax(p, "cpu"), torch.from_numpy(x),
+                       stride=2)
+    assert tuple(got.shape) == ref.shape == (2, 4, 4, F)
+    assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("B,H,C,M,F,stride", [
+    (1, 8, 8, 32, 16, 1), (2, 8, 8, 32, 16, 2), (1, 6, 12, 48, 12, 2)])
+def test_mbconv_plain_matches_jax(B, H, C, M, F, stride):
+    args = _mbconv_args(np.random.default_rng(H * M + stride), B, H, C, M, F)
+    jargs = [jnp.asarray(a) for a in args]
+    got = mbconv_fused(*_torch(args), stride=stride).numpy()
+    assert_allclose(got, np.asarray(jmr.mbconv_ref(*jargs, stride=stride)),
+                    **TOL)
+    assert_allclose(got, np.asarray(jmk.mbconv_fused(
+        *jargs, stride=stride, interpret=True)), **TOL)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_mbconv_apply_matches_jax_reference_forward(stride):
+    """BN folded into all three convs == the reference block."""
+    rng = np.random.default_rng(11 + stride)
+    C, M, F = 8, 32, 16
+    p = {"pw1": _conv_bn(rng, 1, C, M), "dw": _conv_bn(rng, 3, M, M, M),
+         "pw2": _conv_bn(rng, 1, M, F)}
+    x = rng.standard_normal((2, 8, 8, C)).astype(np.float32)
+    ref = jevit.mbconv(p, jnp.asarray(x), stride=stride)
+    got = mbconv_apply(params_from_jax(p, "cpu"), torch.from_numpy(x),
+                       stride=stride)
+    assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def _to_rows(t):
+    """(G, N, h, d) -> the JAX kernel's (G*h, N, d) rows."""
+    G, N, h, d = t.shape
+    return jnp.asarray(np.ascontiguousarray(
+        np.transpose(t, (0, 2, 1, 3)).reshape(G * h, N, d)))
+
+
+@pytest.mark.parametrize("G,N,h,block_n", [(2, 49, 2, 16), (3, 20, 1, 256)])
+def test_relu_attn_plain_matches_jax(G, N, h, block_n):
+    """A ragged token count (49 over tiles of 16): the port masks the
+    tail, the JAX kernel zero-pads it; both are exact."""
+    rng = np.random.default_rng(N)
+    q, k, v = (rng.standard_normal((G, N, h, 16)).astype(np.float32)
+               for _ in range(3))
+    got = relu_attn_noncausal(*_torch((q, k, v)), block_n=block_n).numpy()
+    rows = np.transpose(got, (0, 2, 1, 3)).reshape(G * h, N, 16)
+    jq, jk, jv = _to_rows(q), _to_rows(k), _to_rows(v)
+    assert_allclose(rows, np.asarray(jar.relu_attn_noncausal_ref(jq, jk, jv)),
+                    **TOL)
+    assert_allclose(rows, np.asarray(jak.relu_attn_noncausal(
+        jq, jk, jv, block_n=block_n, interpret=True)), **TOL)
+
+
+def test_relu_attn_takes_strided_qkv_views():
+    """The q/k/v split of a stacked QKV tensor reaches the wrapper as
+    views, as ``msa_fused_apply`` passes it."""
+    rng = np.random.default_rng(5)
+    t = torch.from_numpy(rng.standard_normal((2, 10, 3, 4, 16)).astype(
+        np.float32))
+    q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    assert not q.is_contiguous()
+    got = relu_attn_noncausal(q, k, v)
+    ref = relu_attn_noncausal_ref(q.contiguous(), k.contiguous(),
+                                  v.contiguous())
+    assert_allclose(got.numpy(), ref.numpy(), **TOL)
+
+
+def test_msa_fused_apply_matches_jax_msa():
+    """All branches x batch x heads in one attention call == the JAX
+    reference module."""
+    rng = np.random.default_rng(9)
+    jcfg = jra.MSAConfig(32, 16, (5,))
+    p = jax.tree.map(np.asarray, jra.init_msa(jax.random.PRNGKey(1), jcfg))
+    p["proj_bn"] = _bn(rng, 32)
+    x = rng.standard_normal((2, 7, 7, 32)).astype(np.float32)
+    ref = jra.msa(p, jnp.asarray(x), jcfg)
+    tp = params_from_jax(p, "cpu")
+    before = relu_attn_noncausal.launches
+    got = msa_fused_apply(tp, torch.from_numpy(x), 2, 16, block_n=16)
+    assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+    assert_allclose(got.numpy(), tra.msa(tp, torch.from_numpy(x),
+                                         tra.MSAConfig(32, 16, (5,))).numpy(),
+                    **TOL)
+    assert relu_attn_noncausal.launches == before   # no kernel on the CPU
+
+
+# ---------------------------------------------------------------------------
+# wrappers: no silent fallback, counts only real launches
+# ---------------------------------------------------------------------------
+
+def test_cpu_path_counts_no_launch():
+    rng = np.random.default_rng(0)
+    counts = (dsconv_fused.launches, mbconv_fused.launches)
+    dsconv_fused(*_torch(_dsconv_args(rng, 1, 4, 8, 8)))
+    mbconv_fused(*_torch(_mbconv_args(rng, 1, 4, 8, 16, 8)))
+    assert (dsconv_fused.launches, mbconv_fused.launches) == counts
+
+
+def test_other_devices_raise():
+    """Only a CPU tensor takes the plain version; anything else launches
+    the kernel or raises."""
+    rng = np.random.default_rng(0)
+    ds = [t.to("meta") for t in _torch(_dsconv_args(rng, 1, 4, 8, 8))]
+    mb = [t.to("meta") for t in _torch(_mbconv_args(rng, 1, 4, 8, 16, 8))]
+    qkv = [torch.empty((1, 4, 1, 16), device="meta") for _ in range(3)]
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dsconv_fused(*ds)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        mbconv_fused(*mb)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        relu_attn_noncausal(*qkv)
+
+
+@pytest.mark.parametrize("res", [192, 224, 256, 384])
+@pytest.mark.parametrize("batch", [1, 2, 4, 8])
+def test_blocks_fit_shared_memory_on_b1(res, batch):
+    """Every B1 site gets blocks whose CTA fits the 227 KB limit, with
+    bands and mid-channel chunks that cover the site."""
+    for site in lower(B1, batch=batch, image_size=res).fusible():
+        B, H, W, C, M, F, s = (decision_shape(site) if site.kind != "msa"
+                               else (0,) * 7)
+        if site.kind == "dsconv":
+            b = ds_blocks(site.in_shape, F, s)
+            assert dsconv_smem_bytes(W, C, s, b["block_rows"],
+                                     b["block_f"]) <= SMEM_LIMIT
+        elif site.kind == "mbconv":
+            b = mb_blocks(site.in_shape, M, F, s)
+            assert 1 <= b["block_rows"] <= H // s and 1 <= b["block_m"] <= M
+            assert mbconv_smem_bytes(W, C, F, s, b["block_rows"],
+                                     b["block_m"]) <= SMEM_LIMIT
