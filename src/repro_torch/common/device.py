@@ -6,9 +6,11 @@ tests) says ``device="cpu"``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
-__all__ = ["resolve_device", "tree_to", "to_device"]
+__all__ = ["resolve_device", "tree_to", "to_device", "scalar"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,3 +53,14 @@ def tree_to(tree, device: torch.device):
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
+
+
+@functools.lru_cache(maxsize=None)
+def scalar(value: float, device: torch.device) -> torch.Tensor:
+    """A 0-dim fp32 constant on ``device``, made once per (value, device)
+    and never written to.  Dividing by it is a true division on every
+    device: PyTorch turns division by a Python scalar into multiplication
+    by its reciprocal on CUDA tensors.  ``torch.full`` fills it on the
+    device, so making it does not wait for work queued on the card, as a
+    copy from host memory would."""
+    return torch.full((), value, dtype=torch.float32, device=device)

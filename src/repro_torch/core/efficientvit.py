@@ -13,8 +13,7 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.common.device import resolve_device, tree_to
-from repro_torch.core.quantization import reject_quantized
+from repro_torch.common.device import resolve_device, scalar, tree_to
 from repro_torch.core.relu_attention import MSAConfig, init_msa
 from repro_torch.layers.conv import conv2d, init_conv2d
 from repro_torch.layers.norms import batchnorm, init_batchnorm
@@ -46,8 +45,10 @@ B1_SMOKE = EfficientViTConfig(
 
 
 def hardswish(x):
-    """``jax.nn.hard_swish``: x * (relu6(x + 3) / 6), in that order."""
-    return x * (torch.clamp(x + 3.0, 0.0, 6.0) / 6.0)
+    """``jax.nn.hard_swish`` as JAX runs it op by op: x * (relu6(x + 3)
+    / 6), in that order, with a true division on every device (a Python
+    scalar divisor becomes a reciprocal multiply on CUDA tensors)."""
+    return x * (torch.clamp(x + 3.0, 0.0, 6.0) / scalar(6.0, x.device))
 
 
 # ---------------------------------------------------------------------------
@@ -63,9 +64,14 @@ def init_conv_bn(generator, k, c_in, c_out, dtype, device, *, groups=1):
 
 
 def conv_bn_act(p, x, *, stride=1, groups=1, act=True):
-    reject_quantized(p)
-    y = batchnorm(p["bn"], conv2d(p["conv"], x, stride=stride,
-                                  groups=groups))
+    """fp32 conv + BN, or the FIX8 folded conv when the block was
+    quantized by ``core.quantization.quantize_efficientvit``."""
+    if "qconv" in p:
+        from repro_torch.core.quantization import conv2d_int8
+        y = conv2d_int8(p["qconv"], x, stride=stride, groups=groups)
+    else:
+        y = batchnorm(p["bn"], conv2d(p["conv"], x, stride=stride,
+                                      groups=groups))
     return hardswish(y) if act else y
 
 

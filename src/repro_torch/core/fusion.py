@@ -8,9 +8,12 @@ of the Hopper kernel fits in shared memory with them.  ``execute`` then
 dispatches by table lookup.
 
 Blocks are frozen from each kernel's deterministic choice, as the JAX
-planner freezes its first candidate without a sweep.  Autotune sweeps,
-schedule overrides, fault demotion, the super-site grouping pass and
-int8 epilogue assignment are later slices of the port.
+planner freezes its first candidate without a sweep.  A quantized
+(``quantize_efficientvit``) tree plans the FIX8 kernels, and
+``assign_epilogues`` then gives each producer of a fused int8 consumer
+an int8 ``Epilogue`` (the int8 dataflow).  Autotune sweeps, schedule
+overrides, fault demotion and the super-site grouping pass are later
+slices of the port.
 """
 from __future__ import annotations
 
@@ -18,11 +21,15 @@ import dataclasses
 from typing import Mapping
 
 __all__ = ["SiteDecision", "FusionPlan", "plan_program", "plan_report",
-           "launch_counts", "decision_shape", "EXPECTED_B1_FUSED_LAUNCHES"]
+           "launch_counts", "decision_shape", "assign_epilogues",
+           "EXPECTED_B1_FUSED_LAUNCHES", "EXPECTED_B1_FUSED_LAUNCHES_INT8"]
 
 # Drift gate: one fused launch per fusible site of EfficientViT-B1
 # (1 stem DSConv + 2+3 MBConv + 2 downsamples + (3+4) x (MSA + MBConv)).
 EXPECTED_B1_FUSED_LAUNCHES = 22
+# FIX8: a fused int8 MSA site counts ``n_branches`` launches (the
+# attention core + one grouped aggregation kernel per scale): 22 + 7.
+EXPECTED_B1_FUSED_LAUNCHES_INT8 = 29
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,11 +44,18 @@ class SiteDecision:
     shape: tuple = ()      # (B, H, W, C, mid, F, stride) / (BH, N, D, S, C)
     precision: str = "fp"  # "fp" | "int8": which kernel family runs
     reused: bool = False   # blocks inherited from a donor plan
+    epilogue: object = None   # core.program.Epilogue of this site's own
+    #                           output (producer side); None -> fp
+    q_in: bool = False     # the producer's epilogue delivers this site's
+    #                        input quantized (an int8 boundary)
 
 
 @dataclasses.dataclass(frozen=True)
 class FusionPlan:
     decisions: Mapping[str, SiteDecision]
+    # producer-side output epilogues by site name, structural producers
+    # (a quantized stem conv feeding a fused int8 DSConv) included
+    epilogues: Mapping[str, object] = dataclasses.field(default_factory=dict)
 
     def get(self, name):
         return self.decisions.get(name)
@@ -87,7 +101,6 @@ def _reusable_blocks(reuse, site, prec, impl):
 
 
 def _decide(site, params, *, enabled, precision, reuse=None):
-    from repro_torch.core.quantization import FIX8_SLICE
     from repro_torch.kernels.registry import get_kernel, get_probe
 
     shape = decision_shape(site)
@@ -99,8 +112,6 @@ def _decide(site, params, *, enabled, precision, reuse=None):
                                          precision)
     if fail is not None:
         return SiteDecision(site.name, site.kind, False, fail, shape=shape)
-    if prec != "fp":
-        raise NotImplementedError(FIX8_SLICE)
     impl = get_kernel(site.kind, prec)
     blocks = _reusable_blocks(reuse, site, prec, impl)
     reused = blocks is not None
@@ -140,32 +151,85 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
                 site, params_at(params, site.param_path),
                 enabled=enabled.get(site.kind, True), precision=precision,
                 reuse=reuse)
-        except NotImplementedError:
-            raise
         except Exception as e:
             site_name = getattr(e, "site", None) if isinstance(
                 e, ReproError) else None
             raise PlanError(f"planning {site.name} failed: {e}",
                             site=site_name or site.name) from e
-    return FusionPlan(decisions=decisions)
+    ep_map, q_in = assign_epilogues(program, params, decisions)
+    for name, d in decisions.items():
+        if name in ep_map or name in q_in:
+            decisions[name] = dataclasses.replace(
+                d, epilogue=ep_map.get(name), q_in=name in q_in)
+    return FusionPlan(decisions=decisions, epilogues=ep_map)
+
+
+def assign_epilogues(program, params, decisions):
+    """One pass over consecutive (producer, consumer) site pairs.
+
+    A consumer takes an int8 input when it is a fused int8 site whose
+    kernel consumes ``QTensor``s (``takes_q``) or a structural conv with
+    quantized params; a producer can emit one when it is a fused int8
+    site whose kernel family quantizes its output (``emits_q``) or a
+    structural quantized conv.  When both hold, the producer gets an
+    ``Epilogue("int8", "dynamic", residual)``: ``"post-add"`` when the
+    producer is residual (its fp add runs first), ``"keep-fp"`` when the
+    consumer is (its fp add needs the fp activation), else ``"none"``.
+    Returns ``(epilogues by site name, names whose input arrives int8)``.
+    """
+    from repro_torch.core.program import Epilogue, params_at
+    from repro_torch.kernels.registry import get_kernel
+
+    def quantized_conv(site):
+        if site.kind != "conv_bn" or not site.param_path:
+            return False
+        p = params_at(params, site.param_path)
+        return isinstance(p, dict) and "qconv" in p
+
+    def fused_int8(site, flag):
+        d = decisions.get(site.name)
+        return (d is not None and d.fused and d.precision == "int8"
+                and getattr(get_kernel(site.kind, "int8"), flag, False))
+
+    def consumes_q(site):
+        return (quantized_conv(site) if site.kind == "conv_bn"
+                else fused_int8(site, "takes_q"))
+
+    def emits_q(site):
+        return (quantized_conv(site) if site.kind == "conv_bn"
+                else fused_int8(site, "emits_q"))
+
+    epilogues: dict[str, object] = {}
+    q_in: set[str] = set()
+    for prod, cons in zip(program.sites, program.sites[1:]):
+        if not (consumes_q(cons) and emits_q(prod)):
+            continue
+        residual = ("post-add" if prod.residual
+                    else "keep-fp" if cons.residual else "none")
+        epilogues[prod.name] = Epilogue("int8", "dynamic", residual)
+        q_in.add(cons.name)
+    return epilogues, q_in
 
 
 # ---------------------------------------------------------------------------
 # analytic accounting (device memory bytes + launch counts per site)
 # ---------------------------------------------------------------------------
 
-def _mbconv_bytes(B, H, W, C, mid, F, stride):
-    """Activation bytes: unfused = every op round-trips device memory;
-    fused = x in once, out once."""
+def _mbconv_bytes(B, H, W, C, mid, F, stride, precision="fp"):
+    """Activation bytes: unfused = every op round-trips device memory
+    (fp32 either way: the reference FIX8 chain dequantizes between ops);
+    fused = x in once (int8 for the FIX8 kernel), out once (fp32)."""
     Ho, Wo = H // stride, W // stride
     xn, midn = B * H * W * C, B * H * W * mid
     dwn, outn = B * Ho * Wo * mid, B * Ho * Wo * F
-    return (xn + 2 * midn + 2 * dwn + outn) * 4, (xn + outn) * 4
+    return ((xn + 2 * midn + 2 * dwn + outn) * 4,
+            xn * (1 if precision == "int8" else 4) + outn * 4)
 
 
-def _dsconv_bytes(B, H, W, C, F):
+def _dsconv_bytes(B, H, W, C, F, precision="fp"):
     xn, outn = B * H * W * C, B * H * W * F
-    return (3 * xn + outn) * 4, (xn + outn) * 4
+    return ((3 * xn + outn) * 4,
+            xn * (1 if precision == "int8" else 4) + outn * 4)
 
 
 def _msa_bytes(BH, N, D):
@@ -178,7 +242,7 @@ def _msa_bytes(BH, N, D):
     return 3 * u + 4 * u + 2 * state + 2 * u + 2 * den + u, 4 * u
 
 
-def _weight_bytes(kind, shape) -> int:
+def _weight_bytes(kind, shape, precision) -> int:
     if kind == "mbconv":
         _, _, _, C, mid, F, _ = shape
         n = C * mid + 9 * mid + mid * F
@@ -188,36 +252,59 @@ def _weight_bytes(kind, shape) -> int:
     else:
         _, _, _, n_branches, C = shape
         n = 3 * C * C + n_branches * C * C
-    return 4 * n
+    return n * (1 if precision == "int8" else 4)
+
+
+def _site_accounting(kind, shape, precision):
+    """(bytes unfused, bytes fused, weight bytes, (launches ref, fused)).
+    A fused int8 MSA site launches the attention core and one grouped
+    aggregation kernel per scale: ``n_branches`` launches."""
+    if kind == "mbconv":
+        unf, fus = _mbconv_bytes(*shape, precision)
+        launches = (3, 1)
+    elif kind == "dsconv":
+        B, H, W, C, _, F, _ = shape
+        unf, fus = _dsconv_bytes(B, H, W, C, F, precision)
+        launches = (2, 1)
+    elif kind == "msa":
+        BH, N, D, n_branches = shape[:4]
+        unf, fus = _msa_bytes(BH, N, D)
+        launches = (2 * n_branches,
+                    n_branches if precision == "int8" else 1)
+    else:
+        return 0, 0, 0, (1, 1)
+    return unf, fus, _weight_bytes(kind, shape, precision), launches
+
+
+def _delivered_bytes(d, unf, fus):
+    """Activation bytes the executed program moves at a conv site, from
+    the epilogue assignments: the input is 1 byte/element only when the
+    producer's epilogue emitted it; the output is what the site's own
+    epilogue writes: int8 (1), fp (4), or both (5)."""
+    if not d.fused or d.kind not in ("mbconv", "dsconv"):
+        return fus if d.fused else unf
+    B, H, W, C, _, F, stride = d.shape
+    outn = (B * (H // stride) * (W // stride) * F if d.kind == "mbconv"
+            else B * H * W * F)
+    ep = d.epilogue
+    out_b = (outn * 4 if ep is None or not ep.emits_q
+             else outn * (1 + (4 if ep.keeps_fp else 0)))
+    return B * H * W * C * (1 if d.q_in else 4) + out_b
 
 
 def plan_report(plan: FusionPlan) -> list[dict]:
-    """Per-site analytic device-memory bytes (unfused vs fused) and
-    launch counts."""
+    """Per-site analytic device-memory bytes (unfused, fused, delivered
+    under the plan's epilogues), weight bytes and launch counts."""
     rows = []
     for d in plan.decisions.values():
-        if d.kind == "mbconv":
-            unf, fus = _mbconv_bytes(*d.shape)
-            launches = (3, 1)
-        elif d.kind == "dsconv":
-            B, H, W, C, _, F, _ = d.shape
-            unf, fus = _dsconv_bytes(B, H, W, C, F)
-            launches = (2, 1)
-        elif d.kind == "msa":
-            BH, N, D, n_branches = d.shape[:4]
-            unf, fus = _msa_bytes(BH, N, D)
-            launches = (2 * n_branches, 1)
-        else:
-            rows.append({"site": d.name, "kind": d.kind, "fused": d.fused,
-                         "reason": d.reason, "precision": d.precision,
-                         "hbm_unfused": 0, "hbm_fused": 0, "hbm_w": 0,
-                         "launches_ref": 1, "launches_fused": 1})
-            continue
+        unf, fus, w_bytes, launches = _site_accounting(d.kind, d.shape,
+                                                       d.precision)
         rows.append({
             "site": d.name, "kind": d.kind, "fused": d.fused,
             "reason": d.reason, "precision": d.precision,
             "hbm_unfused": unf, "hbm_fused": fus if d.fused else unf,
-            "hbm_w": _weight_bytes(d.kind, d.shape),
+            "hbm_w": w_bytes, "hbm_delivered": _delivered_bytes(d, unf, fus),
+            "q_in": d.q_in, "epilogue": d.epilogue,
             "launches_ref": launches[0],
             "launches_fused": launches[1] if d.fused else launches[0],
         })

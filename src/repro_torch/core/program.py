@@ -9,9 +9,10 @@ Counterpart of ``repro/core/program.py``:
 
 ``execute`` routes fusible sites (``dsconv | mbconv | msa``) through the
 kernel registry (``repro_torch.kernels.registry``) when a ``FusionPlan``
-decision fuses them; with ``plan=None`` it runs the reference ops.
-Super-site groups and per-site profiling belong to later slices of the
-port, and a quantized (FIX8) param tree raises ``NotImplementedError``.
+decision fuses them; with ``plan=None`` it runs the reference ops.  A
+``quantize_efficientvit`` (FIX8) tree runs the int8 dataflow: producers
+named by the plan's epilogues hand their consumers ``QTensor``s.
+Super-site groups and per-site profiling belong to later slices.
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ import dataclasses
 import functools
 from typing import Any, Mapping, Tuple
 
+from repro_torch.common.device import scalar
 from repro_torch.common.errors import LoweringError
 from repro_torch.core.efficientvit import (
     B1, EfficientViTConfig, OpRecord, conv_bn_act, dsconv, hardswish, mbconv)
-from repro_torch.core.quantization import act_fp, reject_quantized
-from repro_torch.core.relu_attention import MSAConfig, msa
+from repro_torch.core.quantization import act_fp, matmul_int8, quantize_act
+from repro_torch.core.relu_attention import (
+    MSAConfig, msa, relu_global_attention)
 
 __all__ = ["Epilogue", "EPILOGUE_FP", "Site", "Program", "lower",
            "execute", "manifest", "site_records", "FUSIBLE_KINDS",
@@ -32,12 +35,26 @@ __all__ = ["Epilogue", "EPILOGUE_FP", "Site", "Program", "lower",
 
 @dataclasses.dataclass(frozen=True)
 class Epilogue:
-    """Producer-side output descriptor of one ``Site``.  The fp32 path
-    only ever carries ``EPILOGUE_FP``; int8 emission is the FIX8 slice's.
+    """Producer-side output descriptor of one ``Site``.
+
+    ``out_dtype="int8"`` makes the producer emit a ``QTensor`` with a
+    ``"dynamic"`` (per-image absmax) ``scale``.  ``residual``: ``"none"``
+    emits int8 only; ``"post-add"`` quantizes after the site's own fp
+    residual add; ``"keep-fp"`` also keeps the fp activation for the
+    consumer's residual add.
     """
     out_dtype: str = "fp32"    # "fp32" | "int8"
     scale: str = "none"        # "none" | "dynamic"
     residual: str = "none"     # "none" | "post-add" | "keep-fp"
+
+    @property
+    def emits_q(self) -> bool:
+        return self.out_dtype == "int8"
+
+    @property
+    def keeps_fp(self) -> bool:
+        """The fp activation also crosses the site boundary."""
+        return self.out_dtype == "fp32" or self.residual != "none"
 
 
 EPILOGUE_FP = Epilogue()
@@ -220,51 +237,94 @@ def _lower(cfg: EfficientViTConfig, batch: int,
 # ---------------------------------------------------------------------------
 
 def _fc(p, h):
-    reject_quantized(p)
+    if "qw" in p:
+        return matmul_int8(h, p["qw"], p["scale"])
     return h @ p["w"].to(h.dtype)
 
 
-def _dispatch(site: Site, p, y, plan, cfg):
+def _gap(y):
+    """Mean over H, W: a sequential sum over the positions, then one true
+    division.  This is XLA's order for spatial extents below 32, and it
+    does not depend on the batch on any device (``torch.mean`` on CUDA
+    picks its reduction split by shape)."""
+    B, H, W, C = y.shape
+    flat = y.reshape(B, H * W, C)
+    acc = flat[:, 0]
+    for i in range(1, H * W):
+        acc = acc + flat[:, i]
+    return acc / scalar(float(H * W), acc.device)
+
+
+def _dispatch(site: Site, p, y, plan, cfg, attention_fn, kernel_ep):
     """Fusible site: the registry kernel when the plan fuses it, else
     the reference op (the impl's ``ref`` for kinds beyond the built-ins).
-    """
+    ``y`` may be a producer's ``QTensor`` (only fused int8 consumers are
+    handed one); ``kernel_ep`` is the in-kernel part of this site's own
+    epilogue (``None`` for fp output or a post-add policy)."""
     d = plan.get(site.name) if plan is not None else None
     if d is not None and d.fused:
         from repro_torch.kernels.registry import get_kernel
-        return get_kernel(site.kind, d.precision).apply(p, y, site, d)
+        ep_kw = {} if kernel_ep is None else {"epilogue": kernel_ep}
+        return get_kernel(site.kind, d.precision).apply(p, y, site, d,
+                                                        **ep_kw)
+    y = act_fp(y)
     if site.kind == "dsconv":
         return dsconv(p, y, stride=site.stride)
     if site.kind == "mbconv":
         return mbconv(p, y, stride=site.stride)
     if site.kind == "msa":
         return msa(p, y, MSAConfig(site.in_shape[-1], site.attrs["head_dim"],
-                                   site.attrs["scales"], cfg.dtype))
+                                   site.attrs["scales"], cfg.dtype),
+                   attention_fn=attention_fn)
     from repro_torch.kernels.registry import get_probe
     return get_probe(site.kind).ref(p, y, site)
 
 
-def execute(program: Program, params, x, *, plan=None):
+def execute(program: Program, params, x, *, plan=None, attention_fn=None):
     """Run the lowered program.  x: (B, H, W, 3) -> (B, num_classes).
 
     ``plan`` is an optional ``core.fusion.FusionPlan`` over the same
     ``Program``: fused sites launch the registry's CUDA kernels (their
-    plain versions on CPU tensors).  ``plan=None`` runs the reference
-    ops.  Eager: nothing here waits on the device.
+    plain versions on CPU tensors) at the precision each decision
+    carries, and the plan's epilogues make producers emit ``QTensor``s
+    for fused int8 consumers; residual adds stay fp.  ``plan=None`` runs
+    the reference ops.  ``attention_fn`` replaces the attention core of
+    the reference MSA (``plan=None`` only).  Eager: nothing here waits
+    on the device.
     """
+    if attention_fn is not None and plan is not None:
+        raise ValueError("attention_fn replaces the reference attention "
+                         "core; it takes plan=None")
+    attention_fn = attention_fn or relu_global_attention
+    epilogues = getattr(plan, "epilogues", None) or {}
     y = x
     for site in program.sites:
         p = params_at(params, site.param_path) if site.param_path else None
+        ep = epilogues.get(site.name)
         if site.kind == "conv_bn":
             y = conv_bn_act(p, y, stride=site.stride, act=site.act)
+            if ep is not None and ep.emits_q:
+                # structural producer: the boundary tensor is int8
+                y = quantize_act(y, keep_fp=ep.residual != "none")
         elif site.kind == "gap":
-            y = act_fp(y).mean(dim=(1, 2))
+            y = _gap(act_fp(y))
         elif site.kind == "fc":
             y = _fc(p, act_fp(y))
             if site.act:
                 y = hardswish(y)
         else:
-            out = _dispatch(site, p, y, plan, program.cfg)
-            y = y + out if site.residual else out
+            # the kernel runs the epilogue itself only for non-residual
+            # sites; a residual producer quantizes after its fp add
+            kernel_ep = ep if (ep is not None and ep.emits_q
+                               and not site.residual) else None
+            out = _dispatch(site, p, y, plan, program.cfg, attention_fn,
+                            kernel_ep)
+            if site.residual:
+                s = act_fp(y) + act_fp(out)
+                y = quantize_act(s, keep_fp=True) if (
+                    ep is not None and ep.emits_q) else s
+            else:
+                y = out     # a QTensor when the kernel ran its epilogue
     return y
 
 

@@ -1,19 +1,109 @@
-"""The fp pieces of ``repro/core/quantization.py`` the fp32 path needs.
+"""FIX8 (int8) post-training quantization, counterpart of
+``repro/core/quantization.py``: the paper's 8-bit fixed-point arithmetic.
 
-BN folding feeds the fused kernels' weights.  The FIX8 scheme itself
-(``QTensor``, ``quantize_efficientvit``, int8 convs) is a later slice of
-the port: a quantized param tree raises ``NotImplementedError``.
+Scheme: BN folded into the preceding conv; weights symmetric int8 per
+output channel; activations symmetric int8 per image (dynamic absmax);
+int32 accumulation, dequantized by (s_act * s_w) per channel.
+
+Every fp32 epilogue keeps the JAX function's operation order, and every
+division takes a tensor divisor (``common.device.scalar``): on a CUDA
+tensor PyTorch turns division by a Python scalar into multiplication by
+its reciprocal, which would make these plain versions differ between
+the CPU and the card.  The int32 sums are exact: torch has no int8
+convolution with an int32 accumulator, so they run in float64 on the
+int8 values (every sum here is far below 2**53) and are rounded to fp32
+once, as JAX's ``int32 -> float32`` conversion rounds them.
+
+The LM weight-only part (``quantize_lm_params``) belongs to the LM slice.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
+from repro_torch.common.device import scalar
+from repro_torch.layers.conv import conv2d
 from repro_torch.layers.norms import bn_fold_scale_bias
 
-__all__ = ["fold_bn_into_conv", "act_fp", "reject_quantized"]
+__all__ = ["QTensor", "act_fp", "quantize_act", "quantize_tensor",
+           "quantize_with_scale", "dequantize", "fold_bn_into_conv",
+           "quantize_conv_bn", "quantize_linear", "quantize_efficientvit",
+           "conv2d_int8", "matmul_int8", "int_sums"]
 
-FIX8_SLICE = ("FIX8 (int8) params are not ported yet; the FIX8 slice of "
-              "the port adds them")
+QMAX = 127
+
+
+class QTensor(NamedTuple):
+    """A quantized activation crossing a producer -> consumer boundary:
+    ``q`` int8, its per-image (or per-tensor) fp32 ``scale``, and the fp
+    activation ``fp`` when the epilogue's residual policy keeps it."""
+    q: torch.Tensor
+    scale: torch.Tensor               # fp32 () or (B,)
+    fp: Optional[torch.Tensor] = None
+
+    @property
+    def shape(self):
+        return self.q.shape
+
+    def scale_col(self) -> torch.Tensor:
+        """The scale as a (B,) vector over the leading batch axis."""
+        s = self.scale.float().reshape(-1)
+        return s.expand(self.q.shape[0])
+
+
+def act_fp(y):
+    """The fp view of an activation: a ``QTensor`` -> its kept fp tensor."""
+    if isinstance(y, QTensor):
+        if y.fp is None:
+            raise ValueError(
+                "QTensor without a kept fp activation reached a consumer "
+                "that needs full precision: epilogue assignment bug")
+        return y.fp
+    return y
+
+
+def _scale_of(absmax: torch.Tensor) -> torch.Tensor:
+    """max(absmax, 1e-8) / 127, in fp32, on any device."""
+    return torch.clamp_min(absmax, 1e-8) / scalar(float(QMAX), absmax.device)
+
+
+def _quantize(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(xf / scale), -QMAX - 1, QMAX).to(
+        torch.int8)
+
+
+def quantize_act(x, *, keep_fp: bool = False) -> QTensor:
+    """Per-image symmetric absmax quantization (identical to the
+    per-tensor scheme at batch 1); ``keep_fp`` carries ``x`` alongside."""
+    xf = x.float()
+    absmax = torch.amax(xf.abs(), dim=tuple(range(1, x.dim())))
+    scale = _scale_of(absmax)                                    # (B,)
+    q = _quantize(xf, scale.reshape((-1,) + (1,) * (x.dim() - 1)))
+    return QTensor(q, scale, x if keep_fp else None)
+
+
+def quantize_tensor(x, axis=None):
+    """Symmetric int8.  ``axis=None``: one scale; else one per index of
+    ``axis`` (kept as a size-1-elsewhere shape, as JAX's keepdims)."""
+    xf = x.float()
+    if axis is None:
+        absmax = torch.amax(xf.abs())
+    else:
+        red = tuple(i for i in range(x.dim()) if i != axis % x.dim())
+        absmax = torch.amax(xf.abs(), dim=red, keepdim=True)
+    scale = _scale_of(absmax)
+    return _quantize(xf, scale), scale
+
+
+def quantize_with_scale(x, scale):
+    """Symmetric int8 against a precomputed (calibrated) scale."""
+    return _quantize(x.float(), torch.as_tensor(scale, dtype=torch.float32,
+                                                device=x.device))
+
+
+def dequantize(q, scale):
+    return q.float() * scale
 
 
 def fold_bn_into_conv(conv_p, bn_p, eps: float = 1e-5):
@@ -25,16 +115,93 @@ def fold_bn_into_conv(conv_p, bn_p, eps: float = 1e-5):
     return w, b
 
 
-def act_fp(y):
-    """The fp view of an activation.  The fp32 path only carries fp
-    tensors; an int8 boundary (``QTensor`` in the JAX package) belongs
-    to the FIX8 slice."""
-    if not isinstance(y, torch.Tensor):
-        raise NotImplementedError(FIX8_SLICE)
-    return y
+def quantize_conv_bn(p, eps: float = 1e-5):
+    """{'conv','bn'} -> {'qconv': {q (HWIO int8), scale (F,), bias (F,)}}."""
+    w, b = fold_bn_into_conv(p["conv"], p["bn"], eps)
+    q, scale = quantize_tensor(w, axis=-1)       # per output channel
+    return {"qconv": {"q": q, "scale": scale[0, 0, 0, :], "bias": b}}
 
 
-def reject_quantized(p) -> None:
-    """Raise on a ``quantize_efficientvit`` (``qconv``) param block."""
-    if isinstance(p, dict) and "qconv" in p:
-        raise NotImplementedError(FIX8_SLICE)
+def int_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact int32 sums of an int8 matrix product, as fp32:
+    (..., K) int8 @ (K, N) int8."""
+    return (a.double() @ b.double()).float()
+
+
+def _conv_int(xq, wq, *, stride: int, groups: int) -> torch.Tensor:
+    """Exact int32 sums of an int8 SAME conv (NHWC, HWIO), as fp32."""
+    return conv2d({"w": wq.double()}, xq.double(), stride=stride,
+                  groups=groups).float()
+
+
+def conv2d_int8(qp, x, *, stride: int = 1, groups: int = 1):
+    """FIX8 conv: per-image act quant, int8 conv with exact int32 sums,
+    fp32 dequant ``acc * (sx * scale) + bias``.  ``x`` may be a producer's
+    ``QTensor``; its scales then broadcast through the dequant."""
+    if isinstance(x, QTensor):
+        xq, sx = x.q, x.scale_col().reshape(-1, 1, 1, 1)
+        out_dtype = x.fp.dtype if x.fp is not None else torch.float32
+    else:
+        qt = quantize_act(x)
+        xq, sx = qt.q, qt.scale.reshape(-1, 1, 1, 1)
+        out_dtype = x.dtype
+    acc = _conv_int(xq, qp["q"], stride=stride, groups=groups)
+    y = acc * (sx * qp["scale"][None, None, None, :])
+    return (y + qp["bias"][None, None, None, :]).to(out_dtype)
+
+
+def matmul_int8(x, qw, w_scale):
+    """(..., d) fp x int8 (d, f): per-leading-element act quant, exact
+    int32 sums, ``acc * (sx * w_scale)``."""
+    xf = x.float()
+    if x.dim() <= 1:
+        absmax = torch.amax(xf.abs())
+    else:
+        absmax = torch.amax(xf.abs(), dim=tuple(range(1, x.dim())),
+                            keepdim=True)
+    sx = _scale_of(absmax)
+    acc = int_sums(_quantize(xf, sx), qw)
+    return (acc * (sx * w_scale)).to(x.dtype)
+
+
+def quantize_linear(p):
+    q, scale = quantize_tensor(p["w"], axis=-1)
+    out = {"qw": q, "scale": scale[0, :]}
+    if "b" in p:
+        out["bias"] = p["b"].float()
+    return out
+
+
+def _is_conv_bn(node) -> bool:
+    return isinstance(node, dict) and set(node) == {"conv", "bn"}
+
+
+def quantize_efficientvit(params):
+    """Fold and quantize every conv+BN block of an EfficientViT param
+    tree; bare convs (MSA qkv/aggreg) get int8 weights, the MSA output
+    projection folds ``proj_bn``, and the FC layers become ``qw``."""
+
+    def walk(node):
+        if _is_conv_bn(node):
+            return quantize_conv_bn(node)
+        if isinstance(node, dict):
+            if "proj" in node and "proj_bn" in node:     # MSA tail
+                out = {k: walk(v) for k, v in node.items()
+                       if k not in ("proj", "proj_bn")}
+                out["proj"] = quantize_conv_bn(
+                    {"conv": node["proj"], "bn": node["proj_bn"]})
+                return out
+            if set(node) == {"w"} and node["w"].dim() == 4:   # bare conv
+                q, scale = quantize_tensor(node["w"], axis=-1)
+                return {"qconv": {
+                    "q": q, "scale": scale[0, 0, 0, :],
+                    "bias": torch.zeros(node["w"].shape[-1],
+                                        device=node["w"].device)}}
+            if set(node) == {"w"} and node["w"].dim() == 2:   # fc
+                return quantize_linear(node)
+            return {k: walk(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [walk(v) for v in node]
+        return node
+
+    return walk(params)

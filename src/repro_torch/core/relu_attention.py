@@ -20,12 +20,11 @@ from typing import Sequence
 
 import torch
 
-from repro_torch.core.quantization import reject_quantized
 from repro_torch.layers.conv import conv2d, init_conv2d, init_pwconv, pwconv
 from repro_torch.layers.norms import batchnorm, init_batchnorm
 
 __all__ = ["MSAConfig", "init_msa", "relu_global_attention", "msa",
-           "msa_aggregate"]
+           "msa_aggregate", "msa_project"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,17 +75,32 @@ def relu_global_attention(q, k, v, eps: float = 1e-6):
     return (num / torch.clamp(den, min=eps)).to(q.dtype)
 
 
+def _conv_any(p, x, *, groups=1):
+    """A bare conv, fp32 or FIX8 (a ``qconv`` from quantization)."""
+    if "qconv" in p:
+        from repro_torch.core.quantization import conv2d_int8
+        return conv2d_int8(p["qconv"], x, groups=groups)
+    if groups == 1 and p["w"].shape[0] == 1:
+        return pwconv(p, x)
+    return conv2d(p, x, groups=groups)
+
+
 def msa_aggregate(params, x, n_heads: int):
     """The QKV projection and every multi-scale aggregation branch:
     ``[qkv, agg_s...]``, each (B, H, W, 3 * total)."""
-    reject_quantized(params["qkv"])
-    qkv = pwconv(params["qkv"], x)
+    qkv = _conv_any(params["qkv"], x)
     multi = [qkv]
     for agg in params["aggreg"]:
-        reject_quantized(agg["dw"])
-        a = conv2d(agg["dw"], qkv, groups=qkv.shape[-1])
-        multi.append(conv2d(agg["pw"], a, groups=3 * n_heads))
+        a = _conv_any(agg["dw"], qkv, groups=qkv.shape[-1])
+        multi.append(_conv_any(agg["pw"], a, groups=3 * n_heads))
     return multi
+
+
+def msa_project(params, out):
+    """The output projection + BN (folded into the ``qconv`` at FIX8)."""
+    if "qconv" in params["proj"]:
+        return _conv_any(params["proj"], out)
+    return batchnorm(params["proj_bn"], pwconv(params["proj"], out))
 
 
 def msa(params, x, cfg: MSAConfig, *, attention_fn=relu_global_attention):
@@ -97,6 +111,4 @@ def msa(params, x, cfg: MSAConfig, *, attention_fn=relu_global_attention):
         t = branch.reshape(B, H * W, 3, cfg.n_heads, cfg.head_dim)
         q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
         outs.append(attention_fn(q, k, v).reshape(B, H, W, cfg.total_dim))
-    out = torch.cat(outs, dim=-1)
-    reject_quantized(params["proj"])
-    return batchnorm(params["proj_bn"], pwconv(params["proj"], out))
+    return msa_project(params, torch.cat(outs, dim=-1))

@@ -28,7 +28,8 @@ from repro_torch.common.errors import KernelLaunchError
 __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check",
            "check_input", "stream_of"]
 
-SOURCES = ("dsconv", "mbconv", "relu_attn")
+SOURCES = ("dsconv", "mbconv", "relu_attn", "int8_matmul", "dsconv_int8",
+           "mbconv_int8", "group_agg")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -105,12 +106,13 @@ def check(lib: ctypes.CDLL, status: int, kernel: str) -> None:
         raise KernelLaunchError(f"{kernel}: CUDA error {status}: {msg}")
 
 
-def check_input(t: torch.Tensor, name: str, shape, device) -> None:
+def check_input(t: torch.Tensor, name: str, shape, device,
+                dtype=torch.float32) -> None:
     """Validate one kernel input before its pointer reaches C."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected float32")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")

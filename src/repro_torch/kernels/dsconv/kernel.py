@@ -1,8 +1,9 @@
-"""``dsconv_fused``: the hand-written CUDA kernel (``csrc/dsconv.cu``).
+"""``dsconv_fused`` and ``dsconv_fused_int8``: the hand-written CUDA
+kernels (``csrc/dsconv.cu``, ``csrc/dsconv_int8.cu``).
 
-Replaces ``repro/kernels/dsconv/kernel.py::dsconv_fused``.  A CUDA
-tensor launches the kernel (or raises); a CPU tensor takes the plain
-version ``ref.dsconv_ref``.
+Replace ``repro/kernels/dsconv/kernel.py::dsconv_fused`` and
+``::dsconv_fused_int8``.  A CUDA tensor launches the kernel (or raises);
+a CPU tensor takes the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -11,10 +12,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
-from repro_torch.kernels.dsconv.ref import dsconv_ref
+from repro_torch.kernels.dsconv.ref import dsconv_int8_ref, dsconv_ref
+from repro_torch.kernels.quant import xs_per_batch_vec
 from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
 
-__all__ = ["dsconv_fused", "dsconv_smem_bytes", "choose_blocks"]
+__all__ = ["dsconv_fused", "dsconv_smem_bytes", "choose_blocks",
+           "dsconv_fused_int8"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,3 +85,48 @@ def dsconv_fused(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
 
 
 dsconv_fused.launches = 0
+
+
+def dsconv_fused_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
+                      stride: int = 1, act: bool = True):
+    """x_q: (B, H, W, C) int8 with per-tensor or per-image (B,)
+    ``x_scale``; dw_q: (3, 3, C) int8; pw_q: (C, F) int8; per-channel
+    fp32 weight scales and BN-folded biases -> (B, Ho, Wo, F) fp32.
+    Two CUDA launches: the DW stage's per-image absmax, then the PW GEMM
+    recomputing the DW stage (``csrc/dsconv_int8.cu``)."""
+    B, H, W, C = x_q.shape
+    F = pw_q.shape[1]
+    if H % stride or W % stride:
+        raise ValueError(f"spatial {H}x{W} not divisible by stride {stride}")
+    if x_q.device.type == "cpu":
+        return dsconv_int8_ref(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s,
+                               pw_b, stride=stride, act=act)
+    if x_q.device.type != "cuda":
+        raise ValueError(f"dsconv_fused_int8 runs on cuda or cpu, not "
+                         f"{x_q.device}")
+    xs = xs_per_batch_vec(x_scale, B).contiguous()
+    i8, f32 = torch.int8, torch.float32
+    for t, name, shape, dt in (
+            (x_q, "x_q", (B, H, W, C), i8), (xs, "x_scale", (B,), f32),
+            (dw_q, "dw_q", (3, 3, C), i8), (dw_s, "dw_s", (C,), f32),
+            (dw_b, "dw_b", (C,), f32), (pw_q, "pw_q", (C, F), i8),
+            (pw_s, "pw_s", (F,), f32), (pw_b, "pw_b", (F,), f32)):
+        check_input(t, name, shape, x_q.device, dt)
+    amax = torch.zeros((B,), dtype=torch.int32, device=x_q.device)
+    out = torch.empty((B, H // stride, W // stride, F), dtype=f32,
+                      device=x_q.device)
+    lib = library("dsconv_int8")
+    fn = lib.dsconv_fused_int8_i8
+    fn.argtypes = [_P] * 10 + [_I] * 7 + [_P]
+    fn.restype = _I
+    status = fn(x_q.data_ptr(), xs.data_ptr(), dw_q.data_ptr(),
+                dw_s.data_ptr(), dw_b.data_ptr(), pw_q.data_ptr(),
+                pw_s.data_ptr(), pw_b.data_ptr(), amax.data_ptr(),
+                out.data_ptr(), B, H, W, C, F, stride, int(act),
+                stream_of(x_q))
+    check(lib, status, "dsconv_fused_int8")
+    dsconv_fused_int8.launches += 1
+    return out
+
+
+dsconv_fused_int8.launches = 0

@@ -1,16 +1,23 @@
-"""Fused DSConv for framework param trees + its registry impl.
+"""Fused DSConv for framework param trees + its registry impls.
 
 ``dsconv_apply(params, x)`` consumes the EfficientViT {'dw','pw'}
 conv+BN block pair, folds BN into both convs and runs ``dsconv_fused``.
+``dsconv_apply_int8`` is the FIX8 twin over the quantized pair (each a
+``qconv``), running ``dsconv_fused_int8``.
 """
 from __future__ import annotations
 
-from repro_torch.core.quantization import fold_bn_into_conv
+import torch
+
+from repro_torch.core.quantization import (
+    QTensor, fold_bn_into_conv, quantize_act)
 from repro_torch.kernels.dsconv.kernel import (
-    choose_blocks, dsconv_fused, dsconv_smem_bytes)
+    choose_blocks, dsconv_fused, dsconv_fused_int8, dsconv_smem_bytes)
+from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.registry import KernelBase, register
 
-__all__ = ["dsconv_apply", "DsconvKernel"]
+__all__ = ["dsconv_apply", "DsconvKernel", "dsconv_apply_int8",
+           "DsconvInt8Kernel"]
 
 
 def dsconv_apply(params, x, *, stride: int = 1,
@@ -39,10 +46,55 @@ class DsconvKernel(KernelBase):
     def tune(self, site):
         return choose_blocks(site.in_shape, site.out_shape[-1], site.stride)
 
-    def apply(self, params, x, site, decision=None):
+    def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = dict(decision.blocks) if decision is not None else {}
         return dsconv_apply(params, x, stride=site.stride, **blocks)
 
     def ref(self, params, x, site, **kw):
         from repro_torch.core.efficientvit import dsconv
         return dsconv(params, x, stride=site.stride)
+
+
+def dsconv_apply_int8(params, x, *, stride: int = 1, epilogue=None):
+    """Quantized {'dw','pw'} pair -> ``dsconv_fused_int8``.  ``x`` is the
+    fp activation (quantized here per image, as the reference
+    ``conv2d_int8`` does) or a producer's ``QTensor``.  The emitting
+    variant (``dsconv_fused_int8_emit``) is not ported: no B1 site needs
+    it, since ``stem.ds0`` is residual and quantizes after its add."""
+    if epilogue is not None and epilogue.emits_q:
+        raise NotImplementedError("an emitting int8 epilogue needs "
+                                  "dsconv_fused_int8_emit, which is not "
+                                  "ported yet")
+    qd, qp = params["dw"]["qconv"], params["pw"]["qconv"]
+    if isinstance(x, QTensor):
+        x_q, x_scale = x.q, x.scale
+        out_dtype = x.fp.dtype if x.fp is not None else torch.float32
+    else:
+        qt = quantize_act(x)
+        x_q, x_scale, out_dtype = qt.q, qt.scale, x.dtype
+    out = dsconv_fused_int8(
+        x_q.contiguous(), x_scale, qd["q"][:, :, 0, :].contiguous(),
+        qd["scale"], qd["bias"], qp["q"][0, 0].contiguous(), qp["scale"],
+        qp["bias"], stride=stride, act=True)
+    return out.to(out_dtype)
+
+
+@register
+class DsconvInt8Kernel(DsconvKernel):
+    """(dsconv, int8): the FIX8 DW+PW CUDA kernel; takes a producer's
+    ``QTensor``.  ``emits_q`` is the planner's view: ``stem.ds0`` is
+    residual, so ``execute`` quantizes after its add."""
+    precision, dtype = "int8", "i8"
+    batch_dependent_tiles = False
+    takes_q = True
+    emits_q = True
+
+    def smem_bytes(self, site, blocks):
+        return INT8_GEMM_SMEM_BYTES
+
+    def tune(self, site):
+        return {}
+
+    def apply(self, params, x, site, decision=None, *, epilogue=None):
+        return dsconv_apply_int8(params, x, stride=site.stride,
+                                 epilogue=epilogue)

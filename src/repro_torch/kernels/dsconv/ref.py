@@ -1,4 +1,5 @@
-"""Plain PyTorch version of the fused DWConv -> PWConv kernel.
+"""Plain PyTorch versions of the fused DWConv -> PWConv kernels (fp32
+``dsconv_fused`` and FIX8 ``dsconv_fused_int8``).
 
 Semantics: 3x3 depthwise conv over a (1,1)-padded NHWC map + bias,
 stride s sampled at offset s - 1 (the reference's SAME anchor),
@@ -32,3 +33,36 @@ def dsconv_ref(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
     if act:
         acc = hardswish(acc)
     return acc @ pw_w.float() + pw_b
+
+
+def dw3x3_int(x_q, dw_q):
+    """Exact int32 sums of a 3x3 depthwise conv over the int8 zero-padded
+    NHWC map, at every position (stride 1), as float64."""
+    B, H, W, C = x_q.shape
+    xp = F.pad(x_q.double(), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((B, H, W, C), dtype=torch.float64, device=x_q.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc = acc + xp[:, dy:dy + H, dx:dx + W, :] * dw_q[dy, dx].double()
+    return acc
+
+
+def dsconv_int8_ref(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
+                    stride: int = 1, act: bool = True):
+    """Plain version of ``dsconv_fused_int8``, mirroring the JAX oracle
+    ``dsconv_int8_ref``: int32 DW, dequant ``acc * (xs * dw_s) + dw_b``,
+    stride at offset s - 1, Hardswish, per-image requant, int32 PW,
+    dequant ``acc * (s_dw * pw_s) + pw_b``.  ``x_scale``: () or (B,)."""
+    from repro_torch.core.quantization import int_sums, quantize_act
+    from repro_torch.kernels.quant import xs_per_batch_vec
+
+    B = x_q.shape[0]
+    xs = xs_per_batch_vec(x_scale, B).reshape(B, 1, 1, 1)
+    y = dw3x3_int(x_q, dw_q).float() * (xs * dw_s) + dw_b
+    if stride > 1:
+        y = y[:, stride - 1::stride, stride - 1::stride, :]
+    if act:
+        y = hardswish(y)
+    yq = quantize_act(y)
+    acc = int_sums(yq.q, pw_q)
+    return acc * (yq.scale.reshape(B, 1, 1, 1) * pw_s) + pw_b

@@ -1,8 +1,9 @@
-"""``mbconv_fused``: the hand-written CUDA kernel (``csrc/mbconv.cu``).
+"""``mbconv_fused``, ``mbconv_fused_int8`` and ``mbconv_fused_int8_emit``:
+the hand-written CUDA kernels (``csrc/mbconv.cu``, ``csrc/mbconv_int8.cu``).
 
-Replaces ``repro/kernels/mbconv/kernel.py::mbconv_fused``.  A CUDA
-tensor launches the kernel (or raises); a CPU tensor takes the plain
-version ``ref.mbconv_ref``.
+Replace the functions of the same names in
+``repro/kernels/mbconv/kernel.py``.  A CUDA tensor launches the kernel
+(or raises); a CPU tensor takes the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -11,10 +12,12 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
-from repro_torch.kernels.mbconv.ref import mbconv_ref
+from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
+from repro_torch.kernels.quant import xs_per_batch_vec
 from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
 
-__all__ = ["mbconv_fused", "mbconv_smem_bytes", "choose_blocks"]
+__all__ = ["mbconv_fused", "mbconv_smem_bytes", "choose_blocks",
+           "mbconv_fused_int8", "mbconv_fused_int8_emit"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,3 +96,90 @@ def mbconv_fused(x, w1, b1, dw_w, dw_b, w2, b2, *, stride: int = 1,
 
 
 mbconv_fused.launches = 0
+
+
+def _mbconv_int8(fn_name, x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b,
+                 w2_q, s2, b2, stride, emit):
+    """Validate, allocate the scratch maps and launch one of the two C
+    entry points of ``csrc/mbconv_int8.cu``."""
+    B, H, W, C = x_q.shape
+    M, F = w1_q.shape[1], w2_q.shape[1]
+    dev = x_q.device
+    xs = xs_per_batch_vec(x_scale, B).contiguous()
+    i8, f32 = torch.int8, torch.float32
+    for t, name, shape, dt in (
+            (x_q, "x_q", (B, H, W, C), i8), (xs, "x_scale", (B,), f32),
+            (w1_q, "w1_q", (C, M), i8), (s1, "s1", (M,), f32),
+            (b1, "b1", (M,), f32), (dw_q, "dw_q", (3, 3, M), i8),
+            (dw_s, "dw_s", (M,), f32), (dw_b, "dw_b", (M,), f32),
+            (w2_q, "w2_q", (M, F), i8), (s2, "s2", (F,), f32),
+            (b2, "b2", (F,), f32)):
+        check_input(t, name, shape, dev, dt)
+    Ho, Wo = H // stride, W // stride
+    mid = torch.empty((B, H, W, M), dtype=f32, device=dev)
+    dwo = torch.empty((B, Ho, Wo, M), dtype=f32, device=dev)
+    out = torch.empty((B, Ho, Wo, F), dtype=f32, device=dev)
+    amax = torch.zeros((3, B), dtype=torch.int32, device=dev)
+    args = [x_q, xs, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2, mid, dwo,
+            out, amax]
+    if emit:
+        q = torch.empty((B, Ho, Wo, F), dtype=i8, device=dev)
+        scales = torch.empty((B,), dtype=f32, device=dev)
+        args += [q, scales]
+    lib = library("mbconv_int8")
+    fn = getattr(lib, fn_name)
+    fn.argtypes = [_P] * len(args) + [_I] * 7 + [_P]
+    fn.restype = _I
+    status = fn(*(t.data_ptr() for t in args), B, H, W, C, M, F, stride,
+                stream_of(x_q))
+    check(lib, status, fn_name)
+    return (q, scales, out) if emit else out
+
+
+def _check_stride(x_q, stride):
+    H, W = x_q.shape[1:3]
+    if H % stride or W % stride:
+        raise ValueError(f"spatial {H}x{W} not divisible by stride {stride}")
+    if x_q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the int8 mbconv kernels run on cuda or cpu, not "
+                         f"{x_q.device}")
+
+
+def mbconv_fused_int8(x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q,
+                      s2, b2, *, stride: int = 1):
+    """x_q: (B, H, W, C) int8 with per-tensor or per-image (B,)
+    ``x_scale``; w1_q: (C, M), dw_q: (3, 3, M), w2_q: (M, F) int8;
+    per-channel fp32 weight scales, BN-folded fp32 biases
+    -> (B, Ho, Wo, F) fp32.  Three CUDA launches, split at the two
+    whole-image requantizations (``csrc/mbconv_int8.cu``)."""
+    _check_stride(x_q, stride)
+    args = (x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2)
+    if x_q.device.type == "cpu":
+        return mbconv_int8_ref(*args, stride=stride)
+    out = _mbconv_int8("mbconv_fused_int8_i8", *args, stride, emit=False)
+    mbconv_fused_int8.launches += 1
+    return out
+
+
+def mbconv_fused_int8_emit(x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b,
+                           w2_q, s2, b2, *, stride: int = 1):
+    """``mbconv_fused_int8`` + the per-image act-quant of its output:
+    -> (q (B, Ho, Wo, F) int8, scales (B,) fp32, out (B, Ho, Wo, F) fp32).
+    ``q``/``scales`` equal ``quantize_act(mbconv_fused_int8(...))``; the
+    fp output serves a "keep-fp" epilogue.  Four CUDA launches."""
+    from repro_torch.core.quantization import quantize_act
+
+    _check_stride(x_q, stride)
+    args = (x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2)
+    if x_q.device.type == "cpu":
+        out = mbconv_int8_ref(*args, stride=stride)
+        qt = quantize_act(out)
+        return qt.q, qt.scale, out
+    res = _mbconv_int8("mbconv_fused_int8_emit_i8", *args, stride,
+                       emit=True)
+    mbconv_fused_int8_emit.launches += 1
+    return res
+
+
+mbconv_fused_int8.launches = 0
+mbconv_fused_int8_emit.launches = 0

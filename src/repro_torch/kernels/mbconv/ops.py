@@ -2,16 +2,24 @@
 
 ``mbconv_apply(params, x)`` consumes the EfficientViT
 {'pw1','dw','pw2'} conv+BN triple, folds BN into each conv and runs
-``mbconv_fused``.
+``mbconv_fused``.  ``mbconv_apply_int8`` is the FIX8 twin over the
+quantized triple (each a ``qconv``): ``mbconv_fused_int8``, or
+``mbconv_fused_int8_emit`` when the site's epilogue emits int8.
 """
 from __future__ import annotations
 
-from repro_torch.core.quantization import fold_bn_into_conv
+import torch
+
+from repro_torch.core.quantization import (
+    QTensor, fold_bn_into_conv, quantize_act)
+from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.mbconv.kernel import (
-    choose_blocks, mbconv_fused, mbconv_smem_bytes)
+    choose_blocks, mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit,
+    mbconv_smem_bytes)
 from repro_torch.kernels.registry import KernelBase, register
 
-__all__ = ["mbconv_apply", "MbconvKernel"]
+__all__ = ["mbconv_apply", "MbconvKernel", "mbconv_apply_int8",
+           "MbconvInt8Kernel"]
 
 
 def mbconv_apply(params, x, *, stride: int = 1,
@@ -43,10 +51,54 @@ class MbconvKernel(KernelBase):
         return choose_blocks(site.in_shape, site.attrs["mid"],
                              site.out_shape[-1], site.stride)
 
-    def apply(self, params, x, site, decision=None):
+    def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = dict(decision.blocks) if decision is not None else {}
         return mbconv_apply(params, x, stride=site.stride, **blocks)
 
     def ref(self, params, x, site, **kw):
         from repro_torch.core.efficientvit import mbconv
         return mbconv(params, x, stride=site.stride)
+
+
+def mbconv_apply_int8(params, x, *, stride: int = 1, epilogue=None):
+    """Quantized {'pw1','dw','pw2'} triple -> the FIX8 kernel.  ``x`` is
+    the fp activation (quantized here per image, as the reference
+    ``conv2d_int8`` does) or a producer's ``QTensor``.  An int8
+    ``epilogue`` makes this site the producer: it returns a ``QTensor``
+    quantized by the kernel, with the fp output kept under "keep-fp"."""
+    q1, qd, q2 = (params[k]["qconv"] for k in ("pw1", "dw", "pw2"))
+    if isinstance(x, QTensor):
+        x_q, x_scale = x.q, x.scale
+        out_dtype = x.fp.dtype if x.fp is not None else torch.float32
+    else:
+        qt = quantize_act(x)
+        x_q, x_scale, out_dtype = qt.q, qt.scale, x.dtype
+    args = (x_q.contiguous(), x_scale, q1["q"][0, 0].contiguous(),
+            q1["scale"], q1["bias"], qd["q"][:, :, 0, :].contiguous(),
+            qd["scale"], qd["bias"], q2["q"][0, 0].contiguous(), q2["scale"],
+            q2["bias"])
+    if epilogue is not None and epilogue.emits_q:
+        q, scales, out = mbconv_fused_int8_emit(*args, stride=stride)
+        fp = out.to(out_dtype) if epilogue.residual == "keep-fp" else None
+        return QTensor(q, scales, fp)
+    return mbconv_fused_int8(*args, stride=stride).to(out_dtype)
+
+
+@register
+class MbconvInt8Kernel(MbconvKernel):
+    """(mbconv, int8): the FIX8 PW+DW+PW CUDA kernel, with ``QTensor``
+    boundaries on both sides (the int8 dataflow)."""
+    precision, dtype = "int8", "i8"
+    batch_dependent_tiles = False
+    takes_q = True
+    emits_q = True
+
+    def smem_bytes(self, site, blocks):
+        return INT8_GEMM_SMEM_BYTES
+
+    def tune(self, site):
+        return {}
+
+    def apply(self, params, x, site, decision=None, *, epilogue=None):
+        return mbconv_apply_int8(params, x, stride=site.stride,
+                                 epilogue=epilogue)

@@ -10,6 +10,13 @@ Built-in registrations (loaded lazily from the kernel packages):
     ("mbconv", "fp")   kernels/mbconv/ops.py     PW+DW+PW CUDA kernel
     ("msa",    "fp")   kernels/relu_attn/ops.py  one attention launch per
                                                  MSA module
+    ("dsconv", "int8") kernels/dsconv/ops.py     FIX8 DW+PW CUDA kernel
+    ("mbconv", "int8") kernels/mbconv/ops.py     FIX8 PW+DW+PW CUDA kernel
+                                                 (+ the emitting variant)
+    ("msa",    "int8") kernels/int8_matmul/ops.py W8A8 projections, grouped
+                                                 int8 aggregation, one
+                                                 attention launch
+    ("group_agg", "int8") kernels/group_conv/ops.py  an int8-only kind
 
 The fit model is the Hopper kernel's shared memory: ``smem_bytes(site)``
 is what one CTA of the kernel needs with the blocks ``tune`` chooses,
@@ -36,6 +43,8 @@ class KernelImpl(Protocol):
     dtype: str
     smem_budget: float
     batch_dependent_tiles: bool
+    takes_q: bool    # consumes a producer's QTensor (int8 dataflow)
+    emits_q: bool    # can quantize its own output (an int8 Epilogue)
 
     def site_precision(self, params) -> str:
         """Precision the site's param subtree carries: fp | int8 | mixed."""
@@ -55,8 +64,9 @@ class KernelImpl(Protocol):
         """Block choices to freeze into the site's decision."""
         ...
 
-    def apply(self, params, x, site, decision=None):
-        """Run the fused kernel on one site."""
+    def apply(self, params, x, site, decision=None, *, epilogue=None):
+        """Run the fused kernel on one site; an int8 ``epilogue`` (given
+        only to impls with ``emits_q``) makes it return a ``QTensor``."""
         ...
 
     def ref(self, params, x, site, **kw):
@@ -95,6 +105,8 @@ class KernelBase:
     dtype = "f32"
     smem_budget = SMEM_LIMIT
     batch_dependent_tiles = False  # tune keys blocks on the batch axis
+    takes_q = False
+    emits_q = False
 
     def site_precision(self, params) -> str:
         return conv_block_precision(params)
@@ -120,6 +132,8 @@ _BUILTIN_MODULES = (
     "repro_torch.kernels.dsconv.ops",
     "repro_torch.kernels.mbconv.ops",
     "repro_torch.kernels.relu_attn.ops",
+    "repro_torch.kernels.int8_matmul.ops",
+    "repro_torch.kernels.group_conv.ops",
 )
 _builtins_loaded = False
 

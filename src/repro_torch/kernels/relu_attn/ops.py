@@ -3,39 +3,81 @@
 ``msa_fused_apply`` runs one EfficientViT MSA module with every
 multi-scale branch, image and head in ONE attention launch: the
 branches are stacked, and the q/k/v split (``[Q heads | K heads |
-V heads]`` channel order) reaches the kernel as strided views.  The QKV
-projection, aggregation convs and output projection stay plain torch
-ops, as the JAX package leaves them to XLA.
+V heads]`` channel order) reaches the kernel as strided views.  At fp
+the QKV projection, aggregation convs and output projection stay plain
+torch ops, as the JAX package leaves them to XLA.  At FIX8
+(``int8_proj``) the projections run the W8A8 GEMM kernel and the
+aggregation branches the grouped int8 kernel
+(``kernels/int8_matmul``, ``kernels/group_conv``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.core.relu_attention import msa_aggregate
+from repro_torch.core.quantization import QTensor, act_fp, quantize_act
+from repro_torch.core.relu_attention import (
+    _conv_any, msa_aggregate, msa_project)
 from repro_torch.kernels.registry import KernelBase, register
 from repro_torch.kernels.relu_attn.kernel import (
     relu_attn_noncausal, relu_attn_smem_bytes)
-from repro_torch.layers.conv import pwconv
-from repro_torch.layers.norms import batchnorm
 
 __all__ = ["msa_fused_apply", "MsaKernel", "MSA_DEFAULT_BLOCK_N"]
 
 MSA_DEFAULT_BLOCK_N = 256   # token tile of the K/V phase
 
 
+def _int8_branches(params, x, n_heads: int):
+    """FIX8 ``[qkv, agg_s...]``: the QKV projection as the W8A8 GEMM
+    (taking a producer's ``QTensor`` as it is), then ONE per-image
+    quantize of the QKV map feeding every aggregation scale's grouped
+    int8 kernel (the reference convs when an aggregation is not fully
+    quantized)."""
+    from repro_torch.kernels.group_conv.ops import group_agg_apply_int8
+    from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
+
+    qkv = conv1x1_w8a8(params["qkv"]["qconv"], x)
+    multi = [qkv]
+    if all("qconv" in a["dw"] and "qconv" in a["pw"]
+           for a in params["aggreg"]):
+        if params["aggreg"]:
+            qkv_qt = quantize_act(qkv)
+            multi += [group_agg_apply_int8(a, qkv_qt)
+                      for a in params["aggreg"]]
+    else:
+        for agg in params["aggreg"]:
+            a = _conv_any(agg["dw"], qkv, groups=qkv.shape[-1])
+            multi.append(_conv_any(agg["pw"], a, groups=3 * n_heads))
+    return multi
+
+
 def msa_fused_apply(params, x, n_heads: int, head_dim: int, *,
-                    block_n: int = MSA_DEFAULT_BLOCK_N):
-    """x: (B, H, W, C) -> (B, H, W, C); one attention launch."""
+                    block_n: int = MSA_DEFAULT_BLOCK_N,
+                    int8_proj: bool = False, epilogue=None):
+    """x: (B, H, W, C), or a producer's ``QTensor`` -> (B, H, W, C); one
+    attention launch.  ``int8_proj`` routes the projections through the
+    W8A8 GEMM when both are quantized; an emitting ``epilogue`` would
+    need ``int8_matmul_emit``, which is not ported (no B1 MSA site is
+    given one: every MSA site is residual)."""
+    qt = isinstance(x, QTensor)
     B, H, W, _ = x.shape
-    stack = torch.stack(msa_aggregate(params, x, n_heads))  # (S,B,H,W,3T)
+    dtype = (x.fp.dtype if qt and x.fp is not None
+             else torch.float32 if qt else x.dtype)
+    int8 = (int8_proj and "qconv" in params["qkv"]
+            and "qconv" in params["proj"])
+    multi = (_int8_branches(params, x, n_heads) if int8
+             else msa_aggregate(params, act_fp(x), n_heads))
+    stack = torch.stack(multi)                               # (S,B,H,W,3T)
     S = stack.shape[0]
     total = n_heads * head_dim
     t = stack.reshape(S * B, H * W, 3, n_heads, head_dim)
     o = relu_attn_noncausal(t[:, :, 0], t[:, :, 1], t[:, :, 2],
                             block_n=block_n)              # (S*B,N,h,d)
     out = o.reshape(S, B, H, W, total).movedim(0, -2)
-    out = out.reshape(B, H, W, S * total).to(x.dtype)
-    return batchnorm(params["proj_bn"], pwconv(params["proj"], out))
+    out = out.reshape(B, H, W, S * total).to(dtype)
+    if int8:
+        from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
+        return conv1x1_w8a8(params["proj"]["qconv"], out, epilogue=epilogue)
+    return msa_project(params, out)
 
 
 @register
@@ -43,6 +85,7 @@ class MsaKernel(KernelBase):
     """(msa, fp): all branches and heads fold into one attention launch;
     the projections stay on the reference conv path."""
     kind, precision, dtype = "msa", "fp", "f32"
+    int8_proj = False
 
     def site_precision(self, params):
         return ("int8" if "qconv" in params["qkv"]
@@ -62,12 +105,13 @@ class MsaKernel(KernelBase):
     def tune(self, site):
         return {"block_n": MSA_DEFAULT_BLOCK_N}
 
-    def apply(self, params, x, site, decision=None):
+    def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = decision.blocks if decision is not None else {}
         return msa_fused_apply(params, x, site.attrs["heads"],
                                site.attrs["head_dim"],
                                block_n=blocks.get("block_n",
-                                                  MSA_DEFAULT_BLOCK_N))
+                                                  MSA_DEFAULT_BLOCK_N),
+                               int8_proj=self.int8_proj, epilogue=epilogue)
 
     def ref(self, params, x, site, **kw):
         from repro_torch.core.relu_attention import MSAConfig, msa

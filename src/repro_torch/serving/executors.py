@@ -42,6 +42,7 @@ class ExecutorKey:
     batch: int        # bucket size (the batch dimension of the executor)
     resolution: int   # square image size
     precision: str    # requested plan precision: "auto" | "fp" | "int8"
+    #                   (int8 plans the FIX8 kernels of a quantized tree)
 
 
 class Executor:
@@ -140,8 +141,6 @@ class ExecutorCache:
             ex = self._build(key)
         except ReproError:
             self.telemetry.count("executor_build_failed")
-            raise
-        except NotImplementedError:
             raise
         except Exception as e:   # untyped crash inside lower/plan
             self.telemetry.count("executor_build_failed")

@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.common.device import to_device
+from repro_torch.common.device import resolve_device, to_device, tree_to
 from repro_torch.core.efficientvit import EfficientViTConfig
 from repro_torch.serving.executors import ExecutorCache
 from repro_torch.serving.scheduler import (
@@ -40,7 +40,8 @@ class VisionServeConfig:
     microbatch: int = 8       # largest batch bucket (and the fixed size
     #                           under policy="fixed")
     use_plan: bool = True     # False -> reference path (A/B, debugging)
-    precision: str = "auto"   # "auto" | "fp" (FIX8 is a later slice)
+    precision: str = "auto"   # "auto" | "fp" | "int8" (FIX8: serve a
+    #                           quantize_efficientvit tree; see quantized)
     policy: str = "bucketed"  # "bucketed" | "fixed" (pad to microbatch)
     buckets: tuple | None = None   # None -> powers of 2 up to microbatch
     capacity: int | None = None    # executor-cache LRU capacity
@@ -78,6 +79,19 @@ class VisionEngine:
         self.program = primary.program
         self.plan = primary.plan
         self._scheduler: MicroBatchScheduler | None = None
+
+    @classmethod
+    def quantized(cls, params, cfg: EfficientViTConfig,
+                  serve_cfg: VisionServeConfig = VisionServeConfig(), *,
+                  device=None) -> "VisionEngine":
+        """FIX8 serving: quantize an fp32 param tree post-training (BN
+        folded, int8 weights per output channel) on ``device`` (default:
+        the card) and serve it through the int8 kernels."""
+        from repro_torch.core.quantization import quantize_efficientvit
+        dev = resolve_device(device)
+        return cls(quantize_efficientvit(tree_to(params, dev)), cfg,
+                   dataclasses.replace(serve_cfg, precision="int8"),
+                   device=dev)
 
     # -- batch API -------------------------------------------------------
     def logits(self, images) -> torch.Tensor:

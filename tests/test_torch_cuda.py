@@ -6,8 +6,11 @@ machine that has only PyTorch and the CUDA toolkit:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py
 
-Tolerance: max|kernel - plain| <= 1e-4 * max(1, max|plain|).  Both are
-fp32 with TF32 off; they differ in summation order only.
+Tolerance: the fp32 kernels, max|kernel - plain| <= 1e-4 * max(1,
+max|plain|) (both fp32 with TF32 off; they differ in summation order
+only).  The int8 kernels: EQUAL, int8 codes and fp32 outputs alike
+(exact int32 sums, and every fp32 step rounded in the plain version's
+order).
 """
 import time
 
@@ -15,13 +18,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.efficientvit import B1_SMOKE, init_efficientvit
+from repro_torch.core.efficientvit import B1, B1_SMOKE, init_efficientvit
 from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import execute, lower
-from repro_torch.kernels.dsconv.kernel import dsconv_fused
-from repro_torch.kernels.dsconv.ref import dsconv_ref
-from repro_torch.kernels.mbconv.kernel import mbconv_fused
-from repro_torch.kernels.mbconv.ref import mbconv_ref
+from repro_torch.core.quantization import quantize_act
+from repro_torch.kernels.dsconv.kernel import dsconv_fused, dsconv_fused_int8
+from repro_torch.kernels.dsconv.ref import dsconv_int8_ref, dsconv_ref
+from repro_torch.kernels.group_conv.kernel import group_agg_int8
+from repro_torch.kernels.group_conv.ref import block_diag, group_agg_int8_ref
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul
+from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+from repro_torch.kernels.mbconv.kernel import (
+    mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
+from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
 from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
 from repro_torch.serving.scheduler import Request
@@ -129,11 +138,7 @@ def test_planned_forward_on_the_card(cuda):
     _close(engine.logits(x), ref)
 
 
-def test_dispatch_does_not_wait_on_the_card(cuda):
-    """``step()`` copies the batch in and launches it without waiting for
-    the work already queued; ``finalize()`` is where the host waits."""
-    params = init_efficientvit(torch.Generator().manual_seed(0), B1_SMOKE)
-    engine = VisionEngine(params, B1_SMOKE, VisionServeConfig(microbatch=1))
+def _check_dispatch_does_not_wait(engine, cuda):
     engine.warmup()
     img = np.random.default_rng(2).standard_normal((64, 64, 3))
     ref = engine.logits(img[None])
@@ -147,3 +152,121 @@ def test_dispatch_does_not_wait_on_the_card(cuda):
     assert time.perf_counter() - t0 < 0.25
     assert sched.finalize() == 1
     _close(torch.from_numpy(req.logits).to(cuda), ref[0])
+
+
+def test_dispatch_does_not_wait_on_the_card(cuda):
+    """``step()`` copies the batch in and launches it without waiting for
+    the work already queued; ``finalize()`` is where the host waits."""
+    params = init_efficientvit(torch.Generator().manual_seed(0), B1_SMOKE)
+    _check_dispatch_does_not_wait(
+        VisionEngine(params, B1_SMOKE, VisionServeConfig(microbatch=1)),
+        cuda)
+
+
+def test_fix8_dispatch_does_not_wait_on_the_card(cuda):
+    """The same for the int8 dataflow: no quantize, scale or scratch
+    allocation on the FIX8 path waits for the card."""
+    params = init_efficientvit(torch.Generator().manual_seed(0), B1_SMOKE)
+    _check_dispatch_does_not_wait(
+        VisionEngine.quantized(params, B1_SMOKE,
+                               VisionServeConfig(microbatch=1)), cuda)
+
+
+# ---------------------------------------------------------------------------
+# FIX8 kernels: equal to their plain versions at the B1@224 shapes
+# ---------------------------------------------------------------------------
+
+def _i8(gen, device, *shape):
+    return torch.randint(-128, 128, shape, generator=gen,
+                         dtype=torch.int8).to(device)
+
+
+def _sc(gen, device, *shape, base=1e-2):
+    return (base * (0.5 + torch.rand(shape, generator=gen))).to(device)
+
+
+def _bias(gen, device, n):
+    return torch.randn(n, generator=gen).to(device)
+
+
+def _same(got, ref):
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert int((g != r).sum()) == 0
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("rows,K,N", [(196, 128, 384), (196, 256, 128),
+                                      (49, 256, 768), (49, 512, 256)])
+def test_int8_matmul_equals_plain(cuda, batch, rows, K, N):
+    g = torch.Generator().manual_seed(rows + K + N)
+    args = (_i8(g, cuda, batch * rows, K), _i8(g, cuda, K, N),
+            _sc(g, cuda, batch * rows), _sc(g, cuda, N))
+    n = int8_matmul.launches
+    got = int8_matmul(*args)
+    assert int8_matmul.launches == n + 1
+    _same((got,), (int8_matmul_ref(*args),))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_dsconv_int8_equals_plain(cuda, batch):
+    g = torch.Generator().manual_seed(batch)
+    args = (_i8(g, cuda, batch, 112, 112, 16), _sc(g, cuda, batch),
+            _i8(g, cuda, 3, 3, 16), _sc(g, cuda, 16), _bias(g, cuda, 16),
+            _i8(g, cuda, 16, 16), _sc(g, cuda, 16), _bias(g, cuda, 16))
+    _same((dsconv_fused_int8(*args),), (dsconv_int8_ref(*args),))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,C,M,F,stride", [
+    (112, 16, 64, 32, 2), (56, 32, 128, 32, 1), (56, 32, 128, 64, 2),
+    (28, 64, 256, 64, 1), (28, 64, 256, 128, 2), (14, 128, 512, 128, 1),
+    (14, 128, 512, 256, 2), (7, 256, 1024, 256, 1)])
+def test_mbconv_int8_equals_plain(cuda, batch, H, C, M, F, stride):
+    """Both variants at every B1@224 mbconv shape: the stride-2 sites
+    emit (S1.mb0, S2.mb0, S3/S4.down), the residual ones do not."""
+    g = torch.Generator().manual_seed(H * M + batch)
+    args = (_i8(g, cuda, batch, H, H, C), _sc(g, cuda, batch),
+            _i8(g, cuda, C, M), _sc(g, cuda, M, base=2e-3),
+            _bias(g, cuda, M), _i8(g, cuda, 3, 3, M), _sc(g, cuda, M),
+            _bias(g, cuda, M), _i8(g, cuda, M, F), _sc(g, cuda, F),
+            _bias(g, cuda, F))
+    ref = mbconv_int8_ref(*args, stride=stride)
+    if stride == 1:
+        _same((mbconv_fused_int8(*args, stride=stride),), (ref,))
+    else:
+        qt = quantize_act(ref)
+        _same(mbconv_fused_int8_emit(*args, stride=stride),
+              (qt.q, qt.scale, ref))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,C", [(14, 384), (7, 768)])
+def test_group_agg_int8_equals_plain(cuda, batch, H, C):
+    g = torch.Generator().manual_seed(C + batch)
+    args = (_i8(g, cuda, batch, H, H, C), _sc(g, cuda, batch),
+            _i8(g, cuda, 5, 5, C), _sc(g, cuda, C), _bias(g, cuda, C))
+    pw, tail = _i8(g, cuda, 16, C), (_sc(g, cuda, C), _bias(g, cuda, C))
+    _same((group_agg_int8(*args, pw, *tail),),
+          (group_agg_int8_ref(*args, block_diag(pw), *tail),))
+
+
+def test_fix8_engine_on_the_card(cuda):
+    """``VisionEngine.quantized`` launches the int8 kernels on every
+    fused site, its logits are finite, and a batch-8 forward equals eight
+    batch-1 forwards bit for bit (``chip_smoke.py`` holds the served
+    logits to the int8 reference forward)."""
+    params = init_efficientvit(torch.Generator().manual_seed(0), B1)
+    engine = VisionEngine.quantized(params, B1,
+                                    VisionServeConfig(microbatch=8))
+    x = _rand(np.random.default_rng(3), cuda, 8, 224, 224, 3)
+    counts = {f: f.launches for f in (int8_matmul, group_agg_int8,
+                                      mbconv_fused_int8,
+                                      mbconv_fused_int8_emit,
+                                      dsconv_fused_int8)}
+    got = engine.logits(x)
+    assert [f.launches - n for f, n in counts.items()] == [14, 7, 10, 4, 1]
+    assert got.shape == (8, 1000) and bool(torch.isfinite(got).all())
+    ones = torch.cat([engine.logits(x[i:i + 1]) for i in range(8)])
+    assert torch.equal(got, ones)

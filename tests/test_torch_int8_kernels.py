@@ -1,0 +1,281 @@
+"""The port's FIX8 kernels and quantization (``repro_torch``) on the CPU.
+
+On the CPU each int8 kernel wrapper takes its plain PyTorch version,
+which is held BIT FOR BIT against the JAX package's jnp oracle on the
+same numpy-seeded int8 inputs: int32 sums are exact on both sides, and
+every fp32 epilogue rounds after each multiply and add in the same
+order.  The JAX side runs op by op (``jax.disable_jit``): a jitted JAX
+helper lets XLA contract ``a*b+c`` into an FMA and turn a division by a
+constant into a reciprocal multiply, which eager torch never does.  The
+CUDA kernels are held against these plain versions, also bit for bit,
+by ``test_torch_cuda.py`` on the card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quantization as jq
+from repro.kernels.dsconv import ref as jdr
+from repro.kernels.group_conv import kernel as jgk
+from repro.kernels.group_conv import ops as jgo
+from repro.kernels.int8_matmul import ref as jir
+from repro.kernels.mbconv import ref as jmr
+from repro_torch.core import quantization as tq
+from repro_torch.core.efficientvit import B1, dsconv, mbconv
+from repro_torch.core.fusion import plan_program
+from repro_torch.core.program import lower
+from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
+from repro_torch.kernels.dsconv.ops import dsconv_apply_int8
+from repro_torch.kernels.group_conv.kernel import group_agg_int8
+from repro_torch.kernels.group_conv.ops import (
+    GroupAggInt8Kernel, block_diag, group_agg_apply_int8)
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul
+from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
+from repro_torch.kernels.mbconv.kernel import (
+    mbconv_fused_int8, mbconv_fused_int8_emit)
+from repro_torch.kernels.mbconv.ops import mbconv_apply_int8
+from repro_torch.kernels.registry import SMEM_LIMIT, get_kernel
+
+
+def _eager(fn, *args, **kw):
+    """A JAX function run op by op, its result(s) as numpy."""
+    with jax.disable_jit():
+        out = fn(*(jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                   for a in args), **kw)
+    return jax.tree.map(np.asarray, out)
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _equal(got, want):
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert got.dtype == want.dtype and got.shape == want.shape
+    n = int(np.sum(got != want))
+    assert n == 0, f"{n} of {want.size} elements differ"
+
+
+def _i8(rng, *shape):
+    return rng.integers(-128, 128, shape, dtype=np.int8)
+
+
+def _scales(rng, *shape):
+    return (rng.uniform(0.5, 1.5, shape) * 1e-2).astype(np.float32)
+
+
+def _x_scale(rng, kind, B):
+    return (_scales(rng) if kind == "tensor"
+            else _scales(rng, B))
+
+
+# ---------------------------------------------------------------------------
+# quantization primitives against core/quantization.py
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("axis", [None, -1, 0])
+def test_quantize_tensor_bit_equal(axis):
+    x = np.random.default_rng(1).standard_normal((3, 3, 8, 24)).astype(
+        np.float32)
+    q, s = tq.quantize_tensor(torch.from_numpy(x), axis=axis)
+    jqv, js = _eager(jq.quantize_tensor, x, axis=axis)
+    _equal(q, jqv)
+    _equal(s, js)
+
+
+def test_quantize_act_and_with_scale_bit_equal():
+    x = (np.random.default_rng(2).standard_normal((3, 5, 5, 7)) * 3).astype(
+        np.float32)
+    x[1] = 0.0                                   # the 1e-8 floor
+    qt = tq.quantize_act(torch.from_numpy(x), keep_fp=True)
+    jqt = _eager(jq.quantize_act, x)
+    _equal(qt.q, jqt.q)
+    _equal(qt.scale, jqt.scale)
+    assert qt.fp is not None
+    _equal(tq.quantize_with_scale(torch.from_numpy(x), 0.02),
+           _eager(jq.quantize_with_scale, x, 0.02))
+
+
+@pytest.mark.parametrize("k,stride,groups", [(3, 2, 1), (3, 1, 12), (1, 1, 1),
+                                             (5, 1, 12)])
+@pytest.mark.parametrize("batch", [1, 2])
+def test_conv2d_int8_bit_equal(k, stride, groups, batch):
+    rng = np.random.default_rng(k * 10 + stride + groups)
+    C, F = 12, 12 if groups > 1 else 20
+    x = rng.standard_normal((batch, 10, 10, C)).astype(np.float32)
+    w = (rng.standard_normal((k, k, C // groups, F)) * 0.3).astype(
+        np.float32)
+    qp = {"q": tq.quantize_tensor(torch.from_numpy(w), axis=-1)[0],
+          "scale": torch.from_numpy(_scales(rng, F)),
+          "bias": torch.from_numpy(rng.standard_normal(F).astype(np.float32))}
+    got = tq.conv2d_int8(qp, torch.from_numpy(x), stride=stride,
+                         groups=groups)
+    want = _eager(jq.conv2d_int8, {k_: v.numpy() for k_, v in qp.items()},
+                  x, stride=stride, groups=groups)
+    _equal(got, want)
+
+
+def test_matmul_int8_bit_equal():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((3, 40)).astype(np.float32)
+    qw = _i8(rng, 40, 17)
+    ws = _scales(rng, 17)
+    _equal(tq.matmul_int8(*_t(x, qw, ws)), _eager(jq.matmul_int8, x, qw, ws))
+
+
+# ---------------------------------------------------------------------------
+# each kernel's plain version against its JAX oracle, bit for bit
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("M,K,N", [(37, 50, 29), (196, 128, 384),
+                                   (98, 512, 256)])
+@pytest.mark.parametrize("scale", ["tensor", "row"])
+def test_int8_matmul_plain_matches_oracle(M, K, N, scale):
+    rng = np.random.default_rng(M + K + N)
+    x, w, ws = _i8(rng, M, K), _i8(rng, K, N), _scales(rng, N)
+    xs = _scales(rng) if scale == "tensor" else _scales(rng, M)
+    want = _eager(jir.int8_matmul_ref, x, w,
+                  xs if scale == "tensor" else xs[:, None], ws)
+    _equal(int8_matmul(*_t(x, w, xs, ws)), want)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("batch,scale", [(1, "tensor"), (2, "image"),
+                                         (2, "tensor")])
+def test_dsconv_int8_plain_matches_oracle(stride, batch, scale):
+    rng = np.random.default_rng(10 * stride + batch)
+    C, F = 16, 24
+    args = (_i8(rng, batch, 12, 12, C), _x_scale(rng, scale, batch),
+            _i8(rng, 3, 3, C), _scales(rng, C),
+            rng.standard_normal(C).astype(np.float32), _i8(rng, C, F),
+            _scales(rng, F), rng.standard_normal(F).astype(np.float32))
+    want = _eager(jdr.dsconv_int8_ref, *args, stride=stride)
+    _equal(dsconv_fused_int8(*_t(*args), stride=stride), want)
+
+
+def _mbconv_args(rng, batch, H, C, M, F, scale):
+    return (_i8(rng, batch, H, H, C), _x_scale(rng, scale, batch),
+            _i8(rng, C, M), _scales(rng, M) * 0.2,
+            rng.standard_normal(M).astype(np.float32), _i8(rng, 3, 3, M),
+            _scales(rng, M), rng.standard_normal(M).astype(np.float32),
+            _i8(rng, M, F), _scales(rng, F),
+            rng.standard_normal(F).astype(np.float32))
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("batch,scale", [(1, "tensor"), (2, "image")])
+def test_mbconv_int8_plain_matches_oracle(stride, batch, scale):
+    rng = np.random.default_rng(20 * stride + batch)
+    args = _mbconv_args(rng, batch, 10, 8, 32, 12, scale)
+    want = _eager(jmr.mbconv_int8_ref, *args, stride=stride)
+    _equal(mbconv_fused_int8(*_t(*args), stride=stride), want)
+    # the emitting variant: the same output, quantized per image
+    q, s, out = mbconv_fused_int8_emit(*_t(*args), stride=stride)
+    _equal(out, want)
+    jq_, js = zip(*[_eager(jq.quantize_tensor, w) for w in want])
+    _equal(q, np.stack(jq_))
+    _equal(s, np.stack(js))
+
+
+@pytest.mark.parametrize("H,heads,batch,scale", [(6, 2, 1, "tensor"),
+                                                 (7, 4, 2, "image")])
+def test_group_agg_int8_plain_matches_oracle(H, heads, batch, scale):
+    rng = np.random.default_rng(H * heads)
+    C, d = 3 * heads * 16, 16
+    pw = _i8(rng, 1, 1, d, C)
+    dense = _eager(jgo._block_diag, pw)
+    _equal(block_diag(torch.from_numpy(pw)), dense)
+    args = (_i8(rng, batch, H, H, C), _x_scale(rng, scale, batch),
+            _i8(rng, 5, 5, C), _scales(rng, C),
+            rng.standard_normal(C).astype(np.float32))
+    tail = (_scales(rng, C), rng.standard_normal(C).astype(np.float32))
+    want = _eager(jgk.group_agg_int8_ref, *args, dense, *tail)
+    _equal(group_agg_int8(*_t(*args, pw[0, 0], *tail)), want)
+
+
+# ---------------------------------------------------------------------------
+# the param-tree wrappers against the reference FIX8 blocks
+# ---------------------------------------------------------------------------
+
+def _qconv(rng, k, c_in, c_out, groups=1):
+    w = rng.standard_normal((k, k, c_in // groups, c_out)) * (
+        k * k * c_in // groups) ** -0.5
+    return {"qconv": {
+        "q": tq.quantize_tensor(torch.from_numpy(w.astype(np.float32)),
+                                axis=-1)[0],
+        "scale": torch.from_numpy(_scales(rng, c_out) * 5),
+        "bias": torch.from_numpy(
+            (0.1 * rng.standard_normal(c_out)).astype(np.float32))}}
+
+
+@pytest.mark.parametrize("stride,batch", [(1, 1), (2, 2)])
+def test_mbconv_apply_int8_equals_reference_block(stride, batch):
+    """Same arithmetic as the ``conv2d_int8`` chain of the reference
+    ``mbconv``, so equal bit for bit at any batch (per-image scales)."""
+    rng = np.random.default_rng(stride)
+    p = {"pw1": _qconv(rng, 1, 8, 32), "dw": _qconv(rng, 3, 32, 32, 32),
+         "pw2": _qconv(rng, 1, 32, 12)}
+    x = torch.from_numpy(rng.standard_normal((batch, 8, 8, 8)).astype(
+        np.float32))
+    ref = mbconv(p, x, stride=stride)
+    _equal(mbconv_apply_int8(p, x, stride=stride), ref.numpy())
+    from repro_torch.core.program import Epilogue
+    qt = mbconv_apply_int8(p, tq.quantize_act(x), stride=stride,
+                           epilogue=Epilogue("int8", "dynamic", "keep-fp"))
+    want = tq.quantize_act(ref)
+    _equal(qt.q, want.q.numpy())
+    _equal(qt.scale, want.scale.numpy())
+    _equal(qt.fp, ref.numpy())
+
+
+def test_dsconv_and_group_agg_apply_equal_reference_blocks():
+    rng = np.random.default_rng(4)
+    p = {"dw": _qconv(rng, 3, 16, 16, 16), "pw": _qconv(rng, 1, 16, 16)}
+    x = torch.from_numpy(rng.standard_normal((2, 9, 9, 16)).astype(
+        np.float32))
+    _equal(dsconv_apply_int8(p, x), dsconv(p, x).numpy())
+    C = 96
+    agg = {"dw": _qconv(rng, 5, C, C, C), "pw": _qconv(rng, 1, C, C, 6)}
+    qkv = torch.from_numpy(rng.standard_normal((2, 7, 7, C)).astype(
+        np.float32))
+    _equal(group_agg_apply_int8(agg, qkv),
+           GroupAggInt8Kernel().ref(agg, qkv, None).numpy())
+
+
+def test_conv1x1_w8a8_against_conv2d_int8():
+    """The GEMM route of the MSA projections: int8 codes and int32 sums
+    identical to ``conv2d_int8``; only the dequant order differs
+    ((acc * xs) * ws against acc * (xs * ws)), by at most an ulp."""
+    rng = np.random.default_rng(5)
+    qp = _qconv(rng, 1, 32, 48)["qconv"]
+    x = torch.from_numpy(rng.standard_normal((2, 5, 5, 32)).astype(
+        np.float32))
+    got = conv1x1_w8a8(qp, x)
+    ref = tq.conv2d_int8(qp, x)
+    assert got.shape == ref.shape
+    torch.testing.assert_close(got, ref, rtol=2.4e-7, atol=1e-6)
+    _equal(conv1x1_w8a8(qp, tq.quantize_act(x)), got.numpy())
+
+
+def test_int8_fit_model_fits_every_b1_site():
+    """Every B1@224 int8 site fits one CTA's shared memory, at batch 1
+    and 8, as JAX's VMEM model fits every site."""
+    for batch in (1, 8):
+        program = lower(B1, batch=batch)
+        for site in program.fusible():
+            impl = get_kernel(site.kind, "int8")
+            assert impl.smem_bytes(site, impl.tune(site)) <= SMEM_LIMIT
+
+
+def test_int8_plan_fuses_a_quantized_smoke_tree():
+    from repro_torch.core.efficientvit import B1_SMOKE, init_efficientvit
+    params = tq.quantize_efficientvit(init_efficientvit(
+        torch.Generator().manual_seed(0), B1_SMOKE, device="cpu"))
+    plan = plan_program(lower(B1_SMOKE), params)
+    assert all(d.fused and d.precision == "int8"
+               for d in plan.decisions.values())
+    forced = plan_program(lower(B1_SMOKE), params, precision="fp")
+    assert {d.reason for d in forced.decisions.values()} == {"quantized",
+                                                             "ok"}

@@ -174,16 +174,6 @@ def test_plan_error_names_the_site(smoke):
     assert exc.value.site == "S3.evit0.msa"
 
 
-def test_quantized_tree_raises_not_implemented(smoke):
-    tp = params_from_jax(smoke, "cpu")
-    tp["stem_ds"][0] = {"dw": {"qconv": {}}, "pw": {"qconv": {}}}
-    program = tprog.lower(tevit.B1_SMOKE)
-    with pytest.raises(NotImplementedError, match="FIX8"):
-        tfusion.plan_program(program, tp)
-    with pytest.raises(NotImplementedError, match="FIX8"):
-        tprog.execute(program, tp, torch.zeros((1, 64, 64, 3)))
-
-
 # ---------------------------------------------------------------------------
 # the forward
 # ---------------------------------------------------------------------------
