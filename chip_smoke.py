@@ -16,14 +16,26 @@
       median of 5 windows; the bound is max(bytes / 3.35 TB/s, flops /
       67 TFLOP/s), the H100 SXM's published memory rate and non-tensor
       fp32 rate, with each input read once and each output written once.
+      The super-site chain kernel ``supersite_fused`` runs at the two
+      chains of B1@224 (S1.ss0 = S1.mb0..mb1, S2.ss0 = S2.mb0..mb2) with
+      the band height and channel chunk the planner picks; its bound
+      counts the chain's input, output and weight pack once and the
+      members' MACs without the bands' halo recompute.  A sweep times
+      it at band heights 1, 2, 4 and chunks 16, 32 beside the choice.
    b. ``VisionEngine`` over B1@224 fp32 (random weights and BN
       statistics from ``--seed``, microbatch 8) serves 12 requests with
-      mixed deadlines through its scheduler.  Every launch counter is
-      reset just before and read just after: each dispatched forward
-      must launch dsconv_fused 1x, mbconv_fused 14x and
-      relu_attn_noncausal 7x.  The logits must match the port's
-      reference forward (``execute`` with ``plan=None``) on the card
-      within rtol = atol = 1e-3, with the same top-1.
+      mixed deadlines through its scheduler, on the default plan, which
+      groups exactly S1.ss0 and S2.ss0 in every bucket (their blocks,
+      band windows and recompute factors are printed).  Every launch
+      counter is reset just before and read just after: each dispatched
+      forward must launch dsconv_fused 1x, mbconv_fused 9x,
+      relu_attn_noncausal 7x and supersite_fused 2x.  The logits must
+      match the port's reference forward (``execute`` with ``plan=None``)
+      on the card within rtol = atol = 1e-3, with the same top-1.  Each
+      group's weight pack is built once per engine and hit by every
+      later bucket.  One batch-8 forward under the per-site plan
+      (``supersites=False``) must match the grouped one within 1e-4 *
+      max(1, max|logit|), with the same top-1.
 3. FIX8 phase.
    a. Each int8 kernel against its plain PyTorch version at every B1@224
       int8 shape on the path, batch 1 and 8, on random int8 codes: the
@@ -31,20 +43,24 @@
       fp32 step in the same order).  The bound is max(bytes / 3.35 TB/s,
       int8 ops / 1,979 TOPS); ``int8_matmul`` is also timed against
       ``torch._int_mm`` + the same epilogue, a yardstick the port never
-      calls.
+      calls.  ``supersite_fused_int8`` runs both chains with the served
+      exit (int8 codes + scales + the kept fp map).
    b. ``VisionEngine.quantized`` over the same fp tree, quantized by the
-      port, serves the same trace.  Counters reset just before, read
-      just after: each forward must launch int8_matmul 14x,
-      group_agg_int8 7x, mbconv_fused_int8 10x, mbconv_fused_int8_emit
-      4x, dsconv_fused_int8 1x and relu_attn_noncausal 7x.  The logits
+      port, serves the same trace on the default plan (S1.ss0 and S2.ss0
+      grouped).  Counters reset just before, read just after: each
+      forward must launch int8_matmul 14x, group_agg_int8 7x,
+      mbconv_fused_int8 7x, mbconv_fused_int8_emit 2x, dsconv_fused_int8
+      1x, relu_attn_noncausal 7x and supersite_fused_int8 2x.  The logits
       must have the top-1 of the port's int8 reference forward and lie
       within 0.1 * max|logit| of it (the int8 requants turn the fp32
       attention core's reduction-order ulps into whole-code flips; the
-      measured gap is printed), and row i of a batch-8 forward must
-      equal the batch-1 forward of image i bit for bit.
+      measured gap is printed), row i of a batch-8 forward must equal the
+      batch-1 forward of image i bit for bit, and the batch-8 forward
+      under the per-site plan must equal the grouped one bit for bit.
+      Pack residency as in 2b.
 4. One JSON line with every kernel's launches on its served run(s),
    error and times (ms are per B1@224 batch-8 forward: the sum over
-   that forward's launches).
+   that forward's calls).
 5. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.
@@ -67,6 +83,10 @@ PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32, non-tensor (data sheet)
 PEAK_INT8_OPS = 1979e12       # H100 SXM int8 tensor cores, dense
 TOL = 1e-4
 CHAOS = 0.1                   # FIX8 served logits vs the int8 reference
+# the default plan's super-site groups at B1@224, both precisions
+GROUPS = {"S1.ss0": ("S1.mb0", "S1.mb1"),
+          "S2.ss0": ("S2.mb0", "S2.mb1", "S2.mb2")}
+GROUPED = {m for members in GROUPS.values() for m in members}
 
 
 def fail(msg: str) -> int:
@@ -109,7 +129,10 @@ def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_FLOPS
 
 def kernel_cases(batch: int, gen):
     """(kernel, site names, shape label, kernel fn, plain fn, bytes,
-    flops) for every distinct fused shape of B1@224 at ``batch``."""
+    flops) for every distinct fused shape of B1@224 at ``batch``.  The
+    names are the sites whose per-site launch the served (grouped) plan
+    makes; a shape only the super-site members have is still checked,
+    with no site to its name (the per-site plan launches it)."""
     import torch
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.fusion import decision_shape
@@ -130,7 +153,7 @@ def kernel_cases(batch: int, gen):
     cases = []
     for (kind, shape), sites in groups.items():
         s = sites[0]
-        names = [x.name for x in sites]
+        names = [x.name for x in sites if x.name not in GROUPED]
         if kind == "dsconv":
             B, H, W, C, _, F, st = shape
             x, dw, db = rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C)
@@ -178,8 +201,8 @@ def kernel_cases(batch: int, gen):
 def int8_kernel_cases(batch: int, gen):
     """(kernel, site names, shape label, kernel fn, plain fn, bytes, int8
     ops, library fn or None) for every distinct int8 kernel shape of the
-    B1@224 FIX8 path at ``batch``, on random int8 codes.  Each fn returns
-    a tuple of tensors."""
+    B1@224 FIX8 path at ``batch``, on random int8 codes, named as in
+    ``kernel_cases``.  Each fn returns a tuple of tensors."""
     import torch
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.fusion import decision_shape
@@ -229,7 +252,7 @@ def int8_kernel_cases(batch: int, gen):
                 groups.setdefault(key, []).append(site)
     cases = []
     for (name, shape), sites in groups.items():
-        names = [x.name for x in sites]
+        names = [x.name for x in sites if x.name not in GROUPED]
         lib = None
         if name == "int8_matmul":
             M, K, N = shape
@@ -289,6 +312,171 @@ def int8_kernel_cases(batch: int, gen):
             label = f"x{(B, H, W, C)} M={M} F={F} s={st}"
         cases.append((name, names, label, kfn, pfn, nbytes, ops, lib))
     return cases
+
+def chain_macs(sup) -> int:
+    """Multiply-adds of one image through a chain's members, without the
+    bands' halo recompute."""
+    n = 0
+    for m in sup.sites:
+        _, H, W, C = m.in_shape
+        _, Ho, Wo, F = m.out_shape
+        if m.kind == "mbconv":
+            M = m.attrs["mid"]
+            n += H * W * C * M + Ho * Wo * M * (9 + F)
+        else:
+            n += Ho * Wo * C * (9 + F)
+    return n
+
+
+def chain_cases(batch: int, gen, params, qparams):
+    """(fp32 cases, int8 cases) of the two super-site chains of B1@224 at
+    ``batch``, as ``kernel_cases`` / ``int8_kernel_cases`` give them:
+    random inputs, the weights of the served trees."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.program import SuperSite, lower
+    from repro_torch.kernels.supersite.kernel import (
+        supersite_fused, supersite_fused_int8)
+    from repro_torch.kernels.supersite.ops import (
+        choose_blocks, make_fp_geom, make_int8_geom)
+    from repro_torch.kernels.supersite.pack import pack_weights
+    from repro_torch.kernels.supersite.ref import (
+        supersite_int8_ref, supersite_ref)
+
+    program = lower(B1, batch=batch)
+    fp_cases, q_cases = [], []
+    for name, members in GROUPS.items():
+        sup = SuperSite.of(program, members, name=name)
+        B = batch
+        _, Ho, Wo, F = sup.out_shape
+        ops = 2 * B * chain_macs(sup)
+        pack = pack_weights(params, sup, "fp")
+        blocks = choose_blocks(sup)
+        geom = make_fp_geom(sup, pack, blocks["block_rows"],
+                            blocks["block_m"])
+        x = torch.randn(sup.in_shape, generator=gen).cuda()
+        fp_cases.append((
+            "supersite_fused", [name],
+            f"{name} x{tuple(x.shape)} R={geom.block_rows} "
+            f"bm={geom.block_m} bands={geom.n_bands}",
+            lambda x=x, p=pack, g=geom: supersite_fused(x, p.fp, geom=g),
+            lambda x=x, p=pack, g=geom: supersite_ref(x, p.fp, geom=g),
+            4 * (x.numel() + B * Ho * Wo * F) + pack.nbytes, ops))
+        qpack = pack_weights(qparams, sup, "int8")
+        qgeom = make_int8_geom(sup, qpack)
+        x_q = torch.randint(-128, 128, sup.in_shape, generator=gen,
+                            dtype=torch.int8).cuda()
+        xs = (1e-2 * (0.5 + torch.rand(B, generator=gen))).cuda()
+        q_cases.append((
+            "supersite_fused_int8", [name],
+            f"{name} x{tuple(x_q.shape)} exit int8+fp",
+            lambda a=(x_q, xs, qpack.q, qpack.fp), g=qgeom:
+                supersite_fused_int8(*a, geom=g, exit_emit=True,
+                                     keep_fp=True),
+            lambda a=(x_q, xs, qpack.q, qpack.fp), g=qgeom:
+                supersite_int8_ref(*a, geom=g, exit_emit=True),
+            x_q.numel() + 4 * B + 5 * B * Ho * Wo * F + 4 * B
+            + qpack.nbytes, ops, None))
+    return fp_cases, q_cases
+
+
+def band_sweep(params, gen) -> None:
+    """Time ``supersite_fused`` at both B1@224 chains, batch 1 and 8, over
+    band heights and channel chunks around the planner's choice (the
+    evidence ``choose_blocks`` follows)."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.program import SuperSite, lower
+    from repro_torch.kernels.registry import SMEM_LIMIT
+    from repro_torch.kernels.supersite.kernel import supersite_fused
+    from repro_torch.kernels.supersite.ops import (
+        choose_blocks, make_fp_geom, supersite_smem_bytes)
+    from repro_torch.kernels.supersite.pack import pack_weights
+
+    for batch in (1, 8):
+        program = lower(B1, batch=batch)
+        for name, members in GROUPS.items():
+            sup = SuperSite.of(program, members, name=name)
+            pack = pack_weights(params, sup, "fp")
+            x = torch.randn(sup.in_shape, generator=gen).cuda()
+            chosen = choose_blocks(sup)
+            cells = []
+            for rows in (1, 2, 4):
+                for bm in (16, 32):
+                    if supersite_smem_bytes(sup, rows, bm) > SMEM_LIMIT:
+                        continue
+                    geom = make_fp_geom(sup, pack, rows, bm)
+                    ms = device_ms(lambda g=geom: supersite_fused(
+                        x, pack.fp, geom=g), reps=10, windows=3)
+                    cells.append(f"R={rows},bm={bm}:{ms:.4f}")
+            print(f"[band sweep] {name} B={batch} chosen {chosen}; ms "
+                  f"{' '.join(cells)}")
+
+
+def check_groups(engine, tag) -> None:
+    """Every bucket's plan groups exactly ``GROUPS``; print each group's
+    blocks, its band windows and the rows each member computes per row
+    it hands on (the halo recompute), and the pack counters: one build
+    per group per engine, a hit for every later bucket."""
+    from repro_torch.core.program import SuperSite
+    from repro_torch.kernels.supersite.ops import fp_windows
+
+    for key in engine.cache.keys():
+        ex = engine.cache.get(key.batch, key.resolution)
+        got = {g.name: tuple(g.members) for g in ex.plan.groups.values()}
+        if got != GROUPS:
+            raise AssertionError(f"bucket {key.batch}: groups {got}, "
+                                 f"expected {GROUPS}")
+        for g in ex.plan.groups.values():
+            text = f"[{tag}] bucket {key.batch} {g.name} {g.precision} " \
+                   f"blocks {dict(g.blocks)}"
+            if g.precision == "fp":
+                sup = SuperSite.of(ex.program, g.members, name=g.name)
+                nb, members = fp_windows(sup, g.blocks["block_rows"])
+                text += "; windows/recompute " + ", ".join(
+                    f"{m_.n_out}<-{m_.length} rows "
+                    f"x{m_.n_out * nb / (m_.h_in // m_.stride):.2f}"
+                    for m_ in members)
+            print(text)
+    counters = engine.telemetry.counters
+    built = counters.get("weight_pack_built", 0)
+    hits = counters.get("weight_pack_hit", 0)
+    n_buckets = len(engine.cache.keys())
+    print(f"[{tag}] weight packs: built {built}, hit {hits} over "
+          f"{n_buckets} buckets")
+    if built != len(GROUPS) or hits != len(GROUPS) * (n_buckets - 1):
+        raise AssertionError(f"weight packs built {built}, hit {hits}: "
+                             f"expected one build per group per engine")
+
+
+def grouped_vs_per_site(engine, x8, tag, exact: bool):
+    """The batch-8 forward of the served (grouped) plan against the same
+    forward under ``supersites=False``."""
+    import torch
+    from repro_torch.core.fusion import plan_program
+    from repro_torch.core.program import execute
+
+    ex = engine.cache.get(8, x8.shape[1])
+    flat = plan_program(ex.program, engine.params, supersites=False)
+    if flat.groups or not ex.plan.groups:
+        raise AssertionError("the per-site plan must not group, the "
+                             "served one must")
+    with torch.inference_mode():
+        got = engine.logits(x8)
+        want = execute(ex.program, engine.params, x8, plan=flat)
+    torch.cuda.synchronize()
+    d = (got - want).abs().max().item()
+    top = max(1.0, want.abs().max().item())
+    print(f"[{tag}] grouped vs per-site plan, batch 8: max|d| {d:.3e} "
+          f"(max(1, max|logit|) {top:.3e})")
+    if exact and not torch.equal(got, want):
+        raise AssertionError(f"grouped FIX8 logits differ from per-site: "
+                             f"{int((got != want).sum())} of {got.numel()}")
+    if not d <= TOL * top:
+        raise AssertionError(f"grouped fp32 logits {d:.3e} from per-site")
+    if not torch.equal(got.argmax(-1), want.argmax(-1)):
+        raise AssertionError("grouped top-1 differs from per-site")
+
 
 def randomize_bn(tree, gen) -> None:
     """Give every BatchNorm non-trivial statistics (init is identity,
@@ -415,7 +603,9 @@ def serve_trace(engine, images, wrappers, expected, tag):
 
 
 def steady_state(engine, rng, tag):
-    """64 images as 8 full buckets, host clock to a synchronize."""
+    """64 images as 8 full buckets, host clock to a synchronize; then one
+    batch-8 forward's device time (CUDA events, the host's enqueue hidden
+    behind a sleep kernel) beside the host's time to enqueue it."""
     import numpy as np
     import torch
     batch64 = torch.from_numpy(
@@ -428,6 +618,19 @@ def steady_state(engine, rng, tag):
     wall = time.perf_counter() - t0
     print(f"[{tag}] steady state: 64 images in 8 buckets of 8: "
           f"{wall * 1e3:.2f} ms = {64 / wall:.1f} images/s")
+    ex = engine.cache.get(8, 224)
+    fwd = lambda: ex(engine.params, batch64[:8])
+    dev = device_ms(fwd, reps=5, windows=3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        fwd()
+    host = (time.perf_counter() - t0) / 5 * 1e3
+    torch.cuda.synchronize()
+    per = wall / 8 * 1e3
+    print(f"[{tag}] one batch-8 forward: device {dev:.3f} ms, host enqueue "
+          f"{host:.3f} ms, steady state {per:.3f} ms per forward (device "
+          f"idle {max(0.0, 1 - dev / per):.1%} of it)")
 
 
 def main() -> int:
@@ -452,7 +655,10 @@ def main() -> int:
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul
     from repro_torch.kernels.mbconv.kernel import (
         mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
+    from repro_torch.core.quantization import quantize_efficientvit
     from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+    from repro_torch.kernels.supersite.kernel import (
+        supersite_fused, supersite_fused_int8)
     from repro_torch.serving.vision import VisionEngine, VisionServeConfig
 
     # -- 1. set-up ------------------------------------------------------
@@ -477,15 +683,19 @@ def main() -> int:
                 "mbconv_fused_int8_emit": mbconv_fused_int8_emit,
                 "dsconv_fused_int8": dsconv_fused_int8,
                 "int8_matmul": int8_matmul,
-                "group_agg_int8": group_agg_int8}
-    expected_fp = {"dsconv_fused": 1, "mbconv_fused": 14,
+                "group_agg_int8": group_agg_int8,
+                "supersite_fused": supersite_fused,
+                "supersite_fused_int8": supersite_fused_int8}
+    expected_fp = {"dsconv_fused": 1, "mbconv_fused": 9,
                    "relu_attn_noncausal": 7, "mbconv_fused_int8": 0,
                    "mbconv_fused_int8_emit": 0, "dsconv_fused_int8": 0,
-                   "int8_matmul": 0, "group_agg_int8": 0}
+                   "int8_matmul": 0, "group_agg_int8": 0,
+                   "supersite_fused": 2, "supersite_fused_int8": 0}
     expected_int8 = {"dsconv_fused": 0, "mbconv_fused": 0,
-                     "relu_attn_noncausal": 7, "mbconv_fused_int8": 10,
-                     "mbconv_fused_int8_emit": 4, "dsconv_fused_int8": 1,
-                     "int8_matmul": 14, "group_agg_int8": 7}
+                     "relu_attn_noncausal": 7, "mbconv_fused_int8": 7,
+                     "mbconv_fused_int8_emit": 2, "dsconv_fused_int8": 1,
+                     "int8_matmul": 14, "group_agg_int8": 7,
+                     "supersite_fused": 0, "supersite_fused_int8": 2}
     csrc, jk = "src/repro_torch/csrc/", "src/repro/kernels/"
     sources = {
         "dsconv_fused": (csrc + "dsconv.cu", jk + "dsconv/kernel.py:57"),
@@ -502,25 +712,34 @@ def main() -> int:
                         jk + "int8_matmul/kernel.py:45"),
         "group_agg_int8": (csrc + "group_agg.cu",
                            jk + "group_conv/kernel.py:60"),
+        "supersite_fused": (csrc + "supersite.cu",
+                            jk + "supersite/kernel.py:191"),
+        "supersite_fused_int8": (csrc + "supersite_int8.cu",
+                                 jk + "supersite/kernel.py:353"),
     }
     gen = torch.Generator().manual_seed(args.seed)
     per_fwd = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                    "bytes_s": 0.0, "ops_s": 0.0} for k in wrappers}
     max_err = {k: 0.0 for k in wrappers}
 
-    # -- 2a. fp32 kernels against their plain versions -----------------
-    for batch in (1, 8):
-        check_kernels(kernel_cases(batch, gen), batch, per_fwd, max_err,
-                      exact=False)
-
-    # -- 2b. the fp32 main path -----------------------------------------
     params = init_efficientvit(gen, B1, "cuda")
     randomize_bn(params, gen)
+    qparams = quantize_efficientvit(params)
+    chains = {b: chain_cases(b, gen, params, qparams) for b in (1, 8)}
+
+    # -- 2a. fp32 kernels against their plain versions -----------------
+    for batch in (1, 8):
+        check_kernels(kernel_cases(batch, gen) + chains[batch][0], batch,
+                      per_fwd, max_err, exact=False)
+    band_sweep(params, gen)
+
+    # -- 2b. the fp32 main path -----------------------------------------
     engine = VisionEngine(params, B1, VisionServeConfig(microbatch=8))
     rng = np.random.default_rng(args.seed)
     images = rng.standard_normal((12, 224, 224, 3)).astype(np.float32)
     got, launches_fp = serve_trace(engine, images, wrappers, expected_fp,
                                    "serve")
+    check_groups(engine, "serve")
     with torch.inference_mode():
         ref = execute(lower(B1, batch=12), engine.params,
                       torch.from_numpy(images).cuda()).cpu().numpy()
@@ -530,20 +749,22 @@ def main() -> int:
     print(f"[serve] logits vs reference forward: max|d| "
           f"{np.abs(got - ref).max():.3e} (max|ref| "
           f"{np.abs(ref).max():.3e}), top-1 equal")
+    x12 = torch.from_numpy(images).cuda()
+    grouped_vs_per_site(engine, x12[:8], "serve", exact=False)
     steady_state(engine, rng, "serve")
     del engine
 
     # -- 3a. int8 kernels against their plain versions -----------------
     for batch in (1, 8):
-        check_kernels(int8_kernel_cases(batch, gen), batch, per_fwd,
-                      max_err, exact=True)
+        check_kernels(int8_kernel_cases(batch, gen) + chains[batch][1],
+                      batch, per_fwd, max_err, exact=True)
 
     # -- 3b. the FIX8 main path -----------------------------------------
     qengine = VisionEngine.quantized(params, B1,
                                      VisionServeConfig(microbatch=8))
     got, launches_q = serve_trace(qengine, images, wrappers, expected_int8,
                                   "fix8")
-    x12 = torch.from_numpy(images).cuda()
+    check_groups(qengine, "fix8")
     with torch.inference_mode():
         ref = execute(lower(B1, batch=12), qengine.params,
                       x12).cpu().numpy()
@@ -563,6 +784,7 @@ def main() -> int:
             f"batch-8 forward differ from the batch-1 forwards")
     print("[fix8] batch invariance: the 8 rows of a batch-8 forward equal "
           "the 8 batch-1 forwards bit for bit")
+    grouped_vs_per_site(qengine, x12[:8], "fix8", exact=True)
     steady_state(qengine, rng, "fix8")
 
     # -- 4. the kernels line --------------------------------------------

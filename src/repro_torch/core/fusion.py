@@ -11,18 +11,23 @@ Blocks are frozen from each kernel's deterministic choice, as the JAX
 planner freezes its first candidate without a sweep.  A quantized
 (``quantize_efficientvit``) tree plans the FIX8 kernels, and
 ``assign_epilogues`` then gives each producer of a fused int8 consumer
-an int8 ``Epilogue`` (the int8 dataflow).  Autotune sweeps, schedule
-overrides, fault demotion and the super-site grouping pass are later
-slices of the port.
+an int8 ``Epilogue`` (the int8 dataflow).  The super-site grouping pass
+(``supersites=True``, the default as in JAX) then joins runs of
+consecutive fused conv sites of one stage into single-launch groups.
+Autotune sweeps, schedule overrides (``group_break`` among them) and
+fault demotion are later slices of the port.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping
 
-__all__ = ["SiteDecision", "FusionPlan", "plan_program", "plan_report",
-           "launch_counts", "decision_shape", "assign_epilogues",
-           "EXPECTED_B1_FUSED_LAUNCHES", "EXPECTED_B1_FUSED_LAUNCHES_INT8"]
+__all__ = ["SiteDecision", "GroupDecision", "FusionPlan", "plan_program",
+           "plan_report", "launch_counts", "decision_shape",
+           "assign_epilogues", "EXPECTED_B1_FUSED_LAUNCHES",
+           "EXPECTED_B1_FUSED_LAUNCHES_INT8",
+           "EXPECTED_B1_SUPERSITE_LAUNCHES",
+           "EXPECTED_B1_SUPERSITE_LAUNCHES_INT8"]
 
 # Drift gate: one fused launch per fusible site of EfficientViT-B1
 # (1 stem DSConv + 2+3 MBConv + 2 downsamples + (3+4) x (MSA + MBConv)).
@@ -30,6 +35,12 @@ EXPECTED_B1_FUSED_LAUNCHES = 22
 # FIX8: a fused int8 MSA site counts ``n_branches`` launches (the
 # attention core + one grouped aggregation kernel per scale): 22 + 7.
 EXPECTED_B1_FUSED_LAUNCHES_INT8 = 29
+# The default plan groups B1's S1 [mb0, mb1] (-1 launch) and S2 [mb0,
+# mb1, mb2] (-2) into one launch each; stem.ds0 is a run of one and the
+# S3/S4 conv sites interleave with MSA sites.  The numbers above remain
+# the ``supersites=False`` expectation.
+EXPECTED_B1_SUPERSITE_LAUNCHES = 19           # 22 - 3
+EXPECTED_B1_SUPERSITE_LAUNCHES_INT8 = 26      # 29 - 3
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,6 +59,22 @@ class SiteDecision:
     #                           output (producer side); None -> fp
     q_in: bool = False     # the producer's epilogue delivers this site's
     #                        input quantized (an int8 boundary)
+    group: str = ""        # super-site membership ("" = ungrouped)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupDecision:
+    """One super-site group frozen into a plan: ``members`` name the
+    consecutive conv sites the executor runs as ONE ``kernels/supersite``
+    launch (``core.program.SuperSite.of`` re-derives the chain)."""
+    name: str                 # e.g. "S1.ss0"
+    members: tuple            # member site names, program order
+    precision: str = "fp"     # uniform across the chain
+    blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    #                           fp: {"block_rows", "block_m"}; int8: {}
+    shape: tuple = ()         # in_shape + out_shape of the chain
+    reused: bool = False      # blocks inherited from a donor plan
+    kind: str = "supersite"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +83,9 @@ class FusionPlan:
     # producer-side output epilogues by site name, structural producers
     # (a quantized stem conv feeding a fused int8 DSConv) included
     epilogues: Mapping[str, object] = dataclasses.field(default_factory=dict)
+    # super-site groups by name (member decisions carry ``group``)
+    groups: Mapping[str, GroupDecision] = dataclasses.field(
+        default_factory=dict)
 
     def get(self, name):
         return self.decisions.get(name)
@@ -127,14 +157,17 @@ def _decide(site, params, *, enabled, precision, reuse=None):
 def plan_program(program, params, *, fuse_dsconv: bool = True,
                  fuse_mbconv: bool = True, fuse_msa: bool = True,
                  precision: str = "auto",
-                 reuse: FusionPlan | None = None) -> FusionPlan:
+                 reuse: FusionPlan | None = None,
+                 supersites: bool = True) -> FusionPlan:
     """Freeze per-site routing for a lowered ``core.program.Program``.
 
     ``precision``: "auto" matches each site's params; "fp"/"int8" force
     one family and demote mismatched sites to the reference path.
     ``reuse``: a donor plan (another batch bucket at the same
-    resolution); sites whose geometry matches a fused donor decision
-    inherit its blocks (``reused=True``).  A failure inside one site's
+    resolution); sites and groups whose geometry matches a fused donor
+    decision inherit its blocks (``reused=True``).  ``supersites`` (on by
+    default) runs the grouping pass last (``_group_supersites``);
+    ``False`` keeps per-site launches.  A failure inside one site's
     decision is re-raised as ``PlanError`` naming the site.
     """
     from repro_torch.common.errors import PlanError, ReproError
@@ -161,7 +194,97 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
         if name in ep_map or name in q_in:
             decisions[name] = dataclasses.replace(
                 d, epilogue=ep_map.get(name), q_in=name in q_in)
-    return FusionPlan(decisions=decisions, epilogues=ep_map)
+    groups = (_group_supersites(program, decisions, reuse) if supersites
+              else {})
+    return FusionPlan(decisions=decisions, epilogues=ep_map, groups=groups)
+
+
+def _group_blocks(sup, prec, reuse, gname):
+    """(blocks, reused) of a chain, or None when the chain fits no CTA.
+    A donor group qualifies when it has the same name, members and
+    precision and the exact shape: the fp band height follows the
+    batch."""
+    from repro_torch.kernels.registry import get_kernel
+
+    g = reuse.groups.get(gname) if reuse is not None else None
+    if (g is not None and g.members == sup.members and g.precision == prec
+            and tuple(g.shape) == tuple(sup.in_shape) + tuple(sup.out_shape)):
+        return dict(g.blocks), True
+    impl = get_kernel("supersite", prec)
+    blocks = impl.tune(sup)
+    if blocks is None or impl.smem_bytes(sup, blocks) > impl.smem_budget:
+        return None
+    return blocks, False
+
+
+def _group_supersites(program, decisions, reuse=None):
+    """The super-site pass: maximal runs of consecutive, same-stage,
+    uniform-precision fused conv sites -> ``GroupDecision``s, each run as
+    ONE ``kernels/supersite`` launch.
+
+    Runs after epilogue assignment and updates ``decisions`` in place:
+    members get ``group=<name>``; an fp site the per-site pass demoted for
+    shared memory (``"vmem"``) is rescued into a group whose banded chain
+    fits and becomes ``fused=True, reason="ok"``.  Any other demotion
+    splits the run around the site.
+    """
+    from repro_torch.core.program import SUPERSITE_KINDS, SuperSite
+
+    groups: dict[str, GroupDecision] = {}
+    counters: dict[str, int] = {}
+    run: list = []                       # [(site, decision), ...]
+
+    def member_decision(site):
+        if site.kind not in SUPERSITE_KINDS:
+            return None
+        d = decisions.get(site.name)
+        if d is None:
+            return None
+        if d.fused and d.reason == "ok":
+            return d
+        # only fp is rescued: an int8 site that did not fit alone does
+        # not fit in a whole-map chain either
+        if not d.fused and d.reason == "vmem" and d.precision == "fp":
+            return d
+        return None
+
+    def flush():
+        nonlocal run
+        members, run = run, []
+        if len(members) < 2:
+            return
+        names = tuple(s.name for s, _ in members)
+        prec = members[0][1].precision
+        stage = names[0].split(".", 1)[0]
+        gname = f"{stage}.ss{counters.get(stage, 0)}"
+        sup = SuperSite.of(program, names, name=gname)
+        fit = _group_blocks(sup, prec, reuse, gname)
+        if fit is None:
+            return
+        counters[stage] = counters.get(stage, 0) + 1
+        groups[gname] = GroupDecision(
+            gname, names, precision=prec, blocks=fit[0],
+            shape=tuple(sup.in_shape) + tuple(sup.out_shape),
+            reused=fit[1])
+        for s, d in members:
+            decisions[s.name] = dataclasses.replace(
+                d, fused=True, reason="ok", group=gname)
+
+    prev_stage = None
+    for site in program.sites:
+        d = member_decision(site)
+        if d is None:
+            flush()
+            prev_stage = None
+            continue
+        stage = site.name.split(".", 1)[0]
+        if run and (stage != prev_stage
+                    or d.precision != run[0][1].precision):
+            flush()
+        run.append((site, d))
+        prev_stage = stage
+    flush()
+    return groups
 
 
 def assign_epilogues(program, params, decisions):
@@ -292,21 +415,49 @@ def _delivered_bytes(d, unf, fus):
     return B * H * W * C * (1 if d.q_in else 4) + out_b
 
 
+def _group_delivered(d, first: bool, last: bool) -> int:
+    """Activation bytes a super-site member moves: the chain's entry
+    boundary on its first member, the exit boundary (per the exit
+    epilogue) on its last, nothing in between (on chip)."""
+    B, H, W, C, _, F, stride = d.shape
+    delivered = B * H * W * C * (1 if d.q_in else 4) if first else 0
+    if last:
+        outn = (B * (H // stride) * (W // stride) * F if d.kind == "mbconv"
+                else B * H * W * F)
+        ep = d.epilogue
+        delivered += (outn * 4 if ep is None or not ep.emits_q
+                      else outn * (1 + (4 if ep.keeps_fp else 0)))
+    return delivered
+
+
 def plan_report(plan: FusionPlan) -> list[dict]:
     """Per-site analytic device-memory bytes (unfused, fused, delivered
-    under the plan's epilogues), weight bytes and launch counts."""
+    under the plan's epilogues), weight bytes and launch counts.
+
+    A super-site group's one launch lands on its FIRST member's row (0
+    on the others); its delivered bytes are the chain's entry on the
+    first member and its exit on the last.  ``hbm_w`` stays per member:
+    the pack holds each member's weights once."""
+    first_of = {g.members[0] for g in plan.groups.values()}
+    last_of = {g.members[-1] for g in plan.groups.values()}
     rows = []
     for d in plan.decisions.values():
         unf, fus, w_bytes, launches = _site_accounting(d.kind, d.shape,
                                                        d.precision)
+        if d.group and d.kind in ("mbconv", "dsconv"):
+            launches_fused = int(d.name in first_of)
+            delivered = _group_delivered(d, d.name in first_of,
+                                         d.name in last_of)
+        else:
+            launches_fused = launches[1] if d.fused else launches[0]
+            delivered = _delivered_bytes(d, unf, fus)
         rows.append({
             "site": d.name, "kind": d.kind, "fused": d.fused,
-            "reason": d.reason, "precision": d.precision,
+            "reason": d.reason, "precision": d.precision, "group": d.group,
             "hbm_unfused": unf, "hbm_fused": fus if d.fused else unf,
-            "hbm_w": w_bytes, "hbm_delivered": _delivered_bytes(d, unf, fus),
+            "hbm_w": w_bytes, "hbm_delivered": delivered,
             "q_in": d.q_in, "epilogue": d.epilogue,
-            "launches_ref": launches[0],
-            "launches_fused": launches[1] if d.fused else launches[0],
+            "launches_ref": launches[0], "launches_fused": launches_fused,
         })
     return rows
 

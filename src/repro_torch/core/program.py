@@ -11,8 +11,9 @@ Counterpart of ``repro/core/program.py``:
 kernel registry (``repro_torch.kernels.registry``) when a ``FusionPlan``
 decision fuses them; with ``plan=None`` it runs the reference ops.  A
 ``quantize_efficientvit`` (FIX8) tree runs the int8 dataflow: producers
-named by the plan's epilogues hand their consumers ``QTensor``s.
-Super-site groups and per-site profiling belong to later slices.
+named by the plan's epilogues hand their consumers ``QTensor``s.  A
+plan's super-site groups (``SuperSite``) run as one chain launch each.
+Per-site profiling belongs to a later slice.
 """
 from __future__ import annotations
 
@@ -28,9 +29,9 @@ from repro_torch.core.quantization import act_fp, matmul_int8, quantize_act
 from repro_torch.core.relu_attention import (
     MSAConfig, msa, relu_global_attention)
 
-__all__ = ["Epilogue", "EPILOGUE_FP", "Site", "Program", "lower",
-           "execute", "manifest", "site_records", "FUSIBLE_KINDS",
-           "params_at"]
+__all__ = ["Epilogue", "EPILOGUE_FP", "Site", "SuperSite", "Program",
+           "lower", "execute", "manifest", "site_records", "FUSIBLE_KINDS",
+           "SUPERSITE_KINDS", "params_at"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +64,9 @@ EPILOGUE_FP = Epilogue()
 # fusible and plans through the kernel registry.
 STRUCTURAL_KINDS = ("conv_bn", "gap", "fc")
 FUSIBLE_KINDS = ("dsconv", "mbconv", "msa")
+# Conv-chain kinds the super-site grouping pass may join into one launch
+# (core.fusion.plan_program + kernels/supersite).
+SUPERSITE_KINDS = ("dsconv", "mbconv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,6 +97,72 @@ class Site:
         prefix = f"{self.stage}."
         return self.name[len(prefix):] if self.name.startswith(prefix) \
             else self.name
+
+
+@dataclasses.dataclass(frozen=True)
+class SuperSite:
+    """A chain of consecutive conv ``Site``s run as ONE kernel launch
+    (``kernels/supersite``): member intermediates stay on chip, member
+    weights come from one packed block.  Built by the fusion planner's
+    grouping pass; ``of`` validates the chain so a bad grouping fails at
+    plan time as a typed ``LoweringError``."""
+    name: str
+    stage: str
+    sites: Tuple[Site, ...]
+
+    @classmethod
+    def of(cls, program: "Program", names, name: str | None = None
+           ) -> "SuperSite":
+        """Validate + build a super-site from member site names: >= 2
+        consecutive sites of ``program``, one stage, conv kinds only, each
+        consuming exactly its predecessor's output."""
+        names = tuple(names)
+        if len(names) < 2:
+            raise LoweringError(
+                f"super-site needs >= 2 members, got {names}",
+                site=names[0] if names else None)
+        idx = {s.name: i for i, s in enumerate(program.sites)}
+        for n in names:
+            if n not in idx:
+                raise LoweringError(f"super-site member {n!r} is not a "
+                                    f"site of the program", site=n)
+        order = [idx[n] for n in names]
+        if order != list(range(order[0], order[0] + len(names))):
+            raise LoweringError(
+                f"super-site members {names} are not consecutive "
+                f"program sites", site=names[0])
+        members = tuple(program.sites[i] for i in order)
+        stage = members[0].stage
+        for m in members:
+            if m.kind not in SUPERSITE_KINDS:
+                raise LoweringError(
+                    f"super-site member {m.name} has kind {m.kind!r}; "
+                    f"only {SUPERSITE_KINDS} chain", site=m.name)
+            if m.stage != stage:
+                raise LoweringError(
+                    f"super-site member {m.name} is in stage {m.stage}, "
+                    f"group started in {stage}", site=m.name)
+        for a, b in zip(members, members[1:]):
+            if a.out_shape != b.in_shape:
+                raise LoweringError(
+                    f"super-site chain break {a.name} -> {b.name}: "
+                    f"{a.out_shape} != {b.in_shape}", site=b.name)
+        return cls(name or f"{stage}.ss", stage, members)
+
+    # Site-like surface, so registry impls treat a chain as one unit.
+    kind: str = dataclasses.field(default="supersite", init=False)
+
+    @property
+    def members(self) -> Tuple[str, ...]:
+        return tuple(s.name for s in self.sites)
+
+    @property
+    def in_shape(self) -> Tuple[int, ...]:
+        return self.sites[0].in_shape
+
+    @property
+    def out_shape(self) -> Tuple[int, ...]:
+        return self.sites[-1].out_shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,16 +359,31 @@ def execute(program: Program, params, x, *, plan=None, attention_fn=None):
     carries, and the plan's epilogues make producers emit ``QTensor``s
     for fused int8 consumers; residual adds stay fp.  ``plan=None`` runs
     the reference ops.  ``attention_fn`` replaces the attention core of
-    the reference MSA (``plan=None`` only).  Eager: nothing here waits
-    on the device.
+    the reference MSA (``plan=None`` only).  A plan's super-site groups
+    run as one chain launch each, entered at the first member; the other
+    members are skipped, and the last member's epilogue is the chain's
+    exit.  Eager: nothing here waits on the device.
     """
     if attention_fn is not None and plan is not None:
         raise ValueError("attention_fn replaces the reference attention "
                          "core; it takes plan=None")
     attention_fn = attention_fn or relu_global_attention
     epilogues = getattr(plan, "epilogues", None) or {}
+    group_entry, group_skip = {}, set()
+    for g in (getattr(plan, "groups", None) or {}).values():
+        group_entry[g.members[0]] = g
+        group_skip.update(g.members[1:])
     y = x
     for site in program.sites:
+        if site.name in group_skip:
+            continue
+        if site.name in group_entry:
+            from repro_torch.kernels.registry import get_kernel
+            g = group_entry[site.name]
+            sup = SuperSite.of(program, g.members, name=g.name)
+            y = get_kernel("supersite", g.precision).apply(
+                params, y, sup, g, epilogue=epilogues.get(g.members[-1]))
+            continue
         p = params_at(params, site.param_path) if site.param_path else None
         ep = epilogues.get(site.name)
         if site.kind == "conv_bn":

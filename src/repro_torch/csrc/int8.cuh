@@ -37,6 +37,24 @@ __device__ __forceinline__ int8_t quant_i8(float x, float scale) {
                                                     127.0f)));
 }
 
+// An int8 activation map entering a conv stage: the codes themselves
+// (`q`, with per-image scales `xs`), or an fp32 map (`fp`) quantized as it
+// is read, with the per-image scale of its finished absmax words (`amax`).
+// The second form is how a requant point folds into the pass that reads
+// it: the map is quantized on load, never stored as int8.
+struct ActIn {
+  const int8_t* q;
+  const float* xs;
+  const float* fp;
+  const unsigned int* amax;
+  __device__ __forceinline__ float scale(int b) const {
+    return q != nullptr ? xs[b] : scale_of(amax[b]);
+  }
+  __device__ __forceinline__ int8_t at(size_t i, float s) const {
+    return q != nullptr ? q[i] : quant_i8(fp[i], s);
+  }
+};
+
 // Whole-image requantization across CTAs: the block's max of v >= 0 goes
 // into *dst with one atomicMax on its bits (non-negative floats order as
 // their bit patterns, so the max is exact and independent of CTA order).

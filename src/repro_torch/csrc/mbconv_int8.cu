@@ -10,20 +10,9 @@
 // output with one absmax over the image.  A Hopper CTA has 227 KB of
 // shared memory and sees a band of the image, so each requant point is a
 // cross-CTA absmax (commit_absmax into a per-image word the wrapper
-// zeroes), and the kernel is split into passes at those points:
-//   1. mbconv_i8_pw1: GEMM tiles (64 pixels x 64 mid channels, image);
-//      the epilogue dequantizes, applies Hardswish, writes the fp32 mid
-//      map to a device scratch and folds it into the mid absmax.
-//   2. mbconv_i8_dw: one thread per (output pixel, mid channel) reads the
-//      9 taps of the mid scratch, quantizes each with the final mid scale
-//      (the int8 zero ring outside the image contributes nothing), sums
-//      in int32, dequantizes, applies Hardswish, writes the fp32 DW map
-//      to a second scratch and folds it into the DW absmax.
-//   3. mbconv_i8_pw2<EMIT>: GEMM tiles whose A operand quantizes the DW
-//      scratch with its final scale; the epilogue dequantizes and writes
-//      the fp32 output (and, EMIT, folds it into the output absmax).
-//   4. (EMIT) mbconv_i8_emit: quantizes the output with its final scale
-//      and writes the per-image scales.
+// zeroes), and the kernel is split into passes at those points
+// (mbconv_int8.cuh, shared with the super-site chain kernel).  The
+// emitting variant adds a pass that quantizes the output.
 // So a site costs 3 CUDA launches (4 emitting), plus the wrapper's zeroing
 // of the absmax words, and the fp32 mid and DW maps cross device memory
 // once each way.  Keeping them on chip would need the recompute the TPU
@@ -34,100 +23,7 @@
 // only near the int8 tensor-core ridge, which the S3/S4 GEMMs (K = 128..
 // 1024) do not reach at these batch sizes.  The GEMMs run __dp4a on CUDA
 // cores (int8.cuh).
-#include "int8.cuh"
-
-__global__ void __launch_bounds__(GEMM_THREADS)
-    mbconv_i8_pw1(const int8_t* __restrict__ x, const float* __restrict__ xs,
-                  const int8_t* __restrict__ w1, const float* __restrict__ s1,
-                  const float* __restrict__ b1, float* __restrict__ mid,
-                  unsigned int* __restrict__ amax_mid, int HW, int C, int M) {
-  const int b = blockIdx.z;
-  const int8_t* xb = x + (size_t)b * HW * C;
-  float* mb = mid + (size_t)b * HW * M;
-  const float xsb = xs[b];
-  const float vmax = gemm_tile_i8(
-      HW, M, 0, C, [&](int r, int k) { return xb[(size_t)r * C + k]; },
-      [&](int k, int n) { return w1[(size_t)k * M + n]; },
-      [&](int r, int n, int acc) {
-        const float v = hswish_rn(dequant(acc, xsb, s1[n], b1[n]));
-        mb[(size_t)r * M + n] = v;
-        return v;
-      });
-  commit_absmax(vmax, amax_mid + b);
-}
-
-__global__ void __launch_bounds__(ELEM_THREADS)
-    mbconv_i8_dw(const float* __restrict__ mid,
-                 const unsigned int* __restrict__ amax_mid,
-                 const int8_t* __restrict__ dw, const float* __restrict__ dws,
-                 const float* __restrict__ dwb, float* __restrict__ dwo,
-                 unsigned int* __restrict__ amax_dw, int H, int W, int M,
-                 int stride) {
-  const int b = blockIdx.y, Ho = H / stride, Wo = W / stride;
-  const int idx = blockIdx.x * ELEM_THREADS + threadIdx.x;
-  const float s_mid = scale_of(amax_mid[b]);
-  float v = 0.0f;
-  if (idx < Ho * Wo * M) {
-    const int m = idx % M, p = idx / M;
-    const int ci = (p / Wo) * stride + stride - 1;
-    const int cj = (p % Wo) * stride + stride - 1;
-    const float* mb = mid + (size_t)b * H * W * M;
-    int acc = 0;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy) {
-      const int ir = ci + dy - 1;
-      if (ir < 0 || ir >= H) continue;
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        const int jc = cj + dx - 1;
-        if (jc < 0 || jc >= W) continue;
-        acc += static_cast<int>(
-                   quant_i8(mb[((size_t)ir * W + jc) * M + m], s_mid)) *
-               static_cast<int>(dw[(dy * 3 + dx) * M + m]);
-      }
-    }
-    const float y = hswish_rn(dequant(acc, s_mid, dws[m], dwb[m]));
-    dwo[((size_t)b * Ho * Wo + p) * M + m] = y;
-    v = fabsf(y);
-  }
-  commit_absmax(v, amax_dw + b);
-}
-
-template <bool EMIT>
-__global__ void __launch_bounds__(GEMM_THREADS)
-    mbconv_i8_pw2(const float* __restrict__ dwo,
-                  const unsigned int* __restrict__ amax_dw,
-                  const int8_t* __restrict__ w2, const float* __restrict__ s2,
-                  const float* __restrict__ b2, float* __restrict__ out,
-                  unsigned int* __restrict__ amax_out, int HWo, int M,
-                  int F) {
-  const int b = blockIdx.z;
-  const float* db = dwo + (size_t)b * HWo * M;
-  float* ob = out + (size_t)b * HWo * F;
-  const float s_dw = scale_of(amax_dw[b]);
-  const float vmax = gemm_tile_i8(
-      HWo, F, 0, M,
-      [&](int r, int k) { return quant_i8(db[(size_t)r * M + k], s_dw); },
-      [&](int k, int n) { return w2[(size_t)k * F + n]; },
-      [&](int r, int n, int acc) {
-        const float o = dequant(acc, s_dw, s2[n], b2[n]);
-        ob[(size_t)r * F + n] = o;
-        return o;
-      });
-  if (EMIT) commit_absmax(vmax, amax_out + b);
-}
-
-__global__ void __launch_bounds__(ELEM_THREADS)
-    mbconv_i8_emit(const float* __restrict__ out,
-                   const unsigned int* __restrict__ amax_out,
-                   int8_t* __restrict__ q, float* __restrict__ scales,
-                   int n) {
-  const int b = blockIdx.y;
-  const int idx = blockIdx.x * ELEM_THREADS + threadIdx.x;
-  const float s = scale_of(amax_out[b]);
-  if (idx < n) q[(size_t)b * n + idx] = quant_i8(out[(size_t)b * n + idx], s);
-  if (blockIdx.x == 0 && threadIdx.x == 0) scales[b] = s;
-}
+#include "mbconv_int8.cuh"
 
 // amax holds 3 * B words, zeroed by the wrapper: mid, DW and output
 // absmax of each image.  q and scales are null for the plain variant.
@@ -138,25 +34,13 @@ static int mbconv_int8(const int8_t* x, const float* xs, const int8_t* w1,
                        float* dwo, float* out, unsigned int* amax, int8_t* q,
                        float* scales, int B, int H, int W, int C, int M,
                        int F, int stride, cudaStream_t s) {
-  const int Ho = H / stride, Wo = W / stride;
-  mbconv_i8_pw1<<<gemm_grid(H * W, M, B), GEMM_THREADS, 0, s>>>(
-      x, xs, w1, s1, b1, mid, amax, H * W, C, M);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  mbconv_i8_dw<<<elem_grid((long long)Ho * Wo * M, B), ELEM_THREADS, 0, s>>>(
-      mid, amax, dw, dws, dwb, dwo, amax + B, H, W, M, stride);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  if (q == nullptr) {
-    mbconv_i8_pw2<false><<<gemm_grid(Ho * Wo, F, B), GEMM_THREADS, 0, s>>>(
-        dwo, amax + B, w2, s2, b2, out, amax + 2 * B, Ho * Wo, M, F);
-    return (int)cudaGetLastError();
-  }
-  mbconv_i8_pw2<true><<<gemm_grid(Ho * Wo, F, B), GEMM_THREADS, 0, s>>>(
-      dwo, amax + B, w2, s2, b2, out, amax + 2 * B, Ho * Wo, M, F);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  mbconv_i8_emit<<<elem_grid((long long)Ho * Wo * F, B), ELEM_THREADS, 0,
-                   s>>>(out, amax + 2 * B, q, scales, Ho * Wo * F);
-  return (int)cudaGetLastError();
+  const bool emit = q != nullptr;
+  cudaError_t err = mbconv_i8_passes(
+      ActIn{x, xs, nullptr, nullptr}, w1, s1, b1, dw, dws, dwb, w2, s2, b2,
+      nullptr, mid, dwo, out, amax, emit, B, H, W, C, M, F, stride, s);
+  if (err != cudaSuccess || !emit) return (int)err;
+  return (int)i8_emit_pass(out, amax + 2 * B, q, scales, B,
+                           (long long)(H / stride) * (W / stride) * F, s);
 }
 
 REPRO_EXPORT int mbconv_fused_int8_i8(

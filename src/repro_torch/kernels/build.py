@@ -29,7 +29,7 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check",
            "check_input", "stream_of"]
 
 SOURCES = ("dsconv", "mbconv", "relu_attn", "int8_matmul", "dsconv_int8",
-           "mbconv_int8", "group_agg")
+           "mbconv_int8", "group_agg", "supersite", "supersite_int8")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -17,6 +17,9 @@ Built-in registrations (loaded lazily from the kernel packages):
                                                  int8 aggregation, one
                                                  attention launch
     ("group_agg", "int8") kernels/group_conv/ops.py  an int8-only kind
+    ("supersite", "fp")   kernels/supersite/ops.py  a conv chain in one
+    ("supersite", "int8")                           launch (fp banded,
+                                                    FIX8 whole-map)
 
 The fit model is the Hopper kernel's shared memory: ``smem_bytes(site)``
 is what one CTA of the kernel needs with the blocks ``tune`` chooses,
@@ -134,6 +137,7 @@ _BUILTIN_MODULES = (
     "repro_torch.kernels.relu_attn.ops",
     "repro_torch.kernels.int8_matmul.ops",
     "repro_torch.kernels.group_conv.ops",
+    "repro_torch.kernels.supersite.ops",
 )
 _builtins_loaded = False
 

@@ -15,6 +15,8 @@ precision)``:
 ``ExecutorCache`` builds executors lazily on first use, serves them LRU
 with optional capacity eviction, exposes ``warmup`` and reports cache
 behavior into a shared ``Telemetry``.  A failed build inserts nothing.
+Each build warms the resident weight pack of every super-site group of
+its plan (``weight_pack_built`` / ``weight_pack_hit``).
 The negative cache, the degradation ladder, fault injection, sharding
 and schedule artifacts are later slices of the port.
 """
@@ -169,7 +171,24 @@ class ExecutorCache:
                 self.telemetry.count("plan_sites_reused", reused)
             if donor is None:
                 self._donor_plans[key.resolution] = plan
+            self._warm_weight_packs(program, plan)
         return Executor(key, program, plan, self.device)
+
+    def _warm_weight_packs(self, program, plan) -> None:
+        """Build (or hit) the resident weight pack of every super-site
+        group of ``plan`` at build time, so no request pays the packing,
+        and count which.  The pack cache keys on (param tree, precision,
+        chain), not on resolution or batch: every bucket after the first
+        counts a ``weight_pack_hit``."""
+        if not plan.groups:
+            return
+        from repro_torch.core.program import SuperSite
+        from repro_torch.kernels.supersite.pack import get_pack
+        for g in plan.groups.values():
+            sup = SuperSite.of(program, g.members, name=g.name)
+            _, hit = get_pack(self.params, sup, g.precision)
+            self.telemetry.count(
+                "weight_pack_hit" if hit else "weight_pack_built")
 
     # -- introspection / lifecycle --------------------------------------
     def keys(self) -> Tuple[ExecutorKey, ...]:

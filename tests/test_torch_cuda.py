@@ -18,10 +18,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.efficientvit import B1, B1_SMOKE, init_efficientvit
+from repro_torch.core.efficientvit import (
+    B1, B1_SMOKE, EfficientViTConfig, init_efficientvit)
 from repro_torch.core.fusion import plan_program
-from repro_torch.core.program import execute, lower
-from repro_torch.core.quantization import quantize_act
+from repro_torch.core.program import SuperSite, execute, lower
+from repro_torch.core.quantization import quantize_act, quantize_efficientvit
 from repro_torch.kernels.dsconv.kernel import dsconv_fused, dsconv_fused_int8
 from repro_torch.kernels.dsconv.ref import dsconv_int8_ref, dsconv_ref
 from repro_torch.kernels.group_conv.kernel import group_agg_int8
@@ -33,6 +34,13 @@ from repro_torch.kernels.mbconv.kernel import (
 from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
 from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
+from repro_torch.kernels.supersite.kernel import (
+    supersite_fused, supersite_fused_int8)
+from repro_torch.kernels.supersite.ops import (
+    choose_blocks, make_fp_geom, make_int8_geom)
+from repro_torch.kernels.supersite.pack import pack_weights
+from repro_torch.kernels.supersite.ref import (
+    supersite_int8_ref, supersite_ref)
 from repro_torch.serving.scheduler import Request
 from repro_torch.serving.vision import VisionEngine, VisionServeConfig
 
@@ -264,9 +272,90 @@ def test_fix8_engine_on_the_card(cuda):
     counts = {f: f.launches for f in (int8_matmul, group_agg_int8,
                                       mbconv_fused_int8,
                                       mbconv_fused_int8_emit,
-                                      dsconv_fused_int8)}
+                                      dsconv_fused_int8,
+                                      supersite_fused_int8)}
     got = engine.logits(x)
-    assert [f.launches - n for f, n in counts.items()] == [14, 7, 10, 4, 1]
+    assert [f.launches - n for f, n in counts.items()] == [14, 7, 7, 2, 1, 2]
     assert got.shape == (8, 1000) and bool(torch.isfinite(got).all())
     ones = torch.cat([engine.logits(x[i:i + 1]) for i in range(8)])
     assert torch.equal(got, ones)
+
+
+# ---------------------------------------------------------------------------
+# super-site chains: the kernels against their plain versions, grouped
+# forwards against per-site ones
+# ---------------------------------------------------------------------------
+
+# widths (8,16,24,32,48), depths (2,2,3,1,1): forms stem.ss0 (a residual
+# first member), S1.ss0 and S2.ss0
+DEEP = EfficientViTConfig(name="ss-smoke", widths=(8, 16, 24, 32, 48),
+                          depths=(2, 2, 3, 1, 1), head_widths=(64, 64),
+                          num_classes=10, image_size=64)
+CHAINS = [(B1, ("S1.mb0", "S1.mb1")), (B1, ("S2.mb0", "S2.mb1", "S2.mb2")),
+          (DEEP, ("stem.ds0", "stem.ds1"))]
+
+
+def _chain(cfg, names, batch, precision):
+    params = init_efficientvit(torch.Generator().manual_seed(len(names)),
+                               cfg, "cuda")
+    if precision == "int8":
+        params = quantize_efficientvit(params)
+    sup = SuperSite.of(lower(cfg, batch=batch), names)
+    return sup, pack_weights(params, sup, precision)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("cfg,names", CHAINS)
+def test_supersite_kernel_matches_plain(cuda, cfg, names, batch):
+    sup, pack = _chain(cfg, names, batch, "fp")
+    blocks = choose_blocks(sup)
+    x = _rand(np.random.default_rng(batch), cuda, *sup.in_shape)
+    for rows in sorted({blocks["block_rows"], 1, 3}):
+        geom = make_fp_geom(sup, pack, rows, blocks["block_m"])
+        n = supersite_fused.launches
+        got = supersite_fused(x, pack.fp, geom=geom)
+        assert supersite_fused.launches == n + 1
+        _close(got, supersite_ref(x, pack.fp, geom=geom))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("cfg,names", CHAINS)
+def test_supersite_int8_equals_plain(cuda, cfg, names, batch):
+    """Every exit: fp32, int8, int8 with the fp map kept."""
+    sup, pack = _chain(cfg, names, batch, "int8")
+    geom = make_int8_geom(sup, pack)
+    g = torch.Generator().manual_seed(batch)
+    x_q = _i8(g, cuda, *sup.in_shape)
+    x_s = _sc(g, cuda, batch)
+    x_fp = (_rand(np.random.default_rng(batch), cuda, *sup.in_shape)
+            if sup.sites[0].residual else None)
+    args = (x_q, x_s, pack.q, pack.fp)
+    for emit in (False, True):
+        ref = supersite_int8_ref(*args, geom=geom, x_fp=x_fp,
+                                 exit_emit=emit)
+        n = supersite_fused_int8.launches
+        got = supersite_fused_int8(*args, geom=geom, x_fp=x_fp,
+                                   exit_emit=emit, keep_fp=emit)
+        assert supersite_fused_int8.launches == n + 1
+        _same(got if emit else (got,), ref if emit else (ref,))
+
+
+@pytest.mark.parametrize("cfg,batch", [(B1, 4), (DEEP, 2)])
+def test_grouped_forward_on_the_card(cuda, cfg, batch):
+    """The default grouped plan against the per-site plan: fp32 within
+    1e-4, FIX8 bit-equal."""
+    params = init_efficientvit(torch.Generator().manual_seed(0), cfg, "cuda")
+    program = lower(cfg, batch=batch)
+    x = _rand(np.random.default_rng(4), cuda, batch, cfg.image_size,
+              cfg.image_size, 3)
+    for tree in (params, quantize_efficientvit(params)):
+        grouped = plan_program(program, tree)
+        flat = plan_program(program, tree, supersites=False)
+        assert grouped.groups and not flat.groups
+        with torch.inference_mode():
+            got = execute(program, tree, x, plan=grouped)
+            want = execute(program, tree, x, plan=flat)
+        if tree is params:
+            _close(got, want)
+        else:
+            _same((got,), (want,))

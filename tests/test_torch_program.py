@@ -112,7 +112,7 @@ def test_b1_plan_matches_jax_without_supersites(b1):
     j = jfusion.plan_program(jprog.lower(jevit.B1), b1, autotune=False,
                              supersites=False)
     tp = params_from_jax(b1, "cpu")
-    t = tfusion.plan_program(tprog.lower(tevit.B1), tp)
+    t = tfusion.plan_program(tprog.lower(tevit.B1), tp, supersites=False)
     assert [(d.name, d.kind, d.fused, d.precision, tuple(d.shape))
             for d in t.decisions.values()] == \
         [(d.name, d.kind, d.fused, d.precision, tuple(d.shape))
