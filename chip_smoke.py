@@ -58,10 +58,43 @@
       batch-1 forward of image i bit for bit, and the batch-8 forward
       under the per-site plan must equal the grouped one bit for bit.
       Pack residency as in 2b.
-4. One JSON line with every kernel's launches on its served run(s),
-   error and times (ms are per B1@224 batch-8 forward: the sum over
-   that forward's calls).
-5. The last line: ``{"ok": true, "device": {...}}``.
+4. Kernel-library phase: the four kernels no served forward runs, each
+   through the JAX package's public op at full width.  Every counter is
+   reset just before the ops run once per case and read just after: one
+   launch per case, and none of the served kernels.
+   a. ``conv1x1_w8a8(epilogue=int8)`` -> ``int8_matmul_emit``: the MSA
+      QKV and output projections of B1@224 (S3 128->384 and 256->128 at
+      196 rows per image, S4 256->768 and 512->256 at 49), batch 1 and 8,
+      keep-fp off and on, with bias; and keep-fp on with a static
+      ``x_scale`` from ``calibrate_act_scale``.
+   b. ``dsconv_apply_int8(epilogue=int8)`` -> ``dsconv_fused_int8_emit``:
+      stem.ds0 of B1@224 (112x112x16 -> 16) and a stride-2 56x56x32 ->
+      32, batch 1 and 8, keep-fp off and on.
+   c. ``relu_linear_attention(causal=True, block_n=256)`` ->
+      ``relu_attn_causal``: Zamba2-1.2B's attention slot (1, 32768, 32,
+      64) and the global layer of the repo's Gemma3-12B config (unverified
+      tier: head_dim 240, where the published model has 256) under
+      relu_linear (1, 32768, 16, 240; 8 kv heads repeated), a ragged
+      N = 32668, and bf16 inputs once.
+   d. ``ssd_op(chunk=256, D_skip=D)`` -> ``ssd_chunked``: Mamba2-1.3B's
+      SSD layer (b 1, s 32768, h 64, p 64, g 1, n 128) and s = 32668.
+   Each op's output must be its kernel's (bit for bit, the kernels are
+   deterministic), and each kernel is held against its plain version on
+   the same inputs: int8 outputs EQUAL, fp32 within ``TOL``.  Bounds as
+   in 2a/3a (the int8 peak for a and b, the fp32 non-tensor peak for c
+   and d); c and d count only the causal triangle of each chunk, no
+   state read in the first chunk and no state update after the last;
+   with bf16 inputs the two products of bf16 operands (ReLU(Q)ReLU(K)^T,
+   ReLU(K)^T V) count at the bf16 tensor-core peak, 989 TFLOP/s, and the
+   two with an fp32 operand at the fp32 one.  ``int8_matmul_emit`` is
+   also timed against ``torch._int_mm``
+   + the same epilogue and per-image quantize.  The 32k-token cases are
+   timed over 3 windows of 2 calls.
+5. One JSON line with every kernel's launches on its driven run(s),
+   error and times (ms are per B1@224 batch-8 forward, the sum over that
+   forward's calls; for the four library kernels, the sum over the
+   library phase's cases, one call each).
+6. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.
 """
@@ -81,6 +114,7 @@ SRC = os.path.join(ROOT, "src")
 PEAK_BYTES_PER_S = 3.35e12    # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32, non-tensor (data sheet)
 PEAK_INT8_OPS = 1979e12       # H100 SXM int8 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12      # H100 SXM bf16 tensor cores, dense
 TOL = 1e-4
 CHAOS = 0.1                   # FIX8 served logits vs the int8 reference
 # the default plan's super-site groups at B1@224, both precisions
@@ -121,9 +155,18 @@ def device_ms(fn, reps: int = 20, windows: int = 5) -> float:
     return statistics.median(out)
 
 
-def bound(nbytes: float, ops: float, peak_ops: float = PEAK_FP32_FLOPS
+def ops_seconds(ops, peak_ops: float) -> float:
+    """Seconds the card's peak rates need for ``ops``: a count at
+    ``peak_ops``, or (count, peak) pairs for work whose products run on
+    different units."""
+    if isinstance(ops, tuple):
+        return sum(n / peak for n, peak in ops)
+    return ops / peak_ops
+
+
+def bound(nbytes: float, ops, peak_ops: float = PEAK_FP32_FLOPS
           ) -> tuple[float, str]:
-    t_b, t_f = nbytes / PEAK_BYTES_PER_S, ops / peak_ops
+    t_b, t_f = nbytes / PEAK_BYTES_PER_S, ops_seconds(ops, peak_ops)
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
@@ -313,6 +356,245 @@ def int8_kernel_cases(batch: int, gen):
         cases.append((name, names, label, kfn, pfn, nbytes, ops, lib))
     return cases
 
+def library_cases(seed: int):
+    """The kernel-library phase: the four kernels off the vision path,
+    each reached through the JAX package's public op at the full width
+    of a model the repo ships.  One entry per case: (kernel case as in
+    ``int8_kernel_cases``, the public op, a check of the op's output
+    against the kernel's, exact, reps, windows).  The kernel case runs
+    the wrapper on the op's own (folded) inputs; the 32k-token cases are
+    timed over fewer windows, never shortened."""
+    import math
+
+    import torch
+    from repro_torch.core.program import Epilogue
+    from repro_torch.core.quantization import (
+        calibrate_act_scale, quantize_act, quantize_with_scale)
+    from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8_emit
+    from repro_torch.kernels.dsconv.ops import dsconv_apply_int8
+    from repro_torch.kernels.dsconv.ref import dsconv_int8_emit_ref
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_emit
+    from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_emit_ref
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
+    from repro_torch.kernels.relu_attn.ops import relu_linear_attention
+    from repro_torch.kernels.relu_attn.ref import relu_attn_causal_chunked
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ops import ssd_op
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def uniform(lo, hi, *shape):
+        return lo + (hi - lo) * torch.rand(shape, generator=gen,
+                                           device="cuda")
+
+    def i8(*shape):
+        return torch.randint(-128, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8)
+
+    def qconv(k, c, f):
+        return {"q": i8(k, k, c, f), "scale": uniform(5e-3, 1.5e-2, f),
+                "bias": randn(f)}
+
+    def same_q(out, ref, keep):
+        return (torch.equal(out.q.reshape(ref[0].shape), ref[0])
+                and torch.equal(out.scale, ref[1])
+                and (not keep or torch.equal(out.fp.reshape(ref[2].shape),
+                                             ref[2])))
+
+    def causal_ops(n, c, mix, state):
+        """Products of one row of a chunked causal scan over ``n`` tokens
+        in chunks of ``c``: per chunk of L tokens, ``mix`` multiply-adds
+        per causal (query, key) pair (the L(L+1)/2 of the triangle, the
+        masked half never needed), ``state`` per token to read the state
+        (none in the first chunk, whose state is zero) and ``state`` per
+        token to update it (none in the last, whose state no output
+        reads).  -> (triangle flops, read flops, update flops)."""
+        ls = [min(c, n - i) for i in range(0, n, c)]
+        return (sum(L * (L + 1) for L in ls) * mix,
+                2 * state * (n - ls[0]), 2 * state * (n - ls[-1]))
+
+    cases = []
+    # int8_matmul_emit: the MSA QKV and output projections of B1@224,
+    # the activations quantized per image, or clipped to a static scale
+    # calibrated on them (``x_scale=``)
+    for batch in (1, 8):
+        for hw, C, F in ((196, 128, 384), (196, 256, 128), (49, 256, 768),
+                         (49, 512, 256)):
+            H = math.isqrt(hw)
+            x, qp = randn(batch, H, H, C), qconv(1, C, F)
+            M = batch * hw
+            for keep, static in ((False, False), (True, False),
+                                 (True, True)):
+                ep = Epilogue("int8", "dynamic",
+                              "keep-fp" if keep else "none")
+                if static:
+                    x_scale = calibrate_act_scale(x)
+                    x_q = quantize_with_scale(x.reshape(M, C), x_scale)
+                else:
+                    x_scale = None
+                    xq = quantize_act(x)
+                    x_q, xs_in = xq.q.reshape(M, C), xq.scale
+                kargs = (x_q, qp["q"].reshape(C, F),
+                         x_scale if static else xs_in, qp["scale"])
+                kw = dict(rows_per_group=hw, bias=qp["bias"], keep_fp=keep)
+
+                def lib(a=kargs, kw=kw, batch=batch):
+                    acc = torch._int_mm(a[0], a[1]).float()
+                    xs = a[2].reshape(-1).expand(batch).repeat_interleave(
+                        kw["rows_per_group"])
+                    out = acc * xs[:, None] * a[3][None, :] + kw["bias"]
+                    qt = quantize_act(out.reshape(batch, -1, out.shape[1]))
+                    return qt.q, qt.scale, out
+                kcase = (
+                    "int8_matmul_emit", [],
+                    f"({M}x{C})@({C}x{F}) rows/image={hw} keep_fp={keep} "
+                    f"x_scale={'static' if static else 'per-image'}",
+                    lambda a=kargs, kw=kw: int8_matmul_emit(*a, **kw),
+                    lambda a=kargs, kw=kw: int8_matmul_emit_ref(*a, **kw),
+                    M * C + C * F + 4 * batch + 8 * F + M * F + 4 * batch
+                    + (4 * M * F if keep else 0), 2 * M * C * F, lib)
+                cases.append((
+                    kcase,
+                    lambda x=x, qp=qp, s=x_scale, ep=ep: conv1x1_w8a8(
+                        qp, x, x_scale=s, epilogue=ep),
+                    lambda out, ref, keep=keep: same_q(out, ref, keep),
+                    True, 20, 5))
+    # dsconv_fused_int8_emit: stem.ds0 of B1@224, and a stride-2 case
+    for batch in (1, 8):
+        for H, C, st in ((112, 16, 1), (56, 32, 2)):
+            x = randn(batch, H, H, C)
+            p = {"dw": {"qconv": qconv(3, 1, C)},
+                 "pw": {"qconv": qconv(1, C, C)}}
+            xq = quantize_act(x)
+            qd, qw = p["dw"]["qconv"], p["pw"]["qconv"]
+            kargs = (xq.q, xq.scale, qd["q"][:, :, 0, :].contiguous(),
+                     qd["scale"], qd["bias"], qw["q"][0, 0].contiguous(),
+                     qw["scale"], qw["bias"])
+            Ho = H // st
+            for keep in (False, True):
+                ep = Epilogue("int8", "dynamic",
+                              "keep-fp" if keep else "none")
+                out_n = batch * Ho * Ho * C
+                kcase = (
+                    "dsconv_fused_int8_emit", [],
+                    f"x{(batch, H, H, C)} F={C} s={st} keep_fp={keep}",
+                    lambda a=kargs, st=st, k=keep: dsconv_fused_int8_emit(
+                        *a, stride=st, keep_fp=k),
+                    lambda a=kargs, st=st, k=keep: dsconv_int8_emit_ref(
+                        *a, stride=st, keep_fp=k),
+                    batch * H * H * C + 4 * batch + 9 * C + 8 * C + C * C
+                    + 8 * C + out_n + 4 * batch + (4 * out_n if keep else 0),
+                    2 * out_n * (9 + C), None)
+                cases.append((
+                    kcase,
+                    lambda x=x, p=p, st=st, ep=ep: dsconv_apply_int8(
+                        p, x, stride=st, epilogue=ep),
+                    lambda out, ref, keep=keep: same_q(out, ref, keep),
+                    True, 20, 5))
+    # relu_attn_causal: Zamba2-1.2B's attention slot (32 heads x 64) and
+    # the global layer of the repo's Gemma3-12B config under relu_linear
+    # (16 heads x 240, the 8 kv heads repeated; that config is of the
+    # unverified tier, and the published model's head_dim is 256), at
+    # prefill_32k and a per-chip batch of 1
+    C = 256
+    for label, heads, kv, D, N, dt in (
+            ("Zamba2-1.2B", 32, 32, 64, 32768, torch.float32),
+            ("Gemma3-12B(repo cfg) global", 16, 8, 240, 32768,
+             torch.float32),
+            ("Zamba2-1.2B ragged", 32, 32, 64, 32768 - 100, torch.float32),
+            ("Zamba2-1.2B bf16", 32, 32, 64, 32768, torch.bfloat16)):
+        q = randn(1, N, heads, D).to(dt)
+        k, v = (randn(1, N, kv, D).to(dt).repeat_interleave(heads // kv, 2)
+                for _ in range(2))
+        fold = tuple(t.transpose(1, 2).reshape(heads, N, D).contiguous()
+                     for t in (q, k, v))
+        # ReLU(Q)ReLU(K)^T and the S.V product over the triangle, then
+        # ReLU(Q).state and the ReLU(K)^T.V update; with bf16 inputs the
+        # first and the last take bf16 operands (tensor-core rate), the
+        # other two an fp32 one (S and the state are fp32)
+        tri, read, update = (heads * t for t in causal_ops(N, C, 2 * D, D * D))
+        ops = (((tri / 2 + update, PEAK_BF16_FLOPS),
+                (tri / 2 + read, PEAK_FP32_FLOPS))
+               if dt == torch.bfloat16 else tri + read + update)
+        kcase = (
+            "relu_attn_causal", [],
+            f"{label} q,k,v(1,{N},{heads},{D}) {str(dt)[6:]} chunk={C}",
+            lambda f=fold: relu_attn_causal(*f, chunk=C),
+            lambda f=fold: relu_attn_causal_chunked(*f, chunk=C),
+            3 * q.numel() * q.element_size() + 4 * q.numel(), ops, None)
+        cases.append((
+            kcase,
+            lambda q=q, k=k, v=v: relu_linear_attention(
+                q, k, v, causal=True, block_n=C),
+            lambda out, ref, h=heads, n=N, d=D: torch.equal(
+                out, ref.reshape(1, h, n, d).transpose(1, 2)),
+            False, 2, 3))
+    # ssd_chunked: Mamba2-1.3B's SSD layer (d_inner 4096 = 64 heads x 64,
+    # one group, state 128), dt in [1e-3, 0.1] and A in [-16, -1] as the
+    # model's initialisation draws them
+    h, P, g, n = 64, 64, 1, 128
+    for S in (32768, 32768 - 100):
+        x = randn(1, S, h, P)
+        dt = torch.exp(uniform(math.log(1e-3), math.log(0.1), 1, S, h))
+        A, D = -uniform(1.0, 16.0, h), randn(h)
+        B, Cm = randn(1, S, g, n), randn(1, S, g, n)
+        xf = x.transpose(1, 2).reshape(h, S, P).contiguous()
+        dtf = dt.transpose(1, 2).reshape(h, S).contiguous()
+        dA = dtf * A[:, None]
+        Bf, Cf = (t.repeat_interleave(h // g, 2).transpose(1, 2)
+                  .reshape(h, S, n).contiguous() for t in (B, Cm))
+        args = (xf, dtf, dA, Bf, Cf)
+        kcase = (
+            "ssd_chunked", [], f"Mamba2-1.3B b=1 s={S} h={h} p={P} g={g} "
+            f"n={n} chunk={C}",
+            lambda a=args: ssd_chunked(*a, chunk=C),
+            lambda a=args: ssd_chunked_ref(*a, chunk=C),
+            4 * sum(t.numel() for t in args) + 4 * xf.numel(),
+            h * sum(causal_ops(S, C, n + P, n * P)), None)
+        cases.append((
+            kcase,
+            lambda a=(x, dt, A, B, Cm), D=D: ssd_op(*a, chunk=C, D_skip=D),
+            lambda out, ref, x=x, D=D, S=S: torch.equal(
+                out, ref.reshape(1, h, S, P).transpose(1, 2)
+                + D[None, None, :, None] * x),
+            False, 2, 3))
+    return cases
+
+
+def library_phase(seed, wrappers, expected, per_fwd, max_err) -> dict:
+    """Drive the library cases' public ops once each with every counter
+    reset just before and read just after (each kernel of ``expected``
+    must launch that often, every other kernel never); then hold each
+    op's output against its kernel's, and each kernel against its plain
+    version, and time them.  Returns the launches of the driven run."""
+    import torch
+    cases = library_cases(seed)
+    for w in wrappers.values():
+        w.launches = 0
+    outs = [op() for _, op, _, _, _, _ in cases]
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"[library] launches {launches}")
+    if launches != dict.fromkeys(wrappers, 0) | expected:
+        raise AssertionError(f"library phase launches {launches}, "
+                             f"expected {expected}")
+    for (case, _, same, exact, reps, windows), out in zip(cases, outs):
+        if not same(out, case[3]()):
+            raise AssertionError(f"{case[0]} {case[2]}: the public op's "
+                                 f"output is not the kernel's")
+        torch.cuda.synchronize()
+        err, ref_max, *times = measure(case, exact, reps, windows)
+        max_err[case[0]] = max(max_err[case[0]], err)
+        kernel_line("library", case, "", err, ref_max, *times)
+        add_time(per_fwd[case[0]], 1, case, *times[:4], exact)
+    return launches
+
+
 def chain_macs(sup) -> int:
     """Multiply-adds of one image through a chain's members, without the
     bands' halo recompute."""
@@ -498,52 +780,75 @@ def randomize_bn(tree, gen) -> None:
             randomize_bn(v, gen)
 
 
-def check_kernels(cases, batch, per_fwd, max_err, exact: bool):
-    """Run each case's kernel and plain version, hold them together,
-    time both (and the library yardstick), print one [kernel] line each
-    and add the batch-8 times to ``per_fwd``."""
+def measure(case, exact: bool, reps: int = 20, windows: int = 5):
+    """Run one case's kernel and plain version, hold them together and
+    time both (and the library yardstick) -> (max|d|, max|ref| or None
+    for the exact kernels, ms, plain_ms, library_ms or None, bound_ms,
+    bound_by)."""
     import torch
+    name, _, label, kfn, pfn, nbytes, ops = case[:7]
+    lib = case[7] if len(case) > 7 else None
+    got, ref = kfn(), pfn()
+    torch.cuda.synchronize()
+    if exact:
+        got, ref = tuple(got), tuple(ref)
+        diff = [int((g != r).sum()) for g, r in zip(got, ref)]
+        if any(diff) or any(g.dtype != r.dtype for g, r in zip(got, ref)):
+            raise AssertionError(f"{name} {label}: elements differing "
+                                 f"from the plain version: {diff}")
+        err = max((g.float() - r.float()).abs().max().item()
+                  for g, r in zip(got, ref))
+        ref_max = None
+    else:
+        err = (got - ref).abs().max().item()
+        ref_max = ref.abs().max().item()
+        if not err <= TOL * max(1.0, ref_max):
+            raise AssertionError(f"{name} {label}: max|d| {err:.3e} > "
+                                 f"{TOL} * max(1, {ref_max:.3e})")
+    del got, ref
+    ms = device_ms(kfn, reps, windows)
+    plain_ms = device_ms(pfn, min(reps, 5) if exact else reps, windows)
+    lib_ms = device_ms(lib, reps, windows) if lib is not None else None
+    b_ms, by = bound(nbytes, ops, PEAK_INT8_OPS if exact else PEAK_FP32_FLOPS)
+    return err, ref_max, ms, plain_ms, lib_ms, b_ms, by
+
+
+def kernel_line(tag, case, where, err, ref_max, ms, plain_ms, lib_ms, b_ms,
+                by) -> None:
+    name, _, label = case[:3]
+    lib_txt = f" library_ms={lib_ms:.5f}" if lib_ms is not None else ""
+    ref_txt = f" (max|ref| {ref_max:.3e})" if ref_max is not None else ""
+    print(f"[{tag}] {name} {where}{label} max|d|={err:.3e}{ref_txt} "
+          f"ms={ms:.5f} "
+          f"plain_ms={plain_ms:.5f}{lib_txt} bound_ms={b_ms:.5f} ({by}) "
+          f"roofline={b_ms / ms:.3f}")
+
+
+def add_time(acc, n, case, ms, plain_ms, lib_ms, b_ms, exact) -> None:
+    """Add ``n`` calls of a case to a kernel's row of the JSON line."""
+    nbytes, ops = case[5:7]
     peak = PEAK_INT8_OPS if exact else PEAK_FP32_FLOPS
+    acc["ms"] += n * ms
+    acc["plain_ms"] += n * plain_ms
+    acc["bound_ms"] += n * b_ms
+    acc["bytes_s"] += n * nbytes / PEAK_BYTES_PER_S
+    acc["ops_s"] += n * ops_seconds(ops, peak)
+    if lib_ms is not None:
+        acc["library_ms"] = acc.get("library_ms", 0.0) + n * lib_ms
+
+
+def check_kernels(cases, batch, per_fwd, max_err, exact: bool):
+    """Hold each case's kernel against its plain version, time both,
+    print one [kernel] line each and add the batch-8 times to
+    ``per_fwd``."""
     for case in cases:
-        name, sites, label, kfn, pfn, nbytes, ops = case[:7]
-        lib = case[7] if len(case) > 7 else None
-        got, ref = kfn(), pfn()
-        torch.cuda.synchronize()
-        if exact:
-            got, ref = tuple(got), tuple(ref)
-            diff = [int((g != r).sum()) for g, r in zip(got, ref)]
-            if any(diff) or any(g.dtype != r.dtype for g, r in zip(got, ref)):
-                raise AssertionError(f"{name} {label}: elements differing "
-                                     f"from the plain version: {diff}")
-            err = max((g.float() - r.float()).abs().max().item()
-                      for g, r in zip(got, ref))
-        else:
-            err = (got - ref).abs().max().item()
-            scale = max(1.0, ref.abs().max().item())
-            if not err <= TOL * scale:
-                raise AssertionError(
-                    f"{name} {label}: max|d| {err:.3e} > "
-                    f"{TOL} * {scale:.3e}")
+        name, sites = case[:2]
+        err, ref_max, *times = measure(case, exact)
         max_err[name] = max(max_err[name], err)
-        ms = device_ms(kfn)
-        plain_ms = device_ms(pfn, reps=5 if exact else 20)
-        lib_ms = device_ms(lib) if lib is not None else None
-        b_ms, by = bound(nbytes, ops, peak)
-        lib_txt = f" library_ms={lib_ms:.5f}" if lib_ms is not None else ""
-        print(f"[kernel] {name} B={batch} {label} sites={len(sites)} "
-              f"max|d|={err:.3e} ms={ms:.5f} plain_ms={plain_ms:.5f}"
-              f"{lib_txt} bound_ms={b_ms:.5f} ({by}) roofline="
-              f"{b_ms / ms:.3f}")
+        kernel_line("kernel", case, f"B={batch} sites={len(sites)} ", err,
+                    ref_max, *times)
         if batch == 8:
-            acc = per_fwd[name]
-            n = len(sites)
-            acc["ms"] += n * ms
-            acc["plain_ms"] += n * plain_ms
-            acc["bound_ms"] += n * b_ms
-            acc["bytes_s"] += n * nbytes / PEAK_BYTES_PER_S
-            acc["ops_s"] += n * ops / peak
-            if lib_ms is not None:
-                acc["library_ms"] = acc.get("library_ms", 0.0) + n * lib_ms
+            add_time(per_fwd[name], len(sites), case, *times[:4], exact)
 
 
 def serve_trace(engine, images, wrappers, expected, tag):
@@ -650,13 +955,16 @@ def main() -> int:
     from repro_torch.core.program import execute, lower
     from repro_torch.kernels.build import build
     from repro_torch.kernels.dsconv.kernel import (
-        dsconv_fused, dsconv_fused_int8)
+        dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
     from repro_torch.kernels.group_conv.kernel import group_agg_int8
-    from repro_torch.kernels.int8_matmul.kernel import int8_matmul
+    from repro_torch.kernels.int8_matmul.kernel import (
+        int8_matmul, int8_matmul_emit)
     from repro_torch.kernels.mbconv.kernel import (
         mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
     from repro_torch.core.quantization import quantize_efficientvit
-    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+    from repro_torch.kernels.relu_attn.kernel import (
+        relu_attn_causal, relu_attn_noncausal)
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
     from repro_torch.kernels.supersite.kernel import (
         supersite_fused, supersite_fused_int8)
     from repro_torch.serving.vision import VisionEngine, VisionServeConfig
@@ -685,17 +993,22 @@ def main() -> int:
                 "int8_matmul": int8_matmul,
                 "group_agg_int8": group_agg_int8,
                 "supersite_fused": supersite_fused,
-                "supersite_fused_int8": supersite_fused_int8}
-    expected_fp = {"dsconv_fused": 1, "mbconv_fused": 9,
-                   "relu_attn_noncausal": 7, "mbconv_fused_int8": 0,
-                   "mbconv_fused_int8_emit": 0, "dsconv_fused_int8": 0,
-                   "int8_matmul": 0, "group_agg_int8": 0,
-                   "supersite_fused": 2, "supersite_fused_int8": 0}
-    expected_int8 = {"dsconv_fused": 0, "mbconv_fused": 0,
-                     "relu_attn_noncausal": 7, "mbconv_fused_int8": 7,
-                     "mbconv_fused_int8_emit": 2, "dsconv_fused_int8": 1,
-                     "int8_matmul": 14, "group_agg_int8": 7,
-                     "supersite_fused": 0, "supersite_fused_int8": 2}
+                "supersite_fused_int8": supersite_fused_int8,
+                "int8_matmul_emit": int8_matmul_emit,
+                "dsconv_fused_int8_emit": dsconv_fused_int8_emit,
+                "relu_attn_causal": relu_attn_causal,
+                "ssd_chunked": ssd_chunked}
+    # the library kernels run on neither served path
+    expected_fp = dict.fromkeys(wrappers, 0) | {
+        "dsconv_fused": 1, "mbconv_fused": 9, "relu_attn_noncausal": 7,
+        "supersite_fused": 2}
+    expected_int8 = dict.fromkeys(wrappers, 0) | {
+        "relu_attn_noncausal": 7, "mbconv_fused_int8": 7,
+        "mbconv_fused_int8_emit": 2, "dsconv_fused_int8": 1,
+        "int8_matmul": 14, "group_agg_int8": 7, "supersite_fused_int8": 2}
+    # launches of each library kernel in the library phase: one per case
+    expected_lib = {"int8_matmul_emit": 24, "dsconv_fused_int8_emit": 8,
+                    "relu_attn_causal": 4, "ssd_chunked": 2}
     csrc, jk = "src/repro_torch/csrc/", "src/repro/kernels/"
     sources = {
         "dsconv_fused": (csrc + "dsconv.cu", jk + "dsconv/kernel.py:57"),
@@ -716,6 +1029,13 @@ def main() -> int:
                             jk + "supersite/kernel.py:191"),
         "supersite_fused_int8": (csrc + "supersite_int8.cu",
                                  jk + "supersite/kernel.py:353"),
+        "int8_matmul_emit": (csrc + "int8_matmul.cu",
+                             jk + "int8_matmul/kernel.py:127"),
+        "dsconv_fused_int8_emit": (csrc + "dsconv_int8.cu",
+                                   jk + "dsconv/kernel.py:234"),
+        "relu_attn_causal": (csrc + "relu_attn_causal.cu",
+                             jk + "relu_attn/kernel.py:146"),
+        "ssd_chunked": (csrc + "ssd.cu", jk + "ssd/kernel.py:68"),
     }
     gen = torch.Generator().manual_seed(args.seed)
     per_fwd = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -786,8 +1106,13 @@ def main() -> int:
           "the 8 batch-1 forwards bit for bit")
     grouped_vs_per_site(qengine, x12[:8], "fix8", exact=True)
     steady_state(qengine, rng, "fix8")
+    del qengine
 
-    # -- 4. the kernels line --------------------------------------------
+    # -- 4. the kernel library: the public ops off the vision path ------
+    launches_lib = library_phase(args.seed, wrappers, expected_lib, per_fwd,
+                                 max_err)
+
+    # -- 5. the kernels line --------------------------------------------
     rows = []
     for name in wrappers:
         acc = per_fwd[name]
@@ -795,7 +1120,8 @@ def main() -> int:
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": launches_fp[name] + launches_q[name],
+            "launches": (launches_fp[name] + launches_q[name]
+                         + launches_lib[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

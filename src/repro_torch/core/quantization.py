@@ -27,9 +27,9 @@ from repro_torch.layers.conv import conv2d
 from repro_torch.layers.norms import bn_fold_scale_bias
 
 __all__ = ["QTensor", "act_fp", "quantize_act", "quantize_tensor",
-           "quantize_with_scale", "dequantize", "fold_bn_into_conv",
-           "quantize_conv_bn", "quantize_linear", "quantize_efficientvit",
-           "conv2d_int8", "matmul_int8", "int_sums"]
+           "quantize_with_scale", "calibrate_act_scale", "dequantize",
+           "fold_bn_into_conv", "quantize_conv_bn", "quantize_linear",
+           "quantize_efficientvit", "conv2d_int8", "matmul_int8", "int_sums"]
 
 QMAX = 127
 
@@ -100,6 +100,20 @@ def quantize_with_scale(x, scale):
     """Symmetric int8 against a precomputed (calibrated) scale."""
     return _quantize(x.float(), torch.as_tensor(scale, dtype=torch.float32,
                                                 device=x.device))
+
+
+def calibrate_act_scale(samples):
+    """Static per-tensor activation scale from calibration batches: the
+    symmetric scale covering the joint absmax of ``samples`` (a tensor
+    or an iterable of tensors), for ``x_scale`` in
+    ``kernels.int8_matmul.ops.linear_w8a8`` / ``conv1x1_w8a8``."""
+    if isinstance(samples, torch.Tensor):
+        samples = [samples]
+    absmax = torch.zeros((), dtype=torch.float32)
+    for s in samples:
+        absmax = torch.maximum(absmax.to(s.device),
+                               torch.amax(s.float().abs()))
+    return _scale_of(absmax)
 
 
 def dequantize(q, scale):

@@ -83,22 +83,21 @@ constexpr int GKP = GK + 4;   // row pitch: int32 loads of 16 rows hit 16 banks
 constexpr int GEMM_THREADS = 256;
 constexpr int ELEM_THREADS = 256;
 
-// One GM x GN output tile, rows [blockIdx.x * GM, +GM) of R and columns
-// [blockIdx.y * GN, +GN) of N, summed over k in [k_lo, k_hi).  a(r, k) and
-// w(k, n) give the int8 operands; this masks the ragged rows, columns and
-// k tail with zeros (exact for int32 sums).  epi(r, n, acc) consumes one
-// int32 sum and returns the fp32 value whose magnitude the tile's absmax
-// (the return value) tracks.  256 threads, each a 4 x 4 block of outputs
-// strided by 16 so the weight reads of a warp fall in distinct banks.
-template <typename ALoad, typename WLoad, typename Epi>
-__device__ __forceinline__ float gemm_tile_i8(int R, int N, int k_lo,
-                                              int k_hi, ALoad a, WLoad w,
-                                              Epi epi) {
+// The int32 sums of one GM x GN output tile, rows [blockIdx.x * GM, +GM)
+// of R and columns [blockIdx.y * GN, +GN) of N, summed over k in [k_lo,
+// k_hi).  a(r, k) and w(k, n) give the int8 operands; this masks the
+// ragged rows, columns and k tail with zeros (exact for int32 sums).
+// 256 threads, each a 4 x 4 block of outputs strided by 16 so the weight
+// reads of a warp fall in distinct banks: acc[i][j] is output (row
+// m0 + ty + 16 i, column n0 + tx + 16 j), tx = tid & 15, ty = tid >> 4.
+template <typename ALoad, typename WLoad>
+__device__ __forceinline__ void gemm_acc_i8(int R, int N, int k_lo, int k_hi,
+                                            ALoad a, WLoad w,
+                                            int (&acc)[4][4]) {
   __shared__ __align__(16) int8_t As[GM][GKP];
   __shared__ __align__(16) int8_t Ws[GN][GKP];   // transposed: k contiguous
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
-  int acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -129,6 +128,19 @@ __device__ __forceinline__ float gemm_tile_i8(int R, int N, int k_lo,
     }
     __syncthreads();
   }
+}
+
+// gemm_acc_i8's tile, then epi(r, n, acc) on each int32 sum: it returns
+// the fp32 value whose magnitude the tile's absmax (the return value)
+// tracks.
+template <typename ALoad, typename WLoad, typename Epi>
+__device__ __forceinline__ float gemm_tile_i8(int R, int N, int k_lo,
+                                              int k_hi, ALoad a, WLoad w,
+                                              Epi epi) {
+  int acc[4][4];
+  gemm_acc_i8(R, N, k_lo, k_hi, a, w, acc);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int m0 = blockIdx.x * GM, n0 = blockIdx.y * GN;
   float vmax = 0.0f;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -149,4 +161,28 @@ static inline dim3 gemm_grid(int R, int N, int B) {
 static inline dim3 elem_grid(long long n, int B) {
   return dim3(static_cast<unsigned>((n + ELEM_THREADS - 1) / ELEM_THREADS),
               B);
+}
+
+// Per-group act-quant of an fp32 map whose absmax words are final: group
+// b is the n contiguous elements from b * n (one image, or one image's
+// rows of a GEMM), quantized with scale_of(amax[b]); scales[b] is that
+// scale.
+__global__ void __launch_bounds__(ELEM_THREADS)
+    i8_emit(const float* __restrict__ out,
+            const unsigned int* __restrict__ amax_out, int8_t* __restrict__ q,
+            float* __restrict__ scales, int n) {
+  const int b = blockIdx.y;
+  const int idx = blockIdx.x * ELEM_THREADS + threadIdx.x;
+  const float s = scale_of(amax_out[b]);
+  if (idx < n) q[(size_t)b * n + idx] = quant_i8(out[(size_t)b * n + idx], s);
+  if (blockIdx.x == 0 && threadIdx.x == 0) scales[b] = s;
+}
+
+static inline cudaError_t i8_emit_pass(const float* out,
+                                       const unsigned int* amax, int8_t* q,
+                                       float* scales, int B, long long n,
+                                       cudaStream_t s) {
+  i8_emit<<<elem_grid(n, B), ELEM_THREADS, 0, s>>>(out, amax, q, scales,
+                                                   static_cast<int>(n));
+  return cudaGetLastError();
 }

@@ -15,8 +15,8 @@
 //      scratch with its final scale; the epilogue dequantizes, adds the
 //      fp residual `res` when given (res + out, one rounding), writes the
 //      fp32 output and, EMIT, folds it into the output absmax.
-//   4. i8_emit: quantizes an fp32 map with its final scale and writes the
-//      per-image scales.
+//   4. i8_emit (int8.cuh): quantizes an fp32 map with its final scale and
+//      writes the per-image scales.
 // Used by csrc/mbconv_int8.cu (one site) and csrc/supersite_int8.cu (a
 // chain, whose member boundaries quantize on load through ActIn).
 #pragma once
@@ -107,17 +107,6 @@ __global__ void __launch_bounds__(GEMM_THREADS)
   if (EMIT) commit_absmax(vmax, amax_out + b);
 }
 
-__global__ void __launch_bounds__(ELEM_THREADS)
-    i8_emit(const float* __restrict__ out,
-            const unsigned int* __restrict__ amax_out, int8_t* __restrict__ q,
-            float* __restrict__ scales, int n) {
-  const int b = blockIdx.y;
-  const int idx = blockIdx.x * ELEM_THREADS + threadIdx.x;
-  const float s = scale_of(amax_out[b]);
-  if (idx < n) q[(size_t)b * n + idx] = quant_i8(out[(size_t)b * n + idx], s);
-  if (blockIdx.x == 0 && threadIdx.x == 0) scales[b] = s;
-}
-
 // The three passes of one MBConv over B images (amax: 3 * B words, mid,
 // DW and output absmax of each image).  `res` (nullable) is the fp
 // residual added in the PW2 epilogue; `emit` makes PW2 fold its output
@@ -142,15 +131,5 @@ static inline cudaError_t mbconv_i8_passes(
   else
     mbconv_i8_pw2<false><<<gemm_grid(Ho * Wo, F, B), GEMM_THREADS, 0, s>>>(
         dwo, amax + B, w2, s2, b2, res, out, amax + 2 * B, Ho * Wo, M, F);
-  return cudaGetLastError();
-}
-
-// Per-image act-quant of an fp32 map whose absmax words are final.
-static inline cudaError_t i8_emit_pass(const float* out,
-                                       const unsigned int* amax, int8_t* q,
-                                       float* scales, int B, long long n,
-                                       cudaStream_t s) {
-  i8_emit<<<elem_grid(n, B), ELEM_THREADS, 0, s>>>(out, amax, q, scales,
-                                                   static_cast<int>(n));
   return cudaGetLastError();
 }

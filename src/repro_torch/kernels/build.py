@@ -29,7 +29,8 @@ __all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check",
            "check_input", "stream_of"]
 
 SOURCES = ("dsconv", "mbconv", "relu_attn", "int8_matmul", "dsconv_int8",
-           "mbconv_int8", "group_agg", "supersite", "supersite_int8")
+           "mbconv_int8", "group_agg", "supersite", "supersite_int8",
+           "relu_attn_causal", "ssd")
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -95,13 +96,18 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)[1]))
             lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
             lib.repro_cuda_error_string.restype = ctypes.c_char_p
+            lib.repro_cuda_clear_error.argtypes = []
+            lib.repro_cuda_clear_error.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 
 
 def check(lib: ctypes.CDLL, status: int, kernel: str) -> None:
-    """Raise when a C entry point returned a CUDA error code."""
+    """Raise when a C entry point returned a CUDA error code, after
+    clearing the thread's last CUDA error so the next launch does not
+    report this one."""
     if status != 0:
+        lib.repro_cuda_clear_error()
         msg = lib.repro_cuda_error_string(status).decode()
         raise KernelLaunchError(f"{kernel}: CUDA error {status}: {msg}")
 

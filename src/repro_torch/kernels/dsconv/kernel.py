@@ -1,9 +1,10 @@
-"""``dsconv_fused`` and ``dsconv_fused_int8``: the hand-written CUDA
-kernels (``csrc/dsconv.cu``, ``csrc/dsconv_int8.cu``).
+"""``dsconv_fused``, ``dsconv_fused_int8`` and ``dsconv_fused_int8_emit``:
+the hand-written CUDA kernels (``csrc/dsconv.cu``, ``csrc/dsconv_int8.cu``).
 
-Replace ``repro/kernels/dsconv/kernel.py::dsconv_fused`` and
-``::dsconv_fused_int8``.  A CUDA tensor launches the kernel (or raises);
-a CPU tensor takes the plain version in ``ref``.
+Replace ``repro/kernels/dsconv/kernel.py::dsconv_fused``,
+``::dsconv_fused_int8`` and ``::dsconv_fused_int8_emit``.  A CUDA tensor
+launches the kernel (or raises); a CPU tensor takes the plain version in
+``ref``.
 """
 from __future__ import annotations
 
@@ -12,12 +13,13 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
-from repro_torch.kernels.dsconv.ref import dsconv_int8_ref, dsconv_ref
+from repro_torch.kernels.dsconv.ref import (
+    dsconv_int8_emit_ref, dsconv_int8_ref, dsconv_ref)
 from repro_torch.kernels.quant import xs_per_batch_vec
 from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
 
 __all__ = ["dsconv_fused", "dsconv_smem_bytes", "choose_blocks",
-           "dsconv_fused_int8"]
+           "dsconv_fused_int8", "dsconv_fused_int8_emit"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -87,23 +89,11 @@ def dsconv_fused(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
 dsconv_fused.launches = 0
 
 
-def dsconv_fused_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
-                      stride: int = 1, act: bool = True):
-    """x_q: (B, H, W, C) int8 with per-tensor or per-image (B,)
-    ``x_scale``; dw_q: (3, 3, C) int8; pw_q: (C, F) int8; per-channel
-    fp32 weight scales and BN-folded biases -> (B, Ho, Wo, F) fp32.
-    Two CUDA launches: the DW stage's per-image absmax, then the PW GEMM
-    recomputing the DW stage (``csrc/dsconv_int8.cu``)."""
+def _int8_inputs(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b):
+    """Validate the inputs of the int8 variants for the CUDA path ->
+    the per-image (B,) x_scale."""
     B, H, W, C = x_q.shape
     F = pw_q.shape[1]
-    if H % stride or W % stride:
-        raise ValueError(f"spatial {H}x{W} not divisible by stride {stride}")
-    if x_q.device.type == "cpu":
-        return dsconv_int8_ref(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s,
-                               pw_b, stride=stride, act=act)
-    if x_q.device.type != "cuda":
-        raise ValueError(f"dsconv_fused_int8 runs on cuda or cpu, not "
-                         f"{x_q.device}")
     xs = xs_per_batch_vec(x_scale, B).contiguous()
     i8, f32 = torch.int8, torch.float32
     for t, name, shape, dt in (
@@ -112,8 +102,33 @@ def dsconv_fused_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
             (dw_b, "dw_b", (C,), f32), (pw_q, "pw_q", (C, F), i8),
             (pw_s, "pw_s", (F,), f32), (pw_b, "pw_b", (F,), f32)):
         check_input(t, name, shape, x_q.device, dt)
+    return xs
+
+
+def _check_int8_call(name, x_q, stride):
+    H, W = x_q.shape[1:3]
+    if H % stride or W % stride:
+        raise ValueError(f"spatial {H}x{W} not divisible by stride {stride}")
+    if x_q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x_q.device}")
+
+
+def dsconv_fused_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
+                      stride: int = 1, act: bool = True):
+    """x_q: (B, H, W, C) int8 with per-tensor or per-image (B,)
+    ``x_scale``; dw_q: (3, 3, C) int8; pw_q: (C, F) int8; per-channel
+    fp32 weight scales and BN-folded biases -> (B, Ho, Wo, F) fp32.
+    Two CUDA launches: the DW stage's per-image absmax, then the PW GEMM
+    recomputing the DW stage (``csrc/dsconv_int8.cu``)."""
+    args = (x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b)
+    _check_int8_call("dsconv_fused_int8", x_q, stride)
+    if x_q.device.type == "cpu":
+        return dsconv_int8_ref(*args, stride=stride, act=act)
+    xs = _int8_inputs(*args)
+    B, H, W, _ = x_q.shape
+    F = pw_q.shape[1]
     amax = torch.zeros((B,), dtype=torch.int32, device=x_q.device)
-    out = torch.empty((B, H // stride, W // stride, F), dtype=f32,
+    out = torch.empty((B, H // stride, W // stride, F), dtype=torch.float32,
                       device=x_q.device)
     lib = library("dsconv_int8")
     fn = lib.dsconv_fused_int8_i8
@@ -122,11 +137,47 @@ def dsconv_fused_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
     status = fn(x_q.data_ptr(), xs.data_ptr(), dw_q.data_ptr(),
                 dw_s.data_ptr(), dw_b.data_ptr(), pw_q.data_ptr(),
                 pw_s.data_ptr(), pw_b.data_ptr(), amax.data_ptr(),
-                out.data_ptr(), B, H, W, C, F, stride, int(act),
+                out.data_ptr(), B, H, W, x_q.shape[3], F, stride, int(act),
                 stream_of(x_q))
     check(lib, status, "dsconv_fused_int8")
     dsconv_fused_int8.launches += 1
     return out
 
 
+def dsconv_fused_int8_emit(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b,
+                           *, stride: int = 1, act: bool = True,
+                           keep_fp: bool = False):
+    """``dsconv_fused_int8`` + the per-image act-quant of its full-c_out
+    output -> (q (B, Ho, Wo, F) int8, scales (B,) fp32), plus the fp32
+    output (``dsconv_fused_int8``'s, bit for bit) when ``keep_fp``.  A
+    memset and three CUDA launches (``csrc/dsconv_int8.cu``)."""
+    args = (x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b)
+    _check_int8_call("dsconv_fused_int8_emit", x_q, stride)
+    if x_q.device.type == "cpu":
+        return dsconv_int8_emit_ref(*args, stride=stride, act=act,
+                                    keep_fp=keep_fp)
+    xs = _int8_inputs(*args)
+    B, H, W, _ = x_q.shape
+    F = pw_q.shape[1]
+    dev = x_q.device
+    shape = (B, H // stride, W // stride, F)
+    amax = torch.empty((2, B), dtype=torch.int32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    q = torch.empty(shape, dtype=torch.int8, device=dev)
+    scales = torch.empty((B,), dtype=torch.float32, device=dev)
+    lib = library("dsconv_int8")
+    fn = lib.dsconv_fused_int8_emit_i8
+    fn.argtypes = [_P] * 12 + [_I] * 7 + [_P]
+    fn.restype = _I
+    status = fn(x_q.data_ptr(), xs.data_ptr(), dw_q.data_ptr(),
+                dw_s.data_ptr(), dw_b.data_ptr(), pw_q.data_ptr(),
+                pw_s.data_ptr(), pw_b.data_ptr(), amax.data_ptr(),
+                out.data_ptr(), q.data_ptr(), scales.data_ptr(), B, H, W,
+                x_q.shape[3], F, stride, int(act), stream_of(x_q))
+    check(lib, status, "dsconv_fused_int8_emit")
+    dsconv_fused_int8_emit.launches += 1
+    return (q, scales, out) if keep_fp else (q, scales)
+
+
 dsconv_fused_int8.launches = 0
+dsconv_fused_int8_emit.launches = 0

@@ -3,7 +3,8 @@
 ``dsconv_apply(params, x)`` consumes the EfficientViT {'dw','pw'}
 conv+BN block pair, folds BN into both convs and runs ``dsconv_fused``.
 ``dsconv_apply_int8`` is the FIX8 twin over the quantized pair (each a
-``qconv``), running ``dsconv_fused_int8``.
+``qconv``), running ``dsconv_fused_int8`` or, for an int8 epilogue,
+``dsconv_fused_int8_emit``.
 """
 from __future__ import annotations
 
@@ -12,7 +13,8 @@ import torch
 from repro_torch.core.quantization import (
     QTensor, fold_bn_into_conv, quantize_act)
 from repro_torch.kernels.dsconv.kernel import (
-    choose_blocks, dsconv_fused, dsconv_fused_int8, dsconv_smem_bytes)
+    choose_blocks, dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit,
+    dsconv_smem_bytes)
 from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.registry import KernelBase, register
 
@@ -56,15 +58,11 @@ class DsconvKernel(KernelBase):
 
 
 def dsconv_apply_int8(params, x, *, stride: int = 1, epilogue=None):
-    """Quantized {'dw','pw'} pair -> ``dsconv_fused_int8``.  ``x`` is the
-    fp activation (quantized here per image, as the reference
-    ``conv2d_int8`` does) or a producer's ``QTensor``.  The emitting
-    variant (``dsconv_fused_int8_emit``) is not ported: no B1 site needs
-    it, since ``stem.ds0`` is residual and quantizes after its add."""
-    if epilogue is not None and epilogue.emits_q:
-        raise NotImplementedError("an emitting int8 epilogue needs "
-                                  "dsconv_fused_int8_emit, which is not "
-                                  "ported yet")
+    """Quantized {'dw','pw'} pair -> the FIX8 kernel.  ``x`` is the fp
+    activation (quantized here per image, as the reference
+    ``conv2d_int8`` does) or a producer's ``QTensor``.  An int8
+    ``epilogue`` makes this site the producer: it returns a ``QTensor``
+    quantized by the kernel, with the fp output kept under "keep-fp"."""
     qd, qp = params["dw"]["qconv"], params["pw"]["qconv"]
     if isinstance(x, QTensor):
         x_q, x_scale = x.q, x.scale
@@ -72,18 +70,24 @@ def dsconv_apply_int8(params, x, *, stride: int = 1, epilogue=None):
     else:
         qt = quantize_act(x)
         x_q, x_scale, out_dtype = qt.q, qt.scale, x.dtype
-    out = dsconv_fused_int8(
-        x_q.contiguous(), x_scale, qd["q"][:, :, 0, :].contiguous(),
-        qd["scale"], qd["bias"], qp["q"][0, 0].contiguous(), qp["scale"],
-        qp["bias"], stride=stride, act=True)
-    return out.to(out_dtype)
+    args = (x_q.contiguous(), x_scale, qd["q"][:, :, 0, :].contiguous(),
+            qd["scale"], qd["bias"], qp["q"][0, 0].contiguous(), qp["scale"],
+            qp["bias"])
+    if epilogue is not None and epilogue.emits_q:
+        keep_fp = epilogue.residual == "keep-fp"
+        outs = dsconv_fused_int8_emit(*args, stride=stride, act=True,
+                                      keep_fp=keep_fp)
+        fp = outs[2].to(out_dtype) if keep_fp else None
+        return QTensor(outs[0], outs[1], fp)
+    return dsconv_fused_int8(*args, stride=stride, act=True).to(out_dtype)
 
 
 @register
 class DsconvInt8Kernel(DsconvKernel):
     """(dsconv, int8): the FIX8 DW+PW CUDA kernel; takes a producer's
-    ``QTensor``.  ``emits_q`` is the planner's view: ``stem.ds0`` is
-    residual, so ``execute`` quantizes after its add."""
+    ``QTensor`` and emits its own output through the emitting variant
+    (a residual site such as ``stem.ds0`` quantizes after its add, in
+    ``execute``)."""
     precision, dtype = "int8", "i8"
     batch_dependent_tiles = False
     takes_q = True

@@ -1,5 +1,5 @@
 """Plain PyTorch versions of the fused DWConv -> PWConv kernels (fp32
-``dsconv_fused`` and FIX8 ``dsconv_fused_int8``).
+``dsconv_fused``, FIX8 ``dsconv_fused_int8`` and its emitting variant).
 
 Semantics: 3x3 depthwise conv over a (1,1)-padded NHWC map + bias,
 stride s sampled at offset s - 1 (the reference's SAME anchor),
@@ -66,3 +66,17 @@ def dsconv_int8_ref(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
     yq = quantize_act(y)
     acc = int_sums(yq.q, pw_q)
     return acc * (yq.scale.reshape(B, 1, 1, 1) * pw_s) + pw_b
+
+
+def dsconv_int8_emit_ref(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
+                         stride: int = 1, act: bool = True,
+                         keep_fp: bool = False):
+    """Plain version of ``dsconv_fused_int8_emit``: ``dsconv_int8_ref``,
+    then ``quantize_act`` per image over the full c_out -> (q, scales),
+    or (q, scales, fp32 output) when ``keep_fp``."""
+    from repro_torch.core.quantization import quantize_act
+
+    out = dsconv_int8_ref(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b,
+                          stride=stride, act=act)
+    qt = quantize_act(out)
+    return (qt.q, qt.scale, out) if keep_fp else (qt.q, qt.scale)

@@ -11,11 +11,13 @@ Built-in registrations (loaded lazily from the kernel packages):
     ("msa",    "fp")   kernels/relu_attn/ops.py  one attention launch per
                                                  MSA module
     ("dsconv", "int8") kernels/dsconv/ops.py     FIX8 DW+PW CUDA kernel
+                                                 (+ the emitting variant)
     ("mbconv", "int8") kernels/mbconv/ops.py     FIX8 PW+DW+PW CUDA kernel
                                                  (+ the emitting variant)
-    ("msa",    "int8") kernels/int8_matmul/ops.py W8A8 projections, grouped
-                                                 int8 aggregation, one
-                                                 attention launch
+    ("msa",    "int8") kernels/int8_matmul/ops.py W8A8 projections (the
+                                                 output one emitting),
+                                                 grouped int8 aggregation,
+                                                 one attention launch
     ("group_agg", "int8") kernels/group_conv/ops.py  an int8-only kind
     ("supersite", "fp")   kernels/supersite/ops.py  a conv chain in one
     ("supersite", "int8")                           launch (fp banded,
@@ -33,10 +35,35 @@ from typing import Any, Dict, Optional, Protocol, Tuple
 
 __all__ = ["KernelImpl", "KernelBase", "register", "get_kernel",
            "get_probe", "conv_block_precision", "resolve_conv_precision",
-           "SMEM_LIMIT", "N_SM"]
+           "SMEM_LIMIT", "N_SM", "SCAN_TILE", "column_split"]
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one CTA may use on an H100
 N_SM = 132             # streaming multiprocessors of an H100 SXM
+
+# The token tile of the chunked scan kernels (``CT`` in their sources).
+SCAN_TILE = 64
+
+
+def column_split(rows: int, width: int, shared_work: float,
+                 col_work: float, smem_bytes) -> int:
+    """Columns per CTA (16, 32, 48 or 64) for a chunked scan kernel whose
+    CTA owns one of ``rows`` rows and a slice of its ``width`` output
+    columns.  Every CTA repeats ``shared_work`` per chunk (the score
+    tile) and does ``col_work`` per owned column; the cost of a choice is
+    its waves of CTAs over the card's SMs times one CTA's work, the
+    cheapest that fits in shared memory wins (the wider on a tie)."""
+    best = None
+    for de in (64, 48, 32, 16):
+        if smem_bytes(de) > SMEM_LIMIT:
+            continue
+        ctas = rows * -(-width // de)
+        cost = -(-ctas // N_SM) * (shared_work + de * col_work)
+        if best is None or cost < best[0]:
+            best = (cost, de)
+    if best is None:
+        raise ValueError(f"no column slice of width {width} fits in "
+                         f"{SMEM_LIMIT} B of shared memory")
+    return best[1]
 
 
 class KernelImpl(Protocol):

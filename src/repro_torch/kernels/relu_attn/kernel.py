@@ -1,9 +1,9 @@
-"""``relu_attn_noncausal``: the hand-written CUDA kernel
-(``csrc/relu_attn.cu``).
+"""``relu_attn_noncausal`` and ``relu_attn_causal``: the hand-written
+CUDA kernels (``csrc/relu_attn.cu``, ``csrc/relu_attn_causal.cu``).
 
-Replaces ``repro/kernels/relu_attn/kernel.py::relu_attn_noncausal``.
-A CUDA tensor launches the kernel (or raises); a CPU tensor takes the
-plain version ``ref.relu_attn_noncausal_ref``.
+Replace ``repro/kernels/relu_attn/kernel.py::relu_attn_noncausal`` and
+``::relu_attn_causal``.  A CUDA tensor launches the kernel (or raises);
+a CPU tensor takes the plain version in ``ref``.
 """
 from __future__ import annotations
 
@@ -11,11 +11,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels.build import check, library, stream_of
-from repro_torch.kernels.registry import SMEM_LIMIT
-from repro_torch.kernels.relu_attn.ref import EPS, relu_attn_noncausal_ref
+from repro_torch.kernels.build import check, check_input, library, stream_of
+from repro_torch.kernels.registry import SCAN_TILE, SMEM_LIMIT, column_split
+from repro_torch.kernels.relu_attn.ref import (
+    EPS, relu_attn_causal_chunked, relu_attn_noncausal_ref)
 
-__all__ = ["relu_attn_noncausal", "relu_attn_smem_bytes"]
+__all__ = ["relu_attn_noncausal", "relu_attn_smem_bytes", "relu_attn_causal",
+           "relu_attn_causal_smem_bytes"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -69,3 +71,48 @@ def relu_attn_noncausal(q, k, v, *, block_n: int = 256, eps: float = EPS):
 
 
 relu_attn_noncausal.launches = 0
+
+
+def relu_attn_causal_smem_bytes(d: int, de: int) -> int:
+    """One CTA's shared memory (mirrors ``causal_smem_bytes`` in the
+    CUDA source): the d x de state slice and the d normalizer, a ReLU(Q)
+    and a ReLU(K) tile at an odd pitch, a V tile and the score tile."""
+    t = SCAN_TILE
+    return 4 * (d * de + d + 2 * t * (d + 1) + t * de + t * (t + 1))
+
+
+def relu_attn_causal(q, k, v, *, chunk: int = 256, eps: float = EPS):
+    """q, k, v: (BH, N, D), all fp32 or all bf16 -> (BH, N, D) fp32,
+    causal, in chunks of ``min(chunk, N)`` tokens (ragged N as if
+    zero-padded).  One launch: a CTA per (row, slice of value columns)
+    runs the row's chunks in order (``csrc/relu_attn_causal.cu``)."""
+    if q.device.type == "cpu":
+        return relu_attn_causal_chunked(q, k, v, chunk=chunk, eps=eps)
+    if q.device.type != "cuda":
+        raise ValueError(f"relu_attn_causal runs on cuda or cpu, not "
+                         f"{q.device}")
+    if q.dim() != 3:
+        raise ValueError(f"q must be (BH, N, D), got {tuple(q.shape)}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q has dtype {q.dtype}, expected float32 or "
+                        f"bfloat16")
+    BH, N, D = q.shape
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        check_input(t, name, (BH, N, D), q.device, q.dtype)
+    C = min(chunk, N)
+    de = column_split(BH, D, C * C * D / 2, C * C / 2 + 2 * C * D,
+                      lambda w: relu_attn_causal_smem_bytes(D, w))
+    out = torch.empty((BH, N, D), dtype=torch.float32, device=q.device)
+    lib = library("relu_attn_causal")
+    fn = (lib.relu_attn_causal_f32 if q.dtype == torch.float32
+          else lib.relu_attn_causal_bf16)
+    fn.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
+    fn.restype = _I
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
+                N, D, C, de, eps, stream_of(q))
+    check(lib, status, "relu_attn_causal")
+    relu_attn_causal.launches += 1
+    return out
+
+
+relu_attn_causal.launches = 0

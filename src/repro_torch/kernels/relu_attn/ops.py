@@ -1,4 +1,9 @@
-"""Fused MSA module + its registry impl.
+"""ReLU linear attention on the framework's layouts, the fused MSA
+module and its registry impl.
+
+``relu_linear_attention`` takes (B, N, H, D) and runs the non-causal
+kernel (EfficientViT's MSA core) or the causal one (the LM form), as
+JAX's public op does.
 
 ``msa_fused_apply`` runs one EfficientViT MSA module with every
 multi-scale branch, image and head in ONE attention launch: the
@@ -19,11 +24,45 @@ from repro_torch.core.relu_attention import (
     _conv_any, msa_aggregate, msa_project)
 from repro_torch.kernels.registry import KernelBase, register
 from repro_torch.kernels.relu_attn.kernel import (
-    relu_attn_noncausal, relu_attn_smem_bytes)
+    relu_attn_causal, relu_attn_noncausal, relu_attn_smem_bytes)
 
-__all__ = ["msa_fused_apply", "MsaKernel", "MSA_DEFAULT_BLOCK_N"]
+__all__ = ["relu_linear_attention", "msa_attention_fn", "msa_fused_apply",
+           "MsaKernel", "MSA_DEFAULT_BLOCK_N"]
 
 MSA_DEFAULT_BLOCK_N = 256   # token tile of the K/V phase
+
+
+def _fold_heads(x):
+    """(B, N, H, D) -> (B*H, N, D), contiguous."""
+    B, N, H, D = x.shape
+    return x.transpose(1, 2).reshape(B * H, N, D).contiguous()
+
+
+def _unfold_heads(x, B, H):
+    BH, N, D = x.shape
+    return x.reshape(B, H, N, D).transpose(1, 2)
+
+
+def relu_linear_attention(q, k, v, *, causal: bool = False,
+                          block_n: int = 256):
+    """Fused ReLU linear attention.  q, k, v: (B, N, H, D) -> (B, N, H, D)
+    fp32.  Non-causal: one ``relu_attn_noncausal`` launch over the heads
+    in place (token tile ``block_n``); causal: the heads fold into rows
+    of ``relu_attn_causal`` (chunk ``block_n``), which takes fp32 or bf16
+    as it is."""
+    if not causal:
+        return relu_attn_noncausal(q.float(), k.float(), v.float(),
+                                   block_n=block_n)
+    B, _, H, _ = q.shape
+    out = relu_attn_causal(_fold_heads(q), _fold_heads(k), _fold_heads(v),
+                           chunk=block_n)
+    return _unfold_heads(out, B, H)
+
+
+def msa_attention_fn(q, k, v):
+    """Drop-in ``attention_fn`` for ``core.relu_attention.msa``
+    (B, N, h, d)."""
+    return relu_linear_attention(q, k, v, causal=False).to(q.dtype)
 
 
 def _int8_branches(params, x, n_heads: int):
@@ -55,9 +94,8 @@ def msa_fused_apply(params, x, n_heads: int, head_dim: int, *,
                     int8_proj: bool = False, epilogue=None):
     """x: (B, H, W, C), or a producer's ``QTensor`` -> (B, H, W, C); one
     attention launch.  ``int8_proj`` routes the projections through the
-    W8A8 GEMM when both are quantized; an emitting ``epilogue`` would
-    need ``int8_matmul_emit``, which is not ported (no B1 MSA site is
-    given one: every MSA site is residual)."""
+    W8A8 GEMM when both are quantized; an int8 ``epilogue`` then makes
+    the output projection emit a ``QTensor`` (``int8_matmul_emit``)."""
     qt = isinstance(x, QTensor)
     B, H, W, _ = x.shape
     dtype = (x.fp.dtype if qt and x.fp is not None

@@ -1,12 +1,17 @@
-"""Plain PyTorch version of the fused non-causal ReLU linear attention.
+"""Plain PyTorch versions of the fused ReLU linear attention kernels.
 
-The CPU path of ``kernel.relu_attn_noncausal`` and its yardstick on the
-card.  Layout (G, N, heads, d): the JAX kernel's (BH, N, D) rows are
-the (g, head) pairs, folded by strides instead of a copy.
+``relu_attn_noncausal_ref`` is the CPU path of
+``kernel.relu_attn_noncausal`` and its yardstick on the card; layout
+(G, N, heads, d): the JAX kernel's (BH, N, D) rows are the (g, head)
+pairs, folded by strides instead of a copy.  ``relu_attn_causal_chunked``
+is the CPU path and yardstick of ``kernel.relu_attn_causal``, in the TPU
+kernel's chunk order; ``relu_attn_causal_ref`` is the O(N^2) masked
+oracle (JAX's ``relu_attn_causal_ref``), for small N only.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 EPS = 1e-6
 
@@ -23,3 +28,48 @@ def relu_attn_noncausal_ref(q, k, v, eps: float = EPS):
     num = torch.einsum("gnhd,ghde->gnhe", pq, kv)
     den = torch.einsum("gnhd,ghd->gnh", pq, ksum)[..., None]
     return num / torch.clamp(den, min=eps)
+
+
+def relu_attn_causal_ref(q, k, v, eps: float = EPS):
+    """q, k, v: (BH, N, D) -> (BH, N, D) fp32, causal, via the explicit
+    O(N^2) masked scores."""
+    pq = torch.relu(q.float())
+    pk = torch.relu(k.float())
+    n = q.shape[1]
+    scores = torch.einsum("bnd,bmd->bnm", pq, pk)
+    mask = torch.ones((n, n), dtype=torch.bool, device=q.device).tril()
+    scores = torch.where(mask[None], scores, torch.zeros_like(scores))
+    num = torch.einsum("bnm,bme->bne", scores, v.float())
+    den = scores.sum(dim=-1, keepdim=True)
+    return num / torch.clamp(den, min=eps)
+
+
+def relu_attn_causal_chunked(q, k, v, *, chunk: int = 256,
+                             eps: float = EPS):
+    """q, k, v: (BH, N, D) fp32 or bf16 -> (BH, N, D) fp32, causal, in
+    the TPU kernel's order: N zero-padded to whole chunks of
+    ``min(chunk, N)``; per chunk the tril-masked scores ``ReLU(Q)
+    ReLU(K)^T``, ``num = S V``, ``den = rowsum(S)``, plus the prefix
+    state ``ReLU(Q) state`` and ``ReLU(Q) . zsum``; ``num / max(den,
+    eps)``; then ``state += ReLU(K)^T V``, ``zsum += sum ReLU(K)``."""
+    BH, N, D = q.shape
+    C = min(chunk, N)
+    pad = -N % C
+    pq = F.pad(torch.relu(q.float()), (0, 0, 0, pad))
+    pk = F.pad(torch.relu(k.float()), (0, 0, 0, pad))
+    vf = F.pad(v.float(), (0, 0, 0, pad))
+    tril = torch.ones((C, C), dtype=torch.float32, device=q.device).tril()
+    state = torch.zeros((BH, D, D), dtype=torch.float32, device=q.device)
+    zsum = torch.zeros((BH, 1, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((BH, N + pad, D), dtype=torch.float32, device=q.device)
+    for c0 in range(0, N + pad, C):
+        qc, kc, vc = (t[:, c0:c0 + C] for t in (pq, pk, vf))
+        s = (qc @ kc.transpose(1, 2)) * tril
+        num = s @ vc
+        den = s.sum(dim=-1, keepdim=True)
+        num = num + qc @ state
+        den = den + qc @ zsum.transpose(1, 2)
+        out[:, c0:c0 + C] = num / torch.clamp(den, min=eps)
+        state = state + kc.transpose(1, 2) @ vc
+        zsum = zsum + kc.sum(dim=1, keepdim=True)
+    return out[:, :N]

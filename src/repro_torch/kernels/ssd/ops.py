@@ -1,0 +1,32 @@
+"""The SSD scan over the framework's Mamba-2 layout, counterpart of
+``repro/kernels/ssd/ops.py``.
+
+``ssd_op`` takes the (b, s, h, p) / (b, s, g, n) layout of the Mamba-2
+layer, folds (batch, head) into the kernel's rows, expands the B/C
+groups to heads and applies the D skip.
+"""
+from __future__ import annotations
+
+from repro_torch.kernels.ssd.kernel import ssd_chunked
+
+__all__ = ["ssd_op"]
+
+
+def ssd_op(x, dt, A, B, C, *, chunk: int = 256, D_skip=None):
+    """x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, g, n) -> y
+    (b, s, h, p) fp32."""
+    b, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    xf = x.float().transpose(1, 2).reshape(b * h, s, p).contiguous()
+    dtf = dt.float().transpose(1, 2).reshape(b * h, s).contiguous()
+    dA = dtf * A.float().repeat(b)[:, None]                     # (b*h, s)
+    Bf = (B.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+          .reshape(b * h, s, n).contiguous())
+    Cf = (C.float().repeat_interleave(rep, dim=2).transpose(1, 2)
+          .reshape(b * h, s, n).contiguous())
+    y = ssd_chunked(xf, dtf, dA, Bf, Cf, chunk=chunk)
+    y = y.reshape(b, h, s, p).transpose(1, 2)
+    if D_skip is not None:
+        y = y + D_skip.float()[None, None, :, None] * x.float()
+    return y

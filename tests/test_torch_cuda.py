@@ -8,9 +8,9 @@ machine that has only PyTorch and the CUDA toolkit:
 
 Tolerance: the fp32 kernels, max|kernel - plain| <= 1e-4 * max(1,
 max|plain|) (both fp32 with TF32 off; they differ in summation order
-only).  The int8 kernels: EQUAL, int8 codes and fp32 outputs alike
-(exact int32 sums, and every fp32 step rounded in the plain version's
-order).
+only, and the SSD scan also in the order of its in-chunk cumsum).  The
+int8 kernels: EQUAL, int8 codes and fp32 outputs alike (exact int32
+sums, and every fp32 step rounded in the plain version's order).
 """
 import time
 
@@ -22,22 +22,32 @@ from repro_torch.core.efficientvit import (
     B1, B1_SMOKE, EfficientViTConfig, init_efficientvit)
 from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import SuperSite, execute, lower
+from repro_torch.common.errors import KernelLaunchError
 from repro_torch.core.quantization import quantize_act, quantize_efficientvit
-from repro_torch.kernels.dsconv.kernel import dsconv_fused, dsconv_fused_int8
-from repro_torch.kernels.dsconv.ref import dsconv_int8_ref, dsconv_ref
+from repro_torch.kernels.dsconv.kernel import (
+    dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
+from repro_torch.kernels.dsconv.ref import (
+    dsconv_int8_emit_ref, dsconv_int8_ref, dsconv_ref)
 from repro_torch.kernels.group_conv.kernel import group_agg_int8
 from repro_torch.kernels.group_conv.ref import block_diag, group_agg_int8_ref
-from repro_torch.kernels.int8_matmul.kernel import int8_matmul
-from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
+from repro_torch.kernels.int8_matmul.kernel import (
+    int8_matmul, int8_matmul_emit)
+from repro_torch.kernels.int8_matmul.ref import (
+    int8_matmul_emit_ref, int8_matmul_ref)
 from repro_torch.kernels.mbconv.kernel import (
     mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
 from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
-from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
-from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
+from repro_torch.kernels.registry import SMEM_LIMIT
+from repro_torch.kernels.relu_attn.kernel import (
+    relu_attn_causal, relu_attn_noncausal)
+from repro_torch.kernels.relu_attn.ref import (
+    relu_attn_causal_chunked, relu_attn_noncausal_ref)
+from repro_torch.kernels.ssd.kernel import ssd_chunked
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref
 from repro_torch.kernels.supersite.kernel import (
     supersite_fused, supersite_fused_int8)
 from repro_torch.kernels.supersite.ops import (
-    choose_blocks, make_fp_geom, make_int8_geom)
+    choose_blocks, make_fp_geom, make_int8_geom, supersite_smem_bytes)
 from repro_torch.kernels.supersite.pack import pack_weights
 from repro_torch.kernels.supersite.ref import (
     supersite_int8_ref, supersite_ref)
@@ -281,6 +291,72 @@ def test_fix8_engine_on_the_card(cuda):
     assert torch.equal(got, ones)
 
 
+@pytest.mark.parametrize("keep_fp", [False, True])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("rows,K,N", [(196, 256, 128), (49, 512, 256)])
+def test_int8_matmul_emit_equals_plain(cuda, rows, K, N, batch, keep_fp):
+    """Row groups of one image straddle the 64-row tiles."""
+    g = torch.Generator().manual_seed(rows + K + batch)
+    args = (_i8(g, cuda, batch * rows, K), _i8(g, cuda, K, N),
+            _sc(g, cuda, batch), _sc(g, cuda, N))
+    kw = dict(rows_per_group=rows, bias=_bias(g, cuda, N), keep_fp=keep_fp)
+    n = int8_matmul_emit.launches
+    got = int8_matmul_emit(*args, **kw)
+    assert int8_matmul_emit.launches == n + 1
+    _same(got, int8_matmul_emit_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("keep_fp", [False, True])
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,C,stride", [(112, 16, 1), (56, 32, 2)])
+def test_dsconv_int8_emit_equals_plain(cuda, H, C, stride, batch, keep_fp):
+    g = torch.Generator().manual_seed(H + batch)
+    args = (_i8(g, cuda, batch, H, H, C), _sc(g, cuda, batch),
+            _i8(g, cuda, 3, 3, C), _sc(g, cuda, C), _bias(g, cuda, C),
+            _i8(g, cuda, C, C), _sc(g, cuda, C), _bias(g, cuda, C))
+    n = dsconv_fused_int8_emit.launches
+    got = dsconv_fused_int8_emit(*args, stride=stride, keep_fp=keep_fp)
+    assert dsconv_fused_int8_emit.launches == n + 1
+    _same(got, dsconv_int8_emit_ref(*args, stride=stride, keep_fp=keep_fp))
+    if keep_fp:
+        _same((got[2],), (dsconv_fused_int8(*args, stride=stride),))
+
+
+# ---------------------------------------------------------------------------
+# the LM-form scans
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("BH,N,D,chunk,dtype", [
+    (4, 1000, 64, 256, torch.float32), (2, 700, 240, 256, torch.float32),
+    (3, 300, 32, 16, torch.bfloat16), (2, 64, 16, 64, torch.float32)])
+def test_relu_attn_causal_matches_plain(cuda, BH, N, D, chunk, dtype):
+    """Ragged N, d = 240 (several value-column slices), bf16 inputs."""
+    rng = np.random.default_rng(N + D)
+    q, k, v = (_rand(rng, cuda, BH, N, D).to(dtype) for _ in range(3))
+    n = relu_attn_causal.launches
+    got = relu_attn_causal(q, k, v, chunk=chunk)
+    assert relu_attn_causal.launches == n + 1
+    _close(got, relu_attn_causal_chunked(q, k, v, chunk=chunk))
+
+
+@pytest.mark.parametrize("BH,S,P,N,chunk", [
+    (4, 1024, 64, 128, 256), (3, 517, 64, 128, 256), (2, 300, 16, 16, 32)])
+def test_ssd_kernel_matches_plain(cuda, BH, S, P, N, chunk):
+    """Mamba-2's step sizes and decays (dt in [1e-3, 0.1], A in [-16,
+    -1]); a ragged S runs as if zero-padded."""
+    rng = np.random.default_rng(S + P)
+    x = _rand(rng, cuda, BH, S, P)
+    Bm, Cm = _rand(rng, cuda, BH, S, N), _rand(rng, cuda, BH, S, N)
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (
+        BH, S))).astype(np.float32)).to(cuda)
+    A = torch.from_numpy(-rng.uniform(1, 16, (BH, 1)).astype(
+        np.float32)).to(cuda)
+    n = ssd_chunked.launches
+    got = ssd_chunked(x, dt, dt * A, Bm, Cm, chunk=chunk)
+    assert ssd_chunked.launches == n + 1
+    _close(got, ssd_chunked_ref(x, dt, dt * A, Bm, Cm, chunk=chunk))
+
+
 # ---------------------------------------------------------------------------
 # super-site chains: the kernels against their plain versions, grouped
 # forwards against per-site ones
@@ -307,12 +383,21 @@ def _chain(cfg, names, batch, precision):
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("cfg,names", CHAINS)
 def test_supersite_kernel_matches_plain(cuda, cfg, names, batch):
+    """The planner's band and bands of 1 and 3 rows at its chunk, widest
+    first.  A band whose CTA needs more than SMEM_LIMIT is refused by the
+    card (B1@224 S1.ss0 at batch 1: 3 rows at chunk 32 need 253,696 B),
+    and the refusal leaves no error behind for the next launch."""
     sup, pack = _chain(cfg, names, batch, "fp")
     blocks = choose_blocks(sup)
     x = _rand(np.random.default_rng(batch), cuda, *sup.in_shape)
-    for rows in sorted({blocks["block_rows"], 1, 3}):
+    for rows in sorted({blocks["block_rows"], 1, 3}, reverse=True):
         geom = make_fp_geom(sup, pack, rows, blocks["block_m"])
         n = supersite_fused.launches
+        if supersite_smem_bytes(sup, rows, blocks["block_m"]) > SMEM_LIMIT:
+            with pytest.raises(KernelLaunchError):
+                supersite_fused(x, pack.fp, geom=geom)
+            assert supersite_fused.launches == n
+            continue
         got = supersite_fused(x, pack.fp, geom=geom)
         assert supersite_fused.launches == n + 1
         _close(got, supersite_ref(x, pack.fp, geom=geom))
