@@ -16,12 +16,20 @@
       median of 5 windows; the bound is max(bytes / 3.35 TB/s, flops /
       67 TFLOP/s), the H100 SXM's published memory rate and non-tensor
       fp32 rate, with each input read once and each output written once.
-      The super-site chain kernel ``supersite_fused`` runs at the two
-      chains of B1@224 (S1.ss0 = S1.mb0..mb1, S2.ss0 = S2.mb0..mb2) with
-      the band height and channel chunk the planner picks; its bound
-      counts the chain's input, output and weight pack once and the
-      members' MACs without the bands' halo recompute.  A sweep times
-      it at band heights 1, 2, 4 and chunks 16, 32 beside the choice.
+      ``mbconv_fused`` runs with the blocks (band height, mid chunk,
+      cluster size) its ``choose_blocks`` picks.  The super-site chain
+      kernel ``supersite_fused`` runs at the two chains of B1@224
+      (S1.ss0 = S1.mb0..mb1, S2.ss0 = S2.mb0..mb2) with the band height
+      and channel chunk the planner picks; its bound counts the chain's
+      input, output and weight pack once and the members' MACs without
+      the bands' halo recompute.  Two calls of each of these two kernels
+      must give equal bits (fixed summation orders).  Two sweeps time
+      the blocks around the choices (the evidence both ``choose_blocks``
+      follow): ``mbconv_fused`` at S1.mb1, S3.mb0 (stride 2), S3,
+      S4.mb0 (stride 2) and S4 over band x chunk x cluster size, with
+      the clusters the card holds at once
+      (``cudaOccupancyMaxActiveClusters``), and ``supersite_fused`` at
+      both chains over band heights 1-4 x chunks 16-128 that fit.
    b. ``VisionEngine`` over B1@224 fp32 (random weights and BN
       statistics from ``--seed``, microbatch 8) serves 12 requests with
       mixed deadlines through its scheduler, on the default plan, which
@@ -35,7 +43,10 @@
       group's weight pack is built once per engine and hit by every
       later bucket.  One batch-8 forward under the per-site plan
       (``supersites=False``) must match the grouped one within 1e-4 *
-      max(1, max|logit|), with the same top-1.
+      max(1, max|logit|), with the same top-1.  Then the steady state:
+      64 images as 8 full buckets (host clock), one batch-8 forward's
+      device time (CUDA events, one forward per window) beside the
+      host's time to enqueue it (the same for FIX8).
 3. FIX8 phase.
    a. Each int8 kernel against its plain PyTorch version at every B1@224
       int8 shape on the path, batch 1 and 8, on random int8 codes: the
@@ -90,11 +101,14 @@
    also timed against ``torch._int_mm``
    + the same epilogue and per-image quantize.  The 32k-token cases are
    timed over 3 windows of 2 calls.
-5. One JSON line with every kernel's launches on its driven run(s),
+5. ``torch.profiler``'s kernel time and launches per batch-8 forward by
+   kernel name, fp32 and FIX8, after every timed phase: CUPTI may stay
+   attached once the profiler has run and slow the host's launches.
+6. One JSON line with every kernel's launches on its driven run(s),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
-6. The last line: ``{"ok": true, "device": {...}}``.
+7. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.
 """
@@ -182,6 +196,7 @@ def kernel_cases(batch: int, gen):
     from repro_torch.core.program import lower
     from repro_torch.kernels.dsconv.kernel import dsconv_fused
     from repro_torch.kernels.dsconv.ref import dsconv_ref
+    from repro_torch.kernels.mbconv.kernel import choose_blocks as mb_blocks
     from repro_torch.kernels.mbconv.kernel import mbconv_fused
     from repro_torch.kernels.mbconv.ref import mbconv_ref
     from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
@@ -221,7 +236,10 @@ def kernel_cases(batch: int, gen):
             pfn = lambda a=args, st=st: mbconv_ref(*a, stride=st)
             nbytes = 4 * (sum(t.numel() for t in args) + B * Ho * Wo * F)
             flops = 2 * B * (H * W * C * M + Ho * Wo * M * (9 + F))
-            label = f"x{tuple(x.shape)} M={M} F={F} s={st}"
+            b = mb_blocks(x.shape, M, F, st)
+            label = (f"x{tuple(x.shape)} M={M} F={F} s={st} R="
+                     f"{b['block_rows']} bm={b['block_m']} "
+                     f"split={b['split']}")
             name = "mbconv_fused"
         else:
             B, H, W, C = s.in_shape
@@ -664,13 +682,14 @@ def chain_cases(batch: int, gen, params, qparams):
 
 def band_sweep(params, gen) -> None:
     """Time ``supersite_fused`` at both B1@224 chains, batch 1 and 8, over
-    band heights and channel chunks around the planner's choice (the
-    evidence ``choose_blocks`` follows)."""
+    band heights 1-4 and channel chunks 16-128 that fit, the planner's
+    choice marked (the evidence ``choose_blocks`` follows)."""
     import torch
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.program import SuperSite, lower
     from repro_torch.kernels.registry import SMEM_LIMIT
     from repro_torch.kernels.supersite.kernel import supersite_fused
+    from repro_torch.kernels.mbconv_fp import BLOCK_M
     from repro_torch.kernels.supersite.ops import (
         choose_blocks, make_fp_geom, supersite_smem_bytes)
     from repro_torch.kernels.supersite.pack import pack_weights
@@ -683,16 +702,82 @@ def band_sweep(params, gen) -> None:
             x = torch.randn(sup.in_shape, generator=gen).cuda()
             chosen = choose_blocks(sup)
             cells = []
-            for rows in (1, 2, 4):
-                for bm in (16, 32):
+            for rows in (1, 2, 3, 4):
+                for bm in sorted(BLOCK_M):
                     if supersite_smem_bytes(sup, rows, bm) > SMEM_LIMIT:
                         continue
                     geom = make_fp_geom(sup, pack, rows, bm)
                     ms = device_ms(lambda g=geom: supersite_fused(
                         x, pack.fp, geom=g), reps=10, windows=3)
-                    cells.append(f"R={rows},bm={bm}:{ms:.4f}")
+                    mark = "*" if chosen == {"block_rows": rows,
+                                             "block_m": bm} else ""
+                    cells.append(f"{mark}R={rows},bm={bm}:{ms:.4f}")
             print(f"[band sweep] {name} B={batch} chosen {chosen}; ms "
                   f"{' '.join(cells)}")
+
+
+def mbconv_sweep(gen) -> None:
+    """Time ``mbconv_fused`` at S1.mb1, S3.mb0, S3, S4.mb0 and S4 of
+    B1@224, batch 1 and 8, over band height x mid chunk x cluster size
+    (every legal split, every chunk no wider than the slice, the whole
+    map and power-of-two bands), the choice of ``choose_blocks`` marked;
+    beside each cell the clusters the card holds at once and the CTA's
+    shared memory.  The evidence the block cost model was fitted to."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.mbconv.kernel import (
+        choose_blocks, legal_splits, mbconv_fused, mbconv_slice,
+        mbconv_smem_bytes)
+    from repro_torch.kernels.mbconv_fp import BLOCK_M
+    from repro_torch.kernels.registry import SMEM_LIMIT
+
+    occ = library("mbconv").mbconv_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    for batch in (1, 8):
+        for name, (H, C, M, F, st) in (("S1.mb1", (56, 32, 128, 32, 1)),
+                                       ("S3.mb0", (28, 64, 256, 128, 2)),
+                                       ("S3", (14, 128, 512, 128, 1)),
+                                       ("S4.mb0", (14, 128, 512, 256, 2)),
+                                       ("S4", (7, 256, 1024, 256, 1))):
+            rnd = lambda *sh, scale=1.0: (torch.randn(
+                sh, generator=gen) * scale).cuda()
+            args = (rnd(batch, H, H, C), rnd(C, M, scale=C ** -0.5),
+                    rnd(M), rnd(3, 3, M, scale=1 / 3), rnd(M),
+                    rnd(M, F, scale=M ** -0.5), rnd(F))
+            ho = H // st
+            chosen = choose_blocks(args[0].shape, M, F, st)
+            cells, times = [], {}
+            for rows in sorted({ho} | {r for r in (1, 2, 4, 8, 16, 32)
+                                       if r < ho}):
+                for split in legal_splits(M):
+                    sl = mbconv_slice(M, split)
+                    for bm in BLOCK_M:
+                        smem = mbconv_smem_bytes(H, F, st, rows, bm)
+                        if bm > max(16, -(-sl // 16) * 16) or \
+                                smem > SMEM_LIMIT:
+                            continue
+                        n = ctypes.c_int(0)
+                        if occ(batch, H, H, F, st, rows, bm, split,
+                               ctypes.byref(n)):
+                            raise AssertionError(f"mbconv occupancy query "
+                                                 f"failed at {rows, bm, split}")
+                        blocks = {"block_rows": rows, "block_m": bm,
+                                  "split": split}
+                        ms = device_ms(lambda b=blocks: mbconv_fused(
+                            *args, stride=st, **b), reps=10, windows=3)
+                        times[(rows, bm, split)] = ms
+                        mark = "*" if blocks == chosen else ""
+                        cells.append(f"{mark}R={rows},bm={bm},S={split}:"
+                                     f"{ms:.4f}({n.value}x,{smem // 1024}K)")
+            best = min(times, key=times.get)
+            pick = times[tuple(chosen.values())]
+            print(f"[mbconv sweep] {name} x{tuple(args[0].shape)} B={batch} "
+                  f"chosen {chosen} {pick:.4f} ms, fastest R={best[0]},"
+                  f"bm={best[1]},S={best[2]} {times[best]:.4f} ms "
+                  f"(x{pick / times[best]:.3f}); ms {' '.join(cells)}")
 
 
 def check_groups(engine, tag) -> None:
@@ -840,9 +925,14 @@ def add_time(acc, n, case, ms, plain_ms, lib_ms, b_ms, exact) -> None:
 def check_kernels(cases, batch, per_fwd, max_err, exact: bool):
     """Hold each case's kernel against its plain version, time both,
     print one [kernel] line each and add the batch-8 times to
-    ``per_fwd``."""
+    ``per_fwd``.  ``mbconv_fused`` and ``supersite_fused`` must also give
+    equal bits on two calls."""
+    import torch
     for case in cases:
         name, sites = case[:2]
+        if name in ("mbconv_fused", "supersite_fused"):
+            if not torch.equal(case[3](), case[3]()):
+                raise AssertionError(f"{name} {case[2]}: two calls differ")
         err, ref_max, *times = measure(case, exact)
         max_err[name] = max(max_err[name], err)
         kernel_line("kernel", case, f"B={batch} sites={len(sites)} ", err,
@@ -910,7 +1000,8 @@ def serve_trace(engine, images, wrappers, expected, tag):
 def steady_state(engine, rng, tag):
     """64 images as 8 full buckets, host clock to a synchronize; then one
     batch-8 forward's device time (CUDA events, the host's enqueue hidden
-    behind a sleep kernel) beside the host's time to enqueue it."""
+    behind a sleep kernel) beside the host's time to enqueue it.  Returns
+    the batch-8 forward, for ``kernel_profile``."""
     import numpy as np
     import torch
     batch64 = torch.from_numpy(
@@ -925,7 +1016,10 @@ def steady_state(engine, rng, tag):
           f"{wall * 1e3:.2f} ms = {64 / wall:.1f} images/s")
     ex = engine.cache.get(8, 224)
     fwd = lambda: ex(engine.params, batch64[:8])
-    dev = device_ms(fwd, reps=5, windows=3)
+    # one forward per window: a forward queues ~660 launches, and five
+    # of them overrun the stream's launch queue, so the host's enqueue
+    # would leak into a longer window
+    dev = device_ms(fwd, reps=1, windows=5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
@@ -936,6 +1030,33 @@ def steady_state(engine, rng, tag):
     print(f"[{tag}] one batch-8 forward: device {dev:.3f} ms, host enqueue "
           f"{host:.3f} ms, steady state {per:.3f} ms per forward (device "
           f"idle {max(0.0, 1 - dev / per):.1%} of it)")
+    return fwd
+
+
+def kernel_profile(fwd, tag, n: int = 2) -> None:
+    """Kernel time and launches per forward by kernel name, from
+    ``torch.profiler``'s CUDA activity over ``n`` forwards (the sum is
+    the device's busy time; the gaps between kernels are not in it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fwd()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            rows.append((us / n / 1e3, e.count / n, e.key))
+    rows.sort(reverse=True)
+    top = "; ".join(f"{name[:48]} {ms:.3f} ms x{cnt:g}"
+                    for ms, cnt, name in rows[:8])
+    print(f"[{tag}] profiler, one batch-8 forward: "
+          f"{sum(r[1] for r in rows):g} kernel launches, "
+          f"{sum(r[0] for r in rows):.3f} ms of kernel time; top: {top}")
 
 
 def main() -> int:
@@ -1051,6 +1172,7 @@ def main() -> int:
     for batch in (1, 8):
         check_kernels(kernel_cases(batch, gen) + chains[batch][0], batch,
                       per_fwd, max_err, exact=False)
+    mbconv_sweep(gen)
     band_sweep(params, gen)
 
     # -- 2b. the fp32 main path -----------------------------------------
@@ -1071,8 +1193,7 @@ def main() -> int:
           f"{np.abs(ref).max():.3e}), top-1 equal")
     x12 = torch.from_numpy(images).cuda()
     grouped_vs_per_site(engine, x12[:8], "serve", exact=False)
-    steady_state(engine, rng, "serve")
-    del engine
+    fwd_fp = steady_state(engine, rng, "serve")
 
     # -- 3a. int8 kernels against their plain versions -----------------
     for batch in (1, 8):
@@ -1105,14 +1226,17 @@ def main() -> int:
     print("[fix8] batch invariance: the 8 rows of a batch-8 forward equal "
           "the 8 batch-1 forwards bit for bit")
     grouped_vs_per_site(qengine, x12[:8], "fix8", exact=True)
-    steady_state(qengine, rng, "fix8")
-    del qengine
+    fwd_q = steady_state(qengine, rng, "fix8")
 
     # -- 4. the kernel library: the public ops off the vision path ------
     launches_lib = library_phase(args.seed, wrappers, expected_lib, per_fwd,
                                  max_err)
 
-    # -- 5. the kernels line --------------------------------------------
+    # -- 5. kernel time per forward, after every timed phase -----------
+    kernel_profile(fwd_fp, "serve")
+    kernel_profile(fwd_q, "fix8")
+
+    # -- 6. the kernels line --------------------------------------------
     rows = []
     for name in wrappers:
         acc = per_fwd[name]

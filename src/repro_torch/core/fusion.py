@@ -52,6 +52,10 @@ class SiteDecision:
     #                        | "quantized" | "not-quantized" | "mixed"
     #                        | "disabled"
     blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
+    #                        fp mbconv: {"block_rows", "block_m", "split"}
+    #                        (band, mid chunk, CTAs per cluster); fp
+    #                        dsconv: {"block_rows", "block_f"}; msa:
+    #                        {"block_n"}; int8 conv kinds: {}
     shape: tuple = ()      # (B, H, W, C, mid, F, stride) / (BH, N, D, S, C)
     precision: str = "fp"  # "fp" | "int8": which kernel family runs
     reused: bool = False   # blocks inherited from a donor plan
@@ -71,7 +75,8 @@ class GroupDecision:
     members: tuple            # member site names, program order
     precision: str = "fp"     # uniform across the chain
     blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
-    #                           fp: {"block_rows", "block_m"}; int8: {}
+    #                           fp: {"block_rows", "block_m"} (band,
+    #                           DW-stage chunk); int8: {}
     shape: tuple = ()         # in_shape + out_shape of the chain
     reused: bool = False      # blocks inherited from a donor plan
     kind: str = "supersite"

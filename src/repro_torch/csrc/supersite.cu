@@ -32,17 +32,21 @@
 //   - bias, then the residual add (out + input window row + 1), in the
 //     band buffer, which is the next member's input; the last member
 //     writes its rows straight to the output.
-// Band buffers ping-pong between two shared regions.  Weights are read
-// from the device-memory pack (kernels/supersite/pack.py) at the offsets
-// the descriptor carries; S2.ss0's pack alone (346 KB) would not fit in
-// shared memory, and every CTA reads the same one through L2.  Small
-// bands recompute the halo of every member but the last (at R = 1 S1.mb0
-// computes 3 rows and S2.mb0 5 per chain output row).  fp32 FMA on CUDA
-// cores: TF32 tensor cores would break fp32 parity.
-#include "common.cuh"
+// PW1, DW and the projection are the register-tiled stages of
+// mbconv_fp.cuh (4 x 4 FFMA tiles per thread, weights through cp.async),
+// the same as mbconv_fused's.  Band buffers ping-pong between two shared
+// regions.  Weights are read from the device-memory pack
+// (kernels/supersite/pack.py) at the offsets the descriptor carries;
+// S2.ss0's pack alone (346 KB) would not fit in shared memory, and every
+// CTA reads the same one through L2.  Small bands recompute the halo of
+// every member but the last (at R = 1 S1.mb0 computes 3 rows and S2.mb0
+// 5 per chain output row).  fp32 FFMA on CUDA cores: TF32 tensor cores
+// would break fp32 parity.
+#include "mbconv_fp.cuh"
+
+using namespace mbfp;
 
 constexpr int SS_MAX_MEMBERS = 8;
-constexpr int SS_THREADS = 512;
 // ints per member in the host descriptor: kind (0 MBConv, 1 DSConv),
 // stride, residual, h_in, w_in, c_in, mid, f_out, c0, c1, length, n_out,
 // block_m, 6 pack offsets (MBConv w1, b1, dw, dwb, w2, b2 / DSConv dw,
@@ -65,15 +69,14 @@ __host__ __device__ inline int dw_channels(const SsMember& m) {
   return m.kind == 0 ? m.mid : m.c_in;
 }
 
-__global__ void __launch_bounds__(SS_THREADS)
+__global__ void __launch_bounds__(NT, 1)
     supersite_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out,
                      const __grid_constant__ SsChain ch, int h_out,
-                     int buf0, int buf1, int win) {
-  extern __shared__ float smem[];
-  float* bufs[2] = {smem, smem + buf0};
-  float* ms = smem + buf0 + buf1;  // [length][W + 2][block_m] DW window
-  float* ds = ms + win;            // [n_out * Wo][block_m] DW result
+                     int buf0, int buf1, int x_n) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem + buf0 + buf1;  // PW1 staging | DW result
+  float* win = xs + x_n;           // DW window | projection staging
   const int b = blockIdx.y, j = blockIdx.x;
 
   for (int k = 0; k < ch.n; ++k) {
@@ -83,6 +86,7 @@ __global__ void __launch_bounds__(SS_THREADS)
     const int M = dw_channels(m), F = m.f_out, bm = m.block_m;
     const int r0 = m.c0 + m.c1 * j;   // map row of window row 0
     const int o0 = (r0 + 2 - s) / s;  // map row of output row 0 (exact)
+    const int lo = max(0, -r0), hi = min(L, H - r0);  // rows in the map
     const bool mb = m.kind == 0;
     const float* w1 = w + m.off[0];
     const float* b1 = w + m.off[1];
@@ -93,67 +97,49 @@ __global__ void __launch_bounds__(SS_THREADS)
     // the input window: the map itself for the first member (row r0 + t),
     // the previous member's band buffer after it (row t)
     const float* xb = x + (size_t)b * H * W * C;
-    const float* in = k > 0 ? bufs[(k - 1) & 1] : nullptr;
-    float* acc = bufs[k & 1];  // [n * Wo][F]
-    const int P = n * Wo;
+    // band buffers: member k's output in buffer k % 2
+    const float* in = (k - 1) & 1 ? smem + buf0 : smem;
+    // window pixel q (row lo + q / W) at src + q * C
+    const float* src = k > 0 ? in + (size_t)lo * W * C
+                             : xb + (size_t)(r0 + lo) * W * C;
+    float* acc = k & 1 ? smem + buf0 : smem;  // [n * Wo][F]
+    const int P = n * Wo, NQ = (hi - lo) * W, bn2 = pw2_bn(P, F);
 
-    for (int idx = threadIdx.x; idx < P * F; idx += blockDim.x)
-      acc[idx] = 0.0f;
+    for (int e = threadIdx.x; e < P * F; e += NT) acc[e] = 0.0f;
     for (int m0 = 0; m0 < M; m0 += bm) {
       const int mw = min(bm, M - m0);
-      // the DW stage's input chunk over the window, zero outside the map
-      for (int idx = threadIdx.x; idx < L * Wp * mw; idx += blockDim.x) {
-        const int c = idx % mw, t = idx / mw;
-        const int tr = t / Wp, col = t % Wp;
-        const int gr = r0 + tr;
-        float v = 0.0f;
-        if (gr >= 0 && gr < H && col >= 1 && col <= W) {
-          const float* src =
-              (k > 0 ? in + (size_t)tr * W * C : xb + (size_t)gr * W * C) +
-              (size_t)(col - 1) * C;
-          if (mb) {
-            const float* wp = w1 + m0 + c;
-            float a = 0.0f;
-            for (int ci = 0; ci < C; ++ci)
-              a += src[ci] * __ldg(wp + (size_t)ci * M);
-            v = hswish(a + __ldg(b1 + m0 + c));
-          } else {
-            v = src[m0 + c];
-          }
-        }
-        ms[(tr * Wp + col) * bm + c] = v;
+      zero_border(win, L, Wp, bm, lo, hi);
+      if (mb) {
+        // the first member's input is the map in device memory, the
+        // others' a band buffer in shared memory
+        if (k > 0)
+          mbconv_chunk<true>(src, NQ, lo, W, C, M, mw, bm, w1 + m0, b1 + m0,
+                             dww + m0, dwb + m0, w2 + (size_t)m0 * F, F, bn2,
+                             P, Wo, s, xs, win, acc);
+        else
+          mbconv_chunk<false>(src, NQ, lo, W, C, M, mw, bm, w1 + m0, b1 + m0,
+                              dww + m0, dwb + m0, w2 + (size_t)m0 * F, F, bn2,
+                              P, Wo, s, xs, win, acc);
+        continue;
+      }
+      // DSConv: the input chunk itself is the DW stage's window
+      for (int e = threadIdx.x; e < NQ * bm; e += NT) {
+        const int c = e % bm, q = e / bm;
+        win[((size_t)(lo + q / W) * Wp + q % W + 1) * bm + c] =
+            c < mw ? src[(size_t)q * C + m0 + c] : 0.0f;
       }
       __syncthreads();
-      // DW 3x3 + bias at the strided anchors, Hardswish
-      for (int idx = threadIdx.x; idx < P * mw; idx += blockDim.x) {
-        const int c = idx % mw, p = idx / mw;
-        const int r = p / Wo, wo = p % Wo;
-        const float* mp = ms + ((r * s) * Wp + wo * s + s - 1) * bm + c;
-        float a = 0.0f;
-#pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-            a += mp[(dy * Wp + dx) * bm] *
-                 __ldg(dww + (dy * 3 + dx) * M + m0 + c);
-        ds[p * bm + c] = hswish(a + __ldg(dwb + m0 + c));
-      }
+      dw3x3(win, Wp, bm, mw, P, Wo, s, dww + m0, M, dwb + m0, xs);
       __syncthreads();
-      // the projection's partial sums over this chunk
-      for (int idx = threadIdx.x; idx < P * F; idx += blockDim.x) {
-        const int f = idx % F, p = idx / F;
-        const float* dp = ds + p * bm;
-        const float* wp = w2 + (size_t)m0 * F + f;
-        float a = 0.0f;
-        for (int c = 0; c < mw; ++c) a += dp[c] * __ldg(wp + (size_t)c * F);
-        acc[idx] += a;
-      }
-      __syncthreads();
+      const AccEpi add{acc, F};
+      MBFP_DISPATCH_BN(bn2, BN,
+                       gemm_kmajor<BN>(xs, round4(P), P, mw,
+                                       w2 + (size_t)m0 * F, F, F, win, add));
     }
     // bias, residual (stride 1, F == C: input window row r + 1 is map row
     // o0 + r), then the band buffer or, for the last member, the output
     const bool last = k == ch.n - 1;
-    for (int idx = threadIdx.x; idx < P * F; idx += blockDim.x) {
+    for (int idx = threadIdx.x; idx < P * F; idx += NT) {
       const int f = idx % F, p = idx / F;
       const int r = p / Wo, wo = p % Wo, go = o0 + r;
       float v = acc[idx] + __ldg(b2 + f);
@@ -173,16 +159,20 @@ __global__ void __launch_bounds__(SS_THREADS)
 }
 
 // Shared memory of one CTA, in floats: the two band buffers (member k's
-// output in buffer k % 2), the DW window and the DW result, each sized for
-// its largest member.  Python mirror: kernels/supersite/ops.py.
-static void supersite_smem(const SsChain& ch, int* buf, int* win, int* dwr) {
-  buf[0] = buf[1] = *win = *dwr = 0;
+// output in buffer k % 2), region X (PW1 staging | DW result) and region
+// Y (DW window | projection staging), each sized for its largest member
+// and a multiple of 4 floats (float4 alignment).
+// Python mirror: kernels/supersite/kernel.py::supersite_smem_floats.
+static void supersite_smem(const SsChain& ch, int* buf, int* xr, int* yr) {
+  buf[0] = buf[1] = *xr = *yr = 0;
   for (int k = 0; k < ch.n; ++k) {
     const SsMember& m = ch.m[k];
-    const int wo = m.w_in / m.stride;
-    buf[k & 1] = max(buf[k & 1], m.n_out * wo * m.f_out);
-    *win = max(*win, m.length * (m.w_in + 2) * m.block_m);
-    *dwr = max(*dwr, m.n_out * wo * m.block_m);
+    const int P = m.n_out * (m.w_in / m.stride), bm = m.block_m;
+    buf[k & 1] = max(buf[k & 1], round4(P * m.f_out));
+    *xr = max(*xr, bm * round4(P));
+    if (m.kind == 0) *xr = max(*xr, rows_stage_floats(bm));
+    *yr = max(*yr, m.length * (m.w_in + 2) * bm);
+    *yr = max(*yr, kmajor_stage_floats(pw2_bn(P, m.f_out)));
   }
 }
 
@@ -211,15 +201,17 @@ REPRO_EXPORT int supersite_fused_f32(const float* x, const float* w,
     m.n_out = d[11];
     m.block_m = d[12];
     for (int i = 0; i < 6; ++i) m.off[i] = d[13 + i];
+    if (m.block_m != 16 && m.block_m != 32 && m.block_m != 64 &&
+        m.block_m != 128)
+      return (int)cudaErrorInvalidValue;
   }
-  int buf[2], win, dwr;
-  supersite_smem(ch, buf, &win, &dwr);
-  const size_t smem = sizeof(float) * ((size_t)buf[0] + buf[1] + win + dwr);
+  int buf[2], xr, yr;
+  supersite_smem(ch, buf, &xr, &yr);
+  const size_t smem = sizeof(float) * ((size_t)buf[0] + buf[1] + xr + yr);
   static size_t granted = 48 * 1024;
   cudaError_t err = allow_smem(supersite_kernel, smem, &granted);
   if (err != cudaSuccess) return (int)err;
-  supersite_kernel<<<dim3(n_bands, B), SS_THREADS, smem,
-                     (cudaStream_t)stream>>>(x, w, out, ch, h_out, buf[0],
-                                             buf[1], win);
+  supersite_kernel<<<dim3(n_bands, B), NT, smem, (cudaStream_t)stream>>>(
+      x, w, out, ch, h_out, buf[0], buf[1], xr);
   return (int)cudaGetLastError();
 }

@@ -23,7 +23,8 @@ __all__ = ["mbconv_apply", "MbconvKernel", "mbconv_apply_int8",
 
 
 def mbconv_apply(params, x, *, stride: int = 1,
-                 block_rows: int | None = None, block_m: int | None = None):
+                 block_rows: int | None = None, block_m: int | None = None,
+                 split: int | None = None):
     """Matches ``core.efficientvit.mbconv``: BN folded into all three
     convs, Hardswish after pw1 and dw, bare projection after pw2."""
     w1, b1 = fold_bn_into_conv(params["pw1"]["conv"], params["pw1"]["bn"])
@@ -32,7 +33,7 @@ def mbconv_apply(params, x, *, stride: int = 1,
     out = mbconv_fused(x.contiguous(), w1[0, 0].contiguous(), b1,
                        dw[:, :, 0, :].contiguous(), dw_b,
                        w2[0, 0].contiguous(), b2, stride=stride,
-                       block_rows=block_rows, block_m=block_m)
+                       block_rows=block_rows, block_m=block_m, split=split)
     return out.to(x.dtype)
 
 
@@ -43,9 +44,9 @@ class MbconvKernel(KernelBase):
     batch_dependent_tiles = True   # the band height follows the batch
 
     def smem_bytes(self, site, blocks):
-        _, _, W, C = site.in_shape
-        return mbconv_smem_bytes(W, C, site.out_shape[-1], site.stride,
-                                 blocks["block_rows"], blocks["block_m"])
+        return mbconv_smem_bytes(site.in_shape[2], site.out_shape[-1],
+                                 site.stride, blocks["block_rows"],
+                                 blocks["block_m"])
 
     def tune(self, site):
         return choose_blocks(site.in_shape, site.attrs["mid"],

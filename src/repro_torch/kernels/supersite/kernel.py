@@ -24,6 +24,9 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
+from repro_torch.kernels.mbconv_fp import (
+    BLOCK_M, kmajor_stage_floats, pw2_bn, round4, rows_stage_floats,
+    tile_bn)
 from repro_torch.kernels.quant import xs_per_batch_vec
 from repro_torch.kernels.supersite.ref import (
     supersite_int8_ref, supersite_ref)
@@ -90,21 +93,33 @@ def _dw_channels(m: MemberGeom) -> int:
     return m.mid if m.kind == "mbconv" else m.c_in
 
 
+def _member_block_m(block_m: int, m: MemberGeom) -> int:
+    """A member's DW-stage chunk: ``block_m``, or the narrowest GEMM tile
+    width (16, 32, 64, 128) that holds all its DW channels if that is
+    less."""
+    return min(block_m, tile_bn(_dw_channels(m)))
+
+
 def supersite_smem_floats(members: Tuple[MemberGeom, ...],
                           block_m: int) -> int:
     """One CTA's shared memory in floats (mirrors ``supersite_smem`` in
     ``csrc/supersite.cu``): two band buffers, member k's output in buffer
-    k % 2, plus the DW window and the DW result of one channel chunk,
-    each sized for its largest member.  ``members`` carry windows."""
+    k % 2, then the larger of PW1's staging and one chunk's DW result,
+    then the larger of one chunk's padded DW window and the projection's
+    staging, each sized for its largest member and a multiple of 4.
+    ``members`` carry windows."""
     buf = [0, 0]
-    win = dwr = 0
+    xr = yr = 0
     for k, m in enumerate(members):
-        wo = m.w_in // m.stride
-        bm = min(block_m, _dw_channels(m))
-        buf[k % 2] = max(buf[k % 2], m.n_out * wo * m.f_out)
-        win = max(win, m.length * (m.w_in + 2) * bm)
-        dwr = max(dwr, m.n_out * wo * bm)
-    return buf[0] + buf[1] + win + dwr
+        p = m.n_out * (m.w_in // m.stride)
+        bm = _member_block_m(block_m, m)
+        buf[k % 2] = max(buf[k % 2], round4(p * m.f_out))
+        xr = max(xr, bm * round4(p))
+        if m.kind == "mbconv":
+            xr = max(xr, rows_stage_floats(bm))
+        yr = max(yr, m.length * (m.w_in + 2) * bm,
+                 kmajor_stage_floats(pw2_bn(p, m.f_out)))
+    return buf[0] + buf[1] + xr + yr
 
 
 def _int_array(rows):
@@ -127,9 +142,10 @@ def supersite_fused(x, w_flat, *, geom: SupersiteGeom):
     if x.device.type != "cuda":
         raise ValueError(f"supersite_fused runs on cuda or cpu, not "
                          f"{x.device}")
-    if not 2 <= len(geom.members) <= MAX_MEMBERS or geom.block_m < 1:
+    if not 2 <= len(geom.members) <= MAX_MEMBERS or \
+            geom.block_m not in BLOCK_M:
         raise ValueError(f"supersite_fused takes 2..{MAX_MEMBERS} members "
-                         f"and a band geometry with block_m >= 1")
+                         f"and a band geometry with block_m in {BLOCK_M}")
     check_input(x, "x", x.shape, x.device)
     check_input(w_flat, "w_flat", w_flat.shape, x.device)
     desc = []
@@ -138,7 +154,7 @@ def supersite_fused(x, w_flat, *, geom: SupersiteGeom):
         desc.append((0 if m.kind == "mbconv" else 1, m.stride,
                      int(m.residual), m.h_in, m.w_in, m.c_in, m.mid,
                      m.f_out, m.c0, m.c1, m.length, m.n_out,
-                     min(geom.block_m, _dw_channels(m))) + offs)
+                     _member_block_m(geom.block_m, m)) + offs)
     out = torch.empty((B, geom.h_out, geom.w_out, geom.f_out),
                       dtype=torch.float32, device=x.device)
     lib = library("supersite")

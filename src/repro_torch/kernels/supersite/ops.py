@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.quantization import QTensor, act_fp, quantize_act
 from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
+from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import (
     N_SM, SMEM_LIMIT, KernelBase, register)
 from repro_torch.kernels.supersite.kernel import (
@@ -27,14 +28,10 @@ from repro_torch.kernels.supersite.kernel import (
     supersite_fused_int8, supersite_smem_floats)
 from repro_torch.kernels.supersite.pack import get_pack
 
-__all__ = ["BLOCK_M_CANDIDATES", "fp_windows", "make_fp_geom",
+__all__ = ["fp_windows", "make_fp_geom",
            "make_int8_geom", "supersite_smem_bytes", "choose_blocks",
            "supersite_apply", "supersite_apply_int8", "SupersiteKernel",
            "SupersiteInt8Kernel"]
-
-# DW-stage channel chunks, largest first
-BLOCK_M_CANDIDATES = (64, 32, 16, 8)
-
 
 def _member_specs(supersite, fp_offsets=None, q_offsets=None):
     """Base ``MemberGeom`` per member (windows unfilled)."""
@@ -88,18 +85,18 @@ def choose_blocks(supersite) -> dict | None:
     band fits (JAX's ``choose_block_rows`` against its VMEM budget).
 
     The band is the smallest height that needs no more CTAs than the card
-    has SMs, and the chunk the largest of ``BLOCK_M_CANDIDATES`` whose
-    CTA fits ``SMEM_LIMIT`` at that height; the band halves until one
-    does.  Larger chunks beat a second CTA per SM, and a band that fills
-    the card about once beats smaller bands' halo recompute (the
-    ``[band sweep]`` of ``chip_smoke.py``).  Deterministic, no device
-    sweep; the band follows the batch.
+    has SMs, and the DW-stage chunk the largest of ``BLOCK_M`` whose CTA
+    fits ``SMEM_LIMIT`` at that height; the band halves until one does.
+    Larger chunks beat a second CTA per SM, and a band that fills the
+    card about once beats smaller bands' halo recompute (the ``[band
+    sweep]`` of ``chip_smoke.py``).  Deterministic, no device sweep; the
+    band follows the batch.
     """
     B, _, _, _ = supersite.in_shape
     _, ho, _, _ = supersite.out_shape
     rows = max(1, min(ho, -(-B * ho // N_SM)))
     while True:
-        for bm in BLOCK_M_CANDIDATES:
+        for bm in BLOCK_M:
             if supersite_smem_bytes(supersite, rows, bm) <= SMEM_LIMIT:
                 return {"block_rows": rows, "block_m": bm}
         if rows == 1:

@@ -12,6 +12,7 @@ only, and the SSD scan also in the order of its in-chunk cumsum).  The
 int8 kernels: EQUAL, int8 codes and fp32 outputs alike (exact int32
 sums, and every fp32 step rounded in the plain version's order).
 """
+import ctypes
 import time
 
 import numpy as np
@@ -34,9 +35,12 @@ from repro_torch.kernels.int8_matmul.kernel import (
     int8_matmul, int8_matmul_emit)
 from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_emit_ref, int8_matmul_ref)
+from repro_torch.kernels.build import check, library
 from repro_torch.kernels.mbconv.kernel import (
-    mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
+    choose_blocks as mb_blocks, legal_splits, mbconv_fused,
+    mbconv_fused_int8, mbconv_fused_int8_emit, mbconv_smem_bytes)
 from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
+from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
 from repro_torch.kernels.relu_attn.kernel import (
     relu_attn_causal, relu_attn_noncausal)
@@ -90,23 +94,96 @@ def test_dsconv_kernel_matches_plain(cuda, B, H, C, F, stride, rows):
     _close(got, dsconv_ref(*args, stride=stride))
 
 
-@pytest.mark.parametrize("B,H,C,M,F,stride,rows,bm", [
-    (1, 112, 16, 64, 32, 2, None, None), (2, 14, 128, 512, 128, 1, None, None),
-    (2, 7, 256, 1024, 256, 1, None, None), (1, 10, 8, 40, 24, 2, 2, 16),
-    (2, 9, 8, 36, 8, 1, 4, 8)])
-def test_mbconv_kernel_matches_plain(cuda, B, H, C, M, F, stride, rows, bm):
-    """Ragged bands (9 rows in bands of 4) and ragged mid chunks (40 in
-    chunks of 16) included."""
-    rng = np.random.default_rng(H * M)
-    args = (_rand(rng, cuda, B, H, H, C), _rand(rng, cuda, C, M,
-                                                 scale=C ** -0.5),
-            _rand(rng, cuda, M), _rand(rng, cuda, 3, 3, M, scale=.3),
-            _rand(rng, cuda, M), _rand(rng, cuda, M, F, scale=M ** -0.5),
-            _rand(rng, cuda, F))
+# every distinct mbconv shape of B1@224: (H, C, M, F, stride)
+B1_MBCONV = [(112, 16, 64, 32, 2), (56, 32, 128, 32, 1), (56, 32, 128, 64, 2),
+             (28, 64, 256, 64, 1), (28, 64, 256, 128, 2),
+             (14, 128, 512, 128, 1), (14, 128, 512, 256, 2),
+             (7, 256, 1024, 256, 1)]
+
+
+def _mbconv_args(rng, device, B, H, C, M, F):
+    return (_rand(rng, device, B, H, H, C),
+            _rand(rng, device, C, M, scale=C ** -0.5), _rand(rng, device, M),
+            _rand(rng, device, 3, 3, M, scale=.3), _rand(rng, device, M),
+            _rand(rng, device, M, F, scale=M ** -0.5), _rand(rng, device, F))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,C,M,F,stride", B1_MBCONV)
+def test_mbconv_kernel_matches_plain(cuda, batch, H, C, M, F, stride):
+    """The planner's blocks, then the same band and chunk at split 1 and
+    at the largest legal split; two calls give equal bits (the cluster
+    sums its partials in rank order)."""
+    args = _mbconv_args(np.random.default_rng(H * M + batch), cuda, batch,
+                        H, C, M, F)
+    ref = mbconv_ref(*args, stride=stride)
     n = mbconv_fused.launches
-    got = mbconv_fused(*args, stride=stride, block_rows=rows, block_m=bm)
+    got = mbconv_fused(*args, stride=stride)
     assert mbconv_fused.launches == n + 1
+    _close(got, ref)
+    assert torch.equal(got, mbconv_fused(*args, stride=stride))
+    b = mb_blocks(args[0].shape, M, F, stride)
+    for split in sorted({1, max(legal_splits(M))}):
+        _close(mbconv_fused(*args, stride=stride, block_rows=b["block_rows"],
+                            block_m=b["block_m"], split=split), ref)
+
+
+@pytest.mark.parametrize("B,H,C,M,F,stride,rows,bm,split", [
+    (1, 10, 8, 40, 24, 2, 2, 16, 2), (2, 9, 8, 36, 8, 1, 4, 16, 4),
+    (2, 7, 16, 40, 24, 1, 7, 32, 8), (1, 14, 32, 48, 24, 2, 7, 16, 16),
+    (2, 9, 12, 44, 20, 1, 9, 64, 1), (1, 9, 12, 42, 22, 1, 4, 32, 2)])
+def test_mbconv_kernel_ragged_blocks(cuda, B, H, C, M, F, stride, rows, bm,
+                                     split):
+    """Ragged splits and edges: M = 40 in slices of 20 and chunks of 16;
+    F = 24, 8 and 20 (not a tile width); W = 7 and 9; a ragged band (9
+    rows in bands of 4); stride 2; ranks that own no channel (40 over 8
+    ranks of 8, 48 over 16 of 4); a cluster of 16; C = 12 and M = 44 (a
+    chunk of 44 in a tile of 64); M = 42 and F = 22, whose weight rows
+    are not float4-aligned (the 4-byte copies and scalar sums)."""
+    args = _mbconv_args(np.random.default_rng(H * M), cuda, B, H, C, M, F)
+    got = mbconv_fused(*args, stride=stride, block_rows=rows, block_m=bm,
+                       split=split)
     _close(got, mbconv_ref(*args, stride=stride))
+    assert torch.equal(got, mbconv_fused(*args, stride=stride,
+                                         block_rows=rows, block_m=bm,
+                                         split=split))
+
+
+def test_mbconv_refused_launch_raises(cuda):
+    """A launch CUDA refuses raises ``KernelLaunchError`` and leaves no
+    error behind: a whole 56-row band at chunk 128 needs more than
+    227 KB (the wrapper itself rejects it first, so the C entry point is
+    called directly), and a cluster of 32 is beyond the card."""
+    args = _mbconv_args(np.random.default_rng(1), cuda, 1, 56, 32, 128, 32)
+    out = torch.empty((1, 56, 56, 32), device=cuda)
+    lib = library("mbconv")
+    fn = lib.mbconv_fused_f32
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    ptrs = [t.data_ptr() for t in args] + [out.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert mbconv_smem_bytes(56, 32, 1, 56, 128) > SMEM_LIMIT
+    for rows, bm, split in ((56, 128, 1), (2, 32, 32)):
+        status = fn(*ptrs, 1, 56, 56, 32, 128, 32, 1, rows, bm, split,
+                    stream)
+        with pytest.raises(KernelLaunchError):
+            check(lib, status, "mbconv_fused")
+    _close(mbconv_fused(*args), mbconv_ref(*args))
+
+
+def test_mbconv_smem_mirror_matches_the_source(cuda):
+    """``mbconv_smem_bytes`` equals the CUDA source's own layout, byte for
+    byte, at every B1 site's blocks and every chunk."""
+    lib = library("mbconv")
+    fn = lib.mbconv_smem_bytes_c
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for H, C, M, F, stride in B1_MBCONV + [(9, 8, 36, 24, 1)]:
+        for rows in range(1, H // stride + 1):
+            for bm in BLOCK_M:
+                assert fn(H, F, stride, rows, bm) == \
+                    mbconv_smem_bytes(H, F, stride, rows, bm)
 
 
 @pytest.mark.parametrize("G,N,h,block_n", [(16, 196, 8, 256), (4, 49, 16, 16),
@@ -401,6 +478,7 @@ def test_supersite_kernel_matches_plain(cuda, cfg, names, batch):
         got = supersite_fused(x, pack.fp, geom=geom)
         assert supersite_fused.launches == n + 1
         _close(got, supersite_ref(x, pack.fp, geom=geom))
+        assert torch.equal(got, supersite_fused(x, pack.fp, geom=geom))
 
 
 @pytest.mark.parametrize("batch", [1, 8])

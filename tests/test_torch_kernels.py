@@ -30,8 +30,10 @@ from repro_torch.kernels.dsconv.kernel import (
     choose_blocks as ds_blocks, dsconv_fused, dsconv_smem_bytes)
 from repro_torch.kernels.dsconv.ops import dsconv_apply
 from repro_torch.kernels.mbconv.kernel import (
-    choose_blocks as mb_blocks, mbconv_fused, mbconv_smem_bytes)
+    SPLITS, choose_blocks as mb_blocks, legal_splits, mbconv_fused,
+    mbconv_slice, mbconv_smem_bytes)
 from repro_torch.kernels.mbconv.ops import mbconv_apply
+from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
 from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
 from repro_torch.kernels.relu_attn.ops import msa_fused_apply
@@ -216,7 +218,8 @@ def test_other_devices_raise():
 @pytest.mark.parametrize("batch", [1, 2, 4, 8])
 def test_blocks_fit_shared_memory_on_b1(res, batch):
     """Every B1 site gets blocks whose CTA fits the 227 KB limit, with
-    bands and mid-channel chunks that cover the site."""
+    bands, mid-channel slices (one per cluster rank) and chunks that
+    cover the site, at a legal cluster size."""
     for site in lower(B1, batch=batch, image_size=res).fusible():
         B, H, W, C, M, F, s = (decision_shape(site) if site.kind != "msa"
                                else (0,) * 7)
@@ -226,6 +229,58 @@ def test_blocks_fit_shared_memory_on_b1(res, batch):
                                      b["block_f"]) <= SMEM_LIMIT
         elif site.kind == "mbconv":
             b = mb_blocks(site.in_shape, M, F, s)
-            assert 1 <= b["block_rows"] <= H // s and 1 <= b["block_m"] <= M
-            assert mbconv_smem_bytes(W, C, F, s, b["block_rows"],
+            assert set(b) == {"block_rows", "block_m", "split"}
+            assert 1 <= b["block_rows"] <= H // s
+            assert mbconv_smem_bytes(W, F, s, b["block_rows"],
                                      b["block_m"]) <= SMEM_LIMIT
+            # the cluster's slices cover M, every rank owns channels, and
+            # the chunks cover each slice
+            sl = mbconv_slice(M, b["split"])
+            assert b["split"] in legal_splits(M) and b["split"] in SPLITS
+            assert (b["split"] - 1) * sl < M <= b["split"] * sl
+            assert b["block_m"] in BLOCK_M
+            assert b["block_m"] <= max(16, -(-sl // 16) * 16)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_mbconv_blocks_follow_the_sweep_on_b1(batch):
+    """At B1@224 the block model picks what the card's block sweep found
+    fastest (``chip_smoke.py``'s [mbconv sweep]): S4 as one band per
+    image at batch 8, so PW1 recomputes no halo row, split over a
+    cluster of 16; S3 in bands of 2 output rows over 4 or 16 ranks,
+    whose 1 CTA per SM at a whole 14x14 map (a 100 KB partial tile)
+    left half the card idle."""
+    got = {}
+    for site in lower(B1, batch=batch).fusible():
+        if site.kind == "mbconv":
+            B, H, W, C, M, F, s = decision_shape(site)
+            got[(H, s)] = mb_blocks(site.in_shape, M, F, s)
+    s4, s3 = got[(7, 1)], got[(14, 1)]
+    if batch == 8:
+        assert s4 == {"block_rows": 7, "block_m": 64, "split": 16}
+        assert s3 == {"block_rows": 2, "block_m": 128, "split": 4}
+    else:
+        assert s4 == {"block_rows": 1, "block_m": 64, "split": 16}
+        assert s3 == {"block_rows": 2, "block_m": 32, "split": 16}
+    # input rows each image's PW1 computes, over all its bands' windows
+    def pw1_rows(H, s, rows):
+        ho = H // s
+        return sum(min(H, i * s + s - 2 + (min(rows, ho - i) - 1) * s + 3)
+                   - max(0, i * s + s - 2) for i in range(0, ho, rows))
+    if batch == 8:   # S4 recomputes no halo row; S3's bands do
+        assert pw1_rows(7, 1, s4["block_rows"]) == 7
+        assert pw1_rows(14, 1, s3["block_rows"]) == 26
+
+
+def test_mbconv_smem_model_is_the_sources_layout():
+    """The Python mirror of ``mb_layout`` at B1@224's S3 shapes, in
+    floats: the partial tile [P][F], then max(PW1 staging, DW result),
+    then max(mid window, PW2 staging) (``csrc/mbconv.cu``)."""
+    # S3 whole map, chunk 32: P = 196, F = 128, window 16 x 16
+    assert mbconv_smem_bytes(14, 128, 1, 14, 32) == 4 * (
+        196 * 128 + max(3 * (128 * 20 + 16 * 32), 32 * 196)
+        + max(16 * 16 * 32, 3 * 16 * 128))
+    # S3 bands of 2, chunk 128: P = 28, window 4 x 16; PW2 tiles 128 wide
+    assert mbconv_smem_bytes(14, 128, 1, 2, 128) == 4 * (
+        28 * 128 + max(3 * (32 * 20 + 16 * 128), 128 * 28)
+        + max(4 * 16 * 128, 3 * 16 * 128))
