@@ -6,8 +6,10 @@
 1. Set-up: exits non-zero without a CUDA card or without the port's
    package beside this script; prints the card's name and power limit;
    builds every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and prints each kernel's register and
-   shared-memory use.
+   source, all started together) and prints each kernel's register,
+   shared-memory and spill use, and the int8 tensor-core instructions
+   (IMMA) in the SASS of ``mbconv_int8`` and ``supersite_int8`` (none is
+   a failure).
 2. fp32 phase.
    a. Each fp32 kernel against its plain PyTorch version on the card, at
       every distinct shape of the B1@224 main path at batch 1 and 8:
@@ -55,7 +57,12 @@
       int8 ops / 1,979 TOPS); ``int8_matmul`` is also timed against
       ``torch._int_mm`` + the same epilogue, a yardstick the port never
       calls.  ``supersite_fused_int8`` runs both chains with the served
-      exit (int8 codes + scales + the kept fp map).
+      exit (int8 codes + scales + the kept fp map).  The FIX8 MBConv's
+      cases name the path they take (``mbconv_int8_path``).  The
+      ``[mbconv_int8 sweep]`` lines time it at S3, S4, S3.down, S4.down
+      and S2.mb1, batch 1 and 8, on the passes and on the cluster kernel
+      at every legal rank count that fits (with the clusters the card
+      holds at once), the path rule's choice marked.
    b. ``VisionEngine.quantized`` over the same fp tree, quantized by the
       port, serves the same trace on the default plan (S1.ss0 and S2.ss0
       grouped).  Counters reset just before, read just after: each
@@ -103,7 +110,11 @@
    timed over 3 windows of 2 calls.
 5. ``torch.profiler``'s kernel time and launches per batch-8 forward by
    kernel name, fp32 and FIX8, after every timed phase: CUPTI may stay
-   attached once the profiler has run and slow the host's launches.
+   attached once the profiler has run and slow the host's launches.  The
+   port's own kernels' CUDA launches, the memsets and the zero fills are
+   counted apart.  Then one call of each served FIX8 MBConv shape at
+   batch 8 must be one launch of the cluster kernel, with no memset, no
+   zero fill and no allocation but its outputs.
 6. One JSON line with every kernel's launches on its driven run(s),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
@@ -276,7 +287,7 @@ def int8_kernel_cases(batch: int, gen):
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
     from repro_torch.kernels.mbconv.kernel import (
-        mbconv_fused_int8, mbconv_fused_int8_emit)
+        mbconv_fused_int8, mbconv_fused_int8_emit, mbconv_int8_path)
     from repro_torch.kernels.mbconv.ref import mbconv_int8_ref
     from repro_torch.core.quantization import quantize_act
 
@@ -370,7 +381,10 @@ def int8_kernel_cases(batch: int, gen):
                 out_bytes = 5 * B * Ho * Wo * F + 4 * B
             nbytes = nb(*args) + out_bytes
             ops = 2 * B * (H * W * C * M + Ho * Wo * M * (9 + F))
-            label = f"x{(B, H, W, C)} M={M} F={F} s={st}"
+            path = mbconv_int8_path(H, W, C, M, F, st, B)
+            label = (f"x{(B, H, W, C)} M={M} F={F} s={st} "
+                     + (f"cluster R={path['ranks']}"
+                        if path["path"] == "cluster" else "passes"))
         cases.append((name, names, label, kfn, pfn, nbytes, ops, lib))
     return cases
 
@@ -780,6 +794,69 @@ def mbconv_sweep(gen) -> None:
                   f"(x{pick / times[best]:.3f}); ms {' '.join(cells)}")
 
 
+def mbconv_int8_sweep(gen) -> None:
+    """Time the FIX8 MBConv at S3, S4, S3.down and S4.down of B1@224 (and
+    S2.mb1, the chain member whose image fits a cluster), batch 1 and 8,
+    on the passes and on the cluster kernel at every legal rank count that
+    fits, the choice of ``mbconv_int8_path`` marked; beside each cluster
+    cell the clusters the card holds at once and the CTA's shared memory.
+    The evidence the path rule follows, and why the FIX8 chain's members
+    take the passes."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.mbconv.kernel import (
+        _mbconv_int8, int8_ranks, mbconv_int8_cluster_smem, mbconv_int8_path)
+    from repro_torch.kernels.registry import SMEM_LIMIT
+
+    occ = library("mbconv_int8").mbconv_int8_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh, base=1e-2: (base * (0.5 + torch.rand(
+        sh, generator=gen))).cuda()
+    rn = lambda *sh: torch.randn(sh, generator=gen).cuda()
+    for batch in (1, 8):
+        for name, (H, C, M, F, st) in (("S3", (14, 128, 512, 128, 1)),
+                                       ("S4", (7, 256, 1024, 256, 1)),
+                                       ("S3.down", (28, 64, 256, 128, 2)),
+                                       ("S4.down", (14, 128, 512, 256, 2)),
+                                       ("S2.mb1", (28, 64, 256, 64, 1))):
+            emit = st == 2
+            args = (i8(batch, H, H, C), sc(batch), i8(C, M), sc(M, base=2e-3),
+                    rn(M), i8(3, 3, M), sc(M), rn(M), i8(M, F), sc(F), rn(F))
+            chosen = mbconv_int8_path(H, H, C, M, F, st, batch)
+            cells, times = [], {}
+            for r in (0,) + int8_ranks(M):
+                path = "cluster" if r else "passes"
+                txt = ""
+                if r:
+                    smem = mbconv_int8_cluster_smem(H, H, C, M, F, st, r)
+                    if smem > SMEM_LIMIT:
+                        continue
+                    n = ctypes.c_int(0)
+                    if occ(batch, H, H, C, M, F, st, r, int(emit),
+                           ctypes.byref(n)):
+                        raise AssertionError(f"mbconv_int8 occupancy query "
+                                             f"failed at {name} ranks {r}")
+                    txt = f"({n.value}x,{smem // 1024}K)"
+                ms = device_ms(lambda r=r, p=path: _mbconv_int8(
+                    *args, st, emit, p, r), reps=10, windows=3)
+                times[r] = ms
+                mark = "*" if r == chosen["ranks"] else ""
+                cells.append(f"{mark}{'R=' + str(r) if r else 'passes'}:"
+                             f"{ms:.4f}{txt}")
+            best = min(times, key=times.get)
+            print(f"[mbconv_int8 sweep] {name} x{tuple(args[0].shape)} "
+                  f"M={M} F={F} s={st}{' emit' if emit else ''} B={batch} "
+                  f"chosen {chosen['path']} R={chosen['ranks']} "
+                  f"{times[chosen['ranks']]:.4f} ms, fastest "
+                  f"{'R=' + str(best) if best else 'passes'} "
+                  f"{times[best]:.4f} ms; ms {' '.join(cells)}")
+
+
 def check_groups(engine, tag) -> None:
     """Every bucket's plan groups exactly ``GROUPS``; print each group's
     blocks, its band windows and the rows each member computes per row
@@ -1033,10 +1110,94 @@ def steady_state(engine, rng, tag):
     return fwd
 
 
-def kernel_profile(fwd, tag, n: int = 2) -> None:
+def port_kernel_names(csrc: str | None = None) -> set:
+    """The ``__global__`` functions of the port's CUDA sources (``csrc``,
+    by default this tree's)."""
+    import glob
+    import re
+    names = set()
+    csrc = csrc or os.path.join(SRC, "repro_torch", "csrc")
+    for f in glob.glob(os.path.join(csrc, "*.cu*")):
+        with open(f) as fh:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                r"(\w+)", fh.read()))
+    return names
+
+
+def device_us(event) -> float:
+    """A profiler row's device time in µs (the attribute's name differs
+    across torch versions)."""
+    us = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if us is None else us
+
+
+def count_imma() -> None:
+    """The int8 tensor-core instructions (IMMA) in the SASS of the two
+    libraries whose GEMMs run on ``int8_mma.cuh``; none is a failure."""
+    import shutil
+    from repro_torch.kernels.build import library_path
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    for name in ("mbconv_int8", "supersite_int8"):
+        sass = subprocess.run([tool, "-sass", str(library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        n = sum("IMMA" in line for line in sass.splitlines())
+        print(f"[build] {name}: {n} IMMA instructions (int8 tensor cores) "
+              f"in its SASS")
+        if not n:
+            raise AssertionError(f"{name}: no IMMA instruction in its SASS")
+
+
+def one_launch_per_site(gen) -> None:
+    """Each served FIX8 MBConv shape of B1@224 at batch 8 (S3 and S4's
+    evit blocks, S3.down and S4.down emitting): one call of its wrapper is
+    one CUDA launch of the cluster kernel, with no memset and no zero
+    fill, and allocates only its outputs (``torch.profiler`` over the
+    call, the caching allocator's allocation count around it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.mbconv.kernel import (
+        mbconv_fused_int8, mbconv_fused_int8_emit)
+
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
+    rn = lambda *sh: torch.randn(sh, generator=gen).cuda()
+    for name, (H, C, M, F, st) in (("S3", (14, 128, 512, 128, 1)),
+                                   ("S4", (7, 256, 1024, 256, 1)),
+                                   ("S3.down", (28, 64, 256, 128, 2)),
+                                   ("S4.down", (14, 128, 512, 256, 2))):
+        fn = mbconv_fused_int8_emit if st == 2 else mbconv_fused_int8
+        args = (i8(8, H, H, C), sc(8), i8(C, M), sc(M) * 0.2, rn(M),
+                i8(3, 3, M), sc(M), rn(M), i8(M, F), sc(F), rn(F))
+        fn(*args, stride=st)
+        torch.cuda.synchronize()
+        n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn(*args, stride=st)
+            torch.cuda.synchronize()
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - n0
+        rows = [(e.key, e.count) for e in prof.key_averages()
+                if device_us(e) > 0]
+        print(f"[fix8] {fn.__name__} {name} B=8: device activity "
+              f"{rows}; {allocs} allocations (its outputs)")
+        if (len(rows) != 1 or rows[0][1] != 1 or "mbi8_cluster" not in
+                rows[0][0] or allocs != (3 if st == 2 else 1)):
+            raise AssertionError(f"{name}: not one cluster launch with only "
+                                 f"its outputs allocated")
+
+
+def kernel_profile(fwd, tag, n: int = 2, csrc: str | None = None) -> None:
     """Kernel time and launches per forward by kernel name, from
     ``torch.profiler``'s CUDA activity over ``n`` forwards (the sum is
-    the device's busy time; the gaps between kernels are not in it)."""
+    the device's busy time; the gaps between kernels are not in it); the
+    port's own kernels' launches, the memsets and the zero fills counted
+    apart (the kernels of ``csrc``, by default this tree's sources), and
+    each port kernel's launches and time."""
+    import re
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1044,19 +1205,24 @@ def kernel_profile(fwd, tag, n: int = 2) -> None:
         for _ in range(n):
             fwd()
         torch.cuda.synchronize()
-    rows = []
-    for e in prof.key_averages():
-        us = getattr(e, "device_time_total", None)
-        if us is None:
-            us = e.cuda_time_total
-        if us > 0:
-            rows.append((us / n / 1e3, e.count / n, e.key))
+    rows = [(device_us(e) / n / 1e3, e.count / n, e.key)
+            for e in prof.key_averages() if device_us(e) > 0]
     rows.sort(reverse=True)
+    ours = port_kernel_names(csrc)
+    port = [r for r in rows
+            if re.match(r"(?:void\s+)?(\w+)", r[2]).group(1) in ours]
+    memsets = sum(r[1] for r in rows if "Memset" in r[2])
+    fills = sum(r[1] for r in rows if "FillFunctor" in r[2])
     top = "; ".join(f"{name[:48]} {ms:.3f} ms x{cnt:g}"
                     for ms, cnt, name in rows[:8])
     print(f"[{tag}] profiler, one batch-8 forward: "
           f"{sum(r[1] for r in rows):g} kernel launches, "
           f"{sum(r[0] for r in rows):.3f} ms of kernel time; top: {top}")
+    print(f"[{tag}] profiler, one batch-8 forward: the port's kernels "
+          f"{sum(r[1] for r in port):g} CUDA launches, "
+          f"{sum(r[0] for r in port):.3f} ms; memsets {memsets:g}; zero "
+          f"fills {fills:g}; by kernel: " + "; ".join(
+              f"{name[:40]} {ms:.4f} ms x{cnt:g}" for ms, cnt, name in port))
 
 
 def main() -> int:
@@ -1106,6 +1272,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
+    count_imma()
     wrappers = {"dsconv_fused": dsconv_fused, "mbconv_fused": mbconv_fused,
                 "relu_attn_noncausal": relu_attn_noncausal,
                 "mbconv_fused_int8": mbconv_fused_int8,
@@ -1199,6 +1366,7 @@ def main() -> int:
     for batch in (1, 8):
         check_kernels(int8_kernel_cases(batch, gen) + chains[batch][1],
                       batch, per_fwd, max_err, exact=True)
+    mbconv_int8_sweep(gen)
 
     # -- 3b. the FIX8 main path -----------------------------------------
     qengine = VisionEngine.quantized(params, B1,
@@ -1235,6 +1403,7 @@ def main() -> int:
     # -- 5. kernel time per forward, after every timed phase -----------
     kernel_profile(fwd_fp, "serve")
     kernel_profile(fwd_q, "fix8")
+    one_launch_per_site(gen)
 
     # -- 6. the kernels line --------------------------------------------
     rows = []

@@ -1,0 +1,283 @@
+// Device-side building blocks of the port's int8 tensor-core GEMMs:
+// int8 x int8 -> int32 products on
+// mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32, from operand panels
+// staged in shared memory.
+//
+// Layout.  Both operands are K-contiguous in shared memory: A (the
+// activations) row-major [rows][pitch], B (the weights) n-major
+// [columns][pitch] (the MMA's "col" operand).  A pitch is a multiple of 64
+// bytes that is 64 (mod 128) (panel_pitch).  K advances in blocks of
+// KB = 64 bytes: lane (g = lane / 4, t = lane % 4) loads the 16 bytes at
+// k = 64 kb + 16 t of A rows g and g + 8 and of B column g, and runs two
+// m16n8k32 products (mma_k64).  The MMA's fragment order gives one thread
+// k = 4t..4t+3 and 16+4t..16+4t+3 of a 32-deep step; here that thread holds
+// the physical bytes 16t..16t+7 for the first step and 16t+8..16t+15 for
+// the second.  A and B are permuted alike along k, and an integer sum does
+// not depend on the order of its terms, so the products are exact.  A
+// quarter warp (8 lanes: 2 rows x 4 chunks) reads 2 x 64 contiguous bytes
+// at row offsets 64 (mod 128) apart: the fragment loads are free of bank
+// conflicts without ldmatrix (which has no int8 transpose).
+//
+// Staging.  Activations arrive as 16-byte cp.async copies where the rows
+// allow it (4-byte or plain byte loads otherwise), or, for an fp32 map,
+// quantized once per element as they are staged (stage_act).  The
+// weights are (K, N) row-major in device memory, N-contiguous; stage_wt
+// transposes a column slice as it stages it, four 4 x 4 byte blocks per
+// thread (__byte_perm), so no host or extra launch ever transposes them.
+// Zeros fill K beyond the operand and columns beyond N, so ragged edges
+// contribute an int8 0 to every sum.
+//
+// Used by csrc/mbconv_int8.cuh (the FIX8 MBConv: one site, and the
+// members of csrc/supersite_int8.cu).
+#pragma once
+
+#include <cstdint>
+
+#include "int8.cuh"
+
+namespace i8mma {
+
+constexpr int NT = 256;  // threads of a CTA
+constexpr int KB = 64;   // bytes of K per fragment block (two MMA steps)
+
+__host__ __device__ constexpr int round_up(int n, int m) {
+  return (n + m - 1) / m * m;
+}
+// Row pitch of a panel holding k bytes of K: k rounded up to KB, then KB
+// more where that is a multiple of 128 (so the pitch is 64 mod 128).
+__host__ __device__ constexpr int panel_pitch(int k) {
+  return round_up(k, KB) % 128 ? round_up(k, KB) : round_up(k, KB) + KB;
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               bool full) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(full ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(N), "r"(full ? N : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint4 ld16(const int8_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack4(int8_t a, int8_t b, int8_t c,
+                                          int8_t d) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(a)) |
+         static_cast<uint32_t>(static_cast<uint8_t>(b)) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(c)) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(d)) << 24;
+}
+
+// dst[r][k] = src[r * ld + k] for r < rows, k < cols, and 0 for cols <= k
+// < kpad (a multiple of KB).  The caller commits, waits and syncs.
+__device__ __forceinline__ void stage_rows_i8(int8_t* dst, int pitch,
+                                              const int8_t* src, size_t ld,
+                                              int rows, int cols, int kpad) {
+  const size_t al = reinterpret_cast<uintptr_t>(src) | ld |
+                    static_cast<size_t>(cols);
+  if (al % 16 == 0) {
+    const int nc = kpad / 16;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * nc; e += NT) {
+      const int r = e / nc, c = (e % nc) * 16;
+      const bool ok = c < cols;
+      cp_async_zfill<16>(dst + r * pitch + c, ok ? src + r * ld + c : src,
+                         ok);
+    }
+  } else if (al % 4 == 0) {
+    const int nc = kpad / 4;
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * nc; e += NT) {
+      const int r = e / nc, c = (e % nc) * 4;
+      const bool ok = c < cols;
+      cp_async_zfill<4>(dst + r * pitch + c, ok ? src + r * ld + c : src, ok);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * kpad; e += NT) {
+      const int r = e / kpad, c = e % kpad;
+      dst[r * pitch + c] = c < cols ? src[r * ld + c] : int8_t(0);
+    }
+  }
+}
+
+// The fp32 form: quant_i8(src[r * ld + k], scale), each element once.
+// Four float4 loads in flight a thread.
+__device__ __forceinline__ void stage_rows_quant(int8_t* dst, int pitch,
+                                                 const float* src, size_t ld,
+                                                 int rows, int cols, int kpad,
+                                                 float scale) {
+  if (reinterpret_cast<uintptr_t>(src) % 16 == 0 && ld % 4 == 0 &&
+      cols % 4 == 0) {
+    const int nc = kpad / 4, n = rows * nc;
+#pragma unroll 1
+    for (int e0 = threadIdx.x; e0 < n; e0 += 4 * NT) {
+      float4 f[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * NT, r = e / nc, c = (e % nc) * 4;
+        f[u] = e < n && c < cols
+                   ? *reinterpret_cast<const float4*>(src + r * ld + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int e = e0 + u * NT;
+        if (e < n)
+          *reinterpret_cast<uint32_t*>(dst + e / nc * pitch + e % nc * 4) =
+              pack4(quant_i8(f[u].x, scale), quant_i8(f[u].y, scale),
+                    quant_i8(f[u].z, scale), quant_i8(f[u].w, scale));
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < rows * kpad; e += NT) {
+      const int r = e / kpad, c = e % kpad;
+      dst[r * pitch + c] =
+          c < cols ? quant_i8(src[r * ld + c], scale) : int8_t(0);
+    }
+  }
+}
+
+// An activation panel: rows x cols of an ActIn map from element `off`
+// (row length cols), int8 codes copied or an fp32 map quantized with the
+// final scale `scale` as it is staged.
+__device__ __forceinline__ void stage_act(int8_t* dst, int pitch,
+                                          const ActIn& x, size_t off,
+                                          int rows, int cols, int kpad,
+                                          float scale) {
+  if (x.q != nullptr)
+    stage_rows_i8(dst, pitch, x.q + off, cols, rows, cols, kpad);
+  else
+    stage_rows_quant(dst, pitch, x.fp + off, cols, rows, cols, kpad, scale);
+}
+
+// 4 bytes of row p (columns n.. of a row with `valid` columns left), 0
+// beyond them.
+__device__ __forceinline__ uint32_t ld_row4(const int8_t* p, int valid,
+                                            bool words) {
+  if (valid >= 4 && words) return __ldg(reinterpret_cast<const unsigned*>(p));
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (j < valid)
+      v |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(p + j))) << 8 * j;
+  return v;
+}
+
+// The weight operand, transposed as it is staged: dst[n][k] = w[k * ldw +
+// n] for n < n_cnt, k < K; 0 elsewhere in [0, n_rows) x [0, kpad) (n_rows
+// a multiple of 8, kpad of KB).  A thread moves a 4 x 4 byte block: four
+// row loads, a __byte_perm transpose, four column stores; eight
+// neighbouring lanes take neighbouring k blocks, so the stores hit eight
+// banks.
+__device__ __forceinline__ void stage_wt(int8_t* dst, int pitch,
+                                         const int8_t* w, int ldw, int K,
+                                         int n_cnt, int n_rows, int kpad) {
+  const bool words = (reinterpret_cast<uintptr_t>(w) | ldw) % 4 == 0;
+  const int nk8 = kpad / 32, nn = n_rows / 4, nn4 = (nn + 3) / 4;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < nk8 * nn4 * 32; e += NT) {
+    const int rest = e >> 5;
+    const int k = 4 * (8 * (rest % nk8) + (e & 7));
+    const int n = 4 * (4 * (rest / nk8) + ((e >> 3) & 3));
+    if (n >= n_rows) continue;
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = k + i < K ? ld_row4(w + (size_t)(k + i) * ldw + n, n_cnt - n,
+                                 words)
+                       : 0u;
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+    const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+    *reinterpret_cast<uint32_t*>(dst + (n + 0) * pitch + k) =
+        __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + (n + 1) * pitch + k) =
+        __byte_perm(t0, t1, 0x7632);
+    *reinterpret_cast<uint32_t*>(dst + (n + 2) * pitch + k) =
+        __byte_perm(t2, t3, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + (n + 3) * pitch + k) =
+        __byte_perm(t2, t3, 0x7632);
+  }
+}
+
+// d += a . b over one m16n8k32 step.
+__device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// One 64-deep K block: lo / hi are this lane's 16 bytes of A rows g and
+// g + 8, b its 16 bytes of B column g (see the header note).
+__device__ __forceinline__ void mma_k64(int (&d)[4], uint4 lo, uint4 hi,
+                                        uint4 b) {
+  mma16832(d, lo.x, hi.x, lo.y, hi.y, b.x, b.y);
+  mma16832(d, lo.z, hi.z, lo.w, hi.w, b.z, b.w);
+}
+
+// acc[j] += A[0, 16) x B[8j, 8j + 8) over K blocks [kb0, kb1), for j <
+// nj: A points at the warp's 16 rows (pitch lda), B at its first column
+// (pitch ldb), both in shared memory.  acc[j][2h + e] is the sum of row
+// g + 8h, column 8j + 2t + e.
+template <int NJ>
+__device__ __forceinline__ void warp_mma(int (&acc)[NJ][4], const int8_t* A,
+                                         int lda, const int8_t* B, int ldb,
+                                         int kb0, int kb1, int nj) {
+  const int lane = threadIdx.x & 31;
+  const int8_t* a = A + (lane >> 2) * lda + 16 * (lane & 3);
+  const int8_t* b = B + (lane >> 2) * ldb + 16 * (lane & 3);
+#pragma unroll 2
+  for (int kb = kb0; kb < kb1; ++kb) {
+    const uint4 lo = ld16(a + KB * kb), hi = ld16(a + 8 * lda + KB * kb);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j < nj) mma_k64(acc[j], lo, hi, ld16(b + 8 * j * ldb + KB * kb));
+  }
+}
+
+template <int NJ>
+__device__ __forceinline__ void zero_acc(int (&acc)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0;
+}
+
+// The max of v >= 0 over the CTA, returned to every thread.  red: 33
+// floats of shared memory.  Every thread must call this.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < NT / 32 ? red[lane] : 0.0f;
+    for (int o = 16; o > 0; o >>= 1)
+      v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) red[32] = v;
+  }
+  __syncthreads();
+  return red[32];
+}
+
+}  // namespace i8mma

@@ -10,25 +10,30 @@
 // shared memory and sees a tile of the image, so each requant point is a
 // cross-CTA dependency.
 //
-// Design: a sequence of passes inside this one C entry point, on one
-// stream, with no host work between them.  Each member runs the per-site
-// passes (mbconv_int8.cuh, dsconv_int8.cuh: 3 launches per MBConv member,
-// 2 per DSConv member).  At a member boundary the PW pass's epilogue adds
-// the fp residual (cur_fp + out, one rounding, as execute() does) and
-// folds the result into the boundary's per-image absmax words; the next
-// member's first pass quantizes that fp32 map as it reads it (ActIn), so
-// the boundary's int8 map is never stored and no torch op runs between
-// members.  The fp32 mid, DW and boundary maps live in device scratch the
-// wrapper allocates once per call (L2-resident at B1@224 batch 8: the
-// largest, S1.mb0's mid map, is 25.7 MB).  One cudaMemsetAsync zeroes
-// every absmax word of the chain.  An int8 exit adds one pass that
-// quantizes the last output (the emitting epilogue).  S1.ss0 of B1@224
-// costs 7 launches (+ the memset), S2.ss0 10, against JAX's 1.
+// Bound on the H100 at B1@224: bytes, by the roofline (an int8 input, an
+// fp32 + int8 output and the pack against a few hundred int8 operations
+// per pixel).  The passes add the fp32 scratch maps crossing device
+// memory (L2-resident at B1@224 batch 8: the largest, S1.mb0's mid map,
+// is 25.7 MB) and one launch per requant point; measured, they are bound
+// by the latency of their dependent IEEE division chains (the requants
+// and Hardswish), not by those bytes.
 //
-// Bound on the H100 at B1@224: bytes (an int8 input, an fp32 + int8
-// output and the pack against a few hundred int8 operations per pixel);
-// the GEMMs run __dp4a on CUDA cores (int8.cuh), far below the int8
-// tensor-core rate, and the scratch maps cross device memory (or L2).
+// Design: a sequence of launches inside this one C entry point, on one
+// stream, with no host work between them.  An MBConv member runs the
+// passes of mbconv_int8.cuh (3 launches, the GEMMs on int8 tensor cores,
+// every fp32 value quantized once per CTA that reads it), a DSConv member
+// the passes of dsconv_int8.cuh (2 launches).  A member whose image fits
+// mbconv_int8.cuh's cluster kernel (S2.mb1 and S2.mb2 at B1@224) still
+// takes the passes: the cluster launch lost to them at that shape in
+// chip_smoke.py's [mbconv_int8 sweep], at batch 1 and 8.  At a member
+// boundary the PW epilogue adds the fp residual (cur_fp + out, one
+// rounding, as execute() does) and folds the result into the boundary's
+// per-image absmax words; the next member quantizes that fp32 map as it
+// reads it (ActIn), so the boundary's int8 map is never stored and no
+// torch op runs between members.  The fp32 mid, DW
+// and boundary maps live in device scratch the wrapper allocates once per
+// call.  One cudaMemsetAsync zeroes every absmax word of the chain.  An
+// int8 exit adds one pass that quantizes the last output.
 #include "dsconv_int8.cuh"
 #include "mbconv_int8.cuh"
 
@@ -67,10 +72,11 @@ REPRO_EXPORT int supersite_fused_int8_i8(
     unsigned int* a = amax + 3 * k * B;
     const float* res = residual ? cur_fp : nullptr;
     if (kind == 0) {
-      err = mbconv_i8_passes(in, wq + d[8], wf + d[11], wf + d[12],
-                             wq + d[9], wf + d[13], wf + d[14], wq + d[10],
-                             wf + d[15], wf + d[16], res, mid, dwo, o, a,
-                             emit, B, H, W, C, M, F, stride, s);
+      const MbI8Site site{in, wq + d[8], wq + d[9], wq + d[10], wf + d[11],
+                          wf + d[12], wf + d[13], wf + d[14], wf + d[15],
+                          wf + d[16], res, o, nullptr, nullptr, H, W, C, M,
+                          F, stride};
+      err = mbconv_i8_passes(site, mid, dwo, a, emit, B, s);
       a_out = a + 2 * B;
     } else {
       err = dsconv_i8_passes(in, wq + d[8], wf + d[11], wf + d[12],

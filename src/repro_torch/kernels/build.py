@@ -25,8 +25,8 @@ import torch
 
 from repro_torch.common.errors import KernelLaunchError
 
-__all__ = ["SOURCES", "BUILD_DIR", "build", "library", "check",
-           "check_input", "stream_of"]
+__all__ = ["SOURCES", "BUILD_DIR", "build", "library", "library_path",
+           "check", "check_input", "stream_of"]
 
 SOURCES = ("dsconv", "mbconv", "relu_attn", "int8_matmul", "dsconv_int8",
            "mbconv_int8", "group_agg", "supersite", "supersite_int8",
@@ -85,6 +85,11 @@ def build(names=SOURCES) -> dict[str, str]:
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
     return logs
+
+
+def library_path(name: str) -> Path:
+    """Where the library ``name`` of the current sources is built."""
+    return _target(name)[1]
 
 
 def library(name: str) -> ctypes.CDLL:

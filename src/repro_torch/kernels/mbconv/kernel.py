@@ -21,8 +21,9 @@ from repro_torch.kernels.quant import xs_per_batch_vec
 from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
 
 __all__ = ["mbconv_fused", "mbconv_smem_bytes", "mbconv_slice",
-           "legal_splits", "choose_blocks",
-           "mbconv_fused_int8", "mbconv_fused_int8_emit"]
+           "legal_splits", "choose_blocks", "int8_ranks",
+           "mbconv_int8_cluster_smem", "mbconv_int8_pass_smem",
+           "mbconv_int8_path", "mbconv_fused_int8", "mbconv_fused_int8_emit"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -188,10 +189,117 @@ def mbconv_fused(x, w1, b1, dw_w, dw_b, w2, b2, *, stride: int = 1,
 mbconv_fused.launches = 0
 
 
-def _mbconv_int8(fn_name, x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b,
-                 w2_q, s2, b2, stride, emit):
-    """Validate, allocate the scratch maps and launch one of the two C
-    entry points of ``csrc/mbconv_int8.cu``."""
+# ---------------------------------------------------------------------------
+# FIX8: the path choice and the shared-memory mirrors of csrc/mbconv_int8.cuh
+# ---------------------------------------------------------------------------
+
+KB = 64          # K bytes per fragment block of the int8 MMA tile
+GROWS = 64       # pixels per CTA of a GEMM pass
+GEMM_SMEM = 96 * 1024   # a GEMM pass's budget for its panels
+DW_CC = 32       # channels per CTA of the DW pass
+DW_SMEM = 24 * 1024
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def panel_pitch(k: int) -> int:
+    """Row pitch of an int8 operand panel of k bytes of K: a multiple of
+    64 that is 64 (mod 128), so fragment loads are conflict-free."""
+    p = _up(k, KB)
+    return p if p % 128 else p + KB
+
+
+def int8_mslice(m: int, ranks: int) -> int:
+    """Mid channels per rank of the cluster kernel (``cl_mslice``)."""
+    return _up(-(-m // ranks), 16)
+
+
+def int8_fslice(f: int, ranks: int) -> int:
+    """Output columns per rank of the cluster kernel (``cl_fslice``)."""
+    return _up(-(-f // ranks), 8)
+
+
+def int8_ranks(m: int) -> tuple:
+    """Cluster sizes whose every rank owns mid channels."""
+    return tuple(r for r in SPLITS if int8_mslice(m, r) * (r - 1) < m)
+
+
+def mbconv_int8_cluster_smem(h: int, w: int, c: int, m: int, f: int,
+                             stride: int, ranks: int) -> int:
+    """One rank's shared memory in the cluster kernel (mirrors
+    ``cl_layout`` in ``csrc/mbconv_int8.cuh``): the input panel (later
+    the quantized mid slice with its zero ring and the DW codes), the
+    transposed PW1 slice, the fp32 mid slice (later the DW and output
+    slices), the transposed PW2 slice, the DW taps, the PW2 int32 sums,
+    the reduction words and the slices' dequant scales and biases."""
+    ms, fs = int8_mslice(m, ranks), int8_fslice(f, ranks)
+    p, po = h * w, (h // stride) * (w // stride)
+    px, pm = panel_pitch(c), panel_pitch(m)
+    xa = max(_up(p, 16) * px, ((h + 2) * (w + 2) + _up(po, 16)) * ms)
+    return (_up(xa, 16) + ms * px + _up(4 * max(p * ms, po * fs), 16)
+            + fs * pm + _up(9 * ms, 16) + 4 * _up(po, 16) * fs + 160
+            + 4 * (4 * ms + 2 * fs))
+
+
+def _gemm_pass_smem(k: int, n: int) -> int:
+    """A GEMM pass: the A panel and every weight column where both fit
+    ``GEMM_SMEM``, else one tile of 64 (``gemm_pass_smem``)."""
+    cols = _up(n, 64)
+    if (GROWS + cols) * panel_pitch(k) > GEMM_SMEM:
+        cols = 64
+    return (GROWS + cols) * panel_pitch(k)
+
+
+def _dw_rows(h: int, w: int, stride: int) -> int:
+    rows = 1
+    while rows * 2 <= h // stride and \
+            ((rows * 2 - 1) * stride + 3) * (w + 2) * DW_CC <= DW_SMEM:
+        rows *= 2
+    return rows
+
+
+def mbconv_int8_pass_smem(h: int, w: int, c: int, m: int, f: int,
+                          stride: int) -> int:
+    """The largest CTA of the three passes (``mbconv_int8_pass_smem_c``):
+    the two GEMM passes' panels, the DW pass's window of its band with its
+    taps, scales and biases."""
+    dw = ((_dw_rows(h, w, stride) - 1) * stride + 3) * (w + 2) * DW_CC \
+        + 9 * DW_CC + 8 * DW_CC
+    return max(_gemm_pass_smem(c, m), _gemm_pass_smem(m, f), dw)
+
+
+def mbconv_int8_path(h: int, w: int, c: int, m: int, f: int, stride: int,
+                     batch: int = 1) -> dict:
+    """The FIX8 MBConv's path for ``batch`` images of one shape:
+    ``{"path": "cluster", "ranks": r, "smem": bytes}`` where the CTA of
+    the most ranks leaves room for two CTAs per SM and the batch's
+    clusters all fit the card at once (``CLUSTERS``); else ``{"path":
+    "passes", "ranks": 0, "smem": bytes}``.  Fewer ranks only give each a
+    larger slice.  ``chip_smoke.py``'s ``[mbconv_int8 sweep]`` is the
+    evidence: the cluster kernel wins at every swept shape whose CTA
+    pairs on an SM and loses to the passes at the one that does not
+    (S2.mb1, 126 KB: 7 clusters of 16 at once), at batch 1 and 8."""
+    return dict(zip(("path", "ranks", "smem"),
+                    _int8_path(h, w, c, m, f, stride, batch)))
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_path(h, w, c, m, f, stride, batch) -> tuple:
+    """``mbconv_int8_path`` memoised: every call asks again."""
+    r = max(int8_ranks(m))
+    smem = mbconv_int8_cluster_smem(h, w, c, m, f, stride, r)
+    if smem <= SMEM_2_PER_SM and batch <= CLUSTERS[2][r]:
+        return "cluster", r, smem
+    return "passes", 0, mbconv_int8_pass_smem(h, w, c, m, f, stride)
+
+
+def _mbconv_int8(x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2,
+                 stride, emit, path=None, ranks=None):
+    """Validate, choose the path (``mbconv_int8_path``, or ``path`` /
+    ``ranks`` forced, for the tests) and launch ``mbconv_int8_i8``; the
+    passes need their fp32 scratch maps and zeroed absmax words."""
     B, H, W, C = x_q.shape
     M, F = w1_q.shape[1], w2_q.shape[1]
     dev = x_q.device
@@ -205,24 +313,32 @@ def _mbconv_int8(fn_name, x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b,
             (w2_q, "w2_q", (M, F), i8), (s2, "s2", (F,), f32),
             (b2, "b2", (F,), f32)):
         check_input(t, name, shape, dev, dt)
+    choice = mbconv_int8_path(H, W, C, M, F, stride, B)
+    path = path or choice["path"]
+    if path not in ("cluster", "passes"):
+        raise ValueError(f"mbconv int8 path {path!r}")
+    ranks = 0 if path == "passes" else (ranks or choice["ranks"]
+                                        or max(int8_ranks(M)))
     Ho, Wo = H // stride, W // stride
-    mid = torch.empty((B, H, W, M), dtype=f32, device=dev)
-    dwo = torch.empty((B, Ho, Wo, M), dtype=f32, device=dev)
     out = torch.empty((B, Ho, Wo, F), dtype=f32, device=dev)
-    amax = torch.zeros((3, B), dtype=torch.int32, device=dev)
-    args = [x_q, xs, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2, mid, dwo,
-            out, amax]
+    mid = dwo = amax = q = scales = None
+    if path == "passes":
+        mid = torch.empty((B, H, W, M), dtype=f32, device=dev)
+        dwo = torch.empty((B, Ho, Wo, M), dtype=f32, device=dev)
+        amax = torch.zeros((3, B), dtype=torch.int32, device=dev)
     if emit:
         q = torch.empty((B, Ho, Wo, F), dtype=i8, device=dev)
         scales = torch.empty((B,), dtype=f32, device=dev)
-        args += [q, scales]
+    args = [x_q, xs, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2, mid, dwo,
+            out, amax, q, scales]
     lib = library("mbconv_int8")
-    fn = getattr(lib, fn_name)
-    fn.argtypes = [_P] * len(args) + [_I] * 7 + [_P]
+    fn = lib.mbconv_int8_i8
+    fn.argtypes = [_P] * len(args) + [_I] * 8 + [_P]
     fn.restype = _I
-    status = fn(*(t.data_ptr() for t in args), B, H, W, C, M, F, stride,
-                stream_of(x_q))
-    check(lib, status, fn_name)
+    status = fn(*(None if t is None else t.data_ptr() for t in args), B, H,
+                W, C, M, F, stride, ranks, stream_of(x_q))
+    check(lib, status, "mbconv_fused_int8_emit" if emit
+          else "mbconv_fused_int8")
     return (q, scales, out) if emit else out
 
 
@@ -240,13 +356,14 @@ def mbconv_fused_int8(x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q,
     """x_q: (B, H, W, C) int8 with per-tensor or per-image (B,)
     ``x_scale``; w1_q: (C, M), dw_q: (3, 3, M), w2_q: (M, F) int8;
     per-channel fp32 weight scales, BN-folded fp32 biases
-    -> (B, Ho, Wo, F) fp32.  Three CUDA launches, split at the two
-    whole-image requantizations (``csrc/mbconv_int8.cu``)."""
+    -> (B, Ho, Wo, F) fp32.  One cluster launch where an image's maps
+    fit a cluster (``mbconv_int8_path``), else three passes split at the
+    two whole-image requantizations (``csrc/mbconv_int8.cu``)."""
     _check_stride(x_q, stride)
     args = (x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b, w2_q, s2, b2)
     if x_q.device.type == "cpu":
         return mbconv_int8_ref(*args, stride=stride)
-    out = _mbconv_int8("mbconv_fused_int8_i8", *args, stride, emit=False)
+    out = _mbconv_int8(*args, stride, emit=False)
     mbconv_fused_int8.launches += 1
     return out
 
@@ -256,7 +373,8 @@ def mbconv_fused_int8_emit(x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b,
     """``mbconv_fused_int8`` + the per-image act-quant of its output:
     -> (q (B, Ho, Wo, F) int8, scales (B,) fp32, out (B, Ho, Wo, F) fp32).
     ``q``/``scales`` equal ``quantize_act(mbconv_fused_int8(...))``; the
-    fp output serves a "keep-fp" epilogue.  Four CUDA launches."""
+    fp output serves a "keep-fp" epilogue.  One cluster launch, or four
+    on the passes."""
     from repro_torch.core.quantization import quantize_act
 
     _check_stride(x_q, stride)
@@ -265,8 +383,7 @@ def mbconv_fused_int8_emit(x_q, x_scale, w1_q, s1, b1, dw_q, dw_s, dw_b,
         out = mbconv_int8_ref(*args, stride=stride)
         qt = quantize_act(out)
         return qt.q, qt.scale, out
-    res = _mbconv_int8("mbconv_fused_int8_emit_i8", *args, stride,
-                       emit=True)
+    res = _mbconv_int8(*args, stride, emit=True)
     mbconv_fused_int8_emit.launches += 1
     return res
 

@@ -12,10 +12,9 @@ import torch
 
 from repro_torch.core.quantization import (
     QTensor, fold_bn_into_conv, quantize_act)
-from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.mbconv.kernel import (
     choose_blocks, mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit,
-    mbconv_smem_bytes)
+    mbconv_int8_path, mbconv_smem_bytes)
 from repro_torch.kernels.registry import KernelBase, register
 
 __all__ = ["mbconv_apply", "MbconvKernel", "mbconv_apply_int8",
@@ -95,7 +94,11 @@ class MbconvInt8Kernel(MbconvKernel):
     emits_q = True
 
     def smem_bytes(self, site, blocks):
-        return INT8_GEMM_SMEM_BYTES
+        """One CTA of the path the site's shape takes: the cluster
+        kernel's rank, or the largest of the three passes."""
+        b, h, w, c = site.in_shape
+        return mbconv_int8_path(h, w, c, site.attrs["mid"],
+                                site.out_shape[-1], site.stride, b)["smem"]
 
     def tune(self, site):
         return {}

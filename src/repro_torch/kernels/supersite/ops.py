@@ -10,9 +10,9 @@ The planner-facing half is host arithmetic over ``Site`` shapes, so
 ``core.fusion.plan_program``'s grouping pass can decide before any
 params exist whether a chain fits one CTA's shared memory
 (``SMEM_LIMIT``): fp by choosing a band height and a channel chunk
-(``choose_blocks``), int8 by the passes' static tiles, whatever the map
-(the chain runs whole-map through device scratch; tiling the requants
-would change the numerics).
+(``choose_blocks``), int8 by the largest CTA of its members' launches
+(``int8_smem_bytes``), whatever the map (the chain runs whole-map through
+device scratch; tiling the requants would change the numerics).
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ import torch
 
 from repro_torch.core.quantization import QTensor, act_fp, quantize_act
 from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
+from repro_torch.kernels.mbconv.kernel import mbconv_int8_pass_smem
 from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import (
     N_SM, SMEM_LIMIT, KernelBase, register)
@@ -28,8 +29,8 @@ from repro_torch.kernels.supersite.kernel import (
     supersite_fused_int8, supersite_smem_floats)
 from repro_torch.kernels.supersite.pack import get_pack
 
-__all__ = ["fp_windows", "make_fp_geom",
-           "make_int8_geom", "supersite_smem_bytes", "choose_blocks",
+__all__ = ["fp_windows", "make_fp_geom", "make_int8_geom", "int8_smem_bytes",
+           "supersite_smem_bytes", "choose_blocks",
            "supersite_apply", "supersite_apply_int8", "SupersiteKernel",
            "SupersiteInt8Kernel"]
 
@@ -78,6 +79,17 @@ def supersite_smem_bytes(supersite, block_rows: int, block_m: int) -> int:
     rows and DW-stage chunks of ``block_m`` channels."""
     _, members = fp_windows(supersite, block_rows)
     return 4 * supersite_smem_floats(members, block_m)
+
+
+def int8_smem_bytes(supersite) -> int:
+    """The largest CTA of the FIX8 chain's launches: an MBConv member's
+    passes (``mbconv_int8_pass_smem``; every member takes them, the
+    cluster kernel lost to them where a member's image fits it), a DSConv
+    member's GEMM tile."""
+    return max(INT8_GEMM_SMEM_BYTES if m.kind != "mbconv" else
+               mbconv_int8_pass_smem(m.h_in, m.w_in, m.c_in, m.mid, m.f_out,
+                                     m.stride)
+               for m in _member_specs(supersite))
 
 
 def choose_blocks(supersite) -> dict | None:
@@ -185,7 +197,7 @@ class SupersiteInt8Kernel(SupersiteKernel):
     emits_q = True
 
     def smem_bytes(self, site, blocks):
-        return INT8_GEMM_SMEM_BYTES
+        return int8_smem_bytes(site)
 
     def tune(self, site):
         return {}

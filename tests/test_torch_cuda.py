@@ -37,8 +37,10 @@ from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_emit_ref, int8_matmul_ref)
 from repro_torch.kernels.build import check, library
 from repro_torch.kernels.mbconv.kernel import (
-    choose_blocks as mb_blocks, legal_splits, mbconv_fused,
-    mbconv_fused_int8, mbconv_fused_int8_emit, mbconv_smem_bytes)
+    _mbconv_int8, choose_blocks as mb_blocks, int8_mslice, int8_ranks,
+    legal_splits, mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit,
+    mbconv_int8_cluster_smem, mbconv_int8_pass_smem, mbconv_int8_path,
+    mbconv_smem_bytes)
 from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
@@ -313,27 +315,165 @@ def test_dsconv_int8_equals_plain(cuda, batch):
     _same((dsconv_fused_int8(*args),), (dsconv_int8_ref(*args),))
 
 
+def _mbconv_int8_args(g, device, B, H, C, M, F, W=None):
+    return (_i8(g, device, B, H, W or H, C), _sc(g, device, B),
+            _i8(g, device, C, M), _sc(g, device, M, base=2e-3),
+            _bias(g, device, M), _i8(g, device, 3, 3, M), _sc(g, device, M),
+            _bias(g, device, M), _i8(g, device, M, F), _sc(g, device, F),
+            _bias(g, device, F))
+
+
+def _mbconv_int8_paths(args, stride):
+    """Every (path, ranks) to hold against the plain version: the passes,
+    and where the image fits a cluster the chosen rank count and the
+    largest legal one."""
+    B, H, W, C = args[0].shape
+    M, F = args[2].shape[1], args[8].shape[1]
+    out = [("passes", 0)]
+    for r in sorted({mbconv_int8_path(H, W, C, M, F, stride, B)["ranks"],
+                     max(int8_ranks(M))} - {0}):
+        if mbconv_int8_cluster_smem(H, W, C, M, F, stride, r) <= SMEM_LIMIT:
+            out.append(("cluster", r))
+    return out
+
+
+def _check_mbconv_int8(args, stride, paths):
+    """The served call (one launch on the counter), then each forced path
+    at both variants, each EQUAL to the plain version and equal on two
+    calls."""
+    ref = mbconv_int8_ref(*args, stride=stride)
+    qt = quantize_act(ref)
+    want = (qt.q, qt.scale, ref)
+    n = mbconv_fused_int8.launches, mbconv_fused_int8_emit.launches
+    _same((mbconv_fused_int8(*args, stride=stride),), (ref,))
+    _same(mbconv_fused_int8_emit(*args, stride=stride), want)
+    assert (mbconv_fused_int8.launches, mbconv_fused_int8_emit.launches) \
+        == (n[0] + 1, n[1] + 1)
+    for path, ranks in paths:
+        got = _mbconv_int8(*args, stride, False, path, ranks)
+        _same((got,), (ref,))
+        _same((_mbconv_int8(*args, stride, False, path, ranks),), (got,))
+        got = _mbconv_int8(*args, stride, True, path, ranks)
+        _same(got, want)
+        _same(_mbconv_int8(*args, stride, True, path, ranks), got)
+
+
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("H,C,M,F,stride", [
     (112, 16, 64, 32, 2), (56, 32, 128, 32, 1), (56, 32, 128, 64, 2),
     (28, 64, 256, 64, 1), (28, 64, 256, 128, 2), (14, 128, 512, 128, 1),
     (14, 128, 512, 256, 2), (7, 256, 1024, 256, 1)])
 def test_mbconv_int8_equals_plain(cuda, batch, H, C, M, F, stride):
-    """Both variants at every B1@224 mbconv shape: the stride-2 sites
-    emit (S1.mb0, S2.mb0, S3/S4.down), the residual ones do not."""
+    """Both variants at every B1@224 mbconv shape, on the path the shape
+    takes and on both paths wherever the image fits a cluster (the chosen
+    and the largest legal rank count): EQUAL to the plain version, and
+    equal bits on two calls."""
     g = torch.Generator().manual_seed(H * M + batch)
-    args = (_i8(g, cuda, batch, H, H, C), _sc(g, cuda, batch),
-            _i8(g, cuda, C, M), _sc(g, cuda, M, base=2e-3),
-            _bias(g, cuda, M), _i8(g, cuda, 3, 3, M), _sc(g, cuda, M),
-            _bias(g, cuda, M), _i8(g, cuda, M, F), _sc(g, cuda, F),
-            _bias(g, cuda, F))
-    ref = mbconv_int8_ref(*args, stride=stride)
-    if stride == 1:
-        _same((mbconv_fused_int8(*args, stride=stride),), (ref,))
-    else:
-        qt = quantize_act(ref)
-        _same(mbconv_fused_int8_emit(*args, stride=stride),
-              (qt.q, qt.scale, ref))
+    args = _mbconv_int8_args(g, cuda, batch, H, C, M, F)
+    _check_mbconv_int8(args, stride, _mbconv_int8_paths(args, stride))
+
+
+@pytest.mark.parametrize("B,H,W,C,M,F,stride", [
+    (1, 10, 10, 8, 40, 24, 2), (2, 9, 9, 24, 40, 24, 1),
+    (2, 7, 7, 16, 40, 20, 1), (1, 14, 14, 32, 48, 24, 2),
+    (2, 9, 7, 10, 36, 12, 1), (3, 6, 9, 24, 72, 40, 1),
+    (2, 9, 9, 12, 42, 22, 1)])
+def test_mbconv_int8_ragged(cuda, B, H, W, C, M, F, stride):
+    """Ragged shapes on both paths at every legal rank count that fits: M
+    = 40, 36 and 72 (not a multiple of ranks x 16: a last rank with a
+    partial slice), F = 24, 20, 12 and 40 (not a multiple of 8, or ranks
+    with no output column), C = 24 and 10 (a K tail; 8- and 2-byte
+    aligned rows take the 4-byte and byte staging), W = 7 and 9, a
+    non-square map, stride 2 at the anchor s - 1; M = 42 and F = 22
+    (not multiples of 4: the weights' byte staging, the passes' scalar
+    window and quantize-on-load)."""
+    g = torch.Generator().manual_seed(H * M + C)
+    args = _mbconv_int8_args(g, cuda, B, H, C, M, F, W)
+    paths = [("passes", 0)] + [
+        ("cluster", r) for r in int8_ranks(M)
+        if mbconv_int8_cluster_smem(H, W, C, M, F, stride, r) <= SMEM_LIMIT]
+    _check_mbconv_int8(args, stride, paths)
+
+
+def test_mbconv_int8_refused_launch_raises(cuda):
+    """A cluster launch CUDA refuses raises ``KernelLaunchError`` (never a
+    retry on the passes) and leaves no error behind: the cluster path at
+    S1.mb0, whose image needs more shared memory than a CTA has, and a
+    cluster of 32 ranks, beyond the card."""
+    g = torch.Generator().manual_seed(7)
+    args = _mbconv_int8_args(g, cuda, 1, 112, 16, 64, 32)
+    assert mbconv_int8_cluster_smem(112, 112, 16, 64, 32, 2, 4) > SMEM_LIMIT
+    n = mbconv_fused_int8.launches
+    with pytest.raises(KernelLaunchError):
+        _mbconv_int8(*args, 2, False, "cluster", 4)
+    big = _mbconv_int8_args(g, cuda, 1, 7, 256, 1024, 256)
+    assert 31 * int8_mslice(1024, 32) < 1024   # every rank owns channels
+    with pytest.raises(KernelLaunchError):
+        _mbconv_int8(*big, 1, False, "cluster", 32)
+    assert mbconv_fused_int8.launches == n
+    _same((mbconv_fused_int8(*big),), (mbconv_int8_ref(*big),))
+
+
+def test_mbconv_int8_smem_mirror_matches_the_source(cuda):
+    """``mbconv_int8_cluster_smem`` and ``mbconv_int8_pass_smem`` equal the
+    CUDA source's own layouts at every B1 mbconv shape (192-384 px) and
+    ragged ones, every legal rank count; the card holds at least one
+    cluster of the chosen ranks at every served B1@224 site."""
+    lib = library("mbconv_int8")
+    cl = lib.mbconv_int8_cluster_smem_c
+    cl.argtypes = [ctypes.c_int] * 7
+    cl.restype = ctypes.c_longlong
+    ps = lib.mbconv_int8_pass_smem_c
+    ps.argtypes = [ctypes.c_int] * 6
+    ps.restype = ctypes.c_longlong
+    occ = lib.mbconv_int8_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    shapes = {(10, 10, 8, 40, 24, 2), (9, 7, 10, 36, 12, 1)}
+    for size in (192, 224, 256, 384):
+        for site in lower(B1, batch=1, image_size=size).fusible():
+            if site.kind == "mbconv":
+                _, h, w, c = site.in_shape
+                shapes.add((h, w, c, site.attrs["mid"], site.out_shape[-1],
+                            site.stride))
+    for h, w, c, m, f, st in sorted(shapes):
+        assert ps(h, w, c, m, f, st) == \
+            mbconv_int8_pass_smem(h, w, c, m, f, st)
+        for r in int8_ranks(m):
+            assert cl(h, w, c, m, f, st, r) == \
+                mbconv_int8_cluster_smem(h, w, c, m, f, st, r)
+    for h, c, m, f, st in ((14, 128, 512, 128, 1), (7, 256, 1024, 256, 1),
+                           (28, 64, 256, 128, 2), (14, 128, 512, 256, 2)):
+        r = mbconv_int8_path(h, h, c, m, f, st, 8)["ranks"]
+        for emit in (0, 1):
+            n = ctypes.c_int(0)
+            assert occ(8, h, h, c, m, f, st, r, emit, ctypes.byref(n)) == 0
+            assert n.value >= 1
+
+
+@pytest.mark.parametrize("R,K,N", [(64, 256, 64), (37, 24, 20), (16, 100, 8),
+                                   (50, 66, 33), (64, 1024, 64)])
+def test_int8_mma_tile_equals_dp4a(cuda, R, K, N):
+    """The int8 tensor-core tile of ``int8_mma.cuh`` (16-byte staging, the
+    transposing weight stage, the m16n8k32 fragments) against ``__dp4a``
+    sums of the same staged panels and against exact int64 sums on the
+    host: ragged R, K and N, and K tails that are not 16- or 4-byte
+    multiples."""
+    g = torch.Generator().manual_seed(R * K + N)
+    A, W = _i8(g, cuda, R, K), _i8(g, cuda, K, N)
+    out = torch.empty((2, R, N), dtype=torch.int32, device=cuda)
+    lib = library("mbconv_int8")
+    fn = lib.int8_mma_selftest_i8
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(lib, fn(A.data_ptr(), W.data_ptr(), out[0].data_ptr(),
+                  out[1].data_ptr(), R, K, N,
+                  torch.cuda.current_stream().cuda_stream), "int8_mma")
+    want = (A.cpu().long() @ W.cpu().long()).int()
+    torch.cuda.synchronize()
+    assert torch.equal(out[1].cpu(), want)
+    assert torch.equal(out[0].cpu(), want)
 
 
 @pytest.mark.parametrize("batch", [1, 8])
@@ -484,7 +624,8 @@ def test_supersite_kernel_matches_plain(cuda, cfg, names, batch):
 @pytest.mark.parametrize("batch", [1, 8])
 @pytest.mark.parametrize("cfg,names", CHAINS)
 def test_supersite_int8_equals_plain(cuda, cfg, names, batch):
-    """Every exit: fp32, int8, int8 with the fp map kept."""
+    """Every exit: fp32, int8, int8 with the fp map kept; two calls give
+    equal bits."""
     sup, pack = _chain(cfg, names, batch, "int8")
     geom = make_int8_geom(sup, pack)
     g = torch.Generator().manual_seed(batch)
@@ -501,6 +642,9 @@ def test_supersite_int8_equals_plain(cuda, cfg, names, batch):
                                    exit_emit=emit, keep_fp=emit)
         assert supersite_fused_int8.launches == n + 1
         _same(got if emit else (got,), ref if emit else (ref,))
+        again = supersite_fused_int8(*args, geom=geom, x_fp=x_fp,
+                                     exit_emit=emit, keep_fp=emit)
+        _same(again if emit else (again,), got if emit else (got,))
 
 
 @pytest.mark.parametrize("cfg,batch", [(B1, 4), (DEEP, 2)])

@@ -25,7 +25,7 @@ from repro.kernels.mbconv import ref as jmr
 from repro_torch.core import quantization as tq
 from repro_torch.core.efficientvit import B1, dsconv, mbconv
 from repro_torch.core.fusion import plan_program
-from repro_torch.core.program import lower
+from repro_torch.core.program import SuperSite, lower
 from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
 from repro_torch.kernels.dsconv.ops import dsconv_apply_int8
 from repro_torch.kernels.group_conv.kernel import group_agg_int8
@@ -34,9 +34,11 @@ from repro_torch.kernels.group_conv.ops import (
 from repro_torch.kernels.int8_matmul.kernel import int8_matmul
 from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
 from repro_torch.kernels.mbconv.kernel import (
-    mbconv_fused_int8, mbconv_fused_int8_emit)
+    SMEM_2_PER_SM, int8_fslice, int8_mslice, int8_ranks, mbconv_fused_int8,
+    mbconv_fused_int8_emit, mbconv_int8_cluster_smem, mbconv_int8_path)
 from repro_torch.kernels.mbconv.ops import mbconv_apply_int8
 from repro_torch.kernels.registry import SMEM_LIMIT, get_kernel
+from repro_torch.kernels.supersite.ops import int8_smem_bytes
 
 
 def _eager(fn, *args, **kw):
@@ -259,14 +261,63 @@ def test_conv1x1_w8a8_against_conv2d_int8():
     _equal(conv1x1_w8a8(qp, tq.quantize_act(x)), got.numpy())
 
 
-def test_int8_fit_model_fits_every_b1_site():
-    """Every B1@224 int8 site fits one CTA's shared memory, at batch 1
-    and 8, as JAX's VMEM model fits every site."""
-    for batch in (1, 8):
-        program = lower(B1, batch=batch)
+@pytest.mark.parametrize("image_size", [192, 224, 256, 384])
+def test_int8_fit_model_fits_every_b1_site(image_size):
+    """Every B1 int8 site fits one CTA's shared memory at 192/224/256/384
+    px and batch 1/2/4/8, as JAX's VMEM model fits every site, and so
+    does every FIX8 chain the default plan groups.  An MBConv site on the
+    cluster path has a legal rank count whose slices cover M, and the fit
+    model reads the path mirror."""
+    for batch in (1, 2, 4, 8):
+        program = lower(B1, batch=batch, image_size=image_size)
         for site in program.fusible():
             impl = get_kernel(site.kind, "int8")
-            assert impl.smem_bytes(site, impl.tune(site)) <= SMEM_LIMIT
+            smem = impl.smem_bytes(site, impl.tune(site))
+            assert smem <= SMEM_LIMIT
+            if site.kind != "mbconv":
+                continue
+            b, h, w, c = site.in_shape
+            m, f = site.attrs["mid"], site.out_shape[-1]
+            path = mbconv_int8_path(h, w, c, m, f, site.stride, b)
+            assert smem == path["smem"]
+            if path["path"] == "cluster":
+                r = path["ranks"]
+                assert r in int8_ranks(m)
+                assert int8_mslice(m, r) * r >= m
+                assert int8_mslice(m, r) * (r - 1) < m
+                assert int8_fslice(f, r) * r >= f
+                assert path["smem"] == mbconv_int8_cluster_smem(
+                    h, w, c, m, f, site.stride, r)
+        for names in (("S1.mb0", "S1.mb1"),
+                      ("S2.mb0", "S2.mb1", "S2.mb2")):
+            assert int8_smem_bytes(SuperSite.of(program, names)) \
+                <= SMEM_LIMIT
+
+
+def test_served_int8_mbconv_sites_take_the_cluster_path():
+    """At B1@224, batch 1, 2, 4 and 8, the nine MBConv sites the FIX8 plan
+    launches one at a time (S3/S4's seven evit blocks and the two
+    downsamplers) each take one cluster launch of 16 ranks, two CTAs a
+    SM; the chain members S1.mb* and S2.mb0 do not fit a cluster."""
+    for batch in (1, 2, 4, 8):
+        program = lower(B1, batch=batch)
+        grouped = {"S1.mb0", "S1.mb1", "S2.mb0", "S2.mb1", "S2.mb2"}
+        served = [s for s in program.fusible()
+                  if s.kind == "mbconv" and s.name not in grouped]
+        assert len(served) == 9
+        for site in served:
+            _, h, w, c = site.in_shape
+            path = mbconv_int8_path(h, w, c, site.attrs["mid"],
+                                    site.out_shape[-1], site.stride, batch)
+            assert path["path"] == "cluster" and path["ranks"] == 16, \
+                site.name
+            assert path["smem"] <= SMEM_2_PER_SM
+        for name in ("S1.mb0", "S1.mb1", "S2.mb0"):
+            site = program.site(name)
+            _, h, w, c = site.in_shape
+            assert mbconv_int8_path(h, w, c, site.attrs["mid"],
+                                    site.out_shape[-1], site.stride,
+                                    batch)["path"] == "passes"
 
 
 def test_int8_plan_fuses_a_quantized_smoke_tree():

@@ -18,7 +18,9 @@ behind a sleep kernel):
 - ``host_ms``: the host's time to enqueue one forward, median of 3
   groups of 5 (a synchronize before and after each group);
 - ``host_after_profiler_ms`` and ``dev1_after_profiler_ms``: the same
-  after one ``torch.profiler`` capture of CUDA activity in the process.
+  after ``torch.profiler`` captures of CUDA activity in the process (one
+  fp32 and one FIX8 forward's kernels, launches, memsets and zero fills,
+  printed as ``chip_smoke.py``'s profiler lines).
 
 One JSON line per run, then a summary line per label and metric (the
 median over that label's runs), then the card's name and power limit.
@@ -83,7 +85,9 @@ def one(label: str, src: str, seed: int) -> dict:
         res[prec] = {"dev1_ms": device_ms(fwd, reps=1, windows=5),
                      "dev5_ms": device_ms(fwd, reps=5, windows=3),
                      "host_ms": host_ms(fwd)}
-    kernel_profile(fwds["fp32"], f"{label} fp32")
+    csrc = os.path.join(src, "repro_torch", "csrc")
+    kernel_profile(fwds["fp32"], f"{label} fp32", csrc=csrc)
+    kernel_profile(fwds["fix8"], f"{label} fix8", csrc=csrc)
     for prec, fwd in fwds.items():
         res[prec]["host_after_profiler_ms"] = host_ms(fwd)
         res[prec]["dev1_after_profiler_ms"] = device_ms(fwd, reps=1,
