@@ -8,8 +8,8 @@
    builds every kernel from ``src/repro_torch/csrc`` (one ``nvcc`` per
    source, all started together) and prints each kernel's register,
    shared-memory and spill use, and the int8 tensor-core instructions
-   (IMMA) in the SASS of ``mbconv_int8`` and ``supersite_int8`` (none is
-   a failure).
+   (IMMA) in the SASS of ``mbconv_int8``, ``supersite_int8``,
+   ``int8_matmul`` and ``group_agg`` (none is a failure).
 2. fp32 phase.
    a. Each fp32 kernel against its plain PyTorch version on the card, at
       every distinct shape of the B1@224 main path at batch 1 and 8:
@@ -62,7 +62,14 @@
       ``[mbconv_int8 sweep]`` lines time it at S3, S4, S3.down, S4.down
       and S2.mb1, batch 1 and 8, on the passes and on the cluster kernel
       at every legal rank count that fits (with the clusters the card
-      holds at once), the path rule's choice marked.
+      holds at once), the path rule's choice marked.  The ``[int8_matmul
+      sweep]`` lines time ``int8_matmul`` at the four MSA projections,
+      batch 1 and 8, at every legal tile, with the pick of
+      ``int8_gemm_plan`` marked and its time over the fastest cell; the
+      ``[group_agg sweep]`` lines time ``group_agg_int8`` at both
+      aggregation maps on the two launches and on the cluster kernel at
+      every rank count that holds whole groups and fits a CTA, the choice
+      of ``group_agg_path`` marked.
    b. ``VisionEngine.quantized`` over the same fp tree, quantized by the
       port, serves the same trace on the default plan (S1.ss0 and S2.ss0
       grouped).  Counters reset just before, read just after: each
@@ -112,9 +119,10 @@
    kernel name, fp32 and FIX8, after every timed phase: CUPTI may stay
    attached once the profiler has run and slow the host's launches.  The
    port's own kernels' CUDA launches, the memsets and the zero fills are
-   counted apart.  Then one call of each served FIX8 MBConv shape at
-   batch 8 must be one launch of the cluster kernel, with no memset, no
-   zero fill and no allocation but its outputs.
+   counted apart.  Then one call of each served FIX8 MBConv shape, each
+   MSA projection GEMM and each aggregation branch at batch 8 must be one
+   CUDA launch (the cluster kernels, the tensor-core GEMM), with no
+   memset, no zero fill and no allocation but its outputs.
 6. One JSON line with every kernel's launches on its driven run(s),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
@@ -281,10 +289,12 @@ def int8_kernel_cases(batch: int, gen):
     from repro_torch.core.program import lower
     from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
     from repro_torch.kernels.dsconv.ref import dsconv_int8_ref
-    from repro_torch.kernels.group_conv.kernel import group_agg_int8
+    from repro_torch.kernels.group_conv.kernel import (
+        group_agg_int8, group_agg_path)
     from repro_torch.kernels.group_conv.ref import (
         block_diag, group_agg_int8_ref)
-    from repro_torch.kernels.int8_matmul.kernel import int8_matmul
+    from repro_torch.kernels.int8_matmul.kernel import (
+        int8_gemm_plan, int8_matmul)
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_ref
     from repro_torch.kernels.mbconv.kernel import (
         mbconv_fused_int8, mbconv_fused_int8_emit, mbconv_int8_path)
@@ -337,7 +347,8 @@ def int8_kernel_cases(batch: int, gen):
                     * a[3][None, :],)
             nbytes = nb(x, w, xs, ws) + 4 * M * N
             ops = 2 * M * K * N
-            label = f"({M}x{K})@({K}x{N})"
+            plan = int8_gemm_plan(M, N, K)
+            label = f"({M}x{K})@({K}x{N}) tile {plan['bm']}x{plan['bn']}"
         elif name == "group_agg_int8":
             B, H, W, C = shape
             d = 16
@@ -349,7 +360,10 @@ def int8_kernel_cases(batch: int, gen):
                 group_agg_int8_ref(*a, dn, *t),)
             nbytes = nb(*args, pw, *tail) + 4 * B * H * W * C
             ops = 2 * B * H * W * C * (25 + d)
-            label = f"x{(B, H, W, C)} s=5 d={d}"
+            path = group_agg_path(H, W, C, d, 5)
+            label = (f"x{(B, H, W, C)} s=5 d={d} "
+                     + (f"cluster R={path['ranks']}"
+                        if path["path"] == "cluster" else "two-launch"))
         elif name == "dsconv_fused_int8":
             B, H, W, C, _, F, st = shape
             args = (i8(B, H, W, C), sc(B), i8(3, 3, C), sc(C), bias(C),
@@ -857,6 +871,105 @@ def mbconv_int8_sweep(gen) -> None:
                   f"{times[best]:.4f} ms; ms {' '.join(cells)}")
 
 
+# the four MSA projection GEMMs of B1@224 per image: (rows, K, N)
+MSA_GEMMS = (("S3 qkv", 196, 128, 384), ("S3 proj", 196, 256, 128),
+             ("S4 qkv", 49, 256, 768), ("S4 proj", 49, 512, 256))
+# the two MSA aggregation maps of B1@224: (H, C)
+AGG_MAPS = (("S3", 14, 384), ("S4", 7, 768))
+
+
+def int8_matmul_sweep(gen) -> None:
+    """Time ``int8_matmul`` at the four MSA projections of B1@224, batch 1
+    and 8, at every legal (bm, bn) of ``gemm_cells``, beside each
+    cell its CTAs and shared memory; the pick of ``int8_gemm_plan`` marked
+    and its time over the fastest cell printed.  The evidence the plan's
+    cost model is fitted to."""
+    import torch
+    from repro_torch.kernels.int8_matmul.kernel import (
+        _int8_matmul, gemm_cells, gemm_ctas, int8_gemm_plan, int8_gemm_smem)
+
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
+    for batch in (1, 8):
+        for name, rows, K, N in MSA_GEMMS:
+            M = batch * rows
+            args = (i8(M, K), i8(K, N), sc(M), sc(N))
+            plan = int8_gemm_plan(M, N, K)
+            pick = (plan["bm"], plan["bn"])
+            cells, times = [], {}
+            for cell in gemm_cells(M, N, K):
+                bm, bn = cell
+                ms = device_ms(lambda c=dict(bm=bm, bn=bn):
+                               _int8_matmul(*args, c), reps=10, windows=3)
+                times[cell] = ms
+                mark = "*" if cell == pick else ""
+                cells.append(f"{mark}{bm}x{bn}:{ms:.5f}"
+                             f"({gemm_ctas(M, N, *cell)},"
+                             f"{int8_gemm_smem(K, *cell) // 1024}K)")
+            best = min(times, key=times.get)
+            print(f"[int8_matmul sweep] {name} ({M}x{K})@({K}x{N}) "
+                  f"B={batch} chosen {pick} {times[pick]:.5f} ms, fastest "
+                  f"{best} {times[best]:.5f} ms, chosen/fastest "
+                  f"{times[pick] / times[best]:.3f}; ms(CTAs,smem) "
+                  f"{' '.join(cells)}")
+
+
+def group_agg_sweep(gen) -> None:
+    """Time ``group_agg_int8`` at both MSA aggregation maps of B1@224,
+    batch 1 and 8, on the two launches and on the cluster kernel at every
+    rank count that holds whole groups and fits a CTA, beside each
+    cluster cell the clusters the card holds at once and the CTA's shared
+    memory; the choice of ``group_agg_path`` marked."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.group_conv.kernel import (
+        _group_agg, group_agg_cluster_smem, group_agg_path, group_agg_ranks)
+    from repro_torch.kernels.registry import SMEM_LIMIT
+
+    occ = library("group_agg").group_agg_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
+    rn = lambda *sh: torch.randn(sh, generator=gen).cuda()
+    d, S = 16, 5
+    for batch in (1, 8):
+        for name, H, C in AGG_MAPS:
+            args = (i8(batch, H, H, C), sc(batch), i8(S, S, C), sc(C), rn(C),
+                    i8(d, C), sc(C), rn(C))
+            chosen = group_agg_path(H, H, C, d, S)
+            cells, times = [], {}
+            for r in (0,) + group_agg_ranks(C, d):
+                txt = ""
+                if r and group_agg_cluster_smem(H, H, C, d, S, r) \
+                        > SMEM_LIMIT:
+                    continue
+                if r:
+                    n = ctypes.c_int(0)
+                    if occ(batch, H, H, C, d, S, r, ctypes.byref(n)):
+                        raise AssertionError(f"group_agg occupancy query "
+                                             f"failed at {name} ranks {r}")
+                    smem = group_agg_cluster_smem(H, H, C, d, S, r)
+                    txt = f"({n.value}x,{smem // 1024}K)"
+                path = "cluster" if r else "two-launch"
+                ms = device_ms(lambda p=path, r=r: _group_agg(
+                    *args, path=p, ranks=r), reps=10, windows=3)
+                times[r] = ms
+                mark = "*" if r == chosen["ranks"] else ""
+                cells.append(f"{mark}{'R=' + str(r) if r else 'two-launch'}:"
+                             f"{ms:.5f}{txt}")
+            best = min(times, key=times.get)
+            print(f"[group_agg sweep] {name} x{(batch, H, H, C)} s={S} d={d} "
+                  f"B={batch} chosen {chosen['path']} R={chosen['ranks']} "
+                  f"{times[chosen['ranks']]:.5f} ms, fastest "
+                  f"{'R=' + str(best) if best else 'two-launch'} "
+                  f"{times[best]:.5f} ms; ms {' '.join(cells)}")
+
+
 def check_groups(engine, tag) -> None:
     """Every bucket's plan groups exactly ``GROUPS``; print each group's
     blocks, its band windows and the rows each member computes per row
@@ -1133,13 +1246,14 @@ def device_us(event) -> float:
 
 
 def count_imma() -> None:
-    """The int8 tensor-core instructions (IMMA) in the SASS of the two
+    """The int8 tensor-core instructions (IMMA) in the SASS of the four
     libraries whose GEMMs run on ``int8_mma.cuh``; none is a failure."""
     import shutil
     from repro_torch.kernels.build import library_path
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    for name in ("mbconv_int8", "supersite_int8"):
+    for name in ("mbconv_int8", "supersite_int8", "int8_matmul",
+                 "group_agg"):
         sass = subprocess.run([tool, "-sass", str(library_path(name))],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
@@ -1150,14 +1264,56 @@ def count_imma() -> None:
             raise AssertionError(f"{name}: no IMMA instruction in its SASS")
 
 
-def one_launch_per_site(gen) -> None:
-    """Each served FIX8 MBConv shape of B1@224 at batch 8 (S3 and S4's
-    evit blocks, S3.down and S4.down emitting): one call of its wrapper is
-    one CUDA launch of the cluster kernel, with no memset and no zero
-    fill, and allocates only its outputs (``torch.profiler`` over the
-    call, the caching allocator's allocation count around it)."""
+def one_launch_each(calls) -> None:
+    """Each call of ``calls`` ((fn, outputs, kernel, label), every fn
+    warmed up first) is one CUDA launch of its ``kernel``, with no memset
+    and no zero fill, and allocates only its ``outputs``: one
+    ``torch.profiler`` capture over all the calls (a capture per call lost
+    the device activity of the later ones) must count exactly one launch
+    per call, by kernel name and nothing else; the caching allocator's
+    allocation count is read around each call."""
+    import collections
+
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    for fn, *_ in calls:
+        fn()
+    torch.cuda.synchronize()
+    allocs = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for fn, *_ in calls:
+            n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
+            fn()
+            torch.cuda.synchronize()
+            allocs.append(torch.cuda.memory_stats()[
+                "allocation.all.allocated"] - n0)
+    rows = {e.key: e.count for e in prof.key_averages() if device_us(e) > 0}
+    want = collections.Counter(kernel for _, _, kernel, _ in calls)
+    got = collections.Counter()
+    for key, count in rows.items():
+        got[next((k for k in want if k in key), key)] += count
+    for (_, outputs, kernel, label), n in zip(calls, allocs):
+        print(f"[fix8] {label}: {n} allocations (its outputs: {outputs})")
+        if n != outputs:
+            raise AssertionError(f"{label}: {n} allocations, expected "
+                                 f"only its {outputs} outputs")
+    print(f"[fix8] one launch per call: {len(calls)} calls, device activity "
+          f"{sorted(rows.items())}")
+    if got != want:
+        raise AssertionError(f"device activity {dict(got)}, expected one "
+                             f"launch per call: {dict(want)}")
+
+
+def one_launch_per_site(gen) -> None:
+    """Each served FIX8 MBConv shape of B1@224 at batch 8 (S3 and S4's
+    evit blocks, S3.down and S4.down emitting), each MSA projection GEMM
+    and each aggregation branch: one call of its wrapper is one CUDA
+    launch (the cluster kernels, the tensor-core GEMM), with no memset and
+    no zero fill, allocating only its outputs."""
+    import torch
+    from repro_torch.kernels.group_conv.kernel import group_agg_int8
+    from repro_torch.kernels.int8_matmul.kernel import int8_matmul
     from repro_torch.kernels.mbconv.kernel import (
         mbconv_fused_int8, mbconv_fused_int8_emit)
 
@@ -1165,6 +1321,7 @@ def one_launch_per_site(gen) -> None:
                                    dtype=torch.int8).cuda()
     sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
     rn = lambda *sh: torch.randn(sh, generator=gen).cuda()
+    calls = []
     for name, (H, C, M, F, st) in (("S3", (14, 128, 512, 128, 1)),
                                    ("S4", (7, 256, 1024, 256, 1)),
                                    ("S3.down", (28, 64, 256, 128, 2)),
@@ -1172,21 +1329,20 @@ def one_launch_per_site(gen) -> None:
         fn = mbconv_fused_int8_emit if st == 2 else mbconv_fused_int8
         args = (i8(8, H, H, C), sc(8), i8(C, M), sc(M) * 0.2, rn(M),
                 i8(3, 3, M), sc(M), rn(M), i8(M, F), sc(F), rn(F))
-        fn(*args, stride=st)
-        torch.cuda.synchronize()
-        n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn(*args, stride=st)
-            torch.cuda.synchronize()
-        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - n0
-        rows = [(e.key, e.count) for e in prof.key_averages()
-                if device_us(e) > 0]
-        print(f"[fix8] {fn.__name__} {name} B=8: device activity "
-              f"{rows}; {allocs} allocations (its outputs)")
-        if (len(rows) != 1 or rows[0][1] != 1 or "mbi8_cluster" not in
-                rows[0][0] or allocs != (3 if st == 2 else 1)):
-            raise AssertionError(f"{name}: not one cluster launch with only "
-                                 f"its outputs allocated")
+        calls.append((lambda f=fn, a=args, st=st: f(*a, stride=st),
+                      3 if st == 2 else 1,
+                      f"mbi8_cluster<{'true' if st == 2 else 'false'}>",
+                      f"{fn.__name__} {name} B=8"))
+    for name, rows, K, N in MSA_GEMMS:
+        args = (i8(8 * rows, K), i8(K, N), sc(8 * rows), sc(N))
+        calls.append((lambda a=args: int8_matmul(*a), 1, "int8_mma_gemm",
+                      f"int8_matmul {name} B=8"))
+    for name, H, C in AGG_MAPS:
+        args = (i8(8, H, H, C), sc(8), i8(5, 5, C), sc(C), rn(C), i8(16, C),
+                sc(C), rn(C))
+        calls.append((lambda a=args: group_agg_int8(*a), 1,
+                      "group_agg_cluster<5>", f"group_agg_int8 {name} B=8"))
+    one_launch_each(calls)
 
 
 def kernel_profile(fwd, tag, n: int = 2, csrc: str | None = None) -> None:
@@ -1367,6 +1523,8 @@ def main() -> int:
         check_kernels(int8_kernel_cases(batch, gen) + chains[batch][1],
                       batch, per_fwd, max_err, exact=True)
     mbconv_int8_sweep(gen)
+    int8_matmul_sweep(gen)
+    group_agg_sweep(gen)
 
     # -- 3b. the FIX8 main path -----------------------------------------
     qengine = VisionEngine.quantized(params, B1,

@@ -27,15 +27,24 @@
 // Zeros fill K beyond the operand and columns beyond N, so ragged edges
 // contribute an int8 0 to every sum.
 //
+// m16n8k16 (mma16816) is the shape of a 16-deep reduction, a grouped
+// 1x1 of 16 channels per group: lane (g, t) holds the 4 bytes k = 4t..4t+3
+// of A rows g and g + 8 and of B column g.
+//
 // Used by csrc/mbconv_int8.cuh (the FIX8 MBConv: one site, and the
-// members of csrc/supersite_int8.cu).
+// members of csrc/supersite_int8.cu), csrc/int8_matmul.cu (the W8A8 GEMM)
+// and csrc/group_agg.cu (the FIX8 MSA aggregation).
 #pragma once
+
+#include <cooperative_groups.h>
 
 #include <cstdint>
 
 #include "int8.cuh"
 
 namespace i8mma {
+
+namespace cg = cooperative_groups;
 
 constexpr int NT = 256;  // threads of a CTA
 constexpr int KB = 64;   // bytes of K per fragment block (two MMA steps)
@@ -65,6 +74,10 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// all but the newest committed group have landed
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ uint4 ld16(const int8_t* p) {
@@ -214,6 +227,75 @@ __device__ __forceinline__ void stage_wt(int8_t* dst, int pitch,
   }
 }
 
+// The weight operand staged without waiting on its loads: raw[k][n] =
+// w[k * ldw + n] for k < K, n < n_cnt, 16 bytes a cp.async (rows rp bytes
+// apart), when wt_async_ok; transpose_wt then builds stage_wt's panel
+// from shared memory.  The caller commits, waits and syncs between them.
+__device__ __forceinline__ bool wt_async_ok(const int8_t* w, int ldw,
+                                            int n_cnt) {
+  return (reinterpret_cast<uintptr_t>(w) | ldw | n_cnt) % 16 == 0;
+}
+__device__ __forceinline__ void stage_w_raw(int8_t* raw, int rp,
+                                            const int8_t* w, int ldw, int K,
+                                            int n_cnt) {
+  const int nc = n_cnt / 16;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < K * nc; e += NT) {
+    const int k = e / nc, c = 16 * (e % nc);
+    cp_async_zfill<16>(raw + k * rp + c, w + (size_t)k * ldw + c, true);
+  }
+}
+// dst[n][k] = raw[k][n] for n < n_cnt (a multiple of 4), k < K; 0
+// elsewhere in [0, n_rows) x [0, kpad): stage_wt's blocks and stores.
+__device__ __forceinline__ void transpose_wt(int8_t* dst, int pitch,
+                                             const int8_t* raw, int rp,
+                                             int K, int n_cnt, int n_rows,
+                                             int kpad) {
+  const int nk8 = kpad / 32, nn = n_rows / 4, nn4 = (nn + 3) / 4;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < nk8 * nn4 * 32; e += NT) {
+    const int rest = e >> 5;
+    const int k = 4 * (8 * (rest % nk8) + (e & 7));
+    const int n = 4 * (4 * (rest / nk8) + ((e >> 3) & 3));
+    if (n >= n_rows) continue;
+    uint32_t r[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      r[i] = k + i < K && n < n_cnt
+                 ? *reinterpret_cast<const uint32_t*>(raw + (k + i) * rp + n)
+                 : 0u;
+    const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+    const uint32_t t1 = __byte_perm(r[2], r[3], 0x5140);
+    const uint32_t t2 = __byte_perm(r[0], r[1], 0x7362);
+    const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+    *reinterpret_cast<uint32_t*>(dst + (n + 0) * pitch + k) =
+        __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + (n + 1) * pitch + k) =
+        __byte_perm(t0, t1, 0x7632);
+    *reinterpret_cast<uint32_t*>(dst + (n + 2) * pitch + k) =
+        __byte_perm(t2, t3, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + (n + 3) * pitch + k) =
+        __byte_perm(t2, t3, 0x7632);
+  }
+}
+
+// dst[i] = src[i] for i < n, 0 for n <= i < n_pad (fp32), as cp.async
+// copies: 16 bytes where src and n allow, else 4.
+__device__ __forceinline__ void stage_f32(float* dst, const float* src,
+                                          int n, int n_pad) {
+  if ((reinterpret_cast<uintptr_t>(src) | (n * 4)) % 16 == 0) {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < n_pad / 4; e += NT) {
+      const bool ok = 4 * e < n;
+      cp_async_zfill<16>(dst + 4 * e, ok ? src + 4 * e : src, ok);
+    }
+  } else {
+#pragma unroll 1
+    for (int e = threadIdx.x; e < n_pad; e += NT)
+      cp_async_zfill<4>(dst + e, e < n ? src + e : src, e < n);
+  }
+}
+
 // d += a . b over one m16n8k32 step.
 __device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2,
@@ -224,6 +306,16 @@ __device__ __forceinline__ void mma16832(int (&d)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// d += a . b over one m16n8k16 step (see the header note).
+__device__ __forceinline__ void mma16816(int (&d)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // One 64-deep K block: lo / hi are this lane's 16 bytes of A rows g and
@@ -278,6 +370,43 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   }
   __syncthreads();
   return red[32];
+}
+
+// Every CTA of a cluster must have started before another reaches into
+// its shared memory: a kernel that does calls cluster_arrive() at its
+// start, which does not wait, and cluster_wait() before its first access
+// through distributed shared memory, by when every rank has long arrived.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The image's max of v >= 0 over a thread-block cluster, pushed: every
+// rank writes its CTA max into slot `rank` of every rank's red[34 + ...]
+// (red: 64 floats of shared memory), one cluster barrier makes them
+// visible, and each rank reduces its own words.  Max does not depend on
+// order, so every rank gets the same, exact value; no rank reads another's
+// shared memory, so none waits for the others before it ends.  Follows
+// cluster_arrive(); every thread of every rank must call this once.
+__device__ __forceinline__ float cluster_max_push(cg::cluster_group& cl,
+                                                  float v, float* red,
+                                                  int ranks) {
+  v = block_max(v, red);
+  cluster_wait();
+  if (threadIdx.x < ranks)
+    *cl.map_shared_rank(red + 34 + cl.block_rank(), threadIdx.x) = v;
+  cl.sync();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    float m = lane < ranks ? red[34 + lane] : 0.f;
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    if (lane == 0) red[33] = m;
+  }
+  __syncthreads();
+  return red[33];
 }
 
 }  // namespace i8mma

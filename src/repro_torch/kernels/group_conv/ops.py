@@ -11,9 +11,9 @@ which is why a fused int8 MSA site counts ``n_branches`` launches
 from __future__ import annotations
 
 from repro_torch.core.quantization import QTensor, conv2d_int8, quantize_act
-from repro_torch.kernels.group_conv.kernel import group_agg_int8
+from repro_torch.kernels.group_conv.kernel import (
+    group_agg_int8, group_agg_path)
 from repro_torch.kernels.group_conv.ref import block_diag
-from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.registry import KernelBase, register
 
 __all__ = ["group_agg_apply_int8", "GroupAggInt8Kernel", "block_diag"]
@@ -43,7 +43,12 @@ class GroupAggInt8Kernel(KernelBase):
                 and "qconv" in params.get("pw", {}) else "fp")
 
     def smem_bytes(self, site, blocks):
-        return INT8_GEMM_SMEM_BYTES
+        """The branches' paths (``group_agg_path``) for a site whose input
+        is the (B, H, W, 3 * heads * head_dim) QKV map, with the MSA
+        site's ``head_dim`` and ``scales``."""
+        _, H, W, C = site.in_shape
+        return max(group_agg_path(H, W, C, site.attrs["head_dim"], s)["smem"]
+                   for s in site.attrs["scales"])
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         return group_agg_apply_int8(params, x)

@@ -3,11 +3,14 @@ kernels (``csrc/int8_matmul.cu``).
 
 Replace ``repro/kernels/int8_matmul/kernel.py::int8_matmul`` and
 ``::int8_matmul_emit``.  A CUDA tensor launches the kernel (or raises); a
-CPU tensor takes the plain version in ``ref``.
+CPU tensor takes the plain version in ``ref``.  ``int8_matmul`` runs on
+int8 tensor cores over the tile that ``int8_gemm_plan`` picks;
+``int8_matmul_emit`` keeps the ``__dp4a`` tile of ``int8.cuh``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,21 +18,136 @@ from repro_torch.kernels.build import check, check_input, library, stream_of
 from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_emit_ref, int8_matmul_ref)
 from repro_torch.kernels.quant import xs_per_batch_vec
+from repro_torch.kernels.registry import N_SM, SMEM_2_PER_SM, SMEM_LIMIT
 
-__all__ = ["int8_matmul", "int8_matmul_emit", "INT8_GEMM_SMEM_BYTES"]
+__all__ = ["int8_matmul", "int8_matmul_emit", "INT8_GEMM_SMEM_BYTES",
+           "int8_gemm_smem", "gemm_cells", "gemm_ctas", "int8_gemm_plan"]
 
-# Static shared memory of one CTA of every int8 GEMM pass (``int8.cuh``):
-# two 64 x 36 int8 operand tiles and the absmax reduction's 32 floats.
+# Static shared memory of one CTA of every __dp4a GEMM pass (``int8.cuh``:
+# int8_matmul_emit, dsconv_fused_int8, the two-launch group_agg_int8): two
+# 64 x 36 int8 operand tiles and the absmax reduction's 32 floats.
 INT8_GEMM_SMEM_BYTES = 2 * 64 * 36 + 4 * 32
+
+KB = 64                       # K bytes per fragment block of the MMA tile
+KC = 512                      # K bytes of one staged chunk (``KC``)
+TILE_M = (16, 32, 64, 128)    # rows of an output tile
+TILE_N = (32, 64, 128)        # columns of an output tile
+# One CTA's time, fitted to chip_smoke.py's [int8_matmul sweep] (the four
+# MSA projections of B1@224, batch 1 and 8; arbitrary units): a fixed
+# latency, a cost per byte of the weight panel (staged, then transposed in
+# shared memory; the x panel's cost did not register) and per output
+# element of the tile; a grid of more CTAs than SMs runs up to GEMM_CROWD
+# slower (two CTAs share an SM).  The pick is the sweep's fastest cell at
+# every swept shape.
+GEMM_T0 = 1000.0
+GEMM_PER_B_BYTE = 0.1
+GEMM_PER_OUT = 0.1
+GEMM_CROWD = 0.4
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def _kblocks(k: int) -> int:
+    return -(-k // KB)
+
+
+def _pitch(k: int) -> int:
+    """Row pitch of an int8 operand panel of k bytes of K (``panel_pitch``
+    in ``int8_mma.cuh``): a multiple of 64 that is 64 (mod 128)."""
+    p = _kblocks(k) * KB
+    return p if p % 128 else p + KB
+
+
+def int8_gemm_smem(k: int, bm: int, bn: int) -> int:
+    """One CTA's shared memory (mirrors ``mm_layout`` in
+    ``csrc/int8_matmul.cu``), for a chunk of kc = min(k, ``KC``) bytes of
+    K in one stage (k <= ``KC``) or two (the ring): per stage the A panel
+    [bm] and the weights' raw rows [kc][bn]; the transposed B panel [bn];
+    the int32 sums [bm][bn + 8] and the tile's fp32 scales."""
+    kc = min(_kblocks(k) * KB, KC)
+    stages = 2 if k > KC else 1
+    return stages * (bm * _pitch(kc) + kc * bn) + bn * _pitch(kc) \
+        + 4 * bm * (bn + 8) + 4 * (bm + bn)
+
+
+def gemm_ctas(m: int, n: int, bm: int, bn: int) -> int:
+    return -(-m // bm) * -(-n // bn)
+
+
+def gemm_cells(m: int, n: int, k: int) -> tuple:
+    """Every legal (bm, bn): the CTA fits ``SMEM_LIMIT`` (16 x 32 always
+    does), and no tile is more than twice the matrix's extent (16 rows
+    and 32 columns are always legal)."""
+    return tuple(
+        (bm, bn) for bm in TILE_M for bn in TILE_N
+        if (bm == TILE_M[0] or bm < 2 * m) and (bn == TILE_N[0] or bn < 2 * n)
+        and int8_gemm_smem(k, bm, bn) <= SMEM_LIMIT)
+
+
+def _gemm_cost(m: int, n: int, k: int, bm: int, bn: int) -> float:
+    """Modelled time of one launch: waves of CTAs over the card (one or
+    two a SM as shared memory allows) x one CTA's time, crowded when the
+    grid has more CTAs than SMs."""
+    ctas = gemm_ctas(m, n, bm, bn)
+    per_sm = 2 if int8_gemm_smem(k, bm, bn) <= SMEM_2_PER_SM else 1
+    waves = -(-ctas // (N_SM * per_sm))
+    cta = (GEMM_T0 + GEMM_PER_B_BYTE * bn * _kblocks(k) * KB
+           + GEMM_PER_OUT * bm * bn)
+    crowd = 1.0 + GEMM_CROWD * min(1.0, max(0, ctas - N_SM) / N_SM)
+    return waves * cta * crowd
+
+
+def int8_gemm_plan(m: int, n: int, k: int) -> dict:
+    """Tile of the W8A8 GEMM for (m, k) @ (k, n): ``{"bm", "bn",
+    "smem"}``.  The least ``_gemm_cost`` among ``gemm_cells`` (the fewer
+    CTAs on a tie); where the output alone has ``N_SM // 2`` tiles of 16
+    x 32, only among grids of at least that many CTAs.  Filling all
+    ``N_SM`` SMs does not pay at the served shapes: a CTA's latency, not
+    the card's throughput, sets the time.  Deterministic, no device
+    sweep; ``chip_smoke.py``'s ``[int8_matmul sweep]`` times every cell
+    at the served shapes and prints the pick's time over the fastest."""
+    return dict(_plan(m, n, k))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(m: int, n: int, k: int) -> tuple:
+    cells = gemm_cells(m, n, k)
+    if -(-m // TILE_M[0]) * -(-n // TILE_N[0]) >= N_SM // 2:
+        cells = tuple(c for c in cells if gemm_ctas(m, n, *c) >= N_SM // 2)
+    bm, bn = min(cells, key=lambda c: (_gemm_cost(m, n, k, *c),
+                                       gemm_ctas(m, n, *c)))
+    return (("bm", bm), ("bn", bn), ("smem", int8_gemm_smem(k, bm, bn)))
+
+
+def _int8_matmul(x_q, w_q, xs, w_scale, plan=None):
+    """Validate and launch ``int8_matmul_i8`` with ``plan`` (``bm``,
+    ``bn``; by default ``int8_gemm_plan``, forced by the tests
+    and the sweep)."""
+    M, K = x_q.shape
+    N = w_q.shape[1]
+    for t, name, shape, dt in ((x_q, "x_q", (M, K), torch.int8),
+                               (w_q, "w_q", (K, N), torch.int8),
+                               (xs, "x_scale", (M,), torch.float32),
+                               (w_scale, "w_scale", (N,), torch.float32)):
+        check_input(t, name, shape, x_q.device, dt)
+    plan = plan or int8_gemm_plan(M, N, K)
+    out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
+    lib = library("int8_matmul")
+    fn = lib.int8_matmul_i8
+    fn.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    fn.restype = _I
+    status = fn(x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(),
+                w_scale.data_ptr(), out.data_ptr(), M, N, K, plan["bm"],
+                plan["bn"], stream_of(x_q))
+    check(lib, status, "int8_matmul")
+    return out
+
+
 def int8_matmul(x_q, w_q, x_scale, w_scale):
     """x_q: (M, K) int8; w_q: (K, N) int8; x_scale: a per-tensor scalar
     or per-row (M,) scales; w_scale: (N,) -> (M, N) fp32
-    ``(acc * x_scale[row]) * w_scale[col]``."""
+    ``(acc * x_scale[row]) * w_scale[col]``.  One CUDA launch."""
     M, K = x_q.shape
     N = w_q.shape[1]
     if w_q.shape[0] != K:
@@ -40,20 +158,10 @@ def int8_matmul(x_q, w_q, x_scale, w_scale):
     if x_q.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu, not "
                          f"{x_q.device}")
-    xs = xs_per_batch_vec(x_scale, M).contiguous()
-    for t, name, shape, dt in ((x_q, "x_q", (M, K), torch.int8),
-                               (w_q, "w_q", (K, N), torch.int8),
-                               (xs, "x_scale", (M,), torch.float32),
-                               (w_scale, "w_scale", (N,), torch.float32)):
-        check_input(t, name, shape, x_q.device, dt)
-    out = torch.empty((M, N), dtype=torch.float32, device=x_q.device)
-    lib = library("int8_matmul")
-    fn = lib.int8_matmul_i8
-    fn.argtypes = [_P] * 5 + [_I] * 3 + [_P]
-    fn.restype = _I
-    status = fn(x_q.data_ptr(), w_q.data_ptr(), xs.data_ptr(),
-                w_scale.data_ptr(), out.data_ptr(), M, N, K, stream_of(x_q))
-    check(lib, status, "int8_matmul")
+    if min(M, N, K) < 1:
+        raise ValueError(f"int8_matmul of an empty shape {(M, K, N)}")
+    out = _int8_matmul(x_q, w_q, xs_per_batch_vec(x_scale, M).contiguous(),
+                       w_scale)
     int8_matmul.launches += 1
     return out
 

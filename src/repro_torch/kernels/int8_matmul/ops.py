@@ -16,8 +16,9 @@ import torch
 
 from repro_torch.core.quantization import (
     QTensor, quantize_act, quantize_with_scale)
+from repro_torch.kernels.group_conv.kernel import group_agg_path
 from repro_torch.kernels.int8_matmul.kernel import (
-    INT8_GEMM_SMEM_BYTES, int8_matmul, int8_matmul_emit)
+    int8_gemm_plan, int8_matmul, int8_matmul_emit)
 from repro_torch.kernels.registry import register
 from repro_torch.kernels.relu_attn.ops import MsaKernel
 
@@ -95,4 +96,17 @@ class MsaInt8Kernel(MsaKernel):
     emits_q = True
 
     def smem_bytes(self, site, blocks):
-        return max(super().smem_bytes(site, blocks), INT8_GEMM_SMEM_BYTES)
+        """The largest CTA of the site's launches: the attention core,
+        the QKV and output projections' GEMM plans (``int8_gemm_plan``)
+        and each aggregation branch's path (``group_agg_path``)."""
+        B, H, W, C = site.in_shape
+        d = site.attrs["head_dim"]
+        total = site.attrs["heads"] * d
+        rows = B * H * W
+        qkv = int8_gemm_plan(rows, 3 * total, C)
+        proj = int8_gemm_plan(rows, site.out_shape[-1],
+                              site.attrs["n_branches"] * total)
+        aggs = [group_agg_path(H, W, 3 * total, d, s)["smem"]
+                for s in site.attrs["scales"]]
+        return max(super().smem_bytes(site, blocks), qkv["smem"],
+                   proj["smem"], *aggs)

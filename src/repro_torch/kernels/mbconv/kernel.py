@@ -18,7 +18,8 @@ from repro_torch.kernels.mbconv_fp import (
     tile_bm)
 from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.quant import xs_per_batch_vec
-from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
+from repro_torch.kernels.registry import (
+    CLUSTERS, N_SM, SMEM_2_PER_SM, SMEM_LIMIT)
 
 __all__ = ["mbconv_fused", "mbconv_smem_bytes", "mbconv_slice",
            "legal_splits", "choose_blocks", "int8_ranks",
@@ -29,16 +30,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 SPLITS = (1, 2, 4, 8, 16)   # cluster sizes (16 needs the non-portable size)
-# Two CTAs fit on one SM when each needs at most this much shared memory
-# (228 KB per SM, 1 KB of it reserved per CTA); the kernel's 107
-# registers a thread allow two.
-SMEM_2_PER_SM = 233_472 // 2 - 1024
-# Clusters of each size the H100 holds at once, with 1 and 2 CTAs per
-# SM (cudaOccupancyMaxActiveClusters in chip_smoke.py's block sweep):
-# the SMs of a cluster share one GPC, and the GPCs' sizes leave some
-# SMs idle at 4, 8 and 16.
-CLUSTERS = {1: {1: 132, 2: 66, 4: 30, 8: 15, 16: 7},
-            2: {1: 264, 2: 132, 4: 62, 8: 30, 16: 14}}
 # Fitted to the block sweep (chip_smoke.py, B1@224's mbconv shapes at
 # batch 1 and 8): two CTAs on one SM finish 1.6x the work of one in the
 # same time (one hides the other's latencies), and a cluster's

@@ -29,10 +29,12 @@ from repro_torch.kernels.dsconv.kernel import (
     dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
 from repro_torch.kernels.dsconv.ref import (
     dsconv_int8_emit_ref, dsconv_int8_ref, dsconv_ref)
-from repro_torch.kernels.group_conv.kernel import group_agg_int8
+from repro_torch.kernels.group_conv.kernel import (
+    _group_agg, group_agg_cluster_smem, group_agg_int8, group_agg_path,
+    group_agg_ranks)
 from repro_torch.kernels.group_conv.ref import block_diag, group_agg_int8_ref
 from repro_torch.kernels.int8_matmul.kernel import (
-    int8_matmul, int8_matmul_emit)
+    _int8_matmul, gemm_cells, int8_gemm_smem, int8_matmul, int8_matmul_emit)
 from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_emit_ref, int8_matmul_ref)
 from repro_torch.kernels.build import check, library
@@ -307,6 +309,95 @@ def test_int8_matmul_equals_plain(cuda, batch, rows, K, N):
 
 
 @pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("rows,K,N", [(196, 128, 384), (196, 256, 128),
+                                      (49, 256, 768), (49, 512, 256)])
+def test_int8_matmul_every_cell_equals_plain(cuda, batch, rows, K, N):
+    """Every legal (bm, bn) of the tensor-core GEMM at the four MSA
+    projections of B1@224: EQUAL to the plain version."""
+    g = torch.Generator().manual_seed(rows * K + N + batch)
+    args = (_i8(g, cuda, batch * rows, K), _i8(g, cuda, K, N),
+            _sc(g, cuda, batch * rows), _sc(g, cuda, N))
+    ref = int8_matmul_ref(*args)
+    for bm, bn in gemm_cells(batch * rows, N, K):
+        got = _int8_matmul(*args, {"bm": bm, "bn": bn})
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (bm, bn)
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 50, 29), (45, 100, 40), (3, 520, 8),
+                                   (130, 16, 200), (1, 64, 1),
+                                   (37, 3001, 29), (70, 25000, 96)])
+def test_int8_matmul_ragged(cuda, M, K, N):
+    """Ragged M, N and K through the same kernel at every legal cell: rows
+    and columns that fill no tile, K tails that are no multiple of 16 or 4
+    (the 4-byte and byte staging), N no multiple of 4 (the scalar
+    epilogue), K past one 512-byte chunk (the two-stage ring, a partial
+    last chunk, and K far beyond anything served); the served call is one
+    launch on the counter."""
+    g = torch.Generator().manual_seed(M * K + N)
+    args = (_i8(g, cuda, M, K), _i8(g, cuda, K, N), _sc(g, cuda, M),
+            _sc(g, cuda, N))
+    ref = int8_matmul_ref(*args)
+    n = int8_matmul.launches
+    _same((int8_matmul(*args),), (ref,))
+    assert int8_matmul.launches == n + 1
+    for bm, bn in gemm_cells(M, N, K):
+        got = _int8_matmul(*args, {"bm": bm, "bn": bn})
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (bm, bn)
+
+
+def test_int8_matmul_smem_mirror_matches_the_source(cuda):
+    """``int8_gemm_smem`` equals the CUDA layout at every cell of the B1
+    projection shapes (192-384 px) and ragged K; a refused plan raises
+    and leaves no error behind."""
+    lib = library("int8_matmul")
+    fn = lib.int8_matmul_smem_c
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    shapes = {(37, 50, 29), (3, 520, 8), (70, 25000, 96)}
+    for size in (192, 224, 256, 384):
+        for site in lower(B1, batch=8, image_size=size).fusible():
+            if site.kind == "msa":
+                b, h, w, c = site.in_shape
+                total = site.attrs["heads"] * site.attrs["head_dim"]
+                shapes |= {(b * h * w, c, 3 * total),
+                           (b * h * w, 2 * total, c)}
+    for M, K, N in sorted(shapes):
+        for cell in gemm_cells(M, N, K):
+            assert fn(K, *cell) == int8_gemm_smem(K, *cell)
+    g = torch.Generator().manual_seed(3)
+    args = (_i8(g, cuda, 64, 128), _i8(g, cuda, 128, 64), _sc(g, cuda, 64),
+            _sc(g, cuda, 64))
+    with pytest.raises(KernelLaunchError):   # no 48-column tile
+        _int8_matmul(*args, {"bm": 16, "bn": 48})
+    _same((int8_matmul(*args),), (int8_matmul_ref(*args),))
+
+
+@pytest.mark.parametrize("R,K,N", [(64, 16, 64), (37, 32, 24), (16, 64, 8),
+                                   (50, 48, 40)])
+def test_int8_mma16816_equals_dp4a(cuda, R, K, N):
+    """The m16n8k16 fragment of the grouped 1x1 (``mma16816``, K-contiguous
+    rows and weights as the cluster kernel stages them) against
+    ``__dp4a`` sums of the same panels and exact int64 sums on the host."""
+    g = torch.Generator().manual_seed(R * K + N)
+    A, W = _i8(g, cuda, R, K), _i8(g, cuda, K, N)
+    out = torch.empty((2, R, N), dtype=torch.int32, device=cuda)
+    lib = library("group_agg")
+    fn = lib.int8_mma16816_selftest_i8
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    check(lib, fn(A.data_ptr(), W.data_ptr(), out[0].data_ptr(),
+                  out[1].data_ptr(), R, K, N,
+                  torch.cuda.current_stream().cuda_stream), "mma16816")
+    want = (A.cpu().long() @ W.cpu().long()).int()
+    torch.cuda.synchronize()
+    assert torch.equal(out[1].cpu(), want)
+    assert torch.equal(out[0].cpu(), want)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
 def test_dsconv_int8_equals_plain(cuda, batch):
     g = torch.Generator().manual_seed(batch)
     args = (_i8(g, cuda, batch, 112, 112, 16), _sc(g, cuda, batch),
@@ -485,6 +576,75 @@ def test_group_agg_int8_equals_plain(cuda, batch, H, C):
     pw, tail = _i8(g, cuda, 16, C), (_sc(g, cuda, C), _bias(g, cuda, C))
     _same((group_agg_int8(*args, pw, *tail),),
           (group_agg_int8_ref(*args, block_diag(pw), *tail),))
+
+
+def _group_agg_args(g, device, B, H, W, C, S, d=16):
+    return ((_i8(g, device, B, H, W, C), _sc(g, device, B),
+             _i8(g, device, S, S, C), _sc(g, device, C), _bias(g, device, C)),
+            _i8(g, device, d, C), (_sc(g, device, C), _bias(g, device, C)))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,W,C,S", [(14, 14, 384, 5), (7, 7, 768, 5),
+                                     (14, 14, 384, 3), (9, 5, 96, 3)])
+def test_group_agg_int8_paths_equal_plain(cuda, batch, H, W, C, S):
+    """The cluster kernel at every rank count that holds whole groups and
+    fits a CTA, and the two launches forced, at both B1@224 shapes, S = 3
+    and a small non-square map: EQUAL to the plain version; the served
+    call is one launch on the counter."""
+    g = torch.Generator().manual_seed(C * S + batch)
+    args, pw, tail = _group_agg_args(g, cuda, batch, H, W, C, S)
+    ref = group_agg_int8_ref(*args, block_diag(pw), *tail)
+    n = group_agg_int8.launches
+    _same((group_agg_int8(*args, pw, *tail),), (ref,))
+    assert group_agg_int8.launches == n + 1
+    assert group_agg_path(H, W, C, 16, S)["path"] == "cluster"
+    for r in group_agg_ranks(C, 16):
+        if group_agg_cluster_smem(H, W, C, 16, S, r) <= SMEM_LIMIT:
+            _same((_group_agg(*args, pw, *tail, path="cluster", ranks=r),),
+                  (ref,))
+    _same((_group_agg(*args, pw, *tail, path="two-launch"),), (ref,))
+
+
+def test_group_agg_int8_large_map_and_d8(cuda):
+    """A map whose slices fit no cluster (S3 of B1 at 640 px) and a group
+    size of 8 take the two launches, EQUAL to the plain version; the
+    cluster kernel refuses a rank count that splits a group."""
+    g = torch.Generator().manual_seed(11)
+    for (B, H, C, d) in ((1, 40, 384, 16), (2, 7, 96, 8)):
+        assert group_agg_path(H, H, C, d)["path"] == "two-launch"
+        args, pw, tail = _group_agg_args(g, cuda, B, H, H, C, 5, d)
+        _same((group_agg_int8(*args, pw, *tail),),
+              (group_agg_int8_ref(*args, block_diag(pw), *tail),))
+    args, pw, tail = _group_agg_args(g, cuda, 1, 7, 7, 96, 5)
+    with pytest.raises(KernelLaunchError):
+        _group_agg(*args, pw, *tail, path="cluster", ranks=4)
+
+
+def test_group_agg_smem_mirror_matches_the_source(cuda):
+    """``group_agg_cluster_smem`` equals the CUDA layout at every B1
+    aggregation shape (192-384 px) and every legal rank count; the card
+    holds the batch-8 clusters of the chosen rank count at once at
+    B1@224."""
+    lib = library("group_agg")
+    fn = lib.group_agg_cluster_smem_c
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    occ = lib.group_agg_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    for size in (192, 224, 256, 288, 320, 384):
+        for f, C in ((16, 384), (32, 768)):
+            h = size // f
+            for S in (3, 5):
+                for r in group_agg_ranks(C, 16):
+                    assert fn(h, h, C, 16, S, r) == \
+                        group_agg_cluster_smem(h, h, C, 16, S, r)
+    for H, C in ((14, 384), (7, 768)):
+        r = group_agg_path(H, H, C, 16)["ranks"]
+        n = ctypes.c_int(0)
+        assert occ(8, H, H, C, 16, 5, r, ctypes.byref(n)) == 0
+        assert n.value >= 8
 
 
 def test_fix8_engine_on_the_card(cuda):

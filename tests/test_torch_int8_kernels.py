@@ -10,6 +10,8 @@ constant into a reciprocal multiply, which eager torch never does.  The
 CUDA kernels are held against these plain versions, also bit for bit,
 by ``test_torch_cuda.py`` on the card.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,16 +30,20 @@ from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import SuperSite, lower
 from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
 from repro_torch.kernels.dsconv.ops import dsconv_apply_int8
-from repro_torch.kernels.group_conv.kernel import group_agg_int8
+from repro_torch.kernels.group_conv.kernel import (
+    group_agg_cluster_smem, group_agg_int8, group_agg_path, group_agg_ranks)
 from repro_torch.kernels.group_conv.ops import (
     GroupAggInt8Kernel, block_diag, group_agg_apply_int8)
-from repro_torch.kernels.int8_matmul.kernel import int8_matmul
+from repro_torch.kernels.int8_matmul.kernel import (
+    gemm_cells, gemm_ctas, int8_gemm_plan, int8_gemm_smem, int8_matmul)
 from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
 from repro_torch.kernels.mbconv.kernel import (
-    SMEM_2_PER_SM, int8_fslice, int8_mslice, int8_ranks, mbconv_fused_int8,
+    int8_fslice, int8_mslice, int8_ranks, mbconv_fused_int8,
     mbconv_fused_int8_emit, mbconv_int8_cluster_smem, mbconv_int8_path)
 from repro_torch.kernels.mbconv.ops import mbconv_apply_int8
-from repro_torch.kernels.registry import SMEM_LIMIT, get_kernel
+from repro_torch.kernels.registry import (
+    N_SM, SMEM_2_PER_SM, SMEM_LIMIT, get_kernel)
+from repro_torch.kernels.relu_attn.kernel import relu_attn_smem_bytes
 from repro_torch.kernels.supersite.ops import int8_smem_bytes
 
 
@@ -267,13 +273,31 @@ def test_int8_fit_model_fits_every_b1_site(image_size):
     px and batch 1/2/4/8, as JAX's VMEM model fits every site, and so
     does every FIX8 chain the default plan groups.  An MBConv site on the
     cluster path has a legal rank count whose slices cover M, and the fit
-    model reads the path mirror."""
+    model reads the path mirror; an MSA site's fit is the largest of its
+    attention core, its two projection GEMMs' plans and its aggregation
+    branch's cluster path, and the group-agg kind reads the same path."""
     for batch in (1, 2, 4, 8):
         program = lower(B1, batch=batch, image_size=image_size)
         for site in program.fusible():
             impl = get_kernel(site.kind, "int8")
             smem = impl.smem_bytes(site, impl.tune(site))
             assert smem <= SMEM_LIMIT
+            if site.kind == "msa":
+                b, h, w, c = site.in_shape
+                d, heads = site.attrs["head_dim"], site.attrs["heads"]
+                qkv = int8_gemm_plan(b * h * w, 3 * heads * d, c)
+                proj = int8_gemm_plan(b * h * w, site.out_shape[-1],
+                                      site.attrs["n_branches"] * heads * d)
+                agg = group_agg_path(h, w, 3 * heads * d, d, 5)
+                assert agg["path"] == "cluster"
+                assert smem == max(
+                    relu_attn_smem_bytes(d, impl.tune(site)["block_n"]),
+                    qkv["smem"], proj["smem"], agg["smem"])
+                branch = dataclasses.replace(
+                    site, kind="group_agg", in_shape=(b, h, w, 3 * heads * d),
+                    out_shape=(b, h, w, 3 * heads * d))
+                assert get_kernel("group_agg", "int8").smem_bytes(
+                    branch, {}) == agg["smem"]
             if site.kind != "mbconv":
                 continue
             b, h, w, c = site.in_shape
@@ -292,6 +316,98 @@ def test_int8_fit_model_fits_every_b1_site(image_size):
                       ("S2.mb0", "S2.mb1", "S2.mb2")):
             assert int8_smem_bytes(SuperSite.of(program, names)) \
                 <= SMEM_LIMIT
+
+
+def _msa_gemms(image_size, batch):
+    """(M, K, N) of the QKV and output projection GEMMs of every B1 MSA
+    site at ``image_size`` and ``batch``."""
+    out = set()
+    for site in lower(B1, batch=batch, image_size=image_size).fusible():
+        if site.kind == "msa":
+            b, h, w, c = site.in_shape
+            total = site.attrs["heads"] * site.attrs["head_dim"]
+            out.add((b * h * w, c, 3 * total))
+            out.add((b * h * w, site.attrs["n_branches"] * total,
+                     site.out_shape[-1]))
+    return sorted(out)
+
+
+@pytest.mark.parametrize("image_size", [192, 224, 256, 384])
+def test_int8_gemm_plan_fills_the_card(image_size):
+    """At every MSA projection of B1 (192-384 px, batch 1/2/4/8) the GEMM
+    plan stages K whole (one chunk: K <= 512) and its grid keeps at least half the SMs busy wherever the output alone
+    has that many 16 x 32 tiles (a full card's worth did not pay on the
+    H100: chip_smoke.py's [int8_matmul sweep]); its shared memory is the
+    mirror's and fits a CTA.  Every legal cell fits as well."""
+    for batch in (1, 2, 4, 8):
+        for M, K, N in _msa_gemms(image_size, batch):
+            plan = int8_gemm_plan(M, N, K)
+            cell = (plan["bm"], plan["bn"])
+            cells = gemm_cells(M, N, K)
+            assert cell in cells and K <= 512
+            if -(-M // 16) * -(-N // 32) >= N_SM // 2:
+                assert gemm_ctas(M, N, *cell) >= N_SM // 2
+            assert plan["smem"] == int8_gemm_smem(K, *cell) <= SMEM_LIMIT
+            assert all(int8_gemm_smem(K, *c) <= SMEM_LIMIT for c in cells)
+
+
+@pytest.mark.parametrize("M,K,N", [(37, 50, 29), (5, 1000, 8),
+                                   (64, 448, 64), (1, 64, 1), (37, 30000, 29),
+                                   (4096, 25000, 4096)])
+def test_int8_gemm_smem_and_cells_at_any_k(M, K, N):
+    """The shared memory of each cell on ragged and long K: one stage of
+    K whole up to 512 bytes, else a two-stage ring of 512-byte chunks;
+    per stage the A panel at a pitch of 64 (mod 128) and the weights' raw
+    rows, then the transposed B panel, the int32 tile [bm][bn + 8] and
+    the tile's scales.  Every K has a legal cell, the 16 x 32 tile among
+    them, and a plan within ``SMEM_LIMIT``."""
+    kc = min(-(-K // 64) * 64, 512)
+    pitch = kc if kc % 128 else kc + 64
+    stages = 1 if K <= 512 else 2
+    cells = gemm_cells(M, N, K)
+    assert (16, 32) in cells
+    for bm, bn in cells:
+        assert int8_gemm_smem(K, bm, bn) == stages * (bm * pitch + kc * bn) \
+            + bn * pitch + 4 * bm * (bn + 8) + 4 * (bm + bn) <= SMEM_LIMIT
+    plan = int8_gemm_plan(M, N, K)
+    assert (plan["bm"], plan["bn"]) in cells
+    assert plan["smem"] == int8_gemm_smem(K, plan["bm"], plan["bn"])
+
+
+@pytest.mark.parametrize("image_size", [192, 224, 256, 288, 320, 384])
+def test_group_agg_path_takes_the_cluster(image_size):
+    """Every B1 aggregation branch at 192-384 px takes the cluster kernel
+    (the rule reads the map's shape, not the batch): its ranks hold whole
+    groups of 16 channels (ranks x groups per rank x 16 = C) and one
+    rank's CTA leaves room for two a SM.  Fewer ranks only give each a
+    larger slice."""
+    for site in lower(B1, image_size=image_size).fusible():
+        if site.kind != "msa":
+            continue
+        _, h, w, _ = site.in_shape
+        d = site.attrs["head_dim"]
+        C = 3 * site.attrs["heads"] * d
+        path = group_agg_path(h, w, C, d)
+        r = path["ranks"]
+        assert path["path"] == "cluster" and r == max(group_agg_ranks(C, d))
+        assert r * (C // d // r) * d == C
+        assert path["smem"] == group_agg_cluster_smem(h, w, C, d, 5, r)
+        assert path["smem"] <= SMEM_2_PER_SM
+        assert all(group_agg_cluster_smem(h, w, C, d, 5, q)
+                   >= path["smem"] for q in group_agg_ranks(C, d))
+
+
+def test_group_agg_path_rule_edges():
+    """A map too large for any cluster keeps the two launches (S3 of B1
+    at 640 px), and so does a group size that is not a multiple of 16;
+    the rank counts divide the groups."""
+    assert group_agg_path(40, 40, 384, 16)["path"] == "two-launch"
+    assert group_agg_path(36, 36, 384, 16)["path"] == "cluster"
+    assert group_agg_path(7, 7, 96, 8)["path"] == "two-launch"
+    assert group_agg_ranks(384, 16) == (1, 2, 3, 4, 6, 8, 12)
+    assert group_agg_ranks(768, 16) == (1, 2, 3, 4, 6, 8, 12, 16)
+    assert group_agg_ranks(96, 16) == (1, 2, 3, 6)
+    assert group_agg_ranks(96, 8) == ()
 
 
 def test_served_int8_mbconv_sites_take_the_cluster_path():

@@ -13,7 +13,10 @@ For every int8 kernel case of ``chip_smoke.int8_kernel_cases`` and
 - ``profiler_warm``: ``torch.profiler``'s mean kernel time over the same
   back-to-back calls;
 - ``events_cold``: CUDA events around one call after a 256 MB write that
-  evicts L2, the median of 10.
+  evicts L2, the median of 10.  A spin of about 0.5 ms keeps the card
+  busy between the write and the start event, so the host has enqueued
+  the call before the window opens and its wrapper's host time stays
+  out of the window.
 
 Then, per kernel, each sum over one forward's calls, beside the
 profiler's time inside the served forward (``chip_smoke.kernel_profile``
@@ -52,6 +55,7 @@ def cold_ms(fn, reps: int = 10) -> float:
     out = []
     for _ in range(reps):
         flush.fill_(1.0)
+        torch.cuda._sleep(1_000_000)      # ~0.5 ms of clock cycles
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
