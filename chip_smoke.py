@@ -32,6 +32,13 @@
       the clusters the card holds at once
       (``cudaOccupancyMaxActiveClusters``), and ``supersite_fused`` at
       both chains over band heights 1-4 x chunks 16-128 that fit.
+      ``relu_attn_noncausal`` at both MSA shapes (S3, S4), batch 1 and 8,
+      with ``out=`` omitted and given (the projection's map): within
+      ``TOL`` of the plain version, equal bits on two calls and between
+      the forms, and each image's rows of a batch-8 call equal to its
+      batch-1 call (``[relu_attn]`` lines); the ``[relu_attn sweep]``
+      lines time it at every row count per CTA that fits, the pick of
+      ``relu_attn_plan`` marked and its time over the fastest printed.
    b. ``VisionEngine`` over B1@224 fp32 (random weights and BN
       statistics from ``--seed``, microbatch 8) serves 12 requests with
       mixed deadlines through its scheduler, on the default plan, which
@@ -69,7 +76,10 @@
       ``[group_agg sweep]`` lines time ``group_agg_int8`` at both
       aggregation maps on the two launches and on the cluster kernel at
       every rank count that holds whole groups and fits a CTA, the choice
-      of ``group_agg_path`` marked.
+      of ``group_agg_path`` marked; the ``[dsconv_int8 sweep]`` lines
+      time ``dsconv_fused_int8`` at stem.ds0 on the passes and on the
+      cluster kernel at every rank count that fits, each cell EQUAL to
+      the plain version, the choice of ``dsconv_int8_path`` marked.
    b. ``VisionEngine.quantized`` over the same fp tree, quantized by the
       port, serves the same trace on the default plan (S1.ss0 and S2.ss0
       grouped).  Counters reset just before, read just after: each
@@ -120,9 +130,11 @@
    attached once the profiler has run and slow the host's launches.  The
    port's own kernels' CUDA launches, the memsets and the zero fills are
    counted apart.  Then one call of each served FIX8 MBConv shape, each
-   MSA projection GEMM and each aggregation branch at batch 8 must be one
-   CUDA launch (the cluster kernels, the tensor-core GEMM), with no
-   memset, no zero fill and no allocation but its outputs.
+   MSA projection GEMM, each aggregation branch, the FIX8 DSConv at
+   stem.ds0 and the attention core at S3 and S4 (into the projection's
+   map) at batch 8 must be one CUDA launch (the cluster kernels, the
+   tensor-core GEMM, the attention kernel), with no memset, no zero fill
+   and no allocation but its outputs (none for the attention).
 6. One JSON line with every kernel's launches on its driven run(s),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
@@ -287,7 +299,8 @@ def int8_kernel_cases(batch: int, gen):
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.fusion import decision_shape
     from repro_torch.core.program import lower
-    from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
+    from repro_torch.kernels.dsconv.kernel import (
+        dsconv_fused_int8, dsconv_int8_path)
     from repro_torch.kernels.dsconv.ref import dsconv_int8_ref
     from repro_torch.kernels.group_conv.kernel import (
         group_agg_int8, group_agg_path)
@@ -372,7 +385,10 @@ def int8_kernel_cases(batch: int, gen):
             pfn = lambda a=args, st=st: (dsconv_int8_ref(*a, stride=st),)
             nbytes = nb(*args) + 4 * B * (H // st) * (W // st) * F
             ops = 2 * B * (H // st) * (W // st) * (9 * C + C * F)
-            label = f"x{(B, H, W, C)} F={F} s={st}"
+            path = dsconv_int8_path(H, W, C, F, st)
+            label = (f"x{(B, H, W, C)} F={F} s={st} "
+                     + (f"cluster R={path['ranks']}"
+                        if path["path"] == "cluster" else "passes"))
         else:
             B, H, W, C, M, F, st = shape
             Ho, Wo = H // st, W // st
@@ -970,6 +986,172 @@ def group_agg_sweep(gen) -> None:
                   f"{times[best]:.5f} ms; ms {' '.join(cells)}")
 
 
+# the MSA attention cores of B1@224: (site, H, heads, branches); d = 16
+ATTN_SITES = (("S3", 14, 8, 2), ("S4", 7, 16, 2))
+
+
+def attn_inputs(gen, batch, H, heads, S, d=16):
+    """The stacked QKV of ``S`` branches x ``batch`` images as the MSA
+    passes it (strided q/k/v views of one (S, batch, N, 3, heads, d)
+    tensor) and the (batch, H, W, S*heads*d) map its projection reads,
+    with the (S, batch, N, heads, d) view the attention writes."""
+    import torch
+    N = H * H
+    t = torch.randn((S, batch, N, 3, heads, d), generator=gen).cuda()
+    qkv = t.reshape(S * batch, N, 3, heads, d)
+    buf = torch.empty((batch, H, H, S * heads * d), device="cuda")
+    view = buf.view(batch, N, S, heads, d).permute(2, 0, 1, 3, 4)
+    return t, (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]), buf, view
+
+
+def relu_attn_checks(gen) -> None:
+    """``relu_attn_noncausal`` at both MSA shapes of B1@224, batch 1 and
+    8: within ``TOL`` of its plain version with ``out=`` omitted and
+    given (the projection's map, as the MSA serves it), equal bits on two
+    calls and between the two forms; row g of the batch-8 call equals
+    row g of each image's batch-1 call (its branches) bit for bit."""
+    import torch
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+    from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
+
+    for name, H, heads, S in ATTN_SITES:
+        for batch in (1, 8):
+            t, qkv, buf, view = attn_inputs(gen, batch, H, heads, S)
+            ref = relu_attn_noncausal_ref(*qkv)
+            ref_max = ref.abs().max().item()
+            top = max(1.0, ref_max)
+            plain = relu_attn_noncausal(*qkv)
+            served = relu_attn_noncausal(*qkv, out=view)
+            torch.cuda.synchronize()
+            err = (plain - ref).abs().max().item()
+            err_out = (served - ref.reshape(served.shape)).abs().max().item()
+            if not max(err, err_out) <= TOL * top:
+                raise AssertionError(f"relu_attn_noncausal {name} B={batch}: "
+                                     f"max|d| {err:.3e} / {err_out:.3e} "
+                                     f"(out=) > {TOL} * {top:.3e}")
+            if not torch.equal(plain, relu_attn_noncausal(*qkv)):
+                raise AssertionError(f"relu_attn_noncausal {name} "
+                                     f"B={batch}: two calls differ")
+            if not torch.equal(served.reshape(plain.shape), plain):
+                raise AssertionError(f"relu_attn_noncausal {name} "
+                                     f"B={batch}: out= differs")
+            text = ""
+            if batch > 1:
+                for b in range(batch):
+                    one = t[:, b].reshape(S, H * H, 3, heads, 16)
+                    got = relu_attn_noncausal(one[:, :, 0], one[:, :, 1],
+                                              one[:, :, 2])
+                    if not torch.equal(got, plain[b::batch]):
+                        raise AssertionError(
+                            f"relu_attn_noncausal {name}: image {b}'s rows "
+                            f"of the batch-{batch} call differ from its "
+                            f"batch-1 call")
+                text = ", rows equal to each image's batch-1 call"
+            print(f"[relu_attn] {name} qkv({S * batch},{H * H},3x{heads}x16) "
+                  f"B={batch}: max|d| {err:.3e} (out= {err_out:.3e}, max|ref| "
+                  f"{ref_max:.3e}), two calls and out= equal{text}")
+
+
+def relu_attn_sweep(gen) -> None:
+    """Time ``relu_attn_noncausal`` as the MSA serves it (``out=`` the
+    projection's map) at both MSA shapes of B1@224, batch 1 and 8, at
+    every row count per CTA that fits, each within ``TOL`` of the plain
+    version; the pick of ``relu_attn_plan`` marked and its time over the
+    fastest cell printed."""
+    from repro_torch.kernels.registry import SMEM_LIMIT
+    from repro_torch.kernels.relu_attn.kernel import (
+        ROWS, _relu_attn, relu_attn_plan, relu_attn_smem_bytes)
+    from repro_torch.kernels.relu_attn.ref import EPS, relu_attn_noncausal_ref
+
+    for name, H, heads, S in ATTN_SITES:
+        for batch in (1, 8):
+            _, qkv, _, view = attn_inputs(gen, batch, H, heads, S)
+            ref = relu_attn_noncausal_ref(*qkv)
+            top = max(1.0, ref.abs().max().item())
+            plan = relu_attn_plan(H * H, 16)
+            cells, times = [], {}
+            for rows in ROWS:
+                smem = relu_attn_smem_bytes(16, plan["tile"], rows)
+                if smem > SMEM_LIMIT:
+                    continue
+                fn = lambda r=rows: _relu_attn(*qkv, r, plan["tile"], EPS,
+                                               view)
+                err = (fn().reshape(ref.shape) - ref).abs().max().item()
+                if not err <= TOL * top:
+                    raise AssertionError(f"relu_attn {name} B={batch} rows "
+                                         f"{rows}: max|d| {err:.3e}")
+                times[rows] = device_ms(fn, reps=10, windows=3)
+                mark = "*" if rows == plan["rows"] else ""
+                cells.append(f"{mark}rows={rows}:{times[rows]:.5f}"
+                             f"({-(-S * batch * heads // rows)} CTAs,"
+                             f"{smem // 1024}K)")
+            best = min(times, key=times.get)
+            pick = times[plan["rows"]]
+            print(f"[relu_attn sweep] {name} qkv({S * batch},{H * H},3x"
+                  f"{heads}x16) B={batch} chosen rows={plan['rows']} "
+                  f"{pick:.5f} ms, fastest rows={best} {times[best]:.5f} ms, "
+                  f"chosen/fastest {pick / times[best]:.3f}; ms "
+                  f"{' '.join(cells)}")
+
+
+def dsconv_int8_sweep(gen) -> None:
+    """Time ``dsconv_fused_int8`` at stem.ds0 of B1@224, batch 1 and 8, on
+    the passes and on the cluster kernel at every rank count the map
+    takes, each EQUAL to the plain version; beside each cluster cell the
+    clusters the card holds at once and the CTA's shared memory; the
+    choice of ``dsconv_int8_path`` marked and its time over the fastest
+    cell printed."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.dsconv.kernel import (
+        _dsconv_int8, dsconv_int8_cluster_smem, dsconv_int8_path,
+        dsconv_int8_ranks)
+    from repro_torch.kernels.dsconv.ref import dsconv_int8_ref
+
+    occ = library("dsconv_int8").dsconv_int8_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
+    rn = lambda *sh: torch.randn(sh, generator=gen).cuda()
+    H, C, F, st = 112, 16, 16, 1
+    for batch in (1, 8):
+        args = (i8(batch, H, H, C), sc(batch), i8(3, 3, C), sc(C), rn(C),
+                i8(C, F), sc(F), rn(F))
+        ref = dsconv_int8_ref(*args, stride=st)
+        chosen = dsconv_int8_path(H, H, C, F, st)
+        cells, times = [], {}
+        for r in (0,) + dsconv_int8_ranks(H, H, C, F, st):
+            path = "cluster" if r else "passes"
+            fn = lambda p=path, r=r: _dsconv_int8(*args, st, True, p, r)
+            if not torch.equal(fn(), ref):
+                raise AssertionError(f"dsconv_fused_int8 {path} ranks {r}: "
+                                     f"differs from the plain version")
+            txt = ""
+            if r:
+                n = ctypes.c_int(0)
+                if occ(batch, H, H, C, F, st, r, ctypes.byref(n)):
+                    raise AssertionError(f"dsconv_int8 occupancy query "
+                                         f"failed at ranks {r}")
+                smem = dsconv_int8_cluster_smem(H, H, C, F, st, r)
+                txt = f"({n.value}x,{smem // 1024}K)"
+            times[r] = device_ms(fn, reps=10, windows=3)
+            mark = "*" if r == chosen["ranks"] else ""
+            cells.append(f"{mark}{'R=' + str(r) if r else 'passes'}:"
+                         f"{times[r]:.5f}{txt}")
+        best = min(times, key=times.get)
+        pick = times[chosen["ranks"]]
+        print(f"[dsconv_int8 sweep] stem.ds0 x{(batch, H, H, C)} F={F} "
+              f"s={st} B={batch} chosen {chosen['path']} R={chosen['ranks']} "
+              f"{pick:.5f} ms, fastest "
+              f"{'R=' + str(best) if best else 'passes'} {times[best]:.5f} "
+              f"ms, chosen/fastest {pick / times[best]:.3f}; every cell "
+              f"equal to the plain version; ms {' '.join(cells)}")
+
+
 def check_groups(engine, tag) -> None:
     """Every bucket's plan groups exactly ``GROUPS``; print each group's
     blocks, its band windows and the rows each member computes per row
@@ -1307,12 +1489,17 @@ def one_launch_each(calls) -> None:
 
 def one_launch_per_site(gen) -> None:
     """Each served FIX8 MBConv shape of B1@224 at batch 8 (S3 and S4's
-    evit blocks, S3.down and S4.down emitting), each MSA projection GEMM
-    and each aggregation branch: one call of its wrapper is one CUDA
-    launch (the cluster kernels, the tensor-core GEMM), with no memset and
-    no zero fill, allocating only its outputs."""
+    evit blocks, S3.down and S4.down emitting), each MSA projection GEMM,
+    each aggregation branch, the FIX8 DSConv at stem.ds0 and the
+    attention core at S3 and S4 (written into the projection's map, as
+    the MSA serves it): one call of its wrapper is one CUDA launch (the
+    cluster kernels, the tensor-core GEMM, the attention kernel), with no
+    memset and no zero fill, allocating only its outputs (the attention
+    none)."""
     import torch
+    from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
     from repro_torch.kernels.group_conv.kernel import group_agg_int8
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul
     from repro_torch.kernels.mbconv.kernel import (
         mbconv_fused_int8, mbconv_fused_int8_emit)
@@ -1342,6 +1529,15 @@ def one_launch_per_site(gen) -> None:
                 sc(C), rn(C))
         calls.append((lambda a=args: group_agg_int8(*a), 1,
                       "group_agg_cluster<5>", f"group_agg_int8 {name} B=8"))
+    args = (i8(8, 112, 112, 16), sc(8), i8(3, 3, 16), sc(16), rn(16),
+            i8(16, 16), sc(16), rn(16))
+    calls.append((lambda a=args: dsconv_fused_int8(*a), 1,
+                  "dsconv_i8_cluster", "dsconv_fused_int8 stem.ds0 B=8"))
+    for name, H, heads, S in ATTN_SITES:
+        _, qkv, _, view = attn_inputs(gen, 8, H, heads, S)
+        calls.append((lambda a=qkv, o=view: relu_attn_noncausal(*a, out=o),
+                      0, "relu_attn_kernel",
+                      f"relu_attn_noncausal {name} B=8 out="))
     one_launch_each(calls)
 
 
@@ -1497,6 +1693,8 @@ def main() -> int:
                       per_fwd, max_err, exact=False)
     mbconv_sweep(gen)
     band_sweep(params, gen)
+    relu_attn_checks(gen)
+    relu_attn_sweep(gen)
 
     # -- 2b. the fp32 main path -----------------------------------------
     engine = VisionEngine(params, B1, VisionServeConfig(microbatch=8))
@@ -1525,6 +1723,7 @@ def main() -> int:
     mbconv_int8_sweep(gen)
     int8_matmul_sweep(gen)
     group_agg_sweep(gen)
+    dsconv_int8_sweep(gen)
 
     # -- 3b. the FIX8 main path -----------------------------------------
     qengine = VisionEngine.quantized(params, B1,

@@ -280,18 +280,19 @@ __device__ __forceinline__ void transpose_wt(int8_t* dst, int pitch,
 }
 
 // dst[i] = src[i] for i < n, 0 for n <= i < n_pad (fp32), as cp.async
-// copies: 16 bytes where src and n allow, else 4.
+// copies: 16 bytes where src and n allow, else 4 (a CTA of any size).
 __device__ __forceinline__ void stage_f32(float* dst, const float* src,
                                           int n, int n_pad) {
+  const int nt = static_cast<int>(blockDim.x);
   if ((reinterpret_cast<uintptr_t>(src) | (n * 4)) % 16 == 0) {
 #pragma unroll 1
-    for (int e = threadIdx.x; e < n_pad / 4; e += NT) {
+    for (int e = threadIdx.x; e < n_pad / 4; e += nt) {
       const bool ok = 4 * e < n;
       cp_async_zfill<16>(dst + 4 * e, ok ? src + 4 * e : src, ok);
     }
   } else {
 #pragma unroll 1
-    for (int e = threadIdx.x; e < n_pad; e += NT)
+    for (int e = threadIdx.x; e < n_pad; e += nt)
       cp_async_zfill<4>(dst + e, e < n ? src + e : src, e < n);
   }
 }
@@ -354,8 +355,8 @@ __device__ __forceinline__ void zero_acc(int (&acc)[NJ][4]) {
     for (int i = 0; i < 4; ++i) acc[j][i] = 0;
 }
 
-// The max of v >= 0 over the CTA, returned to every thread.  red: 33
-// floats of shared memory.  Every thread must call this.
+// The max of v >= 0 over the CTA (up to 1024 threads), returned to every
+// thread.  red: 33 floats of shared memory.  Every thread must call this.
 __device__ __forceinline__ float block_max(float v, float* red) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -363,7 +364,7 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   if (lane == 0) red[warp] = v;
   __syncthreads();
   if (warp == 0) {
-    v = lane < NT / 32 ? red[lane] : 0.0f;
+    v = lane < static_cast<int>(blockDim.x >> 5) ? red[lane] : 0.0f;
     for (int o = 16; o > 0; o >>= 1)
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
     if (lane == 0) red[32] = v;

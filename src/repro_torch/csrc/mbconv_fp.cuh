@@ -68,31 +68,6 @@ __host__ __device__ constexpr int kmajor_stage_floats(int bn) {
 }
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool full) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// Wait until at most N of this thread's copy groups are in flight.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ bool aligned16(const float* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 // Issue the cp.async copies of B[k0 : k0 + KT][n0 : n0 + BN] into Bs
 // ([KT][BN]), zero outside K x N; float4 copies when vec (ldb and N
 // multiples of 4, B 16-byte aligned).  The copy loops stay rolled: the

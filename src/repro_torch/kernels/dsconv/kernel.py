@@ -4,22 +4,30 @@ the hand-written CUDA kernels (``csrc/dsconv.cu``, ``csrc/dsconv_int8.cu``).
 Replace ``repro/kernels/dsconv/kernel.py::dsconv_fused``,
 ``::dsconv_fused_int8`` and ``::dsconv_fused_int8_emit``.  A CUDA tensor
 launches the kernel (or raises); a CPU tensor takes the plain version in
-``ref``.
+``ref``.  ``dsconv_int8_path`` chooses, by shape only, between
+``dsconv_fused_int8``'s cluster kernel (one launch, the 1x1 on int8
+tensor cores) and its two passes.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
 from repro_torch.kernels.dsconv.ref import (
     dsconv_int8_emit_ref, dsconv_int8_ref, dsconv_ref)
+from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.quant import xs_per_batch_vec
 from repro_torch.kernels.registry import N_SM, SMEM_LIMIT
 
 __all__ = ["dsconv_fused", "dsconv_smem_bytes", "choose_blocks",
-           "dsconv_fused_int8", "dsconv_fused_int8_emit"]
+           "dsconv_fused_int8", "dsconv_fused_int8_emit",
+           "dsconv_int8_cluster_smem", "dsconv_int8_ranks",
+           "dsconv_int8_path"]
+
+MAX_RANKS = 16   # the largest thread-block cluster (above 8 non-portable)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -113,33 +121,104 @@ def _check_int8_call(name, x_q, stride):
         raise ValueError(f"{name} runs on cuda or cpu, not {x_q.device}")
 
 
+def dsconv_int8_cluster_smem(h: int, w: int, c: int, f: int, stride: int,
+                             ranks: int) -> int:
+    """One rank's shared memory in ``dsconv_fused_int8``'s cluster kernel
+    (mirrors ``ds_layout`` in ``csrc/dsconv_int8.cu``), for bands of
+    ceil(ho / ranks) output rows: the band's input rows and halo with a
+    zero pixel at both ends of each, later the requantized codes (pixels
+    padded to 16, rows of c bytes, or c + 16 where c / 16 is even), the
+    fp32 DW band, the 1x1 weights as they arrive and transposed, the DW
+    taps, the four per-channel scale and bias arrays and 64 reduction
+    words."""
+    up16 = lambda n: -(-n // 16) * 16
+    ho, wo = h // stride, w // stride
+    rows = -(-ho // ranks)
+    qp = c if c // 16 % 2 else c + 16
+    xin = ((rows - 1) * stride + 3) * (w + 2) * c
+    return (up16(max(xin, up16(rows * wo) * qp)) + 4 * rows * wo * c
+            + up16(c * f) + f * qp + up16(9 * c) + 8 * (c + f) + 256)
+
+
+def dsconv_int8_ranks(h: int, w: int, c: int, f: int, stride: int) -> tuple:
+    """Cluster sizes the cluster kernel takes for this map: c a multiple
+    of 16, f of 8, at most one rank per output row, each rank's CTA
+    within ``SMEM_LIMIT``."""
+    if c % 16 or f % 8:
+        return ()
+    return tuple(r for r in range(1, min(MAX_RANKS, h // stride) + 1)
+                 if dsconv_int8_cluster_smem(h, w, c, f, stride, r)
+                 <= SMEM_LIMIT)
+
+
+def dsconv_int8_path(h: int, w: int, c: int, f: int, stride: int) -> dict:
+    """``dsconv_fused_int8``'s path for an (h, w, c) map of any batch:
+    ``{"path": "cluster", "ranks": r, "smem": bytes}`` at the most ranks
+    the map takes (the least shared memory a rank, the most SMs an
+    image); else ``{"path": "passes", "ranks": 0, "smem": bytes}``.  By
+    shape only, never a retry after a refused launch.
+    ``chip_smoke.py``'s ``[dsconv_int8 sweep]`` times every legal rank
+    count and the passes."""
+    return dict(zip(("path", "ranks", "smem"),
+                    _int8_path(h, w, c, f, stride)))
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_path(h, w, c, f, stride) -> tuple:
+    ranks = dsconv_int8_ranks(h, w, c, f, stride)
+    if ranks:
+        r = max(ranks)
+        return "cluster", r, dsconv_int8_cluster_smem(h, w, c, f, stride, r)
+    return "passes", 0, INT8_GEMM_SMEM_BYTES
+
+
+def _dsconv_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, stride,
+                 act, path=None, ranks=None):
+    """Validate, choose the path (``dsconv_int8_path``, or ``path`` /
+    ``ranks`` forced, for the tests and the sweep) and launch
+    ``dsconv_fused_int8_i8``; the passes need a zeroed absmax word per
+    image."""
+    xs = _int8_inputs(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b)
+    B, H, W, C = x_q.shape
+    F = pw_q.shape[1]
+    choice = dsconv_int8_path(H, W, C, F, stride)
+    path = path or choice["path"]
+    if path == "cluster":
+        ranks = ranks or choice["ranks"] or MAX_RANKS
+        amax = None
+    elif path == "passes":
+        ranks = 0
+        amax = torch.zeros((B,), dtype=torch.int32, device=x_q.device)
+    else:
+        raise ValueError(f"dsconv_int8 path {path!r}")
+    out = torch.empty((B, H // stride, W // stride, F), dtype=torch.float32,
+                      device=x_q.device)
+    lib = library("dsconv_int8")
+    fn = lib.dsconv_fused_int8_i8
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    fn.restype = _I
+    status = fn(x_q.data_ptr(), xs.data_ptr(), dw_q.data_ptr(),
+                dw_s.data_ptr(), dw_b.data_ptr(), pw_q.data_ptr(),
+                pw_s.data_ptr(), pw_b.data_ptr(),
+                None if amax is None else amax.data_ptr(), out.data_ptr(),
+                B, H, W, C, F, stride, int(act), ranks, stream_of(x_q))
+    check(lib, status, "dsconv_fused_int8")
+    return out
+
+
 def dsconv_fused_int8(x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b, *,
                       stride: int = 1, act: bool = True):
     """x_q: (B, H, W, C) int8 with per-tensor or per-image (B,)
     ``x_scale``; dw_q: (3, 3, C) int8; pw_q: (C, F) int8; per-channel
     fp32 weight scales and BN-folded biases -> (B, Ho, Wo, F) fp32.
-    Two CUDA launches: the DW stage's per-image absmax, then the PW GEMM
-    recomputing the DW stage (``csrc/dsconv_int8.cu``)."""
+    One cluster launch where ``dsconv_int8_path`` allows (stem.ds0 of B1
+    at 192-384 px), else two launches and a zero fill
+    (``csrc/dsconv_int8.cu``)."""
     args = (x_q, x_scale, dw_q, dw_s, dw_b, pw_q, pw_s, pw_b)
     _check_int8_call("dsconv_fused_int8", x_q, stride)
     if x_q.device.type == "cpu":
         return dsconv_int8_ref(*args, stride=stride, act=act)
-    xs = _int8_inputs(*args)
-    B, H, W, _ = x_q.shape
-    F = pw_q.shape[1]
-    amax = torch.zeros((B,), dtype=torch.int32, device=x_q.device)
-    out = torch.empty((B, H // stride, W // stride, F), dtype=torch.float32,
-                      device=x_q.device)
-    lib = library("dsconv_int8")
-    fn = lib.dsconv_fused_int8_i8
-    fn.argtypes = [_P] * 10 + [_I] * 7 + [_P]
-    fn.restype = _I
-    status = fn(x_q.data_ptr(), xs.data_ptr(), dw_q.data_ptr(),
-                dw_s.data_ptr(), dw_b.data_ptr(), pw_q.data_ptr(),
-                pw_s.data_ptr(), pw_b.data_ptr(), amax.data_ptr(),
-                out.data_ptr(), B, H, W, x_q.shape[3], F, stride, int(act),
-                stream_of(x_q))
-    check(lib, status, "dsconv_fused_int8")
+    out = _dsconv_int8(*args, stride, act)
     dsconv_fused_int8.launches += 1
     return out
 

@@ -14,8 +14,7 @@ from repro_torch.core.quantization import (
     QTensor, fold_bn_into_conv, quantize_act)
 from repro_torch.kernels.dsconv.kernel import (
     choose_blocks, dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit,
-    dsconv_smem_bytes)
-from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
+    dsconv_int8_path, dsconv_smem_bytes)
 from repro_torch.kernels.registry import KernelBase, register
 
 __all__ = ["dsconv_apply", "DsconvKernel", "dsconv_apply_int8",
@@ -94,7 +93,9 @@ class DsconvInt8Kernel(DsconvKernel):
     emits_q = True
 
     def smem_bytes(self, site, blocks):
-        return INT8_GEMM_SMEM_BYTES
+        _, H, W, C = site.in_shape
+        return dsconv_int8_path(H, W, C, site.out_shape[-1],
+                                site.stride)["smem"]
 
     def tune(self, site):
         return {}

@@ -16,33 +16,114 @@ from repro_torch.kernels.registry import SCAN_TILE, SMEM_LIMIT, column_split
 from repro_torch.kernels.relu_attn.ref import (
     EPS, relu_attn_causal_chunked, relu_attn_noncausal_ref)
 
-__all__ = ["relu_attn_noncausal", "relu_attn_smem_bytes", "relu_attn_causal",
-           "relu_attn_causal_smem_bytes"]
+__all__ = ["relu_attn_noncausal", "relu_attn_smem_bytes", "relu_attn_plan",
+           "relu_attn_causal", "relu_attn_causal_smem_bytes"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-
-def relu_attn_smem_bytes(d: int, block_n: int) -> int:
-    """One CTA's shared memory (mirrors ``relu_attn_smem_bytes`` in the
-    CUDA source): the d x d + d state and one ReLU(K) and V tile."""
-    return 4 * (d * d + d + 2 * block_n * d)
+RA_THREADS = 512          # threads of a CTA (``RA_THREADS`` in the source)
+ROWS = (1, 2, 4, 8)       # heads of one row g a CTA may take
 
 
-def relu_attn_noncausal(q, k, v, *, block_n: int = 256, eps: float = EPS):
+def _slots(d: int, rows: int) -> int:
+    """Partial states a row leaves for the tree (``ra_slots``): its
+    threads over the state's 4 x 4 tiles give the token sets (at most 32
+    partials after a warp's shuffles), a warp folding 32 / tiles sets
+    where the tiles divide 32."""
+    tiles = (-(-d // 4)) ** 2
+    spw = 1 if 32 % tiles else 32 // tiles
+    sets = max(1, min(RA_THREADS // rows // tiles, 32 * spw))
+    return sets // spw if sets > 1 else 1
+
+
+def relu_attn_smem_bytes(d: int, block_n: int, rows: int = 1) -> int:
+    """One CTA's shared memory (mirrors ``ra_smem_bytes`` in the CUDA
+    source) for ``rows`` rows and a tile of ``block_n`` tokens: the Q, K
+    and V tiles at a row pitch of d rounded up to 4 (plus 4 where that is
+    a multiple of 8), then each row's partial states (kv and ksum)."""
+    dp = -(-d // 4) * 4
+    pitch = dp if dp // 4 % 2 else dp + 4
+    return 4 * (3 * rows * block_n * pitch
+                + rows * _slots(d, rows) * (dp * dp + dp))
+
+
+def relu_attn_plan(n: int, d: int, block_n: int = 256) -> dict:
+    """``{"rows": 1, "tile": t, "smem": bytes}`` for rows of ``n`` tokens:
+    a tile of ``min(n, block_n)`` tokens staged at once, one (g, head) row
+    a CTA.  One row was the fastest cell of ``chip_smoke.py``'s
+    ``[relu_attn sweep]`` (every row count of ``ROWS`` that divides the
+    heads) at both MSA shapes of B1@224, batch 1 and 8.  A function of
+    the shape only, never of the batch, so a row gives the same bits at
+    every batch."""
+    tile = min(n, block_n)
+    return {"rows": 1, "tile": tile, "smem": relu_attn_smem_bytes(d, tile)}
+
+
+def _out_strides(out, G, N, heads, D, device):
+    """-> (out, images per branch, then its branch, image, token and head
+    strides) for a (G, N, heads, d) or (branches, images, N, heads, d)
+    fp32 destination with a contiguous last axis (allocated when None)."""
+    if out is None:
+        out = torch.empty((G, N, heads, D), dtype=torch.float32,
+                          device=device)
+    shape, st = tuple(out.shape), out.stride()
+    if out.device != device or out.dtype != torch.float32 \
+            or st[-1] != 1 or not (
+                shape == (G, N, heads, D)
+                or (len(shape) == 5 and shape[0] * shape[1] == G
+                    and shape[2:] == (N, heads, D))):
+        raise ValueError(f"out must be float32 on {device}, (G, N, heads, "
+                         f"d) or (branches, images, N, heads, d) with G = "
+                         f"{G}, N = {N}, heads = {heads}, d = {D} and a "
+                         f"contiguous last axis; got {shape}, strides {st}")
+    if len(shape) == 4:
+        return (out, G, 0) + st[:3]
+    return (out, shape[1]) + st[:4]
+
+
+def _relu_attn(q, k, v, rows, tile, eps, out):
+    """Launch ``relu_attn_noncausal_f32`` with ``rows`` rows per CTA and
+    a tile of ``tile`` tokens (the plan's, or forced by the sweep and the
+    tests) -> out."""
+    G, N, heads, D = q.shape
+    out, ob, so, si, sn_o, sh_o = _out_strides(out, G, N, heads, D,
+                                               q.device)
+    lib = library("relu_attn")
+    fn = lib.relu_attn_noncausal_f32
+    fn.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_I] + [_L] * 4 \
+        + [_I] * 2 + [ctypes.c_float, _P]
+    fn.restype = _I
+    sg, sn, sh, _ = q.stride()
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), G,
+                N, heads, D, sg, sn, sh, ob, so, si, sn_o, sh_o, rows, tile,
+                eps, stream_of(q))
+    check(lib, status, "relu_attn_noncausal")
+    return out
+
+
+def relu_attn_noncausal(q, k, v, *, block_n: int = 256, eps: float = EPS,
+                        out=None):
     """q, k, v: (G, N, heads, d) -> (G, N, heads, d) fp32, one launch.
 
     The inputs may be strided views (e.g. the q/k/v split of a stacked
     QKV tensor); their last axis must be contiguous and all three must
-    share strides."""
-    if q.device.type == "cpu":
-        return relu_attn_noncausal_ref(q, k, v, eps)
-    if q.device.type != "cuda":
+    share strides.  ``out``, when given, receives the result and is
+    returned: a (G, N, heads, d) tensor, or a (branches, images, N,
+    heads, d) view with branches * images = G (row g = branch * images +
+    image), e.g. of the (images, H, W, branches * heads * d) map an MSA
+    projection reads; its last axis must be contiguous.  ``block_n``
+    caps the tokens staged at once (``relu_attn_plan``)."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"relu_attn_noncausal runs on cuda or cpu, not "
                          f"{q.device}")
     if q.dim() != 4:
         raise ValueError(f"q must be (G, N, heads, d), got {tuple(q.shape)}")
+    if q.device.type == "cpu":
+        if out is not None:   # the kernel's rule for out, on the CPU too
+            _out_strides(out, *q.shape, q.device)
+        return relu_attn_noncausal_ref(q, k, v, eps, out=out)
     for name, t in (("k", k), ("v", v)):
         if t.shape != q.shape or t.stride() != q.stride() \
                 or t.device != q.device:
@@ -54,18 +135,11 @@ def relu_attn_noncausal(q, k, v, *, block_n: int = 256, eps: float = EPS):
     if q.stride(-1) != 1:
         raise ValueError("the head_dim axis of q/k/v must be contiguous")
     G, N, heads, D = q.shape
-    if relu_attn_smem_bytes(D, block_n) > SMEM_LIMIT:
+    plan = relu_attn_plan(N, D, block_n)
+    if plan["smem"] > SMEM_LIMIT:
         raise ValueError(f"relu_attn_noncausal: d={D}, block_n={block_n} "
                          f"does not fit in {SMEM_LIMIT} B of shared memory")
-    out = torch.empty((G, N, heads, D), dtype=torch.float32, device=q.device)
-    lib = library("relu_attn")
-    fn = lib.relu_attn_noncausal_f32
-    fn.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_I, ctypes.c_float, _P]
-    fn.restype = _I
-    sg, sn, sh, _ = q.stride()
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), G,
-                N, heads, D, sg, sn, sh, block_n, eps, stream_of(q))
-    check(lib, status, "relu_attn_noncausal")
+    out = _relu_attn(q, k, v, plan["rows"], plan["tile"], eps, out)
     relu_attn_noncausal.launches += 1
     return out
 

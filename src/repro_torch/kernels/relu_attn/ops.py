@@ -7,8 +7,10 @@ JAX's public op does.
 
 ``msa_fused_apply`` runs one EfficientViT MSA module with every
 multi-scale branch, image and head in ONE attention launch: the
-branches are stacked, and the q/k/v split (``[Q heads | K heads |
-V heads]`` channel order) reaches the kernel as strided views.  At fp
+branches are stacked, the q/k/v split (``[Q heads | K heads | V
+heads]`` channel order) reaches the kernel as strided views, and the
+kernel writes the (B, H, W, branches * heads * d) map the output
+projection reads.  At fp
 the QKV projection, aggregation convs and output projection stay plain
 torch ops, as the JAX package leaves them to XLA.  At FIX8
 (``int8_proj``) the projections run the W8A8 GEMM kernel and the
@@ -24,12 +26,12 @@ from repro_torch.core.relu_attention import (
     _conv_any, msa_aggregate, msa_project)
 from repro_torch.kernels.registry import KernelBase, register
 from repro_torch.kernels.relu_attn.kernel import (
-    relu_attn_causal, relu_attn_noncausal, relu_attn_smem_bytes)
+    relu_attn_causal, relu_attn_noncausal, relu_attn_plan)
 
 __all__ = ["relu_linear_attention", "msa_attention_fn", "msa_fused_apply",
            "MsaKernel", "MSA_DEFAULT_BLOCK_N"]
 
-MSA_DEFAULT_BLOCK_N = 256   # token tile of the K/V phase
+MSA_DEFAULT_BLOCK_N = 256   # most tokens the attention stages at once
 
 
 def _fold_heads(x):
@@ -105,13 +107,17 @@ def msa_fused_apply(params, x, n_heads: int, head_dim: int, *,
     multi = (_int8_branches(params, x, n_heads) if int8
              else msa_aggregate(params, act_fp(x), n_heads))
     stack = torch.stack(multi)                               # (S,B,H,W,3T)
-    S = stack.shape[0]
+    S, N = stack.shape[0], H * W
     total = n_heads * head_dim
-    t = stack.reshape(S * B, H * W, 3, n_heads, head_dim)
-    o = relu_attn_noncausal(t[:, :, 0], t[:, :, 1], t[:, :, 2],
-                            block_n=block_n)              # (S*B,N,h,d)
-    out = o.reshape(S, B, H, W, total).movedim(0, -2)
-    out = out.reshape(B, H, W, S * total).to(dtype)
+    t = stack.reshape(S * B, N, 3, n_heads, head_dim)
+    # the attention writes branch s of image b straight into channels
+    # [s*T, (s+1)*T) of the (B, H, W, S*T) map the projection reads
+    out = torch.empty((B, H, W, S * total), dtype=torch.float32,
+                      device=stack.device)
+    relu_attn_noncausal(t[:, :, 0], t[:, :, 1], t[:, :, 2], block_n=block_n,
+                        out=out.view(B, N, S, n_heads, head_dim)
+                        .permute(2, 0, 1, 3, 4))
+    out = out.to(dtype)
     if int8:
         from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
         return conv1x1_w8a8(params["proj"]["qconv"], out, epilogue=epilogue)
@@ -137,8 +143,9 @@ class MsaKernel(KernelBase):
         return "fp", None
 
     def smem_bytes(self, site, blocks):
-        return relu_attn_smem_bytes(site.attrs["head_dim"],
-                                    blocks["block_n"])
+        _, H, W, _ = site.in_shape
+        return relu_attn_plan(H * W, site.attrs["head_dim"],
+                              blocks["block_n"])["smem"]
 
     def tune(self, site):
         return {"block_n": MSA_DEFAULT_BLOCK_N}

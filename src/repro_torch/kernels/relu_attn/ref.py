@@ -16,18 +16,24 @@ import torch.nn.functional as F
 EPS = 1e-6
 
 
-def relu_attn_noncausal_ref(q, k, v, eps: float = EPS):
+def relu_attn_noncausal_ref(q, k, v, eps: float = EPS, *, out=None):
     """q, k, v: (G, N, h, d) -> (G, N, h, d) fp32.
 
     out = ReLU(Q) (ReLU(K)^T V) / max(ReLU(Q) . rowsum(ReLU(K)), eps)
-    """
+
+    ``out`` (the kernel's destination: (G, N, h, d), or (branches,
+    images, N, h, d) with row g = branch * images + image) receives the
+    result and is returned."""
     pq = torch.relu(q.float())
     pk = torch.relu(k.float())
     kv = torch.einsum("gnhd,gnhe->ghde", pk, v.float())
     ksum = pk.sum(dim=1)
     num = torch.einsum("gnhd,ghde->gnhe", pq, kv)
     den = torch.einsum("gnhd,ghd->gnh", pq, ksum)[..., None]
-    return num / torch.clamp(den, min=eps)
+    res = num / torch.clamp(den, min=eps)
+    if out is None:
+        return res
+    return out.copy_(res.reshape(out.shape))
 
 
 def relu_attn_causal_ref(q, k, v, eps: float = EPS):

@@ -26,7 +26,8 @@ from repro_torch.core.program import SuperSite, execute, lower
 from repro_torch.common.errors import KernelLaunchError
 from repro_torch.core.quantization import quantize_act, quantize_efficientvit
 from repro_torch.kernels.dsconv.kernel import (
-    dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
+    _dsconv_int8, dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit,
+    dsconv_int8_cluster_smem, dsconv_int8_path, dsconv_int8_ranks)
 from repro_torch.kernels.dsconv.ref import (
     dsconv_int8_emit_ref, dsconv_int8_ref, dsconv_ref)
 from repro_torch.kernels.group_conv.kernel import (
@@ -47,7 +48,8 @@ from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
 from repro_torch.kernels.relu_attn.kernel import (
-    relu_attn_causal, relu_attn_noncausal)
+    ROWS, _relu_attn, relu_attn_causal, relu_attn_noncausal, relu_attn_plan,
+    relu_attn_smem_bytes)
 from repro_torch.kernels.relu_attn.ref import (
     relu_attn_causal_chunked, relu_attn_noncausal_ref)
 from repro_torch.kernels.ssd.kernel import ssd_chunked
@@ -200,6 +202,108 @@ def test_relu_attn_kernel_matches_plain(cuda, G, N, h, block_n):
     got = relu_attn_noncausal(q, k, v, block_n=block_n)
     assert relu_attn_noncausal.launches == n + 1
     _close(got, relu_attn_noncausal_ref(q, k, v))
+
+
+# the MSA attention of B1@224: (tokens, heads, branches); d = 16
+B1_ATTN = [(196, 8, 2), (49, 16, 2)]
+
+
+def _msa_qkv(rng, device, B, N, h, S, d=16):
+    """The stacked QKV of S branches x B images as the MSA passes it:
+    strided q/k/v views of one (S*B, N, 3, h, d) tensor."""
+    t = _rand(rng, device, S * B, N, 3, h, d)
+    return t[:, :, 0], t[:, :, 1], t[:, :, 2]
+
+
+def _proj_view(buf, B, N, S, h, d):
+    """The (S, B, N, h, d) view of a (B, H, W, S*h*d) map: branch s of
+    image b in channels [s*h*d, (s+1)*h*d)."""
+    return buf.view(B, N, S, h, d).permute(2, 0, 1, 3, 4)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("N,h,S", B1_ATTN)
+def test_relu_attn_b1_shapes_with_and_without_out(cuda, batch, N, h, S):
+    """Every B1@224 attention shape, batch 1 and 8: the served call
+    (written into the projection's (B, H, W, S*T) map through ``out=``)
+    and the call that allocates, each one launch, within 1e-4 of the
+    plain version with and without ``out=``; equal bits on two calls
+    and between the two forms."""
+    q, k, v = _msa_qkv(np.random.default_rng(N + batch), cuda, batch, N, h,
+                       S)
+    ref = relu_attn_noncausal_ref(q, k, v)
+    buf = torch.full((batch, N, S * h * 16), float("nan"), device=cuda)
+    n = relu_attn_noncausal.launches
+    got = relu_attn_noncausal(q, k, v, out=_proj_view(buf, batch, N, S, h,
+                                                       16))
+    assert relu_attn_noncausal.launches == n + 1
+    want = torch.empty_like(buf)
+    relu_attn_noncausal_ref(q, k, v, out=_proj_view(want, batch, N, S, h,
+                                                     16))
+    assert got.data_ptr() == buf.data_ptr()
+    _close(buf, want)
+    plain = relu_attn_noncausal(q, k, v)
+    _close(plain, ref)
+    assert torch.equal(plain, relu_attn_noncausal(q, k, v))
+    assert torch.equal(buf.view(batch, N, S, h, 16).permute(2, 0, 1, 3, 4)
+                       .reshape(plain.shape), plain)
+
+
+@pytest.mark.parametrize("G,N,h,d,tile", [
+    (4, 49, 16, 16, 49), (3, 1000, 2, 16, 64), (2, 37, 3, 12, 16),
+    (2, 20, 2, 6, 20), (2, 33, 2, 32, 33), (1, 70, 2, 64, 32),
+    (5, 9, 1, 8, 9)])
+def test_relu_attn_every_row_count(cuda, G, N, h, d, tile):
+    """Every rows-per-CTA count, ragged token tiles (1000 over 64, 37
+    over 16), d = 6 (4-byte staging), 8, 12, 32 and 64 and the
+    plan's own pick: within 1e-4 of the plain version, and row counts
+    that do not divide the rows of a call."""
+    t = _rand(np.random.default_rng(N * d), cuda, G, N, 3, h, d)
+    q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    ref = relu_attn_noncausal_ref(q, k, v)
+    for rows in ROWS:
+        if h % rows == 0 and relu_attn_smem_bytes(d, tile, rows) \
+                <= SMEM_LIMIT:
+            _close(_relu_attn(q, k, v, rows, tile, 1e-6, None), ref)
+    _close(relu_attn_noncausal(q, k, v, block_n=tile), ref)
+
+
+@pytest.mark.parametrize("N,h,S", B1_ATTN)
+def test_relu_attn_rows_are_batch_invariant(cuda, N, h, S):
+    """Row g of a batch-8 call equals row g of a call on that row alone
+    and of a batch-1 call bit for bit, at every row count: a row's
+    arithmetic depends on (N, d, rows, tile) only."""
+    q, k, v = _msa_qkv(np.random.default_rng(N), cuda, 8, N, h, S)
+    eight = relu_attn_noncausal(q, k, v)
+    for g in range(q.shape[0]):
+        one = relu_attn_noncausal(q[g:g + 1], k[g:g + 1], v[g:g + 1])
+        assert torch.equal(one[0], eight[g])
+    plan = relu_attn_plan(N, 16)
+    for rows in ROWS:
+        if relu_attn_smem_bytes(16, plan["tile"], rows) > SMEM_LIMIT:
+            continue
+        full = _relu_attn(q, k, v, rows, plan["tile"], 1e-6, None)
+        for g in (0, 5, q.shape[0] - 1):
+            one = _relu_attn(q[g:g + 1], k[g:g + 1], v[g:g + 1], rows,
+                             plan["tile"], 1e-6, None)
+            assert torch.equal(one[0], full[g])
+
+
+def test_relu_attn_smem_mirror_matches_the_source(cuda):
+    """``relu_attn_smem_bytes`` equals the CUDA layout; the plan's CTA
+    fits at the B1 shapes and a tile that fits no CTA is refused."""
+    lib = library("relu_attn")
+    fn = lib.relu_attn_smem_c
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    for d in (6, 8, 12, 16, 32, 64):
+        for tile in (1, 49, 196, 256):
+            for rows in ROWS:
+                assert fn(d, tile, rows) == relu_attn_smem_bytes(d, tile, rows)
+    t = _rand(np.random.default_rng(0), cuda, 1, 1024, 3, 1, 64)
+    with pytest.raises(ValueError, match="does not fit"):
+        relu_attn_noncausal(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                            block_n=1024)
 
 
 def test_kernel_wrappers_reject_bad_inputs(cuda):
@@ -404,6 +508,79 @@ def test_dsconv_int8_equals_plain(cuda, batch):
             _i8(g, cuda, 3, 3, 16), _sc(g, cuda, 16), _bias(g, cuda, 16),
             _i8(g, cuda, 16, 16), _sc(g, cuda, 16), _bias(g, cuda, 16))
     _same((dsconv_fused_int8(*args),), (dsconv_int8_ref(*args),))
+
+
+def _dsconv_int8_args(g, device, B, H, W, C, F):
+    return (_i8(g, device, B, H, W, C), _sc(g, device, B),
+            _i8(g, device, 3, 3, C), _sc(g, device, C), _bias(g, device, C),
+            _i8(g, device, C, F), _sc(g, device, F), _bias(g, device, F))
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,W,C,F,stride,act", [
+    (112, 112, 16, 16, 1, True), (56, 56, 32, 32, 2, True),
+    (14, 10, 48, 24, 1, True), (9, 13, 16, 8, 1, False),
+    (10, 10, 64, 40, 2, True)])
+def test_dsconv_int8_paths_equal_plain(cuda, batch, H, W, C, F, stride,
+                                       act):
+    """The cluster kernel at every rank count the map takes, and the
+    passes forced: stem.ds0 of B1@224, stride 2, C = 48 (a k32 and a
+    k16 step) with 24 outputs (three column tiles), C = 64 over 40
+    outputs, a small non-square map without Hardswish (ragged bands):
+    EQUAL to the plain version and on two calls; the served call is one
+    launch on the counter and takes the cluster."""
+    g = torch.Generator().manual_seed(H * C + batch)
+    args = _dsconv_int8_args(g, cuda, batch, H, W, C, F)
+    ref = dsconv_int8_ref(*args, stride=stride, act=act)
+    n = dsconv_fused_int8.launches
+    _same((dsconv_fused_int8(*args, stride=stride, act=act),), (ref,))
+    assert dsconv_fused_int8.launches == n + 1
+    assert dsconv_int8_path(H, W, C, F, stride)["path"] == "cluster"
+    for r in dsconv_int8_ranks(H, W, C, F, stride):
+        got = _dsconv_int8(*args, stride, act, "cluster", r)
+        _same((got,), (ref,))
+        _same((_dsconv_int8(*args, stride, act, "cluster", r),), (got,))
+    _same((_dsconv_int8(*args, stride, act, "passes"),), (ref,))
+
+
+def test_dsconv_int8_passes_keep_the_rest(cuda):
+    """A map no cluster holds (stem.ds0 at 640 px: a rank's fp32 DW band
+    alone is past a CTA's shared memory) and channel counts the cluster
+    kernel does not take (C = 8, F = 12) keep the passes, EQUAL to the
+    plain version; a forced cluster on C = 8 is refused."""
+    g = torch.Generator().manual_seed(3)
+    for (B, H, C, F, stride) in ((1, 320, 16, 16, 1), (2, 12, 8, 16, 1),
+                                 (2, 12, 16, 12, 2)):
+        assert dsconv_int8_path(H, H, C, F, stride)["path"] == "passes"
+        args = _dsconv_int8_args(g, cuda, B, H, H, C, F)
+        _same((dsconv_fused_int8(*args, stride=stride),),
+              (dsconv_int8_ref(*args, stride=stride),))
+    args = _dsconv_int8_args(g, cuda, 1, 12, 12, 8, 16)
+    with pytest.raises(KernelLaunchError):
+        _dsconv_int8(*args, 1, True, "cluster", 4)
+
+
+def test_dsconv_int8_smem_mirror_matches_the_source(cuda):
+    """``dsconv_int8_cluster_smem`` equals the CUDA layout at stem.ds0 of
+    B1 (192-384 px) and other maps, at every rank count; the card holds
+    the batch-8 clusters of the chosen rank count at once at B1@224."""
+    lib = library("dsconv_int8")
+    fn = lib.dsconv_int8_cluster_smem_c
+    fn.argtypes = [ctypes.c_int] * 6
+    fn.restype = ctypes.c_longlong
+    occ = lib.dsconv_int8_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    for (H, W, C, F, stride) in [(s // 2, s // 2, 16, 16, 1)
+                                 for s in (192, 224, 256, 288, 320, 384)] \
+            + [(56, 56, 32, 32, 2), (14, 10, 48, 24, 1), (9, 13, 16, 8, 1)]:
+        for r in range(1, 17):
+            assert fn(H, W, C, F, stride, r) == \
+                dsconv_int8_cluster_smem(H, W, C, F, stride, r)
+    r = dsconv_int8_path(112, 112, 16, 16, 1)["ranks"]
+    n = ctypes.c_int(0)
+    assert occ(8, 112, 112, 16, 16, 1, r, ctypes.byref(n)) == 0
+    assert n.value >= 8
 
 
 def _mbconv_int8_args(g, device, B, H, C, M, F, W=None):

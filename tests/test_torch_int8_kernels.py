@@ -28,7 +28,9 @@ from repro_torch.core import quantization as tq
 from repro_torch.core.efficientvit import B1, dsconv, mbconv
 from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import SuperSite, lower
-from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
+from repro_torch.kernels.dsconv.kernel import (
+    dsconv_fused_int8, dsconv_int8_cluster_smem, dsconv_int8_path,
+    dsconv_int8_ranks)
 from repro_torch.kernels.dsconv.ops import dsconv_apply_int8
 from repro_torch.kernels.group_conv.kernel import (
     group_agg_cluster_smem, group_agg_int8, group_agg_path, group_agg_ranks)
@@ -43,7 +45,7 @@ from repro_torch.kernels.mbconv.kernel import (
 from repro_torch.kernels.mbconv.ops import mbconv_apply_int8
 from repro_torch.kernels.registry import (
     N_SM, SMEM_2_PER_SM, SMEM_LIMIT, get_kernel)
-from repro_torch.kernels.relu_attn.kernel import relu_attn_smem_bytes
+from repro_torch.kernels.relu_attn.kernel import relu_attn_plan
 from repro_torch.kernels.supersite.ops import int8_smem_bytes
 
 
@@ -291,7 +293,8 @@ def test_int8_fit_model_fits_every_b1_site(image_size):
                 agg = group_agg_path(h, w, 3 * heads * d, d, 5)
                 assert agg["path"] == "cluster"
                 assert smem == max(
-                    relu_attn_smem_bytes(d, impl.tune(site)["block_n"]),
+                    relu_attn_plan(h * w, d,
+                                   impl.tune(site)["block_n"])["smem"],
                     qkv["smem"], proj["smem"], agg["smem"])
                 branch = dataclasses.replace(
                     site, kind="group_agg", in_shape=(b, h, w, 3 * heads * d),
@@ -408,6 +411,58 @@ def test_group_agg_path_rule_edges():
     assert group_agg_ranks(768, 16) == (1, 2, 3, 4, 6, 8, 12, 16)
     assert group_agg_ranks(96, 16) == (1, 2, 3, 6)
     assert group_agg_ranks(96, 8) == ()
+
+
+@pytest.mark.parametrize("image_size", [192, 224, 256, 288, 320, 384])
+def test_dsconv_int8_path_takes_the_cluster(image_size):
+    """stem.ds0 of B1 at 192-384 px (any batch: the rule reads the map's
+    shape) takes the cluster kernel at 16 ranks, whose bands split the
+    image's rows evenly, one rank's CTA within ``SMEM_LIMIT``; the
+    site's fit reads the path."""
+    for batch in (1, 8):
+        for site in lower(B1, batch=batch, image_size=image_size).fusible():
+            if site.kind != "dsconv":
+                continue
+            _, h, w, c = site.in_shape
+            f, s = site.out_shape[-1], site.stride
+            path = dsconv_int8_path(h, w, c, f, s)
+            assert path == {"path": "cluster", "ranks": 16,
+                            "smem": dsconv_int8_cluster_smem(h, w, c, f, s,
+                                                             16)}
+            assert (h // s) % 16 == 0 and path["smem"] <= SMEM_LIMIT
+            assert get_kernel("dsconv", "int8").smem_bytes(site, {}) \
+                == path["smem"]
+
+
+def test_dsconv_int8_path_rule_edges():
+    """A map whose band fits no CTA (stem.ds0 at 640 px) keeps the
+    passes, and so do channel counts the cluster kernel does not take (C
+    not a multiple of 16, F not of 8); ranks never outnumber output
+    rows, and a rank count whose CTA does not fit is not legal."""
+    assert dsconv_int8_path(320, 320, 16, 16, 1)["path"] == "passes"
+    assert dsconv_int8_path(12, 12, 8, 16, 1)["path"] == "passes"
+    assert dsconv_int8_path(12, 12, 16, 12, 1)["path"] == "passes"
+    assert dsconv_int8_ranks(9, 13, 16, 8, 1) == tuple(range(1, 10))
+    assert dsconv_int8_path(9, 13, 16, 8, 1)["ranks"] == 9
+    assert dsconv_int8_ranks(12, 12, 32, 32, 2) == tuple(range(1, 7))
+    assert dsconv_int8_ranks(112, 112, 16, 16, 1) == tuple(range(5, 17))
+
+
+def test_dsconv_int8_cluster_smem_formula():
+    """The mirror of ``ds_layout`` (``csrc/dsconv_int8.cu``) in bytes:
+    the input rows with their halo and zero end pixels, or the codes if
+    larger, then the fp32 DW band, the raw and transposed 1x1 weights,
+    the taps, four scale and bias arrays and 64 reduction words."""
+    # stem.ds0 at 224 px, 16 ranks: bands of 7 rows, 9 input rows of 114
+    # pixels x 16 bytes; codes of 784 pixels at a pitch of 16
+    assert dsconv_int8_cluster_smem(112, 112, 16, 16, 1, 16) == (
+        9 * 114 * 16 + 4 * 784 * 16 + 256 + 16 * 16 + 144 + 8 * 32 + 256)
+    # C = 32 (a pitch of 48), stride 2, 10 ranks: bands of 3 rows of 28
+    # pixels (the last rank 1 row); 7 input rows of 58 pixels x 32 bytes
+    # outgrow the codes (84 pixels, padded to 96, x 48)
+    assert dsconv_int8_cluster_smem(56, 56, 32, 32, 2, 10) == (
+        max(7 * 58 * 32, 96 * 48) + 4 * 84 * 32 + 1024 + 32 * 48 + 288
+        + 8 * 64 + 256)
 
 
 def test_served_int8_mbconv_sites_take_the_cluster_path():

@@ -35,7 +35,8 @@ from repro_torch.kernels.mbconv.kernel import (
 from repro_torch.kernels.mbconv.ops import mbconv_apply
 from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
-from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+from repro_torch.kernels.relu_attn.kernel import (
+    relu_attn_noncausal, relu_attn_plan, relu_attn_smem_bytes)
 from repro_torch.kernels.relu_attn.ops import msa_fused_apply
 from repro_torch.kernels.relu_attn.ref import relu_attn_noncausal_ref
 
@@ -166,6 +167,56 @@ def test_relu_attn_takes_strided_qkv_views():
     ref = relu_attn_noncausal_ref(q.contiguous(), k.contiguous(),
                                   v.contiguous())
     assert_allclose(got.numpy(), ref.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("B,S,N,h,d,block_n", [
+    (2, 2, 49, 2, 16, 16), (1, 3, 20, 1, 8, 256), (3, 2, 37, 4, 16, 16)])
+def test_relu_attn_out_view_matches_jax(B, S, N, h, d, block_n):
+    """``out=`` a strided (branches, images, N, h, d) view of the
+    (images, H, W, branches*h*d) map the MSA projection reads: the call
+    fills it in place with the values it returns without ``out=``, and
+    those rows hold against JAX's oracle and its Pallas kernel in
+    interpret mode (ragged N over the token tile included)."""
+    rng = np.random.default_rng(N + S)
+    t = torch.from_numpy(rng.standard_normal((S * B, N, 3, h, d)).astype(
+        np.float32))
+    q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
+    buf = torch.full((B, N, S * h * d), float("nan"))
+    view = buf.view(B, N, S, h, d).permute(2, 0, 1, 3, 4)
+    got = relu_attn_noncausal(q, k, v, block_n=block_n, out=view)
+    assert got.data_ptr() == buf.data_ptr() and not buf.isnan().any()
+    plain = relu_attn_noncausal(q, k, v, block_n=block_n)
+    assert torch.equal(view.reshape(plain.shape), plain)
+    with pytest.raises(ValueError, match="out must be"):
+        relu_attn_noncausal(q, k, v, out=buf.view(N, B, S, h, d))
+    rows = np.transpose(plain.numpy(), (0, 2, 1, 3)).reshape(S * B * h, N, d)
+    jq, jk, jv = (_to_rows(x.contiguous().numpy()) for x in (q, k, v))
+    assert_allclose(rows, np.asarray(jar.relu_attn_noncausal_ref(jq, jk, jv)),
+                    **TOL)
+    assert_allclose(rows, np.asarray(jak.relu_attn_noncausal(
+        jq, jk, jv, block_n=block_n, interpret=True)), **TOL)
+
+
+def test_relu_attn_plan_reads_the_shape_only():
+    """The plan stages a tile of min(N, block_n) tokens, one (g, head)
+    row a CTA (the sweep's fastest cell at both B1 shapes), from the
+    shape alone, never the batch.  The shared memory is the source's
+    layout: Q, K and V tiles at a pitch of 20 floats (d = 16), then each
+    row's partial states (16 x 16 + 16 floats), one per warp of the row
+    after its shuffles (16 at one row a CTA, 8 at two)."""
+    assert relu_attn_plan(196, 16) == {"rows": 1, "tile": 196,
+                                       "smem": 4 * (3 * 196 * 20 + 16 * 272)}
+    assert relu_attn_plan(49, 16) == {"rows": 1, "tile": 49,
+                                      "smem": 4 * (3 * 49 * 20 + 16 * 272)}
+    assert relu_attn_plan(1000, 16, 64)["tile"] == 64
+    assert relu_attn_smem_bytes(16, 49, 2) == 4 * (3 * 2 * 49 * 20
+                                                   + 2 * 8 * 272)
+    # d = 6 stages rows of 8 floats at a pitch of 12; 128 token sets, 8
+    # a warp, leave 16 partials
+    assert relu_attn_smem_bytes(6, 10, 1) == 4 * (3 * 10 * 12 + 16 * 72)
+    # d = 64: 256 tiles, one set a row (a thread takes tiles in turn)
+    assert relu_attn_smem_bytes(64, 32, 2) == 4 * (3 * 2 * 32 * 68
+                                                   + 2 * 4160)
 
 
 def test_msa_fused_apply_matches_jax_msa():

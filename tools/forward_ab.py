@@ -22,6 +22,13 @@ behind a sleep kernel):
   fp32 and one FIX8 forward's kernels, launches, memsets and zero fills,
   printed as ``chip_smoke.py``'s profiler lines).
 
+With ``--kernels``, each run also times the kernels ``KERNELS`` names
+through their public wrappers (whose signatures every tree compared
+shares) at their B1@224 shapes, batch 1 and 8, on the same inputs for
+every tree (``chip_smoke.device_ms``, 20 calls a window, median of 5):
+``kernel_ms`` per shape and ``kernel_fwd_ms``, the sum over one batch-8
+forward's calls.
+
 One JSON line per run, then a summary line per label and metric (the
 median over that label's runs), then the card's name and power limit.
 Needs a CUDA card; imports nothing of JAX.
@@ -54,7 +61,54 @@ def host_ms(fwd, groups: int = 3, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def one(label: str, src: str, seed: int) -> dict:
+def kernel_calls(gen, batch: int) -> list:
+    """(kernel, shape label, calls per forward, fn) for each kernel of
+    ``KERNELS`` at its B1@224 shapes: the MSA attention core at S3 (3
+    sites) and S4 (4 sites), the FIX8 DSConv at stem.ds0 (1 site)."""
+    import torch
+
+    from chip_smoke import ATTN_SITES, attn_inputs
+    from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
+
+    out = []
+    for (name, H, heads, S), sites in zip(ATTN_SITES, (3, 4)):
+        _, qkv, _, _ = attn_inputs(gen, batch, H, heads, S)
+        out.append(("relu_attn_noncausal", f"{name} qkv({S * batch},"
+                    f"{H * H},3x{heads}x16)", sites,
+                    lambda a=qkv: relu_attn_noncausal(*a)))
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
+    args = (i8(batch, 112, 112, 16), sc(batch), i8(3, 3, 16), sc(16),
+            torch.randn(16, generator=gen).cuda(), i8(16, 16), sc(16),
+            torch.randn(16, generator=gen).cuda())
+    out.append(("dsconv_fused_int8", "stem.ds0 x(B,112,112,16) F=16", 1,
+                lambda a=args: dsconv_fused_int8(*a)))
+    return out
+
+
+KERNELS = ("relu_attn_noncausal", "dsconv_fused_int8")
+
+
+def time_kernels(seed: int) -> tuple[dict, dict]:
+    """-> ({"<kernel> <shape> B=<batch>": ms a call}, {kernel: ms per
+    batch-8 forward})."""
+    import torch
+
+    from chip_smoke import device_ms
+    per_call, per_fwd = {}, dict.fromkeys(KERNELS, 0.0)
+    for batch in (1, 8):
+        gen = torch.Generator().manual_seed(seed + batch)
+        for name, label, sites, fn in kernel_calls(gen, batch):
+            ms = device_ms(fn)
+            per_call[f"{name} {label} B={batch}"] = ms
+            if batch == 8:
+                per_fwd[name] += sites * ms
+    return per_call, per_fwd
+
+
+def one(label: str, src: str, seed: int, kernels: bool = False) -> dict:
     """Build ``src``'s kernels, serve both precisions, time them."""
     sys.path.insert(0, os.path.abspath(src))
     sys.path.insert(0, ROOT)
@@ -92,6 +146,8 @@ def one(label: str, src: str, seed: int) -> dict:
         res[prec]["host_after_profiler_ms"] = host_ms(fwd)
         res[prec]["dev1_after_profiler_ms"] = device_ms(fwd, reps=1,
                                                         windows=5)
+    if kernels:
+        res["kernel_ms"], res["kernel_fwd_ms"] = time_kernels(seed)
     return res
 
 
@@ -101,6 +157,8 @@ def main() -> int:
     ap.add_argument("--one", metavar="LABEL=SRC",
                     help="time one tree in this process (used per run)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels", action="store_true",
+                    help="also time the kernels of KERNELS per shape")
     args = ap.parse_args()
 
     import torch
@@ -109,7 +167,8 @@ def main() -> int:
         return 1
     if args.one:
         label, src = args.one.split("=", 1)
-        print(json.dumps(one(label, src, args.seed)), flush=True)
+        print(json.dumps(one(label, src, args.seed, args.kernels)),
+              flush=True)
         return 0
     if not args.trees:
         ap.error("give at least one LABEL=SRC")
@@ -122,7 +181,8 @@ def main() -> int:
             return 1
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", tree,
-             "--seed", str(args.seed)],
+             "--seed", str(args.seed)]
+            + (["--kernels"] if args.kernels else []),
             capture_output=True, text=True, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode:
@@ -141,6 +201,11 @@ def main() -> int:
                     for m in METRICS}
             print(f"[ab] {label} {prec} over {len(mine)} runs: "
                   + ", ".join(f"{m} {v:.3f}" for m, v in vals.items()))
+        for key in ("kernel_fwd_ms", "kernel_ms") if args.kernels else ():
+            vals = {k: statistics.median(r[key][k] for r in mine)
+                    for k in mine[0][key]}
+            print(f"[ab] {label} {key} over {len(mine)} runs: "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in vals.items()))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
