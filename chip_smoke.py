@@ -36,9 +36,7 @@
       with ``out=`` omitted and given (the projection's map): within
       ``TOL`` of the plain version, equal bits on two calls and between
       the forms, and each image's rows of a batch-8 call equal to its
-      batch-1 call (``[relu_attn]`` lines); the ``[relu_attn sweep]``
-      lines time it at every row count per CTA that fits, the pick of
-      ``relu_attn_plan`` marked and its time over the fastest printed.
+      batch-1 call (``[relu_attn]`` lines).
    b. ``VisionEngine`` over B1@224 fp32 (random weights and BN
       statistics from ``--seed``, microbatch 8) serves 12 requests with
       mixed deadlines through its scheduler, on the default plan, which
@@ -1052,48 +1050,6 @@ def relu_attn_checks(gen) -> None:
                   f"{ref_max:.3e}), two calls and out= equal{text}")
 
 
-def relu_attn_sweep(gen) -> None:
-    """Time ``relu_attn_noncausal`` as the MSA serves it (``out=`` the
-    projection's map) at both MSA shapes of B1@224, batch 1 and 8, at
-    every row count per CTA that fits, each within ``TOL`` of the plain
-    version; the pick of ``relu_attn_plan`` marked and its time over the
-    fastest cell printed."""
-    from repro_torch.kernels.registry import SMEM_LIMIT
-    from repro_torch.kernels.relu_attn.kernel import (
-        ROWS, _relu_attn, relu_attn_plan, relu_attn_smem_bytes)
-    from repro_torch.kernels.relu_attn.ref import EPS, relu_attn_noncausal_ref
-
-    for name, H, heads, S in ATTN_SITES:
-        for batch in (1, 8):
-            _, qkv, _, view = attn_inputs(gen, batch, H, heads, S)
-            ref = relu_attn_noncausal_ref(*qkv)
-            top = max(1.0, ref.abs().max().item())
-            plan = relu_attn_plan(H * H, 16)
-            cells, times = [], {}
-            for rows in ROWS:
-                smem = relu_attn_smem_bytes(16, plan["tile"], rows)
-                if smem > SMEM_LIMIT:
-                    continue
-                fn = lambda r=rows: _relu_attn(*qkv, r, plan["tile"], EPS,
-                                               view)
-                err = (fn().reshape(ref.shape) - ref).abs().max().item()
-                if not err <= TOL * top:
-                    raise AssertionError(f"relu_attn {name} B={batch} rows "
-                                         f"{rows}: max|d| {err:.3e}")
-                times[rows] = device_ms(fn, reps=10, windows=3)
-                mark = "*" if rows == plan["rows"] else ""
-                cells.append(f"{mark}rows={rows}:{times[rows]:.5f}"
-                             f"({-(-S * batch * heads // rows)} CTAs,"
-                             f"{smem // 1024}K)")
-            best = min(times, key=times.get)
-            pick = times[plan["rows"]]
-            print(f"[relu_attn sweep] {name} qkv({S * batch},{H * H},3x"
-                  f"{heads}x16) B={batch} chosen rows={plan['rows']} "
-                  f"{pick:.5f} ms, fastest rows={best} {times[best]:.5f} ms, "
-                  f"chosen/fastest {pick / times[best]:.3f}; ms "
-                  f"{' '.join(cells)}")
-
-
 def dsconv_int8_sweep(gen) -> None:
     """Time ``dsconv_fused_int8`` at stem.ds0 of B1@224, batch 1 and 8, on
     the passes and on the cluster kernel at every rank count the map
@@ -1694,7 +1650,6 @@ def main() -> int:
     mbconv_sweep(gen)
     band_sweep(params, gen)
     relu_attn_checks(gen)
-    relu_attn_sweep(gen)
 
     # -- 2b. the fp32 main path -----------------------------------------
     engine = VisionEngine(params, B1, VisionServeConfig(microbatch=8))

@@ -51,10 +51,6 @@ using i8mma::round_up;
 // at one CTA of 1024 threads an SM; chip_smoke.py's [dsconv_int8 sweep]).
 constexpr int DS_NT = 512;
 
-// Threads of a cluster kernel CTA: 32 warps an SM hide the latency of
-// the DW, divide and quantize chains of the one CTA each SM holds.
-
-
 // Row pitch in bytes of a K-contiguous int8 panel of C channels, read by
 // 4-byte fragment loads: C, or C + 16 where C / 16 is even, so the eight
 // rows of a fragment load fall in distinct banks.

@@ -24,41 +24,36 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 
 RA_THREADS = 512          # threads of a CTA (``RA_THREADS`` in the source)
-ROWS = (1, 2, 4, 8)       # heads of one row g a CTA may take
 
 
-def _slots(d: int, rows: int) -> int:
-    """Partial states a row leaves for the tree (``ra_slots``): its
-    threads over the state's 4 x 4 tiles give the token sets (at most 32
+def _slots(d: int) -> int:
+    """Partial states left for the tree (``ra_slots``): the threads
+    over the state's 4 x 4 tiles give the token sets (at most 32
     partials after a warp's shuffles), a warp folding 32 / tiles sets
     where the tiles divide 32."""
     tiles = (-(-d // 4)) ** 2
     spw = 1 if 32 % tiles else 32 // tiles
-    sets = max(1, min(RA_THREADS // rows // tiles, 32 * spw))
+    sets = max(1, min(RA_THREADS // tiles, 32 * spw))
     return sets // spw if sets > 1 else 1
 
 
-def relu_attn_smem_bytes(d: int, block_n: int, rows: int = 1) -> int:
+def relu_attn_smem_bytes(d: int, block_n: int) -> int:
     """One CTA's shared memory (mirrors ``ra_smem_bytes`` in the CUDA
-    source) for ``rows`` rows and a tile of ``block_n`` tokens: the Q, K
-    and V tiles at a row pitch of d rounded up to 4 (plus 4 where that is
-    a multiple of 8), then each row's partial states (kv and ksum)."""
+    source) for a tile of ``block_n`` tokens: the Q, K and V tiles at a
+    row pitch of d rounded up to 4 (plus 4 where that is a multiple of
+    8), then the partial states (kv and ksum)."""
     dp = -(-d // 4) * 4
     pitch = dp if dp // 4 % 2 else dp + 4
-    return 4 * (3 * rows * block_n * pitch
-                + rows * _slots(d, rows) * (dp * dp + dp))
+    return 4 * (3 * block_n * pitch + _slots(d) * (dp * dp + dp))
 
 
 def relu_attn_plan(n: int, d: int, block_n: int = 256) -> dict:
-    """``{"rows": 1, "tile": t, "smem": bytes}`` for rows of ``n`` tokens:
-    a tile of ``min(n, block_n)`` tokens staged at once, one (g, head) row
-    a CTA.  One row was the fastest cell of ``chip_smoke.py``'s
-    ``[relu_attn sweep]`` (every row count of ``ROWS`` that divides the
-    heads) at both MSA shapes of B1@224, batch 1 and 8.  A function of
-    the shape only, never of the batch, so a row gives the same bits at
-    every batch."""
+    """``{"tile": t, "smem": bytes}`` for rows of ``n`` tokens: a tile
+    of ``min(n, block_n)`` tokens staged at once by a CTA that takes one
+    (g, head) row.  A function of the shape only, never of the batch, so
+    a row gives the same bits at every batch."""
     tile = min(n, block_n)
-    return {"rows": 1, "tile": tile, "smem": relu_attn_smem_bytes(d, tile)}
+    return {"tile": tile, "smem": relu_attn_smem_bytes(d, tile)}
 
 
 def _out_strides(out, G, N, heads, D, device):
@@ -83,22 +78,21 @@ def _out_strides(out, G, N, heads, D, device):
     return (out, shape[1]) + st[:4]
 
 
-def _relu_attn(q, k, v, rows, tile, eps, out):
-    """Launch ``relu_attn_noncausal_f32`` with ``rows`` rows per CTA and
-    a tile of ``tile`` tokens (the plan's, or forced by the sweep and the
-    tests) -> out."""
+def _relu_attn(q, k, v, tile, eps, out):
+    """Launch ``relu_attn_noncausal_f32`` with a tile of ``tile``
+    tokens (the plan's, or forced by the tests) -> out."""
     G, N, heads, D = q.shape
     out, ob, so, si, sn_o, sh_o = _out_strides(out, G, N, heads, D,
                                                q.device)
     lib = library("relu_attn")
     fn = lib.relu_attn_noncausal_f32
     fn.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_I] + [_L] * 4 \
-        + [_I] * 2 + [ctypes.c_float, _P]
+        + [_I, ctypes.c_float, _P]
     fn.restype = _I
     sg, sn, sh, _ = q.stride()
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), G,
-                N, heads, D, sg, sn, sh, ob, so, si, sn_o, sh_o, rows, tile,
-                eps, stream_of(q))
+                N, heads, D, sg, sn, sh, ob, so, si, sn_o, sh_o, tile, eps,
+                stream_of(q))
     check(lib, status, "relu_attn_noncausal")
     return out
 
@@ -139,7 +133,7 @@ def relu_attn_noncausal(q, k, v, *, block_n: int = 256, eps: float = EPS,
     if plan["smem"] > SMEM_LIMIT:
         raise ValueError(f"relu_attn_noncausal: d={D}, block_n={block_n} "
                          f"does not fit in {SMEM_LIMIT} B of shared memory")
-    out = _relu_attn(q, k, v, plan["rows"], plan["tile"], eps, out)
+    out = _relu_attn(q, k, v, plan["tile"], eps, out)
     relu_attn_noncausal.launches += 1
     return out
 

@@ -48,7 +48,7 @@ from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
 from repro_torch.kernels.relu_attn.kernel import (
-    ROWS, _relu_attn, relu_attn_causal, relu_attn_noncausal, relu_attn_plan,
+    _relu_attn, relu_attn_causal, relu_attn_noncausal, relu_attn_plan,
     relu_attn_smem_bytes)
 from repro_torch.kernels.relu_attn.ref import (
     relu_attn_causal_chunked, relu_attn_noncausal_ref)
@@ -252,40 +252,34 @@ def test_relu_attn_b1_shapes_with_and_without_out(cuda, batch, N, h, S):
 @pytest.mark.parametrize("G,N,h,d,tile", [
     (4, 49, 16, 16, 49), (3, 1000, 2, 16, 64), (2, 37, 3, 12, 16),
     (2, 20, 2, 6, 20), (2, 33, 2, 32, 33), (1, 70, 2, 64, 32),
-    (5, 9, 1, 8, 9)])
-def test_relu_attn_every_row_count(cuda, G, N, h, d, tile):
-    """Every rows-per-CTA count, ragged token tiles (1000 over 64, 37
-    over 16), d = 6 (4-byte staging), 8, 12, 32 and 64 and the
-    plan's own pick: within 1e-4 of the plain version, and row counts
-    that do not divide the rows of a call."""
+    (5, 9, 1, 8, 9), (2, 45, 2, 96, 16)])
+def test_relu_attn_ragged_tiles_and_head_dims(cuda, G, N, h, d, tile):
+    """Ragged token tiles (1000 over 64, 37 over 16, 45 over 16), d = 6
+    (4-byte staging), 8, 12, 32, 64 and 96 (one token set: the state's
+    tiles outnumber the threads): within 1e-4 of the plain version,
+    through ``_relu_attn`` and through the wrapper."""
     t = _rand(np.random.default_rng(N * d), cuda, G, N, 3, h, d)
     q, k, v = t[:, :, 0], t[:, :, 1], t[:, :, 2]
     ref = relu_attn_noncausal_ref(q, k, v)
-    for rows in ROWS:
-        if h % rows == 0 and relu_attn_smem_bytes(d, tile, rows) \
-                <= SMEM_LIMIT:
-            _close(_relu_attn(q, k, v, rows, tile, 1e-6, None), ref)
+    _close(_relu_attn(q, k, v, tile, 1e-6, None), ref)
     _close(relu_attn_noncausal(q, k, v, block_n=tile), ref)
 
 
 @pytest.mark.parametrize("N,h,S", B1_ATTN)
 def test_relu_attn_rows_are_batch_invariant(cuda, N, h, S):
     """Row g of a batch-8 call equals row g of a call on that row alone
-    and of a batch-1 call bit for bit, at every row count: a row's
-    arithmetic depends on (N, d, rows, tile) only."""
+    and of a batch-1 call bit for bit, at the plan's tile and at a
+    smaller one: a row's arithmetic depends on (N, d, tile) only."""
     q, k, v = _msa_qkv(np.random.default_rng(N), cuda, 8, N, h, S)
     eight = relu_attn_noncausal(q, k, v)
     for g in range(q.shape[0]):
         one = relu_attn_noncausal(q[g:g + 1], k[g:g + 1], v[g:g + 1])
         assert torch.equal(one[0], eight[g])
-    plan = relu_attn_plan(N, 16)
-    for rows in ROWS:
-        if relu_attn_smem_bytes(16, plan["tile"], rows) > SMEM_LIMIT:
-            continue
-        full = _relu_attn(q, k, v, rows, plan["tile"], 1e-6, None)
+    for tile in (relu_attn_plan(N, 16)["tile"], 32):
+        full = _relu_attn(q, k, v, tile, 1e-6, None)
         for g in (0, 5, q.shape[0] - 1):
-            one = _relu_attn(q[g:g + 1], k[g:g + 1], v[g:g + 1], rows,
-                             plan["tile"], 1e-6, None)
+            one = _relu_attn(q[g:g + 1], k[g:g + 1], v[g:g + 1], tile,
+                             1e-6, None)
             assert torch.equal(one[0], full[g])
 
 
@@ -294,12 +288,13 @@ def test_relu_attn_smem_mirror_matches_the_source(cuda):
     fits at the B1 shapes and a tile that fits no CTA is refused."""
     lib = library("relu_attn")
     fn = lib.relu_attn_smem_c
-    fn.argtypes = [ctypes.c_int] * 3
+    fn.argtypes = [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
-    for d in (6, 8, 12, 16, 32, 64):
+    for d in (6, 8, 12, 16, 32, 64, 96):
         for tile in (1, 49, 196, 256):
-            for rows in ROWS:
-                assert fn(d, tile, rows) == relu_attn_smem_bytes(d, tile, rows)
+            assert fn(d, tile) == relu_attn_smem_bytes(d, tile)
+    for N in (49, 196):
+        assert relu_attn_plan(N, 16)["smem"] <= SMEM_LIMIT
     t = _rand(np.random.default_rng(0), cuda, 1, 1024, 3, 1, 64)
     with pytest.raises(ValueError, match="does not fit"):
         relu_attn_noncausal(t[:, :, 0], t[:, :, 1], t[:, :, 2],

@@ -198,25 +198,24 @@ def test_relu_attn_out_view_matches_jax(B, S, N, h, d, block_n):
 
 
 def test_relu_attn_plan_reads_the_shape_only():
-    """The plan stages a tile of min(N, block_n) tokens, one (g, head)
-    row a CTA (the sweep's fastest cell at both B1 shapes), from the
-    shape alone, never the batch.  The shared memory is the source's
-    layout: Q, K and V tiles at a pitch of 20 floats (d = 16), then each
-    row's partial states (16 x 16 + 16 floats), one per warp of the row
-    after its shuffles (16 at one row a CTA, 8 at two)."""
-    assert relu_attn_plan(196, 16) == {"rows": 1, "tile": 196,
+    """The plan stages a tile of min(N, block_n) tokens for a CTA that
+    takes one (g, head) row, from the shape alone, never the batch.  The
+    shared memory is the source's layout: Q, K and V tiles at a pitch of
+    20 floats (d = 16), then the partial states (16 x 16 + 16 floats),
+    one per warp after its shuffles (16)."""
+    assert relu_attn_plan(196, 16) == {"tile": 196,
                                        "smem": 4 * (3 * 196 * 20 + 16 * 272)}
-    assert relu_attn_plan(49, 16) == {"rows": 1, "tile": 49,
+    assert relu_attn_plan(49, 16) == {"tile": 49,
                                       "smem": 4 * (3 * 49 * 20 + 16 * 272)}
     assert relu_attn_plan(1000, 16, 64)["tile"] == 64
-    assert relu_attn_smem_bytes(16, 49, 2) == 4 * (3 * 2 * 49 * 20
-                                                   + 2 * 8 * 272)
     # d = 6 stages rows of 8 floats at a pitch of 12; 128 token sets, 8
     # a warp, leave 16 partials
-    assert relu_attn_smem_bytes(6, 10, 1) == 4 * (3 * 10 * 12 + 16 * 72)
-    # d = 64: 256 tiles, one set a row (a thread takes tiles in turn)
-    assert relu_attn_smem_bytes(64, 32, 2) == 4 * (3 * 2 * 32 * 68
-                                                   + 2 * 4160)
+    assert relu_attn_smem_bytes(6, 10) == 4 * (3 * 10 * 12 + 16 * 72)
+    # d = 64: 256 tiles, two sets of 256 threads, one tile a thread
+    assert relu_attn_smem_bytes(64, 32) == 4 * (3 * 32 * 68 + 2 * 4160)
+    # d = 96: 576 tiles outnumber the threads, one set (a thread takes
+    # tiles in turn); pitch 100
+    assert relu_attn_smem_bytes(96, 32) == 4 * (3 * 32 * 100 + 9312)
 
 
 def test_msa_fused_apply_matches_jax_msa():

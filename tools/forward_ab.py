@@ -3,6 +3,7 @@
 source trees on one CUDA card, each tree in a process of its own.
 
     python3 tools/forward_ab.py LABEL=SRC [LABEL=SRC ...] [--seed N]
+        [--kernels NAME[,NAME ...]]
 
 ``SRC`` is a tree's ``src`` directory (its ``repro_torch`` package and
 ``csrc`` kernels; each tree builds its own kernels under its own
@@ -22,12 +23,13 @@ behind a sleep kernel):
   fp32 and one FIX8 forward's kernels, launches, memsets and zero fills,
   printed as ``chip_smoke.py``'s profiler lines).
 
-With ``--kernels``, each run also times the kernels ``KERNELS`` names
-through their public wrappers (whose signatures every tree compared
-shares) at their B1@224 shapes, batch 1 and 8, on the same inputs for
-every tree (``chip_smoke.device_ms``, 20 calls a window, median of 5):
+With ``--kernels NAME[,NAME ...]``, each run also times those kernels
+as the ``[kernel]`` cases of the tree's own ``chip_smoke.py``
+(``kernel_cases`` and ``int8_kernel_cases``: every B1@224 shape, batch
+1 and 8, each tree's builders on its own package) through the wrappers
+(``chip_smoke.device_ms``, 20 calls a window, median of 5):
 ``kernel_ms`` per shape and ``kernel_fwd_ms``, the sum over one batch-8
-forward's calls.
+forward's calls (a case's sites).
 
 One JSON line per run, then a summary line per label and metric (the
 median over that label's runs), then the card's name and power limit.
@@ -61,54 +63,43 @@ def host_ms(fwd, groups: int = 3, reps: int = 5) -> float:
     return statistics.median(out)
 
 
-def kernel_calls(gen, batch: int) -> list:
-    """(kernel, shape label, calls per forward, fn) for each kernel of
-    ``KERNELS`` at its B1@224 shapes: the MSA attention core at S3 (3
-    sites) and S4 (4 sites), the FIX8 DSConv at stem.ds0 (1 site)."""
-    import torch
-
-    from chip_smoke import ATTN_SITES, attn_inputs
-    from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
-    from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
-
-    out = []
-    for (name, H, heads, S), sites in zip(ATTN_SITES, (3, 4)):
-        _, qkv, _, _ = attn_inputs(gen, batch, H, heads, S)
-        out.append(("relu_attn_noncausal", f"{name} qkv({S * batch},"
-                    f"{H * H},3x{heads}x16)", sites,
-                    lambda a=qkv: relu_attn_noncausal(*a)))
-    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
-                                   dtype=torch.int8).cuda()
-    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
-    args = (i8(batch, 112, 112, 16), sc(batch), i8(3, 3, 16), sc(16),
-            torch.randn(16, generator=gen).cuda(), i8(16, 16), sc(16),
-            torch.randn(16, generator=gen).cuda())
-    out.append(("dsconv_fused_int8", "stem.ds0 x(B,112,112,16) F=16", 1,
-                lambda a=args: dsconv_fused_int8(*a)))
-    return out
+def tree_smoke(src: str):
+    """The ``chip_smoke`` module of the tree whose ``src`` is given,
+    loaded under its own name beside this tree's."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(src)),
+                        "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("tree_chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-KERNELS = ("relu_attn_noncausal", "dsconv_fused_int8")
-
-
-def time_kernels(seed: int) -> tuple[dict, dict]:
+def time_kernels(src: str, names, seed: int) -> tuple[dict, dict]:
     """-> ({"<kernel> <shape> B=<batch>": ms a call}, {kernel: ms per
-    batch-8 forward})."""
+    batch-8 forward}) for the ``[kernel]`` cases of ``names``."""
     import torch
 
     from chip_smoke import device_ms
-    per_call, per_fwd = {}, dict.fromkeys(KERNELS, 0.0)
+    smoke = tree_smoke(src)
+    per_call, per_fwd = {}, dict.fromkeys(names, 0.0)
     for batch in (1, 8):
         gen = torch.Generator().manual_seed(seed + batch)
-        for name, label, sites, fn in kernel_calls(gen, batch):
+        cases = smoke.kernel_cases(batch, gen) \
+            + smoke.int8_kernel_cases(batch, gen)
+        for case in cases:
+            name, sites, label, fn = case[:4]
+            if name not in per_fwd:
+                continue
             ms = device_ms(fn)
             per_call[f"{name} {label} B={batch}"] = ms
             if batch == 8:
-                per_fwd[name] += sites * ms
+                per_fwd[name] += len(sites) * ms
+        del cases
     return per_call, per_fwd
 
 
-def one(label: str, src: str, seed: int, kernels: bool = False) -> dict:
+def one(label: str, src: str, seed: int, kernels=()) -> dict:
     """Build ``src``'s kernels, serve both precisions, time them."""
     sys.path.insert(0, os.path.abspath(src))
     sys.path.insert(0, ROOT)
@@ -147,7 +138,8 @@ def one(label: str, src: str, seed: int, kernels: bool = False) -> dict:
         res[prec]["dev1_after_profiler_ms"] = device_ms(fwd, reps=1,
                                                         windows=5)
     if kernels:
-        res["kernel_ms"], res["kernel_fwd_ms"] = time_kernels(seed)
+        res["kernel_ms"], res["kernel_fwd_ms"] = time_kernels(
+            src, kernels, seed)
     return res
 
 
@@ -157,8 +149,10 @@ def main() -> int:
     ap.add_argument("--one", metavar="LABEL=SRC",
                     help="time one tree in this process (used per run)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels", action="store_true",
-                    help="also time the kernels of KERNELS per shape")
+    ap.add_argument("--kernels", type=lambda v: v.split(","), default=[],
+                    metavar="NAME[,NAME]",
+                    help="also time these kernels' [kernel] cases of "
+                         "chip_smoke.py per shape")
     args = ap.parse_args()
 
     import torch
@@ -182,7 +176,8 @@ def main() -> int:
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--one", tree,
              "--seed", str(args.seed)]
-            + (["--kernels"] if args.kernels else []),
+            + (["--kernels", ",".join(args.kernels)] if args.kernels
+               else []),
             capture_output=True, text=True, timeout=900)
         sys.stderr.write(proc.stderr[-4000:])
         if proc.returncode:

@@ -13,7 +13,8 @@ batch 1 and 8 on random int8 codes and prints each phase's µs, the
 first rank's, and the launch's CUDA-event time.
 
 ``--no-division`` also times a build whose requantization and Hardswish
-multiply by a reciprocal instead of dividing.  That build is NOT
+multiply by a reciprocal instead of dividing (``tools/source_cuts.py``'s
+``division`` cut).  That build is NOT
 bit-exact and serves no caller: it is a timing experiment that shows
 what the kernel's IEEE divisions (``__fdiv_rn``) cost.
 
@@ -24,7 +25,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
 import subprocess
 import sys
 
@@ -53,11 +53,11 @@ SHAPES = {"S3": (14, 128, 512, 128, 1), "S4": (7, 256, 1024, 256, 1),
 
 
 def instrumented(variant: str) -> str:
-    """Copy the sources, add the timer reads, build; the library path."""
-    src = os.path.join(ROOT, "src", "repro_torch", "csrc")
+    """Copy the sources (``no_division``: with ``source_cuts.py``'s
+    ``division`` cut), add the timer reads, build; the library path."""
+    from source_cuts import compile_all, edited_copy
     dst = os.path.join(OUT, variant)
-    shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(src, dst)
+    edited_copy(dst, ("division",) if variant == "no_division" else ())
     path = os.path.join(dst, "mbconv_int8.cuh")
     text = open(path).read()
     text = text.replace("namespace cg = cooperative_groups;", """\
@@ -77,30 +77,11 @@ __device__ unsigned long long mbi8_phase_ns[2][16];
     last = ANCHORS[-1]
     text = text.replace(last, last + f"  MARK({len(ANCHORS)});\n", 1)
     open(path, "w").write(text)
-    if variant == "no_division":
-        path = os.path.join(dst, "int8.cuh")
-        text = open(path).read()
-        for old, new in (
-                ("__fdiv_rn(fminf(fmaxf(__fadd_rn(x, 3.0f), 0.0f), 6.0f), "
-                 "6.0f)", "__fmul_rn(fminf(fmaxf(__fadd_rn(x, 3.0f), 0.0f), "
-                 "6.0f), 1.0f / 6.0f)"),
-                ("rintf(__fdiv_rn(x, scale))",
-                 "rintf(__fmul_rn(x, 1.0f / scale))")):
-            if old not in text:
-                raise RuntimeError(f"division not in int8.cuh: {old!r}")
-            text = text.replace(old, new)
-        open(path, "w").write(text)
-    path = os.path.join(dst, "mbconv_int8.cu")
-    with open(path, "a") as f:
+    with open(os.path.join(dst, "mbconv_int8.cu"), "a") as f:
         f.write("\nREPRO_EXPORT int mbi8_phase_read(unsigned long long* o) "
                 "{\n  return (int)cudaMemcpyFromSymbol(o, mbi8_phase_ns, "
                 "sizeof(mbi8_phase_ns));\n}\n")
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.kernels.build import NVCC_FLAGS, _nvcc
-    so = os.path.join(OUT, f"libphases_{variant}.so")
-    subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", dst, "-o", so, path],
-                   check=True, capture_output=True, text=True)
-    return so
+    return compile_all({variant: (dst, "mbconv_int8")})[variant]
 
 
 def run(so: str, variant: str) -> None:
@@ -160,6 +141,8 @@ def main() -> int:
                     help="also time the (not bit-exact) build without the "
                          "IEEE divisions")
     args = ap.parse_args()
+    sys.path[:0] = [os.path.dirname(os.path.abspath(__file__)),
+                    os.path.join(ROOT, "src")]
     import torch
     if not torch.cuda.is_available():
         print("mbconv_int8_phases: no CUDA device is available",
