@@ -31,7 +31,10 @@
       S4.mb0 (stride 2) and S4 over band x chunk x cluster size, with
       the clusters the card holds at once
       (``cudaOccupancyMaxActiveClusters``), and ``supersite_fused`` at
-      both chains over band heights 1-4 x chunks 16-128 that fit.
+      both chains over band heights 1-4 x chunks 16-128 that fit.  The
+      ``[dsconv sweep]`` lines time ``dsconv_fused`` at stem.ds0, batch 1
+      and 8, over band heights (output rows a CTA), the pick of its
+      ``choose_blocks`` marked.
       ``relu_attn_noncausal`` at both MSA shapes (S3, S4), batch 1 and 8,
       with ``out=`` omitted and given (the projection's map): within
       ``TOL`` of the plain version, equal bits on two calls and between
@@ -102,7 +105,8 @@
       ``x_scale`` from ``calibrate_act_scale``.
    b. ``dsconv_apply_int8(epilogue=int8)`` -> ``dsconv_fused_int8_emit``:
       stem.ds0 of B1@224 (112x112x16 -> 16) and a stride-2 56x56x32 ->
-      32, batch 1 and 8, keep-fp off and on.
+      32, batch 1 and 8, keep-fp off and on; every case one cluster
+      launch (``dsconv_int8_path(..., emit=True)``).
    c. ``relu_linear_attention(causal=True, block_n=256)`` ->
       ``relu_attn_causal``: Zamba2-1.2B's attention slot (1, 32768, 32,
       64) and the global layer of the repo's Gemma3-12B config (unverified
@@ -129,10 +133,12 @@
    port's own kernels' CUDA launches, the memsets and the zero fills are
    counted apart.  Then one call of each served FIX8 MBConv shape, each
    MSA projection GEMM, each aggregation branch, the FIX8 DSConv at
-   stem.ds0 and the attention core at S3 and S4 (into the projection's
-   map) at batch 8 must be one CUDA launch (the cluster kernels, the
-   tensor-core GEMM, the attention kernel), with no memset, no zero fill
-   and no allocation but its outputs (none for the attention).
+   stem.ds0, the attention core at S3 and S4 (into the projection's
+   map), the fp32 DSConv at stem.ds0 and the emitting FIX8 DSConv at
+   stem.ds0 with and without keep-fp, at batch 8, must be one CUDA launch
+   (the cluster kernels, the tensor-core GEMM, the attention kernel, the
+   fp32 band kernel), with no memset, no zero fill and no allocation but
+   its outputs (none for the attention).
 6. One JSON line with every kernel's launches on its driven run(s),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
@@ -1108,6 +1114,53 @@ def dsconv_int8_sweep(gen) -> None:
               f"equal to the plain version; ms {' '.join(cells)}")
 
 
+def dsconv_sweep(gen) -> None:
+    """Time ``dsconv_fused`` at stem.ds0 of B1@224, batch 1 and 8, at every
+    band height (output rows a CTA) of a few that fit, each within ``TOL``
+    of the plain version; beside each cell its grid and the CTAs an SM
+    holds; the pick of ``choose_blocks`` marked and its time over the
+    fastest cell printed."""
+    import torch
+    from repro_torch.kernels.dsconv.kernel import (
+        choose_blocks, dsconv_fused, dsconv_smem_bytes)
+    from repro_torch.kernels.dsconv.ref import dsconv_ref
+    from repro_torch.kernels.registry import SMEM_LIMIT, SMEM_PER_SM
+
+    def rn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda()
+
+    H, C, F = 112, 16, 16
+    for batch in (1, 8):
+        args = (rn(batch, H, H, C), rn(3, 3, C, scale=1 / 3), rn(C),
+                rn(C, F, scale=C ** -0.5), rn(F))
+        ref = dsconv_ref(*args)
+        tol = TOL * max(1.0, ref.abs().max().item())
+        chosen = choose_blocks(args[0].shape, F, 1)["block_rows"]
+        cells, times = [], {}
+        for rows in (1, 2, 3, 4, 6, 7, 8, 14, 16, 28):
+            smem = dsconv_smem_bytes(H, C, F, 1, rows)
+            if smem > SMEM_LIMIT:
+                continue
+            fn = lambda r=rows: dsconv_fused(*args, block_rows=r)
+            err = (fn() - ref).abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"dsconv_fused R={rows} B={batch}: "
+                                     f"max|d| {err:.3e} > {tol:.3e}")
+            times[rows] = device_ms(fn, reps=20, windows=3)
+            mark = "*" if rows == chosen else ""
+            # CTAs an SM holds: 4 by the registers (dsconv_band's
+            # __launch_bounds__), else by the shared memory
+            per_sm = min(4, SMEM_PER_SM // (smem + 1024))
+            cells.append(f"{mark}R={rows}:{times[rows]:.5f}"
+                         f"({batch * -(-H // rows)}x,{per_sm}/SM)")
+        best = min(times, key=times.get)
+        print(f"[dsconv sweep] stem.ds0 x{(batch, H, H, C)} F={F} B={batch} "
+              f"chosen R={chosen} {times[chosen]:.5f} ms, fastest R={best} "
+              f"{times[best]:.5f} ms, chosen/fastest "
+              f"{times[chosen] / times[best]:.3f}; every cell within TOL of "
+              f"the plain version; ms (CTAs, CTAs an SM) {' '.join(cells)}")
+
+
 def check_groups(engine, tag) -> None:
     """Every bucket's plan groups exactly ``GROUPS``; print each group's
     blocks, its band windows and the rows each member computes per row
@@ -1432,12 +1485,13 @@ def one_launch_each(calls) -> None:
     for key, count in rows.items():
         got[next((k for k in want if k in key), key)] += count
     for (_, outputs, kernel, label), n in zip(calls, allocs):
-        print(f"[fix8] {label}: {n} allocations (its outputs: {outputs})")
+        print(f"[one launch] {label}: {n} allocations (its outputs: "
+              f"{outputs})")
         if n != outputs:
             raise AssertionError(f"{label}: {n} allocations, expected "
                                  f"only its {outputs} outputs")
-    print(f"[fix8] one launch per call: {len(calls)} calls, device activity "
-          f"{sorted(rows.items())}")
+    print(f"[one launch] one launch per call: {len(calls)} calls, device "
+          f"activity {sorted(rows.items())}")
     if got != want:
         raise AssertionError(f"device activity {dict(got)}, expected one "
                              f"launch per call: {dict(want)}")
@@ -1446,14 +1500,16 @@ def one_launch_each(calls) -> None:
 def one_launch_per_site(gen) -> None:
     """Each served FIX8 MBConv shape of B1@224 at batch 8 (S3 and S4's
     evit blocks, S3.down and S4.down emitting), each MSA projection GEMM,
-    each aggregation branch, the FIX8 DSConv at stem.ds0 and the
-    attention core at S3 and S4 (written into the projection's map, as
-    the MSA serves it): one call of its wrapper is one CUDA launch (the
-    cluster kernels, the tensor-core GEMM, the attention kernel), with no
-    memset and no zero fill, allocating only its outputs (the attention
-    none)."""
+    each aggregation branch, the FIX8 DSConv at stem.ds0, the attention
+    core at S3 and S4 (written into the projection's map, as the MSA
+    serves it), the fp32 DSConv at stem.ds0 and the library's emitting
+    FIX8 DSConv at stem.ds0 with and without keep-fp: one call of its
+    wrapper is one CUDA launch (the cluster kernels, the tensor-core GEMM,
+    the attention kernel, the fp32 band kernel), with no memset and no
+    zero fill, allocating only its outputs (the attention none)."""
     import torch
-    from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8
+    from repro_torch.kernels.dsconv.kernel import (
+        dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
     from repro_torch.kernels.group_conv.kernel import group_agg_int8
     from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul
@@ -1488,7 +1544,16 @@ def one_launch_per_site(gen) -> None:
     args = (i8(8, 112, 112, 16), sc(8), i8(3, 3, 16), sc(16), rn(16),
             i8(16, 16), sc(16), rn(16))
     calls.append((lambda a=args: dsconv_fused_int8(*a), 1,
-                  "dsconv_i8_cluster", "dsconv_fused_int8 stem.ds0 B=8"))
+                  "dsconv_i8_cluster<false>",
+                  "dsconv_fused_int8 stem.ds0 B=8"))
+    for keep in (False, True):
+        calls.append((lambda a=args, k=keep: dsconv_fused_int8_emit(
+            *a, keep_fp=k), 3 if keep else 2, "dsconv_i8_cluster<true>",
+            f"dsconv_fused_int8_emit stem.ds0 B=8 keep_fp={keep}"))
+    fargs = (rn(8, 112, 112, 16), rn(3, 3, 16), rn(16), rn(16, 16) * 0.25,
+             rn(16))
+    calls.append((lambda a=fargs: dsconv_fused(*a), 1, "dsconv_band",
+                  "dsconv_fused stem.ds0 B=8"))
     for name, H, heads, S in ATTN_SITES:
         _, qkv, _, view = attn_inputs(gen, 8, H, heads, S)
         calls.append((lambda a=qkv, o=view: relu_attn_noncausal(*a, out=o),
@@ -1650,6 +1715,7 @@ def main() -> int:
     mbconv_sweep(gen)
     band_sweep(params, gen)
     relu_attn_checks(gen)
+    dsconv_sweep(gen)
 
     # -- 2b. the fp32 main path -----------------------------------------
     engine = VisionEngine(params, B1, VisionServeConfig(microbatch=8))

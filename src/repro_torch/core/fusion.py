@@ -54,7 +54,7 @@ class SiteDecision:
     blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
     #                        fp mbconv: {"block_rows", "block_m", "split"}
     #                        (band, mid chunk, CTAs per cluster); fp
-    #                        dsconv: {"block_rows", "block_f"}; msa:
+    #                        dsconv: {"block_rows"}; msa:
     #                        {"block_n"}; int8 conv kinds: {}
     shape: tuple = ()      # (B, H, W, C, mid, F, stride) / (BH, N, D, S, C)
     precision: str = "fp"  # "fp" | "int8": which kernel family runs

@@ -29,15 +29,24 @@
 // over 32 channels, m16n8k16 over a last 16), then dequantizes and stores
 // float4s.  No global atomic, no zero fill, no second launch.
 //
+// dsconv_fused_int8_emit takes the same kernel with an emitting epilogue
+// (EMIT) wherever the path rule gives the cluster: each rank keeps its
+// band's dequantized outputs in shared memory (the fp32 DW band's region,
+// dead once the codes are written), pushes its output absmax to every rank
+// as the DW's was, and after that cluster barrier quantizes its band with
+// the image's scale (scale_of, quant_i8: i8_emit's arithmetic, so the same
+// bits) into 16-byte stores, writing the fp32 map beside them under
+// keep-fp.  Rank 0 writes the scale.  One launch, no memset.
+//
 // The two passes (dsconv_int8.cuh, shared with the super-site chain
 // kernel), for maps whose bands fit no cluster and channel counts the
 // cluster kernel does not take: the DW stage's absmax into a zeroed word
 // per image, then a __dp4a GEMM pass that recomputes the DW stage and
-// quantizes it with the final scale.  The emitting variant always takes
-// them; its GEMM pass also folds the output into a second absmax word per
-// image (EMIT in dsconv_int8.cuh), and a third launch quantizes the fp32
-// output (i8_emit, int8.cuh), so its fp32 map is dsconv_fused_int8's
-// output bit for bit.
+// quantizes it with the final scale.  Emitting, the GEMM pass also folds
+// the output into a second absmax word per image (EMIT in
+// dsconv_int8.cuh), and a third launch quantizes the fp32 output (i8_emit,
+// int8.cuh).  On either path the emitting variant's fp32 map is
+// dsconv_fused_int8's output bit for bit.
 #include "dsconv_int8.cuh"
 #include "int8_mma.cuh"
 
@@ -61,15 +70,17 @@ __host__ __device__ inline int ds_qp(int c) { return c / 16 % 2 ? c : c + 16; }
 // ceil(Ho / ranks) output rows a rank, P = rows * Wo pixels.  xin: the
 // rank's input rows with the halo, (rows - 1) * stride + 3 of them, each
 // [W + 2][C] with a zero pixel at both ends; later the requantized DW
-// codes [P rounded up to 16][qp]; dwf: the fp32 DW band [P][C]; pwr: the
-// 1x1 weights as they arrive [C][F]; pwt: transposed [F][qp]; taps: the
-// DW taps [9][C]; par: dws, dwb [C], pws, pwb [F]; red: 64 words for the
-// block and cluster maxima.
+// codes [P rounded up to 16][qp]; dwf: the fp32 DW band [P][C], emitting
+// later the band's fp32 outputs [P][F] (so [P][max(C, F)]); pwr: the 1x1
+// weights as they arrive [C][F]; pwt: transposed [F][qp]; taps: the DW
+// taps [9][C]; par: dws, dwb [C], pws, pwb [F]; red: 64 words for the
+// block and cluster maxima, and 64 more emitting (the output's).
 struct DsLayout {
   int rows, P, qp, dwf, pwr, pwt, taps, par, red, total;
 };
 __host__ __device__ inline DsLayout ds_layout(int H, int W, int C, int F,
-                                              int stride, int ranks) {
+                                              int stride, int ranks,
+                                              bool emit) {
   DsLayout l;
   const int Ho = H / stride, Wo = W / stride;
   l.rows = (Ho + ranks - 1) / ranks;
@@ -78,25 +89,30 @@ __host__ __device__ inline DsLayout ds_layout(int H, int W, int C, int F,
   const int xin = ((l.rows - 1) * stride + 3) * (W + 2) * C;
   const int yq = round_up(l.P, 16) * l.qp;
   l.dwf = round_up(xin > yq ? xin : yq, 16);
-  l.pwr = l.dwf + 4 * l.P * C;
+  l.pwr = l.dwf + 4 * l.P * (emit && F > C ? F : C);
   l.pwt = l.pwr + round_up(C * F, 16);
   l.taps = l.pwt + F * l.qp;
   l.par = l.taps + round_up(9 * C, 16);
   l.red = l.par + 4 * (2 * C + 2 * F);
-  l.total = l.red + 4 * 64;
+  l.total = l.red + 4 * (emit ? 128 : 64);
   return l;
 }
 
+// out: the fp32 map (emitting: only under keep-fp, else null); q, scales:
+// the emitting kernel's codes (B, Ho, Wo, F) and per-image scales.
 struct DsArgs {
   const int8_t* x;
   const float* xs;
   const int8_t *dw, *pw;
   const float *dws, *dwb, *pws, *pwb;
   float* out;
+  int8_t* q;
+  float* scales;
   int H, W, C, F, stride, act;
 };
 
 // C a multiple of 16, F of 8.
+template <bool EMIT>
 __global__ void __launch_bounds__(DS_NT, 2) dsconv_i8_cluster(DsArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cl = cg::this_cluster();
@@ -104,7 +120,7 @@ __global__ void __launch_bounds__(DS_NT, 2) dsconv_i8_cluster(DsArgs a) {
   const int rank = static_cast<int>(cl.block_rank()), b = blockIdx.y;
   const int H = a.H, W = a.W, C = a.C, F = a.F, s = a.stride;
   const int Ho = H / s, Wo = W / s, WP = W + 2, cq = C / 4;
-  const DsLayout l = ds_layout(H, W, C, F, s, ranks);
+  const DsLayout l = ds_layout(H, W, C, F, s, ranks, EMIT);
   const int qp = l.qp, o0 = rank * l.rows;
   const int P = max(0, min(l.rows, Ho - o0)) * Wo;   // this rank's pixels
   const int nin = (l.rows - 1) * s + 3, ir0 = o0 * s + s - 2;
@@ -247,11 +263,13 @@ __global__ void __launch_bounds__(DS_NT, 2) dsconv_i8_cluster(DsArgs a) {
   // the 1x1: a warp takes 16 pixels x up to 32 output channels (four
   // column tiles of 8), K = C in steps of 32 (m16n8k32) and a last 16
   // (m16n8k16); then dequant, and each lane pair swaps a half so a lane
-  // stores four consecutive channels of one pixel
+  // stores four consecutive channels of one pixel: to the fp32 map, or
+  // emitting to the band's fp32 outputs in shared memory (where the fp32
+  // DW band was: its last reads were the requant's, before the barrier)
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int ng = (F + 31) / 32, units = P16 / 16 * ng;
   const bool odd = t & 1;
-  float* ob = a.out + ((size_t)b * Ho + o0) * Wo * F;
+  float* ob = EMIT ? dwf : a.out + ((size_t)b * Ho + o0) * Wo * F;
   const float* pws = par + 2 * C;
   const float* pwb = pws + F;
 #pragma unroll 1
@@ -301,26 +319,69 @@ __global__ void __launch_bounds__(DS_NT, 2) dsconv_i8_cluster(DsArgs a) {
       const float x0 = __shfl_xor_sync(0xffffffffu, odd ? v0 : v2, 1);
       const float x1 = __shfl_xor_sync(0xffffffffu, odd ? v1 : v3, 1);
       const int r = mt * 16 + g + (odd ? 8 : 0);
-      if (r < P)
+      if (r < P) {
+        const float4 v = odd ? make_float4(x0, x1, v2, v3)
+                             : make_float4(v0, v1, x0, x1);
         *reinterpret_cast<float4*>(ob + (size_t)r * F + c - (odd ? 2 : 0)) =
-            odd ? make_float4(x0, x1, v2, v3) : make_float4(v0, v1, x0, x1);
+            v;
+      }
     }
+  }
+  if constexpr (EMIT) {
+    // the band's output absmax (read back from shared memory, so the MMA
+    // loop holds no more registers than the plain form's), the image's
+    // scale, then the band's codes, 16 bytes a thread where the band's
+    // offset allows (F a multiple of 16), else 8, and under keep-fp its
+    // fp32 map
+    const int n = P * F;
+    __syncthreads();
+    float omax = 0.0f;
+#pragma unroll 1
+    for (int e = 4 * tid; e < n; e += 4 * DS_NT) {
+      const float4 v = *reinterpret_cast<const float4*>(ob + e);
+      omax = fmaxf(omax, fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)),
+                               fmaxf(fabsf(v.z), fabsf(v.w))));
+    }
+    const float s_out = scale_of(__float_as_uint(
+        i8mma::cluster_max_push(cl, omax, red + 64, ranks, false)));
+    const size_t o = ((size_t)b * Ho + o0) * Wo * F;
+    int8_t* qb = a.q + o;
+    const int step = ((reinterpret_cast<uintptr_t>(qb) | n) & 15) ? 8 : 16;
+#pragma unroll 1
+    for (int e = tid * step; e < n; e += DS_NT * step) {
+      uint32_t w[4];
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        if (4 * h >= step) break;
+        const float4 f = *reinterpret_cast<const float4*>(ob + e + 4 * h);
+        w[h] = i8mma::pack4(quant_i8(f.x, s_out), quant_i8(f.y, s_out),
+                            quant_i8(f.z, s_out), quant_i8(f.w, s_out));
+        if (a.out != nullptr)
+          *reinterpret_cast<float4*>(a.out + o + e + 4 * h) = f;
+      }
+      if (step == 16)
+        *reinterpret_cast<uint4*>(qb + e) = make_uint4(w[0], w[1], w[2], w[3]);
+      else
+        *reinterpret_cast<uint2*>(qb + e) = make_uint2(w[0], w[1]);
+    }
+    if (rank == 0 && tid == 0) a.scales[b] = s_out;
   }
 }
 
 // One launch of the cluster kernel (n: null), or the clusters of `ranks`
 // CTAs the card holds at once (into *n, nothing launched).
+template <bool EMIT>
 static cudaError_t ds_cluster(const DsArgs& a, int B, int ranks,
                               cudaStream_t s, int* n) {
   static size_t granted = 48 * 1024;
   static bool nonportable = false;
   if (a.C % 16 || a.F % 8 || ranks < 1 || ranks > 16)
     return cudaErrorInvalidValue;
-  const DsLayout l = ds_layout(a.H, a.W, a.C, a.F, a.stride, ranks);
-  cudaError_t err = allow_smem(dsconv_i8_cluster, l.total, &granted);
+  const DsLayout l = ds_layout(a.H, a.W, a.C, a.F, a.stride, ranks, EMIT);
+  cudaError_t err = allow_smem(dsconv_i8_cluster<EMIT>, l.total, &granted);
   if (err != cudaSuccess) return err;
   if (ranks > 8 && !nonportable) {
-    err = cudaFuncSetAttribute(dsconv_i8_cluster,
+    err = cudaFuncSetAttribute(dsconv_i8_cluster<EMIT>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     if (err != cudaSuccess) return err;
@@ -339,8 +400,8 @@ static cudaError_t ds_cluster(const DsArgs& a, int B, int ranks,
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
   if (n != nullptr)
-    return cudaOccupancyMaxActiveClusters(n, dsconv_i8_cluster, &cfg);
-  err = cudaLaunchKernelEx(&cfg, dsconv_i8_cluster, a);
+    return cudaOccupancyMaxActiveClusters(n, dsconv_i8_cluster<EMIT>, &cfg);
+  err = cudaLaunchKernelEx(&cfg, dsconv_i8_cluster<EMIT>, a);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -353,20 +414,22 @@ REPRO_EXPORT int dsconv_fused_int8_i8(
     unsigned int* amax, float* out, int B, int H, int W, int C, int F,
     int stride, int act, int ranks, void* stream) {
   if (ranks > 0) {
-    const DsArgs a{x,   xs, dw, pw, dws, dwb,    pws,
-                   pwb, out, H, W,  C,   F, stride, act};
-    return (int)ds_cluster(a, B, ranks, (cudaStream_t)stream, nullptr);
+    const DsArgs a{x,       xs,      dw, pw, dws, dwb, pws,    pwb,
+                   out,     nullptr, nullptr, H, W, C, F, stride, act};
+    return (int)ds_cluster<false>(a, B, ranks, (cudaStream_t)stream,
+                                  nullptr);
   }
   return (int)dsconv_i8_passes(ActIn{x, xs, nullptr, nullptr}, dw, dws, dwb,
                                pw, pws, pwb, nullptr, out, amax, false, B, H,
                                W, C, F, stride, act, (cudaStream_t)stream);
 }
 
-// Shared bytes of one rank of the cluster kernel; Python mirror:
-// kernels/dsconv/kernel.py::dsconv_int8_cluster_smem.
+// Shared bytes of one rank of the cluster kernel (emit: its emitting
+// form); Python mirror: kernels/dsconv/kernel.py::dsconv_int8_cluster_smem.
 REPRO_EXPORT long long dsconv_int8_cluster_smem_c(int H, int W, int C, int F,
-                                                  int stride, int ranks) {
-  return ds_layout(H, W, C, F, stride, ranks).total;
+                                                  int stride, int ranks,
+                                                  int emit) {
+  return ds_layout(H, W, C, F, stride, ranks, emit != 0).total;
 }
 
 // Clusters of `ranks` CTAs the card holds at once for this shape; for the
@@ -375,19 +438,28 @@ REPRO_EXPORT int dsconv_int8_max_active_clusters(int B, int H, int W, int C,
                                                  int F, int stride, int ranks,
                                                  int* n) {
   const DsArgs a{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                 nullptr, nullptr, nullptr, H,       W,       C,
-                 F,       stride,  1};
-  return (int)ds_cluster(a, B, ranks, nullptr, n);
+                 nullptr, nullptr, nullptr, nullptr, nullptr, H,
+                 W,       C,       F,       stride,  1};
+  return (int)ds_cluster<false>(a, B, ranks, nullptr, n);
 }
 
-// amax: 2 * B words, zeroed here; out (B, Ho, Wo, F) fp32 (the kept map or
-// scratch); q (B, Ho, Wo, F) int8; scales (B,).
+// q (B, Ho, Wo, F) int8; scales (B,).  ranks >= 1: the emitting cluster
+// kernel, one launch (amax unused; out the kept fp32 map, or null);
+// ranks == 0: the passes, a memset of amax (2 * B words) and three
+// launches (out the kept map or scratch).  A refused launch returns its
+// error; nothing falls back.
 REPRO_EXPORT int dsconv_fused_int8_emit_i8(
     const int8_t* x, const float* xs, const int8_t* dw, const float* dws,
     const float* dwb, const int8_t* pw, const float* pws, const float* pwb,
     unsigned int* amax, float* out, int8_t* q, float* scales, int B, int H,
-    int W, int C, int F, int stride, int act, void* stream) {
+    int W, int C, int F, int stride, int act, int ranks, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
+  if (ranks > 0) {
+    const DsArgs a{x,   xs, dw,     pw, dws, dwb, pws, pwb,   out,
+                   q,   scales, H,  W,  C,   F,   stride, act};
+    return (int)ds_cluster<true>(a, B, ranks, s, nullptr);
+  }
+  if (amax == nullptr || out == nullptr) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(unsigned int) * 2 * B, s);
   if (err != cudaSuccess) return (int)err;
   err = dsconv_i8_passes(ActIn{x, xs, nullptr, nullptr}, dw, dws, dwb, pw,

@@ -389,13 +389,16 @@ __device__ __forceinline__ void cluster_wait() {
 // (red: 64 floats of shared memory), one cluster barrier makes them
 // visible, and each rank reduces its own words.  Max does not depend on
 // order, so every rank gets the same, exact value; no rank reads another's
-// shared memory, so none waits for the others before it ends.  Follows
-// cluster_arrive(); every thread of every rank must call this once.
+// shared memory, so none waits for the others before it ends.  The first
+// call follows cluster_arrive() and waits on it; a later one (first =
+// false) follows an earlier call's barrier and takes its own red.  Every
+// thread of every rank makes each call.
 __device__ __forceinline__ float cluster_max_push(cg::cluster_group& cl,
                                                   float v, float* red,
-                                                  int ranks) {
+                                                  int ranks,
+                                                  bool first = true) {
   v = block_max(v, red);
-  cluster_wait();
+  if (first) cluster_wait();
   if (threadIdx.x < ranks)
     *cl.map_shared_rank(red + 34 + cl.block_rank(), threadIdx.x) = v;
   cl.sync();

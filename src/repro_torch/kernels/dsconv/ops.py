@@ -22,14 +22,14 @@ __all__ = ["dsconv_apply", "DsconvKernel", "dsconv_apply_int8",
 
 
 def dsconv_apply(params, x, *, stride: int = 1,
-                 block_rows: int | None = None, block_f: int | None = None):
+                 block_rows: int | None = None):
     """{'dw': conv+bn, 'pw': conv+bn} -> fused kernel: BN folded into
     both convs, Hardswish between them, bare projection after."""
     dw_w4, dw_b = fold_bn_into_conv(params["dw"]["conv"], params["dw"]["bn"])
     pw_w4, pw_b = fold_bn_into_conv(params["pw"]["conv"], params["pw"]["bn"])
     out = dsconv_fused(x.contiguous(), dw_w4[:, :, 0, :].contiguous(), dw_b,
                        pw_w4[0, 0].contiguous(), pw_b, stride=stride,
-                       act=True, block_rows=block_rows, block_f=block_f)
+                       act=True, block_rows=block_rows)
     return out.to(x.dtype)
 
 
@@ -41,8 +41,8 @@ class DsconvKernel(KernelBase):
 
     def smem_bytes(self, site, blocks):
         _, _, W, C = site.in_shape
-        return dsconv_smem_bytes(W, C, site.stride, blocks["block_rows"],
-                                 blocks["block_f"])
+        return dsconv_smem_bytes(W, C, site.out_shape[-1], site.stride,
+                                 blocks["block_rows"])
 
     def tune(self, site):
         return choose_blocks(site.in_shape, site.out_shape[-1], site.stride)

@@ -35,15 +35,17 @@ from typing import Any, Dict, Optional, Protocol, Tuple
 
 __all__ = ["KernelImpl", "KernelBase", "register", "get_kernel",
            "get_probe", "conv_block_precision", "resolve_conv_precision",
-           "SMEM_LIMIT", "N_SM", "SMEM_2_PER_SM", "CLUSTERS", "SCAN_TILE",
+           "SMEM_LIMIT", "N_SM", "SMEM_PER_SM", "SMEM_2_PER_SM", "CLUSTERS",
+           "SCAN_TILE",
            "column_split"]
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one CTA may use on an H100
 N_SM = 132             # streaming multiprocessors of an H100 SXM
-# Two CTAs fit on one SM when each needs at most this much shared memory
-# (228 KB per SM, 1 KB of it reserved per CTA), where their registers
-# allow two as well.
-SMEM_2_PER_SM = 233_472 // 2 - 1024
+# Shared memory of one SM (228 KB), 1 KB of it reserved per CTA.
+SMEM_PER_SM = 233_472
+# Two CTAs fit on one SM when each needs at most this much shared memory,
+# where their registers allow two as well.
+SMEM_2_PER_SM = SMEM_PER_SM // 2 - 1024
 # Thread-block clusters of each size the H100 holds at once, with 1 and 2
 # CTAs per SM (cudaOccupancyMaxActiveClusters, chip_smoke.py's mbconv
 # sweep): the SMs of a cluster share one GPC, and the GPCs' sizes leave

@@ -26,8 +26,10 @@ from repro_torch.core.program import SuperSite, execute, lower
 from repro_torch.common.errors import KernelLaunchError
 from repro_torch.core.quantization import quantize_act, quantize_efficientvit
 from repro_torch.kernels.dsconv.kernel import (
-    _dsconv_int8, dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit,
-    dsconv_int8_cluster_smem, dsconv_int8_path, dsconv_int8_ranks)
+    _dsconv_int8, _dsconv_int8_emit, choose_blocks as ds_blocks,
+    dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit,
+    dsconv_int8_cluster_smem, dsconv_int8_path, dsconv_int8_ranks,
+    dsconv_smem_bytes)
 from repro_torch.kernels.dsconv.ref import (
     dsconv_int8_emit_ref, dsconv_int8_ref, dsconv_ref)
 from repro_torch.kernels.group_conv.kernel import (
@@ -87,9 +89,22 @@ def _close(got, ref):
     assert (got - ref).abs().max().item() <= 1e-4 * scale
 
 
+# stem.ds0 of B1 at 192-384 px, batch 1 and 8, on the plan's bands
+DS_STEM = [(B, px // 2, 16, 16, 1, None) for px in (192, 256, 288, 384)
+           for B in (1, 8)] + [(8, 112, 16, 16, 1, None)]
+
+
 @pytest.mark.parametrize("B,H,C,F,stride,rows", [
-    (1, 112, 16, 16, 1, None), (2, 9, 8, 72, 1, 4), (2, 8, 8, 12, 2, 3)])
+    (1, 112, 16, 16, 1, None), (2, 9, 8, 72, 1, 4), (2, 8, 8, 12, 2, 3)]
+    + DS_STEM + [(2, 112, 16, 16, 1, 5), (2, 112, 16, 16, 1, 1),
+                 (3, 56, 16, 16, 2, None), (1, 10, 12, 20, 1, 3),
+                 (2, 6, 8, 520, 1, None), (1, 6, 520, 8, 2, None)])
 def test_dsconv_kernel_matches_plain(cuda, B, H, C, F, stride, rows):
+    """The served instance (C = F = 16, stride 1) at stem.ds0 of B1,
+    192-384 px, on the plan's bands, on a ragged last band (5 rows) and
+    on bands of one row; the generic instance at C = 8 over 72 and 12
+    outputs, C = 12 over 20, stride 2 (C = 8, and the served C = 16), and
+    more channel quads than a CTA has threads (F = 520, C = 520)."""
     rng = np.random.default_rng(H)
     args = (_rand(rng, cuda, B, H, H, C), _rand(rng, cuda, 3, 3, C, scale=.3),
             _rand(rng, cuda, C), _rand(rng, cuda, C, F, scale=C ** -0.5),
@@ -98,6 +113,39 @@ def test_dsconv_kernel_matches_plain(cuda, B, H, C, F, stride, rows):
     got = dsconv_fused(*args, stride=stride, block_rows=rows)
     assert dsconv_fused.launches == n + 1
     _close(got, dsconv_ref(*args, stride=stride))
+
+
+def test_dsconv_smem_mirror_matches_the_source(cuda):
+    """``dsconv_smem_bytes`` equals the CUDA layout (``dsconv_smem_c``) at
+    stem.ds0 of B1 (192-576 px) and the generic shapes, at band heights
+    1-16; the plan's band fits at batch 1-16."""
+    fn = library("dsconv").dsconv_smem_c
+    fn.argtypes = [ctypes.c_int] * 5
+    fn.restype = ctypes.c_longlong
+    for (W, C, F, stride) in [(px // 2, 16, 16, 1)
+                              for px in (192, 224, 256, 288, 384, 576)] \
+            + [(9, 8, 72, 1), (8, 8, 12, 2), (10, 12, 20, 1), (56, 16, 16, 2)]:
+        for rows in range(1, 17):
+            assert fn(W, C, F, stride, rows) == \
+                dsconv_smem_bytes(W, C, F, stride, rows)
+        for B in (1, 8, 16):
+            r = ds_blocks((B, W, W, C), F, stride)["block_rows"]
+            assert dsconv_smem_bytes(W, C, F, stride, r) <= SMEM_LIMIT
+
+
+def test_dsconv_hswish_is_bit_exact(cuda):
+    """``common.cuh``'s ``hswish``, whose r / 6 takes no branch, gives the
+    bits of x * (relu6(x + 3) / 6) with the IEEE division at every one of
+    the 2^32 fp32 inputs."""
+    lib = library("dsconv")
+    fn = lib.dsconv_hswish_mismatches
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = torch.zeros(1, dtype=torch.int64, device=cuda)
+    check(lib, fn(n.data_ptr(), torch.cuda.current_stream().cuda_stream),
+          "hswish_check")
+    torch.cuda.synchronize()
+    assert n.item() == 0
 
 
 # every distinct mbconv shape of B1@224: (H, C, M, F, stride)
@@ -557,11 +605,12 @@ def test_dsconv_int8_passes_keep_the_rest(cuda):
 
 def test_dsconv_int8_smem_mirror_matches_the_source(cuda):
     """``dsconv_int8_cluster_smem`` equals the CUDA layout at stem.ds0 of
-    B1 (192-384 px) and other maps, at every rank count; the card holds
-    the batch-8 clusters of the chosen rank count at once at B1@224."""
+    B1 (192-384 px) and other maps, at every rank count, in both forms
+    (plain and emitting); the card holds the batch-8 clusters of the
+    chosen rank count at once at B1@224."""
     lib = library("dsconv_int8")
     fn = lib.dsconv_int8_cluster_smem_c
-    fn.argtypes = [ctypes.c_int] * 6
+    fn.argtypes = [ctypes.c_int] * 7
     fn.restype = ctypes.c_longlong
     occ = lib.dsconv_int8_max_active_clusters
     occ.argtypes = [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -570,8 +619,9 @@ def test_dsconv_int8_smem_mirror_matches_the_source(cuda):
                                  for s in (192, 224, 256, 288, 320, 384)] \
             + [(56, 56, 32, 32, 2), (14, 10, 48, 24, 1), (9, 13, 16, 8, 1)]:
         for r in range(1, 17):
-            assert fn(H, W, C, F, stride, r) == \
-                dsconv_int8_cluster_smem(H, W, C, F, stride, r)
+            for emit in (False, True):
+                assert fn(H, W, C, F, stride, r, int(emit)) == \
+                    dsconv_int8_cluster_smem(H, W, C, F, stride, r, emit)
     r = dsconv_int8_path(112, 112, 16, 16, 1)["ranks"]
     n = ctypes.c_int(0)
     assert occ(8, 112, 112, 16, 16, 1, r, ctypes.byref(n)) == 0
@@ -857,18 +907,75 @@ def test_int8_matmul_emit_equals_plain(cuda, rows, K, N, batch, keep_fp):
 
 @pytest.mark.parametrize("keep_fp", [False, True])
 @pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("H,C,stride", [(112, 16, 1), (56, 32, 2)])
+@pytest.mark.parametrize("H,C,stride", [(112, 16, 1), (56, 32, 2),
+                                        (12, 8, 1)])
 def test_dsconv_int8_emit_equals_plain(cuda, H, C, stride, batch, keep_fp):
+    """The library's shapes (stem.ds0 of B1@224, stride-2 56x56x32) take
+    the emitting cluster kernel, C = 8 the passes; on the cluster shapes
+    the passes forced give the same bits; the fp32 map is
+    ``dsconv_fused_int8``'s on both paths."""
     g = torch.Generator().manual_seed(H + batch)
     args = (_i8(g, cuda, batch, H, H, C), _sc(g, cuda, batch),
             _i8(g, cuda, 3, 3, C), _sc(g, cuda, C), _bias(g, cuda, C),
             _i8(g, cuda, C, C), _sc(g, cuda, C), _bias(g, cuda, C))
+    path = dsconv_int8_path(H, H, C, C, stride, emit=True)
+    assert path["path"] == ("passes" if C == 8 else "cluster")
+    assert path == dsconv_int8_path(H, H, C, C, stride) | {
+        "smem": path["smem"]}
+    ref = dsconv_int8_emit_ref(*args, stride=stride, keep_fp=keep_fp)
     n = dsconv_fused_int8_emit.launches
     got = dsconv_fused_int8_emit(*args, stride=stride, keep_fp=keep_fp)
     assert dsconv_fused_int8_emit.launches == n + 1
-    _same(got, dsconv_int8_emit_ref(*args, stride=stride, keep_fp=keep_fp))
+    _same(got, ref)
+    passes = _dsconv_int8_emit(*args, stride, True, keep_fp, "passes")
+    _same(passes, ref)
     if keep_fp:
-        _same((got[2],), (dsconv_fused_int8(*args, stride=stride),))
+        base = dsconv_fused_int8(*args, stride=stride)
+        _same((got[2],), (base,))
+        _same((passes[2],), (base,))
+
+
+@pytest.mark.parametrize("H,W,C,F,stride", [
+    (14, 10, 48, 24, 1), (9, 13, 16, 8, 1), (10, 10, 64, 40, 2),
+    (12, 12, 16, 48, 1)])
+def test_dsconv_int8_emit_cluster_ranks_equal_plain(cuda, H, W, C, F,
+                                                    stride):
+    """The emitting cluster kernel at every rank count the map takes, on
+    a k32 + k16 step with three column tiles, F = 8 (8-byte code stores,
+    ragged bands), stride 2, and F > C (the output band outgrows the DW
+    band's region): EQUAL to the plain version, keep-fp on and off."""
+    g = torch.Generator().manual_seed(H * C + W)
+    args = _dsconv_int8_args(g, cuda, 2, H, W, C, F)
+    for keep in (False, True):
+        ref = dsconv_int8_emit_ref(*args, stride=stride, keep_fp=keep)
+        for r in dsconv_int8_ranks(H, W, C, F, stride, emit=True):
+            _same(_dsconv_int8_emit(*args, stride, True, keep, "cluster", r),
+                  ref)
+
+
+def test_dsconv_int8_emit_cluster_is_one_launch(cuda):
+    """On the cluster path, an emitting call is one CUDA launch of
+    ``dsconv_i8_cluster<true>`` with no memset, with keep-fp off and on
+    (one ``torch.profiler`` capture over both calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    g = torch.Generator().manual_seed(5)
+    args = _dsconv_int8_args(g, cuda, 8, 112, 112, 16, 16)
+    assert dsconv_int8_path(112, 112, 16, 16, 1, emit=True)["path"] \
+        == "cluster"
+    for keep in (False, True):
+        dsconv_fused_int8_emit(*args, keep_fp=keep)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for keep in (False, True):
+            dsconv_fused_int8_emit(*args, keep_fp=keep)
+        torch.cuda.synchronize()
+    rows = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if (e.cuda_time_total if us is None else us) > 0:
+            rows[e.key] = e.count
+    assert sum(rows.values()) == 2, rows
+    assert all("dsconv_i8_cluster<true>" in k for k in rows), rows
 
 
 # ---------------------------------------------------------------------------

@@ -465,6 +465,39 @@ def test_dsconv_int8_cluster_smem_formula():
         + 8 * 64 + 256)
 
 
+@pytest.mark.parametrize("H,C,stride,budget", [
+    (112, 16, 1, SMEM_LIMIT // 2), (56, 32, 2, SMEM_LIMIT // 2),
+    (96, 16, 1, SMEM_LIMIT), (192, 16, 1, SMEM_LIMIT)])
+def test_dsconv_int8_emit_path_follows_the_rule(H, C, stride, budget):
+    """The emitting DSConv's path is ``dsconv_int8_path``'s (the
+    library's two shapes, and stem.ds0 at 192 and 384 px): the cluster at
+    the same rank count, its emitting layout 256 bytes (64 reduction
+    words) over the plain form where F <= C, within half of
+    ``SMEM_LIMIT`` (two CTAs an SM) at the library's shapes."""
+    plain = dsconv_int8_path(H, H, C, C, stride)
+    emit = dsconv_int8_path(H, H, C, C, stride, emit=True)
+    assert emit["path"] == plain["path"] == "cluster"
+    assert emit["ranks"] == plain["ranks"] == 16
+    assert emit["smem"] == dsconv_int8_cluster_smem(H, H, C, C, stride, 16,
+                                                    emit=True)
+    assert emit["smem"] == plain["smem"] + 256 <= budget
+    assert dsconv_int8_ranks(H, H, C, C, stride, emit=True) \
+        == dsconv_int8_ranks(H, H, C, C, stride)
+
+
+def test_dsconv_int8_emit_smem_formula():
+    """The emitting form of ``ds_layout``: the fp32 band region holds
+    max(C, F) floats a pixel (the band's outputs), and 128 reduction
+    words; C = 8 takes the passes, emitting or not."""
+    # C = 16 -> F = 48 at 12 x 12, 4 ranks: bands of 3 rows of 12 pixels;
+    # 5 input rows of 14 pixels x 16 bytes outgrow the codes (36 pixels,
+    # padded to 48, at a pitch of 16); the outputs 36 x 48 floats
+    assert dsconv_int8_cluster_smem(12, 12, 16, 48, 1, 4, emit=True) == (
+        max(5 * 14 * 16, 48 * 16) + 4 * 36 * 48 + 16 * 48 + 48 * 16 + 144
+        + 8 * 64 + 512)
+    assert dsconv_int8_path(12, 12, 8, 8, 1, emit=True)["path"] == "passes"
+
+
 def test_served_int8_mbconv_sites_take_the_cluster_path():
     """At B1@224, batch 1, 2, 4 and 8, the nine MBConv sites the FIX8 plan
     launches one at a time (S3/S4's seven evit blocks and the two

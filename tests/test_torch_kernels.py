@@ -27,14 +27,15 @@ from repro_torch.core.efficientvit import B1
 from repro_torch.core.fusion import decision_shape
 from repro_torch.core.program import lower
 from repro_torch.kernels.dsconv.kernel import (
-    choose_blocks as ds_blocks, dsconv_fused, dsconv_smem_bytes)
+    DSF_SM_CTAS, choose_blocks as ds_blocks, dsconv_fused, dsconv_smem_bytes)
 from repro_torch.kernels.dsconv.ops import dsconv_apply
 from repro_torch.kernels.mbconv.kernel import (
     SPLITS, choose_blocks as mb_blocks, legal_splits, mbconv_fused,
     mbconv_slice, mbconv_smem_bytes)
 from repro_torch.kernels.mbconv.ops import mbconv_apply
 from repro_torch.kernels.mbconv_fp import BLOCK_M
-from repro_torch.kernels.registry import SMEM_LIMIT
+from repro_torch.kernels.registry import (
+    N_SM, SMEM_LIMIT, SMEM_PER_SM, get_kernel)
 from repro_torch.kernels.relu_attn.kernel import (
     relu_attn_noncausal, relu_attn_plan, relu_attn_smem_bytes)
 from repro_torch.kernels.relu_attn.ops import msa_fused_apply
@@ -275,8 +276,10 @@ def test_blocks_fit_shared_memory_on_b1(res, batch):
                                else (0,) * 7)
         if site.kind == "dsconv":
             b = ds_blocks(site.in_shape, F, s)
-            assert dsconv_smem_bytes(W, C, s, b["block_rows"],
-                                     b["block_f"]) <= SMEM_LIMIT
+            assert set(b) == {"block_rows"}
+            assert 1 <= b["block_rows"] <= H // s
+            assert dsconv_smem_bytes(W, C, F, s,
+                                     b["block_rows"]) <= SMEM_LIMIT
         elif site.kind == "mbconv":
             b = mb_blocks(site.in_shape, M, F, s)
             assert set(b) == {"block_rows", "block_m", "split"}
@@ -290,6 +293,49 @@ def test_blocks_fit_shared_memory_on_b1(res, batch):
             assert (b["split"] - 1) * sl < M <= b["split"] * sl
             assert b["block_m"] in BLOCK_M
             assert b["block_m"] <= max(16, -(-sl // 16) * 16)
+
+
+@pytest.mark.parametrize("res", [192, 224, 256, 288, 384, 576])
+def test_dsconv_plan_reads_the_shape_only(res):
+    """stem.ds0 of B1 at 192-576 px, batch 1-16: the fp32 band height is a
+    function of the site's shape (the planner's and the wrapper's pick
+    agree, on every call), its CTA fits ``SMEM_LIMIT``, and it is the
+    fewest rows whose grid the card holds in one wave at most
+    ``DSF_SM_CTAS`` CTAs an SM, where one exists (all of its input in
+    flight at once)."""
+    impl = get_kernel("dsconv", "fp")
+    for batch in range(1, 17):
+        (site,) = [s for s in lower(B1, batch=batch, image_size=res)
+                   .fusible() if s.kind == "dsconv"]
+        B, H, W, C = site.in_shape
+        F, s = site.out_shape[-1], site.stride
+        plan = ds_blocks(site.in_shape, F, s)
+        assert plan == impl.tune(site) == ds_blocks((B, H, W, C), F, s)
+        rows = plan["block_rows"]
+        smem = dsconv_smem_bytes(W, C, F, s, rows)
+        assert impl.smem_bytes(site, plan) == smem <= SMEM_LIMIT
+        one_wave = [r for r in range(1, H // s + 1)
+                    if dsconv_smem_bytes(W, C, F, s, r) <= SMEM_LIMIT
+                    and B * -(-(H // s) // r) <= N_SM * min(
+                        DSF_SM_CTAS, SMEM_PER_SM // (
+                            dsconv_smem_bytes(W, C, F, s, r) + 1024))]
+        if one_wave:
+            assert rows == one_wave[0]
+
+
+@pytest.mark.parametrize("W,C,F,stride,rows,want", [
+    # stem.ds0 at 224 px, 2 rows a CTA: 4 input rows of 114 pixels at a
+    # pitch of 20 floats, two DW rows of 112, weights 16x16, 9x16 taps,
+    # 16 + 16 biases
+    (112, 16, 16, 1, 2, 4 * (4 * 114 * 20 + 2 * 112 * 20 + 256 + 144
+                             + 16 + 16)),
+    # one row a CTA keeps one DW row; C = 8 keeps its pitch; stride 2
+    (112, 16, 16, 1, 1, 4 * (3 * 114 * 20 + 112 * 20 + 256 + 144 + 32)),
+    (8, 8, 12, 2, 3, 4 * (7 * 10 * 8 + 2 * 4 * 8 + 96 + 72 + 8 + 12))])
+def test_dsconv_smem_formula(W, C, F, stride, rows, want):
+    """The mirror of ``dsf_layout`` (``csrc/dsconv.cu``) against a hand
+    count; the served C = 16 pads a staged pixel to 20 floats."""
+    assert dsconv_smem_bytes(W, C, F, stride, rows) == want
 
 
 @pytest.mark.parametrize("batch", [1, 8])

@@ -29,7 +29,10 @@ as the ``[kernel]`` cases of the tree's own ``chip_smoke.py``
 1 and 8, each tree's builders on its own package) through the wrappers
 (``chip_smoke.device_ms``, 20 calls a window, median of 5):
 ``kernel_ms`` per shape and ``kernel_fwd_ms``, the sum over one batch-8
-forward's calls (a case's sites).
+forward's calls (a case's sites).  A kernel no served forward runs (the
+library's ``int8_matmul_emit``, ``dsconv_fused_int8_emit``, ...) is
+timed at its ``library_cases`` instead, and its ``kernel_fwd_ms`` is the
+sum over those cases, one call each (``chip_smoke.py``'s kernels line).
 
 One JSON line per run, then a summary line per label and metric (the
 median over that label's runs), then the card's name and power limit.
@@ -83,6 +86,7 @@ def time_kernels(src: str, names, seed: int) -> tuple[dict, dict]:
     from chip_smoke import device_ms
     smoke = tree_smoke(src)
     per_call, per_fwd = {}, dict.fromkeys(names, 0.0)
+    seen = set()
     for batch in (1, 8):
         gen = torch.Generator().manual_seed(seed + batch)
         cases = smoke.kernel_cases(batch, gen) \
@@ -91,10 +95,20 @@ def time_kernels(src: str, names, seed: int) -> tuple[dict, dict]:
             name, sites, label, fn = case[:4]
             if name not in per_fwd:
                 continue
+            seen.add(name)
             ms = device_ms(fn)
             per_call[f"{name} {label} B={batch}"] = ms
             if batch == 8:
                 per_fwd[name] += len(sites) * ms
+        del cases
+    if set(names) - seen:
+        cases = smoke.library_cases(seed)
+        for case, *_ in cases:
+            name, _, label, fn = case[:4]
+            if name in per_fwd and name not in seen:
+                ms = device_ms(fn)
+                per_call[f"{name} {label}"] = ms
+                per_fwd[name] += ms
         del cases
     return per_call, per_fwd
 

@@ -6,10 +6,10 @@ parts of its source cut out.
 
 A target (``TARGETS``) names a kernel library of ``src/repro_torch/csrc``,
 the kernels of ``chip_smoke.py``'s ``[kernel]`` cases it times
-(``int8_kernel_cases``, B1@224 at batch 1 and 8, on random int8 codes)
-and its builds: ``full``, the unchanged sources, and builds with one or
-more cuts of ``CUTS`` applied, each an (anchor, replacement) edit of one
-source file.  Every build is a copy of ``csrc`` under
+(``kernel_cases`` and ``int8_kernel_cases``, B1@224 at batch 1 and 8, on
+random inputs) and its builds: ``full``, the unchanged sources, and
+builds with one or more cuts of ``CUTS`` applied, each an (anchor,
+replacement) edit of one source file.  Every build is a copy of ``csrc`` under
 ``build/cuts/<target>/<build>/``, compiled at once (one ``nvcc`` each).
 The cases call the kernels' own wrappers, with ``library`` serving each
 build in turn, and the script prints each build's µs per call (CUDA
@@ -19,10 +19,16 @@ limit.
 A cut build's outputs are wrong, or (``no_division``: reciprocal
 multiplies for the IEEE divisions of Hardswish and the requant) not
 bit-exact: they are timing experiments and serve no caller.
+``nz_division`` keeps the bits: it only keeps zero dividends out of
+those divisions (a zero takes ``div.rn.f32``'s slow path).
 
-Targets: ``dsconv_int8`` (``dsconv_fused_int8``'s cluster kernel at
-stem.ds0), ``group_agg`` (``group_agg_int8`` at the two MSA maps) and
-``mbconv_int8`` (``mbconv_fused_int8`` and ``_emit``, divisions only).
+Targets: ``dsconv`` (``dsconv_fused``'s band kernel at stem.ds0: the
+input rows' staging, the DW, the 1x1's arithmetic, the whole 1x1 with
+its stores, or Hardswish cut out; ``div_rn``: Hardswish's division by 6
+as ``div.rn.f32``, the same bits with its slow-path branch), ``dsconv_int8`` (``dsconv_fused_int8``'s cluster
+kernel at stem.ds0), ``group_agg`` (``group_agg_int8`` at the two MSA
+maps) and ``mbconv_int8`` (``mbconv_fused_int8`` and ``_emit``,
+divisions only).
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -41,6 +47,22 @@ OUT = os.path.join(ROOT, "build", "cuts")
 # cut: [(file, anchor, replacement), ...]; an anchor the source no longer
 # has stops the script
 CUTS = {
+    # dsconv_band
+    "dsf_stage": [("dsconv.cu", "    if (t < need && al) {\n",
+                   "    if (t < 0) {\n"),
+                  ("dsconv.cu", "    } else if (t < need) {\n",
+                   "    } else if (t < 0) {\n")],
+    "dsf_dw": [("dsconv.cu", "    if (k < nrows) {\n",
+                "    if (k < 0) {\n")],
+    "dsf_pw_math": [("dsconv.cu",
+                     "        for (int c = 0; c < C; c += 4) {\n",
+                     "        for (int c = 0; c < 0; c += 4) {\n")],
+    "dsf_pw": [("dsconv.cu", "    if (k > 0) {\n", "    if (k < 0) {\n")],
+    "dsf_hswish": [("dsconv.cu", "  if (act)\n", "  if (false)\n")],
+    "dsf_div": [("common.cuh",
+                 "  return x * div6(fminf(fmaxf(x + 3.0f, 0.0f), 6.0f));\n",
+                 "  return x * (fminf(fmaxf(x + 3.0f, 0.0f), 6.0f) "
+                 "/ 6.0f);\n")],
     # dsconv_i8_cluster
     "ds_dw": [("dsconv_int8.cu",
                "    for (int p = tid / cq; p < P; p += nu / cq) {\n",
@@ -82,14 +104,32 @@ CUTS = {
          "6.0f), 1.0f / 6.0f)"),
         ("int8.cuh", "rintf(__fdiv_rn(x, scale))",
          "rintf(__fmul_rn(x, 1.0f / scale))")],
+    # the same divisions, bit for bit, with no zero dividend (a zero sends
+    # div.rn.f32 to its slow path): divide a stand-in, select the 0
+    "nz_division": [
+        ("int8.cuh", "  return __fmul_rn(\n      x, __fdiv_rn(fminf(fmaxf("
+         "__fadd_rn(x, 3.0f), 0.0f), 6.0f), 6.0f));\n",
+         "  const float r = fminf(fmaxf(__fadd_rn(x, 3.0f), 0.0f), 6.0f);\n"
+         "  return __fmul_rn(x, r == 0.0f ? 0.0f\n"
+         "                                : __fdiv_rn(r == 0.0f ? 6.0f : r, "
+         "6.0f));\n"),
+        ("int8.cuh", "rintf(__fdiv_rn(x, scale))",
+         "(x == 0.0f ? 0.0f : rintf(__fdiv_rn(x == 0.0f ? scale : x, "
+         "scale)))")],
 }
 # target: (library, kernels of int8_kernel_cases, {build: cuts})
 TARGETS = {
+    "dsconv": ("dsconv", ("dsconv_fused",), {
+        "full": (), "no_stage": ("dsf_stage",), "no_dw": ("dsf_dw",),
+        "no_pw_math": ("dsf_pw_math",), "no_pw": ("dsf_pw",),
+        "none": ("dsf_stage", "dsf_dw", "dsf_pw"),
+        "no_hswish": ("dsf_hswish",), "div_rn": ("dsf_div",)}),
     "dsconv_int8": ("dsconv_int8", ("dsconv_fused_int8",), {
         "full": (), "no_dw": ("ds_dw",), "no_hswish": ("ds_hswish",),
         "no_qdiv": ("ds_qdiv",), "no_quant": ("ds_quant",),
         "no_mma": ("ds_mma",), "no_cluster_max": ("ds_cluster_max",),
-        "none": ("ds_dw", "ds_quant", "ds_mma", "ds_cluster_max")}),
+        "none": ("ds_dw", "ds_quant", "ds_mma", "ds_cluster_max"),
+        "nz_division": ("nz_division",)}),
     "group_agg": ("group_agg", ("group_agg_int8",), {
         "full": (), "no_dw": ("ga_dw",), "no_div": ("ga_div",),
         "no_mma": ("ga_mma",), "no_compute": ("ga_dw", "ga_div", "ga_mma")}),
@@ -154,7 +194,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("source_cuts: no CUDA device is available", file=sys.stderr)
         return 1
-    from chip_smoke import device_ms, int8_kernel_cases
+    from chip_smoke import device_ms, int8_kernel_cases, kernel_cases
 
     jobs = {}
     for target in args.targets:
@@ -168,7 +208,8 @@ def main() -> int:
         lib, kernels, builds = TARGETS[target]
         for batch in (1, 8):
             gen = torch.Generator().manual_seed(batch)
-            for case in int8_kernel_cases(batch, gen):
+            for case in kernel_cases(batch, gen) \
+                    + int8_kernel_cases(batch, gen):
                 if case[0] not in kernels:
                     continue
                 cells = []
