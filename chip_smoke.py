@@ -117,7 +117,13 @@
       SSD layer (b 1, s 32768, h 64, p 64, g 1, n 128) and s = 32668.
    Each op's output must be its kernel's (bit for bit, the kernels are
    deterministic), and each kernel is held against its plain version on
-   the same inputs: int8 outputs EQUAL, fp32 within ``TOL``.  Bounds as
+   the same inputs: int8 outputs EQUAL, fp32 within ``TOL`` (c and d
+   against the plain versions in their kernels' stages:
+   ``relu_attn_causal_scan``, ``ssd_scan_ref``).  The lines of c and d
+   give each call's CUDA launches (states, prefix, outputs) and
+   workspace bytes from the wrappers' plans; one ``torch.profiler``
+   capture over one call of each, after the phase's timing, must count
+   those launches and nothing else.  Bounds as
    in 2a/3a (the int8 peak for a and b, the fp32 non-tensor peak for c
    and d); c and d count only the causal triangle of each chunk, no
    state read in the first chunk and no state update after the last;
@@ -427,9 +433,10 @@ def library_cases(seed: int):
     each reached through the JAX package's public op at the full width
     of a model the repo ships.  One entry per case: (kernel case as in
     ``int8_kernel_cases``, the public op, a check of the op's output
-    against the kernel's, exact, reps, windows).  The kernel case runs
-    the wrapper on the op's own (folded) inputs; the 32k-token cases are
-    timed over fewer windows, never shortened."""
+    against the kernel's, exact, reps, windows, CUDA launches a call
+    where the case checks them: the scans' plans, else None).  The kernel
+    case runs the wrapper on the op's own (folded) inputs; the 32k-token
+    cases are timed over fewer windows, never shortened."""
     import math
 
     import torch
@@ -442,12 +449,13 @@ def library_cases(seed: int):
     from repro_torch.kernels.int8_matmul.kernel import int8_matmul_emit
     from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_emit_ref
-    from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
+    from repro_torch.kernels.relu_attn.kernel import (
+        relu_attn_causal, relu_attn_causal_plan)
     from repro_torch.kernels.relu_attn.ops import relu_linear_attention
-    from repro_torch.kernels.relu_attn.ref import relu_attn_causal_chunked
-    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.relu_attn.ref import relu_attn_causal_scan
+    from repro_torch.kernels.ssd.kernel import ssd_chunked, ssd_plan
     from repro_torch.kernels.ssd.ops import ssd_op
-    from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
@@ -529,7 +537,7 @@ def library_cases(seed: int):
                     lambda x=x, qp=qp, s=x_scale, ep=ep: conv1x1_w8a8(
                         qp, x, x_scale=s, epilogue=ep),
                     lambda out, ref, keep=keep: same_q(out, ref, keep),
-                    True, 20, 5))
+                    True, 20, 5, None))
     # dsconv_fused_int8_emit: stem.ds0 of B1@224, and a stride-2 case
     for batch in (1, 8):
         for H, C, st in ((112, 16, 1), (56, 32, 2)):
@@ -561,7 +569,7 @@ def library_cases(seed: int):
                     lambda x=x, p=p, st=st, ep=ep: dsconv_apply_int8(
                         p, x, stride=st, epilogue=ep),
                     lambda out, ref, keep=keep: same_q(out, ref, keep),
-                    True, 20, 5))
+                    True, 20, 5, None))
     # relu_attn_causal: Zamba2-1.2B's attention slot (32 heads x 64) and
     # the global layer of the repo's Gemma3-12B config under relu_linear
     # (16 heads x 240, the 8 kv heads repeated; that config is of the
@@ -587,11 +595,13 @@ def library_cases(seed: int):
         ops = (((tri / 2 + update, PEAK_BF16_FLOPS),
                 (tri / 2 + read, PEAK_FP32_FLOPS))
                if dt == torch.bfloat16 else tri + read + update)
+        plan = relu_attn_causal_plan(heads, N, D, C)
         kcase = (
             "relu_attn_causal", [],
-            f"{label} q,k,v(1,{N},{heads},{D}) {str(dt)[6:]} chunk={C}",
+            f"{label} q,k,v(1,{N},{heads},{D}) {str(dt)[6:]} chunk={C} "
+            f"launches={plan['launches']} workspace={plan['workspace']} B",
             lambda f=fold: relu_attn_causal(*f, chunk=C),
-            lambda f=fold: relu_attn_causal_chunked(*f, chunk=C),
+            lambda f=fold: relu_attn_causal_scan(*f, chunk=C),
             3 * q.numel() * q.element_size() + 4 * q.numel(), ops, None)
         cases.append((
             kcase,
@@ -599,7 +609,7 @@ def library_cases(seed: int):
                 q, k, v, causal=True, block_n=C),
             lambda out, ref, h=heads, n=N, d=D: torch.equal(
                 out, ref.reshape(1, h, n, d).transpose(1, 2)),
-            False, 2, 3))
+            False, 2, 3, plan["launches"]))
     # ssd_chunked: Mamba2-1.3B's SSD layer (d_inner 4096 = 64 heads x 64,
     # one group, state 128), dt in [1e-3, 0.1] and A in [-16, -1] as the
     # model's initialisation draws them
@@ -615,11 +625,13 @@ def library_cases(seed: int):
         Bf, Cf = (t.repeat_interleave(h // g, 2).transpose(1, 2)
                   .reshape(h, S, n).contiguous() for t in (B, Cm))
         args = (xf, dtf, dA, Bf, Cf)
+        plan = ssd_plan(h, S, P, n, C)
         kcase = (
             "ssd_chunked", [], f"Mamba2-1.3B b=1 s={S} h={h} p={P} g={g} "
-            f"n={n} chunk={C}",
+            f"n={n} chunk={C} launches={plan['launches']} "
+            f"workspace={plan['workspace']} B",
             lambda a=args: ssd_chunked(*a, chunk=C),
-            lambda a=args: ssd_chunked_ref(*a, chunk=C),
+            lambda a=args: ssd_scan_ref(*a, chunk=C),
             4 * sum(t.numel() for t in args) + 4 * xf.numel(),
             h * sum(causal_ops(S, C, n + P, n * P)), None)
         cases.append((
@@ -628,7 +640,7 @@ def library_cases(seed: int):
             lambda out, ref, x=x, D=D, S=S: torch.equal(
                 out, ref.reshape(1, h, S, P).transpose(1, 2)
                 + D[None, None, :, None] * x),
-            False, 2, 3))
+            False, 2, 3, plan["launches"]))
     return cases
 
 
@@ -642,14 +654,14 @@ def library_phase(seed, wrappers, expected, per_fwd, max_err) -> dict:
     cases = library_cases(seed)
     for w in wrappers.values():
         w.launches = 0
-    outs = [op() for _, op, _, _, _, _ in cases]
+    outs = [op() for _, op, *_ in cases]
     torch.cuda.synchronize()
     launches = {k: w.launches for k, w in wrappers.items()}
     print(f"[library] launches {launches}")
     if launches != dict.fromkeys(wrappers, 0) | expected:
         raise AssertionError(f"library phase launches {launches}, "
                              f"expected {expected}")
-    for (case, _, same, exact, reps, windows), out in zip(cases, outs):
+    for (case, _, same, exact, reps, windows, _), out in zip(cases, outs):
         if not same(out, case[3]()):
             raise AssertionError(f"{case[0]} {case[2]}: the public op's "
                                  f"output is not the kernel's")
@@ -658,7 +670,38 @@ def library_phase(seed, wrappers, expected, per_fwd, max_err) -> dict:
         max_err[case[0]] = max(max_err[case[0]], err)
         kernel_line("library", case, "", err, ref_max, *times)
         add_time(per_fwd[case[0]], 1, case, *times[:4], exact)
+    cuda_launches([(case, n) for case, *_, n in cases if n is not None])
     return launches
+
+
+def cuda_launches(calls) -> None:
+    """Each (case, n) of ``calls`` is n CUDA launches of the port's
+    kernels a call, and nothing else (no memset, no fill): one
+    ``torch.profiler`` capture over one call of each (the calls were
+    timed, so warm) must count the sum of the n.  Run after every timed
+    phase of the library."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for case, _ in calls:
+            case[3]()
+        torch.cuda.synchronize()
+    rows = {e.key: e.count for e in prof.key_averages() if device_us(e) > 0}
+    ours = port_kernel_names()
+    port = sum(n for key, n in rows.items() if re.match(
+        r"(?:void\s+)?(?:\w+::)*(\w+)", key).group(1) in ours)
+    want = sum(n for _, n in calls)
+    for case, n in calls:
+        print(f"[library] {case[0]} {case[2]}: {n} CUDA launches a call")
+    print(f"[library] profiler over one call of each: {port} launches of "
+          f"the port's kernels, {sum(rows.values())} in all, expected "
+          f"{want}; {sorted(rows.items())}")
+    if port != want or sum(rows.values()) != want:
+        raise AssertionError(f"the scans' calls made {dict(rows)}, "
+                             f"expected {want} launches of their kernels")
 
 
 def chain_macs(sup) -> int:

@@ -10,228 +10,255 @@
 //     out  = num / max(den, eps)
 //     state += ReLU(K)^T V,        zsum += sum_n ReLU(K)
 //
-// Bound on the H100: operations.  Per chunk the TPU kernel's products are
-// 4 C^2 d + 4 C d^2 flops against 16 C d bytes: at C = 256 and d = 64
-// ~80 flops/byte, above the card's ~20 fp32 flops/byte ridge (the fp32
-// CUDA cores: the products need full fp32, so no TF32 tensor cores).
+// Bound on the H100: operations.  Per chunk the products are 4 C^2 d +
+// 4 C d^2 flops against 16 C d bytes: at C = 256 and d = 64 ~80
+// flops/byte, above the card's ~20 fp32 flops/byte ridge (the fp32 CUDA
+// cores: the products need full fp32, so no TF32 tensor cores).
 //
-// Design.  A Hopper CTA has 227 KB of shared memory; the chunk's 256 x 256
-// score tile alone is 256 KB, and at d = 240 (Gemma3-12B's global layer)
-// the d x d state is 230 KB.  So:
-//   - one CTA per (row, slice of DE value columns): each output column
-//     needs only its own state column, plus the normalizer ReLU(Q) . zsum,
-//     which every CTA computes in full.  The split also fills the card
-//     at batch 1 (16-32 rows against 132 SMs); the wrapper picks DE.
-//   - the CTA runs its row's chunks in order (no state crosses CTAs), and
-//     inside a chunk walks 64-token query tiles; for each it adds the
-//     state term, then the 64 x 64 score tiles of the key tiles at or
-//     before it (the mask applies on the diagonal tile only).  The last
-//     query tile of a chunk also folds each key tile into the state, after
-//     every query tile has read the state at the chunk's start.
-//   - ragged N: tokens past N load as zeros and are not written, which is
-//     the TPU kernel's zero padding (padded tokens follow every real one).
-// Each thread owns 4 query rows x NJ columns (rows ty + 16 i, columns
-// tx + 16 j); tiles are padded to an odd pitch so the 16 rows a warp reads
-// at one depth fall in distinct banks.  Sums run in another order than
-// the plain version's, so the two agree to fp32 rounding, not bit for bit.
-#include <cuda_bf16.h>
+// Design: the chunk-parallel scan of chunk_scan.cuh, three launches.
+//   states   (row, chunk, 64 state rows): dS_c = ReLU(K_c)^T V_c and
+//            dz_c = sum ReLU(K_c), the chunk's tokens staged 64 at a time;
+//            workspace slot c holds dS_c (d x d) then dz_c (d).
+//   prefix   S_c = sum_{c' < c} dS_c', z_c likewise, in place.
+//   outputs  (row, chunk, 64-query tile): ReLU(Q) S_c (the state streamed
+//            through shared memory 64 rows at a time) and ReLU(Q) . z_c,
+//            then per key tile at or before the query tile the 64 x 64
+//            scores (masked on the diagonal tile) and scores . [V | 1],
+//            all d output columns of the tile in one CTA (64 G columns a
+//            thread row, G = ceil(d / 64)), so each score tile is
+//            computed once.  The grid's fastest index is the query tile:
+//            a chunk's tiles read S_c together, from L2.
+// Ragged N: tokens past N load as zeros and are not written, which is
+// the TPU kernel's zero padding (padded tokens follow every real one).
+// Sums run in another order than the plain version's, so the two agree
+// to fp32 rounding, not bit for bit; each call gives the same bits.
+#include "chunk_scan.cuh"
 
-#include "common.cuh"
+using namespace cscan;
 
-constexpr int CT = 64;            // token tile: query rows and key rows
-constexpr int CT_THREADS = 256;   // 16 x 16
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// Floats of one workspace slot: the d x d state, then the normalizer.
+__host__ __device__ inline size_t slot_floats(int D) {
+  return (size_t)D * D + D;
 }
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(CT_THREADS)
-    relu_attn_causal_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, float* __restrict__ out,
-                            int N, int D, int chunk, float eps) {
-  constexpr int DE = 16 * NJ;
-  extern __shared__ float smem[];
-  const int DP = D + 1;
-  float* st = smem;               // [D][DE] state slice, ReLU(K)^T V
-  float* zs = st + D * DE;        // [D] normalizer, sum of ReLU(K)
-  float* qs = zs + D;             // [CT][DP] ReLU(Q) tile
-  float* ks = qs + CT * DP;       // [CT][DP] ReLU(K) tile
-  float* vs = ks + CT * DP;       // [CT][DE] V tile, this CTA's columns
-  float* ss = vs + CT * DE;       // [CT][CT + 1] masked scores
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int e0 = blockIdx.y * DE, de = min(DE, D - e0);
-  const size_t base = (size_t)blockIdx.x * N * D;
+template <typename T, int G>
+__global__ void __launch_bounds__(NT, G <= 2 ? 2 : 1)
+    causal_states(const T* __restrict__ k, const T* __restrict__ v,
+                  float* __restrict__ ws, int N, int D, int chunk, int nr,
+                  int nc) {
+  extern __shared__ float4 smem4[];
+  float* as = reinterpret_cast<float*>(smem4);   // [TILE][TILE] ReLU(K)
+  float* bs = as + TILE * TILE;                  // [TILE][64 G] V
+  constexpr int VP = 64 * G;
+  int t = blockIdx.x;
+  const int rt = t % nr;
+  t /= nr;
+  const int c = t % (nc - 1), row = t / (nc - 1);
+  const int c0 = c * chunk, r0 = rt * TILE;
+  const size_t base = (size_t)row * N * D;
+  float acc[4][G][4] = {}, za[4] = {};
+  for (int m0 = 0; m0 < chunk; m0 += TILE) {
+    const int mn = min(TILE, chunk - m0);
+    __syncthreads();   // the previous tokens are read
+    const size_t at = base + (size_t)(c0 + m0) * D;
+    const bool ka = stage_start<true>(as, TILE, k + at, mn, D, r0, TILE,
+                                      nullptr);
+    stage_start<false>(bs, VP, v + at, mn, D, 0, VP, nullptr);
+    cp_async_commit();
+    cp_async_wait<0>();
+    if (ka) stage_finish<true>(as, TILE, mn, TILE, nullptr);
+    __syncthreads();
+    outer_acc<G, true>(acc, za, as, bs, VP, mn);
+  }
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* W = ws + ((size_t)row * nc + c) * slot_floats(D);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int d = r0 + 4 * ty + u;
+    if (d >= D) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g) store4(W + (size_t)d * D, 4 * tx + 64 * g, D,
+                                       acc[u][g]);
+    if (tx == 0) W[(size_t)D * D + d] = za[u];
+  }
+}
 
-  for (int i = tid; i < D * DE + D; i += CT_THREADS) st[i] = 0.0f;
-  for (int c0 = 0; c0 < N; c0 += chunk) {
-    const int cn = min(chunk, N - c0), nt = (cn + CT - 1) / CT;
-    for (int qi = 0; qi < nt; ++qi) {
-      const int q0 = c0 + qi * CT, qn = min(CT, cn - qi * CT);
-      __syncthreads();   // the state is final; the previous tiles are read
-      for (int i = tid; i < CT * D; i += CT_THREADS) {
-        const int r = i / D, d = i % D;
-        qs[r * DP + d] =
-            r < qn ? fmaxf(to_f32(q[base + (size_t)(q0 + r) * D + d]), 0.0f)
-                   : 0.0f;
-      }
+template <typename T, int G>
+__global__ void __launch_bounds__(NT, G == 1 ? 2 : 1)
+    causal_out(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const float* __restrict__ ws,
+               float* __restrict__ out, int N, int D, int chunk, int nq,
+               int nc, float eps) {
+  extern __shared__ float4 smem4[];
+  constexpr int VP = 64 * G;
+  const int ap = apitch(D), dp = pad4(D);
+  float* qs = reinterpret_cast<float*>(smem4);   // [TILE][ap] ReLU(Q)
+  float* ks = qs + TILE * ap;                    // [TILE][ap] ReLU(K)
+  float* vs = ks + TILE * ap;                    // [TILE][VP] V or state
+  float* ss = vs + TILE * VP;                    // [TILE][SP] scores
+  float* zs = ss + TILE * SP;                    // [dp] normalizer
+  int t = blockIdx.x;
+  const int qi = t % nq;
+  t /= nq;
+  const int c = t % nc, row = t / nc;
+  const int c0 = c * chunk, cn = min(chunk, N - c0), q0 = qi * TILE;
+  if (q0 >= cn) return;
+  const int qn = min(TILE, cn - q0);
+  const size_t base = (size_t)row * N * D;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  // Q, then the first key tile's K, in flight at once
+  const bool qa = stage_start<true>(qs, ap, q + base + (size_t)(c0 + q0) * D,
+                                    qn, D, 0, dp, nullptr);
+  cp_async_commit();
+  bool ka = stage_start<true>(ks, ap, k + base + (size_t)c0 * D,
+                              min(TILE, cn), D, 0, dp, nullptr);
+  cp_async_commit();
+  cp_async_wait<1>();   // Q
+  if (qa) stage_finish<true>(qs, ap, qn, dp, nullptr);
+  float acc[4][G][4] = {}, den[4] = {};
+  if (c > 0) {   // the state term: ReLU(Q) S_c and ReLU(Q) . z_c
+    const float* S = ws + ((size_t)row * nc + c) * slot_floats(D);
+    for (int i = threadIdx.x; i < dp; i += NT)
+      zs[i] = i < D ? S[(size_t)D * D + i] : 0.0f;
+    for (int d0 = 0; d0 < dp; d0 += TILE) {
+      __syncthreads();   // the previous state rows are read
+      stage_start<false>(vs, VP, S + (size_t)d0 * D, min(TILE, D - d0), D,
+                         0, VP, nullptr);
+      cp_async_commit();
+      cp_async_wait<0>();
       __syncthreads();
-      // the state term: ReLU(Q) against the state at the chunk's start
-      float acc[4][NJ], den[4];
+      mul_acc<G, DEN_VEC>(acc, den, qs + d0, ap, vs, VP, min(TILE, dp - d0),
+                          zs + d0);
+    }
+  }
+  // Per key tile: V's copies run under the scores, the next K's under
+  // scores . V.
+  for (int ki = 0; ki <= qi; ++ki) {
+    const int k0 = ki * TILE, kn = min(TILE, cn - k0);
+    __syncthreads();   // scores . V (or the state term) is done with vs
+    stage_start<false>(vs, VP, v + base + (size_t)(c0 + k0) * D, kn, D, 0,
+                       VP, nullptr);
+    cp_async_commit();
+    cp_async_wait<1>();   // this key tile's K
+    if (ka) stage_finish<true>(ks, ap, kn, dp, nullptr);
+    __syncthreads();
+    const bool diag = ki == qi;
+    float s[4][4];
+    score_tile(s, qs, ks, ap, dp, diag_blocks(diag));
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        den[i] = 0.0f;
+    for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * ty + i, m = tx + 16 * j;
+        ss[r * SP + m] = (diag && m > r) ? 0.0f : s[i][j];
       }
-      for (int d = 0; d < D; ++d) {
-        const float z = zs[d];
-        float sv[NJ];
+    cp_async_wait<0>();   // V
+    __syncthreads();   // the scores and V are in; ks is read
+    if (ki < qi) {
+      const int k1 = k0 + TILE;
+      ka = stage_start<true>(ks, ap, k + base + (size_t)(c0 + k1) * D,
+                             min(TILE, cn - k1), D, 0, dp, nullptr);
+    }
+    cp_async_commit();
+    mul_acc<G, DEN_ONES>(acc, den, ss, SP, vs, VP, diag_keys(diag, kn),
+                         nullptr);
+  }
 #pragma unroll
-        for (int j = 0; j < NJ; ++j) sv[j] = st[d * DE + tx + 16 * j];
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * ty + i;
+    if (r >= qn) continue;
+    const float dd = fmaxf(den[i], eps);
+    float* orow = out + base + (size_t)(c0 + q0 + r) * D;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float a = qs[(ty + 16 * i) * DP + d];
-          den[i] += a * z;
+    for (int g = 0; g < G; ++g) {
+      float o[4];
 #pragma unroll
-          for (int j = 0; j < NJ; ++j) acc[i][j] += a * sv[j];
-        }
-      }
-      const bool last = qi == nt - 1;
-      for (int ki = 0; ki <= qi; ++ki) {
-        const int k0 = c0 + ki * CT, kn = min(CT, cn - ki * CT);
-        __syncthreads();   // the state term and the previous key tile read
-        for (int i = tid; i < CT * D; i += CT_THREADS) {
-          const int r = i / D, d = i % D;
-          ks[r * DP + d] =
-              r < kn
-                  ? fmaxf(to_f32(k[base + (size_t)(k0 + r) * D + d]), 0.0f)
-                  : 0.0f;
-        }
-        for (int i = tid; i < CT * DE; i += CT_THREADS) {
-          const int r = i / DE, c = i % DE;
-          vs[i] = (r < kn && c < de)
-                      ? to_f32(v[base + (size_t)(k0 + r) * D + e0 + c])
-                      : 0.0f;
-        }
-        __syncthreads();
-        {
-          float s[4][4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
-          for (int d = 0; d < D; ++d) {
-            float a[4], b[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = qs[(ty + 16 * i) * DP + d];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) b[j] = ks[(tx + 16 * j) * DP + d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j) s[i][j] += a[i] * b[j];
-          }
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int r = ty + 16 * i, c = tx + 16 * j;
-              ss[r * (CT + 1) + c] = (ki == qi && c > r) ? 0.0f : s[i][j];
-            }
-        }
-        __syncthreads();
-        for (int c = 0; c < kn; ++c) {
-          float vv[NJ];
-#pragma unroll
-          for (int j = 0; j < NJ; ++j) vv[j] = vs[c * DE + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float sv = ss[(ty + 16 * i) * (CT + 1) + c];
-            den[i] += sv;
-#pragma unroll
-            for (int j = 0; j < NJ; ++j) acc[i][j] += sv * vv[j];
-          }
-        }
-        if (last) {   // fold this key tile into the state
-          for (int i = tid; i < D * DE; i += CT_THREADS) {
-            const int d = i / DE, c = i % DE;
-            float a = 0.0f;
-            for (int n = 0; n < kn; ++n) a += ks[n * DP + d] * vs[n * DE + c];
-            st[i] += a;
-          }
-          for (int d = tid; d < D; d += CT_THREADS) {
-            float a = 0.0f;
-            for (int n = 0; n < kn; ++n) a += ks[n * DP + d];
-            zs[d] += a;
-          }
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty + 16 * i;
-        if (r >= qn) continue;
-        const float dd = fmaxf(den[i], eps);
-        float* orow = out + base + (size_t)(q0 + r) * D + e0;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const int c = tx + 16 * j;
-          if (c < de) orow[c] = acc[i][j] / dd;
-        }
-      }
+      for (int u = 0; u < 4; ++u) o[u] = acc[i][g][u] / dd;
+      store4(orow, 4 * tx + 64 * g, D, o);
     }
   }
 }
 
-// Shared-memory bytes of one CTA; python mirror:
+// Shared-memory bytes of one CTA of each launch; python mirror:
 // kernels/relu_attn/kernel.py::relu_attn_causal_smem_bytes.
-static size_t causal_smem_bytes(int D, int DE) {
-  return sizeof(float) * ((size_t)D * DE + D + 2 * (size_t)CT * (D + 1) +
-                          (size_t)CT * DE + (size_t)CT * (CT + 1));
+static size_t causal_states_smem(int G) {
+  return sizeof(float) * ((size_t)TILE * TILE + (size_t)TILE * 64 * G);
+}
+static size_t causal_out_smem(int D, int G) {
+  return sizeof(float) * (2 * (size_t)TILE * apitch(D) +
+                          (size_t)TILE * 64 * G + (size_t)TILE * SP +
+                          pad4(D));
 }
 
-template <typename T, int NJ>
+template <typename T, int G>
 static int causal_launch(const T* q, const T* k, const T* v, float* out,
-                         int BH, int N, int D, int chunk, float eps,
-                         cudaStream_t s) {
-  const size_t smem = causal_smem_bytes(D, 16 * NJ);
-  static size_t granted = 48 * 1024;
-  cudaError_t err = allow_smem(relu_attn_causal_kernel<T, NJ>, smem, &granted);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(BH, (D + 16 * NJ - 1) / (16 * NJ));
-  relu_attn_causal_kernel<T, NJ><<<grid, CT_THREADS, smem, s>>>(
-      q, k, v, out, N, D, chunk, eps);
+                         float* ws, int BH, int N, int D, int chunk,
+                         float eps, cudaStream_t s) {
+  static size_t granted_states = 48 * 1024, granted_out = 48 * 1024;
+  const int nc = (N + chunk - 1) / chunk, nr = (D + TILE - 1) / TILE;
+  const int nq = (chunk + TILE - 1) / TILE;
+  cudaError_t err;
+  const bool run_states = nc > 1;
+  if (run_states) {
+    const size_t smem = causal_states_smem(G);
+    err = allow_smem(causal_states<T, G>, smem, &granted_states);
+    if (err != cudaSuccess) return (int)err;
+    causal_states<T, G><<<(unsigned)BH * (nc - 1) * nr, NT, smem, s>>>(
+        k, v, ws, N, D, chunk, nr, nc);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  const bool run_prefix = nc > 1;
+  if (run_prefix) {
+    const int st = prefix_launch<false>(ws, nullptr, BH, nc,
+                                        (long long)slot_floats(D), s);
+    if (st) return st;
+  }
+  const bool run_out = true;
+  if (run_out) {
+    const size_t smem = causal_out_smem(D, G);
+    err = allow_smem(causal_out<T, G>, smem, &granted_out);
+    if (err != cudaSuccess) return (int)err;
+    causal_out<T, G><<<(unsigned)BH * nc * nq, NT, smem, s>>>(
+        q, k, v, ws, out, N, D, chunk, nq, nc, eps);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 static int causal_dispatch(const T* q, const T* k, const T* v, float* out,
-                           int BH, int N, int D, int chunk, int de, float eps,
-                           void* stream) {
+                           float* ws, int BH, int N, int D, int chunk,
+                           float eps, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (de) {
-    case 16: return causal_launch<T, 1>(q, k, v, out, BH, N, D, chunk, eps, s);
-    case 32: return causal_launch<T, 2>(q, k, v, out, BH, N, D, chunk, eps, s);
-    case 48: return causal_launch<T, 3>(q, k, v, out, BH, N, D, chunk, eps, s);
-    case 64: return causal_launch<T, 4>(q, k, v, out, BH, N, D, chunk, eps, s);
+  switch ((D + 63) / 64) {
+    case 1: return causal_launch<T, 1>(q, k, v, out, ws, BH, N, D, chunk, eps, s);
+    case 2: return causal_launch<T, 2>(q, k, v, out, ws, BH, N, D, chunk, eps, s);
+    case 3: return causal_launch<T, 3>(q, k, v, out, ws, BH, N, D, chunk, eps, s);
+    case 4: return causal_launch<T, 4>(q, k, v, out, ws, BH, N, D, chunk, eps, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// q, k, v: (BH, N, D) contiguous; out (BH, N, D) fp32; `de` value columns
-// per CTA (16, 32, 48 or 64).
+// causal_states_smem (out == 0) or causal_out_smem (out != 0) at head
+// dim D, for the python mirror's test.
+REPRO_EXPORT long long relu_attn_causal_smem_c(int D, int out) {
+  const int G = (D + 63) / 64;
+  return (long long)(out ? causal_out_smem(D, G) : causal_states_smem(G));
+}
+
+// q, k, v: (BH, N, D) contiguous, D <= 256; out (BH, N, D) fp32; ws the
+// workspace, BH * ceil(N / chunk) * (D * D + D) floats (unused, and may
+// be null, for a single chunk).
 REPRO_EXPORT int relu_attn_causal_f32(const float* q, const float* k,
-                                      const float* v, float* out, int BH,
-                                      int N, int D, int chunk, int de,
+                                      const float* v, float* out, float* ws,
+                                      int BH, int N, int D, int chunk,
                                       float eps, void* stream) {
-  return causal_dispatch(q, k, v, out, BH, N, D, chunk, de, eps, stream);
+  return causal_dispatch(q, k, v, out, ws, BH, N, D, chunk, eps, stream);
 }
 
 REPRO_EXPORT int relu_attn_causal_bf16(const __nv_bfloat16* q,
                                        const __nv_bfloat16* k,
                                        const __nv_bfloat16* v, float* out,
-                                       int BH, int N, int D, int chunk,
-                                       int de, float eps, void* stream) {
-  return causal_dispatch(q, k, v, out, BH, N, D, chunk, de, eps, stream);
+                                       float* ws, int BH, int N, int D,
+                                       int chunk, float eps, void* stream) {
+  return causal_dispatch(q, k, v, out, ws, BH, N, D, chunk, eps, stream);
 }

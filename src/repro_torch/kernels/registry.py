@@ -36,8 +36,7 @@ from typing import Any, Dict, Optional, Protocol, Tuple
 __all__ = ["KernelImpl", "KernelBase", "register", "get_kernel",
            "get_probe", "conv_block_precision", "resolve_conv_precision",
            "SMEM_LIMIT", "N_SM", "SMEM_PER_SM", "SMEM_2_PER_SM", "CLUSTERS",
-           "SCAN_TILE",
-           "column_split"]
+           "SCAN_TILE", "SCAN_SCORE_PITCH", "SCAN_MAX_WIDTH", "scan_pitch"]
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one CTA may use on an H100
 N_SM = 132             # streaming multiprocessors of an H100 SXM
@@ -53,30 +52,20 @@ SMEM_2_PER_SM = SMEM_PER_SM // 2 - 1024
 CLUSTERS = {1: {1: 132, 2: 66, 4: 30, 8: 15, 16: 7},
             2: {1: 264, 2: 132, 4: 62, 8: 30, 16: 14}}
 
-# The token tile of the chunked scan kernels (``CT`` in their sources).
+# The chunk-parallel scans (``csrc/chunk_scan.cuh``): the token tile
+# (``TILE``), the pitch of the score tile (``SP``) and the widest state
+# row (4 groups of 64 columns).
 SCAN_TILE = 64
+SCAN_SCORE_PITCH = 68
+SCAN_MAX_WIDTH = 256
 
 
-def column_split(rows: int, width: int, shared_work: float,
-                 col_work: float, smem_bytes) -> int:
-    """Columns per CTA (16, 32, 48 or 64) for a chunked scan kernel whose
-    CTA owns one of ``rows`` rows and a slice of its ``width`` output
-    columns.  Every CTA repeats ``shared_work`` per chunk (the score
-    tile) and does ``col_work`` per owned column; the cost of a choice is
-    its waves of CTAs over the card's SMs times one CTA's work, the
-    cheapest that fits in shared memory wins (the wider on a tie)."""
-    best = None
-    for de in (64, 48, 32, 16):
-        if smem_bytes(de) > SMEM_LIMIT:
-            continue
-        ctas = rows * -(-width // de)
-        cost = -(-ctas // N_SM) * (shared_work + de * col_work)
-        if best is None or cost < best[0]:
-            best = (cost, de)
-    if best is None:
-        raise ValueError(f"no column slice of width {width} fits in "
-                         f"{SMEM_LIMIT} B of shared memory")
-    return best[1]
+def scan_pitch(n: int) -> int:
+    """Floats between staged rows of ``n`` values (``apitch`` in
+    ``chunk_scan.cuh``): n rounded up to 4, plus 4 where that holds an
+    even number of float4s."""
+    p = -(-n // 4) * 4
+    return p if p // 4 % 2 else p + 4
 
 
 class KernelImpl(Protocol):

@@ -12,12 +12,14 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
-from repro_torch.kernels.registry import SCAN_TILE, SMEM_LIMIT, column_split
+from repro_torch.kernels.registry import (
+    SCAN_MAX_WIDTH, SCAN_SCORE_PITCH, SCAN_TILE, SMEM_LIMIT, scan_pitch)
 from repro_torch.kernels.relu_attn.ref import (
-    EPS, relu_attn_causal_chunked, relu_attn_noncausal_ref)
+    EPS, relu_attn_causal_scan, relu_attn_noncausal_ref)
 
 __all__ = ["relu_attn_noncausal", "relu_attn_smem_bytes", "relu_attn_plan",
-           "relu_attn_causal", "relu_attn_causal_smem_bytes"]
+           "relu_attn_causal", "relu_attn_causal_smem_bytes",
+           "relu_attn_causal_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -141,21 +143,44 @@ def relu_attn_noncausal(q, k, v, *, block_n: int = 256, eps: float = EPS,
 relu_attn_noncausal.launches = 0
 
 
-def relu_attn_causal_smem_bytes(d: int, de: int) -> int:
-    """One CTA's shared memory (mirrors ``causal_smem_bytes`` in the
-    CUDA source): the d x de state slice and the d normalizer, a ReLU(Q)
-    and a ReLU(K) tile at an odd pitch, a V tile and the score tile."""
-    t = SCAN_TILE
-    return 4 * (d * de + d + 2 * t * (d + 1) + t * de + t * (t + 1))
+def relu_attn_causal_smem_bytes(d: int) -> dict:
+    """One CTA's shared memory in each launch of the scan (mirrors
+    ``causal_states_smem`` / ``causal_out_smem`` in the CUDA source),
+    with G = ceil(d / 64) column groups: ``states``, a ReLU(K) tile of
+    the state's 64 rows and a V tile; ``out``, the ReLU(Q) and ReLU(K)
+    tiles at ``scan_pitch(d)``, a V (or state) tile, the score tile and
+    the normalizer."""
+    t, g = SCAN_TILE, -(-d // 64)
+    return {"states": 4 * (t * t + t * 64 * g),
+            "out": 4 * (2 * t * scan_pitch(d) + t * 64 * g
+                        + t * SCAN_SCORE_PITCH + -(-d // 4) * 4)}
+
+
+def relu_attn_causal_plan(bh: int, n: int, d: int, chunk: int = 256
+                          ) -> dict:
+    """How ``relu_attn_causal`` runs (BH, N, D) rows in chunks of
+    ``min(chunk, N)``: ``chunks`` per row, CUDA ``launches`` per call
+    (states, prefix, outputs; the outputs alone for one chunk), the
+    ``workspace`` bytes (a d x d state and a d normalizer per chunk) and
+    ``smem`` (``relu_attn_causal_smem_bytes``)."""
+    C = min(chunk, n)
+    nc = -(-n // C)
+    return {"chunk": C, "chunks": nc, "launches": 3 if nc > 1 else 1,
+            "workspace": 4 * bh * nc * (d * d + d) if nc > 1 else 0,
+            "smem": relu_attn_causal_smem_bytes(d)}
 
 
 def relu_attn_causal(q, k, v, *, chunk: int = 256, eps: float = EPS):
     """q, k, v: (BH, N, D), all fp32 or all bf16 -> (BH, N, D) fp32,
     causal, in chunks of ``min(chunk, N)`` tokens (ragged N as if
-    zero-padded).  One launch: a CTA per (row, slice of value columns)
-    runs the row's chunks in order (``csrc/relu_attn_causal.cu``)."""
+    zero-padded), D <= 256.  One call, three CUDA launches
+    (``csrc/relu_attn_causal.cu``): each chunk's state, the exclusive
+    prefix over chunks, then the outputs of every (chunk, query tile),
+    with the workspace (``relu_attn_causal_plan``) from PyTorch's
+    allocator.  On the CPU: the same stages in plain PyTorch
+    (``relu_attn_causal_scan``)."""
     if q.device.type == "cpu":
-        return relu_attn_causal_chunked(q, k, v, chunk=chunk, eps=eps)
+        return relu_attn_causal_scan(q, k, v, chunk=chunk, eps=eps)
     if q.device.type != "cuda":
         raise ValueError(f"relu_attn_causal runs on cuda or cpu, not "
                          f"{q.device}")
@@ -167,17 +192,21 @@ def relu_attn_causal(q, k, v, *, chunk: int = 256, eps: float = EPS):
     BH, N, D = q.shape
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         check_input(t, name, (BH, N, D), q.device, q.dtype)
-    C = min(chunk, N)
-    de = column_split(BH, D, C * C * D / 2, C * C / 2 + 2 * C * D,
-                      lambda w: relu_attn_causal_smem_bytes(D, w))
+    if not 0 < D <= SCAN_MAX_WIDTH or BH > 65535:
+        raise ValueError(f"relu_attn_causal takes D in 1..{SCAN_MAX_WIDTH} "
+                         f"and BH <= 65535, got D = {D}, BH = {BH}")
+    plan = relu_attn_causal_plan(BH, N, D, chunk)
     out = torch.empty((BH, N, D), dtype=torch.float32, device=q.device)
+    ws = torch.empty(plan["workspace"] // 4, dtype=torch.float32,
+                     device=q.device)
     lib = library("relu_attn_causal")
     fn = (lib.relu_attn_causal_f32 if q.dtype == torch.float32
           else lib.relu_attn_causal_bf16)
-    fn.argtypes = [_P] * 4 + [_I] * 5 + [ctypes.c_float, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]
     fn.restype = _I
-    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), BH,
-                N, D, C, de, eps, stream_of(q))
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), BH, N, D,
+                plan["chunk"], eps, stream_of(q))
     check(lib, status, "relu_attn_causal")
     relu_attn_causal.launches += 1
     return out

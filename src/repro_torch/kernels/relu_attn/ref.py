@@ -3,10 +3,12 @@
 ``relu_attn_noncausal_ref`` is the CPU path of
 ``kernel.relu_attn_noncausal`` and its yardstick on the card; layout
 (G, N, heads, d): the JAX kernel's (BH, N, D) rows are the (g, head)
-pairs, folded by strides instead of a copy.  ``relu_attn_causal_chunked``
-is the CPU path and yardstick of ``kernel.relu_attn_causal``, in the TPU
-kernel's chunk order; ``relu_attn_causal_ref`` is the O(N^2) masked
-oracle (JAX's ``relu_attn_causal_ref``), for small N only.
+pairs, folded by strides instead of a copy.  ``relu_attn_causal_scan``
+is the CPU path and yardstick of ``kernel.relu_attn_causal``, in the
+kernel's stages (each chunk's state, the exclusive prefix over chunks,
+the outputs); ``relu_attn_causal_chunked`` runs in the TPU kernel's
+chunk order and ``relu_attn_causal_ref`` is the O(N^2) masked oracle
+(JAX's ``relu_attn_causal_ref``), for small N only: both are oracles.
 """
 from __future__ import annotations
 
@@ -79,3 +81,37 @@ def relu_attn_causal_chunked(q, k, v, *, chunk: int = 256,
         state = state + kc.transpose(1, 2) @ vc
         zsum = zsum + kc.sum(dim=1, keepdim=True)
     return out[:, :N]
+
+
+def relu_attn_causal_scan(q, k, v, *, chunk: int = 256, eps: float = EPS):
+    """q, k, v: (BH, N, D) fp32 or bf16 -> (BH, N, D) fp32, causal, in
+    chunks of ``min(chunk, N)`` (N zero-padded to whole chunks), in the
+    stages of the CUDA kernel's chunk-parallel scan:
+
+    1. each chunk's own state ``dS_c = ReLU(K_c)^T V_c`` and normalizer
+       ``dz_c = sum ReLU(K_c)``;
+    2. the exclusive prefix over chunks: the state entering chunk c is
+       ``S_c = sum_{c' < c} dS_c'`` (``z_c`` likewise; ``S_0 = 0``);
+    3. per chunk ``s = tril(ReLU(Q_c) ReLU(K_c)^T)``, ``num = s V_c +
+       ReLU(Q_c) S_c``, ``den = rowsum(s) + ReLU(Q_c) . z_c`` and ``num /
+       max(den, eps)``."""
+    BH, N, D = q.shape
+    C = min(chunk, N)
+    pad = -N % C
+    nc = (N + pad) // C
+
+    def chunks(t):
+        return F.pad(t, (0, 0, 0, pad)).reshape(BH, nc, C, D)
+    pq, pk = chunks(torch.relu(q.float())), chunks(torch.relu(k.float()))
+    vf = chunks(v.float())
+    dS = pk.transpose(-1, -2) @ vf                         # (BH, nc, D, D)
+    dz = pk.sum(dim=2)                                     # (BH, nc, D)
+    S, z = torch.zeros_like(dS), torch.zeros_like(dz)
+    S[:, 1:] = torch.cumsum(dS[:, :-1], dim=1)
+    z[:, 1:] = torch.cumsum(dz[:, :-1], dim=1)
+    tril = torch.ones((C, C), dtype=torch.float32, device=q.device).tril()
+    s = (pq @ pk.transpose(-1, -2)) * tril
+    num = s @ vf + pq @ S
+    den = s.sum(dim=-1, keepdim=True) + pq @ z[..., None]
+    out = num / torch.clamp(den, min=eps)
+    return out.reshape(BH, nc * C, D)[:, :N]

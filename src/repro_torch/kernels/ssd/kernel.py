@@ -2,7 +2,7 @@
 
 Replaces ``repro/kernels/ssd/kernel.py::ssd_chunked_pallas``.  A CUDA
 tensor launches the kernel (or raises); a CPU tensor takes the plain
-version ``ref.ssd_chunked_ref``.
+version ``ref.ssd_scan_ref``.
 """
 from __future__ import annotations
 
@@ -11,31 +11,52 @@ import ctypes
 import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
-from repro_torch.kernels.registry import SCAN_TILE, column_split
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+from repro_torch.kernels.registry import (
+    SCAN_MAX_WIDTH, SCAN_SCORE_PITCH, SCAN_TILE, SMEM_LIMIT, scan_pitch)
+from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
-__all__ = ["ssd_chunked", "ssd_smem_bytes"]
+__all__ = ["ssd_chunked", "ssd_smem_bytes", "ssd_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def ssd_smem_bytes(n: int, pe: int, chunk: int) -> int:
-    """One CTA's shared memory (mirrors ``ssd_smem_bytes`` in the CUDA
-    source): the n x pe state slice, the chunk's cumsum, dt and decays,
-    a Cm and a Bm tile at an odd pitch, an x tile and the score tile."""
-    t = SCAN_TILE
-    return 4 * (n * pe + 3 * chunk + 2 * t * (n + 1) + t * pe + t * (t + 1))
+def ssd_smem_bytes(n: int, p: int, chunk: int) -> dict:
+    """One CTA's shared memory in each launch of the scan (mirrors
+    ``ssd_states_smem`` / ``ssd_out_smem`` in the CUDA source), with G =
+    ceil(p / 64) column groups: ``states``, the chunk's cumsum and
+    weights, a Bm tile of the state's 64 rows and an x tile; ``out``, the
+    chunk's cumsum and dt, the Cm and Bm tiles at ``scan_pitch(n)``, an x
+    (or state) tile and the score tile."""
+    t, g, c4 = SCAN_TILE, -(-p // 64), -(-chunk // 4) * 4
+    return {"states": 4 * (2 * c4 + t * t + t * 64 * g),
+            "out": 4 * (2 * c4 + 2 * t * scan_pitch(n) + t * 64 * g
+                        + t * SCAN_SCORE_PITCH)}
+
+
+def ssd_plan(bh: int, s: int, p: int, n: int, chunk: int = 256) -> dict:
+    """How ``ssd_chunked`` runs (BH, S) rows in chunks of ``min(chunk,
+    S)``: ``chunks`` per row, CUDA ``launches`` per call (states, prefix,
+    outputs; the outputs alone for one chunk), the ``workspace`` bytes (an
+    n x p state and a decay per chunk) and ``smem`` (``ssd_smem_bytes``)."""
+    C = min(chunk, s)
+    nc = -(-s // C)
+    return {"chunk": C, "chunks": nc, "launches": 3 if nc > 1 else 1,
+            "workspace": 4 * bh * nc * (n * p + 1) if nc > 1 else 0,
+            "smem": ssd_smem_bytes(n, p, C)}
 
 
 def ssd_chunked(x, dt, dA, Bm, Cm, *, chunk: int = 256):
     """x: (BH, S, P); dt, dA: (BH, S); Bm, Cm: (BH, S, N), fp32 -> y (BH,
     S, P) fp32, in chunks of ``min(chunk, S)`` tokens; a ragged S runs as
     if zero-padded with dt = dA = 0 (the TPU kernel instead takes the
-    whole sequence as one chunk).  One launch: a CTA per (row, slice of
-    head-dim columns) runs the row's chunks in order."""
+    whole sequence as one chunk).  N, P <= 256.  One call, three CUDA
+    launches (``csrc/ssd.cu``): each chunk's state and decay, the decayed
+    exclusive prefix over chunks, then the outputs of every (chunk, query
+    tile), with the workspace (``ssd_plan``) from PyTorch's allocator.
+    On the CPU: the same stages in plain PyTorch (``ssd_scan_ref``)."""
     if x.device.type == "cpu":
-        return ssd_chunked_ref(x, dt, dA, Bm, Cm, chunk=chunk)
+        return ssd_scan_ref(x, dt, dA, Bm, Cm, chunk=chunk)
     if x.device.type != "cuda":
         raise ValueError(f"ssd_chunked runs on cuda or cpu, not {x.device}")
     BH, S, P = x.shape
@@ -44,16 +65,23 @@ def ssd_chunked(x, dt, dA, Bm, Cm, *, chunk: int = 256):
                            (dA, "dA", (BH, S)), (Bm, "Bm", (BH, S, N)),
                            (Cm, "Cm", (BH, S, N))):
         check_input(t, name, shape, x.device)
-    C = min(chunk, S)
-    pe = column_split(BH, P, C * C * N / 2, C * C / 2 + 2 * C * N,
-                      lambda w: ssd_smem_bytes(N, w, C))
+    plan = ssd_plan(BH, S, P, N, chunk)
+    if not (0 < P <= SCAN_MAX_WIDTH and 0 < N <= SCAN_MAX_WIDTH
+            and BH <= 65535) or max(plan["smem"].values()) > SMEM_LIMIT:
+        raise ValueError(f"ssd_chunked takes P, N in 1..{SCAN_MAX_WIDTH}, "
+                         f"BH <= 65535 and a chunk whose tiles fit in "
+                         f"{SMEM_LIMIT} B; got P = {P}, N = {N}, BH = {BH}, "
+                         f"chunk = {plan['chunk']}")
     y = torch.empty((BH, S, P), dtype=torch.float32, device=x.device)
+    ws = torch.empty(plan["workspace"] // 4, dtype=torch.float32,
+                     device=x.device)
     lib = library("ssd")
     fn = lib.ssd_chunked_f32
-    fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+    fn.argtypes = [_P] * 7 + [_I] * 5 + [_P]
     fn.restype = _I
     status = fn(x.data_ptr(), dt.data_ptr(), dA.data_ptr(), Bm.data_ptr(),
-                Cm.data_ptr(), y.data_ptr(), BH, S, P, N, C, pe, stream_of(x))
+                Cm.data_ptr(), y.data_ptr(), ws.data_ptr(), BH, S, P, N,
+                plan["chunk"], stream_of(x))
     check(lib, status, "ssd_chunked")
     ssd_chunked.launches += 1
     return y

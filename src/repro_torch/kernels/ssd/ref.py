@@ -2,16 +2,18 @@
 
 ``ssd_recurrent_ref`` is the per-step recurrence (JAX's
 ``repro/kernels/ssd/ref.py::ssd_recurrent_ref``), an oracle for small
-sequences.  ``ssd_chunked_ref`` is the CPU path of ``kernel.ssd_chunked``
-and its yardstick on the card, in the TPU kernel's chunk order
-(``repro/kernels/ssd/kernel.py::_ssd_kernel``).
+sequences.  ``ssd_scan_ref`` is the CPU path of ``kernel.ssd_chunked``
+and its yardstick on the card, in the kernel's stages (each chunk's
+state, the decayed exclusive prefix over chunks, the outputs);
+``ssd_chunked_ref`` runs in the TPU kernel's chunk order
+(``repro/kernels/ssd/kernel.py::_ssd_kernel``), an oracle.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["ssd_recurrent_ref", "ssd_chunked_ref"]
+__all__ = ["ssd_recurrent_ref", "ssd_chunked_ref", "ssd_scan_ref"]
 
 
 def ssd_recurrent_ref(x, dt, A, B, C, D_skip=None):
@@ -75,3 +77,43 @@ def ssd_chunked_ref(x, dt, dA, Bm, Cm, *, chunk: int = 256):
         new = (Bc * w).transpose(1, 2) @ xc                       # (BH, N, P)
         state = new + torch.exp(cum[:, -1])[:, None, None] * state
     return y[:, :S]
+
+
+def ssd_scan_ref(x, dt, dA, Bm, Cm, *, chunk: int = 256):
+    """x: (BH, S, P); dt, dA: (BH, S); Bm, Cm: (BH, S, N) -> y (BH, S, P)
+    fp32, in chunks of ``min(chunk, S)`` (a ragged S zero-padded: dt = dA
+    = 0 adds nothing), in the stages of the CUDA kernel's chunk-parallel
+    scan, with cum the in-chunk cumsum of dA:
+
+    1. each chunk's own state ``dS_c = (Bm_c w_c)^T x_c``, ``w_c =
+       exp(cum_last - cum) dt``, and its total decay ``a_c =
+       exp(cum_last)``;
+    2. the decayed exclusive prefix over chunks: the state entering chunk
+       c, ``S_0 = 0``, ``S_{c+1} = dS_c + a_c S_c``;
+    3. per chunk ``L = exp(min(cum_l - cum_s, 0) tril) tril`` and ``y =
+       ((Cm Bm^T) L) (x dt) + (Cm exp(cum)) S_c``."""
+    BH, S, P = x.shape
+    N = Bm.shape[-1]
+    Cn = min(chunk, S)
+    pad = -S % Cn
+    nc = (S + pad) // Cn
+
+    def chunks(t):
+        t = F.pad(t.float(), (0, 0, 0, pad) if t.dim() == 3 else (0, pad))
+        return t.reshape((BH, nc, Cn) + t.shape[2:])
+    xf, dtf, dAf, Bf, Cf = map(chunks, (x, dt, dA, Bm, Cm))
+    cum = torch.cumsum(dAf, dim=-1)                           # (BH, nc, C)
+    w = torch.exp(cum[..., -1:] - cum) * dtf
+    dS = (Bf * w[..., None]).transpose(-1, -2) @ xf           # (BH, nc, N, P)
+    a = torch.exp(cum[..., -1])                               # (BH, nc)
+    state = torch.zeros((BH, N, P), dtype=torch.float32, device=x.device)
+    S_in = torch.empty_like(dS)
+    for c in range(nc):
+        S_in[:, c] = state
+        state = dS[:, c] + a[:, c, None, None] * state
+    tril = torch.ones((Cn, Cn), dtype=torch.float32, device=x.device).tril()
+    seg = cum[..., :, None] - cum[..., None, :]
+    L = torch.exp(torch.clamp(seg, max=0.0) * tril) * tril
+    y = ((Cf @ Bf.transpose(-1, -2)) * L) @ (xf * dtf[..., None])
+    y = y + (Cf * torch.exp(cum)[..., None]) @ S_in
+    return y.reshape(BH, nc * Cn, P)[:, :S]

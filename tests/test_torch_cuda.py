@@ -50,12 +50,14 @@ from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.mbconv_fp import BLOCK_M
 from repro_torch.kernels.registry import SMEM_LIMIT
 from repro_torch.kernels.relu_attn.kernel import (
-    _relu_attn, relu_attn_causal, relu_attn_noncausal, relu_attn_plan,
+    _relu_attn, relu_attn_causal, relu_attn_causal_plan,
+    relu_attn_causal_smem_bytes, relu_attn_noncausal, relu_attn_plan,
     relu_attn_smem_bytes)
 from repro_torch.kernels.relu_attn.ref import (
-    relu_attn_causal_chunked, relu_attn_noncausal_ref)
-from repro_torch.kernels.ssd.kernel import ssd_chunked
-from repro_torch.kernels.ssd.ref import ssd_chunked_ref
+    relu_attn_causal_chunked, relu_attn_causal_scan, relu_attn_noncausal_ref)
+from repro_torch.kernels.ssd.kernel import (
+    ssd_chunked, ssd_plan, ssd_smem_bytes)
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_scan_ref
 from repro_torch.kernels.supersite.kernel import (
     supersite_fused, supersite_fused_int8)
 from repro_torch.kernels.supersite.ops import (
@@ -984,9 +986,13 @@ def test_dsconv_int8_emit_cluster_is_one_launch(cuda):
 
 @pytest.mark.parametrize("BH,N,D,chunk,dtype", [
     (4, 1000, 64, 256, torch.float32), (2, 700, 240, 256, torch.float32),
-    (3, 300, 32, 16, torch.bfloat16), (2, 64, 16, 64, torch.float32)])
+    (3, 300, 32, 16, torch.bfloat16), (2, 64, 16, 64, torch.float32),
+    (2, 300, 37, 64, torch.float32), (3, 1000, 64, 100, torch.float32),
+    (2, 777, 48, 100, torch.bfloat16)])
 def test_relu_attn_causal_matches_plain(cuda, BH, N, D, chunk, dtype):
-    """Ragged N, d = 240 (several value-column slices), bf16 inputs."""
+    """Ragged N, d = 240 (four column groups), bf16 inputs, d = 37 (rows
+    staged through registers, not by cp.async), a chunk of 100 tokens (a
+    query tile of 36 rows after one of 64)."""
     rng = np.random.default_rng(N + D)
     q, k, v = (_rand(rng, cuda, BH, N, D).to(dtype) for _ in range(3))
     n = relu_attn_causal.launches
@@ -996,10 +1002,13 @@ def test_relu_attn_causal_matches_plain(cuda, BH, N, D, chunk, dtype):
 
 
 @pytest.mark.parametrize("BH,S,P,N,chunk", [
-    (4, 1024, 64, 128, 256), (3, 517, 64, 128, 256), (2, 300, 16, 16, 32)])
+    (4, 1024, 64, 128, 256), (3, 517, 64, 128, 256), (2, 300, 16, 16, 32),
+    (2, 300, 33, 21, 64), (2, 300, 200, 4, 64), (3, 1000, 64, 128, 100)])
 def test_ssd_kernel_matches_plain(cuda, BH, S, P, N, chunk):
     """Mamba-2's step sizes and decays (dt in [1e-3, 0.1], A in [-16,
-    -1]); a ragged S runs as if zero-padded."""
+    -1]); a ragged S runs as if zero-padded; P = 33 and N = 21 (rows
+    staged through registers, not by cp.async); N = 4 under P = 200
+    (four column groups over a state of four rows); a chunk of 100."""
     rng = np.random.default_rng(S + P)
     x = _rand(rng, cuda, BH, S, P)
     Bm, Cm = _rand(rng, cuda, BH, S, N), _rand(rng, cuda, BH, S, N)
@@ -1011,6 +1020,160 @@ def test_ssd_kernel_matches_plain(cuda, BH, S, P, N, chunk):
     got = ssd_chunked(x, dt, dt * A, Bm, Cm, chunk=chunk)
     assert ssd_chunked.launches == n + 1
     _close(got, ssd_chunked_ref(x, dt, dt * A, Bm, Cm, chunk=chunk))
+
+
+# many chunks: more (row, chunk) tasks than the card has SMs, a ragged
+# last chunk, d = 240 (four column groups), bf16, chunk 256
+CAUSAL_MANY = [(4, 8192, 64, 64, torch.float32),
+               (3, 8192 - 37, 64, 64, torch.float32),
+               (3, 4096 + 10, 240, 64, torch.float32),
+               (4, 8192, 64, 64, torch.bfloat16),
+               (3, 16384, 64, 256, torch.float32),
+               (3, 8192 + 100, 100, 128, torch.float32)]
+
+
+@pytest.mark.parametrize("BH,N,D,chunk,dtype", CAUSAL_MANY)
+def test_relu_attn_causal_many_chunks(cuda, BH, N, D, chunk, dtype):
+    """64 to 128 chunks a row, more (row, chunk) tasks than the card has
+    SMs: the states, the prefix and the outputs of the chunk-parallel
+    scan against the plain version in the same stages
+    and against the TPU kernel's chunk order; a ragged N (and D = 100, no
+    multiple of 64) on the last chunk's query tiles."""
+    rng = np.random.default_rng(N + D)
+    q, k, v = (_rand(rng, cuda, BH, N, D).to(dtype) for _ in range(3))
+    plan = relu_attn_causal_plan(BH, N, D, chunk)
+    assert plan["chunks"] >= 64 and plan["launches"] == 3
+    assert BH * plan["chunks"] > 132
+    n = relu_attn_causal.launches
+    got = relu_attn_causal(q, k, v, chunk=chunk)
+    assert relu_attn_causal.launches == n + 1
+    _close(got, relu_attn_causal_scan(q, k, v, chunk=chunk))
+    _close(got, relu_attn_causal_chunked(q, k, v, chunk=chunk))
+
+
+SSD_MANY = [(4, 8192, 64, 128, 64), (3, 8192 - 50, 64, 128, 64),
+            (3, 16384, 64, 128, 256), (3, 4096 + 7, 100, 72, 64)]
+
+
+def _ssd_args(rng, device, BH, S, P, N):
+    """Mamba-2's step sizes and decays: dt in [1e-3, 0.1], A in [-16,
+    -1] per row."""
+    x = _rand(rng, device, BH, S, P)
+    Bm, Cm = _rand(rng, device, BH, S, N), _rand(rng, device, BH, S, N)
+    dt = torch.from_numpy(np.exp(rng.uniform(np.log(1e-3), np.log(0.1), (
+        BH, S))).astype(np.float32)).to(device)
+    A = torch.from_numpy(-rng.uniform(1, 16, (BH, 1)).astype(
+        np.float32)).to(device)
+    return x, dt, dt * A, Bm, Cm
+
+
+@pytest.mark.parametrize("BH,S,P,N,chunk", SSD_MANY)
+def test_ssd_kernel_many_chunks(cuda, BH, S, P, N, chunk):
+    """64 to 128 chunks a row through the decayed prefix, a ragged last
+    chunk, P = 100 (two column groups) and N = 72."""
+    args = _ssd_args(np.random.default_rng(S + P), cuda, BH, S, P, N)
+    plan = ssd_plan(BH, S, P, N, chunk)
+    assert plan["chunks"] >= 64 and plan["launches"] == 3
+    assert BH * plan["chunks"] > 132
+    n = ssd_chunked.launches
+    got = ssd_chunked(*args, chunk=chunk)
+    assert ssd_chunked.launches == n + 1
+    _close(got, ssd_scan_ref(*args, chunk=chunk))
+    _close(got, ssd_chunked_ref(*args, chunk=chunk))
+
+
+def test_scan_smem_mirrors_match_the_sources(cuda):
+    """``relu_attn_causal_smem_bytes`` and ``ssd_smem_bytes`` equal the
+    CUDA layouts of both launches (``relu_attn_causal_smem_c``,
+    ``ssd_smem_c``) over head dims, state sizes and chunks, and fit."""
+    ra, sd = library("relu_attn_causal"), library("ssd")
+    ra.relu_attn_causal_smem_c.restype = ctypes.c_longlong
+    sd.ssd_smem_c.restype = ctypes.c_longlong
+    for d in (16, 37, 64, 100, 128, 240, 256):
+        want = relu_attn_causal_smem_bytes(d)
+        assert [ra.relu_attn_causal_smem_c(d, o) for o in (0, 1)] == [
+            want["states"], want["out"]], d
+        assert max(want.values()) <= SMEM_LIMIT
+    for n, p, chunk in ((128, 64, 256), (16, 16, 32), (21, 33, 64),
+                        (72, 100, 64), (256, 256, 256)):
+        want = ssd_smem_bytes(n, p, chunk)
+        assert [sd.ssd_smem_c(n, p, chunk, o) for o in (0, 1)] == [
+            want["states"], want["out"]], (n, p, chunk)
+
+
+def test_scans_repeat_their_bits(cuda):
+    """No atomics and a fixed order in every sum: two calls of each scan
+    on the same inputs give equal bits (fp32 and bf16 attention, the
+    SSD)."""
+    rng = np.random.default_rng(20)
+    for dtype in (torch.float32, torch.bfloat16):
+        qkv = [_rand(rng, cuda, 3, 4096 - 5, 64).to(dtype) for _ in range(3)]
+        assert torch.equal(relu_attn_causal(*qkv, chunk=64),
+                           relu_attn_causal(*qkv, chunk=64))
+    args = _ssd_args(rng, cuda, 3, 4096 - 5, 64, 128)
+    assert torch.equal(ssd_chunked(*args, chunk=64),
+                       ssd_chunked(*args, chunk=64))
+
+
+# One torch.profiler capture over a call of each scan, two chunk counts
+# each; printed as {kernel: launches}.
+_SCAN_LAUNCHES = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
+from repro_torch.kernels.ssd.kernel import ssd_chunked
+g = torch.Generator(device="cuda").manual_seed(21)
+r = lambda *s: torch.randn(s, generator=g, device="cuda")
+qkv = [r(2, 1024, 64) for _ in range(3)]
+dt = 1e-3 + 0.1 * torch.rand((2, 1024), generator=g, device="cuda")
+ssd = (r(2, 1024, 64), dt, -4.0 * dt, r(2, 1024, 128), r(2, 1024, 128))
+calls = [lambda: relu_attn_causal(*qkv, chunk=256),
+         lambda: relu_attn_causal(*qkv, chunk=1024),
+         lambda: ssd_chunked(*ssd, chunk=256),
+         lambda: ssd_chunked(*ssd, chunk=1024)]
+for fn in calls:
+    fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+rows = {}
+for e in prof.key_averages():
+    us = getattr(e, "device_time_total", None)
+    if (e.cuda_time_total if us is None else us) > 0:
+        rows[e.key] = e.count
+print(json.dumps(rows))
+"""
+
+
+def test_scans_launch_three_kernels(cuda):
+    """A call over many chunks is three CUDA launches (states, prefix,
+    outputs), a single chunk one (the outputs), as the plans say, and
+    nothing else: counted by torch.profiler in a process of its own (a
+    second capture in one process can miss the device activity)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    assert [relu_attn_causal_plan(2, 1024, 64, c)["launches"]
+            for c in (256, 1024)] == [3, 1]
+    assert [ssd_plan(2, 1024, 64, 128, c)["launches"]
+            for c in (256, 1024)] == [3, 1]
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    proc = subprocess.run([sys.executable, "-c", _SCAN_LAUNCHES],
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH=src))
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    rows = json.loads(proc.stdout.strip().splitlines()[-1])
+    names = ("causal_states", "causal_out", "ssd_states", "ssd_out",
+             "chunk_prefix")
+    counts = {n: sum(c for k, c in rows.items() if n in k) for n in names}
+    assert counts == {"causal_states": 1, "causal_out": 2, "ssd_states": 1,
+                      "ssd_out": 2, "chunk_prefix": 2}, rows
+    assert sum(rows.values()) == 8, rows
 
 
 # ---------------------------------------------------------------------------

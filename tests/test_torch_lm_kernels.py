@@ -28,15 +28,19 @@ from numpy.testing import assert_allclose
 from repro.kernels.relu_attn import kernel as jrk
 from repro.kernels.relu_attn import ops as jro
 from repro.kernels.relu_attn import ref as jrr
+from repro.kernels.ssd import kernel as jsk
 from repro.kernels.ssd import ops as jso
 from repro.kernels.ssd import ref as jsr
-from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
+from repro_torch.kernels.relu_attn.kernel import (
+    relu_attn_causal, relu_attn_causal_plan)
 from repro_torch.kernels.relu_attn.ops import (
     msa_attention_fn, relu_linear_attention)
-from repro_torch.kernels.relu_attn.ref import relu_attn_causal_ref
-from repro_torch.kernels.ssd.kernel import ssd_chunked
+from repro_torch.kernels.relu_attn.ref import (
+    relu_attn_causal_chunked, relu_attn_causal_ref, relu_attn_causal_scan)
+from repro_torch.kernels.ssd.kernel import ssd_chunked, ssd_plan
 from repro_torch.kernels.ssd.ops import ssd_op
-from repro_torch.kernels.ssd.ref import ssd_recurrent_ref
+from repro_torch.kernels.ssd.ref import (
+    ssd_chunked_ref, ssd_recurrent_ref, ssd_scan_ref)
 
 SAME_CHUNK = dict(rtol=1e-5, atol=1e-5)
 ORACLE = dict(rtol=2e-4, atol=2e-4)
@@ -95,6 +99,29 @@ def test_relu_attn_causal_ragged_n(n, d, chunk):
     want = _np(jrk.relu_attn_causal(*map(jnp.asarray, qkv), chunk=chunk))
     got = relu_attn_causal(*map(torch.from_numpy, qkv), chunk=chunk)
     assert_allclose(got.numpy(), want, **SAME_CHUNK)
+
+
+@pytest.mark.parametrize("b,n,d,chunk,dtype", [
+    (2, 256, 16, 16, "f32"), (1, 16 * 17 + 5, 32, 16, "f32"),
+    (1, 16 * 16 + 3, 240, 16, "f32"), (2, 32 * 16, 16, 32, "bf16")])
+def test_relu_attn_causal_scan_many_chunks(b, n, d, chunk, dtype):
+    """The kernel's stages (each chunk's state, the exclusive prefix, the
+    outputs) over 16 to 18 chunks, a ragged last chunk and d = 240,
+    against JAX's kernel (interpret mode, op by op) and the TPU kernel's
+    chunk order: a prefix that includes its own chunk, or skips one,
+    misses by far more than the tolerance."""
+    rng = np.random.default_rng(n + d)
+    qkv = [rng.standard_normal((b, n, d)).astype(np.float32)
+           for _ in range(3)]
+    (jq, tq_), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in qkv)
+    with jax.disable_jit():
+        want = _np(jrk.relu_attn_causal(jq, jk, jv, chunk=chunk))
+    got = relu_attn_causal_scan(tq_, tk, tv, chunk=chunk)
+    assert -(-n // chunk) >= 16
+    assert_allclose(got.numpy(), want, **SAME_CHUNK)
+    assert_allclose(got.numpy(), relu_attn_causal_chunked(
+        tq_, tk, tv, chunk=chunk).numpy(), **SAME_CHUNK)
+    assert torch.equal(relu_attn_causal(tq_, tk, tv, chunk=chunk), got)
 
 
 def test_relu_attn_causal_oracle_matches_jax():
@@ -192,6 +219,38 @@ def test_ssd_op_ragged_s_pads_to_whole_chunks(s, chunk, g):
     assert_allclose(got, want, **ORACLE)
 
 
+@pytest.mark.parametrize("BH,S,P,N,chunk", [
+    (2, 256, 16, 8, 16), (2, 16 * 17 + 5, 16, 8, 16),
+    (1, 16 * 16, 64, 128, 16), (1, 32 * 16 + 9, 24, 16, 32)])
+def test_ssd_scan_many_chunks(BH, S, P, N, chunk):
+    """The kernel's stages (each chunk's state and decay, the decayed
+    exclusive prefix, the outputs) over 16 to 18 chunks, against JAX's
+    kernel (interpret mode, op by op) at the same chunk, fed the inputs
+    zero-padded to whole chunks (dt = dA = 0), as the port pads a ragged
+    S; and against the TPU kernel's chunk order.  A decay applied once
+    too often, or a prefix that includes its own chunk, misses by far
+    more than the tolerance."""
+    rng = np.random.default_rng(S + P)
+    x = rng.standard_normal((BH, S, P)).astype(np.float32)
+    dt = rng.uniform(1e-3, 0.1, (BH, S)).astype(np.float32)
+    dA = (dt * -rng.uniform(1, 16, (BH, 1))).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((BH, S, N)).astype(np.float32)
+              for _ in range(2))
+    pad = -S % chunk
+    padded = [np.pad(a, [(0, 0), (0, pad)] + [(0, 0)] * (a.ndim - 2))
+              for a in (x, dt, dA, Bm, Cm)]
+    with jax.disable_jit():
+        want = _np(jsk.ssd_chunked_pallas(*map(jnp.asarray, padded),
+                                          chunk=chunk))[:, :S]
+    args = [torch.from_numpy(a) for a in (x, dt, dA, Bm, Cm)]
+    got = ssd_scan_ref(*args, chunk=chunk)
+    assert -(-S // chunk) >= 16
+    _same_chunk_ssd(got.numpy(), want)
+    _same_chunk_ssd(got.numpy(), ssd_chunked_ref(*args,
+                                                 chunk=chunk).numpy())
+    assert torch.equal(ssd_chunked(*args, chunk=chunk), got)
+
+
 def test_ssd_padding_adds_nothing():
     """A ragged S equals the first S outputs of the same sequence padded
     with dt = dA = 0 (at the plain version, the kernel's CPU path)."""
@@ -217,3 +276,19 @@ def test_ssd_recurrent_oracle_matches_jax():
                                          D_skip=torch.from_numpy(args[5]))
     assert_allclose(got_y.numpy(), _np(want_y), **SAME_CHUNK)
     assert_allclose(got_state.numpy(), _np(want_state), **SAME_CHUNK)
+
+
+@pytest.mark.parametrize("plan,want", [
+    (relu_attn_causal_plan(32, 32768, 64), (128, 3, 68_157_440)),
+    (relu_attn_causal_plan(32, 32668, 64), (128, 3, 68_157_440)),
+    (relu_attn_causal_plan(16, 32768, 240), (128, 3, 473_825_280)),
+    (relu_attn_causal_plan(2, 200, 16), (1, 1, 0)),
+    (ssd_plan(64, 32768, 64, 128), (128, 3, 268_468_224)),
+    (ssd_plan(64, 32668, 64, 128), (128, 3, 268_468_224)),
+    (ssd_plan(2, 100, 16, 8, chunk=32), (4, 3, 4 * 2 * 4 * (8 * 16 + 1)))])
+def test_scan_plans(plan, want):
+    """The scans' plans at the library shapes (Zamba2-1.2B, Gemma3-12B's
+    global layer, Mamba2-1.3B, 32k tokens in chunks of 256) and small
+    ones: chunks a row, CUDA launches a call (one for a single chunk),
+    workspace bytes (a state, and a normalizer or a decay, per chunk)."""
+    assert (plan["chunks"], plan["launches"], plan["workspace"]) == want

@@ -27,8 +27,14 @@ input rows' staging, the DW, the 1x1's arithmetic, the whole 1x1 with
 its stores, or Hardswish cut out; ``div_rn``: Hardswish's division by 6
 as ``div.rn.f32``, the same bits with its slow-path branch), ``dsconv_int8`` (``dsconv_fused_int8``'s cluster
 kernel at stem.ds0), ``group_agg`` (``group_agg_int8`` at the two MSA
-maps) and ``mbconv_int8`` (``mbconv_fused_int8`` and ``_emit``,
-divisions only).
+maps), ``mbconv_int8`` (``mbconv_fused_int8`` and ``_emit``,
+divisions only), and the two chunk-parallel scans, ``relu_attn_causal``
+and ``ssd`` (``ssd_chunked``), timed at ``chip_smoke.py``'s library
+cases (32k tokens, ms per call, 3 windows of 2 calls): each launch cut in
+turn (``no_states``, ``no_prefix``, ``no_out``; ``out_only`` keeps the
+output launch alone, on a workspace of stale states) and, inside the
+output launch, the state term or the key tiles (the score tiles and
+their products).
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -117,7 +123,22 @@ CUTS = {
          "(x == 0.0f ? 0.0f : rintf(__fdiv_rn(x == 0.0f ? scale : x, "
          "scale)))")],
 }
-# target: (library, kernels of int8_kernel_cases, {build: cuts})
+for _src, _lib in (("relu_attn_causal.cu", "ra"), ("ssd.cu", "ssd")):
+    # the chunk-parallel scans: a launch, or a part of the output pass
+    CUTS.update({
+        f"{_lib}_states": [(_src, "  const bool run_states = nc > 1;\n",
+                            "  const bool run_states = false;\n")],
+        f"{_lib}_prefix": [(_src, "  const bool run_prefix = nc > 1;\n",
+                            "  const bool run_prefix = false;\n")],
+        f"{_lib}_out": [(_src, "  const bool run_out = true;\n",
+                         "  const bool run_out = false;\n")],
+        f"{_lib}_state_term": [(_src, "  if (c > 0) {   // the state term",
+                                "  if (false) {   // the state term")],
+        f"{_lib}_key_tiles": [(_src,
+                               "  for (int ki = 0; ki <= qi; ++ki) {\n",
+                               "  for (int ki = 0; ki < 0; ++ki) {\n")]})
+# target: (library, kernels of int8_kernel_cases (or, for a kernel no
+# served forward runs, of library_cases), {build: cuts})
 TARGETS = {
     "dsconv": ("dsconv", ("dsconv_fused",), {
         "full": (), "no_stage": ("dsf_stage",), "no_dw": ("dsf_dw",),
@@ -137,6 +158,16 @@ TARGETS = {
                                     "mbconv_fused_int8_emit"), {
         "full": (), "no_division": ("division",)}),
 }
+for _target, _lib, _kernel, _p in (
+        ("relu_attn_causal", "relu_attn_causal", "relu_attn_causal", "ra"),
+        ("ssd", "ssd", "ssd_chunked", "ssd")):
+    TARGETS[_target] = (_lib, (_kernel,), {
+        "full": (), "no_states": (f"{_p}_states",),
+        "no_prefix": (f"{_p}_prefix",), "no_out": (f"{_p}_out",),
+        "out_only": (f"{_p}_states", f"{_p}_prefix"),
+        "out_no_state_term": (f"{_p}_state_term",),
+        "out_no_key_tiles": (f"{_p}_key_tiles",)})
+LIBRARY_KERNELS = ("relu_attn_causal", "ssd_chunked")
 
 
 def edited_copy(dst: str, cuts) -> None:
@@ -194,7 +225,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("source_cuts: no CUDA device is available", file=sys.stderr)
         return 1
-    from chip_smoke import device_ms, int8_kernel_cases, kernel_cases
+    from chip_smoke import (
+        device_ms, int8_kernel_cases, kernel_cases, library_cases)
 
     jobs = {}
     for target in args.targets:
@@ -206,6 +238,17 @@ def main() -> int:
     sos = compile_all(jobs)
     for target in args.targets:
         lib, kernels, builds = TARGETS[target]
+        if set(kernels) <= set(LIBRARY_KERNELS):
+            for case, *_ in library_cases(0):
+                if case[0] not in kernels:
+                    continue
+                cells = []
+                for name in builds:
+                    serve(lib, sos[(target, name)])
+                    cells.append(f"{name} {device_ms(case[3], 2, 3):.3f}")
+                print(f"[cuts {target}] {case[0]} {case[2]} ms per call: "
+                      + ", ".join(cells), flush=True)
+            continue
         for batch in (1, 8):
             gen = torch.Generator().manual_seed(batch)
             for case in kernel_cases(batch, gen) \
