@@ -9,7 +9,8 @@
    source, all started together) and prints each kernel's register,
    shared-memory and spill use, and the int8 tensor-core instructions
    (IMMA) in the SASS of ``mbconv_int8``, ``supersite_int8``,
-   ``int8_matmul`` and ``group_agg`` (none is a failure).
+   ``int8_matmul`` and ``group_agg`` (none is a failure, and so is a
+   ``__dp4a`` in ``int8_matmul``'s).
 2. fp32 phase.
    a. Each fp32 kernel against its plain PyTorch version on the card, at
       every distinct shape of the B1@224 main path at batch 1 and 8:
@@ -34,7 +35,9 @@
       both chains over band heights 1-4 x chunks 16-128 that fit.  The
       ``[dsconv sweep]`` lines time ``dsconv_fused`` at stem.ds0, batch 1
       and 8, over band heights (output rows a CTA), the pick of its
-      ``choose_blocks`` marked.
+      ``choose_blocks`` marked; the ``[dsconv]`` lines hold it within
+      ``TOL`` of the plain version at C and F no multiple of 4 (6 -> 10
+      at stride 1 and 2, 3 -> 7).
       ``relu_attn_noncausal`` at both MSA shapes (S3, S4), batch 1 and 8,
       with ``out=`` omitted and given (the projection's map): within
       ``TOL`` of the plain version, equal bits on two calls and between
@@ -74,7 +77,12 @@
       sweep]`` lines time ``int8_matmul`` at the four MSA projections,
       batch 1 and 8, at every legal tile, with the pick of
       ``int8_gemm_plan`` marked and its time over the fastest cell; the
-      ``[group_agg sweep]`` lines time ``group_agg_int8`` at both
+      ``[int8_emit sweep]`` lines time the library's ``int8_matmul_emit``
+      at the same projections (196 or 49 rows an image) on every cluster
+      cell (tile, ranks, the clusters the card holds at once) and on the
+      plain grid, each EQUAL to the plain version, with the pick of
+      ``int8_emit_plan`` against the fastest cell and the fastest of each
+      rank count; the ``[group_agg sweep]`` lines time ``group_agg_int8`` at both
       aggregation maps on the two launches and on the cluster kernel at
       every rank count that holds whole groups and fits a CTA, the choice
       of ``group_agg_path`` marked; the ``[dsconv_int8 sweep]`` lines
@@ -102,7 +110,8 @@
       QKV and output projections of B1@224 (S3 128->384 and 256->128 at
       196 rows per image, S4 256->768 and 512->256 at 49), batch 1 and 8,
       keep-fp off and on, with bias; and keep-fp on with a static
-      ``x_scale`` from ``calibrate_act_scale``.
+      ``x_scale`` from ``calibrate_act_scale``.  Every case takes the
+      cluster path (``int8_emit_plan``): one CUDA launch a call.
    b. ``dsconv_apply_int8(epilogue=int8)`` -> ``dsconv_fused_int8_emit``:
       stem.ds0 of B1@224 (112x112x16 -> 16) and a stride-2 56x56x32 ->
       32, batch 1 and 8, keep-fp off and on; every case one cluster
@@ -119,10 +128,11 @@
    deterministic), and each kernel is held against its plain version on
    the same inputs: int8 outputs EQUAL, fp32 within ``TOL`` (c and d
    against the plain versions in their kernels' stages:
-   ``relu_attn_causal_scan``, ``ssd_scan_ref``).  The lines of c and d
-   give each call's CUDA launches (states, prefix, outputs) and
-   workspace bytes from the wrappers' plans; one ``torch.profiler``
-   capture over one call of each, after the phase's timing, must count
+   ``relu_attn_causal_scan``, ``ssd_scan_ref``).  The lines of a, c and d
+   give each call's CUDA launches (a: 1 on the cluster path; c and d:
+   states, prefix, outputs, with the workspace bytes) from the wrappers'
+   plans; one ``torch.profiler`` capture over one call of each, after
+   the phase's timing, must count
    those launches and nothing else.  Bounds as
    in 2a/3a (the int8 peak for a and b, the fp32 non-tensor peak for c
    and d); c and d count only the causal triangle of each chunk, no
@@ -138,11 +148,13 @@
    attached once the profiler has run and slow the host's launches.  The
    port's own kernels' CUDA launches, the memsets and the zero fills are
    counted apart.  Then one call of each served FIX8 MBConv shape, each
-   MSA projection GEMM, each aggregation branch, the FIX8 DSConv at
+   MSA projection GEMM, the library's emitting GEMM at each projection
+   (per-image scales with keep-fp off and on, a static scale), each
+   aggregation branch, the FIX8 DSConv at
    stem.ds0, the attention core at S3 and S4 (into the projection's
    map), the fp32 DSConv at stem.ds0 and the emitting FIX8 DSConv at
    stem.ds0 with and without keep-fp, at batch 8, must be one CUDA launch
-   (the cluster kernels, the tensor-core GEMM, the attention kernel, the
+   (the cluster kernels, the tensor-core GEMMs, the attention kernel, the
    fp32 band kernel), with no memset, no zero fill and no allocation but
    its outputs (none for the attention).
 6. One JSON line with every kernel's launches on its driven run(s),
@@ -434,7 +446,8 @@ def library_cases(seed: int):
     of a model the repo ships.  One entry per case: (kernel case as in
     ``int8_kernel_cases``, the public op, a check of the op's output
     against the kernel's, exact, reps, windows, CUDA launches a call
-    where the case checks them: the scans' plans, else None).  The kernel
+    where the case checks them: the plans of the scans and of
+    ``int8_matmul_emit``, else None).  The kernel
     case runs the wrapper on the op's own (folded) inputs; the 32k-token
     cases are timed over fewer windows, never shortened."""
     import math
@@ -446,7 +459,8 @@ def library_cases(seed: int):
     from repro_torch.kernels.dsconv.kernel import dsconv_fused_int8_emit
     from repro_torch.kernels.dsconv.ops import dsconv_apply_int8
     from repro_torch.kernels.dsconv.ref import dsconv_int8_emit_ref
-    from repro_torch.kernels.int8_matmul.kernel import int8_matmul_emit
+    from repro_torch.kernels.int8_matmul.kernel import (
+        int8_emit_plan, int8_matmul_emit)
     from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_emit_ref
     from repro_torch.kernels.relu_attn.kernel import (
@@ -502,6 +516,7 @@ def library_cases(seed: int):
             H = math.isqrt(hw)
             x, qp = randn(batch, H, H, C), qconv(1, C, F)
             M = batch * hw
+            plan = int8_emit_plan(M, F, C, hw)
             for keep, static in ((False, False), (True, False),
                                  (True, True)):
                 ep = Epilogue("int8", "dynamic",
@@ -527,7 +542,9 @@ def library_cases(seed: int):
                 kcase = (
                     "int8_matmul_emit", [],
                     f"({M}x{C})@({C}x{F}) rows/image={hw} keep_fp={keep} "
-                    f"x_scale={'static' if static else 'per-image'}",
+                    f"x_scale={'static' if static else 'per-image'} "
+                    f"{plan['path']} R={plan['ranks']} tile "
+                    f"{plan['bm']}x{plan['bn']}",
                     lambda a=kargs, kw=kw: int8_matmul_emit(*a, **kw),
                     lambda a=kargs, kw=kw: int8_matmul_emit_ref(*a, **kw),
                     M * C + C * F + 4 * batch + 8 * F + M * F + 4 * batch
@@ -537,7 +554,7 @@ def library_cases(seed: int):
                     lambda x=x, qp=qp, s=x_scale, ep=ep: conv1x1_w8a8(
                         qp, x, x_scale=s, epilogue=ep),
                     lambda out, ref, keep=keep: same_q(out, ref, keep),
-                    True, 20, 5, None))
+                    True, 20, 5, 1 if plan["path"] == "cluster" else 2))
     # dsconv_fused_int8_emit: stem.ds0 of B1@224, and a stride-2 case
     for batch in (1, 8):
         for H, C, st in ((112, 16, 1), (56, 32, 2)):
@@ -700,7 +717,7 @@ def cuda_launches(calls) -> None:
           f"the port's kernels, {sum(rows.values())} in all, expected "
           f"{want}; {sorted(rows.items())}")
     if port != want or sum(rows.values()) != want:
-        raise AssertionError(f"the scans' calls made {dict(rows)}, "
+        raise AssertionError(f"the library's calls made {dict(rows)}, "
                              f"expected {want} launches of their kernels")
 
 
@@ -1099,6 +1116,77 @@ def relu_attn_checks(gen) -> None:
                   f"{ref_max:.3e}), two calls and out= equal{text}")
 
 
+def int8_emit_sweep(gen) -> None:
+    """Time ``int8_matmul_emit`` at the four MSA projections of B1@224,
+    batch 1 and 8 (the library's shapes, 196 or 49 rows an image), on
+    every cluster cell of ``emit_cells`` and on the plain grid (64 x 64
+    tiles), each EQUAL to the plain version; beside each cluster cell its
+    ranks, the clusters the card holds at once and the CTA's shared
+    memory.  The pick of ``int8_emit_plan`` is marked and printed against
+    the fastest cell and the fastest cell of each rank count: the
+    evidence the plan's cost model is fitted to."""
+    import ctypes
+
+    import torch
+    from repro_torch.kernels.build import library
+    from repro_torch.kernels.int8_matmul.kernel import (
+        _int8_matmul_emit, emit_cells, emit_tiles, int8_emit_plan,
+        int8_emit_smem)
+    from repro_torch.kernels.int8_matmul.ref import int8_matmul_emit_ref
+
+    occ = library("int8_matmul").int8_emit_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    i8 = lambda *sh: torch.randint(-128, 128, sh, generator=gen,
+                                   dtype=torch.int8).cuda()
+    sc = lambda *sh: (1e-2 * (0.5 + torch.rand(sh, generator=gen))).cuda()
+    rn = lambda *sh: torch.randn(sh, generator=gen).cuda()
+    for batch in (1, 8):
+        for name, rows, K, N in MSA_GEMMS:
+            M = batch * rows
+            args = (i8(M, K), i8(K, N), sc(batch), sc(N))
+            bias = rn(N)
+            ref = int8_matmul_emit_ref(*args, rows_per_group=rows, bias=bias)
+            plan = int8_emit_plan(M, N, K, rows)
+            pick = (plan["path"], plan["bm"], plan["bn"])
+            cells = [("cluster", bm, bn) for bm, bn in emit_cells(rows, N, K)]
+            cells.append(("grid", 64, 64))
+            times, txt, by_r = {}, [], {}
+            for cell in cells:
+                path, bm, bn = cell
+                fn = lambda c=dict(path=path, bm=bm, bn=bn): \
+                    _int8_matmul_emit(*args, bias, rows, False, c)
+                got = fn()
+                torch.cuda.synchronize()
+                if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                    raise AssertionError(f"int8_matmul_emit {name} B={batch} "
+                                         f"{cell}: differs from the plain "
+                                         f"version")
+                times[cell] = ms = device_ms(fn, reps=10, windows=3)
+                ranks = emit_tiles(rows, N, bm, bn) if path == "cluster" \
+                    else 0
+                by_r[ranks] = min(by_r.get(ranks, ms), ms)
+                extra = ""
+                if ranks:
+                    n = ctypes.c_int(0)
+                    if occ(M, N, K, rows, bm, bn, ctypes.byref(n)):
+                        raise AssertionError(f"int8_emit occupancy query "
+                                             f"failed at {cell}")
+                    extra = (f"(R={ranks},{n.value}x,"
+                             f"{int8_emit_smem(K, bm, bn) // 1024}K)")
+                mark = "*" if cell == pick else ""
+                txt.append(f"{mark}{path[0]}{bm}x{bn}:{ms:.5f}{extra}")
+            best = min(times, key=times.get)
+            print(f"[int8_emit sweep] {name} ({M}x{K})@({K}x{N}) rows/image="
+                  f"{rows} B={batch} chosen {pick} {times[pick]:.5f} ms, "
+                  f"fastest {best} {times[best]:.5f} ms, chosen/fastest "
+                  f"{times[pick] / times[best]:.3f}; fastest by ranks "
+                  + " ".join(f"{'R=' + str(r) if r else 'grid'}:{ms:.5f}"
+                             for r, ms in sorted(by_r.items()))
+                  + f"; every cell equal to the plain version; ms "
+                  f"{' '.join(txt)}")
+
+
 def dsconv_int8_sweep(gen) -> None:
     """Time ``dsconv_fused_int8`` at stem.ds0 of B1@224, batch 1 and 8, on
     the passes and on the cluster kernel at every rank count the map
@@ -1202,6 +1290,19 @@ def dsconv_sweep(gen) -> None:
               f"{times[best]:.5f} ms, chosen/fastest "
               f"{times[chosen] / times[best]:.3f}; every cell within TOL of "
               f"the plain version; ms (CTAs, CTAs an SM) {' '.join(cells)}")
+    # channel counts that are no multiple of 4 (zero-padded quads in
+    # shared memory, the output stored channel by channel)
+    for H, C, F, st in ((28, 6, 10, 1), (28, 6, 10, 2), (14, 3, 7, 1)):
+        args = (rn(2, H, H, C), rn(3, 3, C, scale=1 / 3), rn(C),
+                rn(C, F, scale=C ** -0.5), rn(F))
+        ref = dsconv_ref(*args, stride=st)
+        err = (dsconv_fused(*args, stride=st) - ref).abs().max().item()
+        tol = TOL * max(1.0, ref.abs().max().item())
+        print(f"[dsconv] x{(2, H, H, C)} F={F} s={st}: max|d| {err:.3e} "
+              f"(max|ref| {ref.abs().max().item():.3e})")
+        if not err <= tol:
+            raise AssertionError(f"dsconv_fused C={C} F={F} s={st}: max|d| "
+                                 f"{err:.3e} > {tol:.3e}")
 
 
 def check_groups(engine, tag) -> None:
@@ -1481,7 +1582,9 @@ def device_us(event) -> float:
 
 def count_imma() -> None:
     """The int8 tensor-core instructions (IMMA) in the SASS of the four
-    libraries whose GEMMs run on ``int8_mma.cuh``; none is a failure."""
+    libraries whose GEMMs run on ``int8_mma.cuh``; none is a failure, and
+    so is a ``__dp4a`` (IDP) in ``int8_matmul``'s, whose two GEMMs run on
+    tensor cores only."""
     import shutil
     from repro_torch.kernels.build import library_path
     tool = shutil.which("cuobjdump") or os.path.join(
@@ -1492,10 +1595,14 @@ def count_imma() -> None:
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
         n = sum("IMMA" in line for line in sass.splitlines())
+        dp4a = sum("IDP" in line for line in sass.splitlines())
         print(f"[build] {name}: {n} IMMA instructions (int8 tensor cores) "
-              f"in its SASS")
+              f"and {dp4a} IDP (__dp4a) in its SASS")
         if not n:
             raise AssertionError(f"{name}: no IMMA instruction in its SASS")
+        if name == "int8_matmul" and dp4a:
+            raise AssertionError(f"{name}: {dp4a} IDP instructions in its "
+                                 f"SASS")
 
 
 def one_launch_each(calls) -> None:
@@ -1542,8 +1649,9 @@ def one_launch_each(calls) -> None:
 
 def one_launch_per_site(gen) -> None:
     """Each served FIX8 MBConv shape of B1@224 at batch 8 (S3 and S4's
-    evit blocks, S3.down and S4.down emitting), each MSA projection GEMM,
-    each aggregation branch, the FIX8 DSConv at stem.ds0, the attention
+    evit blocks, S3.down and S4.down emitting), each MSA projection GEMM
+    and the library's emitting GEMM at each (keep-fp off and on, a static
+    scale), each aggregation branch, the FIX8 DSConv at stem.ds0, the attention
     core at S3 and S4 (written into the projection's map, as the MSA
     serves it), the fp32 DSConv at stem.ds0 and the library's emitting
     FIX8 DSConv at stem.ds0 with and without keep-fp: one call of its
@@ -1555,7 +1663,8 @@ def one_launch_per_site(gen) -> None:
         dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
     from repro_torch.kernels.group_conv.kernel import group_agg_int8
     from repro_torch.kernels.relu_attn.kernel import relu_attn_noncausal
-    from repro_torch.kernels.int8_matmul.kernel import int8_matmul
+    from repro_torch.kernels.int8_matmul.kernel import (
+        int8_matmul, int8_matmul_emit)
     from repro_torch.kernels.mbconv.kernel import (
         mbconv_fused_int8, mbconv_fused_int8_emit)
 
@@ -1579,6 +1688,16 @@ def one_launch_per_site(gen) -> None:
         args = (i8(8 * rows, K), i8(K, N), sc(8 * rows), sc(N))
         calls.append((lambda a=args: int8_matmul(*a), 1, "int8_mma_gemm",
                       f"int8_matmul {name} B=8"))
+        # the library's emitting GEMM: per-image scales, keep-fp off and
+        # on, and one static scale (a broadcast scalar)
+        for xs, keep in ((sc(8), False), (sc(8), True), (sc(1)[0], True)):
+            eargs = (i8(8 * rows, K), i8(K, N), xs, sc(N))
+            calls.append((lambda a=eargs, k=keep, r=rows, b=rn(N):
+                          int8_matmul_emit(*a, rows_per_group=r, bias=b,
+                                           keep_fp=k),
+                          3 if keep else 2, "int8_emit_gemm<true>",
+                f"int8_matmul_emit {name} B=8 keep_fp={keep} "
+                f"x_scale={'static' if xs.dim() == 0 else 'per-image'}"))
     for name, H, C in AGG_MAPS:
         args = (i8(8, H, H, C), sc(8), i8(5, 5, C), sc(C), rn(C), i8(16, C),
                 sc(C), rn(C))
@@ -1786,6 +1905,7 @@ def main() -> int:
                       batch, per_fwd, max_err, exact=True)
     mbconv_int8_sweep(gen)
     int8_matmul_sweep(gen)
+    int8_emit_sweep(gen)
     group_agg_sweep(gen)
     dsconv_int8_sweep(gen)
 

@@ -34,8 +34,12 @@
 // float4 reads of the two runs in a quarter-warp fall in distinct banks.
 // The served shape (C = F = 16, stride 1) is a template instance: every
 // divisor is a constant and the thread's column of the 1x1 weights stays
-// in registers.  Other C and F (multiples of 4) and strides take a generic
-// instance, which reads the 9 taps of each output.  Stride s samples the
+// in registers.  Other C and F and strides take a generic instance, which
+// reads the 9 taps of each output.  In shared memory C and F are rounded
+// up to multiples of 4 and the pad channels staged as zeros (zero taps,
+// weights and biases: a pad DW channel is hswish(0) = 0 and adds 0 to
+// every 1x1 sum), so every step works on channel quads; where F is no
+// multiple of 4 an output pixel's channels are stored one by one.  Stride s samples the
 // stride-1 DW map at offset s - 1, the anchor of the reference's SAME conv.
 // No cluster: nothing is reduced over the image, and the L2 absorbs the
 // halo rows' second read.  fp32 FMA on CUDA cores: TF32 tensor cores would
@@ -51,24 +55,26 @@ __host__ __device__ inline int dsf_pitch(int c) {
 }
 
 // Shared-memory layout of one CTA, in floats (Python mirror:
-// kernels/dsconv/kernel.py::dsconv_smem_bytes).  xs: the band's input
-// rows with the halo, nin = (rows - 1) * stride + 3 of them, each [W +
-// 2][cp]; dw: the DW row buffers, two (one for a band of one row), each
-// [Wo][cp]; pw: the 1x1 weights [C][F]; taps [9][C]; db [C]; pb [F].
+// kernels/dsconv/kernel.py::dsconv_smem_bytes), with C and F rounded up
+// to multiples of 4 (c4, f4).  xs: the band's input rows with the halo,
+// nin = (rows - 1) * stride + 3 of them, each [W + 2][cp]; dw: the DW row
+// buffers, two (one for a band of one row), each [Wo][cp]; pw: the 1x1
+// weights [c4][f4]; taps [9][c4]; db [c4]; pb [f4].
 struct DsfLayout {
   int nin, cp, dw, pw, taps, db, pb, total;
 };
 __host__ __device__ inline DsfLayout dsf_layout(int W, int C, int F,
                                                 int stride, int rows) {
   DsfLayout l;
+  const int c4 = (C + 3) & ~3, f4 = (F + 3) & ~3;
   l.nin = (rows - 1) * stride + 3;
-  l.cp = dsf_pitch(C);
+  l.cp = dsf_pitch(c4);
   l.dw = l.nin * (W + 2) * l.cp;
   l.pw = l.dw + (rows > 1 ? 2 : 1) * (W / stride) * l.cp;
-  l.taps = l.pw + C * F;
-  l.db = l.taps + 9 * C;
-  l.pb = l.db + C;
-  l.total = l.pb + F;
+  l.taps = l.pw + c4 * f4;
+  l.db = l.taps + 9 * c4;
+  l.pb = l.db + c4;
+  l.total = l.pb + f4;
   return l;
 }
 
@@ -107,6 +113,24 @@ __device__ __forceinline__ void dsf_stage(float* dst, const float* src,
   }
 }
 
+// dst[r][c] = src[r * cols + c] for r < n, c < cols, and 0 elsewhere in
+// [0, n_pad) x [0, pad) (pad a multiple of 4): dsf_stage where nothing
+// is padded.
+__device__ __forceinline__ void dsf_stage_pad(float* dst, const float* src,
+                                              int n, int n_pad, int cols,
+                                              int pad) {
+  if (n == n_pad && cols == pad) {
+    dsf_stage(dst, src, n * cols);
+    return;
+  }
+#pragma unroll 1
+  for (int e = threadIdx.x; e < n_pad * pad; e += DSF_NT) {
+    const int r = e / pad, c = e - r * pad;
+    const bool ok = r < n && c < cols;
+    cp_async4(dst + e, src + (ok ? r * cols + c : 0), ok);
+  }
+}
+
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -133,12 +157,14 @@ __device__ __forceinline__ void dw_out(float* dst, float4 acc, float4 bias,
 }
 
 // CT, FT, ST: C, F and the stride as constants, or 0 for the generic
-// instance (all three from the arguments).
+// instance (all three from the arguments).  CG, FG: the channel counts of
+// the tensors; C, F: of shared memory (rounded up to multiples of 4).
 template <int CT, int FT, int ST>
 __global__ void __launch_bounds__(DSF_NT, 4) dsconv_band(const DsfArgs a) {
   extern __shared__ __align__(16) float smem[];
   constexpr bool FIXED = CT > 0;
-  const int C = CT ? CT : a.C, F = FT ? FT : a.F, S = ST ? ST : a.stride;
+  const int CG = CT ? CT : a.C, FG = FT ? FT : a.F, S = ST ? ST : a.stride;
+  const int C = (CG + 3) & ~3, F = (FG + 3) & ~3;
   const int H = a.H, W = a.W, Ho = H / S, Wo = W / S, WP = W + 2;
   const int CQ = C / 4, FQ = F / 4;
   const DsfLayout l = dsf_layout(W, C, F, S, a.rows);
@@ -150,32 +176,33 @@ __global__ void __launch_bounds__(DSF_NT, 4) dsconv_band(const DsfArgs a) {
   const int tid = threadIdx.x, b = blockIdx.y, i0 = blockIdx.x * a.rows;
   const int nrows = min(a.rows, Ho - i0);
   const int need = (nrows - 1) * S + 3, ir0 = i0 * S + S - 2;
-  const float* xb = a.x + (size_t)b * H * W * C;
+  const float* xb = a.x + (size_t)b * H * W * CG;
 
   // copy group 0: the weights and input row 0; then a group a row (rows
   // past this band's last needed one are empty groups)
-  dsf_stage(smem + l.pw, a.pw, C * F);
-  dsf_stage(smem + l.taps, a.dw, 9 * C);
-  dsf_stage(smem + l.db, a.db, C);
-  dsf_stage(smem + l.pb, a.pb, F);
-  const bool al = aligned16(a.x);
+  dsf_stage_pad(smem + l.pw, a.pw, CG, C, FG, F);
+  dsf_stage_pad(smem + l.taps, a.dw, 9, 9, CG, C);
+  dsf_stage_pad(smem + l.db, a.db, 1, 1, CG, C);
+  dsf_stage_pad(smem + l.pb, a.pb, 1, 1, FG, F);
+  const bool al = aligned16(a.x) && CG == C;
 #pragma unroll 1
   for (int t = 0; t < nin; ++t) {
     const int ir = ir0 + t;
     const bool ok = ir >= 0 && ir < H;
-    const float* src = xb + (size_t)(ok ? ir : 0) * W * C;
+    const float* src = xb + (size_t)(ok ? ir : 0) * W * CG;
     float* dst = xs + (t * WP + 1) * cp;
     if (t < need && al) {
 #pragma unroll 1
       for (int e = tid; e < W * CQ; e += DSF_NT) {
         const int px = e / CQ, c = 4 * (e - px * CQ);
-        cp_async16(dst + px * cp + c, src + px * C + c, ok);
+        cp_async16(dst + px * cp + c, src + px * CG + c, ok);
       }
     } else if (t < need) {
 #pragma unroll 1
       for (int e = tid; e < W * C; e += DSF_NT) {
         const int px = e / C, c = e - px * C;
-        cp_async4(dst + px * cp + c, src + px * C + c, ok);
+        cp_async4(dst + px * cp + c, src + px * CG + (c < CG ? c : 0),
+                  ok && c < CG);
       }
     }
     cp_async_commit();
@@ -195,7 +222,7 @@ __global__ void __launch_bounds__(DSF_NT, 4) dsconv_band(const DsfArgs a) {
   const int runs = (Wo + DSF_RUN - 1) / DSF_RUN, groups = (Wo + 31) / 32 * 8;
   const int f0t = 4 * (tid % FQ);
   float4 wcol[FIXED ? CT : 1];   // pw[c][f0t..f0t+3], FIXED
-  float* ob = a.out + ((size_t)b * Ho + i0) * Wo * F;
+  float* ob = a.out + ((size_t)b * Ho + i0) * Wo * FG;
 
 #pragma unroll 1
   for (int k = 0; k <= nrows; ++k) {
@@ -272,7 +299,7 @@ __global__ void __launch_bounds__(DSF_NT, 4) dsconv_band(const DsfArgs a) {
       for (int e = tid; e < groups * FQ; e += DSF_NT) {
         const int g = e / FQ, f0 = FIXED ? f0t : 4 * (e - g * FQ);
         const int p0 = (g >> 3) * 32 + (g & 7);
-        float* orow = ob + (size_t)(k - 1) * Wo * F + f0;
+        float* orow = ob + (size_t)(k - 1) * Wo * FG + f0;
         const float4 bias = ld4(smem + l.pb + f0);
         float4 acc[4];
 #pragma unroll
@@ -305,9 +332,16 @@ __global__ void __launch_bounds__(DSF_NT, 4) dsconv_band(const DsfArgs a) {
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
           const int p = p0 + 8 * m;
-          if (p < Wo)
-            *reinterpret_cast<float4*>(orow + (size_t)p * F) =
-                add4(acc[m], bias);
+          const float4 y = add4(acc[m], bias);
+          if (p >= Wo) continue;
+          if (FG == F) {
+            *reinterpret_cast<float4*>(orow + (size_t)p * FG) = y;
+          } else {
+            const float v[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (f0 + i < FG) orow[(size_t)p * FG + i] = v[i];
+          }
         }
       }
     }
@@ -327,14 +361,14 @@ static cudaError_t dsf_launch(const DsfArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// C and F multiples of 4; rows >= 1 output rows a CTA.  A refused launch
-// returns its error.
+// Any C and F; rows >= 1 output rows a CTA.  A refused launch returns its
+// error.
 REPRO_EXPORT int dsconv_fused_f32(const float* x, const float* dw_w,
                                   const float* dw_b, const float* pw_w,
                                   const float* pw_b, float* out, int B, int H,
                                   int W, int C, int F, int stride, int act,
                                   int rows, void* stream) {
-  if (C % 4 || F % 4 || rows < 1 || stride < 1)
+  if (C < 1 || F < 1 || rows < 1 || stride < 1)
     return (int)cudaErrorInvalidValue;
   const DsfArgs a{x, dw_w, dw_b, pw_w, pw_b, out, H, W, C, F, stride, act,
                   rows};

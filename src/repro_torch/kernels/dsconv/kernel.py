@@ -44,10 +44,12 @@ def dsconv_pitch(c: int) -> int:
 
 def dsconv_smem_bytes(w: int, c: int, f: int, stride: int, rows: int) -> int:
     """One CTA's shared memory (mirrors ``dsf_layout`` in
-    ``csrc/dsconv.cu``): the band's input rows with the halo, (rows - 1) *
-    stride + 3 of them, each w + 2 pixels (a zero pixel at both ends);
-    two DW row buffers (one for a band of one row); the 1x1 weights, the
-    taps and both biases."""
+    ``csrc/dsconv.cu``), with c and f rounded up to multiples of 4 (the
+    pad channels staged as zeros): the band's input rows with the halo,
+    (rows - 1) * stride + 3 of them, each w + 2 pixels (a zero pixel at
+    both ends); two DW row buffers (one for a band of one row); the 1x1
+    weights, the taps and both biases."""
+    c, f = -(-c // 4) * 4, -(-f // 4) * 4
     cp = dsconv_pitch(c)
     nin = (rows - 1) * stride + 3
     return 4 * (nin * (w + 2) * cp + min(rows, 2) * (w // stride) * cp
@@ -85,9 +87,9 @@ def choose_blocks(shape, f: int, stride: int) -> dict:
 
 def dsconv_fused(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
                  act: bool = True, block_rows: int | None = None):
-    """x: (B, H, W, C); dw_w: (3, 3, C); pw_w: (C, F) -> (B, Ho, Wo, F).
-    On the card C and F are multiples of 4; ``block_rows`` (the output
-    rows a CTA) defaults to ``choose_blocks``'s."""
+    """x: (B, H, W, C); dw_w: (3, 3, C); pw_w: (C, F) -> (B, Ho, Wo, F),
+    any C and F; ``block_rows`` (the output rows a CTA) defaults to
+    ``choose_blocks``'s."""
     B, H, W, C = x.shape
     F = pw_w.shape[1]
     if H % stride or W % stride:
@@ -96,9 +98,6 @@ def dsconv_fused(x, dw_w, dw_b, pw_w, pw_b, *, stride: int = 1,
         return dsconv_ref(x, dw_w, dw_b, pw_w, pw_b, stride=stride, act=act)
     if x.device.type != "cuda":
         raise ValueError(f"dsconv_fused runs on cuda or cpu, not {x.device}")
-    if C % 4 or F % 4:
-        raise ValueError(f"dsconv_fused: C = {C} and F = {F} must be "
-                         f"multiples of 4 on the card")
     for t, name, shape in ((x, "x", (B, H, W, C)), (dw_w, "dw_w", (3, 3, C)),
                            (dw_b, "dw_b", (C,)), (pw_w, "pw_w", (C, F)),
                            (pw_b, "pw_b", (F,))):

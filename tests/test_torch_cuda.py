@@ -37,7 +37,8 @@ from repro_torch.kernels.group_conv.kernel import (
     group_agg_ranks)
 from repro_torch.kernels.group_conv.ref import block_diag, group_agg_int8_ref
 from repro_torch.kernels.int8_matmul.kernel import (
-    _int8_matmul, gemm_cells, int8_gemm_smem, int8_matmul, int8_matmul_emit)
+    _int8_matmul, _int8_matmul_emit, emit_cells, gemm_cells, int8_emit_plan,
+    int8_emit_smem, int8_gemm_smem, int8_matmul, int8_matmul_emit)
 from repro_torch.kernels.int8_matmul.ref import (
     int8_matmul_emit_ref, int8_matmul_ref)
 from repro_torch.kernels.build import check, library
@@ -117,6 +118,27 @@ def test_dsconv_kernel_matches_plain(cuda, B, H, C, F, stride, rows):
     _close(got, dsconv_ref(*args, stride=stride))
 
 
+@pytest.mark.parametrize("B,H,C,F,stride", [
+    (2, 28, 6, 10, 1), (2, 28, 6, 10, 2), (1, 14, 3, 7, 1), (2, 9, 5, 16, 1),
+    (1, 10, 16, 6, 2), (1, 7, 1, 1, 1)])
+def test_dsconv_kernel_any_channel_count(cuda, B, H, C, F, stride):
+    """C and F no multiple of 4 (the planner fuses such a site, as JAX's
+    does): the pad channels of the staged quads are zeros, the output is
+    stored channel by channel; within fp32 rounding of the plain
+    version at stride 1 and 2, on the plan's bands and on one-row
+    bands."""
+    rng = np.random.default_rng(H * C + F)
+    args = (_rand(rng, cuda, B, H, H, C), _rand(rng, cuda, 3, 3, C, scale=.3),
+            _rand(rng, cuda, C), _rand(rng, cuda, C, F, scale=C ** -0.5),
+            _rand(rng, cuda, F))
+    ref = dsconv_ref(*args, stride=stride)
+    for rows in (None, 1):
+        n = dsconv_fused.launches
+        got = dsconv_fused(*args, stride=stride, block_rows=rows)
+        assert dsconv_fused.launches == n + 1
+        _close(got, ref)
+
+
 def test_dsconv_smem_mirror_matches_the_source(cuda):
     """``dsconv_smem_bytes`` equals the CUDA layout (``dsconv_smem_c``) at
     stem.ds0 of B1 (192-576 px) and the generic shapes, at band heights
@@ -126,7 +148,8 @@ def test_dsconv_smem_mirror_matches_the_source(cuda):
     fn.restype = ctypes.c_longlong
     for (W, C, F, stride) in [(px // 2, 16, 16, 1)
                               for px in (192, 224, 256, 288, 384, 576)] \
-            + [(9, 8, 72, 1), (8, 8, 12, 2), (10, 12, 20, 1), (56, 16, 16, 2)]:
+            + [(9, 8, 72, 1), (8, 8, 12, 2), (10, 12, 20, 1), (56, 16, 16, 2),
+               (28, 6, 10, 1), (28, 6, 10, 2), (14, 3, 7, 1)]:
         for rows in range(1, 17):
             assert fn(W, C, F, stride, rows) == \
                 dsconv_smem_bytes(W, C, F, stride, rows)
@@ -892,19 +915,177 @@ def test_fix8_engine_on_the_card(cuda):
     assert torch.equal(got, ones)
 
 
+MSA_EMIT = [(196, 128, 384), (196, 256, 128), (49, 256, 768),
+            (49, 512, 256)]
+
+
 @pytest.mark.parametrize("keep_fp", [False, True])
 @pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("rows,K,N", [(196, 256, 128), (49, 512, 256)])
+@pytest.mark.parametrize("rows,K,N", MSA_EMIT)
 def test_int8_matmul_emit_equals_plain(cuda, rows, K, N, batch, keep_fp):
-    """Row groups of one image straddle the 64-row tiles."""
+    """The MSA projections of B1@224 (the library's shapes): the plan
+    takes the cluster path, and the codes, the scales and the kept map
+    are EQUAL to the plain version; a static scale (one broadcast
+    scalar) as well."""
     g = torch.Generator().manual_seed(rows + K + batch)
     args = (_i8(g, cuda, batch * rows, K), _i8(g, cuda, K, N),
             _sc(g, cuda, batch), _sc(g, cuda, N))
     kw = dict(rows_per_group=rows, bias=_bias(g, cuda, N), keep_fp=keep_fp)
+    assert int8_emit_plan(batch * rows, N, K, rows)["path"] == "cluster"
     n = int8_matmul_emit.launches
     got = int8_matmul_emit(*args, **kw)
     assert int8_matmul_emit.launches == n + 1
     _same(got, int8_matmul_emit_ref(*args, **kw))
+    static = (args[0], args[1], args[2][0], args[3])
+    _same(int8_matmul_emit(*static, **kw),
+          int8_matmul_emit_ref(*static, **kw))
+
+
+@pytest.mark.parametrize("rows,K,N", [(37, 50, 29), (5, 700, 40),
+                                      (16, 64, 16), (3, 3001, 8),
+                                      (70, 130, 200)])
+def test_int8_matmul_emit_ragged(cuda, rows, K, N):
+    """Ragged rows, K and N at every cluster cell and on the plain grid
+    (tiles of a group that end inside the group, K tails through the
+    4-byte and byte staging and the two-stage ring, N through stage_wt's
+    loads, byte stores of codes and scalar stores of the kept map): EQUAL
+    to the plain version, keep-fp on and off, with and without a
+    bias."""
+    g = torch.Generator().manual_seed(rows * K + N)
+    args = (_i8(g, cuda, 3 * rows, K), _i8(g, cuda, K, N), _sc(g, cuda, 3),
+            _sc(g, cuda, N))
+    bias = _bias(g, cuda, N)
+    cells = [dict(path="cluster", bm=bm, bn=bn)
+             for bm, bn in emit_cells(rows, N, K)]
+    cells.append(dict(path="grid", bm=16, bn=32))
+    for keep in (False, True):
+        for b in (bias, None):
+            ref = int8_matmul_emit_ref(*args, rows_per_group=rows, bias=b,
+                                       keep_fp=keep)
+            _same(int8_matmul_emit(*args, rows_per_group=rows, bias=b,
+                                   keep_fp=keep), ref)
+            for c in cells:
+                _same(_int8_matmul_emit(*args, b, rows, keep, c), ref)
+
+
+def test_int8_matmul_emit_grid_fallback(cuda):
+    """Groups no cluster holds (4096 rows of 256 columns: 4 MB of sums an
+    image) take the plain grid and the quantize pass: EQUAL to the plain
+    version, one call on the counter."""
+    rows, K, N = 4096, 128, 256
+    plan = int8_emit_plan(2 * rows, N, K, rows)
+    assert plan["path"] == "grid" and not emit_cells(rows, N, K)
+    g = torch.Generator().manual_seed(4)
+    args = (_i8(g, cuda, 2 * rows, K), _i8(g, cuda, K, N), _sc(g, cuda, 2),
+            _sc(g, cuda, N))
+    for keep in (False, True):
+        kw = dict(rows_per_group=rows, bias=_bias(g, cuda, N), keep_fp=keep)
+        n = int8_matmul_emit.launches
+        got = int8_matmul_emit(*args, **kw)
+        assert int8_matmul_emit.launches == n + 1
+        _same(got, int8_matmul_emit_ref(*args, **kw))
+
+
+@pytest.mark.parametrize("rows,K,N", MSA_EMIT)
+def test_int8_matmul_emit_rows_are_batch_invariant(cuda, rows, K, N):
+    """Image i's codes, scale and kept map in a batch-8 call equal its
+    batch-1 call bit for bit (a cluster per image; no rank's work depends
+    on the batch)."""
+    g = torch.Generator().manual_seed(rows * N)
+    x, w = _i8(g, cuda, 8 * rows, K), _i8(g, cuda, K, N)
+    xs, ws, b = _sc(g, cuda, 8), _sc(g, cuda, N), _bias(g, cuda, N)
+    kw = dict(rows_per_group=rows, bias=b, keep_fp=True)
+    q, s, fp = int8_matmul_emit(x, w, xs, ws, **kw)
+    for i in range(8):
+        sl = slice(i * rows, (i + 1) * rows)
+        _same((q[sl], s[i:i + 1], fp[sl]),
+              int8_matmul_emit(x[sl], w, xs[i:i + 1], ws, **kw))
+
+
+def test_int8_emit_smem_mirror_matches_the_source(cuda):
+    """``int8_emit_smem`` equals the CUDA layout (``int8_emit_smem_c``) at
+    every cluster cell of the B1 projection shapes (192-384 px) and of
+    ragged ones, and the plan reports it."""
+    fn = library("int8_matmul").int8_emit_smem_c
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_longlong
+    shapes = {(37, 50, 29), (5, 700, 40), (3, 3001, 8)}
+    for size in (192, 224, 256, 384):
+        for site in lower(B1, batch=1, image_size=size).fusible():
+            if site.kind == "msa":
+                _, h, w, c = site.in_shape
+                total = site.attrs["heads"] * site.attrs["head_dim"]
+                shapes |= {(h * w, c, 3 * total), (h * w, 2 * total, c)}
+    for rows, K, N in sorted(shapes):
+        for bm, bn in emit_cells(rows, N, K):
+            assert fn(K, bm, bn) == int8_emit_smem(K, bm, bn)
+        plan = int8_emit_plan(rows, N, K, rows)
+        assert plan["smem"] == fn(K, plan["bm"], plan["bn"])
+
+
+_EMIT_LAUNCHES = """
+import json
+import torch
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.kernels.int8_matmul.kernel import int8_matmul_emit
+g = torch.Generator(device="cuda").manual_seed(21)
+calls = []
+for rows, K, N in ((196, 128, 384), (196, 256, 128), (49, 256, 768),
+                   (49, 512, 256)):
+    x = torch.randint(-128, 128, (8 * rows, K), generator=g, device="cuda",
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (K, N), generator=g, device="cuda",
+                      dtype=torch.int8)
+    ws, b = 1e-2 * torch.rand((2, N), generator=g, device="cuda")
+    for xs, keep in ((1e-2 * torch.rand(8, generator=g, device="cuda"),
+                      False), (torch.tensor(0.01, device="cuda"), True)):
+        calls.append(lambda x=x, w=w, xs=xs, ws=ws, b=b, r=rows, k=keep:
+                     int8_matmul_emit(x, w, xs, ws, rows_per_group=r,
+                                      bias=b, keep_fp=k))
+for fn in calls:
+    fn()
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+rows = {}
+for e in prof.key_averages():
+    us = getattr(e, "device_time_total", None)
+    if (e.cuda_time_total if us is None else us) > 0:
+        rows[e.key] = e.count
+print(json.dumps(rows))
+"""
+
+
+def test_int8_matmul_emit_cluster_is_one_launch(cuda):
+    """On the cluster path, an emitting call is one CUDA launch of
+    ``int8_emit_gemm<true>`` with no memset and nothing else, at the four
+    MSA projections of B1@224, batch 8, per-image and static scales,
+    keep-fp off and on: counted by torch.profiler in a process of its
+    own.  CUPTI now and then drops one activity record (one capture on
+    an H100 counted 7 of these 8 launches), so a capture may count
+    fewer, never more: every capture holds only the kernel and at most 8
+    launches, and one of at most three counts all 8."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    counts = []
+    for _ in range(3):
+        proc = subprocess.run([sys.executable, "-c", _EMIT_LAUNCHES],
+                              capture_output=True, text=True, timeout=600,
+                              env=dict(os.environ, PYTHONPATH=src))
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        rows = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert all("int8_emit_gemm<true>" in k for k in rows), rows
+        counts.append(sum(rows.values()))
+        assert counts[-1] <= 8, rows
+        if counts[-1] == 8:
+            break
+    assert counts[-1] == 8, counts
 
 
 @pytest.mark.parametrize("keep_fp", [False, True])

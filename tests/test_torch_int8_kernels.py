@@ -37,7 +37,9 @@ from repro_torch.kernels.group_conv.kernel import (
 from repro_torch.kernels.group_conv.ops import (
     GroupAggInt8Kernel, block_diag, group_agg_apply_int8)
 from repro_torch.kernels.int8_matmul.kernel import (
-    gemm_cells, gemm_ctas, int8_gemm_plan, int8_gemm_smem, int8_matmul)
+    EMIT_MAX_RANKS, emit_cells, emit_tiles, gemm_cells, gemm_ctas,
+    int8_emit_plan, int8_emit_smem, int8_gemm_plan, int8_gemm_smem,
+    int8_matmul)
 from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
 from repro_torch.kernels.mbconv.kernel import (
     int8_fslice, int8_mslice, int8_ranks, mbconv_fused_int8,
@@ -375,6 +377,65 @@ def test_int8_gemm_smem_and_cells_at_any_k(M, K, N):
     plan = int8_gemm_plan(M, N, K)
     assert (plan["bm"], plan["bn"]) in cells
     assert plan["smem"] == int8_gemm_smem(K, plan["bm"], plan["bn"])
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_int8_emit_plan_takes_the_cluster(batch):
+    """The library's 24 ``int8_matmul_emit`` cases (the four MSA
+    projections of B1@224, 196 or 49 rows an image, batch 1 and 8; keep-fp
+    and the scale's form do not enter the plan) take the cluster path: a
+    group's tiles, at most 16, cover its rows and columns, every tile
+    holds rows and columns, and the CTA's shared memory is the mirror's
+    and fits."""
+    for rows, K, N in ((196, 128, 384), (196, 256, 128), (49, 256, 768),
+                       (49, 512, 256)):
+        plan = int8_emit_plan(batch * rows, N, K, rows)
+        bm, bn = plan["bm"], plan["bn"]
+        assert plan["path"] == "cluster" and (bm, bn) in emit_cells(rows, N,
+                                                                    K)
+        assert plan["ranks"] == plan["tiles"] == emit_tiles(rows, N, bm, bn)
+        assert 1 <= plan["ranks"] <= EMIT_MAX_RANKS
+        assert bm % 16 == 0 and bn % 16 == 0
+        assert (-(-rows // bm) - 1) * bm < rows <= -(-rows // bm) * bm
+        assert (-(-N // bn) - 1) * bn < N <= -(-N // bn) * bn
+        assert plan["smem"] == int8_emit_smem(K, bm, bn) <= SMEM_LIMIT
+        assert plan == int8_emit_plan(batch * rows, N, K, rows)
+
+
+@pytest.mark.parametrize("rows,K,N", [(4096, 128, 256), (1600, 128, 384),
+                                      (2304, 512, 256)])
+def test_int8_emit_plan_falls_back_past_the_cluster(rows, K, N):
+    """Where no split of a group into at most 16 tiles fits a CTA's shared
+    memory (large images), the plan takes the plain grid with
+    ``int8_gemm_plan``'s tile, which fits; ranks 0."""
+    assert not emit_cells(rows, N, K)
+    for bm in range(16, -(-rows // 16) * 16 + 1, 16):
+        for bn in range(16, -(-N // 16) * 16 + 1, 16):
+            if emit_tiles(rows, N, bm, bn) <= EMIT_MAX_RANKS:
+                assert int8_emit_smem(K, bm, bn) > SMEM_LIMIT
+    plan = int8_emit_plan(2 * rows, N, K, rows)
+    gemm = int8_gemm_plan(2 * rows, N, K)
+    assert plan["path"] == "grid" and plan["ranks"] == 0
+    assert (plan["bm"], plan["bn"]) == (gemm["bm"], gemm["bn"])
+    assert plan["tiles"] == emit_tiles(rows, N, plan["bm"], plan["bn"])
+    assert plan["smem"] == int8_emit_smem(K, plan["bm"], plan["bn"]) \
+        <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("K,bm,bn", [(128, 112, 48), (512, 32, 32),
+                                     (3001, 16, 16), (50, 48, 32)])
+def test_int8_emit_smem_formula(K, bm, bn):
+    """The mirror of ``em_layout`` (``csrc/int8_matmul.cu``) against a
+    hand count: the GEMM tile's regions (per stage the A panel at a
+    pitch of 64 (mod 128) and the weights' raw rows, the transposed B
+    panel, the int32 sums [bm][bn + 8], the row and column scales), then
+    the bias [bn] and 64 reduction words."""
+    kc = min(-(-K // 64) * 64, 512)
+    pitch = kc if kc % 128 else kc + 64
+    stages = 1 if K <= 512 else 2
+    want = stages * (bm * pitch + kc * bn) + bn * pitch \
+        + 4 * bm * (bn + 8) + 4 * (bm + bn) + 4 * bn + 256
+    assert int8_emit_smem(K, bm, bn) == want
 
 
 @pytest.mark.parametrize("image_size", [192, 224, 256, 288, 320, 384])

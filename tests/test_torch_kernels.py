@@ -83,7 +83,8 @@ def _torch(args):
 # plain versions against the JAX oracles and Pallas kernels (interpret)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("B,H,C,F", [(1, 8, 8, 8), (2, 6, 16, 24)])
+@pytest.mark.parametrize("B,H,C,F", [(1, 8, 8, 8), (2, 6, 16, 24),
+                                     (2, 8, 6, 10)])
 def test_dsconv_plain_matches_jax(B, H, C, F):
     args = _dsconv_args(np.random.default_rng(H * C), B, H, C, F)
     jargs = [jnp.asarray(a) for a in args]
@@ -91,6 +92,45 @@ def test_dsconv_plain_matches_jax(B, H, C, F):
     assert_allclose(got, np.asarray(jdr.dsconv_ref(*jargs)), **TOL)
     assert_allclose(got, np.asarray(jdk.dsconv_fused(*jargs, interpret=True)),
                     **TOL)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_planner_fuses_a_dsconv_of_any_width(stride):
+    """A DSConv site of C = 6 -> F = 10 (no multiple of 4): JAX's planner
+    fuses it (its kernel takes any C and pads F to its block), and so does
+    the port's, whose band kernel stages zero-padded channel quads; the
+    port's fused path on the CPU matches JAX's ``dsconv`` within
+    1e-5."""
+    from repro.core import fusion as jfusion
+    from repro.core import program as jprogram
+    from repro_torch.core import program as tprogram
+    from repro_torch.core.fusion import plan_program
+    from repro_torch.kernels.registry import get_kernel
+    rng = np.random.default_rng(6)
+    C, F, H = 6, 10, 8
+    p = {"dw": _conv_bn(rng, 3, C, C, groups=C), "pw": _conv_bn(rng, 1, C, F)}
+    shapes = dict(in_shape=(2, H, H, C),
+                  out_shape=(2, H // stride, H // stride, F), stride=stride)
+    jsite = jprogram.Site("stem.ds0", "dsconv", "stem", ("stem_ds", 0),
+                          **shapes)
+    tsite = tprogram.Site("stem.ds0", "dsconv", "stem", ("stem_ds", 0),
+                          **shapes)
+    jplan = jfusion.plan_program(
+        jprogram.Program(jevit.B1, 2, H, (jsite,)), {"stem_ds": [p]},
+        autotune=False)
+    tparams = params_from_jax(p, "cpu")
+    tplan = plan_program(tprogram.Program(B1, 2, H, (tsite,)),
+                         {"stem_ds": [tparams]})
+    jd, td = jplan.get("stem.ds0"), tplan.get("stem.ds0")
+    assert jd.fused and td.fused and (jd.reason, td.reason) == ("ok", "ok")
+    assert dsconv_smem_bytes(H, C, F, stride, td.blocks["block_rows"]) \
+        == dsconv_smem_bytes(H, 8, 12, stride, td.blocks["block_rows"])
+    x = rng.standard_normal((2, H, H, C)).astype(np.float32)
+    got = get_kernel("dsconv", "fp").apply(tparams, torch.from_numpy(x),
+                                           tsite, td)
+    ref = jevit.dsconv(p, jnp.asarray(x), stride=stride)
+    assert tuple(got.shape) == ref.shape
+    assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
 def test_dsconv_stride2_matches_jax_reference_forward():

@@ -34,7 +34,10 @@ cases (32k tokens, ms per call, 3 windows of 2 calls): each launch cut in
 turn (``no_states``, ``no_prefix``, ``no_out``; ``out_only`` keeps the
 output launch alone, on a workspace of stale states) and, inside the
 output launch, the state term or the key tiles (the score tiles and
-their products).
+their products); ``int8_matmul_emit`` (its cluster kernel at the
+library's 24 cases: the MMA steps, the cluster's absmax, the quantize
+and stores, or the epilogue with them cut out; the quantize alone reads
+no o without the epilogue, so it is cut with it).
 Needs a CUDA card and ``nvcc``; imports nothing of JAX.
 """
 from __future__ import annotations
@@ -123,6 +126,20 @@ CUTS = {
          "(x == 0.0f ? 0.0f : rintf(__fdiv_rn(x == 0.0f ? scale : x, "
          "scale)))")],
 }
+# int8_emit_gemm (the cluster path of int8_matmul_emit)
+CUTS.update({
+    "em_mma": [("int8_matmul.cu",
+                "    for (int u = warp; u < tiles * ks; u += NT / 32) {\n",
+                "    for (int u = warp; u < 0; u += NT / 32) {\n")],
+    "em_epi": [("int8_matmul.cu",
+                "\n  for (int e = tid; e < rows * c4; e += NT) {\n",
+                "\n  for (int e = tid; e < 0; e += NT) {\n")],
+    "em_cluster_max": [("int8_matmul.cu",
+                        "        i8mma::cluster_max_push(cl, vmax, red, "
+                        "gridDim.x)));\n", "        vmax));\n")],
+    "em_quant": [("int8_matmul.cu",
+                  "    for (int e = tid; e < rows * c16; e += NT) {\n",
+                  "    for (int e = tid; e < 0; e += NT) {\n")]})
 for _src, _lib in (("relu_attn_causal.cu", "ra"), ("ssd.cu", "ssd")):
     # the chunk-parallel scans: a launch, or a part of the output pass
     CUTS.update({
@@ -167,7 +184,12 @@ for _target, _lib, _kernel, _p in (
         "out_only": (f"{_p}_states", f"{_p}_prefix"),
         "out_no_state_term": (f"{_p}_state_term",),
         "out_no_key_tiles": (f"{_p}_key_tiles",)})
-LIBRARY_KERNELS = ("relu_attn_causal", "ssd_chunked")
+TARGETS["int8_matmul_emit"] = ("int8_matmul", ("int8_matmul_emit",), {
+    "full": (), "no_mma": ("em_mma",), "no_cluster_max": ("em_cluster_max",),
+    "no_quant": ("em_quant",), "no_epilogue": ("em_epi", "em_quant"),
+    "none": ("em_mma", "em_epi", "em_cluster_max", "em_quant")})
+LIBRARY_KERNELS = ("relu_attn_causal", "ssd_chunked", "int8_matmul_emit")
+SCANS = ("relu_attn_causal", "ssd_chunked")
 
 
 def edited_copy(dst: str, cuts) -> None:
@@ -243,9 +265,11 @@ def main() -> int:
                 if case[0] not in kernels:
                     continue
                 cells = []
+                reps, windows = (2, 3) if case[0] in SCANS else (20, 5)
                 for name in builds:
                     serve(lib, sos[(target, name)])
-                    cells.append(f"{name} {device_ms(case[3], 2, 3):.3f}")
+                    cells.append(f"{name} "
+                                 f"{device_ms(case[3], reps, windows):.5f}")
                 print(f"[cuts {target}] {case[0]} {case[2]} ms per call: "
                       + ", ".join(cells), flush=True)
             continue
