@@ -44,22 +44,26 @@
       the forms, and each image's rows of a batch-8 call equal to its
       batch-1 call (``[relu_attn]`` lines).
    b. ``VisionEngine`` over B1@224 fp32 (random weights and BN
-      statistics from ``--seed``, microbatch 8) serves 12 requests with
-      mixed deadlines through its scheduler, on the default plan, which
-      groups exactly S1.ss0 and S2.ss0 in every bucket (their blocks,
-      band windows and recompute factors are printed).  Every launch
-      counter is reset just before and read just after: each dispatched
-      forward must launch dsconv_fused 1x, mbconv_fused 9x,
-      relu_attn_noncausal 7x and supersite_fused 2x.  The logits must
-      match the port's reference forward (``execute`` with ``plan=None``)
-      on the card within rtol = atol = 1e-3, with the same top-1.  Each
-      group's weight pack is built once per engine and hit by every
-      later bucket.  One batch-8 forward under the per-site plan
+      statistics from ``--seed``, microbatch 8), warmed: every bucket
+      (1, 2, 4, 8) on the default plan, which groups exactly S1.ss0 and
+      S2.ss0 in every bucket (their blocks, band windows and recompute
+      factors are printed).  Each group's weight pack is built once per
+      engine and hit by every later bucket.  One batch-8 forward under
+      the per-site plan
       (``supersites=False``) must match the grouped one within 1e-4 *
       max(1, max|logit|), with the same top-1.  Then the steady state:
       64 images as 8 full buckets (host clock), one batch-8 forward's
-      device time (CUDA events, one forward per window) beside the
-      host's time to enqueue it (the same for FIX8).
+      device time (CUDA events, one forward per window) as a graph
+      replay and run eagerly, beside the host's time per replay (the
+      same for FIX8).  Every executor serves from a CUDA graph captured
+      at warm-up: each key's capture must have issued exactly the
+      launches per forward of 5 (a replay runs no wrapper and counts
+      nothing), and its growth of the cache's graph pool is printed; the
+      ``degraded``, ``pinned_fp``, ``retries`` and ``failed`` counters
+      stay 0.  The ``[graph]`` lines: at batch 1, 4 and 8 the replayed
+      logits equal the eager forward of the same plan bit for bit, and 64
+      images sent as 8 buckets of 8 before any is read equal the 8
+      forwards run one at a time (the same for FIX8).
 3. FIX8 phase.
    a. Each int8 kernel against its plain PyTorch version at every B1@224
       int8 shape on the path, batch 1 and 8, on random int8 codes: the
@@ -90,18 +94,23 @@
       cluster kernel at every rank count that fits, each cell EQUAL to
       the plain version, the choice of ``dsconv_int8_path`` marked.
    b. ``VisionEngine.quantized`` over the same fp tree, quantized by the
-      port, serves the same trace on the default plan (S1.ss0 and S2.ss0
-      grouped).  Counters reset just before, read just after: each
-      forward must launch int8_matmul 14x, group_agg_int8 7x,
-      mbconv_fused_int8 7x, mbconv_fused_int8_emit 2x, dsconv_fused_int8
-      1x, relu_attn_noncausal 7x and supersite_fused_int8 2x.  The logits
-      must have the top-1 of the port's int8 reference forward and lie
-      within 0.1 * max|logit| of it (the int8 requants turn the fp32
-      attention core's reduction-order ulps into whole-code flips; the
-      measured gap is printed), row i of a batch-8 forward must equal the
-      batch-1 forward of image i bit for bit, and the batch-8 forward
-      under the per-site plan must equal the grouped one bit for bit.
-      Pack residency as in 2b.
+      port, warmed on the default plan (S1.ss0 and S2.ss0 grouped): row i
+      of a batch-8 forward must equal the batch-1 forward of image i bit
+      for bit, and the batch-8 forward under the per-site plan must equal
+      the grouped one bit for bit.  Pack residency, graphs, steady state
+      and ``[graph]`` lines as in 2b.
+   c. ``[faults]``: the fault ladder on the card, B1@224, one bucket of
+      8, a ``ManualClock``.  fp32: a ``FaultPlan`` fires ``kernel.launch``
+      twice on ``S2.mb1`` (a member of S2.ss0): the key must reach level
+      1 with that site demoted, its plan must group as ``plan_program(...,
+      demote=)`` says (S1.ss0 only; S2.mb0 and S2.mb2 run alone), a new
+      graph must be captured whose replay launches 11 ``mbconv_fused``
+      and 1 ``supersite_fused``, and every request must complete within
+      the fp32 gate of the reference forward.  FIX8: ``epilogue.numerics``
+      fires once; the key pins to fp, a new graph runs no int8 kernel,
+      and every request completes within the FIX8 gate.  At both, a
+      request whose 1 ms hard deadline passes while queued is shed
+      before batch formation and takes no slot.
 4. Kernel-library phase: the four kernels no served forward runs, each
    through the JAX package's public op at full width.  Every counter is
    reset just before the ops run once per case and read just after: one
@@ -143,11 +152,36 @@
    also timed against ``torch._int_mm``
    + the same epilogue and per-image quantize.  The 32k-token cases are
    timed over 3 windows of 2 calls.
-5. ``torch.profiler``'s kernel time and launches per batch-8 forward by
-   kernel name, fp32 and FIX8, after every timed phase: CUPTI may stay
-   attached once the profiler has run and slow the host's launches.  The
-   port's own kernels' CUDA launches, the memsets and the zero fills are
-   counted apart.  Then one call of each served FIX8 MBConv shape, each
+5. The main path, fp32 then FIX8.  Every launch counter is set to 0
+   just before a new engine is made (``VisionEngine``, then
+   ``VisionEngine.quantized``) and warmed, and read just after it has
+   served 12 requests with mixed deadlines through its scheduler.  The
+   wrappers launch only in the warm-up: each key's eager warm-up run
+   and its capture, so each kernel's count must be twice its launches
+   per forward times the keys.  Per forward: fp32 dsconv_fused 1x,
+   mbconv_fused 9x, relu_attn_noncausal 7x and supersite_fused 2x; FIX8
+   int8_matmul 14x, group_agg_int8 7x, mbconv_fused_int8 7x,
+   mbconv_fused_int8_emit 2x, dsconv_fused_int8 1x, relu_attn_noncausal
+   7x and supersite_fused_int8 2x.  The served run is captured by
+   ``torch.profiler``, with one eager forward of each dispatched
+   bucket after it: split at each copy-in, the run must hold one replay
+   per dispatch, and each replay must launch on the device exactly the
+   port's kernels of its bucket's eager forward, by name and count (the
+   eager forwards' wrappers launching the counts above).  The fp32
+   logits must match the port's reference forward (``execute`` with
+   ``plan=None``) on the card within rtol = atol = 1e-3, with the same
+   top-1; the FIX8 logits must have the top-1 of the port's int8
+   reference forward and lie within 0.1 * max|logit| of it (the int8
+   requants turn the fp32 attention core's reduction-order ulps into
+   whole-code flips; the measured gap is printed).  No ladder counter
+   moves.
+6. ``torch.profiler``'s kernel time and launches per batch-8 graph
+   replay by kernel name, fp32 and FIX8, after every timed phase: CUPTI
+   may stay attached once the profiler has run and slow the host's
+   launches.  The port's own kernels' CUDA launches, the memsets and the
+   zero fills are counted apart, and the port's kernels of a replay must
+   equal those of one eager forward of the same plan in the same
+   capture, by name and count.  Then one call of each served FIX8 MBConv shape, each
    MSA projection GEMM, the library's emitting GEMM at each projection
    (per-image scales with keep-fp off and on, a static scale), each
    aggregation branch, the FIX8 DSConv at
@@ -157,11 +191,11 @@
    (the cluster kernels, the tensor-core GEMMs, the attention kernel, the
    fp32 band kernel), with no memset, no zero fill and no allocation but
    its outputs (none for the attention).
-6. One JSON line with every kernel's launches on its driven run(s),
+7. One JSON line with every kernel's launches on its driven run(s),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
-7. The last line: ``{"ok": true, "device": {...}}``.
+8. The last line: ``{"ok": true, "device": {...}}``.
 
 Any failure raises and the script exits non-zero.
 """
@@ -1466,69 +1500,194 @@ def check_kernels(cases, batch, per_fwd, max_err, exact: bool):
             add_time(per_fwd[name], len(sites), case, *times[:4], exact)
 
 
-def serve_trace(engine, images, wrappers, expected, tag):
-    """Serve 12 requests with mixed deadlines through the engine's
-    scheduler with every launch counter reset just before and read just
-    after; check the launches per dispatched forward.  Returns (logits,
-    launches)."""
+def serve_trace(make_engine, images, wrappers, expected, tag):
+    """The main path's run.  Every launch counter is set to 0, then the
+    engine is made and warmed (``make_engine()``, ``warmup()``): each key's
+    eager warm-up run and its capture issue every launch the wrappers
+    count, since a replay runs no wrapper.  Then 12 requests with mixed
+    deadlines are served through the engine's scheduler under one
+    ``torch.profiler`` capture, and the counters are read just after.
+    In the same capture, one eager forward of each dispatched bucket's
+    (program, plan) follows.  Checks: the wrappers launched exactly the
+    expected kernels per forward, twice per key (warm-up run, capture);
+    each key's capture recorded them; on the device, the served run's
+    port kernels split at each copy-in (the pinned batch copied into a
+    graph's static input) give one replay per dispatch, and each replay
+    launched exactly the port kernels of the eager forward of its
+    bucket, by name and count, whose wrappers launched the expected
+    kernels.  Returns (engine, logits, launches)."""
+    import collections
+    import re
+
     import numpy as np
     import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.program import execute
     from repro_torch.serving.scheduler import Request
 
+    for w in wrappers.values():
+        w.launches = 0
+    engine = make_engine()
     engine.warmup()
+    keys = engine.cache.keys()
+    warm = {k: w.launches for k, w in wrappers.items()}
+    for name, per in expected.items():
+        if warm[name] != 2 * per * len(keys):
+            raise AssertionError(
+                f"{name}: {warm[name]} launches to warm {len(keys)} keys, "
+                f"expected {per} per forward, warm-up run and capture")
+    check_graphs(engine, expected, tag)
     sched = engine.scheduler()
     # request 2 is due at once (flushes 3 requests to bucket 4), requests
     # 3..10 fill bucket 8, request 11 goes to bucket 1 at drain
     deadlines = [60_000.0, None, 0.0] + [60_000.0, None] * 4 + [None]
     reqs = [Request(i, images[i], deadline_ms=deadlines[i],
                     timeout_ms=600_000.0) for i in range(12)]
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
-    for r in reqs:
-        sched.submit(r)
-        sched.step()
-    sched.step(drain=True)
-    t_fin = time.perf_counter()
-    sched.finalize()
-    wall = time.perf_counter() - t0
-    fin = time.perf_counter() - t_fin
-    launches = {k: w.launches for k, w in wrappers.items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.serve"):
+            t0 = time.perf_counter()
+            for r in reqs:
+                sched.submit(r)
+                sched.step()
+            sched.step(drain=True)
+            t_fin = time.perf_counter()
+            sched.finalize()
+            wall = time.perf_counter() - t0
+            fin = time.perf_counter() - t_fin
+            torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        dispatched = sorted(k[0] for k, b in engine.telemetry.buckets.items()
+                            for _ in range(b.dispatches))
+        for bucket in sorted(set(dispatched)):
+            ex = engine.cache.get(bucket, 224)
+            x = torch.zeros((bucket, 224, 224, 3), device="cuda")
+            with record_function(f"chip_smoke.eager.{bucket}"), \
+                    torch.inference_mode():
+                execute(ex.program, engine.params, x, plan=ex.plan)
+                torch.cuda.synchronize()
+    eager_launches = {k: w.launches - launches[k]
+                      for k, w in wrappers.items()}
     if any(r.status != "completed" for r in reqs):
         raise AssertionError([(r.rid, r.status, r.error) for r in reqs])
-    dispatched = [(k[0], k[1]) for k, b in engine.telemetry.buckets.items()
-                  for _ in range(b.dispatches)]
-    n_fwd = len(dispatched)
-    print(f"[{tag}] dispatched (bucket, res): {sorted(dispatched)}; "
-          f"launches {launches}; {len(reqs)} images in {wall * 1e3:.2f} ms "
-          f"= {len(reqs) / wall:.1f} images/s")
-    print(f"[{tag}] host: submit + step (copy in, enqueue the forwards) "
+    print(f"[{tag}] main path: counters at 0, then the engine made and "
+          f"warmed ({len(keys)} keys: warm-up run and capture each), "
+          f"{len(reqs)} requests served; launches {launches}")
+    print(f"[{tag}] dispatched buckets {dispatched}; {len(reqs)} images in "
+          f"{wall * 1e3:.2f} ms under torch.profiler; host: submit + step "
           f"{(wall - fin) * 1e3:.2f} ms, finalize (waiting on the card) "
           f"{fin * 1e3:.2f} ms")
+    if launches != warm:
+        raise AssertionError(f"serving launched through the wrappers: "
+                             f"{launches} after warm-up {warm}")
     for name, per in expected.items():
-        if launches[name] != per * n_fwd:
-            raise AssertionError(f"{name}: {launches[name]} launches for "
-                                 f"{n_fwd} forwards, expected {per} each")
+        if eager_launches[name] != per * len(set(dispatched)):
+            raise AssertionError(f"{name}: {eager_launches[name]} launches "
+                                 f"in {len(set(dispatched))} eager "
+                                 f"forwards, expected {per} each")
+
+    # the device side, by the profiler: host ranges split the capture
+    events = prof.events()
+    starts = {e.name: e.time_range.start for e in events
+              if e.device_type == DeviceType.CPU
+              and e.name.startswith("chip_smoke.")}
+    eager_at = sorted((starts[f"chip_smoke.eager.{b}"], b)
+                      for b in set(dispatched))
+    ours = port_kernel_names()
+    kname = lambda name: re.match(r"(?:void\s+)?(\w+)", name).group(1)
+    device = sorted((e for e in events if e.device_type == DeviceType.CUDA
+                     and not e.name.startswith("chip_smoke.")),
+                    key=lambda e: e.time_range.start)
+    replays, eager = [], collections.defaultdict(collections.Counter)
+    for e in device:
+        t = e.time_range.start
+        if t < starts["chip_smoke.serve"]:
+            continue
+        if t < eager_at[0][0]:
+            if "Memcpy HtoD" in e.name:
+                replays.append(collections.Counter())
+            elif kname(e.name) in ours:
+                if not replays:
+                    raise AssertionError(f"{e.name} before any copy-in")
+                replays[-1][kname(e.name)] += 1
+        else:
+            bucket = [b for at, b in eager_at if at <= t][-1]
+            if kname(e.name) in ours:
+                eager[bucket][kname(e.name)] += 1
+    print(f"[{tag}] profiler over the served run: {len(replays)} copy-ins "
+          f"(one per dispatch), the port's kernels per replay "
+          + "; ".join(f"{dict(c)}" for c in replays))
+    for bucket, c in sorted(eager.items()):
+        print(f"[{tag}] profiler, eager forward of bucket {bucket}: the "
+              f"port's kernels {dict(c)}")
+    want = sorted((sorted(eager[b].items()) for b in dispatched))
+    got = sorted(sorted(c.items()) for c in replays)
+    if len(replays) != len(dispatched) or got != want:
+        raise AssertionError(f"the served replays launched {got} on the "
+                             f"device; the eager forwards of the "
+                             f"dispatched buckets {dispatched}: {want}")
+    total = collections.Counter()
+    for c in replays:
+        total.update(c)
+    print(f"[{tag}] each of the {len(dispatched)} dispatched replays "
+          f"launched on the device the port's kernels of its bucket's "
+          f"eager forward ({sum(total.values())} CUDA launches of the "
+          f"port's kernels in all)")
     for key, b in sorted(engine.telemetry.buckets.items()):
-        s = b.snapshot()
+        st = b.snapshot()
         print(f"[{tag}] bucket {key}: dispatches={b.dispatches} "
               f"samples={b.samples} padded={b.padded} "
-              f"latency_ms p50={s['latency_ms_p50']:.3f} "
+              f"latency_ms p50={st['latency_ms_p50']:.3f} "
               f"max={max(b.latency_ms):.3f}")
     got = np.stack([r.logits for r in reqs])
     if not np.all(np.isfinite(got)) or got.shape[0] != 12:
         raise AssertionError(f"bad logits: shape {got.shape}")
-    torch.cuda.synchronize()
-    return got, launches
+    check_healthy(engine, tag)
+    return engine, got, launches
+
+
+def check_graphs(engine, expected, tag) -> None:
+    """Every cached executor holds a CUDA graph whose capture issued
+    exactly the expected launches per forward (each replay repeats them
+    on the device; ``serve_trace`` counts them there); print each key's
+    bytes in the graph pool."""
+    want = {k: v for k, v in expected.items() if v}
+    for key in engine.cache.keys():
+        ex = engine.cache.get(key.batch, key.resolution)
+        if ex.graph is None:
+            raise AssertionError(f"bucket {key.batch}: no CUDA graph")
+        if ex.replay_launches != want:
+            raise AssertionError(f"bucket {key.batch}: the capture "
+                                 f"recorded {ex.replay_launches}, expected "
+                                 f"{want} per forward")
+        pool = ("not measured" if ex.graph_bytes is None
+                else f"{ex.graph_bytes / 2**20:.1f} MiB")
+        print(f"[{tag}] graph bucket {key.batch}@{key.resolution}: "
+              f"launches per replay = captured {ex.replay_launches}; "
+              f"graph pool grew {pool}")
+
+
+def check_healthy(engine, tag) -> None:
+    """A healthy phase moves no ladder and retries nothing."""
+    c = engine.telemetry.counters
+    ladder = {k: c.get(k, 0) for k in ("degraded", "pinned_fp", "retries",
+                                       "failed")}
+    print(f"[{tag}] ladder counters {ladder}")
+    if any(ladder.values()):
+        raise AssertionError(f"healthy phase moved the ladder: {ladder}")
 
 
 def steady_state(engine, rng, tag):
     """64 images as 8 full buckets, host clock to a synchronize; then one
-    batch-8 forward's device time (CUDA events, the host's enqueue hidden
-    behind a sleep kernel) beside the host's time to enqueue it.  Returns
-    the batch-8 forward, for ``kernel_profile``."""
+    batch-8 forward's device time as a graph replay and run eagerly
+    (CUDA events, the host's enqueue hidden behind a sleep kernel) beside
+    the host's time per replay.  Returns (replay, eager) of the batch-8
+    forward, for ``kernel_profile``."""
     import numpy as np
     import torch
+    from repro_torch.core.program import execute
     batch64 = torch.from_numpy(
         rng.standard_normal((64, 224, 224, 3)).astype(np.float32)).cuda()
     engine.logits(batch64[:8])
@@ -1538,24 +1697,206 @@ def steady_state(engine, rng, tag):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     print(f"[{tag}] steady state: 64 images in 8 buckets of 8: "
-          f"{wall * 1e3:.2f} ms = {64 / wall:.1f} images/s")
+          f"{wall * 1e3:.3f} ms = {64 / wall:.1f} images/s")
     ex = engine.cache.get(8, 224)
-    fwd = lambda: ex(engine.params, batch64[:8])
-    # one forward per window: a forward queues ~660 launches, and five
-    # of them overrun the stream's launch queue, so the host's enqueue
-    # would leak into a longer window
+    x8 = batch64[:8]
+    fwd = lambda: ex(engine.params, x8)
+
+    def eager():
+        with torch.inference_mode():
+            return execute(ex.program, engine.params, x8, plan=ex.plan)
     dev = device_ms(fwd, reps=1, windows=5)
+    dev5 = device_ms(fwd, reps=5, windows=5)
+    # one eager forward per window: it queues ~660 launches, and five of
+    # them overrun the stream's launch queue
+    dev_eager = device_ms(eager, reps=1, windows=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        fwd()
+    host = (time.perf_counter() - t0) / 20 * 1e3
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(5):
-        fwd()
-    host = (time.perf_counter() - t0) / 5 * 1e3
+        eager()
+    host_eager = (time.perf_counter() - t0) / 5 * 1e3
     torch.cuda.synchronize()
     per = wall / 8 * 1e3
-    print(f"[{tag}] one batch-8 forward: device {dev:.3f} ms, host enqueue "
-          f"{host:.3f} ms, steady state {per:.3f} ms per forward (device "
+    print(f"[{tag}] one batch-8 forward: device {dev:.3f} ms as a graph "
+          f"replay ({dev5:.3f} ms a replay over windows of 5), {dev_eager:.3f} "
+          f"ms eager; host {host:.3f} ms per replay ({host_eager:.3f} ms "
+          f"eager enqueue); steady state {per:.3f} ms per forward (device "
           f"idle {max(0.0, 1 - dev / per):.1%} of it)")
-    return fwd
+    return fwd, eager
+
+
+def graph_checks(engine, rng, tag) -> None:
+    """``[graph]`` lines: at batch 1, 4 and 8 the replayed logits equal
+    the eager forward of the same (program, plan) bit for bit; 64 images
+    sent as 8 buckets of 8 before any is read equal the 8 forwards run
+    one at a time (a replay's logits are copied out of the graph in
+    stream order)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.program import execute
+    for batch in (1, 4, 8):
+        ex = engine.cache.get(batch, 224)
+        x = torch.from_numpy(rng.standard_normal(
+            (batch, 224, 224, 3)).astype(np.float32)).cuda()
+        got = ex(engine.params, x)
+        with torch.inference_mode():
+            want = execute(ex.program, engine.params, x, plan=ex.plan)
+        torch.cuda.synchronize()
+        n = int((got != want).sum())
+        print(f"[graph] {tag} batch {batch}: replay vs eager, {n} of "
+              f"{got.numel()} logits differ")
+        if n:
+            raise AssertionError(f"{tag} batch {batch}: replayed logits "
+                                 f"differ from eager in {n} places")
+    ex = engine.cache.get(8, 224)
+    xs = torch.from_numpy(rng.standard_normal(
+        (64, 224, 224, 3)).astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    in_flight = torch.cat([ex(engine.params, xs[8 * i:8 * i + 8])
+                           for i in range(8)])
+    one_by_one = []
+    for i in range(8):
+        one_by_one.append(ex(engine.params, xs[8 * i:8 * i + 8]))
+        torch.cuda.synchronize()
+    n = int((in_flight != torch.cat(one_by_one)).sum())
+    print(f"[graph] {tag}: 64 images as 8 buckets in flight vs 8 forwards "
+          f"one at a time: {n} logits differ")
+    if n:
+        raise AssertionError(f"{tag}: in-flight replays differ in {n}")
+
+
+def faults_phase(params, images, wrappers, expected_fp) -> None:
+    """``[faults]``: the ladder on the card, at B1@224 batch 8.
+
+    fp32: ``kernel.launch`` fires twice on ``S2.mb1`` (a member of
+    S2.ss0): the first failure retries, the second moves the key to level
+    1 with the site demoted; the rebuilt plan groups as the planner says
+    (S2.ss0 split), its graph is captured anew, and the requests complete
+    within the fp32 gate of the reference forward.  FIX8:
+    ``epilogue.numerics`` once: finalize finds the NaN, the key pins to
+    fp, a new graph runs no int8 kernel, and the requests complete within
+    the FIX8 gate.  A request whose hard deadline passes while queued is
+    swept before batch formation at both."""
+    import numpy as np
+    import torch
+    from repro_torch.common.errors import DeadlineExceeded
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.fusion import plan_program
+    from repro_torch.core.program import execute, lower
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.scheduler import ManualClock, Request
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    x8 = torch.from_numpy(images[:8]).cuda()
+    cfg = VisionServeConfig(microbatch=8, buckets=(8,))
+    runs = (
+        ("fp32", FaultPlan(FaultSpec("kernel.launch", times=2,
+                                     match={"batch": 8}, site="S2.mb1")),
+         lambda f: VisionEngine(params, B1, cfg, faults=f)),
+        ("fix8", FaultPlan(FaultSpec("epilogue.numerics", times=1,
+                                     match={"batch": 8})),
+         lambda f: VisionEngine.quantized(params, B1, cfg, faults=f)))
+    for name, faults, make in runs:
+        engine = make(faults)
+        old = engine.cache.get(8, 224)
+        clock = ManualClock()
+        sched = engine.scheduler(clock=clock, backoff_ms=0.0)
+        reqs = [Request(i, images[i]) for i in range(8)]
+        late = Request(99, images[8], timeout_ms=1.0)
+        for r in reqs + [late]:
+            sched.submit(r)
+        clock.advance(0.01)
+        for w in wrappers.values():
+            w.launches = 0
+        rounds = 0
+        while sched.outstanding():
+            sched.step(drain=True)
+            sched.finalize()
+            rounds += 1
+            if rounds > 8:
+                raise AssertionError(f"{name}: not drained")
+        launches = {k: w.launches for k, w in wrappers.items()
+                    if w.launches}
+        if any(r.status != "completed" for r in reqs):
+            raise AssertionError([(r.rid, r.status, r.error) for r in reqs])
+        if late.status != "shed" or not isinstance(late.error,
+                                                   DeadlineExceeded):
+            raise AssertionError(f"late request: {late.status}")
+        samples = engine.telemetry.total("samples")
+        dispatches = engine.telemetry.total("dispatches")
+        if samples != 8 * dispatches:
+            raise AssertionError(f"{samples} samples in {dispatches} "
+                                 f"dispatches: the expired request took a "
+                                 f"slot")
+        state = engine.cache.degradation(8, 224)
+        ex = engine.cache.get(8, 224)
+        if ex is old or ex.graph is None or ex.graph is old.graph:
+            raise AssertionError(f"{name}: the key was not captured anew")
+        # replays run no wrapper: the wrappers launched only the
+        # rebuild's eager warm-up run and its capture
+        want = {k: 2 * v for k, v in ex.replay_launches.items()}
+        if launches != want:
+            raise AssertionError(f"{name}: launches {launches}, expected "
+                                 f"{want}: the rebuild's warm-up run and "
+                                 f"capture of {ex.replay_launches}")
+        got = torch.from_numpy(np.stack([r.logits for r in reqs]))
+        with torch.inference_mode():
+            ref = execute(lower(B1, batch=8), engine.params, x8).cpu()
+        d, top = (got - ref).abs().max().item(), ref.abs().max().item()
+        same_top1 = torch.equal(got.argmax(-1), ref.argmax(-1))
+        groups = {g.name: tuple(g.members)
+                  for g in ex.plan.groups.values()}
+        print(f"[faults] {name}: fired {faults.fired}; retries "
+              f"{[r.retries for r in reqs]}; ladder {state}; groups "
+              f"{sorted(groups)}; new graph, launches per replay "
+              f"{ex.replay_launches}; logits vs reference max|d| {d:.3e} "
+              f"(max|ref| {top:.3e}), top-1 {'equal' if same_top1 else 'DIFFERS'}; "
+              f"request with a 1 ms timeout shed before formation")
+        if not same_top1:
+            raise AssertionError(f"{name}: top-1 differs from reference")
+        if name == "fp32":
+            want = plan_program(ex.program, engine.params,
+                                demote={"S2.mb1"})
+            want_groups = {g.name: tuple(g.members)
+                           for g in want.groups.values()}
+            if (state is None or state.level != 1
+                    or state.demoted != {"S2.mb1"} or state.pinned_fp):
+                raise AssertionError(f"fp32 ladder state {state}")
+            if groups != want_groups or groups != {
+                    "S1.ss0": GROUPS["S1.ss0"]}:
+                raise AssertionError(f"fp32 level-1 groups {groups}, the "
+                                     f"planner says {want_groups}")
+            if ex.plan.decisions["S2.mb1"].reason != "fault":
+                raise AssertionError("S2.mb1 not demoted for the fault")
+            per = {k: v for k, v in expected_fp.items() if v}
+            per.update(mbconv_fused=per["mbconv_fused"] + 2,
+                       supersite_fused=1)
+            if ex.replay_launches != per:
+                raise AssertionError(f"level-1 launches "
+                                     f"{ex.replay_launches}, expected {per}")
+            if any(r.retries != 2 for r in reqs):
+                raise AssertionError("fp32: expected two failed attempts")
+            np.testing.assert_allclose(got.numpy(), ref.numpy(),
+                                       rtol=1e-3, atol=1e-3)
+        else:
+            if state is None or not state.pinned_fp or state.level:
+                raise AssertionError(f"FIX8 ladder state {state}")
+            if ex._runs_int8 or any("int8" in k for k in ex.replay_launches):
+                raise AssertionError(f"FIX8 pinned key still runs int8 "
+                                     f"kernels: {ex.replay_launches}")
+            if any(r.retries != 1 for r in reqs):
+                raise AssertionError("FIX8: expected one failed attempt")
+            if not d <= CHAOS * top:
+                raise AssertionError(f"FIX8 pinned logits {d:.3e} from the "
+                                     f"int8 reference, above {CHAOS} * "
+                                     f"{top:.3e}")
+        if not faults.exhausted:
+            raise AssertionError(f"{name}: faults left unfired")
 
 
 def port_kernel_names(csrc: str | None = None) -> set:
@@ -1724,40 +2065,79 @@ def one_launch_per_site(gen) -> None:
     one_launch_each(calls)
 
 
-def kernel_profile(fwd, tag, n: int = 2, csrc: str | None = None) -> None:
-    """Kernel time and launches per forward by kernel name, from
-    ``torch.profiler``'s CUDA activity over ``n`` forwards (the sum is
-    the device's busy time; the gaps between kernels are not in it); the
-    port's own kernels' launches, the memsets and the zero fills counted
-    apart (the kernels of ``csrc``, by default this tree's sources), and
-    each port kernel's launches and time."""
+def kernel_profile(fwd, eager, tag, n: int = 2,
+                   csrc: str | None = None) -> None:
+    """One ``torch.profiler`` capture: ``n`` graph replays of the batch-8
+    forward, a synchronize, then one eager forward of the same (program,
+    plan).  Kernel time and launches per replay by kernel name (the sum
+    is the device's busy time; the gaps between kernels are not in it);
+    the port's own kernels' launches (the kernels of ``csrc``, by default
+    this tree's sources), the memsets and the zero fills counted apart.
+    The port's kernels in a replay must be those of the eager forward, by
+    name and count: the graph launches what the wrappers launched."""
+    import collections
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fwd()
-        torch.cuda.synchronize()
-    rows = [(device_us(e) / n / 1e3, e.count / n, e.key)
-            for e in prof.key_averages() if device_us(e) > 0]
-    rows.sort(reverse=True)
+    fwd()
+    eager()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("chip_smoke.replays"):
+            for _ in range(n):
+                fwd()
+            torch.cuda.synchronize()
+        with record_function("chip_smoke.eager"):
+            eager()
+            torch.cuda.synchronize()
+    events = prof.events()
+    split = min(e.time_range.start for e in events
+                if e.name == "chip_smoke.eager")
     ours = port_kernel_names(csrc)
-    port = [r for r in rows
-            if re.match(r"(?:void\s+)?(\w+)", r[2]).group(1) in ours]
+    by_name = [collections.defaultdict(lambda: [0.0, 0]) for _ in range(2)]
+    for e in events:
+        # the record_function ranges show on the device side too
+        if e.device_type != DeviceType.CUDA or e.name.startswith(
+                "chip_smoke."):
+            continue
+        row = by_name[int(e.time_range.start >= split)][e.name]
+        row[0] += e.time_range.elapsed_us() / 1e3
+        row[1] += 1
+    rows = sorted(((ms / n, cnt / n, name)
+                   for name, (ms, cnt) in by_name[0].items()), reverse=True)
+    kname = lambda name: re.match(r"(?:void\s+)?(\w+)", name).group(1)
+    port = [r for r in rows if kname(r[2]) in ours]
     memsets = sum(r[1] for r in rows if "Memset" in r[2])
     fills = sum(r[1] for r in rows if "FillFunctor" in r[2])
     top = "; ".join(f"{name[:48]} {ms:.3f} ms x{cnt:g}"
                     for ms, cnt, name in rows[:8])
-    print(f"[{tag}] profiler, one batch-8 forward: "
+    print(f"[{tag}] profiler, one batch-8 replay: "
           f"{sum(r[1] for r in rows):g} kernel launches, "
           f"{sum(r[0] for r in rows):.3f} ms of kernel time; top: {top}")
-    print(f"[{tag}] profiler, one batch-8 forward: the port's kernels "
+    print(f"[{tag}] profiler, one batch-8 replay: the port's kernels "
           f"{sum(r[1] for r in port):g} CUDA launches, "
           f"{sum(r[0] for r in port):.3f} ms; memsets {memsets:g}; zero "
           f"fills {fills:g}; by kernel: " + "; ".join(
               f"{name[:40]} {ms:.4f} ms x{cnt:g}" for ms, cnt, name in port))
+    def count(side, k):
+        out = collections.Counter()
+        for name, (_, c) in by_name[side].items():
+            if kname(name) in ours:
+                out[kname(name)] += c / k
+        return out
+    replayed, eager_port = count(0, n), count(1, 1)
+    eager_all = sum(c for _, c in by_name[1].values())
+    print(f"[{tag}] profiler, the eager forward: {eager_all:g} kernel "
+          f"launches; the port's kernels per replay equal the eager "
+          f"forward's: {replayed == eager_port} "
+          f"({sum(eager_port.values()):g} CUDA launches)")
+    if not eager_port or replayed != eager_port:
+        raise AssertionError(f"port kernels per replay {dict(replayed)}, "
+                             f"eager {dict(eager_port)}")
 
 
 def main() -> int:
@@ -1776,19 +2156,8 @@ def main() -> int:
     from repro_torch.core.efficientvit import B1, init_efficientvit
     from repro_torch.core.program import execute, lower
     from repro_torch.kernels.build import build
-    from repro_torch.kernels.dsconv.kernel import (
-        dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
-    from repro_torch.kernels.group_conv.kernel import group_agg_int8
-    from repro_torch.kernels.int8_matmul.kernel import (
-        int8_matmul, int8_matmul_emit)
-    from repro_torch.kernels.mbconv.kernel import (
-        mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
     from repro_torch.core.quantization import quantize_efficientvit
-    from repro_torch.kernels.relu_attn.kernel import (
-        relu_attn_causal, relu_attn_noncausal)
-    from repro_torch.kernels.ssd.kernel import ssd_chunked
-    from repro_torch.kernels.supersite.kernel import (
-        supersite_fused, supersite_fused_int8)
+    from repro_torch.kernels.registry import kernel_wrappers
     from repro_torch.serving.vision import VisionEngine, VisionServeConfig
 
     # -- 1. set-up ------------------------------------------------------
@@ -1808,19 +2177,8 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
     count_imma()
-    wrappers = {"dsconv_fused": dsconv_fused, "mbconv_fused": mbconv_fused,
-                "relu_attn_noncausal": relu_attn_noncausal,
-                "mbconv_fused_int8": mbconv_fused_int8,
-                "mbconv_fused_int8_emit": mbconv_fused_int8_emit,
-                "dsconv_fused_int8": dsconv_fused_int8,
-                "int8_matmul": int8_matmul,
-                "group_agg_int8": group_agg_int8,
-                "supersite_fused": supersite_fused,
-                "supersite_fused_int8": supersite_fused_int8,
-                "int8_matmul_emit": int8_matmul_emit,
-                "dsconv_fused_int8_emit": dsconv_fused_int8_emit,
-                "relu_attn_causal": relu_attn_causal,
-                "ssd_chunked": ssd_chunked}
+    # every kernel wrapper of the port, in the kernels line's order
+    wrappers = kernel_wrappers()
     # the library kernels run on neither served path
     expected_fp = dict.fromkeys(wrappers, 0) | {
         "dsconv_fused": 1, "mbconv_fused": 9, "relu_attn_noncausal": 7,
@@ -1879,25 +2237,18 @@ def main() -> int:
     relu_attn_checks(gen)
     dsconv_sweep(gen)
 
-    # -- 2b. the fp32 main path -----------------------------------------
-    engine = VisionEngine(params, B1, VisionServeConfig(microbatch=8))
+    # -- 2b. the fp32 engine: graphs, plans, steady state ---------------
+    cfg8 = VisionServeConfig(microbatch=8)
+    engine = VisionEngine(params, B1, cfg8).warmup()
+    check_graphs(engine, expected_fp, "serve")
+    check_groups(engine, "serve")
     rng = np.random.default_rng(args.seed)
     images = rng.standard_normal((12, 224, 224, 3)).astype(np.float32)
-    got, launches_fp = serve_trace(engine, images, wrappers, expected_fp,
-                                   "serve")
-    check_groups(engine, "serve")
-    with torch.inference_mode():
-        ref = execute(lower(B1, batch=12), engine.params,
-                      torch.from_numpy(images).cuda()).cpu().numpy()
-    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
-    if not np.array_equal(got.argmax(-1), ref.argmax(-1)):
-        raise AssertionError("top-1 differs from the reference forward")
-    print(f"[serve] logits vs reference forward: max|d| "
-          f"{np.abs(got - ref).max():.3e} (max|ref| "
-          f"{np.abs(ref).max():.3e}), top-1 equal")
     x12 = torch.from_numpy(images).cuda()
     grouped_vs_per_site(engine, x12[:8], "serve", exact=False)
     fwd_fp = steady_state(engine, rng, "serve")
+    graph_checks(engine, rng, "fp32")
+    check_healthy(engine, "serve")
 
     # -- 3a. int8 kernels against their plain versions -----------------
     for batch in (1, 8):
@@ -1909,12 +2260,46 @@ def main() -> int:
     group_agg_sweep(gen)
     dsconv_int8_sweep(gen)
 
-    # -- 3b. the FIX8 main path -----------------------------------------
-    qengine = VisionEngine.quantized(params, B1,
-                                     VisionServeConfig(microbatch=8))
-    got, launches_q = serve_trace(qengine, images, wrappers, expected_int8,
-                                  "fix8")
+    # -- 3b. the FIX8 engine ---------------------------------------------
+    qengine = VisionEngine.quantized(params, B1, cfg8).warmup()
+    check_graphs(qengine, expected_int8, "fix8")
     check_groups(qengine, "fix8")
+    eight = qengine.logits(x12[:8])
+    ones = torch.cat([qengine.logits(x12[i:i + 1]) for i in range(8)])
+    if not torch.equal(eight, ones):
+        raise AssertionError(
+            f"batch invariance: {int((eight != ones).sum())} logits of a "
+            f"batch-8 forward differ from the batch-1 forwards")
+    print("[fix8] batch invariance: the 8 rows of a batch-8 forward equal "
+          "the 8 batch-1 forwards bit for bit")
+    grouped_vs_per_site(qengine, x12[:8], "fix8", exact=True)
+    fwd_q = steady_state(qengine, rng, "fix8")
+    graph_checks(qengine, rng, "fix8")
+    check_healthy(qengine, "fix8")
+
+    # -- 3c. the fault ladder on the card -------------------------------
+    faults_phase(params, images, wrappers, expected_fp)
+
+    # -- 4. the kernel library: the public ops off the vision path ------
+    launches_lib = library_phase(args.seed, wrappers, expected_lib, per_fwd,
+                                 max_err)
+
+    # -- 5. the main path, fp32 and FIX8: warm, serve, count -----------
+    engine, got, launches_fp = serve_trace(
+        lambda: VisionEngine(params, B1, cfg8), images, wrappers,
+        expected_fp, "serve")
+    with torch.inference_mode():
+        ref = execute(lower(B1, batch=12), engine.params,
+                      x12).cpu().numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+    if not np.array_equal(got.argmax(-1), ref.argmax(-1)):
+        raise AssertionError("top-1 differs from the reference forward")
+    print(f"[serve] logits vs reference forward: max|d| "
+          f"{np.abs(got - ref).max():.3e} (max|ref| "
+          f"{np.abs(ref).max():.3e}), top-1 equal")
+    qengine, got, launches_q = serve_trace(
+        lambda: VisionEngine.quantized(params, B1, cfg8), images, wrappers,
+        expected_int8, "fix8")
     with torch.inference_mode():
         ref = execute(lower(B1, batch=12), qengine.params,
                       x12).cpu().numpy()
@@ -1926,27 +2311,13 @@ def main() -> int:
     if not d <= CHAOS * top:
         raise AssertionError(f"FIX8 logits {d:.3e} from the reference, "
                              f"above {CHAOS} * {top:.3e}")
-    eight = qengine.logits(x12[:8])
-    ones = torch.cat([qengine.logits(x12[i:i + 1]) for i in range(8)])
-    if not torch.equal(eight, ones):
-        raise AssertionError(
-            f"batch invariance: {int((eight != ones).sum())} logits of a "
-            f"batch-8 forward differ from the batch-1 forwards")
-    print("[fix8] batch invariance: the 8 rows of a batch-8 forward equal "
-          "the 8 batch-1 forwards bit for bit")
-    grouped_vs_per_site(qengine, x12[:8], "fix8", exact=True)
-    fwd_q = steady_state(qengine, rng, "fix8")
 
-    # -- 4. the kernel library: the public ops off the vision path ------
-    launches_lib = library_phase(args.seed, wrappers, expected_lib, per_fwd,
-                                 max_err)
-
-    # -- 5. kernel time per forward, after every timed phase -----------
-    kernel_profile(fwd_fp, "serve")
-    kernel_profile(fwd_q, "fix8")
+    # -- 6. kernel time per forward, after every timed phase -----------
+    kernel_profile(*fwd_fp, "serve")
+    kernel_profile(*fwd_q, "fix8")
     one_launch_per_site(gen)
 
-    # -- 6. the kernels line --------------------------------------------
+    # -- 7. the kernels line --------------------------------------------
     rows = []
     for name in wrappers:
         acc = per_fwd[name]

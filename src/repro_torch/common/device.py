@@ -6,8 +6,6 @@ tests) says ``device="cpu"``.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
 __all__ = ["resolve_device", "tree_to", "to_device", "scalar"]
@@ -55,12 +53,30 @@ def tree_to(tree, device: torch.device):
     return tree
 
 
-@functools.lru_cache(maxsize=None)
+_SCALARS: dict = {}     # (value, device) -> 0-dim constant
+
+
 def scalar(value: float, device: torch.device) -> torch.Tensor:
     """A 0-dim fp32 constant on ``device``, made once per (value, device)
     and never written to.  Dividing by it is a true division on every
     device: PyTorch turns division by a Python scalar into multiplication
     by its reciprocal on CUDA tensors.  ``torch.full`` fills it on the
     device, so making it does not wait for work queued on the card, as a
-    copy from host memory would."""
-    return torch.full((), value, dtype=torch.float32, device=device)
+    copy from host memory would.
+
+    Raises when a constant would first be made while a CUDA graph is
+    being captured: the fill would only be recorded, so the cached
+    tensor would hold garbage until the graph's first replay.  An
+    executor runs its forward eagerly before it captures, which makes
+    every constant the forward uses."""
+    key = (float(value), torch.device(device))
+    t = _SCALARS.get(key)
+    if t is None:
+        if key[1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"scalar({value}) first made inside a CUDA graph capture; "
+                f"run the forward eagerly before capturing it")
+        t = _SCALARS.setdefault(key, torch.full((), value,
+                                                dtype=torch.float32,
+                                                device=device))
+    return t

@@ -32,6 +32,12 @@ the survivors, the degradation ladder does NOT move), and
 ``MeshExhausted`` is the terminal no-devices-left state (persistent —
 requests fail immediately instead of burning their retry budget).
 
+``injected`` is True on an error that a ``serving.faults.FaultPlan``
+raised (a fault drill).  On the card only such an error moves the
+degradation ladder: a real failure there is retried on the same
+executor and ends "failed" with its typed error, so nothing falls back
+to the reference path's plain PyTorch unnoticed.
+
 ``transient`` steers the scheduler's retry policy: transient errors get
 a same-level retry with exponential backoff before the degradation
 ladder moves; persistent ones degrade immediately.  ``site`` / ``key``
@@ -49,6 +55,7 @@ __all__ = ["ReproError", "LoweringError", "PlanError", "ExecutorError",
 class ReproError(Exception):
     """Base of every typed runtime error."""
     transient = False   # True -> a same-level retry may succeed
+    injected = False    # True -> a FaultPlan raised it
 
     def __init__(self, message: str = "", *, site: str | None = None,
                  key=None):

@@ -14,8 +14,10 @@ planner freezes its first candidate without a sweep.  A quantized
 an int8 ``Epilogue`` (the int8 dataflow).  The super-site grouping pass
 (``supersites=True``, the default as in JAX) then joins runs of
 consecutive fused conv sites of one stage into single-launch groups.
-Autotune sweeps, schedule overrides (``group_break`` among them) and
-fault demotion are later slices of the port.
+``demote=`` forces named sites to the reference path (reason
+``"fault"``), the serving degradation ladder's lever.  Autotune sweeps
+and schedule overrides (``group_break`` among them) are later slices of
+the port.
 """
 from __future__ import annotations
 
@@ -50,7 +52,8 @@ class SiteDecision:
     fused: bool
     reason: str            # "ok" | "vmem" (does not fit in shared memory)
     #                        | "quantized" | "not-quantized" | "mixed"
-    #                        | "disabled"
+    #                        | "disabled" | "fault" (demoted by the
+    #                        degradation ladder)
     blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
     #                        fp mbconv: {"block_rows", "block_m", "split"}
     #                        (band, mid chunk, CTAs per cluster); fp
@@ -163,6 +166,7 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
                  fuse_mbconv: bool = True, fuse_msa: bool = True,
                  precision: str = "auto",
                  reuse: FusionPlan | None = None,
+                 demote=(),
                  supersites: bool = True) -> FusionPlan:
     """Freeze per-site routing for a lowered ``core.program.Program``.
 
@@ -174,6 +178,10 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
     default) runs the grouping pass last (``_group_supersites``);
     ``False`` keeps per-site launches.  A failure inside one site's
     decision is re-raised as ``PlanError`` naming the site.
+    ``demote``: site names forced to the reference path with reason
+    ``"fault"`` before any decision runs (the degradation ladder's
+    lever); the grouping pass runs after it, so a demoted member leaves
+    its group and the members around it regroup.
     """
     from repro_torch.common.errors import PlanError, ReproError
     from repro_torch.core.program import params_at
@@ -182,8 +190,14 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
         raise ValueError(f"precision must be auto|fp|int8, got {precision!r}")
     enabled = {"dsconv": fuse_dsconv, "mbconv": fuse_mbconv,
                "msa": fuse_msa}
+    demote = frozenset(demote)
     decisions: dict[str, SiteDecision] = {}
     for site in program.fusible():
+        if site.name in demote:
+            decisions[site.name] = SiteDecision(
+                site.name, site.kind, False, "fault",
+                shape=decision_shape(site))
+            continue
         try:
             decisions[site.name] = _decide(
                 site, params_at(params, site.param_path),

@@ -36,7 +36,8 @@ from typing import Any, Dict, Optional, Protocol, Tuple
 __all__ = ["KernelImpl", "KernelBase", "register", "get_kernel",
            "get_probe", "conv_block_precision", "resolve_conv_precision",
            "SMEM_LIMIT", "N_SM", "SMEM_PER_SM", "SMEM_2_PER_SM", "CLUSTERS",
-           "SCAN_TILE", "SCAN_SCORE_PITCH", "SCAN_MAX_WIDTH", "scan_pitch"]
+           "SCAN_TILE", "SCAN_SCORE_PITCH", "SCAN_MAX_WIDTH", "scan_pitch",
+           "kernel_wrappers"]
 
 SMEM_LIMIT = 232_448   # bytes of shared memory one CTA may use on an H100
 N_SM = 132             # streaming multiprocessors of an H100 SXM
@@ -213,3 +214,29 @@ def get_probe(kind: str):
             return candidate
     raise KeyError(f"no kernel registered for kind {kind!r}; "
                    f"available: {sorted(_REGISTRY)}")
+
+
+def kernel_wrappers() -> Dict[str, Any]:
+    """Every kernel wrapper of the port by name.  Each carries a
+    ``launches`` counter that it raises by one where it launches its
+    kernel, and nowhere else.  A launch issued while a stream captures
+    counts too: the CUDA graph records it.  A replay of that graph runs
+    no wrapper and counts nothing (``serving.executors.Executor``)."""
+    from repro_torch.kernels.dsconv.kernel import (
+        dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit)
+    from repro_torch.kernels.group_conv.kernel import group_agg_int8
+    from repro_torch.kernels.int8_matmul.kernel import (
+        int8_matmul, int8_matmul_emit)
+    from repro_torch.kernels.mbconv.kernel import (
+        mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit)
+    from repro_torch.kernels.relu_attn.kernel import (
+        relu_attn_causal, relu_attn_noncausal)
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.supersite.kernel import (
+        supersite_fused, supersite_fused_int8)
+    return {f.__name__: f for f in (
+        dsconv_fused, mbconv_fused, relu_attn_noncausal, mbconv_fused_int8,
+        mbconv_fused_int8_emit, dsconv_fused_int8, int8_matmul,
+        group_agg_int8, supersite_fused, supersite_fused_int8,
+        int8_matmul_emit, dsconv_fused_int8_emit, relu_attn_causal,
+        ssd_chunked)}

@@ -4,9 +4,12 @@ Counterpart of ``repro/serving/vision.py``.  ``VisionEngine`` builds an
 ``ExecutorCache`` (shape-bucketed executors, plans shared across
 buckets) and vends ``MicroBatchScheduler``s over it.  The primary
 executor (the full microbatch at the config's resolution) is built in
-the constructor, outside the request loop, and exposed as ``.program``
-/ ``.plan``.  Fault injection, sharding, result caching, the watchdog,
-schedule artifacts and tracing are later slices of the port.
+the constructor, outside the request loop (on the card its CUDA graph
+is captured there too), and exposed as ``.program`` / ``.plan``.  A
+``serving.faults.FaultPlan`` (``faults=``) reaches the cache and every
+scheduler the engine vends; ``VisionServeConfig`` sets the schedulers'
+result cache and watchdog.  Sharding, schedule artifacts and tracing are
+later slices of the port.
 """
 from __future__ import annotations
 
@@ -45,6 +48,10 @@ class VisionServeConfig:
     policy: str = "bucketed"  # "bucketed" | "fixed" (pad to microbatch)
     buckets: tuple | None = None   # None -> powers of 2 up to microbatch
     capacity: int | None = None    # executor-cache LRU capacity
+    result_cache: int | None = None  # image-hash response cache capacity
+    #                                  in front of admission (None = off)
+    watchdog_ms: float | None = None  # in-flight hang bound for the
+    #                                   scheduler's watchdog (None = off)
 
 
 class VisionEngine:
@@ -53,7 +60,7 @@ class VisionEngine:
 
     def __init__(self, params, cfg: EfficientViTConfig,
                  serve_cfg: VisionServeConfig = VisionServeConfig(), *,
-                 device=None):
+                 device=None, faults=None):
         if serve_cfg.policy not in ("bucketed", "fixed"):
             raise ValueError(f"policy must be bucketed|fixed, got "
                              f"{serve_cfg.policy!r}")
@@ -68,11 +75,12 @@ class VisionEngine:
         # n-row batch to an executor built for fewer rows
         buckets = tuple(sorted(set(buckets) | {mb}))
         self.microbatch = mb
+        self.faults = faults  # serving.faults.FaultPlan (chaos testing)
         self.telemetry = Telemetry()
         self.cache = ExecutorCache(
             params, cfg, buckets=buckets, precision=serve_cfg.precision,
             use_plan=serve_cfg.use_plan, capacity=serve_cfg.capacity,
-            telemetry=self.telemetry, device=device)
+            telemetry=self.telemetry, device=device, faults=faults)
         self.params = self.cache.params
         self.device = self.cache.device
         primary = self.cache.get(mb, cfg.image_size)
@@ -83,7 +91,7 @@ class VisionEngine:
     @classmethod
     def quantized(cls, params, cfg: EfficientViTConfig,
                   serve_cfg: VisionServeConfig = VisionServeConfig(), *,
-                  device=None) -> "VisionEngine":
+                  device=None, faults=None) -> "VisionEngine":
         """FIX8 serving: quantize an fp32 param tree post-training (BN
         folded, int8 weights per output channel) on ``device`` (default:
         the card) and serve it through the int8 kernels."""
@@ -91,7 +99,7 @@ class VisionEngine:
         dev = resolve_device(device)
         return cls(quantize_efficientvit(tree_to(params, dev)), cfg,
                    dataclasses.replace(serve_cfg, precision="int8"),
-                   device=dev)
+                   device=dev, faults=faults)
 
     # -- batch API -------------------------------------------------------
     def logits(self, images) -> torch.Tensor:
@@ -99,7 +107,9 @@ class VisionEngine:
 
         Chunks dispatch without waiting on each other; the ragged tail
         routes to the smallest bucket >= its size (policy "bucketed") or
-        pads to the microbatch (policy "fixed")."""
+        pads to the microbatch (policy "fixed").  Each chunk is copied
+        straight into its executor's static input, the missing rows
+        zeroed there."""
         images = to_device(images, self.device)
         n, res = int(images.shape[0]), int(images.shape[1])
         mb = self.microbatch
@@ -111,12 +121,8 @@ class VisionEngine:
         i = 0
         for bucket in sizes:
             take = min(bucket, n - i)
-            chunk = images[i:i + take]
-            if bucket > take:
-                chunk = torch.cat([chunk, chunk.new_zeros(
-                    (bucket - take,) + tuple(chunk.shape[1:]))])
             ex = self.cache.get(bucket, res)
-            outs.append(ex(self.params, chunk)[:take])
+            outs.append(ex(self.params, images[i:i + take])[:take])
             self.telemetry.record_dispatch(
                 (bucket, res, self.cache.precision), take, bucket)
             i += take
@@ -127,15 +133,23 @@ class VisionEngine:
         return self.logits(images).argmax(dim=-1).cpu().numpy()
 
     # -- request API -----------------------------------------------------
-    def scheduler(self, *, clock=None, policy=None) -> MicroBatchScheduler:
+    def scheduler(self, *, clock=None, policy=None,
+                  **kw) -> MicroBatchScheduler:
         """A micro-batching scheduler bound to this engine's executor
-        cache, params and telemetry."""
+        cache, params and telemetry.  Extra keywords (``max_queue_depth``,
+        ``max_retries``, ``backoff_ms``, ...) pass through to
+        ``MicroBatchScheduler``; the engine's fault plan, result cache and
+        watchdog are the defaults."""
         if policy is None:
             policy = (FixedMicrobatchPolicy(self.microbatch)
                       if self.serve_cfg.policy == "fixed"
                       else BucketedPolicy())
+        kw.setdefault("faults", self.faults)
+        kw.setdefault("result_cache", self.serve_cfg.result_cache)
+        kw.setdefault("watchdog_ms", self.serve_cfg.watchdog_ms)
         return MicroBatchScheduler(self.cache, self.params, policy=policy,
-                                   telemetry=self.telemetry, clock=clock)
+                                   telemetry=self.telemetry, clock=clock,
+                                   **kw)
 
     def serve(self, requests: list[Request]) -> np.ndarray:
         """Serve ``Request``s (mixed resolutions and deadlines welcome);

@@ -23,7 +23,8 @@ from repro_torch.core.efficientvit import (
     B1, B1_SMOKE, EfficientViTConfig, init_efficientvit)
 from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import SuperSite, execute, lower
-from repro_torch.common.errors import KernelLaunchError
+from repro_torch.common import device as port_device
+from repro_torch.common.errors import ExecutorError, KernelLaunchError
 from repro_torch.core.quantization import quantize_act, quantize_efficientvit
 from repro_torch.kernels.dsconv.kernel import (
     _dsconv_int8, _dsconv_int8_emit, choose_blocks as ds_blocks,
@@ -49,7 +50,7 @@ from repro_torch.kernels.mbconv.kernel import (
     mbconv_smem_bytes)
 from repro_torch.kernels.mbconv.ref import mbconv_int8_ref, mbconv_ref
 from repro_torch.kernels.mbconv_fp import BLOCK_M
-from repro_torch.kernels.registry import SMEM_LIMIT
+from repro_torch.kernels.registry import SMEM_LIMIT, kernel_wrappers
 from repro_torch.kernels.relu_attn.kernel import (
     _relu_attn, relu_attn_causal, relu_attn_causal_plan,
     relu_attn_causal_smem_bytes, relu_attn_noncausal, relu_attn_plan,
@@ -66,7 +67,11 @@ from repro_torch.kernels.supersite.ops import (
 from repro_torch.kernels.supersite.pack import pack_weights
 from repro_torch.kernels.supersite.ref import (
     supersite_int8_ref, supersite_ref)
-from repro_torch.serving.scheduler import Request
+from repro_torch.serving import executors as port_executors
+from repro_torch.serving.executors import ExecutorCache
+from repro_torch.serving.faults import FaultPlan, FaultSpec
+from repro_torch.serving.scheduler import (
+    ManualClock, MicroBatchScheduler, Request)
 from repro_torch.serving.vision import VisionEngine, VisionServeConfig
 
 pytestmark = pytest.mark.gpu
@@ -896,20 +901,27 @@ def test_group_agg_smem_mirror_matches_the_source(cuda):
 
 def test_fix8_engine_on_the_card(cuda):
     """``VisionEngine.quantized`` launches the int8 kernels on every
-    fused site, its logits are finite, and a batch-8 forward equals eight
-    batch-1 forwards bit for bit (``chip_smoke.py`` holds the served
-    logits to the int8 reference forward)."""
+    fused site (its batch-8 key's warm-up run and capture, made with the
+    engine; a replay runs no wrapper), its logits are finite, and a
+    batch-8 forward equals eight batch-1 forwards bit for bit
+    (``chip_smoke.py`` holds the served logits to the int8 reference
+    forward)."""
     params = init_efficientvit(torch.Generator().manual_seed(0), B1)
+    wrappers = (int8_matmul, group_agg_int8, mbconv_fused_int8,
+                mbconv_fused_int8_emit, dsconv_fused_int8,
+                supersite_fused_int8)
+    per_forward = [14, 7, 7, 2, 1, 2]
+    counts = {f: f.launches for f in wrappers}
     engine = VisionEngine.quantized(params, B1,
                                     VisionServeConfig(microbatch=8))
+    assert [f.launches - n for f, n in counts.items()] == \
+        [2 * n for n in per_forward]
+    assert [engine.cache.get(8, 224).replay_launches[f.__name__]
+            for f in wrappers] == per_forward
     x = _rand(np.random.default_rng(3), cuda, 8, 224, 224, 3)
-    counts = {f: f.launches for f in (int8_matmul, group_agg_int8,
-                                      mbconv_fused_int8,
-                                      mbconv_fused_int8_emit,
-                                      dsconv_fused_int8,
-                                      supersite_fused_int8)}
+    counts = {f: f.launches for f in wrappers}
     got = engine.logits(x)
-    assert [f.launches - n for f, n in counts.items()] == [14, 7, 7, 2, 1, 2]
+    assert [f.launches - n for f, n in counts.items()] == [0] * 6
     assert got.shape == (8, 1000) and bool(torch.isfinite(got).all())
     ones = torch.cat([engine.logits(x[i:i + 1]) for i in range(8)])
     assert torch.equal(got, ones)
@@ -1449,3 +1461,306 @@ def test_grouped_forward_on_the_card(cuda, cfg, batch):
             _close(got, want)
         else:
             _same((got,), (want,))
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs: one per executor key
+# ---------------------------------------------------------------------------
+
+def _launches():
+    return {n: w.launches for n, w in kernel_wrappers().items()}
+
+
+def _graph_cache(cfg, precision, buckets, **kw):
+    params = init_efficientvit(torch.Generator().manual_seed(0), cfg, "cuda")
+    tree = params if precision == "fp" else quantize_efficientvit(params)
+    return ExecutorCache(tree, cfg, buckets=buckets,
+                         precision="auto" if precision == "fp" else "int8",
+                         device="cuda", **kw)
+
+
+def _replayed(ex, params, x):
+    """One replay, and the launches it added to the wrappers' counters."""
+    before = _launches()
+    out = ex(params, x)
+    after = _launches()
+    return out, {n: after[n] - before[n] for n in after
+                 if after[n] != before[n]}
+
+
+@pytest.mark.parametrize("precision", ["fp", "int8"])
+def test_replay_equals_eager(cuda, precision):
+    """B1_SMOKE at batch 1, 4 and 8: every executor holds a graph, its
+    replayed logits equal the eager forward of its (program, plan) bit
+    for bit, and a replay runs no kernel wrapper (the capture recorded
+    the launches; the wrappers' counters count only launches they
+    issue)."""
+    cache = _graph_cache(B1_SMOKE, precision, (1, 4, 8))
+    for batch in (1, 4, 8):
+        ex = cache.get(batch, 64)
+        assert ex.graph is not None and ex.warmed
+        x = _rand(np.random.default_rng(batch), cuda, batch, 64, 64, 3)
+        got, added = _replayed(ex, cache.params, x)
+        assert added == {} and ex.replay_launches
+        with torch.inference_mode():
+            want = execute(ex.program, cache.params, x, plan=ex.plan)
+        _same((got,), (want,))
+        partial, _ = _replayed(ex, cache.params, x[:1])   # rows zeroed
+        with torch.inference_mode():
+            padded = execute(ex.program, cache.params, torch.cat(
+                [x[:1], x.new_zeros((batch - 1, 64, 64, 3))]), plan=ex.plan)
+        _same((partial,), (padded,))
+
+
+@pytest.mark.parametrize("precision", ["fp", "int8"])
+def test_dispatches_in_flight_keep_their_logits(cuda, precision):
+    """Five replays of one key queued behind a sleep before anything is
+    read: each returns its own logits (the graph's output is copied out
+    in-stream), equal to its eager forward."""
+    cache = _graph_cache(B1_SMOKE, precision, (2,))
+    ex = cache.get(2, 64)
+    xs = [_rand(np.random.default_rng(10 + i), cuda, 2, 64, 64, 3)
+          for i in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)
+    outs = [ex(cache.params, x) for x in xs]
+    with torch.inference_mode():
+        wants = [execute(ex.program, cache.params, x, plan=ex.plan)
+                 for x in xs]
+    _same(outs, wants)
+    assert not torch.equal(outs[0], outs[1])
+
+
+def test_ladder_moves_drop_the_graph_and_capture_anew(cuda):
+    """``degrade`` on a chain member (the deep config's S2.ss0 splits) and
+    ``pin_fp`` on a FIX8 key: a new executor with a new graph whose
+    replays run the new plan's kernels and equal its eager forward."""
+    cache = _graph_cache(DEEP, "fp", (2,))
+    ex0 = cache.get(2, 64)
+    assert {g.name for g in ex0.plan.groups.values()} == {
+        "stem.ss0", "S1.ss0", "S2.ss0"}
+    state = cache.degrade(2, 64, site="S2.mb1")
+    assert state.level == 1 and cache.keys() == ()
+    ex1 = cache.get(2, 64)
+    assert ex1 is not ex0 and ex1.graph is not None
+    assert ex1.graph is not ex0.graph
+    assert {g.name for g in ex1.plan.groups.values()} == {"stem.ss0",
+                                                          "S1.ss0"}
+    assert ex1.replay_launches["supersite_fused"] == 2
+    assert ex1.replay_launches["mbconv_fused"] == \
+        ex0.replay_launches["mbconv_fused"] + 2
+    x = _rand(np.random.default_rng(5), cuda, 2, 64, 64, 3)
+    got, added = _replayed(ex1, cache.params, x)
+    assert added == {}
+    with torch.inference_mode():
+        _close(got, execute(ex1.program, cache.params, x))
+        _same((got,), (execute(ex1.program, cache.params, x,
+                               plan=ex1.plan),))
+    qcache = _graph_cache(DEEP, "int8", (2,))
+    q0 = qcache.get(2, 64)
+    assert q0.replay_launches.get("int8_matmul")
+    qcache.pin_fp(2, 64)
+    q1 = qcache.get(2, 64)
+    assert q1 is not q0 and q1.graph is not None and not q1._runs_int8
+    assert not any(n in q1.replay_launches for n in (
+        "int8_matmul", "group_agg_int8", "mbconv_fused_int8",
+        "supersite_fused_int8", "dsconv_fused_int8"))
+    got, _ = _replayed(q1, qcache.params, x)
+    with torch.inference_mode():
+        _same((got,), (execute(q1.program, qcache.params, x,
+                               plan=q1.plan),))
+
+
+def test_failed_capture_is_a_negative_cached_build_failure(cuda,
+                                                          monkeypatch):
+    """A host wait inside the forward (legal eagerly, refused while a
+    stream captures) makes the capture fail: a typed ``ExecutorError``,
+    negative-cached, nothing inserted; served requests end "failed",
+    none completes on eager launches, and the real failure moves no
+    ladder (level 2 would serve the reference path's plain PyTorch)."""
+    import repro_torch.core.program as program_mod
+    real_gap = program_mod._gap
+
+    def syncing_gap(y):
+        torch.cuda.current_stream().synchronize()
+        return real_gap(y)
+
+    monkeypatch.setattr(program_mod, "_gap", syncing_gap)
+    clock = ManualClock()
+    cache = _graph_cache(B1_SMOKE, "fp", (1,), clock=clock, neg_ttl_s=10.0)
+    with pytest.raises(ExecutorError, match="capture"):
+        cache.get(1, 64)
+    assert len(cache) == 0 and cache._donor_plans == {}
+    assert cache.telemetry.counters["executor_build_failed"] == 1
+    with pytest.raises(ExecutorError, match="negative-cached"):
+        cache.get(1, 64)
+    sched = MicroBatchScheduler(cache, cache.params, clock=clock,
+                                max_retries=2, backoff_ms=0.0)
+    reqs = [Request(i, np.zeros((64, 64, 3), np.float32)) for i in range(2)]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(8):
+        if not sched.outstanding():
+            break
+        sched.step(drain=True)
+        sched.finalize()
+        clock.advance(20.0)
+    assert [r.status for r in reqs] == ["failed", "failed"]
+    assert all(isinstance(r.error, ExecutorError) and r.logits is None
+               and not r.error.injected for r in reqs)
+    assert cache.degradation(1, 64) is None
+    assert cache.telemetry.counters["real_failures"] == sum(
+        r.retries for r in reqs)
+    assert "degraded" not in cache.telemetry.counters
+    assert "completed" not in cache.telemetry.counters or \
+        cache.telemetry.counters["completed"] == 0
+    # the card still works once the fault is gone, on the fused plan
+    monkeypatch.setattr(program_mod, "_gap", real_gap)
+    clock.advance(20.0)
+    ex = cache.get(1, 64)
+    assert ex.graph is not None and ex.plan is not None
+    assert ex.fused_sites and ex.degraded is None
+
+
+def test_recapture_after_the_pool_lost_its_last_graph(cuda):
+    """A ladder move (or an eviction) that drops the last graph of the
+    cache's pool: PyTorch refuses a capture into a pool whose graphs are
+    all gone, so the next build captures into a new pool, and its replay
+    equals its eager forward."""
+    import gc
+
+    cache = _graph_cache(B1_SMOKE, "fp", (2,))
+    pool = cache.pool
+    assert cache.get(2, 64).graph is not None
+    cache.degrade(2, 64, site="S2.mb0")
+    gc.collect()
+    ex = cache.get(2, 64)
+    assert ex.graph is not None and cache.pool != pool
+    x = _rand(np.random.default_rng(6), cuda, 2, 64, 64, 3)
+    with torch.inference_mode():
+        _same((ex(cache.params, x),), (execute(ex.program, cache.params, x,
+                                               plan=ex.plan),))
+    cache = _graph_cache(B1_SMOKE, "fp", (1, 2), capacity=1)
+    cache.get(1, 64)
+    cache.get(2, 64)            # evicts bucket 1; bucket 2's graph lives
+    pool = cache.pool
+    assert cache.get(1, 64).graph is not None and cache.pool == pool
+
+
+def test_real_launch_failure_on_the_card_moves_no_ladder(cuda,
+                                                         monkeypatch):
+    """A ``KernelLaunchError`` that no ``FaultPlan`` injected retries the
+    same executor and never replans onto the reference path; the same
+    error injected by a plan moves the key to level 1."""
+    clock = ManualClock()
+    cache = _graph_cache(B1_SMOKE, "fp", (2,), clock=clock)
+    ex = cache.get(2, 64)
+    real_call = port_executors.Executor.__call__
+    fails = [KernelLaunchError("launch failed", site="S2.mb0")
+             for _ in range(2)]
+
+    def flaky(self, params, x):
+        if fails:
+            raise fails.pop(0)
+        return real_call(self, params, x)
+
+    monkeypatch.setattr(port_executors.Executor, "__call__", flaky)
+    sched = MicroBatchScheduler(cache, cache.params, clock=clock,
+                                backoff_ms=0.0)
+    reqs = [Request(i, np.zeros((64, 64, 3), np.float32)) for i in range(2)]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(8):
+        if not sched.outstanding():
+            break
+        sched.step(drain=True)
+        sched.finalize()
+    assert [r.status for r in reqs] == ["completed", "completed"], [
+        (r.status, r.error) for r in reqs]
+    assert [r.retries for r in reqs] == [2, 2]
+    assert cache.degradation(2, 64) is None and cache.get(2, 64) is ex
+    assert cache.telemetry.counters["real_failures"] == 2
+    monkeypatch.setattr(port_executors.Executor, "__call__", real_call)
+    faults = FaultPlan(FaultSpec("kernel.launch", times=2, site="S2.mb0"))
+    drill = _graph_cache(B1_SMOKE, "fp", (2,), clock=clock, faults=faults)
+    sched = MicroBatchScheduler(drill, drill.params, clock=clock,
+                                backoff_ms=0.0)
+    reqs = [Request(i, np.zeros((64, 64, 3), np.float32)) for i in range(2)]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(8):
+        if not sched.outstanding():
+            break
+        sched.step(drain=True)
+        sched.finalize()
+    assert [r.status for r in reqs] == ["completed", "completed"], [
+        (r.status, r.error) for r in reqs]
+    state = drill.degradation(2, 64)
+    assert state.level == 1 and state.demoted == {"S2.mb0"}
+    assert "real_failures" not in drill.telemetry.counters
+
+
+def test_replays_from_two_streams_keep_their_logits(cuda):
+    """Two keys of one cache replayed at once from two threads, each on
+    its own stream, behind a sleep on each: the graphs share one memory
+    pool, so the cache runs them one at a time on its own stream; every
+    replay returns the logits of its own eager forward."""
+    import threading
+
+    cache = _graph_cache(B1_SMOKE, "fp", (2, 4))
+    exs = [cache.get(2, 64), cache.get(4, 64)]
+    xs = [[_rand(np.random.default_rng(20 + 4 * k + i), cuda, ex.key.batch,
+                 64, 64, 3) for i in range(4)] for k, ex in enumerate(exs)]
+    outs = [None, None]
+    torch.cuda.synchronize()
+
+    def serve(k):
+        stream = torch.cuda.Stream()
+        with torch.cuda.stream(stream):
+            torch.cuda._sleep(50_000_000)
+            outs[k] = [exs[k](cache.params, x) for x in xs[k]]
+            stream.synchronize()
+
+    threads = [threading.Thread(target=serve, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    for k, ex in enumerate(exs):
+        with torch.inference_mode():
+            wants = [execute(ex.program, cache.params, x, plan=ex.plan)
+                     for x in xs[k]]
+        _same(outs[k], wants)
+
+
+def test_scalar_constants_exist_before_capture(cuda, monkeypatch):
+    """The eager warm-up makes every ``scalar`` constant; the capture
+    makes none (one first made while capturing would hold garbage until
+    the first replay, so ``scalar`` refuses it)."""
+    calls = []
+    real = port_executors.execute
+
+    def spy(*a, **kw):
+        n0 = len(port_device._SCALARS)
+        capturing = torch.cuda.is_current_stream_capturing()
+        out = real(*a, **kw)
+        calls.append((capturing, n0, len(port_device._SCALARS)))
+        return out
+
+    monkeypatch.setattr(port_executors, "execute", spy)
+    for precision in ("fp", "int8"):
+        calls.clear()
+        _graph_cache(B1_SMOKE, precision, (3,)).get(3, 96)
+        assert [c[0] for c in calls] == [False, True]
+        assert calls[1][1] == calls[1][2]
+    side = torch.cuda.Stream()
+    graph = torch.cuda.CUDAGraph()
+    known = port_device.scalar(6.0, torch.device("cuda:0"))
+    with torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            assert port_device.scalar(6.0, torch.device("cuda:0")) is known
+            with pytest.raises(RuntimeError, match="capture"):
+                port_device.scalar(12345.5, torch.device("cuda:0"))
+        finally:
+            graph.capture_end()

@@ -13,7 +13,8 @@ run and precision it prints, with the same measuring code for every
 tree (``chip_smoke.device_ms``, CUDA events, the host's enqueue hidden
 behind a sleep kernel):
 
-- ``dev1_ms``: device time of one forward, one forward per event window,
+- ``dev1_ms``: device time of one forward (the executor's call: a CUDA
+  graph replay where the tree captures one), one forward per event window,
   median of 5 windows (``chip_smoke.py``'s steady state);
 - ``dev5_ms``: the same with five forwards per window, median of 3;
 - ``host_ms``: the host's time to enqueue one forward, median of 3
@@ -21,7 +22,8 @@ behind a sleep kernel):
 - ``host_after_profiler_ms`` and ``dev1_after_profiler_ms``: the same
   after ``torch.profiler`` captures of CUDA activity in the process (one
   fp32 and one FIX8 forward's kernels, launches, memsets and zero fills,
-  printed as ``chip_smoke.py``'s profiler lines).
+  printed as ``chip_smoke.py``'s profiler lines, each beside one eager
+  ``execute`` of the same plan).
 
 With ``--kernels NAME[,NAME ...]``, each run also times those kernels
 as the ``[kernel]`` cases of the tree's own ``chip_smoke.py``
@@ -131,7 +133,15 @@ def one(label: str, src: str, seed: int, kernels=()) -> dict:
     randomize_bn(params, gen)
     x8 = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         (8, 224, 224, 3)).astype(np.float32)).cuda()
-    fwds = {}
+    from repro_torch.core.program import execute
+
+    def eager_of(ex, p):
+        def eager():
+            with torch.inference_mode():
+                return execute(ex.program, p, x8, plan=ex.plan)
+        return eager
+
+    fwds, eagers = {}, {}
     for prec in ("fp32", "fix8"):
         cfg = VisionServeConfig(microbatch=8)
         engine = (VisionEngine(params, B1, cfg) if prec == "fp32"
@@ -139,14 +149,15 @@ def one(label: str, src: str, seed: int, kernels=()) -> dict:
         engine.logits(x8)
         ex = engine.cache.get(8, 224)
         fwds[prec] = lambda ex=ex, p=engine.params: ex(p, x8)
+        eagers[prec] = eager_of(ex, engine.params)
     res = {"tree": label, "src": src}
     for prec, fwd in fwds.items():
         res[prec] = {"dev1_ms": device_ms(fwd, reps=1, windows=5),
                      "dev5_ms": device_ms(fwd, reps=5, windows=3),
                      "host_ms": host_ms(fwd)}
     csrc = os.path.join(src, "repro_torch", "csrc")
-    kernel_profile(fwds["fp32"], f"{label} fp32", csrc=csrc)
-    kernel_profile(fwds["fix8"], f"{label} fix8", csrc=csrc)
+    kernel_profile(fwds["fp32"], eagers["fp32"], f"{label} fp32", csrc=csrc)
+    kernel_profile(fwds["fix8"], eagers["fix8"], f"{label} fix8", csrc=csrc)
     for prec, fwd in fwds.items():
         res[prec]["host_after_profiler_ms"] = host_ms(fwd)
         res[prec]["dev1_after_profiler_ms"] = device_ms(fwd, reps=1,

@@ -112,7 +112,12 @@ def main() -> int:
         (8, 224, 224, 3)).astype(np.float32)).cuda()
     engine.logits(x8)
     ex = engine.cache.get(8, 224)
-    kernel_profile(lambda: ex(engine.params, x8), "fix8 forward")
+    from repro_torch.core.program import execute
+
+    def eager():
+        with torch.inference_mode():
+            return execute(ex.program, engine.params, x8, plan=ex.plan)
+    kernel_profile(lambda: ex(engine.params, x8), eager, "fix8 forward")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
