@@ -19,11 +19,12 @@
       median of 5 windows; the bound is max(bytes / 3.35 TB/s, flops /
       67 TFLOP/s), the H100 SXM's published memory rate and non-tensor
       fp32 rate, with each input read once and each output written once.
-      ``mbconv_fused`` runs with the blocks (band height, mid chunk,
-      cluster size) its ``choose_blocks`` picks.  The super-site chain
-      kernel ``supersite_fused`` runs at the two chains of B1@224
-      (S1.ss0 = S1.mb0..mb1, S2.ss0 = S2.mb0..mb2) with the band height
-      and channel chunk the planner picks; its bound counts the chain's
+      Every kernel runs at the blocks the served plans of 2b's tuned
+      engines freeze (band height, mid chunk, cluster size; the
+      attention's ``block_n``), so ``[autotune]`` runs before 2a.  The
+      super-site chain kernel ``supersite_fused`` runs at the two chains
+      of B1@224 (S1.ss0 = S1.mb0..mb1, S2.ss0 = S2.mb0..mb2) with those
+      plans' band height and channel chunk; its bound counts the chain's
       input, output and weight pack once and the members' MACs without
       the bands' halo recompute.  Two calls of each of these two kernels
       must give equal bits (fixed summation orders).  Two sweeps time
@@ -43,7 +44,20 @@
       ``TOL`` of the plain version, equal bits on two calls and between
       the forms, and each image's rows of a batch-8 call equal to its
       batch-1 call (``[relu_attn]`` lines).
-   b. ``VisionEngine`` over B1@224 fp32 (random weights and BN
+   b. ``[autotune]`` (run first, before 2a): every plan of the run tunes
+      into a fresh cache file under ``build/autotune/``.  B1@224 at both precisions: the
+      model's engines (``autotune=False``: each kernel's deterministic
+      pick), then the tuned engines, whose builds sweep the cold cache
+      (each sweep's candidates and device times, the choice and the
+      model's pick printed, and the blocks that differ per bucket); a
+      second fp32 engine, the in-process cache dropped, reads the file
+      and sweeps nothing; no candidate is disqualified; 19 / 26 launches
+      per forward (22 / 29 with ``supersites=False``); the fp32 logits
+      within the section-5 gates; the FIX8 plans and logits equal with
+      autotune on and off; the batch-8 replay's device time of the
+      model's plan and the tuned one, A/B in one process.  The tuned
+      engines are the ones 2b and 3b check.
+      ``VisionEngine`` over B1@224 fp32 (random weights and BN
       statistics from ``--seed``, microbatch 8), warmed: every bucket
       (1, 2, 4, 8) on the default plan, which groups exactly S1.ss0 and
       S2.ss0 in every bucket (their blocks, band windows and recompute
@@ -66,7 +80,8 @@
       forwards run one at a time (the same for FIX8).
 3. FIX8 phase.
    a. Each int8 kernel against its plain PyTorch version at every B1@224
-      int8 shape on the path, batch 1 and 8, on random int8 codes: the
+      int8 shape of the tuned FIX8 plan, batch 1 and 8, on random int8
+      codes: the
       int8 outputs and the fp32 outputs must be EQUAL (both round every
       fp32 step in the same order).  The bound is max(bytes / 3.35 TB/s,
       int8 ops / 1,979 TOPS); ``int8_matmul`` is also timed against
@@ -97,9 +112,20 @@
       port, warmed on the default plan (S1.ss0 and S2.ss0 grouped): row i
       of a batch-8 forward must equal the batch-1 forward of image i bit
       for bit, and the batch-8 forward under the per-site plan must equal
-      the grouped one bit for bit.  Pack residency, graphs, steady state
-      and ``[graph]`` lines as in 2b.
-   c. ``[faults]``: the fault ladder on the card, B1@224, one bucket of
+      the grouped one bit for bit.  The site walk prints the first int8
+      boundary whose codes differ from the int8 reference forward's
+      (``site_walk``).  Pack residency, graphs, steady state and
+      ``[graph]`` lines as in 2b.
+   c. ``[epilogues]``: FIX8 B1@224 served with ``epilogues=False``
+      (no producer epilogue: each int8 consumer quantizes its own input)
+      beside 3b's engine: plan launches, the wrappers' launches per
+      forward, the batch-8 replay's device time A/B in one process, and
+      both held to the FIX8 gates of the int8 reference forward.
+      ``[overrides]``: fp32 B1@224 served with a ``group_break`` on
+      ``S2.mb1`` (S2.ss0 = S2.mb1..mb2, S2.mb0 alone: 20 plan launches)
+      and with ``fused=False`` on ``S3.evit1.mb`` (reason ``"search"``),
+      each from its captured graph within the fp32 gates.
+   d. ``[faults]``: the fault ladder on the card, B1@224, one bucket of
       8, a ``ManualClock``.  fp32: a ``FaultPlan`` fires ``kernel.launch``
       twice on ``S2.mb1`` (a member of S2.ss0): the key must reach level
       1 with that site demoted, its plan must group as ``plan_program(...,
@@ -110,7 +136,12 @@
       fires once; the key pins to fp, a new graph runs no int8 kernel,
       and every request completes within the FIX8 gate.  At both, a
       request whose 1 ms hard deadline passes while queued is shed
-      before batch formation and takes no slot.
+      before batch formation and takes no slot.  ``[autotune fault]``:
+      fp32, buckets (1, 8), a fresh cache file; with ``FaultSpec(
+      "autotune", times=1)`` installed, one request's cold bucket-1 build
+      fails at its first tuner consultation (stem.ds0), the retry meets
+      the negative cache, the ladder demotes stem.ds0 (level 1), and the
+      key is planned, captured anew and served within the fp32 gates.
 4. Kernel-library phase: the four kernels no served forward runs, each
    through the JAX package's public op at full width.  Every counter is
    reset just before the ops run once per case and read just after: one
@@ -152,6 +183,27 @@
    also timed against ``torch._int_mm``
    + the same epilogue and per-image quantize.  The 32k-token cases are
    timed over 3 windows of 2 calls.
+   e. ``[B2]`` and ``[B3]`` at 224 px, published widths and depths,
+      random weights and BN statistics from ``--seed`` + 2 / + 3, fp32
+      then FIX8, each served by ``VisionEngine(microbatch=8, buckets=(1,
+      8), autotune=True)`` on the run's cache.  Per precision: the
+      launch counters set to 0 before the engine is made and warmed and
+      read after (less the sweeps' launches): twice each key's captured
+      launches; the plan (its groups and blocks, the sites the Hopper fit
+      declines, the runs of conv sites no band of a chain fits); the
+      blocks tuned off the model's pick; 8 images' logits against the
+      port's reference forward (fp32 within rtol = atol = 1e-3, top-1
+      equal; FIX8 within 0.1 * max|logit| of the int8 reference and
+      within twice the reference's own noise of it, top-1 equal wherever
+      the reference's margin exceeds twice that noise; the noise is the
+      farthest the int8 reference's batch-8 rows lie from its batch-1
+      forwards, ROADMAP R6; every flip, the noise, the margins and the
+      site walk are printed); replay = eager at batch 1 and 8; FIX8 batch
+      invariance; the steady state as in 2b.  Then every served kernel
+      shape of both plans (the chains with their groups' blocks), batch
+      1 and 8, against its plain version as in 2a and 3a
+      (``relu_attn_noncausal`` and ``group_agg_int8`` at d = 32 among
+      them); the ``[B2]`` / ``[B3]`` lines give each shape's time.
 5. The main path, fp32 then FIX8.  Every launch counter is set to 0
    just before a new engine is made (``VisionEngine``, then
    ``VisionEngine.quantized``) and warmed, and read just after it has
@@ -181,7 +233,9 @@
    launches.  The port's own kernels' CUDA launches, the memsets and the
    zero fills are counted apart, and the port's kernels of a replay must
    equal those of one eager forward of the same plan in the same
-   capture, by name and count.  Then one call of each served FIX8 MBConv shape, each
+   capture, by name and count; the same for the ``epilogues=False``
+   FIX8 engine and for B2 and B3 at both precisions.  Then one call of
+   each served FIX8 MBConv shape, each
    MSA projection GEMM, the library's emitting GEMM at each projection
    (per-image scales with keep-fp off and on, a static scale), each
    aggregation branch, the FIX8 DSConv at
@@ -222,6 +276,11 @@ CHAOS = 0.1                   # FIX8 served logits vs the int8 reference
 GROUPS = {"S1.ss0": ("S1.mb0", "S1.mb1"),
           "S2.ss0": ("S2.mb0", "S2.mb1", "S2.mb2")}
 GROUPED = {m for members in GROUPS.values() for m in members}
+
+
+def stamp(label: str, t0: float) -> None:
+    """One ``[time]`` line: the script's wall time at ``label``."""
+    print(f"[time] {label} at {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def fail(msg: str) -> int:
@@ -271,16 +330,34 @@ def bound(nbytes: float, ops, peak_ops: float = PEAK_FP32_FLOPS
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def kernel_cases(batch: int, gen):
+def served_sites(cfg, batch, plan):
+    """The fusible sites of ``cfg`` at ``batch`` whose kernel a plan runs:
+    every site without a plan, else the fused ones (a site the Hopper fit
+    declined runs the reference path), and the names of those in a
+    super-site group."""
+    from repro_torch.core.program import lower
+    sites = lower(cfg, batch=batch).fusible()
+    if plan is None:
+        return sites, GROUPED
+    d = plan.decisions
+    # a member the group rescued from "vmem" has no blocks of its own:
+    # its shape runs only inside the chain
+    return ([x for x in sites if d[x.name].fused and not (
+                d[x.name].group and not d[x.name].blocks
+                and d[x.name].precision == "fp")],
+            {x.name for x in sites if d[x.name].group})
+
+
+def kernel_cases(batch: int, gen, cfg=None, plan=None):
     """(kernel, site names, shape label, kernel fn, plain fn, bytes,
-    flops) for every distinct fused shape of B1@224 at ``batch``.  The
+    flops) for every distinct fused shape of ``cfg`` (B1) at 224 px and
+    ``batch`` (the sites ``plan`` fuses, every site without one).  The
     names are the sites whose per-site launch the served (grouped) plan
     makes; a shape only the super-site members have is still checked,
     with no site to its name (the per-site plan launches it)."""
     import torch
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.fusion import decision_shape
-    from repro_torch.core.program import lower
     from repro_torch.kernels.dsconv.kernel import dsconv_fused
     from repro_torch.kernels.dsconv.ref import dsconv_ref
     from repro_torch.kernels.mbconv.kernel import choose_blocks as mb_blocks
@@ -293,23 +370,27 @@ def kernel_cases(batch: int, gen):
         return (torch.randn(shape, generator=gen) * scale).cuda()
 
     groups: dict = {}
-    for site in lower(B1, batch=batch).fusible():
+    fused, grouped = served_sites(cfg or B1, batch, plan)
+    for site in fused:
         groups.setdefault((site.kind, decision_shape(site)), []).append(site)
     cases = []
     for (kind, shape), sites in groups.items():
         s = sites[0]
-        names = [x.name for x in sites if x.name not in GROUPED]
+        names = [x.name for x in sites if x.name not in grouped]
         if kind == "dsconv":
             B, H, W, C, _, F, st = shape
             x, dw, db = rnd(B, H, W, C), rnd(3, 3, C, scale=1 / 3), rnd(C)
             pw, pb = rnd(C, F, scale=C ** -0.5), rnd(F)
             args = (x, dw, db, pw, pb)
-            kfn = lambda a=args, st=st: dsconv_fused(*a, stride=st)
+            rows = (plan.decisions[s.name].blocks["block_rows"] if plan
+                    else None)
+            kfn = lambda a=args, st=st, r=rows: dsconv_fused(
+                *a, stride=st, block_rows=r)
             pfn = lambda a=args, st=st: dsconv_ref(*a, stride=st)
             nbytes = 4 * (x.numel() + dw.numel() + db.numel() + pw.numel()
                           + pb.numel() + B * (H // st) * (W // st) * F)
             flops = 2 * B * (H // st) * (W // st) * (9 * C + C * F)
-            label = f"x{tuple(x.shape)} F={F} s={st}"
+            label = f"x{tuple(x.shape)} F={F} s={st} R={rows or 'pick'}"
             name = "dsconv_fused"
         elif kind == "mbconv":
             B, H, W, C, M, F, st = shape
@@ -319,11 +400,12 @@ def kernel_cases(batch: int, gen):
             dw, db = rnd(3, 3, M, scale=1 / 3), rnd(M)
             w2, b2 = rnd(M, F, scale=M ** -0.5), rnd(F)
             args = (x, w1, b1, dw, db, w2, b2)
-            kfn = lambda a=args, st=st: mbconv_fused(*a, stride=st)
+            b = (dict(plan.decisions[s.name].blocks) if plan
+                 else mb_blocks(x.shape, M, F, st))
+            kfn = lambda a=args, st=st, b=b: mbconv_fused(*a, stride=st, **b)
             pfn = lambda a=args, st=st: mbconv_ref(*a, stride=st)
             nbytes = 4 * (sum(t.numel() for t in args) + B * Ho * Wo * F)
             flops = 2 * B * (H * W * C * M + Ho * Wo * M * (9 + F))
-            b = mb_blocks(x.shape, M, F, st)
             label = (f"x{tuple(x.shape)} M={M} F={F} s={st} R="
                      f"{b['block_rows']} bm={b['block_m']} "
                      f"split={b['split']}")
@@ -334,11 +416,12 @@ def kernel_cases(batch: int, gen):
             G, N, T = s.attrs["n_branches"] * B, H * W, heads * d
             t = rnd(G, N, 3 * T).reshape(G, N, 3, heads, d)
             args = (t[:, :, 0], t[:, :, 1], t[:, :, 2])
-            kfn = lambda a=args: relu_attn_noncausal(*a)
+            bn = plan.decisions[s.name].blocks["block_n"] if plan else 256
+            kfn = lambda a=args, bn=bn: relu_attn_noncausal(*a, block_n=bn)
             pfn = lambda a=args: relu_attn_noncausal_ref(*a)
             nbytes = 4 * 4 * G * N * T
             flops = G * heads * (4 * N * d * d + 3 * N * d)
-            label = f"qkv({G},{N},3x{heads}x{d})"
+            label = f"qkv({G},{N},3x{heads}x{d}) block_n={bn}"
             name = "relu_attn_noncausal"
         cases.append((name, names, label, kfn, pfn, nbytes, flops))
     return cases
@@ -346,15 +429,16 @@ def kernel_cases(batch: int, gen):
 
 
 
-def int8_kernel_cases(batch: int, gen):
+def int8_kernel_cases(batch: int, gen, cfg=None, plan=None):
     """(kernel, site names, shape label, kernel fn, plain fn, bytes, int8
     ops, library fn or None) for every distinct int8 kernel shape of the
-    B1@224 FIX8 path at ``batch``, on random int8 codes, named as in
+    FIX8 path of ``cfg`` (B1) at 224 px and ``batch`` (the sites ``plan``
+    fuses; MBConvs whose epilogue emits take the emitting kernel, the
+    non-residual ones without a plan), on random int8 codes, named as in
     ``kernel_cases``.  Each fn returns a tuple of tensors."""
     import torch
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.fusion import decision_shape
-    from repro_torch.core.program import lower
     from repro_torch.kernels.dsconv.kernel import (
         dsconv_fused_int8, dsconv_int8_path)
     from repro_torch.kernels.dsconv.ref import dsconv_int8_ref
@@ -384,11 +468,16 @@ def int8_kernel_cases(batch: int, gen):
         return sum(t.numel() * t.element_size() for t in ts)
 
     groups: dict = {}
-    program = lower(B1, batch=batch)
-    for site in program.fusible():
+    fused, grouped = served_sites(cfg or B1, batch, plan)
+    for site in fused:
         shape = decision_shape(site)
         if site.kind == "mbconv":
-            emit = not site.residual     # the int8 plan's keep-fp producers
+            if plan is None:     # the int8 plan's keep-fp producers
+                emit = not site.residual
+            else:
+                ep = plan.decisions[site.name].epilogue
+                emit = (ep is not None and ep.emits_q and not site.residual
+                        and site.name not in grouped)
             key = ("mbconv_fused_int8_emit" if emit else
                    "mbconv_fused_int8", shape)
             groups.setdefault(key, []).append(site)
@@ -399,11 +488,12 @@ def int8_kernel_cases(batch: int, gen):
             n_br = site.attrs["n_branches"]
             for key in (("int8_matmul", (B * H * W, C, 3 * C)),
                         ("int8_matmul", (B * H * W, n_br * C, C)),
-                        ("group_agg_int8", (B, H, W, 3 * C))):
+                        ("group_agg_int8", (B, H, W, 3 * C,
+                                            site.attrs["head_dim"]))):
                 groups.setdefault(key, []).append(site)
     cases = []
     for (name, shape), sites in groups.items():
-        names = [x.name for x in sites if x.name not in GROUPED]
+        names = [x.name for x in sites if x.name not in grouped]
         lib = None
         if name == "int8_matmul":
             M, K, N = shape
@@ -419,8 +509,7 @@ def int8_kernel_cases(batch: int, gen):
             plan = int8_gemm_plan(M, N, K)
             label = f"({M}x{K})@({K}x{N}) tile {plan['bm']}x{plan['bn']}"
         elif name == "group_agg_int8":
-            B, H, W, C = shape
-            d = 16
+            B, H, W, C, d = shape
             args = (i8(B, H, W, C), sc(B), i8(5, 5, C), sc(C), bias(C))
             pw, tail = i8(d, C), (sc(C), bias(C))
             dense = block_diag(pw)
@@ -770,30 +859,39 @@ def chain_macs(sup) -> int:
     return n
 
 
-def chain_cases(batch: int, gen, params, qparams):
-    """(fp32 cases, int8 cases) of the two super-site chains of B1@224 at
-    ``batch``, as ``kernel_cases`` / ``int8_kernel_cases`` give them:
-    random inputs, the weights of the served trees."""
+def chain_cases(batch: int, gen, params, qparams, cfg=None, plans=None):
+    """(fp32 cases, int8 cases) of the super-site chains of ``cfg`` at 224
+    px and ``batch``, as ``kernel_cases`` / ``int8_kernel_cases`` give
+    them: random inputs, the weights of the served trees.  Without
+    ``plans`` B1's two chains (``GROUPS``) at both precisions, the fp32
+    blocks ``choose_blocks``'; with (fp plan, FIX8 plan) each plan's
+    groups with its blocks."""
     import torch
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.program import SuperSite, lower
-    from repro_torch.kernels.supersite.kernel import (
-        supersite_fused, supersite_fused_int8)
-    from repro_torch.kernels.supersite.ops import (
-        choose_blocks, make_fp_geom, make_int8_geom)
+    from repro_torch.kernels.supersite.kernel import supersite_fused
+    from repro_torch.kernels.supersite.ops import choose_blocks, make_fp_geom
     from repro_torch.kernels.supersite.pack import pack_weights
-    from repro_torch.kernels.supersite.ref import (
-        supersite_int8_ref, supersite_ref)
+    from repro_torch.kernels.supersite.ref import supersite_ref
 
-    program = lower(B1, batch=batch)
+    program = lower(cfg or B1, batch=batch)
     fp_cases, q_cases = [], []
-    for name, members in GROUPS.items():
+    if plans is None:
+        chains = [(name, members, prec, None) for name, members in
+                  GROUPS.items() for prec in ("fp", "int8")]
+    else:
+        chains = [(g.name, g.members, g.precision, dict(g.blocks))
+                  for p in plans for g in p.groups.values()]
+    for name, members, prec, blocks in chains:
         sup = SuperSite.of(program, members, name=name)
         B = batch
         _, Ho, Wo, F = sup.out_shape
         ops = 2 * B * chain_macs(sup)
+        if prec == "int8":
+            q_cases.append(int8_chain_case(sup, gen, qparams, B, ops))
+            continue
         pack = pack_weights(params, sup, "fp")
-        blocks = choose_blocks(sup)
+        blocks = blocks or choose_blocks(sup)
         geom = make_fp_geom(sup, pack, blocks["block_rows"],
                             blocks["block_m"])
         x = torch.randn(sup.in_shape, generator=gen).cuda()
@@ -804,22 +902,37 @@ def chain_cases(batch: int, gen, params, qparams):
             lambda x=x, p=pack, g=geom: supersite_fused(x, p.fp, geom=g),
             lambda x=x, p=pack, g=geom: supersite_ref(x, p.fp, geom=g),
             4 * (x.numel() + B * Ho * Wo * F) + pack.nbytes, ops))
-        qpack = pack_weights(qparams, sup, "int8")
-        qgeom = make_int8_geom(sup, qpack)
-        x_q = torch.randint(-128, 128, sup.in_shape, generator=gen,
-                            dtype=torch.int8).cuda()
-        xs = (1e-2 * (0.5 + torch.rand(B, generator=gen))).cuda()
-        q_cases.append((
-            "supersite_fused_int8", [name],
-            f"{name} x{tuple(x_q.shape)} exit int8+fp",
-            lambda a=(x_q, xs, qpack.q, qpack.fp), g=qgeom:
-                supersite_fused_int8(*a, geom=g, exit_emit=True,
-                                     keep_fp=True),
-            lambda a=(x_q, xs, qpack.q, qpack.fp), g=qgeom:
-                supersite_int8_ref(*a, geom=g, exit_emit=True),
-            x_q.numel() + 4 * B + 5 * B * Ho * Wo * F + 4 * B
-            + qpack.nbytes, ops, None))
     return fp_cases, q_cases
+
+
+def int8_chain_case(sup, gen, qparams, B, ops):
+    """A FIX8 chain's case with the served exit (int8 codes + scales +
+    the kept fp map); the chain's entry fp map where member 0 is
+    residual."""
+    import torch
+    from repro_torch.kernels.supersite.kernel import supersite_fused_int8
+    from repro_torch.kernels.supersite.ops import make_int8_geom
+    from repro_torch.kernels.supersite.pack import pack_weights
+    from repro_torch.kernels.supersite.ref import supersite_int8_ref
+
+    _, Ho, Wo, F = sup.out_shape
+    qpack = pack_weights(qparams, sup, "int8")
+    qgeom = make_int8_geom(sup, qpack)
+    x_q = torch.randint(-128, 128, sup.in_shape, generator=gen,
+                        dtype=torch.int8).cuda()
+    xs = (1e-2 * (0.5 + torch.rand(B, generator=gen))).cuda()
+    x_fp = (x_q.float() * xs[:, None, None, None]
+            if sup.sites[0].residual else None)
+    return (
+        "supersite_fused_int8", [sup.name],
+        f"{sup.name} x{tuple(x_q.shape)} exit int8+fp",
+        lambda a=(x_q, xs, qpack.q, qpack.fp), g=qgeom, f=x_fp:
+            supersite_fused_int8(*a, geom=g, x_fp=f, exit_emit=True,
+                                 keep_fp=True),
+        lambda a=(x_q, xs, qpack.q, qpack.fp), g=qgeom, f=x_fp:
+            supersite_int8_ref(*a, geom=g, x_fp=f, exit_emit=True),
+        x_q.numel() + 4 * B + 5 * B * Ho * Wo * F + 4 * B
+        + qpack.nbytes, ops, None)
 
 
 def band_sweep(params, gen) -> None:
@@ -1481,7 +1594,8 @@ def add_time(acc, n, case, ms, plain_ms, lib_ms, b_ms, exact) -> None:
         acc["library_ms"] = acc.get("library_ms", 0.0) + n * lib_ms
 
 
-def check_kernels(cases, batch, per_fwd, max_err, exact: bool):
+def check_kernels(cases, batch, per_fwd, max_err, exact: bool,
+                  tag: str = "kernel"):
     """Hold each case's kernel against its plain version, time both,
     print one [kernel] line each and add the batch-8 times to
     ``per_fwd``.  ``mbconv_fused`` and ``supersite_fused`` must also give
@@ -1494,7 +1608,7 @@ def check_kernels(cases, batch, per_fwd, max_err, exact: bool):
                 raise AssertionError(f"{name} {case[2]}: two calls differ")
         err, ref_max, *times = measure(case, exact)
         max_err[name] = max(max_err[name], err)
-        kernel_line("kernel", case, f"B={batch} sites={len(sites)} ", err,
+        kernel_line(tag, case, f"B={batch} sites={len(sites)} ", err,
                     ref_max, *times)
         if batch == 8:
             add_time(per_fwd[name], len(sites), case, *times[:4], exact)
@@ -1526,12 +1640,18 @@ def serve_trace(make_engine, images, wrappers, expected, tag):
     from repro_torch.core.program import execute
     from repro_torch.serving.scheduler import Request
 
+    from repro_torch.kernels import autotune
+
     for w in wrappers.values():
         w.launches = 0
+    autotune.SWEEP_LAUNCHES.clear()
     engine = make_engine()
     engine.warmup()
     keys = engine.cache.keys()
-    warm = {k: w.launches for k, w in wrappers.items()}
+    # a cold autotune cache sweeps at build: those launches are not the
+    # path's (none on this run's warm cache)
+    swept = dict(autotune.SWEEP_LAUNCHES)
+    warm = {k: w.launches - swept.get(k, 0) for k, w in wrappers.items()}
     for name, per in expected.items():
         if warm[name] != 2 * per * len(keys):
             raise AssertionError(
@@ -1558,7 +1678,8 @@ def serve_trace(make_engine, images, wrappers, expected, tag):
             wall = time.perf_counter() - t0
             fin = time.perf_counter() - t_fin
             torch.cuda.synchronize()
-        launches = {k: w.launches for k, w in wrappers.items()}
+        launches = {k: w.launches - swept.get(k, 0)
+                    for k, w in wrappers.items()}
         dispatched = sorted(k[0] for k, b in engine.telemetry.buckets.items()
                             for _ in range(b.dispatches))
         for bucket in sorted(set(dispatched)):
@@ -1568,13 +1689,14 @@ def serve_trace(make_engine, images, wrappers, expected, tag):
                     torch.inference_mode():
                 execute(ex.program, engine.params, x, plan=ex.plan)
                 torch.cuda.synchronize()
-    eager_launches = {k: w.launches - launches[k]
+    eager_launches = {k: w.launches - swept.get(k, 0) - launches[k]
                       for k, w in wrappers.items()}
     if any(r.status != "completed" for r in reqs):
         raise AssertionError([(r.rid, r.status, r.error) for r in reqs])
     print(f"[{tag}] main path: counters at 0, then the engine made and "
           f"warmed ({len(keys)} keys: warm-up run and capture each), "
-          f"{len(reqs)} requests served; launches {launches}")
+          f"{len(reqs)} requests served; launches {launches} (sweeps' "
+          f"launches, not counted: {swept})")
     print(f"[{tag}] dispatched buckets {dispatched}; {len(reqs)} images in "
           f"{wall * 1e3:.2f} ms under torch.profiler; host: submit + step "
           f"{(wall - fin) * 1e3:.2f} ms, finalize (waiting on the card) "
@@ -1788,6 +1910,7 @@ def faults_phase(params, images, wrappers, expected_fp) -> None:
     from repro_torch.core.efficientvit import B1
     from repro_torch.core.fusion import plan_program
     from repro_torch.core.program import execute, lower
+    from repro_torch.kernels import autotune
     from repro_torch.serving.faults import FaultPlan, FaultSpec
     from repro_torch.serving.scheduler import ManualClock, Request
     from repro_torch.serving.vision import VisionEngine, VisionServeConfig
@@ -1813,6 +1936,7 @@ def faults_phase(params, images, wrappers, expected_fp) -> None:
         clock.advance(0.01)
         for w in wrappers.values():
             w.launches = 0
+        autotune.SWEEP_LAUNCHES.clear()
         rounds = 0
         while sched.outstanding():
             sched.step(drain=True)
@@ -1820,8 +1944,9 @@ def faults_phase(params, images, wrappers, expected_fp) -> None:
             rounds += 1
             if rounds > 8:
                 raise AssertionError(f"{name}: not drained")
-        launches = {k: w.launches for k, w in wrappers.items()
-                    if w.launches}
+        launches = {k: w.launches - autotune.SWEEP_LAUNCHES.get(k, 0)
+                    for k, w in wrappers.items()}
+        launches = {k: v for k, v in launches.items() if v}
         if any(r.status != "completed" for r in reqs):
             raise AssertionError([(r.rid, r.status, r.error) for r in reqs])
         if late.status != "shed" or not isinstance(late.error,
@@ -1897,6 +2022,592 @@ def faults_phase(params, images, wrappers, expected_fp) -> None:
                                      f"{top:.3e}")
         if not faults.exhausted:
             raise AssertionError(f"{name}: faults left unfired")
+
+
+def fresh_cache(tag: str) -> str:
+    """Point the autotune cache at a new file under the gitignored
+    ``build/autotune/`` and drop the in-process cache: the next plan
+    sweeps every tuner it consults.  Returns the new path."""
+    path = os.path.join(ROOT, "build", "autotune",
+                        f"{tag}-{os.getpid()}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    if os.path.exists(path):
+        os.remove(path)
+    use_cache(path)
+    return path
+
+
+def use_cache(path: str) -> None:
+    """Serve the autotune cache from ``path`` (reloaded from the file)."""
+    from repro_torch.kernels import autotune
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = path
+    autotune.clear_memory_cache()
+
+
+def fmt_blocks(blocks) -> str:
+    return ",".join(f"{k}={v}" for k, v in (blocks or {}).items()) or "-"
+
+
+def print_sweeps(tag, start: int) -> None:
+    """One line per sweep logged since ``start``: each candidate's device
+    time, the choice and the model's pick (the first candidate)."""
+    from repro_torch.kernels import autotune
+    for e in autotune.SWEEP_LOG[start:]:
+        times = "; ".join(
+            f"{fmt_blocks(c)} " + (f"{t * 1e3:.4f} ms" if t is not None
+                                   else f"raised {err}")
+            for c, t, err in e["times"])
+        pick = e["times"][0][0]
+        print(f"[{tag}] sweep {e['kind']} {','.join(e['key'][:-1])}: "
+              f"{times} -> {fmt_blocks(e['choice'])}"
+              f"{'' if e['choice'] == pick else ' (model: ' + fmt_blocks(pick) + ')'}"
+              f" in {e['seconds']:.2f} s")
+
+
+def blocks_vs_model(engine, tag) -> int:
+    """Print, per cached key, every site and group whose frozen blocks
+    differ from the model's pick (the plan with ``autotune=False``);
+    returns how many differ."""
+    from repro_torch.core.fusion import plan_program
+    n = 0
+    for key in engine.cache.keys():
+        ex = engine.cache.get(key.batch, key.resolution)
+        model = plan_program(ex.program, engine.params, autotune=False,
+                             precision=engine.cache.precision,
+                             epilogues=engine.cache.epilogues)
+        rows = [(d.name, dict(d.blocks), dict(model.decisions[d.name].blocks))
+                for d in ex.plan.decisions.values()
+                if d.fused and dict(d.blocks)
+                != dict(model.decisions[d.name].blocks)]
+        rows += [(g.name, dict(g.blocks), dict(model.groups[g.name].blocks))
+                 for g in ex.plan.groups.values() if g.name in model.groups
+                 and dict(g.blocks) != dict(model.groups[g.name].blocks)]
+        n += len(rows)
+        print(f"[{tag}] bucket {key.batch}: {len(rows)} of the "
+              f"{ex.plan.n_fused()} fused sites and {len(ex.plan.groups)} "
+              f"groups tuned off the model's pick"
+              + "".join(f"; {name} {fmt_blocks(t)} (model "
+                        f"{fmt_blocks(m)})" for name, t, m in rows))
+    return n
+
+
+def site_walk(program, params, x, plan, tag) -> None:
+    """Print the first site whose int8 boundary codes differ between the
+    fused forward under ``plan`` and the int8 reference forward, each
+    run over the program cut after that site: the codes that differ
+    there, the largest code step, whether the per-image scales are
+    equal, and the largest fp difference at that boundary.  Boundaries
+    inside a super-site group are not read (a group runs whole)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.program import execute
+    from repro_torch.core.quantization import QTensor, act_fp, quantize_act
+    inner = {n for g in plan.groups.values() for n in g.members[:-1]}
+    with torch.inference_mode():
+        for k, site in enumerate(program.sites, 1):
+            if site.name in inner:
+                continue
+            sub = dataclasses.replace(program, sites=program.sites[:k])
+            ref = execute(sub, params, x)
+            fused = execute(sub, params, x, plan=plan)
+            if not isinstance(fused, QTensor):
+                continue
+            rq = quantize_act(ref)
+            n = int((rq.q != fused.q).sum())
+            if n:
+                step = int((rq.q.int() - fused.q.int()).abs().max())
+                fp = fused.fp if fused.fp is not None else (
+                    fused.q.float() * fused.scale_col().reshape(
+                        (-1,) + (1,) * (fused.q.dim() - 1)))
+                dfp = float((fp.float() - act_fp(ref).float()).abs().max())
+                print(f"[{tag}] site walk: first differing int8 boundary "
+                      f"{site.name} ({site.kind}): {n} of "
+                      f"{fused.q.numel()} codes differ, by at most {step}; "
+                      f"scales equal {torch.equal(rq.scale, fused.scale)}; "
+                      f"fp max|d| there {dfp:.3e}")
+                return
+    print(f"[{tag}] site walk: every int8 boundary's codes equal the "
+          f"int8 reference's")
+
+
+def check_logits(got, ref, tag, fix8=False, noise=None) -> None:
+    """The §2 gates: fp32 within rtol = atol = 1e-3 of the reference
+    forward, FIX8 within 0.1 * max|logit| of the int8 reference; top-1
+    equal.  Each image whose top-1 differs is printed with both classes'
+    logits on both sides.  ``noise``: how far the reference lies from
+    itself, the largest max|d| of its batch-8 rows from its batch-1
+    forwards (``reference_noise``; a summation order flips codes in one
+    image and not in another, so one image's distance is no bound).
+    With it, the logits must lie within twice the noise of the
+    reference, and a top-1 need agree only where the reference's margin
+    between the two classes exceeds twice the noise: the reference does
+    not decide a closer one itself."""
+    import numpy as np
+    got = got.float().cpu().numpy()
+    ref = ref.float().cpu().numpy()
+    d, top = np.abs(got - ref).max(), np.abs(ref).max()
+    gi, ri = got.argmax(-1), ref.argmax(-1)
+    bad = np.flatnonzero(gi != ri)
+    print(f"[{tag}] logits vs the {'int8 ' if fix8 else ''}reference "
+          f"forward: max|d| {d:.3e} (max|ref| {top:.3e}, {d / top:.3e} of "
+          f"it), top-1 equal in {len(ri) - len(bad)} of {len(ri)} images"
+          + "".join(f"; image {i}: served class {gi[i]} ({got[i, gi[i]]:.4f}"
+                    f", reference {ref[i, gi[i]]:.4f}), reference class "
+                    f"{ri[i]} ({ref[i, ri[i]]:.4f}, served "
+                    f"{got[i, ri[i]]:.4f})" for i in bad))
+    if not np.all(np.isfinite(got)):
+        raise AssertionError(f"{tag}: non-finite logits")
+    for i in bad:
+        margin = ref[i, ri[i]] - ref[i, gi[i]]
+        if noise is None or margin > 2 * noise:
+            raise AssertionError(f"{tag}: top-1 of image {i} differs from "
+                                 f"the reference (margin {margin:.4f})")
+    if noise is not None and not d <= 2 * noise:
+        raise AssertionError(f"{tag}: logits {d:.3e} from the reference, "
+                             f"above twice its own noise {noise:.3e}")
+    if fix8:
+        if not d <= CHAOS * top:
+            raise AssertionError(f"{tag}: FIX8 logits {d:.3e} from the "
+                                 f"int8 reference, above {CHAOS} * {top:.3e}")
+    else:
+        np.testing.assert_allclose(got, ref, rtol=1e-3, atol=1e-3)
+
+
+def reference_noise(cfg, params, x, ref, tag):
+    """How far the reference forward lies from itself: the largest max|d|
+    between its rows at ``len(x)`` (``ref``) and its forwards of one image
+    each.  At FIX8 an fp summation order that follows the batch flips a
+    few int8 codes by one step, and random weights amplify them through
+    the requants (ROADMAP R6).  Each image's distance is printed beside
+    its top-two margin."""
+    import torch
+    from repro_torch.core.program import execute, lower
+    with torch.inference_mode():
+        ones = torch.cat([execute(lower(cfg, batch=1), params, x[i:i + 1])
+                          for i in range(len(x))])
+    noise = (ref - ones).abs().amax(-1).float().cpu().numpy()
+    top2 = ref.float().topk(2, -1).values.cpu().numpy()
+    print(f"[{tag}] the reference against itself, batch {len(x)} vs "
+          f"batch 1: max|d| per image "
+          + ", ".join(f"{v:.4f}" for v in noise)
+          + "; its top-two margins "
+          + ", ".join(f"{a - b:.4f}" for a, b in top2))
+    return float(noise.max())
+
+
+def replay_ab(fwds, tag) -> None:
+    """Device time of one batch-8 replay per plan, A/B in one process
+    (each named forward timed, then again in reverse order)."""
+    names = list(fwds) + list(fwds)[::-1]
+    times = {n: [] for n in fwds}
+    for n in names:
+        times[n].append(device_ms(fwds[n], reps=1, windows=5))
+    print(f"[{tag}] batch-8 replay device time, A/B in one process: "
+          + "; ".join(f"{n} {' / '.join(f'{t:.4f}' for t in ts)} ms"
+                      for n, ts in times.items()))
+
+
+def autotune_phase(params, x8, expected_fp, expected_int8):
+    """``[autotune]``, B1@224 at both precisions on a fresh cache file.
+
+    The model's engines (``autotune=False``) first; then the tuned
+    engines, whose builds sweep on the cold cache (every sweep printed:
+    each candidate's time, the choice, the model's pick), the blocks per
+    bucket against the model's; a second fp32 engine after the in-process
+    cache is dropped reads the file and sweeps nothing.  No candidate is
+    disqualified.  Gates: launches per forward 19 / 26 (the captures),
+    22 / 29 with ``supersites=False``; fp32 logits within the §2 gates of
+    the reference forward; FIX8 plans and logits equal with autotune on
+    and off (int8 blocks are not tuned).  Returns the tuned engines."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.fusion import launch_counts, plan_program
+    from repro_torch.core.program import execute, lower
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    path = fresh_cache("autotune")
+    cfg8 = VisionServeConfig(microbatch=8)
+    off = dataclasses.replace(cfg8, autotune=False)
+    n0 = autotune.SWEEP_COUNT
+    model = VisionEngine(params, B1, off).warmup()
+    if autotune.SWEEP_COUNT != n0:
+        raise AssertionError("autotune=False swept")
+    log0 = len(autotune.SWEEP_LOG)
+    t0 = time.perf_counter()
+    tuned = VisionEngine(params, B1, cfg8).warmup()
+    secs = time.perf_counter() - t0
+    sweeps = autotune.SWEEP_COUNT - n0
+    print_sweeps("autotune", log0)
+    swept_s = sum(e["seconds"] for e in autotune.SWEEP_LOG[log0:])
+    print(f"[autotune] fp32 engine on a cold cache ({path}): {sweeps} "
+          f"sweeps taking {swept_s:.2f} s of its {secs:.2f} s build (4 "
+          f"keys: plan, warm-up run, capture); {autotune.DISQUALIFIED} "
+          f"candidates disqualified; sweep launches "
+          f"{dict(autotune.SWEEP_LAUNCHES)}")
+    if not sweeps:
+        raise AssertionError("a cold cache swept nothing")
+    blocks_vs_model(tuned, "autotune")
+    check_graphs(tuned, expected_fp, "autotune")
+    for key in tuned.cache.keys():
+        ex = tuned.cache.get(key.batch, key.resolution)
+        flat = plan_program(ex.program, tuned.params, supersites=False)
+        got = (launch_counts(ex.plan)["fused"], launch_counts(flat)["fused"])
+        if got != (19, 22):
+            raise AssertionError(f"bucket {key.batch}: launches {got}, "
+                                 f"expected (19, 22)")
+    autotune.clear_memory_cache()
+    n1 = autotune.SWEEP_COUNT
+    again = VisionEngine(params, B1, cfg8).warmup()
+    print(f"[autotune] a second engine after the in-process cache was "
+          f"dropped: {autotune.SWEEP_COUNT - n1} new sweeps")
+    if autotune.SWEEP_COUNT != n1:
+        raise AssertionError("a warm cache swept again")
+    for key in tuned.cache.keys():
+        a = tuned.cache.get(key.batch, key.resolution).plan
+        b = again.cache.get(key.batch, key.resolution).plan
+        if [d.to_dict() for d in a.decisions.values()] != \
+                [d.to_dict() for d in b.decisions.values()] or \
+                [g.to_dict() for g in a.groups.values()] != \
+                [g.to_dict() for g in b.groups.values()]:
+            raise AssertionError(f"bucket {key.batch}: the warm cache "
+                                 f"planned other blocks")
+    del again
+    with torch.inference_mode():
+        ref = execute(lower(B1, batch=8), tuned.params, x8)
+    check_logits(tuned.logits(x8), ref, "autotune fp32")
+    ex_t, ex_m = tuned.cache.get(8, 224), model.cache.get(8, 224)
+    replay_ab({"model": lambda: ex_m(model.params, x8),
+               "tuned": lambda: ex_t(tuned.params, x8)}, "autotune fp32")
+    del model
+
+    n2 = autotune.SWEEP_COUNT
+    qmodel = VisionEngine.quantized(params, B1, off).warmup()
+    qtuned = VisionEngine.quantized(params, B1, cfg8).warmup()
+    print(f"[autotune] FIX8 engines, autotune off and on: "
+          f"{autotune.SWEEP_COUNT - n2} sweeps")
+    if autotune.SWEEP_COUNT != n2:
+        raise AssertionError("a FIX8 plan swept")
+    check_graphs(qtuned, expected_int8, "autotune")
+    for key in qtuned.cache.keys():
+        a = qtuned.cache.get(key.batch, key.resolution)
+        b = qmodel.cache.get(key.batch, key.resolution)
+        if [d.to_dict() for d in a.plan.decisions.values()] != \
+                [d.to_dict() for d in b.plan.decisions.values()] or \
+                [g.to_dict() for g in a.plan.groups.values()] != \
+                [g.to_dict() for g in b.plan.groups.values()]:
+            raise AssertionError(f"FIX8 bucket {key.batch}: plans differ "
+                                 f"with autotune on and off")
+        flat = plan_program(a.program, qtuned.params, supersites=False)
+        got = (launch_counts(a.plan)["fused"], launch_counts(flat)["fused"])
+        if got != (26, 29):
+            raise AssertionError(f"FIX8 bucket {key.batch}: launches {got}")
+    got_t, got_m = qtuned.logits(x8), qmodel.logits(x8)
+    torch.cuda.synchronize()
+    n = int((got_t != got_m).sum())
+    print(f"[autotune] FIX8 plans equal with autotune on and off in every "
+          f"bucket; batch-8 logits: {n} of {got_t.numel()} differ")
+    if n:
+        raise AssertionError("FIX8 logits differ with autotune on and off")
+    del qmodel
+    return tuned, qtuned
+
+
+def epilogues_phase(qengine, params, x8):
+    """``[epilogues]``: FIX8 B1@224 served with ``epilogues=False`` (each
+    int8 consumer quantizes its own input) beside the served engine's
+    producer-side emission: plan launches, the wrappers' launches per
+    forward (the captures), the device time per replay A/B in one process,
+    and the logits against the int8 reference forward (top-1 equal,
+    within 0.1 * max|logit|).  Returns the opt-out's (replay, eager)
+    forwards for ``kernel_profile``."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.fusion import launch_counts
+    from repro_torch.core.program import execute, lower
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    off = VisionEngine.quantized(params, B1, VisionServeConfig(
+        microbatch=8, buckets=(8,), epilogues=False))
+    ex_off, ex_on = off.cache.get(8, 224), qengine.cache.get(8, 224)
+    if ex_off.key.epilogues or not ex_on.key.epilogues:
+        raise AssertionError("the executor keys do not carry epilogues")
+    if ex_off.plan.epilogues or any(
+            d.q_in or d.epilogue is not None
+            for d in ex_off.plan.decisions.values()):
+        raise AssertionError("epilogues=False planned an epilogue")
+    for tag, ex in (("on", ex_on), ("off", ex_off)):
+        emits = sum(1 for d in ex.plan.decisions.values()
+                    if d.epilogue is not None)
+        print(f"[epilogues] {tag}: {launch_counts(ex.plan)['fused']} plan "
+              f"launches, {emits} producer epilogues, "
+              f"{sum(d.q_in for d in ex.plan.decisions.values())} int8 "
+              f"boundaries; wrapper launches per forward "
+              f"{ex.replay_launches}")
+    if launch_counts(ex_off.plan)["fused"] != 26:
+        raise AssertionError("epilogues=False moved the plan's launches")
+    if any("emit" in k for k in ex_off.replay_launches):
+        raise AssertionError(f"epilogues=False launched an emitting "
+                             f"kernel: {ex_off.replay_launches}")
+    with torch.inference_mode():
+        ref = execute(lower(B1, batch=8), off.params, x8)
+    got_off = off.logits(x8)
+    check_logits(got_off, ref, "epilogues off", fix8=True)
+    check_logits(qengine.logits(x8), ref, "epilogues on", fix8=True)
+    replay_ab({"on": lambda: ex_on(qengine.params, x8),
+               "off": lambda: ex_off(off.params, x8)}, "epilogues")
+
+    def eager():
+        with torch.inference_mode():
+            return execute(ex_off.program, off.params, x8, plan=ex_off.plan)
+    return (lambda: ex_off(off.params, x8)), eager
+
+
+def overrides_phase(params, x8) -> None:
+    """``[overrides]``, fp32 B1@224, one bucket of 8: a ``group_break``
+    on ``S2.mb1`` splits S2.ss0 where JAX's planner splits it (S2.mb0
+    alone, S2.ss0 = S2.mb1..mb2: 20 plan launches, 10 ``mbconv_fused`` a
+    replay), and ``fused=False`` pins ``S3.evit1.mb`` to the reference
+    path (reason ``"search"``: 21 plan launches, its 3 plain ones counted;
+    8 ``mbconv_fused`` a replay).  Each is served from its captured graph
+    and held to the fp32 gates of the reference forward."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.fusion import SiteOverride, launch_counts
+    from repro_torch.core.program import execute, lower
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    with torch.inference_mode():
+        ref = execute(lower(B1, batch=8), params, x8)
+    cases = (
+        ("group_break S2.mb1", {"S2.mb1": SiteOverride(group_break=True)},
+         {"S1.ss0": ("S1.mb0", "S1.mb1"), "S2.ss0": ("S2.mb1", "S2.mb2")},
+         20, 10, None),
+        ("fused=False S3.evit1.mb",
+         {"S3.evit1.mb": SiteOverride(fused=False)}, GROUPS, 21, 8,
+         "S3.evit1.mb"))
+    for label, ov, groups, launches, mbconvs, pinned in cases:
+        eng = VisionEngine(params, B1, VisionServeConfig(
+            microbatch=8, buckets=(8,)), overrides=ov)
+        ex = eng.cache.get(8, 224)
+        got = {g.name: tuple(g.members) for g in ex.plan.groups.values()}
+        n = launch_counts(ex.plan)["fused"]
+        print(f"[overrides] {label}: groups {got}; {n} plan launches; "
+              f"wrapper launches per replay {ex.replay_launches}")
+        if got != groups or n != launches or ex.graph is None or \
+                ex.replay_launches.get("mbconv_fused") != mbconvs:
+            raise AssertionError(f"{label}: groups {got}, {n} launches, "
+                                 f"{ex.replay_launches}")
+        if pinned is not None:
+            d = ex.plan.decisions[pinned]
+            if d.fused or d.reason != "search":
+                raise AssertionError(f"{label}: {d}")
+        check_logits(eng.logits(x8), ref, f"overrides {label}")
+        check_healthy(eng, "overrides")
+
+
+def autotune_fault_phase(params, images) -> None:
+    """``[autotune fault]``, fp32 B1@224, buckets (1, 8), on a fresh
+    cache file: the engine is made (bucket 8 swept and captured), then a
+    ``FaultPlan`` with ``FaultSpec("autotune", times=1)`` is installed and
+    one request arrives: bucket 1's cold build fires the fault at its
+    first consultation (stem.ds0), the scheduler retries, the negative
+    cache answers the retry, the ladder demotes stem.ds0 (level 1), and
+    the key is planned (sweeping its cold shapes), captured anew and
+    served within the fp32 gates of the reference forward."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.program import execute, lower
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.scheduler import ManualClock, Request
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    main_cache = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    fresh_cache("fault")
+    faults = FaultPlan(FaultSpec("autotune", times=1))
+    eng = VisionEngine(params, B1, VisionServeConfig(
+        microbatch=8, buckets=(1, 8)), faults=faults)
+    n0 = autotune.SWEEP_COUNT
+    clock = ManualClock()
+    sched = eng.scheduler(clock=clock, backoff_ms=0.0)
+    req = Request(0, images[0])
+    with faults:
+        sched.submit(req)
+        rounds = 0
+        while sched.outstanding():
+            sched.step(drain=True)
+            sched.finalize()
+            rounds += 1
+            if rounds > 8:
+                raise AssertionError("autotune fault: not drained")
+    state = eng.cache.degradation(1, 224)
+    ex = eng.cache.get(1, 224)
+    print(f"[autotune fault] fired {faults.fired}; request {req.status} "
+          f"after {req.retries} failed attempts; ladder {state}; stem.ds0 "
+          f"{ex.plan.decisions['stem.ds0'].reason}; {autotune.SWEEP_COUNT - n0} "
+          f"sweeps in the rebuild; new graph, launches per replay "
+          f"{ex.replay_launches}; counters "
+          f"{ {k: v for k, v in eng.telemetry.counters.items() if k in ('degraded', 'negative_cache_hit', 'executor_build_failed', 'retries')} }")
+    if req.status != "completed" or faults.fired != {"autotune": 1}:
+        raise AssertionError(f"autotune fault: {req.status}, "
+                             f"{faults.fired}, {req.error}")
+    if state is None or state.level != 1 or state.demoted != {"stem.ds0"}:
+        raise AssertionError(f"autotune fault: ladder {state}")
+    if ex.graph is None or ex.plan.decisions["stem.ds0"].reason != "fault":
+        raise AssertionError("autotune fault: the key was not rebuilt")
+    if "dsconv_fused" in ex.replay_launches:
+        raise AssertionError("the demoted stem.ds0 still launches")
+    with torch.inference_mode():
+        ref = execute(lower(B1, batch=1), eng.params,
+                      torch.from_numpy(images[:1]).cuda())
+    check_logits(torch.from_numpy(req.logits[None]), ref, "autotune fault")
+    use_cache(main_cache)
+
+
+def fit_report(plan, tag) -> None:
+    """The plan: fused sites, groups with their blocks, the sites the
+    Hopper fit declined (with the reason), and the runs of fused conv
+    sites of one stage left ungrouped (no band of the chain fits one
+    CTA)."""
+    from repro_torch.core.fusion import launch_counts
+    ds = list(plan.decisions.values())
+    declined = [(d.name, d.reason) for d in ds if not d.fused]
+    runs, run = [], []
+    for d in ds + [None]:
+        if d is not None and d.fused and not d.group and \
+                d.kind in ("mbconv", "dsconv") and (
+                    not run or run[-1].split(".")[0] == d.name.split(".")[0]):
+            run.append(d.name)
+            continue
+        if len(run) > 1:
+            runs.append(run)
+        run = [d.name] if (d is not None and d.fused and not d.group
+                           and d.kind in ("mbconv", "dsconv")) else []
+    print(f"[{tag}] plan: {plan.n_fused()} of {len(ds)} sites fused, "
+          f"{launch_counts(plan)['fused']} launches; groups "
+          + "; ".join(f"{g.name} {'+'.join(m.split('.', 1)[1] for m in g.members)} "
+                      f"{fmt_blocks(g.blocks)}" for g in plan.groups.values())
+          + f"; declined by the Hopper fit or a policy {declined or 'none'}"
+          + f"; consecutive fused conv sites left ungrouped (no band fits) "
+          + (", ".join("+".join(r) for r in runs) or "none"))
+
+
+def model_phase(cfg, seed, tag, wrappers):
+    """``[B2]`` / ``[B3]``: ``cfg`` at 224 px, published widths and
+    depths, random weights and BN statistics from ``seed``, fp32 then
+    FIX8, each served by a ``VisionEngine`` over buckets (1, 8) with
+    ``autotune=True`` on the current cache (a cold build sweeps).
+
+    Per precision: the counters set to 0 just before the engine is made
+    and warmed, read just after (less the sweeps' launches): each key's
+    warm-up run and capture, twice the captures' launches; the plan, its
+    declines and its groups; the blocks tuned off the model's pick; the
+    logits of 8 images against the port's reference forward (fp32 within
+    1e-3, FIX8 within 0.1 * max|logit| of the int8 reference, top-1
+    equal), replay = eager bit for bit at batch 1 and 8, FIX8 batch
+    invariance; the steady state (images/s, device and host time per
+    replay, card idle).  Then every served kernel shape, batch 1 and 8,
+    against its plain version (``check_kernels``).  Returns the (replay,
+    eager) forwards per precision for ``kernel_profile``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.efficientvit import init_efficientvit
+    from repro_torch.core.program import execute, lower
+    from repro_torch.core.quantization import quantize_efficientvit
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    gen = torch.Generator().manual_seed(seed)
+    params = init_efficientvit(gen, cfg, "cuda")
+    randomize_bn(params, gen)
+    qparams = quantize_efficientvit(params)
+    rng = np.random.default_rng(seed)
+    x8 = torch.from_numpy(rng.standard_normal(
+        (8, 224, 224, 3)).astype(np.float32)).cuda()
+    scfg = VisionServeConfig(microbatch=8, buckets=(1, 8))
+    fwds, plans, max_err = {}, {}, {k: 0.0 for k in wrappers}
+    for prec in ("fp32", "fix8"):
+        ptag = f"{tag} {prec}"
+        for w in wrappers.values():
+            w.launches = 0
+        autotune.SWEEP_LAUNCHES.clear()
+        n0, log0, t0 = autotune.SWEEP_COUNT, len(autotune.SWEEP_LOG), \
+            time.perf_counter()
+        eng = (VisionEngine(params, cfg, scfg) if prec == "fp32" else
+               VisionEngine.quantized(params, cfg, scfg)).warmup()
+        build_s = time.perf_counter() - t0
+        launches = {k: w.launches - autotune.SWEEP_LAUNCHES.get(k, 0)
+                    for k, w in wrappers.items()}
+        keys = eng.cache.keys()
+        want = {k: 2 * sum(eng.cache.get(key.batch, 224).replay_launches
+                           .get(k, 0) for key in keys) for k in wrappers}
+        swept = sum(e["seconds"] for e in autotune.SWEEP_LOG[log0:])
+        print(f"[{ptag}] counters at 0, engine made and warmed in "
+              f"{build_s:.2f} s ({autotune.SWEEP_COUNT - n0} sweeps, "
+              f"{swept:.2f} s); launches less the sweeps' "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        if launches != want or not any(launches.values()):
+            raise AssertionError(f"{ptag}: launches {launches}, expected "
+                                 f"twice the captures' {want}")
+        print_sweeps(ptag, log0)
+        for key in keys:
+            ex = eng.cache.get(key.batch, 224)
+            fit_report(ex.plan, f"{ptag} bucket {key.batch}")
+            print(f"[{ptag}] graph bucket {key.batch}: launches per replay "
+                  f"{ex.replay_launches}; graph pool grew "
+                  + ("not measured" if ex.graph_bytes is None
+                     else f"{ex.graph_bytes / 2**20:.1f} MiB"))
+        blocks_vs_model(eng, ptag)
+        with torch.inference_mode():
+            ref = execute(lower(cfg, batch=8), eng.params, x8)
+        got = eng.logits(x8)
+        noise = None
+        if prec == "fix8":
+            ex = eng.cache.get(8, 224)
+            site_walk(ex.program, eng.params, x8, ex.plan, ptag)
+            noise = reference_noise(cfg, eng.params, x8, ref, ptag)
+        check_logits(got, ref, ptag, fix8=prec == "fix8", noise=noise)
+        if prec == "fix8":
+            ones = torch.cat([eng.logits(x8[i:i + 1]) for i in range(8)])
+            if not torch.equal(got, ones):
+                raise AssertionError(f"{ptag}: batch invariance")
+            print(f"[{ptag}] batch invariance: the 8 rows of a batch-8 "
+                  f"forward equal the 8 batch-1 forwards bit for bit")
+        for b in (1, 8):
+            ex = eng.cache.get(b, 224)
+            rep = ex(eng.params, x8[:b])
+            with torch.inference_mode():
+                eag = execute(ex.program, eng.params, x8[:b], plan=ex.plan)
+            torch.cuda.synchronize()
+            n = int((rep != eag).sum())
+            print(f"[graph] {ptag} batch {b}: replay vs eager, {n} of "
+                  f"{rep.numel()} logits differ")
+            if n:
+                raise AssertionError(f"{ptag}: replay differs from eager")
+        fwds[prec] = steady_state(eng, rng, ptag)
+        check_healthy(eng, ptag)
+        plans[prec] = {b: eng.cache.get(b, 224).plan for b in (1, 8)}
+    # every served kernel shape against its plain version
+    per_fwd = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes_s": 0.0, "ops_s": 0.0} for k in wrappers}
+    for b in (1, 8):
+        fp_plan, q_plan = plans["fp32"][b], plans["fix8"][b]
+        fp_chains, q_chains = chain_cases(b, gen, params, qparams, cfg,
+                                          (fp_plan, q_plan))
+        check_kernels(kernel_cases(b, gen, cfg, fp_plan) + fp_chains, b,
+                      per_fwd, max_err, exact=False, tag=tag)
+        check_kernels(int8_kernel_cases(b, gen, cfg, q_plan) + q_chains, b,
+                      per_fwd, max_err, exact=True, tag=tag)
+    print(f"[{tag}] every served kernel shape held against its plain "
+          f"version at batch 1 and 8; per batch-8 forward (ms, by CUDA "
+          f"events): " + "; ".join(
+              f"{k} {v['ms']:.4f} (bound {v['bound_ms']:.4f}, plain "
+              f"{v['plain_ms']:.4f})" for k, v in per_fwd.items() if v["ms"]))
+    return fwds
 
 
 def port_kernel_names(csrc: str | None = None) -> set:
@@ -2144,6 +2855,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -2153,7 +2865,7 @@ def main() -> int:
     sys.path.insert(0, SRC)
     import numpy as np
 
-    from repro_torch.core.efficientvit import B1, init_efficientvit
+    from repro_torch.core.efficientvit import B1, B2, B3, init_efficientvit
     from repro_torch.core.program import execute, lower
     from repro_torch.kernels.build import build
     from repro_torch.core.quantization import quantize_efficientvit
@@ -2223,45 +2935,59 @@ def main() -> int:
                    "bytes_s": 0.0, "ops_s": 0.0} for k in wrappers}
     max_err = {k: 0.0 for k in wrappers}
 
+    # every plan of this run tunes into files under build/autotune/
+    fresh_cache("setup")
     params = init_efficientvit(gen, B1, "cuda")
     randomize_bn(params, gen)
     qparams = quantize_efficientvit(params)
-    chains = {b: chain_cases(b, gen, params, qparams) for b in (1, 8)}
+    cfg8 = VisionServeConfig(microbatch=8)
+    rng = np.random.default_rng(args.seed)
+    images = rng.standard_normal((12, 224, 224, 3)).astype(np.float32)
+    x12 = torch.from_numpy(images).cuda()
+    # [autotune]: both precisions' engines, tuned on a fresh cache file
+    # that every later phase reuses; the kernel checks below run at the
+    # blocks of their plans, the ones the served path runs
+    engine, qengine = autotune_phase(params, x12[:8], expected_fp,
+                                     expected_int8)
+    plans = {b: (engine.cache.get(b, 224).plan,
+                 qengine.cache.get(b, 224).plan) for b in (1, 8)}
+    chains = {b: chain_cases(b, gen, params, qparams, B1, plans[b])
+              for b in (1, 8)}
 
     # -- 2a. fp32 kernels against their plain versions -----------------
+    stamp("section 2a", t_start)
     for batch in (1, 8):
-        check_kernels(kernel_cases(batch, gen) + chains[batch][0], batch,
-                      per_fwd, max_err, exact=False)
+        check_kernels(kernel_cases(batch, gen, B1, plans[batch][0])
+                      + chains[batch][0], batch, per_fwd, max_err,
+                      exact=False)
     mbconv_sweep(gen)
     band_sweep(params, gen)
     relu_attn_checks(gen)
     dsconv_sweep(gen)
 
     # -- 2b. the fp32 engine: graphs, plans, steady state ---------------
-    cfg8 = VisionServeConfig(microbatch=8)
-    engine = VisionEngine(params, B1, cfg8).warmup()
+    stamp("section 2b", t_start)
     check_graphs(engine, expected_fp, "serve")
     check_groups(engine, "serve")
-    rng = np.random.default_rng(args.seed)
-    images = rng.standard_normal((12, 224, 224, 3)).astype(np.float32)
-    x12 = torch.from_numpy(images).cuda()
     grouped_vs_per_site(engine, x12[:8], "serve", exact=False)
     fwd_fp = steady_state(engine, rng, "serve")
     graph_checks(engine, rng, "fp32")
     check_healthy(engine, "serve")
 
     # -- 3a. int8 kernels against their plain versions -----------------
+    stamp("section 3a", t_start)
     for batch in (1, 8):
-        check_kernels(int8_kernel_cases(batch, gen) + chains[batch][1],
-                      batch, per_fwd, max_err, exact=True)
+        check_kernels(int8_kernel_cases(batch, gen, B1, plans[batch][1])
+                      + chains[batch][1], batch, per_fwd, max_err,
+                      exact=True)
     mbconv_int8_sweep(gen)
     int8_matmul_sweep(gen)
     int8_emit_sweep(gen)
     group_agg_sweep(gen)
     dsconv_int8_sweep(gen)
 
-    # -- 3b. the FIX8 engine ---------------------------------------------
-    qengine = VisionEngine.quantized(params, B1, cfg8).warmup()
+    # -- 3b. the FIX8 engine (the [autotune] phase's) ---------------------
+    stamp("section 3b", t_start)
     check_graphs(qengine, expected_int8, "fix8")
     check_groups(qengine, "fix8")
     eight = qengine.logits(x12[:8])
@@ -2272,19 +2998,34 @@ def main() -> int:
             f"batch-8 forward differ from the batch-1 forwards")
     print("[fix8] batch invariance: the 8 rows of a batch-8 forward equal "
           "the 8 batch-1 forwards bit for bit")
+    ex = qengine.cache.get(8, 224)
+    site_walk(ex.program, qengine.params, x12[:8], ex.plan, "fix8")
     grouped_vs_per_site(qengine, x12[:8], "fix8", exact=True)
     fwd_q = steady_state(qengine, rng, "fix8")
     graph_checks(qengine, rng, "fix8")
     check_healthy(qengine, "fix8")
+    fwd_eoff = epilogues_phase(qengine, params, x12[:8])
+    del qengine
+    overrides_phase(engine.params, x12[:8])
+    del engine
 
-    # -- 3c. the fault ladder on the card -------------------------------
+    # -- 3c, 3d. the int8 dataflow's switch, overrides, the fault ladder -
+    stamp("section 3c, 3d", t_start)
     faults_phase(params, images, wrappers, expected_fp)
+    autotune_fault_phase(params, images)
+
+    # -- 3e. [B2], [B3]: the wider configs through the same planner -----
+    stamp("section 3e", t_start)
+    wide = {"B2": model_phase(B2, args.seed + 2, "B2", wrappers),
+            "B3": model_phase(B3, args.seed + 3, "B3", wrappers)}
 
     # -- 4. the kernel library: the public ops off the vision path ------
+    stamp("section 4", t_start)
     launches_lib = library_phase(args.seed, wrappers, expected_lib, per_fwd,
                                  max_err)
 
     # -- 5. the main path, fp32 and FIX8: warm, serve, count -----------
+    stamp("section 5", t_start)
     engine, got, launches_fp = serve_trace(
         lambda: VisionEngine(params, B1, cfg8), images, wrappers,
         expected_fp, "serve")
@@ -2313,11 +3054,17 @@ def main() -> int:
                              f"above {CHAOS} * {top:.3e}")
 
     # -- 6. kernel time per forward, after every timed phase -----------
+    stamp("section 6", t_start)
     kernel_profile(*fwd_fp, "serve")
     kernel_profile(*fwd_q, "fix8")
+    kernel_profile(*fwd_eoff, "epilogues off")
+    for name, fwds in wide.items():
+        for prec, fwd in fwds.items():
+            kernel_profile(*fwd, f"{name} {prec}")
     one_launch_per_site(gen)
 
     # -- 7. the kernels line --------------------------------------------
+    stamp("section 7", t_start)
     rows = []
     for name in wrappers:
         acc = per_fwd[name]
@@ -2332,6 +3079,7 @@ def main() -> int:
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]
                          else "operations"),
             "library_ms": acc.get("library_ms")})
+    stamp("done", t_start)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

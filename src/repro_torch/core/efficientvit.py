@@ -18,7 +18,7 @@ from repro_torch.core.relu_attention import MSAConfig, init_msa
 from repro_torch.layers.conv import conv2d, init_conv2d
 from repro_torch.layers.norms import batchnorm, init_batchnorm
 
-__all__ = ["EfficientViTConfig", "B1", "B1_SMOKE", "OpRecord",
+__all__ = ["EfficientViTConfig", "B1", "B1_SMOKE", "B2", "B3", "OpRecord",
            "init_efficientvit", "conv_bn_act", "dsconv", "mbconv",
            "hardswish"]
 
@@ -42,6 +42,14 @@ B1_SMOKE = EfficientViTConfig(
     name="efficientvit-b1-smoke", widths=(8, 16, 24, 32, 48),
     depths=(1, 1, 1, 1, 1), head_widths=(64, 64), num_classes=10,
     image_size=64)
+# B2 and B3 as the JAX package defines them (Cai et al., ICCV'23):
+# 32-wide heads, 1000 classes at 224 px
+B2 = EfficientViTConfig(
+    name="efficientvit-b2", widths=(24, 48, 96, 192, 384),
+    depths=(1, 3, 4, 4, 6), head_dim=32, head_widths=(2304, 2560))
+B3 = EfficientViTConfig(
+    name="efficientvit-b3", widths=(32, 64, 128, 256, 512),
+    depths=(1, 4, 6, 6, 9), head_dim=32, head_widths=(2304, 2560))
 
 
 def hardswish(x):

@@ -1,31 +1,37 @@
 """Fusion planning: freeze per-site kernel routing for one ``Program``.
 
-Counterpart of ``repro/core/fusion.py`` for fp trees.  ``plan_program``
-runs ONE loop over the lowered IR's fusible sites, consulting the
-kernel registry for each: which precision the site's params support,
-which blocks (band height, chunk, tile) to freeze, and whether one CTA
-of the Hopper kernel fits in shared memory with them.  ``execute`` then
-dispatches by table lookup.
+Counterpart of ``repro/core/fusion.py``.  ``plan_program`` runs ONE loop
+over the lowered IR's fusible sites, consulting the kernel registry for
+each: which precision the site's params support, which blocks (band
+height, chunk, tile) to freeze, and whether one CTA of the Hopper kernel
+fits in shared memory with them.  ``execute`` then dispatches by table
+lookup.
 
-Blocks are frozen from each kernel's deterministic choice, as the JAX
-planner freezes its first candidate without a sweep.  A quantized
-(``quantize_efficientvit``) tree plans the FIX8 kernels, and
+Blocks come from each kernel's tuner (``KernelImpl.tune``): with
+``autotune=True`` on the card a cold cache times the family's candidates
+(``kernels.autotune``, CUDA events) and freezes the fastest; off the
+card, with ``autotune=False`` or without a sweep, the first candidate,
+the kernel's deterministic pick.  Sweeps run here, at plan time, never
+inside a CUDA graph capture.  A quantized (``quantize_efficientvit``)
+tree plans the FIX8 kernels, whose path rules tune nothing, and
 ``assign_epilogues`` then gives each producer of a fused int8 consumer
-an int8 ``Epilogue`` (the int8 dataflow).  The super-site grouping pass
+an int8 ``Epilogue`` (the int8 dataflow; ``epilogues=False`` keeps the
+consumer-side quantize).  The super-site grouping pass
 (``supersites=True``, the default as in JAX) then joins runs of
 consecutive fused conv sites of one stage into single-launch groups.
 ``demote=`` forces named sites to the reference path (reason
-``"fault"``), the serving degradation ladder's lever.  Autotune sweeps
-and schedule overrides (``group_break`` among them) are later slices of
-the port.
+``"fault"``), the serving degradation ladder's lever; ``overrides=``
+(``SiteOverride``) pins a site's route, precision or blocks, and
+``group_break`` splits a chain at a site.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Mapping
 
-__all__ = ["SiteDecision", "GroupDecision", "FusionPlan", "plan_program",
-           "plan_report", "launch_counts", "decision_shape",
+__all__ = ["SiteDecision", "SiteOverride", "GroupDecision", "FusionPlan",
+           "build_plan", "plan_program", "plan_report", "report_dict",
+           "launch_counts", "decision_shape",
            "assign_epilogues", "EXPECTED_B1_FUSED_LAUNCHES",
            "EXPECTED_B1_FUSED_LAUNCHES_INT8",
            "EXPECTED_B1_SUPERSITE_LAUNCHES",
@@ -53,7 +59,8 @@ class SiteDecision:
     reason: str            # "ok" | "vmem" (does not fit in shared memory)
     #                        | "quantized" | "not-quantized" | "mixed"
     #                        | "disabled" | "fault" (demoted by the
-    #                        degradation ladder)
+    #                        degradation ladder) | "search" (pinned by a
+    #                        ``SiteOverride``)
     blocks: Mapping[str, int] = dataclasses.field(default_factory=dict)
     #                        fp mbconv: {"block_rows", "block_m", "split"}
     #                        (band, mid chunk, CTAs per cluster); fp
@@ -67,6 +74,61 @@ class SiteDecision:
     q_in: bool = False     # the producer's epilogue delivers this site's
     #                        input quantized (an int8 boundary)
     group: str = ""        # super-site membership ("" = ungrouped)
+
+    def to_dict(self) -> dict:
+        """JSON-serializable form (JAX's ``SiteDecision.to_dict``)."""
+        ep = self.epilogue
+        return {
+            "name": self.name, "kind": self.kind, "fused": self.fused,
+            "reason": self.reason, "blocks": dict(self.blocks),
+            "shape": list(self.shape), "precision": self.precision,
+            "reused": self.reused, "q_in": self.q_in, "group": self.group,
+            "epilogue": None if ep is None else {
+                "out_dtype": ep.out_dtype, "scale": ep.scale,
+                "residual": ep.residual},
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class SiteOverride:
+    """One site's entry in an externally supplied schedule.
+
+    ``plan_program(overrides={name: SiteOverride})`` consults it before
+    its own policy:
+
+      ``fused=False``       pin the site to the reference path (reason
+                            ``reason``, default ``"search"``);
+      ``fused=True``/None   plan normally, with ``precision`` (when set)
+                            as this site's requested precision and
+                            ``blocks`` (when set) frozen verbatim: the
+                            tuner is never consulted.
+
+    The shared-memory fit still runs for a fused override, so an override
+    chooses among launchable schedules only (one that does not fit gets
+    ``"vmem"``).  ``group_break=True`` stops the super-site pass from
+    extending a chain across this site (a chain may still start here).
+    """
+    fused: bool | None = None
+    precision: str | None = None      # None -> the plan-level request
+    blocks: Mapping[str, int] | None = None   # None -> donor/tuner path
+    reason: str = "search"
+    group_break: bool | None = None
+
+    @classmethod
+    def from_decision(cls, d: "SiteDecision | dict") -> "SiteOverride":
+        """Pin a frozen decision so replanning reproduces it.
+        ``group_break`` is left unset: one decision cannot know its
+        chain."""
+        if isinstance(d, SiteDecision):
+            d = d.to_dict()
+        return cls(fused=bool(d["fused"]), precision=d.get("precision"),
+                   blocks=dict(d.get("blocks") or {}),
+                   reason=d.get("reason", "search"))
+
+    def to_dict(self) -> dict:
+        return {"fused": self.fused, "precision": self.precision,
+                "blocks": None if self.blocks is None else dict(self.blocks),
+                "reason": self.reason, "group_break": self.group_break}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +145,11 @@ class GroupDecision:
     shape: tuple = ()         # in_shape + out_shape of the chain
     reused: bool = False      # blocks inherited from a donor plan
     kind: str = "supersite"
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "members": list(self.members),
+                "precision": self.precision, "blocks": dict(self.blocks),
+                "shape": list(self.shape), "kind": self.kind}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,23 +205,35 @@ def _reusable_blocks(reuse, site, prec, impl):
     return dict(d.blocks)
 
 
-def _decide(site, params, *, enabled, precision, reuse=None):
+def _decide(site, params, *, enabled, autotune, device, precision,
+            reuse=None, override=None):
     from repro_torch.kernels.registry import get_kernel, get_probe
 
     shape = decision_shape(site)
+    if override is not None and override.fused is False:
+        return SiteDecision(site.name, site.kind, False, override.reason,
+                            shape=shape,
+                            precision=override.precision or "fp")
     if not enabled:
         return SiteDecision(site.name, site.kind, False, "disabled",
                             shape=shape)
+    if override is not None and override.precision is not None:
+        precision = override.precision
     probe = get_probe(site.kind)
     prec, fail = probe.resolve_precision(probe.site_precision(params),
                                          precision)
     if fail is not None:
         return SiteDecision(site.name, site.kind, False, fail, shape=shape)
     impl = get_kernel(site.kind, prec)
-    blocks = _reusable_blocks(reuse, site, prec, impl)
-    reused = blocks is not None
-    if not reused:
-        blocks = impl.tune(site)
+    reused = False
+    if override is not None and override.blocks is not None:
+        # frozen verbatim: the tuner is not consulted
+        blocks = dict(override.blocks)
+    else:
+        blocks = _reusable_blocks(reuse, site, prec, impl)
+        reused = blocks is not None
+        if not reused:
+            blocks = impl.tune(site, autotune=autotune, device=device)
     if impl.smem_bytes(site, blocks) > impl.smem_budget:
         return SiteDecision(site.name, site.kind, False, "vmem",
                             shape=shape, precision=prec)
@@ -162,28 +241,53 @@ def _decide(site, params, *, enabled, precision, reuse=None):
                         precision=prec, reused=reused)
 
 
+def _tree_device(tree):
+    """The device of a param tree's first tensor (None for no tensor)."""
+    if hasattr(tree, "device") and hasattr(tree, "dtype"):
+        return tree.device
+    values = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, (list, tuple)) else ()
+    for v in values:
+        d = _tree_device(v)
+        if d is not None:
+            return d
+    return None
+
+
 def plan_program(program, params, *, fuse_dsconv: bool = True,
                  fuse_mbconv: bool = True, fuse_msa: bool = True,
+                 autotune: bool = True,
                  precision: str = "auto",
                  reuse: FusionPlan | None = None,
+                 epilogues: bool = True,
                  demote=(),
+                 overrides: Mapping[str, SiteOverride] | None = None,
                  supersites: bool = True) -> FusionPlan:
     """Freeze per-site routing for a lowered ``core.program.Program``.
 
     ``precision``: "auto" matches each site's params; "fp"/"int8" force
     one family and demote mismatched sites to the reference path.
-    ``reuse``: a donor plan (another batch bucket at the same
-    resolution); sites and groups whose geometry matches a fused donor
-    decision inherit its blocks (``reused=True``).  ``supersites`` (on by
-    default) runs the grouping pass last (``_group_supersites``);
-    ``False`` keeps per-site launches.  A failure inside one site's
-    decision is re-raised as ``PlanError`` naming the site.
-    ``demote``: site names forced to the reference path with reason
-    ``"fault"`` before any decision runs (the degradation ladder's
-    lever); the grouping pass runs after it, so a demoted member leaves
-    its group and the members around it regroup.
+    ``autotune`` (default on, as in JAX): where the params live on the
+    card, a tuner whose cache has no entry times its candidates here
+    (``kernels.autotune``); elsewhere, or with ``False``, each family's
+    deterministic pick.  ``reuse``: a donor plan (another batch bucket
+    at the same resolution); sites and groups whose geometry matches a
+    fused donor decision inherit its blocks (``reused=True``) without a
+    consultation.  ``epilogues`` (default on) runs ``assign_epilogues``;
+    ``False`` assigns no epilogue and no ``q_in``, so each int8 consumer
+    quantizes its own input.  ``supersites`` (on by default) runs the
+    grouping pass last (``_group_supersites``); ``False`` keeps per-site
+    launches.  ``overrides``: ``{site name: SiteOverride}``, consulted
+    before the planner's own policy (see ``SiteOverride``); a
+    ``group_break`` splits a chain at its site.  ``demote``: site names
+    forced to the reference path with reason ``"fault"`` before any
+    decision runs (the degradation ladder's lever); it wins over an
+    override, and the grouping pass runs after it, so a demoted member
+    leaves its group and the members around it regroup.  A failure
+    inside one site's decision (a tuner's fault hook, a sweep, a probe)
+    is re-raised as ``PlanError`` naming the site, an injected fault's
+    ``injected`` flag kept.
     """
-    from repro_torch.common.errors import PlanError, ReproError
     from repro_torch.core.program import params_at
 
     if precision not in ("auto", "fp", "int8"):
@@ -191,6 +295,8 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
     enabled = {"dsconv": fuse_dsconv, "mbconv": fuse_mbconv,
                "msa": fuse_msa}
     demote = frozenset(demote)
+    overrides = overrides or {}
+    device = _tree_device(params)
     decisions: dict[str, SiteDecision] = {}
     for site in program.fusible():
         if site.name in demote:
@@ -201,24 +307,51 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
         try:
             decisions[site.name] = _decide(
                 site, params_at(params, site.param_path),
-                enabled=enabled.get(site.kind, True), precision=precision,
-                reuse=reuse)
+                enabled=enabled.get(site.kind, True), autotune=autotune,
+                device=device, precision=precision, reuse=reuse,
+                override=overrides.get(site.name))
         except Exception as e:
-            site_name = getattr(e, "site", None) if isinstance(
-                e, ReproError) else None
-            raise PlanError(f"planning {site.name} failed: {e}",
-                            site=site_name or site.name) from e
-    ep_map, q_in = assign_epilogues(program, params, decisions)
-    for name, d in decisions.items():
-        if name in ep_map or name in q_in:
-            decisions[name] = dataclasses.replace(
-                d, epilogue=ep_map.get(name), q_in=name in q_in)
-    groups = (_group_supersites(program, decisions, reuse) if supersites
-              else {})
+            raise _plan_error(site.name, e) from e
+    ep_map: dict = {}
+    if epilogues:
+        ep_map, q_in = assign_epilogues(program, params, decisions)
+        for name, d in decisions.items():
+            if name in ep_map or name in q_in:
+                decisions[name] = dataclasses.replace(
+                    d, epilogue=ep_map.get(name), q_in=name in q_in)
+    groups = (_group_supersites(program, decisions, reuse, overrides,
+                                autotune=autotune, device=device)
+              if supersites else {})
     return FusionPlan(decisions=decisions, epilogues=ep_map, groups=groups)
 
 
-def _group_blocks(sup, prec, reuse, gname):
+def _plan_error(name, e):
+    """``PlanError`` naming the site (a typed error's own site first),
+    injected when the cause was."""
+    from repro_torch.common.errors import PlanError, ReproError
+    site = getattr(e, "site", None) if isinstance(e, ReproError) else None
+    err = PlanError(f"planning {name} failed: {e}", site=site or name)
+    err.injected = getattr(e, "injected", False)
+    return err
+
+
+def build_plan(params, cfg, *, batch: int = 1, image_size: int | None = None,
+               fuse_dsconv: bool = True, fuse_mbconv: bool = True,
+               fuse_msa: bool = True, autotune: bool = True,
+               precision: str = "auto",
+               epilogues: bool = True) -> FusionPlan:
+    """Lower the config, then plan it: ``plan_program(lower(cfg, batch=,
+    image_size=), params, ...)``."""
+    from repro_torch.core.program import lower
+
+    program = lower(cfg, batch=batch, image_size=image_size)
+    return plan_program(program, params, fuse_dsconv=fuse_dsconv,
+                        fuse_mbconv=fuse_mbconv, fuse_msa=fuse_msa,
+                        autotune=autotune, precision=precision,
+                        epilogues=epilogues)
+
+
+def _group_blocks(sup, prec, reuse, gname, autotune, device):
     """(blocks, reused) of a chain, or None when the chain fits no CTA.
     A donor group qualifies when it has the same name, members and
     precision and the exact shape: the fp band height follows the
@@ -230,13 +363,17 @@ def _group_blocks(sup, prec, reuse, gname):
             and tuple(g.shape) == tuple(sup.in_shape) + tuple(sup.out_shape)):
         return dict(g.blocks), True
     impl = get_kernel("supersite", prec)
-    blocks = impl.tune(sup)
+    try:
+        blocks = impl.tune(sup, autotune=autotune, device=device)
+    except Exception as e:
+        raise _plan_error(sup.members[0], e) from e
     if blocks is None or impl.smem_bytes(sup, blocks) > impl.smem_budget:
         return None
     return blocks, False
 
 
-def _group_supersites(program, decisions, reuse=None):
+def _group_supersites(program, decisions, reuse=None, overrides=None, *,
+                      autotune=False, device=None):
     """The super-site pass: maximal runs of consecutive, same-stage,
     uniform-precision fused conv sites -> ``GroupDecision``s, each run as
     ONE ``kernels/supersite`` launch.
@@ -245,10 +382,13 @@ def _group_supersites(program, decisions, reuse=None):
     members get ``group=<name>``; an fp site the per-site pass demoted for
     shared memory (``"vmem"``) is rescued into a group whose banded chain
     fits and becomes ``fused=True, reason="ok"``.  Any other demotion
-    splits the run around the site.
+    splits the run around the site, and so does an override's
+    ``group_break`` (the chain may start at that site).  A chain whose
+    tuner raises is reported by its first member (``PlanError``).
     """
     from repro_torch.core.program import SUPERSITE_KINDS, SuperSite
 
+    overrides = overrides or {}
     groups: dict[str, GroupDecision] = {}
     counters: dict[str, int] = {}
     run: list = []                       # [(site, decision), ...]
@@ -277,7 +417,7 @@ def _group_supersites(program, decisions, reuse=None):
         stage = names[0].split(".", 1)[0]
         gname = f"{stage}.ss{counters.get(stage, 0)}"
         sup = SuperSite.of(program, names, name=gname)
-        fit = _group_blocks(sup, prec, reuse, gname)
+        fit = _group_blocks(sup, prec, reuse, gname, autotune, device)
         if fit is None:
             return
         counters[stage] = counters.get(stage, 0) + 1
@@ -296,8 +436,10 @@ def _group_supersites(program, decisions, reuse=None):
             flush()
             prev_stage = None
             continue
+        ov = overrides.get(site.name)
         stage = site.name.split(".", 1)[0]
-        if run and (stage != prev_stage
+        if run and (bool(getattr(ov, "group_break", None))
+                    or stage != prev_stage
                     or d.precision != run[0][1].precision):
             flush()
         run.append((site, d))
@@ -478,6 +620,19 @@ def plan_report(plan: FusionPlan) -> list[dict]:
             "q_in": d.q_in, "epilogue": d.epilogue,
             "launches_ref": launches[0], "launches_fused": launches_fused,
         })
+    return rows
+
+
+def report_dict(plan: FusionPlan) -> list[dict]:
+    """``plan_report`` with every value JSON-serializable: the
+    ``epilogue`` column as a plain dict (``SiteDecision.to_dict``'s
+    form)."""
+    rows = []
+    for r in plan_report(plan):
+        ep = r["epilogue"]
+        rows.append({**r, "epilogue": None if ep is None else {
+            "out_dtype": ep.out_dtype, "scale": ep.scale,
+            "residual": ep.residual}})
     return rows
 
 

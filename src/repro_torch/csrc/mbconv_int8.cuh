@@ -435,6 +435,11 @@ static inline cudaError_t mbconv_i8_cluster_occupancy(const MbI8Site& a,
 
 constexpr int GROWS = 64;  // pixels (GEMM rows) per CTA of a GEMM pass
 constexpr int GEMM_SMEM = 96 * 1024;  // a GEMM pass's budget for its panels
+// The most shared memory one CTA may have (227 KB): past it, with the
+// whole K of one 64-column weight tile, a pass stages that tile in K
+// chunks of GEMM_KCHUNK bytes (K above ~1.7 KB, e.g. B3's S4 at M = 2048).
+constexpr int GEMM_SMEM_MAX = 227 * 1024;
+constexpr int GEMM_KCHUNK = 512;
 constexpr int DW_CC = 32;  // channels per CTA of the DW pass
 constexpr int DW_SMEM = 24 * 1024;  // the DW pass's window budget
 
@@ -444,10 +449,18 @@ __host__ __device__ inline int gemm_pass_cols(int K, int N) {
   const int n = round_up(N, 64);
   return (GROWS + n) * panel_pitch(K) <= GEMM_SMEM ? n : 64;
 }
+// The K chunk of a pass's weight tile: 0 (the whole K) where the A panel
+// and a 64-column tile of the whole K fit GEMM_SMEM_MAX, else
+// GEMM_KCHUNK.
+__host__ __device__ inline int gemm_pass_kchunk(int K) {
+  return (GROWS + 64) * panel_pitch(K) <= GEMM_SMEM_MAX ? 0 : GEMM_KCHUNK;
+}
 // Shared bytes of a GEMM pass: the A panel [64][pk] and the staged
-// weight columns [cols][pk].
+// weight columns [cols][pk], or one 64-column tile of a K chunk.
 __host__ __device__ inline int gemm_pass_smem(int K, int N) {
-  return (GROWS + gemm_pass_cols(K, N)) * panel_pitch(K);
+  const int kc = gemm_pass_kchunk(K);
+  return kc ? GROWS * panel_pitch(K) + 64 * panel_pitch(kc)
+            : (GROWS + gemm_pass_cols(K, N)) * panel_pitch(K);
 }
 // Output rows per CTA of the DW pass: the most (a power of two, at most
 // Ho) whose window [(rows - 1) s + 3][W + 2][DW_CC] fits DW_SMEM.
@@ -524,19 +537,56 @@ struct Pw2Epi {
   }
 };
 
+// A GEMM pass's 64 x 64 output tile at (rows r0.., columns n0..) from
+// the warps' sums: every value first (straight-line divisions, edges
+// clamped into the map), then the stores of those inside it (rows <
+// `rows`, columns < n_hi), their magnitudes folded into vmax.
+template <typename Epi>
+__device__ __forceinline__ void gemm_pass_out(const Epi& epi,
+                                              const int (&acc)[4][4], int b,
+                                              int r0, int rows, int n0,
+                                              int n_hi, int N, float sa,
+                                              float& vmax) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3, wm = warp & 3, wn = warp >> 2;
+  float v[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      v[j][i] = epi.value(
+          b, r0 + min(wm * 16 + g + 8 * (i >> 1), rows - 1),
+          min(n0 + wn * 32 + 8 * j + 2 * t + (i & 1), N - 1), acc[j][i], sa);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm * 16 + g + 8 * (i >> 1);
+      const int n = n0 + wn * 32 + 8 * j + 2 * t + (i & 1);
+      if (r < rows && n < n_hi) {
+        epi.store(b, r0 + r, n, v[j][i]);
+        vmax = fmaxf(vmax, fabsf(v[j][i]));
+      }
+    }
+}
+
 // A GEMM pass: rows [64 blockIdx.x, +64) of image blockIdx.z of an R x K
 // map (ActIn, staged once per CTA: quantized once per element when fp32)
 // times the (K, N) weights, column group blockIdx.y of gridDim.y in tiles
 // of 64; the epilogue's values are stored and their magnitudes committed
-// to amax[b] (when amax is given).  Two CTAs per SM: a register cap for
-// three (80) or four (64) spilled (ptxas -v).
+// to amax[b] (when amax is given).  Where a 64-column tile of the whole K
+// does not fit beside the A panel (gemm_pass_kchunk), each tile streams
+// through shared memory in K chunks (exact int32 sums: the same bits).
+// Two CTAs per SM: a register cap for three (80) or four (64) spilled
+// (ptxas -v).
 template <typename Epi>
 __global__ void __launch_bounds__(NT, 2)
     mbi8_gemm(ActIn a, int R, int K, const int8_t* __restrict__ w, int N,
               Epi epi, unsigned int* __restrict__ amax) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int pk = panel_pitch(K), kpad = round_up(K, KB);
-  const int cols = gemm_pass_cols(K, N);
+  const int kc = gemm_pass_kchunk(K);
+  const int cols = kc ? 64 : gemm_pass_cols(K, N);
   int8_t* As = reinterpret_cast<int8_t*>(smem);
   int8_t* Bs = As + GROWS * pk;
   const int b = blockIdx.z, r0 = blockIdx.x * GROWS;
@@ -546,44 +596,46 @@ __global__ void __launch_bounds__(NT, 2)
   const float sa = a.scale(b);
   i8mma::stage_act(As, pk, a, ((size_t)b * R + r0) * K, rows, K, kpad, sa);
   i8mma::cp_async_commit();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3, wm = warp & 3, wn = warp >> 2;
+  const int warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
   float vmax = 0.0f;
+  if (kc) {
+    const int pc = panel_pitch(kc);
 #pragma unroll 1
-  for (int c0 = n_lo; c0 < n_hi; c0 += cols) {
-    i8mma::stage_wt(Bs, pk, w + c0, N, K, min(cols, n_hi - c0), cols, kpad);
-    i8mma::cp_async_wait_all();
-    __syncthreads();
-#pragma unroll 1
-    for (int n0 = c0; n0 < min(n_hi, c0 + cols); n0 += 64) {
+    for (int n0 = n_lo; n0 < n_hi; n0 += 64) {
       int acc[4][4];
       i8mma::zero_acc(acc);
-      i8mma::warp_mma<4>(acc, As + wm * 16 * pk, pk,
-                         Bs + (n0 - c0 + wn * 32) * pk, pk, 0, kpad / KB, 4);
-      // every value first (straight-line divisions, edges clamped into
-      // the map), then the stores of those inside it
-      float v[4][4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          v[j][i] = epi.value(
-              b, r0 + min(wm * 16 + g + 8 * (i >> 1), rows - 1),
-              min(n0 + wn * 32 + 8 * j + 2 * t + (i & 1), N - 1), acc[j][i],
-              sa);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = wm * 16 + g + 8 * (i >> 1);
-          const int n = n0 + wn * 32 + 8 * j + 2 * t + (i & 1);
-          if (r < rows && n < n_hi) {
-            epi.store(b, r0 + r, n, v[j][i]);
-            vmax = fmaxf(vmax, fabsf(v[j][i]));
-          }
-        }
+#pragma unroll 1
+      for (int k0 = 0; k0 < K; k0 += kc) {
+        const int kn = min(kc, K - k0), knpad = round_up(kn, KB);
+        i8mma::stage_wt(Bs, pc, w + (size_t)k0 * N + n0, N, kn,
+                        min(64, n_hi - n0), 64, knpad);
+        i8mma::cp_async_wait_all();
+        __syncthreads();
+        i8mma::warp_mma<4>(acc, As + wm * 16 * pk + k0, pk,
+                           Bs + wn * 32 * pc, pc, 0, knpad / KB, 4);
+        __syncthreads();
+      }
+      gemm_pass_out(epi, acc, b, r0, rows, n0, n_hi, N, sa, vmax);
     }
-    __syncthreads();
+  } else {
+#pragma unroll 1
+    for (int c0 = n_lo; c0 < n_hi; c0 += cols) {
+      i8mma::stage_wt(Bs, pk, w + c0, N, K, min(cols, n_hi - c0), cols,
+                      kpad);
+      i8mma::cp_async_wait_all();
+      __syncthreads();
+#pragma unroll 1
+      for (int n0 = c0; n0 < min(n_hi, c0 + cols); n0 += 64) {
+        int acc[4][4];
+        i8mma::zero_acc(acc);
+        i8mma::warp_mma<4>(acc, As + wm * 16 * pk, pk,
+                           Bs + (n0 - c0 + wn * 32) * pk, pk, 0, kpad / KB,
+                           4);
+        gemm_pass_out(epi, acc, b, r0, rows, n0, n_hi, N, sa, vmax);
+      }
+      __syncthreads();
+    }
   }
   if (amax != nullptr) commit_absmax(vmax, amax + b);
 }

@@ -12,13 +12,59 @@ import torch
 
 from repro_torch.core.quantization import (
     QTensor, fold_bn_into_conv, quantize_act)
+from repro_torch.kernels.autotune import (
+    autotune, backend_tag, bench_randn, fault_point, on_card, shape_key,
+    tile_work)
 from repro_torch.kernels.dsconv.kernel import (
     choose_blocks, dsconv_fused, dsconv_fused_int8, dsconv_fused_int8_emit,
     dsconv_int8_path, dsconv_smem_bytes)
-from repro_torch.kernels.registry import KernelBase, register
+from repro_torch.kernels.registry import SMEM_LIMIT, KernelBase, register
 
 __all__ = ["dsconv_apply", "DsconvKernel", "dsconv_apply_int8",
-           "DsconvInt8Kernel"]
+           "DsconvInt8Kernel", "candidate_rows", "tune_blocks"]
+
+
+def candidate_rows(shape, f: int, stride: int) -> tuple:
+    """The band heights the autotuner times for an fp32 DSConv shape:
+    ``choose_blocks``' pick first, then twice, half, one more and one
+    fewer row, four times and a quarter of it, where they fit one CTA
+    (the pick alone where none fits)."""
+    B, H, W, C = shape
+    ho = H // stride
+    r = choose_blocks(shape, f, stride)["block_rows"]
+    out = []
+    for v in (r, 2 * r, r // 2, r + 1, r - 1, 4 * r, r // 4):
+        if 1 <= v <= ho and v not in out and \
+                dsconv_smem_bytes(W, C, f, stride, v) <= SMEM_LIMIT:
+            out.append(v)
+    # nothing fits: the pick alone, which the planner's fit check declines
+    return tuple({"block_rows": v} for v in out or [r])
+
+
+def tune_blocks(x_shape, f: int, *, stride: int = 1,
+                allow_sweep: bool = True, device=None) -> dict:
+    """``{"block_rows"}`` for an fp32 DSConv shape: the cached or swept
+    choice among ``candidate_rows``, timed on ``dsconv_fused`` with random
+    inputs of the shape.  ``allow_sweep=False`` gives ``choose_blocks``'
+    pick without reading the cache; off the card, the cached choice or the
+    pick."""
+    B, H, W, C = x_shape
+    key = shape_key(batch=B, spatial=(H, W), c=C, f=f, stride=stride,
+                    dtype="f32", backend=backend_tag(device))
+    cands = candidate_rows(x_shape, f, stride)
+    if not allow_sweep:
+        fault_point("dsconv", key)
+        return dict(cands[0])
+    bench = None
+    if on_card(device):
+        x, dw, db, pw, pb = bench_randn(
+            device, (B, H, W, C), (3, 3, C), (C,), (C, f), (f,),
+            scales=(1.0, 1 / 3, 1.0, C ** -0.5, 1.0))
+
+        def bench(cand):
+            return dsconv_fused(x, dw, db, pw, pb, stride=stride, act=True,
+                                **cand)
+    return autotune("dsconv", key, cands, bench)
 
 
 def dsconv_apply(params, x, *, stride: int = 1,
@@ -44,8 +90,17 @@ class DsconvKernel(KernelBase):
         return dsconv_smem_bytes(W, C, site.out_shape[-1], site.stride,
                                  blocks["block_rows"])
 
-    def tune(self, site):
-        return choose_blocks(site.in_shape, site.out_shape[-1], site.stride)
+    def tune(self, site, *, autotune=True, device=None):
+        return tune_blocks(site.in_shape, site.out_shape[-1],
+                           stride=site.stride, allow_sweep=autotune,
+                           device=device)
+
+    def candidates(self, site):
+        return candidate_rows(site.in_shape, site.out_shape[-1],
+                              site.stride)
+
+    def block_work(self, site, blocks):
+        return tile_work(site.out_shape[1], blocks["block_rows"])
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = dict(decision.blocks) if decision is not None else {}
@@ -97,8 +152,14 @@ class DsconvInt8Kernel(DsconvKernel):
         return dsconv_int8_path(H, W, C, site.out_shape[-1],
                                 site.stride)["smem"]
 
-    def tune(self, site):
+    def tune(self, site, *, autotune=True, device=None):
         return {}
+
+    def candidates(self, site):
+        return ()
+
+    def block_work(self, site, blocks):
+        return 1.0
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         return dsconv_apply_int8(params, x, stride=site.stride,

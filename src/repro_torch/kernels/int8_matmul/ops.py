@@ -20,7 +20,7 @@ from repro_torch.kernels.group_conv.kernel import group_agg_path
 from repro_torch.kernels.int8_matmul.kernel import (
     int8_gemm_plan, int8_matmul, int8_matmul_emit)
 from repro_torch.kernels.registry import register
-from repro_torch.kernels.relu_attn.ops import MsaKernel
+from repro_torch.kernels.relu_attn.ops import MSA_DEFAULT_BLOCK_N, MsaKernel
 
 __all__ = ["linear_w8a8", "conv1x1_w8a8", "MsaInt8Kernel"]
 
@@ -94,6 +94,14 @@ class MsaInt8Kernel(MsaKernel):
     int8_proj = True
     takes_q = True
     emits_q = True
+
+    def tune(self, site, *, autotune=True, device=None):
+        """The default token tile, never swept: the FIX8 plan's blocks
+        (and so its bits) do not depend on ``autotune``."""
+        return {"block_n": MSA_DEFAULT_BLOCK_N}
+
+    def candidates(self, site):
+        return ()
 
     def smem_bytes(self, site, blocks):
         """The largest CTA of the site's launches: the attention core,

@@ -22,7 +22,7 @@ from repro_torch.kernels.registry import (
     CLUSTERS, N_SM, SMEM_2_PER_SM, SMEM_LIMIT)
 
 __all__ = ["mbconv_fused", "mbconv_smem_bytes", "mbconv_slice",
-           "legal_splits", "choose_blocks", "int8_ranks",
+           "legal_splits", "choose_blocks", "ranked_blocks", "int8_ranks",
            "mbconv_int8_cluster_smem", "mbconv_int8_pass_smem",
            "mbconv_int8_path", "mbconv_fused_int8", "mbconv_fused_int8_emit"]
 
@@ -105,16 +105,24 @@ def choose_blocks(shape, m: int, f: int, stride: int) -> dict:
     up to 16).  The model picks within 5 % of the fastest blocks of
     ``chip_smoke.py``'s block sweep at every B1@224 shape, batch 1 and
     8."""
-    return dict(_choose_blocks(tuple(shape), m, f, stride))
+    return dict(_ranked_blocks(tuple(shape), m, f, stride)[0])
+
+
+def ranked_blocks(shape, m: int, f: int, stride: int, k: int) -> tuple:
+    """The ``k`` blocks of least ``_block_cost`` that fit, best first
+    (``choose_blocks``' pick first): the autotuner's candidates."""
+    return tuple(dict(b) for b in _ranked_blocks(tuple(shape), m, f,
+                                                   stride)[:k])
 
 
 @functools.lru_cache(maxsize=None)
-def _choose_blocks(shape, m: int, f: int, stride: int) -> tuple:
-    """The search behind ``choose_blocks``, memoised: the planner and
-    every ``mbconv_fused`` call without blocks ask again."""
+def _ranked_blocks(shape, m: int, f: int, stride: int) -> tuple:
+    """Every fitting block by (cost, CTAs), in a stable order, memoised:
+    the planner and every ``mbconv_fused`` call without blocks ask
+    again."""
     B, H, W, C = shape
     ho = H // stride
-    best = None
+    scored = []
     for rows in sorted({ho} | {r for r in (1, 2, 4, 8, 16, 32) if r < ho}):
         for split in legal_splits(m):
             sl = mbconv_slice(m, split)
@@ -124,10 +132,10 @@ def _choose_blocks(shape, m: int, f: int, stride: int) -> tuple:
                     continue
                 key = (_block_cost(shape, m, f, stride, rows, bm, split),
                        split * -(-ho // rows))
-                if best is None or key < best[0]:
-                    best = (key, (("block_rows", rows), ("block_m", bm),
-                                  ("split", split)))
-    return best[1]
+                scored.append((key, (("block_rows", rows), ("block_m", bm),
+                                     ("split", split))))
+    scored.sort(key=lambda kb: kb[0])
+    return tuple(b for _, b in scored)
 
 
 def mbconv_fused(x, w1, b1, dw_w, dw_b, w2, b2, *, stride: int = 1,
@@ -187,6 +195,7 @@ mbconv_fused.launches = 0
 KB = 64          # K bytes per fragment block of the int8 MMA tile
 GROWS = 64       # pixels per CTA of a GEMM pass
 GEMM_SMEM = 96 * 1024   # a GEMM pass's budget for its panels
+GEMM_KCHUNK = 512       # K bytes a chunk of a weight tile too deep to stage
 DW_CC = 32       # channels per CTA of the DW pass
 DW_SMEM = 24 * 1024
 
@@ -236,7 +245,11 @@ def mbconv_int8_cluster_smem(h: int, w: int, c: int, m: int, f: int,
 
 def _gemm_pass_smem(k: int, n: int) -> int:
     """A GEMM pass: the A panel and every weight column where both fit
-    ``GEMM_SMEM``, else one tile of 64 (``gemm_pass_smem``)."""
+    ``GEMM_SMEM``, else one tile of 64; where that tile of the whole K
+    does not fit one CTA beside the panel, the tile in K chunks of
+    ``GEMM_KCHUNK`` (``gemm_pass_smem``)."""
+    if (GROWS + 64) * panel_pitch(k) > SMEM_LIMIT:
+        return GROWS * panel_pitch(k) + 64 * panel_pitch(GEMM_KCHUNK)
     cols = _up(n, 64)
     if (GROWS + cols) * panel_pitch(k) > GEMM_SMEM:
         cols = 64

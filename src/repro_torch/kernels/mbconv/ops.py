@@ -12,13 +12,50 @@ import torch
 
 from repro_torch.core.quantization import (
     QTensor, fold_bn_into_conv, quantize_act)
+from repro_torch.kernels.autotune import (
+    autotune, backend_tag, bench_randn, fault_point, on_card, shape_key,
+    tile_work)
 from repro_torch.kernels.mbconv.kernel import (
-    choose_blocks, mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit,
-    mbconv_int8_path, mbconv_smem_bytes)
+    mbconv_fused, mbconv_fused_int8, mbconv_fused_int8_emit,
+    mbconv_int8_path, mbconv_smem_bytes, ranked_blocks)
 from repro_torch.kernels.registry import KernelBase, register
 
 __all__ = ["mbconv_apply", "MbconvKernel", "mbconv_apply_int8",
-           "MbconvInt8Kernel"]
+           "MbconvInt8Kernel", "tune_blocks", "TUNE_TOP_K"]
+
+# Candidates the autotuner times per fp32 MBConv shape: the blocks the
+# cost model ranks best, its pick first.  The model's pick was within 5 %
+# of the sweep's fastest at B1@224; six reach past its ties and its
+# misfit at shapes it was not fitted on.
+TUNE_TOP_K = 6
+
+
+def tune_blocks(x_shape, mid: int, f: int, *, stride: int = 1,
+                allow_sweep: bool = True, device=None) -> dict:
+    """Blocks for an fp32 MBConv shape: the cached or swept choice among
+    ``ranked_blocks``' first ``TUNE_TOP_K``, timed on ``mbconv_fused``
+    with random inputs of the shape.  ``allow_sweep=False`` gives the
+    cost model's pick without reading the cache; off the card, the cached
+    choice or the pick.  The key carries the batch (the band height
+    follows it)."""
+    B, H, W, C = x_shape
+    cands = ranked_blocks(x_shape, mid, f, stride, TUNE_TOP_K)
+    key = shape_key(batch=B, spatial=(H, W), c=C, mid=mid, f=f,
+                    stride=stride, dtype="f32", backend=backend_tag(device))
+    if not allow_sweep:
+        fault_point("mbconv", key)
+        return dict(cands[0])
+    bench = None
+    if on_card(device):
+        x, w1, b1, dw, db, w2, b2 = bench_randn(
+            device, (B, H, W, C), (C, mid), (mid,), (3, 3, mid), (mid,),
+            (mid, f), (f,), scales=(1.0, C ** -0.5, 1.0, 1 / 3, 1.0,
+                                    mid ** -0.5, 1.0))
+
+        def bench(cand):
+            return mbconv_fused(x, w1, b1, dw, db, w2, b2, stride=stride,
+                                **cand)
+    return autotune("mbconv", key, cands, bench)
 
 
 def mbconv_apply(params, x, *, stride: int = 1,
@@ -47,9 +84,17 @@ class MbconvKernel(KernelBase):
                                  site.stride, blocks["block_rows"],
                                  blocks["block_m"])
 
-    def tune(self, site):
-        return choose_blocks(site.in_shape, site.attrs["mid"],
-                             site.out_shape[-1], site.stride)
+    def tune(self, site, *, autotune=True, device=None):
+        return tune_blocks(site.in_shape, site.attrs["mid"],
+                           site.out_shape[-1], stride=site.stride,
+                           allow_sweep=autotune, device=device)
+
+    def candidates(self, site):
+        return ranked_blocks(site.in_shape, site.attrs["mid"],
+                             site.out_shape[-1], site.stride, TUNE_TOP_K)
+
+    def block_work(self, site, blocks):
+        return tile_work(site.out_shape[1], blocks["block_rows"])
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = dict(decision.blocks) if decision is not None else {}
@@ -100,8 +145,14 @@ class MbconvInt8Kernel(MbconvKernel):
         return mbconv_int8_path(h, w, c, site.attrs["mid"],
                                 site.out_shape[-1], site.stride, b)["smem"]
 
-    def tune(self, site):
+    def tune(self, site, *, autotune=True, device=None):
         return {}
+
+    def candidates(self, site):
+        return ()
+
+    def block_work(self, site, blocks):
+        return 1.0
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         return mbconv_apply_int8(params, x, stride=site.stride,

@@ -28,6 +28,12 @@ is what one CTA of the kernel needs with the blocks ``tune`` chooses,
 checked against ``smem_budget`` (227 KB, the most one CTA may have).  A
 site that does not fit is demoted with the reason ``"vmem"``, the JAX
 package's name for the same decision, so plan reports compare.
+
+``tune(site, autotune=, device=)`` returns the first of
+``candidates(site)`` (the kernel's deterministic pick) unless it may
+sweep: with ``autotune`` on the card it times every candidate
+(``kernels.autotune``) and freezes the fastest.  The int8 kinds keep
+their path rules and tune nothing, as in JAX.
 """
 from __future__ import annotations
 
@@ -93,8 +99,23 @@ class KernelImpl(Protocol):
         """Shared memory of one CTA for ``site`` with ``blocks``."""
         ...
 
-    def tune(self, site) -> Dict[str, int]:
-        """Block choices to freeze into the site's decision."""
+    def tune(self, site, *, autotune: bool = True,
+             device=None) -> Dict[str, int]:
+        """Block choices to freeze into the site's decision: the
+        deterministic pick, or with ``autotune`` on the card
+        (``device``) the fastest of ``candidates`` by a timed sweep
+        (``kernels.autotune``, cached on disk)."""
+        ...
+
+    def candidates(self, site) -> Tuple[Dict[str, int], ...]:
+        """The family's candidate blocks for this site, the deterministic
+        pick first, each fitting one CTA's shared memory.  Empty =
+        nothing to sweep."""
+        ...
+
+    def block_work(self, site, blocks: Dict[str, int]) -> float:
+        """Relative overcompute (>= 1.0) of tiling ``site`` with
+        ``blocks``: host arithmetic, no device."""
         ...
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
@@ -150,8 +171,14 @@ class KernelBase:
     def smem_bytes(self, site, blocks) -> int:
         return 0
 
-    def tune(self, site):
+    def tune(self, site, *, autotune=True, device=None):
         return {}
+
+    def candidates(self, site):
+        return ()
+
+    def block_work(self, site, blocks):
+        return 1.0
 
     def apply(self, params, x, site, decision=None):
         raise NotImplementedError(type(self).__name__)

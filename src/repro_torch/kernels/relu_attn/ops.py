@@ -24,14 +24,60 @@ import torch
 from repro_torch.core.quantization import QTensor, act_fp, quantize_act
 from repro_torch.core.relu_attention import (
     _conv_any, msa_aggregate, msa_project)
-from repro_torch.kernels.registry import KernelBase, register
+from repro_torch.kernels.autotune import (
+    autotune, backend_tag, bench_randn, fault_point, on_card, shape_key,
+    tile_work)
+from repro_torch.kernels.registry import SMEM_LIMIT, KernelBase, register
 from repro_torch.kernels.relu_attn.kernel import (
     relu_attn_causal, relu_attn_noncausal, relu_attn_plan)
 
 __all__ = ["relu_linear_attention", "msa_attention_fn", "msa_fused_apply",
-           "MsaKernel", "MSA_DEFAULT_BLOCK_N"]
+           "MsaKernel", "MSA_DEFAULT_BLOCK_N", "BLOCK_N_CANDIDATES",
+           "candidate_block_n", "tune_block_n"]
 
 MSA_DEFAULT_BLOCK_N = 256   # most tokens the attention stages at once
+# JAX's candidate order (``repro/kernels/relu_attn/ops.py``), the default
+# first
+BLOCK_N_CANDIDATES = (256, 128, 64, 512)
+
+
+def candidate_block_n(n: int, d: int) -> tuple:
+    """The token tiles the autotuner times at ``n`` tokens of width
+    ``d``: ``BLOCK_N_CANDIDATES`` whose CTA fits, one per distinct tile
+    (``min(n, block_n)``), the default first."""
+    out, tiles = [], set()
+    for bn in BLOCK_N_CANDIDATES:
+        plan = relu_attn_plan(n, d, bn)
+        if plan["smem"] <= SMEM_LIMIT and plan["tile"] not in tiles:
+            tiles.add(plan["tile"])
+            out.append({"block_n": bn})
+    return tuple(out) or ({"block_n": MSA_DEFAULT_BLOCK_N},)
+
+
+def tune_block_n(g: int, n: int, heads: int, d: int, *,
+                 allow_sweep: bool = True, device=None) -> dict:
+    """``{"block_n"}`` for the attention core of ``g`` (branch, image)
+    rows of ``n`` tokens and ``heads`` heads of width ``d``: the cached
+    or swept choice among ``candidate_block_n``, timed on
+    ``relu_attn_noncausal`` alone with random q/k/v split from one
+    stacked map (the strided views the MSA passes).  ``allow_sweep=False``
+    gives the default without reading the cache; off the card, the cached
+    choice or the default.  The key's batch is branches x images x heads,
+    as JAX's."""
+    key = shape_key(batch=g * heads, spatial=(n,), d=d, dtype="f32",
+                    backend=backend_tag(device))
+    cands = candidate_block_n(n, d)
+    if not allow_sweep:
+        fault_point("relu_attn", key)
+        return dict(cands[0])
+    bench = None
+    if on_card(device):
+        (t,) = bench_randn(device, (g, n, 3, heads, d))
+
+        def bench(cand):
+            return relu_attn_noncausal(t[:, :, 0], t[:, :, 1], t[:, :, 2],
+                                       **cand)
+    return autotune("relu_attn", key, cands, bench)
 
 
 def _fold_heads(x):
@@ -147,8 +193,19 @@ class MsaKernel(KernelBase):
         return relu_attn_plan(H * W, site.attrs["head_dim"],
                               blocks["block_n"])["smem"]
 
-    def tune(self, site):
-        return {"block_n": MSA_DEFAULT_BLOCK_N}
+    def tune(self, site, *, autotune=True, device=None):
+        B, H, W, _ = site.in_shape
+        return tune_block_n(site.attrs["n_branches"] * B, H * W,
+                            site.attrs["heads"], site.attrs["head_dim"],
+                            allow_sweep=autotune, device=device)
+
+    def candidates(self, site):
+        _, H, W, _ = site.in_shape
+        return candidate_block_n(H * W, site.attrs["head_dim"])
+
+    def block_work(self, site, blocks):
+        _, H, W, _ = site.in_shape
+        return tile_work(H * W, min(H * W, blocks["block_n"]))
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = decision.blocks if decision is not None else {}

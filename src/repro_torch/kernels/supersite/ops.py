@@ -19,6 +19,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantization import QTensor, act_fp, quantize_act
+from repro_torch.kernels.autotune import (
+    autotune, backend_tag, bench_randn, fault_point, on_card, shape_key,
+    tile_work)
 from repro_torch.kernels.int8_matmul.kernel import INT8_GEMM_SMEM_BYTES
 from repro_torch.kernels.mbconv.kernel import mbconv_int8_pass_smem
 from repro_torch.kernels.mbconv_fp import BLOCK_M
@@ -30,7 +33,8 @@ from repro_torch.kernels.supersite.kernel import (
 from repro_torch.kernels.supersite.pack import get_pack
 
 __all__ = ["fp_windows", "make_fp_geom", "make_int8_geom", "int8_smem_bytes",
-           "supersite_smem_bytes", "choose_blocks",
+           "supersite_smem_bytes", "choose_blocks", "candidate_blocks",
+           "tune_blocks", "random_fp_pack", "TUNE_TOP_K",
            "supersite_apply", "supersite_apply_int8", "SupersiteKernel",
            "SupersiteInt8Kernel"]
 
@@ -116,6 +120,94 @@ def choose_blocks(supersite) -> dict | None:
         rows //= 2
 
 
+# Candidates the autotuner times per fp chain, ``choose_blocks``' first.
+TUNE_TOP_K = 6
+
+
+def candidate_blocks(supersite) -> tuple:
+    """The (band height, DW-stage chunk) pairs the autotuner times for an
+    fp chain: ``choose_blocks``' pick, then the same, twice and half its
+    band with every chunk of ``BLOCK_M``, where one CTA fits; at most
+    ``TUNE_TOP_K``.  Empty when no band fits (the chain is not
+    grouped)."""
+    pick = choose_blocks(supersite)
+    if pick is None:
+        return ()
+    _, ho, _, _ = supersite.out_shape
+    out = [pick]
+    r = pick["block_rows"]
+    for rows in (r, 2 * r, r // 2):
+        for bm in BLOCK_M:
+            c = {"block_rows": rows, "block_m": bm}
+            if 1 <= rows <= ho and c not in out and len(out) < TUNE_TOP_K \
+                    and supersite_smem_bytes(supersite, rows, bm) \
+                    <= SMEM_LIMIT:
+                out.append(c)
+    return tuple(out)
+
+
+def random_fp_pack(supersite, device):
+    """A resident pack of the chain's layout holding random weights (from
+    ``kernels.autotune``'s seed), for timing blocks without params."""
+    from repro_torch.kernels.supersite.pack import WeightPack
+    shapes, counts = [], []
+    for site in supersite.sites:
+        _, _, _, c = site.in_shape
+        f = site.out_shape[-1]
+        if site.kind == "mbconv":
+            m = site.attrs["mid"]
+            member = ((c, m), (m,), (3, 3, m), (m,), (m, f), (f,))
+            scales = (c ** -0.5, 1.0, 1 / 3, 1.0, m ** -0.5, 1.0)
+        else:
+            member = ((3, 3, c), (c,), (c, f), (f,))
+            scales = (1 / 3, 1.0, c ** -0.5, 1.0)
+        shapes += list(zip(member, scales))
+        counts.append(len(member))
+    ts = bench_randn(device, *(s for s, _ in shapes),
+                     scales=tuple(sc for _, sc in shapes))
+    offs, n = [], 0
+    for t in ts:
+        offs.append(n)
+        n += t.numel()
+    flat = torch.cat([t.reshape(-1) for t in ts]).reshape(1, n)
+    fp_offs, i = [], 0
+    for c in counts:
+        fp_offs.append(tuple(offs[i:i + c]))
+        i += c
+    return WeightPack(flat, None, tuple(fp_offs),
+                      ((),) * len(counts), 4 * n)
+
+
+def tune_blocks(supersite, *, allow_sweep: bool = True, device=None):
+    """Blocks of an fp chain: the cached or swept choice among
+    ``candidate_blocks``, timed on ``supersite_fused`` with random
+    inputs and weights of the chain's shapes.  ``allow_sweep=False``
+    gives ``choose_blocks``' pick without reading the cache; off the card,
+    the cached choice or the pick.  None when no band fits."""
+    cands = candidate_blocks(supersite)
+    if not cands:
+        return None
+    B, H, W, C = supersite.in_shape
+    dims = ";".join(f"{s.kind}:{s.in_shape[-1]}>{s.attrs.get('mid', 0)}>"
+                    f"{s.out_shape[-1]}/{s.stride}{'r' if s.residual else ''}"
+                    for s in supersite.sites)
+    key = shape_key(batch=B, spatial=(H, W), chain=dims, dtype="f32",
+                    backend=backend_tag(device))
+    if not allow_sweep:
+        fault_point("supersite", key)
+        return dict(cands[0])
+    bench = None
+    if on_card(device):
+        pack = random_fp_pack(supersite, device)
+        (x,) = bench_randn(device, tuple(supersite.in_shape))
+
+        def bench(cand):
+            geom = make_fp_geom(supersite, pack, cand["block_rows"],
+                                cand["block_m"])
+            return supersite_fused(x, pack.fp, geom=geom)
+    return autotune("supersite", key, cands, bench)
+
+
 # ---------------------------------------------------------------------------
 # apply wrappers
 # ---------------------------------------------------------------------------
@@ -179,9 +271,15 @@ class SupersiteKernel(KernelBase):
         return supersite_smem_bytes(site, blocks["block_rows"],
                                     blocks["block_m"])
 
-    def tune(self, site):
+    def tune(self, site, *, autotune=True, device=None):
         """Band height and chunk, or None when no band fits."""
-        return choose_blocks(site)
+        return tune_blocks(site, allow_sweep=autotune, device=device)
+
+    def candidates(self, site):
+        return candidate_blocks(site)
+
+    def block_work(self, site, blocks):
+        return tile_work(site.out_shape[1], blocks["block_rows"])
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         blocks = getattr(decision, "blocks", None) or {}
@@ -199,8 +297,14 @@ class SupersiteInt8Kernel(SupersiteKernel):
     def smem_bytes(self, site, blocks):
         return int8_smem_bytes(site)
 
-    def tune(self, site):
+    def tune(self, site, *, autotune=True, device=None):
         return {}
+
+    def candidates(self, site):
+        return ()
+
+    def block_work(self, site, blocks):
+        return 1.0
 
     def apply(self, params, x, site, decision=None, *, epilogue=None):
         return supersite_apply_int8(params, x, site, epilogue=epilogue)

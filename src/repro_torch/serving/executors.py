@@ -5,9 +5,12 @@ specialized pipeline for an ``ExecutorKey = (batch bucket, resolution,
 precision)``:
 
     lower(cfg, batch, image_size)   -> Program     (cached, per shape)
-    plan_program(program, params)   -> FusionPlan  (once per key; blocks
-                                       inherited from a donor bucket at
-                                       the same resolution via reuse=)
+    plan_program(program, params)   -> FusionPlan  (once per key, before
+                                       the warm-up and the capture: a
+                                       cold autotune cache sweeps here;
+                                       blocks inherited from a donor
+                                       bucket at the same resolution via
+                                       reuse=)
     CUDA graph of execute(...)      -> the compiled forward
 
 Where the JAX package jits ``execute``, the port captures it: on the
@@ -74,6 +77,10 @@ class ExecutorKey:
     resolution: int   # square image size
     precision: str    # requested plan precision: "auto" | "fp" | "int8"
     #                   (int8 plans the FIX8 kernels of a quantized tree)
+    epilogues: bool = True   # producer-side int8 emission assigned by the
+    #                          plan (the int8 dataflow); False captures the
+    #                          consumer-side-quantize pipeline, so both
+    #                          dataflows can be cached side by side
 
 
 @dataclasses.dataclass(frozen=True)
@@ -305,14 +312,21 @@ class ExecutorCache:
     constructor raises.  ``params`` move to ``device``.  On the card a
     build ends with the executor's warm-up and capture.
 
-    ``faults`` / ``neg_ttl_s`` / ``clock`` are the fault-tolerance knobs
-    (see the module docstring); all default to inert.
+    ``autotune`` lets each key's plan sweep the tuners' candidates on the
+    card where the autotune cache has no entry (at build, before the
+    warm-up and the capture); ``epilogues`` is ``plan_program``'s switch
+    and part of the key; ``overrides`` (``{site: core.fusion.
+    SiteOverride}``) reach every plan the cache builds (a ladder
+    demotion still wins).  ``faults`` / ``neg_ttl_s`` / ``clock`` are the
+    fault-tolerance knobs (see the module docstring); all default to
+    inert.
     """
 
     def __init__(self, params, cfg: EfficientViTConfig, *,
                  buckets: Tuple[int, ...] = (1, 2, 4, 8),
                  precision: str = "auto", use_plan: bool = True,
-                 capacity: int | None = None,
+                 autotune: bool = True, epilogues: bool = True,
+                 overrides=None, capacity: int | None = None,
                  telemetry: Telemetry | None = None, device=None,
                  faults=None, neg_ttl_s: float = 1.0, clock=None):
         if not buckets or any(b < 1 for b in buckets):
@@ -323,6 +337,9 @@ class ExecutorCache:
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         self.precision = precision
         self.use_plan = use_plan
+        self.autotune = autotune
+        self.epilogues = epilogues
+        self.overrides = dict(overrides or {})
         self.capacity = capacity
         self.telemetry = telemetry if telemetry is not None else Telemetry()
         self.faults = faults
@@ -367,7 +384,8 @@ class ExecutorCache:
 
     # -- the cache -------------------------------------------------------
     def _key(self, batch: int, resolution: int) -> ExecutorKey:
-        return ExecutorKey(int(batch), int(resolution), self.precision)
+        return ExecutorKey(int(batch), int(resolution), self.precision,
+                           self.epilogues)
 
     def get(self, batch: int, resolution: int) -> Executor:
         with self._lock:
@@ -434,7 +452,9 @@ class ExecutorCache:
                 else self.precision
             donor = self._donor_plans.get(key.resolution)
             plan = plan_program(program, self.params, precision=precision,
-                                reuse=donor,
+                                reuse=donor, autotune=self.autotune,
+                                epilogues=self.epilogues,
+                                overrides=self.overrides,
                                 demote=(state.demoted if state is not None
                                         else ()))
             self.telemetry.count("plans_built")

@@ -11,9 +11,11 @@ Injection points (``FAULT_POINTS``) and what firing one does:
 
     "executor.compile"    raises ``ExecutorError`` inside the executor
                           build (lower -> plan -> CUDA graph capture)
-    "autotune"            raises ``PlanError`` inside an autotune sweep.
-                          No effect yet: the port has no autotuner, so
-                          ``install()`` has nothing to hook
+    "autotune"            raises ``PlanError`` inside ``kernels.
+                          autotune.autotune`` (install the hook with
+                          ``FaultPlan.install()`` or ``with plan:``);
+                          ``plan_program`` names the site, which the
+                          ladder demotes
     "kernel.launch"       raises ``KernelLaunchError`` at executor
                           dispatch, naming an offending fused site
     "epilogue.numerics"   returns the executor's output with NaN in it
@@ -155,12 +157,16 @@ class FaultPlan:
 
     # -- autotuner hook --------------------------------------------------
     def install(self) -> "FaultPlan":
-        """Hook the autotuner so "autotune" faults fire inside sweeps.
-        The port has no autotuner yet: nothing to hook."""
+        """Hook the autotuner so "autotune" faults fire inside every
+        consultation (a sweep or a cache lookup)."""
+        from repro_torch.kernels import autotune
+        autotune.set_fault_hook(
+            lambda kind, key: self.fire("autotune", kind=kind))
         return self
 
     def uninstall(self) -> None:
-        pass
+        from repro_torch.kernels import autotune
+        autotune.set_fault_hook(None)
 
     def __enter__(self) -> "FaultPlan":
         return self.install()

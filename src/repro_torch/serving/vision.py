@@ -8,7 +8,8 @@ the constructor, outside the request loop (on the card its CUDA graph
 is captured there too), and exposed as ``.program`` / ``.plan``.  A
 ``serving.faults.FaultPlan`` (``faults=``) reaches the cache and every
 scheduler the engine vends; ``VisionServeConfig`` sets the schedulers'
-result cache and watchdog.  Sharding, schedule artifacts and tracing are
+result cache and watchdog, and its ``autotune`` and ``epilogues``
+switches reach every plan.  Sharding, schedule artifacts and tracing are
 later slices of the port.
 """
 from __future__ import annotations
@@ -43,11 +44,16 @@ class VisionServeConfig:
     microbatch: int = 8       # largest batch bucket (and the fixed size
     #                           under policy="fixed")
     use_plan: bool = True     # False -> reference path (A/B, debugging)
+    autotune: bool = True     # sweep the tuners' candidates on the card
+    #                           where the autotune cache has none
     precision: str = "auto"   # "auto" | "fp" | "int8" (FIX8: serve a
     #                           quantize_efficientvit tree; see quantized)
     policy: str = "bucketed"  # "bucketed" | "fixed" (pad to microbatch)
     buckets: tuple | None = None   # None -> powers of 2 up to microbatch
     capacity: int | None = None    # executor-cache LRU capacity
+    epilogues: bool = True    # producer-side int8 emission (the int8
+    #                           dataflow); False serves the consumer-side
+    #                           quantize pipeline (A/B)
     result_cache: int | None = None  # image-hash response cache capacity
     #                                  in front of admission (None = off)
     watchdog_ms: float | None = None  # in-flight hang bound for the
@@ -56,11 +62,13 @@ class VisionServeConfig:
 
 class VisionEngine:
     """``device`` defaults to the CUDA card; without a card, and without
-    ``device="cpu"``, the constructor raises."""
+    ``device="cpu"``, the constructor raises.  ``overrides``
+    (``{site: core.fusion.SiteOverride}``) reach every plan the engine's
+    cache builds."""
 
     def __init__(self, params, cfg: EfficientViTConfig,
                  serve_cfg: VisionServeConfig = VisionServeConfig(), *,
-                 device=None, faults=None):
+                 device=None, faults=None, overrides=None):
         if serve_cfg.policy not in ("bucketed", "fixed"):
             raise ValueError(f"policy must be bucketed|fixed, got "
                              f"{serve_cfg.policy!r}")
@@ -79,8 +87,10 @@ class VisionEngine:
         self.telemetry = Telemetry()
         self.cache = ExecutorCache(
             params, cfg, buckets=buckets, precision=serve_cfg.precision,
-            use_plan=serve_cfg.use_plan, capacity=serve_cfg.capacity,
-            telemetry=self.telemetry, device=device, faults=faults)
+            use_plan=serve_cfg.use_plan, autotune=serve_cfg.autotune,
+            epilogues=serve_cfg.epilogues, capacity=serve_cfg.capacity,
+            telemetry=self.telemetry, device=device, faults=faults,
+            overrides=overrides)
         self.params = self.cache.params
         self.device = self.cache.device
         primary = self.cache.get(mb, cfg.image_size)

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from repro_torch.core.efficientvit import (
-    B1, B1_SMOKE, EfficientViTConfig, init_efficientvit)
+    B1, B1_SMOKE, B3, EfficientViTConfig, init_efficientvit)
 from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import SuperSite, execute, lower
 from repro_torch.common import device as port_device
@@ -75,6 +75,24 @@ from repro_torch.serving.scheduler import (
 from repro_torch.serving.vision import VisionEngine, VisionServeConfig
 
 pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(autouse=True, scope="module")
+def autotune_cache(tmp_path_factory):
+    """The engines and plans of this file tune into a cache file of their
+    own (a cold build sweeps once per shape), not the user's."""
+    import os
+    from repro_torch.kernels import autotune
+    old = os.environ.get("REPRO_TORCH_AUTOTUNE_CACHE")
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(
+        tmp_path_factory.mktemp("autotune") / "at.json")
+    autotune.clear_memory_cache()
+    yield
+    if old is None:
+        os.environ.pop("REPRO_TORCH_AUTOTUNE_CACHE", None)
+    else:
+        os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = old
+    autotune.clear_memory_cache()
 
 
 @pytest.fixture
@@ -759,8 +777,9 @@ def test_mbconv_int8_refused_launch_raises(cuda):
 
 def test_mbconv_int8_smem_mirror_matches_the_source(cuda):
     """``mbconv_int8_cluster_smem`` and ``mbconv_int8_pass_smem`` equal the
-    CUDA source's own layouts at every B1 mbconv shape (192-384 px) and
-    ragged ones, every legal rank count; the card holds at least one
+    CUDA source's own layouts at every B1 mbconv shape (192-384 px), every
+    B3@224 one (K = 2048: the GEMM pass in K chunks) and ragged ones,
+    every legal rank count; the card holds at least one
     cluster of the chosen ranks at every served B1@224 site."""
     lib = library("mbconv_int8")
     cl = lib.mbconv_int8_cluster_smem_c
@@ -772,9 +791,11 @@ def test_mbconv_int8_smem_mirror_matches_the_source(cuda):
     occ = lib.mbconv_int8_max_active_clusters
     occ.argtypes = [ctypes.c_int] * 9 + [ctypes.c_void_p]
     occ.restype = ctypes.c_int
-    shapes = {(10, 10, 8, 40, 24, 2), (9, 7, 10, 36, 12, 1)}
-    for size in (192, 224, 256, 384):
-        for site in lower(B1, batch=1, image_size=size).fusible():
+    shapes = {(10, 10, 8, 40, 24, 2), (9, 7, 10, 36, 12, 1),
+              (7, 7, 24, 1800, 72, 1)}
+    models = [(B1, size) for size in (192, 224, 256, 384)] + [(B3, 224)]
+    for cfg, size in models:
+        for site in lower(cfg, batch=1, image_size=size).fusible():
             if site.kind == "mbconv":
                 _, h, w, c = site.in_shape
                 shapes.add((h, w, c, site.attrs["mid"], site.out_shape[-1],
@@ -1764,3 +1785,152 @@ def test_scalar_constants_exist_before_capture(cuda, monkeypatch):
                 port_device.scalar(12345.5, torch.device("cuda:0"))
         finally:
             graph.capture_end()
+
+
+# ---------------------------------------------------------------------------
+# the planner's tuners, B2 / B3 shapes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,H,C,M,F,stride", [
+    (1, 7, 512, 2048, 512, 1), (8, 7, 512, 2048, 512, 1),
+    (2, 7, 24, 1800, 72, 1), (2, 14, 64, 2048, 40, 2)])
+def test_mbconv_int8_passes_stream_a_deep_k(cuda, B, H, C, M, F, stride):
+    """A PW2 of K = M above ~1.7 KB (B3's S4: 2048) stages each weight
+    tile in K chunks of 512 (a ragged last chunk at 1800, columns past F
+    = 72 and 40, stride 2): both variants on the passes EQUAL to the
+    plain version, and the planner fuses B3's S4 MBConv sites."""
+    from repro_torch.kernels.mbconv.kernel import GEMM_KCHUNK, panel_pitch
+    assert (64 + 64) * panel_pitch(M) > SMEM_LIMIT
+    assert mbconv_int8_pass_smem(H, H, C, M, F, stride) >= \
+        64 * panel_pitch(M) + 64 * panel_pitch(GEMM_KCHUNK)
+    g = torch.Generator().manual_seed(M + F + B)
+    args = _mbconv_int8_args(g, cuda, B, H, C, M, F)
+    assert mbconv_int8_path(H, H, C, M, F, stride, B)["path"] == "passes"
+    _check_mbconv_int8(args, stride, [("passes", 0)])
+    params = init_efficientvit(torch.Generator().manual_seed(0), B3, "cuda")
+    plan = plan_program(lower(B3, batch=B), quantize_efficientvit(params))
+    assert all(d.fused for d in plan.decisions.values())
+
+
+def test_a_sweep_on_the_card_picks_a_candidate_and_caches(cuda):
+    """``plan_program`` on the card with a cold cache sweeps each fp
+    family (CUDA events, random inputs of the site's shape): every frozen
+    block is one of the site's candidates, no candidate is disqualified,
+    and a second plan, the in-process cache dropped, reads the file and
+    sweeps nothing."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels.registry import get_kernel
+    params = init_efficientvit(torch.Generator().manual_seed(0), B1, "cuda")
+    program = lower(B1, batch=2)
+    n, bad = autotune.SWEEP_COUNT, autotune.DISQUALIFIED
+    plan = plan_program(program, params)
+    assert autotune.SWEEP_COUNT > n and autotune.DISQUALIFIED == bad
+    sites = {s.name: s for s in program.fusible()}
+    for d in plan.decisions.values():
+        assert dict(d.blocks) in [dict(c) for c in get_kernel(
+            d.kind, "fp").candidates(sites[d.name])], d.name
+    for g in plan.groups.values():
+        sup = SuperSite.of(program, g.members, name=g.name)
+        assert dict(g.blocks) in get_kernel("supersite", "fp").candidates(sup)
+    for e in autotune.SWEEP_LOG[-3:]:
+        assert all(t is not None and t > 0 for _, t, _ in e["times"])
+        assert e["key"][-1] == f"backend=cuda:{torch.cuda.get_device_name()}"
+    autotune.clear_memory_cache()
+    n = autotune.SWEEP_COUNT
+    again = plan_program(program, params)
+    assert autotune.SWEEP_COUNT == n
+    assert [d.to_dict() for d in again.decisions.values()] == \
+        [d.to_dict() for d in plan.decisions.values()]
+    off = plan_program(program, params, autotune=False)
+    for d in off.decisions.values():
+        assert dict(d.blocks) == dict(get_kernel(d.kind, "fp").candidates(
+            sites[d.name])[0])
+
+
+def _site_case(cuda, site, g):
+    """Random inputs of a fp site's kernel -> (kernel(blocks), plain())."""
+    B, H, W, C = site.in_shape
+    F = site.out_shape[-1]
+    if site.kind == "dsconv":
+        a = (_rand(g, cuda, B, H, W, C), _rand(g, cuda, 3, 3, C, scale=.3),
+             _rand(g, cuda, C), _rand(g, cuda, C, F, scale=C ** -0.5),
+             _rand(g, cuda, F))
+        return (lambda b: dsconv_fused(*a, stride=site.stride, **b),
+                lambda: dsconv_ref(*a, stride=site.stride))
+    if site.kind == "mbconv":
+        M = site.attrs["mid"]
+        a = (_rand(g, cuda, B, H, W, C), _rand(g, cuda, C, M,
+                                              scale=C ** -0.5),
+             _rand(g, cuda, M), _rand(g, cuda, 3, 3, M, scale=.3),
+             _rand(g, cuda, M), _rand(g, cuda, M, F, scale=M ** -0.5),
+             _rand(g, cuda, F))
+        return (lambda b: mbconv_fused(*a, stride=site.stride, **b),
+                lambda: mbconv_ref(*a, stride=site.stride))
+    h, d = site.attrs["heads"], site.attrs["head_dim"]
+    q, k, v = _msa_qkv(g, cuda, B, H * W, h, site.attrs["n_branches"], d)
+    return (lambda b: relu_attn_noncausal(q, k, v, **b),
+            lambda: relu_attn_noncausal_ref(q, k, v))
+
+
+@pytest.mark.parametrize("cfg,names", [
+    (B1, ("stem.ds0", "S1.mb1", "S3.down", "S3.evit0.msa", "S4.evit0.mb",
+          "S4.evit0.msa")),
+    (B3, ("stem.ds0", "S1.mb0", "S2.mb1", "S3.evit0.msa", "S4.evit0.mb",
+          "S4.evit0.msa"))])
+def test_every_candidate_launches_and_equals_plain(cuda, cfg, names):
+    """Every candidate the tuners time, at B1@224 and B3@224 sites of
+    each fp kind (batch 2) and at a chain of each: one launch each, within
+    1e-4 of the plain version."""
+    from repro_torch.kernels.registry import get_kernel
+    g = np.random.default_rng(len(names))
+    program = lower(cfg, batch=2)
+    sites = {s.name: s for s in program.fusible()}
+    for name in names:
+        site = sites[name]
+        kfn, pfn = _site_case(cuda, site, g)
+        ref = pfn()
+        for cand in get_kernel(site.kind, "fp").candidates(site):
+            _close(kfn(cand), ref)
+    params = init_efficientvit(torch.Generator().manual_seed(0), cfg, "cuda")
+    for members in (("S1.mb0", "S1.mb1"), ("S2.mb1", "S2.mb2")):
+        sup = SuperSite.of(program, members)
+        pack = pack_weights(params, sup, "fp")
+        x = _rand(g, cuda, *sup.in_shape)
+        ref = None
+        for cand in get_kernel("supersite", "fp").candidates(sup):
+            geom = make_fp_geom(sup, pack, cand["block_rows"],
+                                cand["block_m"])
+            got = supersite_fused(x, pack.fp, geom=geom)
+            ref = supersite_ref(x, pack.fp, geom=geom) if ref is None else ref
+            _close(got, ref)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("N,h", [(196, 6), (49, 12), (196, 8), (49, 16)])
+def test_relu_attn_at_head_dim_32(cuda, batch, N, h):
+    """The attention core of B2 and B3 at 224 px (d = 32, the generic
+    instance), written into the projection's map as the MSA serves it:
+    within 1e-4 of the plain version, one launch."""
+    q, k, v = _msa_qkv(np.random.default_rng(N * h + batch), cuda, batch, N,
+                       h, 2, d=32)
+    buf = torch.empty((batch, N, 2 * h * 32), device=cuda)
+    n = relu_attn_noncausal.launches
+    relu_attn_noncausal(q, k, v, out=_proj_view(buf, batch, N, 2, h, 32))
+    assert relu_attn_noncausal.launches == n + 1
+    want = torch.empty_like(buf)
+    relu_attn_noncausal_ref(q, k, v, out=_proj_view(want, batch, N, 2, h, 32))
+    _close(buf, want)
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("H,C", [(14, 576), (7, 1152), (14, 768), (7, 1536)])
+def test_group_agg_int8_at_d32(cuda, batch, H, C):
+    """The grouped int8 aggregation of B2 and B3 at 224 px (groups of 32):
+    on its path and on the two launches, EQUAL to the plain version."""
+    g = torch.Generator().manual_seed(C + H + batch)
+    args, pw, tail = _group_agg_args(g, cuda, batch, H, H, C, 5, d=32)
+    ref = group_agg_int8_ref(*args, block_diag(pw), *tail)
+    n = group_agg_int8.launches
+    _same((group_agg_int8(*args, pw, *tail),), (ref,))
+    assert group_agg_int8.launches == n + 1
+    _same((_group_agg(*args, pw, *tail, path="two-launch"),), (ref,))
