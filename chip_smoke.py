@@ -204,6 +204,47 @@
       1 and 8, against its plain version as in 2a and 3a
       (``relu_attn_noncausal`` and ``group_agg_int8`` at d = 32 among
       them); the ``[B2]`` / ``[B3]`` lines give each shape's time.
+5a. Sharded serving and the observability layer, B1@224 at full width
+   and depth, fp32 then FIX8 (before section 5: its profiler comes after
+   every timed phase).  A ``VisionEngine(tracer=Tracer())``, warmed, is
+   the reference.
+   a. ``[trace]``: the 12 mixed-deadline requests of section 5 through
+      its scheduler: every request's chain complete (``request_chains``:
+      queue; dispatch, device, finalize), no span open after the drain,
+      the exported file (in a temporary directory) passes
+      ``validate_chrome_trace``.  Printed: the tracer's host cost, the
+      time inside its calls per request over 256 served requests, and
+      steady-state images/s with and without the tracer (informational).
+   b. ``[metrics]``: the engine's telemetry as Prometheus text, p99
+      latency per bucket printed; the unlabelled counter samples must
+      parse back to the telemetry's counters.
+   c. ``[sharded]``: ``VisionServeConfig(devices=("cuda:0",) * 4)`` (four
+      fault domains on one card, plus every CUDA device where there are
+      several).  Every launch counter is set to 0 just before the sharded
+      engine is made and warmed and 8 requests served, and read just
+      after: each member's graph (one per member, its own stream, one
+      pool per card) captured one forward at its local batch, and the
+      wrappers launched twice that per member.  The batch-8 logits (local
+      batch 2) against the reference engine: FIX8 bit-equal, fp32 within
+      1e-5 * max(1, max|logit|), top-1 equal.  ``device_dropout``: an
+      injected ``device.dropout`` on domain 3 shrinks the mesh 4 -> 3,
+      bucket 8 runs 2-wide at local batch 4, every request completes with
+      ``device_lost`` = 1, ``mesh_shrunk`` = 1, no ladder move, the same
+      gates.  ``mesh_loss``: the other three domains lost one per
+      dispatch; the in-flight requests and a late one end ``failed`` with
+      ``MeshExhausted``, nothing outstanding.  After the served run and
+      after the dropout, every kernel case and chain of bucket 8's member
+      plan (local batch 2, then 4, planned and tuned at that batch)
+      against its plain version as in 2a and 3a.  Printed: each key's
+      members and launches per member replay, images/s sharded against
+      unsharded (informational).
+   d. ``[drift]``: ``profile_execute`` (a pair of CUDA events per site,
+      read after the forward) and ``drift_report`` on the reference
+      engine's batch-8 plan, grouping off: every site recorded, every
+      ratio finite.  Printed: the per-site event sum beside one eager
+      per-site forward timed by events, and the ten sites with the
+      largest measured time beside the cycle model's predicted cycles
+      (the paper's FPGA at 200 MHz).
 5. The main path, fp32 then FIX8.  Every launch counter is set to 0
    just before a new engine is made (``VisionEngine``, then
    ``VisionEngine.quantized``) and warmed, and read just after it has
@@ -245,7 +286,8 @@
    (the cluster kernels, the tensor-core GEMMs, the attention kernel, the
    fp32 band kernel), with no memset, no zero fill and no allocation but
    its outputs (none for the attention).
-7. One JSON line with every kernel's launches on its driven run(s),
+7. One JSON line with every kernel's launches on its driven run(s)
+   (sections 5, 5a's sharded paths and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -256,6 +298,8 @@ Any failure raises and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import os
 import statistics
@@ -823,13 +867,13 @@ def cuda_launches(calls) -> None:
     import re
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(host=False) as prof:
         for case, _ in calls:
             case[3]()
         torch.cuda.synchronize()
-    rows = {e.key: e.count for e in prof.key_averages() if device_us(e) > 0}
+    rows = {e.key: e.count for e in prof.key_averages()
+            if device_us(e) > 0 and not is_range(e.key)}
     ours = port_kernel_names()
     port = sum(n for key, n in rows.items() if re.match(
         r"(?:void\s+)?(?:\w+::)*(\w+)", key).group(1) in ours)
@@ -1636,7 +1680,7 @@ def serve_trace(make_engine, images, wrappers, expected, tag):
     import numpy as np
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
     from repro_torch.core.program import execute
     from repro_torch.serving.scheduler import Request
 
@@ -1665,8 +1709,7 @@ def serve_trace(make_engine, images, wrappers, expected, tag):
     reqs = [Request(i, images[i], deadline_ms=deadlines[i],
                     timeout_ms=600_000.0) for i in range(12)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         with record_function("chip_smoke.serve"):
             t0 = time.perf_counter()
             for r in reqs:
@@ -1710,29 +1753,43 @@ def serve_trace(make_engine, images, wrappers, expected, tag):
                                  f"in {len(set(dispatched))} eager "
                                  f"forwards, expected {per} each")
 
-    # the device side, by the profiler: host ranges split the capture
+    # the device side, by the profiler.  The window holds the served run
+    # (nothing ran on the device before it) and then the eager forwards,
+    # split on the device's clock where a range shows on the device side
     events = prof.events()
-    starts = {e.name: e.time_range.start for e in events
-              if e.device_type == DeviceType.CPU
-              and e.name.startswith("chip_smoke.")}
+    host_at = {e.name: e.time_range.start for e in events
+               if e.device_type == DeviceType.CPU
+               and e.name.startswith("chip_smoke.")}
+    dev_at: dict = {}
+    for e in events:
+        if e.device_type == DeviceType.CUDA and e.name in host_at:
+            dev_at[e.name] = min(dev_at.get(e.name, e.time_range.start),
+                                 e.time_range.start)
+    starts = host_at | dev_at
+    skew = {n[len("chip_smoke."):]: round(dev_at[n] - host_at[n], 1)
+            for n in dev_at}
+    print(f"[{tag}] profiler: each range's first device activity after its "
+          f"host start, us: {skew}")
     eager_at = sorted((starts[f"chip_smoke.eager.{b}"], b)
                       for b in set(dispatched))
     ours = port_kernel_names()
     kname = lambda name: re.match(r"(?:void\s+)?(\w+)", name).group(1)
     device = sorted((e for e in events if e.device_type == DeviceType.CUDA
-                     and not e.name.startswith("chip_smoke.")),
+                     and not is_range(e.name)),
                     key=lambda e: e.time_range.start)
     replays, eager = [], collections.defaultdict(collections.Counter)
     for e in device:
         t = e.time_range.start
-        if t < starts["chip_smoke.serve"]:
-            continue
         if t < eager_at[0][0]:
             if "Memcpy HtoD" in e.name:
                 replays.append(collections.Counter())
             elif kname(e.name) in ours:
                 if not replays:
-                    raise AssertionError(f"{e.name} before any copy-in")
+                    seen = [f"{x.name[:40]}@{x.time_range.start - t:+.1f}us"
+                            for x in device[:16]]
+                    raise AssertionError(
+                        f"{e.name} before any copy-in; the first device "
+                        f"events (relative to it): {seen}")
                 replays[-1][kname(e.name)] += 1
         else:
             bucket = [b for at, b in eager_at if at <= t][-1]
@@ -2625,6 +2682,33 @@ def port_kernel_names(csrc: str | None = None) -> set:
     return names
 
 
+@contextlib.contextmanager
+def profiled(host: bool = True):
+    """A ``torch.profiler`` capture of the device (and the host) whose
+    window opens after one warm-up step: the tracer is enabled in the
+    warm-up, so the window loses no device activity at its start (late
+    in a run, a capture opened without one missed its first launches: a
+    served batch's copy-in, the first of a list of calls).  The step's
+    own ranges are named ``ProfilerStep#``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    activities = [ProfilerActivity.CUDA] + (
+        [ProfilerActivity.CPU] if host else [])
+    with profile(activities=activities,
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        yield prof
+
+
+def is_range(name: str) -> bool:
+    """A ``record_function`` range of this script or of ``profiled``'s
+    step, which shows on the device side too."""
+    return name.startswith(("chip_smoke.", "ProfilerStep#"))
+
+
 def device_us(event) -> float:
     """A profiler row's device time in µs (the attribute's name differs
     across torch versions)."""
@@ -2668,20 +2752,20 @@ def one_launch_each(calls) -> None:
     import collections
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for fn, *_ in calls:
         fn()
     torch.cuda.synchronize()
     allocs = []
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiled(host=False) as prof:
         for fn, *_ in calls:
             n0 = torch.cuda.memory_stats()["allocation.all.allocated"]
             fn()
             torch.cuda.synchronize()
             allocs.append(torch.cuda.memory_stats()[
                 "allocation.all.allocated"] - n0)
-    rows = {e.key: e.count for e in prof.key_averages() if device_us(e) > 0}
+    rows = {e.key: e.count for e in prof.key_averages()
+            if device_us(e) > 0 and not is_range(e.key)}
     want = collections.Counter(kernel for _, _, kernel, _ in calls)
     got = collections.Counter()
     for key, count in rows.items():
@@ -2791,13 +2875,12 @@ def kernel_profile(fwd, eager, tag, n: int = 2,
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
+    from torch.profiler import record_function
 
     fwd()
     eager()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         with record_function("chip_smoke.replays"):
             for _ in range(n):
                 fwd()
@@ -2811,9 +2894,7 @@ def kernel_profile(fwd, eager, tag, n: int = 2,
     ours = port_kernel_names(csrc)
     by_name = [collections.defaultdict(lambda: [0.0, 0]) for _ in range(2)]
     for e in events:
-        # the record_function ranges show on the device side too
-        if e.device_type != DeviceType.CUDA or e.name.startswith(
-                "chip_smoke."):
+        if e.device_type != DeviceType.CUDA or is_range(e.name):
             continue
         row = by_name[int(e.time_range.start >= split)][e.name]
         row[0] += e.time_range.elapsed_us() / 1e3
@@ -2849,6 +2930,426 @@ def kernel_profile(fwd, eager, tag, n: int = 2,
     if not eager_port or replayed != eager_port:
         raise AssertionError(f"port kernels per replay {dict(replayed)}, "
                              f"eager {dict(eager_port)}")
+
+
+def logits_gate(got, ref, tag, fix8: bool) -> None:
+    """The sharded gates against the unsharded engine: FIX8 bit-equal;
+    fp32 within 1e-5 * max(1, max|logit|), top-1 equal."""
+    import numpy as np
+    got, ref = np.asarray(got), np.asarray(ref)
+    d, top = np.abs(got - ref).max(), np.abs(ref).max()
+    same = np.array_equal(got.argmax(-1), ref.argmax(-1))
+    print(f"[{tag}] logits vs the unsharded engine: max|d| {d:.3e} (max|ref| "
+          f"{top:.3e}), {'bit-equal' if np.array_equal(got, ref) else 'not bit-equal'}"
+          f", top-1 {'equal' if same else 'DIFFERENT'}")
+    if not np.all(np.isfinite(got)) or not same:
+        raise AssertionError(f"{tag}: non-finite logits or top-1 differs")
+    if fix8 and not np.array_equal(got, ref):
+        raise AssertionError(f"{tag}: FIX8 logits not bit-equal ({d:.3e})")
+    if not fix8 and not d <= 1e-5 * max(1.0, top):
+        raise AssertionError(f"{tag}: fp32 logits {d:.3e} above 1e-5 * "
+                             f"max(1, {top:.3e})")
+
+
+def images_per_s(logits, batch64, reps: int = 3) -> float:
+    """64 images as 8 buckets of 8 through ``logits``, host clock to a
+    synchronize; the median of ``reps`` runs after a warm one."""
+    import torch
+    logits(batch64)
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        logits(batch64)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    return 64 / statistics.median(runs)
+
+
+def served_images_per_s(engine, images, tracer, reps: int = 3) -> float:
+    """64 requests through a scheduler of ``engine`` (``tracer`` or
+    none), submitted, stepped and finalized; the median of ``reps`` runs
+    after a warm one."""
+    from repro_torch.serving.scheduler import Request
+    runs = []
+    for rep in range(reps + 1):
+        sched = engine.scheduler(tracer=tracer)
+        reqs = [Request(1000 * rep + i, images[i % len(images)])
+                for i in range(64)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            sched.submit(r)
+            sched.step()
+        sched.step(drain=True)
+        sched.finalize()
+        if rep:
+            runs.append(time.perf_counter() - t0)
+        if any(r.status != "completed" for r in reqs):
+            raise AssertionError([(r.rid, r.status) for r in reqs
+                                  if r.status != "completed"])
+    return 64 / statistics.median(runs)
+
+
+def drain(sched, clock, rounds: int = 16) -> None:
+    for _ in range(rounds):
+        if not sched.outstanding():
+            return
+        sched.step(drain=True)
+        sched.finalize()
+        clock.advance(0.05)
+    raise AssertionError(f"{sched.outstanding()} requests never ended")
+
+
+def member_kernels(engine, res, gen, per_fwd, max_err, tag,
+                   fix8: bool) -> None:
+    """2a / 3a at a sharded key's local batch: every kernel case and
+    super-site chain of the plan bucket 8's members serve (planned and
+    tuned at the local batch), held against its plain version on the
+    served tree with the same tolerances (FIX8 bit-exact, fp32 ``TOL``)
+    and timed; the launches here are not the path's."""
+    from repro_torch.core.efficientvit import B1
+    ex = engine.cache.get(8, res)
+    lb, plan = ex.shard.local_batch, ex.plan
+    cases = (int8_kernel_cases if fix8 else kernel_cases)(lb, gen, B1, plan)
+    chains = chain_cases(lb, gen, engine.params, engine.params, B1, (plan,))
+    check_kernels(cases + chains[1 if fix8 else 0], lb, per_fwd, max_err,
+                  exact=fix8, tag=f"{tag} member kernels")
+
+
+def sharded_phase(make, ref_engine, images, wrappers, expected, tag, mesh,
+                  fix8: bool, gen, per_fwd, max_err) -> dict:
+    """``[sharded]``: the mesh ``mesh`` (fault domains; four on one card)
+    at B1@224, microbatch 8.  Every launch counter is set to 0 just
+    before the sharded engine is made (``make(serve_cfg, faults)``) and
+    warmed and 8 requests served through its scheduler, and read just
+    after: each member's capture issued the launches of one forward at
+    its local batch, and the wrappers launched twice that per member
+    (warm-up run, capture).  The served logits against the unsharded
+    ``ref_engine``'s (``logits_gate``).  Then ``device_dropout``: domain
+    3 lost at dispatch, the mesh 4 -> 3, bucket 8 recaptured 2-wide at
+    local batch 4, every request completed with ``device_lost`` = 1,
+    ``mesh_shrunk`` = 1 and no ladder move, the same gates; and
+    ``mesh_loss``: the other three lost one per dispatch, the in-flight
+    requests and a late one failed ``MeshExhausted``, nothing
+    outstanding.  After the served run and after the dropout, the
+    kernels of bucket 8's member plan (local batch 2, then 4) against
+    their plain versions (``member_kernels``).  Returns the path's
+    launches."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import autotune
+    from repro_torch.serving.faults import FaultPlan, FaultSpec
+    from repro_torch.serving.scheduler import ManualClock, Request
+    from repro_torch.serving.vision import VisionServeConfig
+
+    for w in wrappers.values():
+        w.launches = 0
+    autotune.SWEEP_LAUNCHES.clear()
+    faults = FaultPlan()                 # idle until the drills below
+    t0 = time.perf_counter()
+    engine = make(VisionServeConfig(microbatch=8, devices=mesh), faults)
+    engine.warmup()
+    build_s = time.perf_counter() - t0
+    sched = engine.scheduler()
+    reqs = [Request(i, images[i]) for i in range(8)]
+    got = sched.serve(reqs)
+    swept = dict(autotune.SWEEP_LAUNCHES)
+    launches = {k: w.launches - swept.get(k, 0)
+                for k, w in wrappers.items()}
+    want = {k: v for k, v in expected.items() if v}
+    members = 0
+    for key in engine.cache.keys():
+        ex = engine.cache.get(key.batch, key.resolution)
+        if None in ex.graphs or ex.member_launches != \
+                [want] * ex.shard.n_devices:
+            raise AssertionError(f"{tag} bucket {key.batch}: member "
+                                 f"captures {ex.member_launches}, expected "
+                                 f"{want} each")
+        members += ex.shard.n_devices
+        print(f"[{tag}] bucket {key.batch}: {ex.shard.n_devices} members "
+              f"(domains {ex.device_ids}) at local batch "
+              f"{ex.shard.local_batch}, one graph each, "
+              f"{len({m.stream for m in ex.members})} streams, "
+              f"{len({m.pool for m in ex.members})} pool; launches per "
+              f"member replay {ex.member_launches[0]}")
+    for name, per in expected.items():
+        if launches[name] != 2 * per * members:
+            raise AssertionError(f"{tag} {name}: {launches[name]} launches "
+                                 f"for {members} members, expected {per} "
+                                 f"per forward, warm-up run and capture")
+    print(f"[{tag}] main path: counters at 0, the sharded engine made and "
+          f"warmed ({len(engine.cache.keys())} keys, {members} member "
+          f"graphs, {build_s:.2f} s) and 8 requests served: launches "
+          f"{launches} (sweeps' launches, not counted: {swept})")
+    ref = ref_engine.logits(torch.from_numpy(images[:8]).cuda())
+    logits_gate(got, ref.cpu().numpy(), tag, fix8)
+    x64 = torch.from_numpy(np.concatenate([images] * 6)[:64]).cuda()
+    sharded = images_per_s(engine.logits, x64)
+    single = images_per_s(ref_engine.logits, x64)
+    print(f"[{tag}] steady state, 64 images in 8 buckets of 8: sharded "
+          f"over {len(mesh)} domains {sharded:.1f} images/s, unsharded "
+          f"{single:.1f} images/s (informational)")
+    c = engine.telemetry.counters
+    rows = {d: (s.dispatches, s.samples, s.padded)
+            for d, s in sorted(engine.telemetry.devices.items())}
+    print(f"[{tag}] per-domain rows (dispatches, samples, padded): {rows}")
+    res = images.shape[1]
+    member_kernels(engine, res, gen, per_fwd, max_err, tag, fix8)
+
+    # device_dropout: domain 3 lost at the next dispatch
+    faults.specs.append(FaultSpec("device.dropout", times=1, device=3))
+    clock = ManualClock()
+    sched = engine.scheduler(clock=clock, backoff_ms=0.0)
+    reqs = [Request(100 + i, images[i]) for i in range(8)]
+    for r in reqs:
+        sched.submit(r)
+    drain(sched, clock)
+    bad = [(r.rid, r.status, r.error) for r in reqs
+           if r.status != "completed"]
+    ex = engine.cache.get(8, res)
+    moved = {k: c.get(k, 0) for k in ("degraded", "pinned_fp")}
+    print(f"[{tag}] device_dropout: domains dead {engine.cache.health.dead_ids()}"
+          f", bucket 8 now {ex.shard.n_devices}-wide (domains "
+          f"{ex.device_ids}) at local batch {ex.shard.local_batch}; "
+          f"device_lost={c.get('device_lost', 0)} mesh_shrunk="
+          f"{c.get('mesh_shrunk', 0)} device_failover="
+          f"{c.get('device_failover', 0)}; ladder {moved}; "
+          f"{8 - len(bad)} of 8 completed")
+    if bad or c.get("device_lost") != 1 or c.get("mesh_shrunk") != 1 \
+            or any(moved.values()) or ex.device_ids != (0, 1) \
+            or engine.cache.degradation(8, res) is not None:
+        raise AssertionError(f"{tag} device_dropout: {bad}, {dict(c)}")
+    logits_gate(np.stack([r.logits for r in reqs]), ref.cpu().numpy(),
+                f"{tag} device_dropout", fix8)
+    member_kernels(engine, res, gen, per_fwd, max_err,
+                   f"{tag} device_dropout", fix8)
+
+    # mesh_loss: the three survivors lost one per dispatch
+    for d in (0, 1, 2):
+        faults.specs.append(FaultSpec("device.dropout", times=1, device=d))
+    reqs = [Request(200 + i, images[i]) for i in range(8)]
+    for r in reqs:
+        sched.submit(r)
+    drain(sched, clock)
+    late = Request(299, images[8])
+    sched.submit(late)
+    drain(sched, clock)
+    ok = all(r.status == "failed" and type(r.error).__name__ ==
+             "MeshExhausted" for r in reqs + [late])
+    print(f"[{tag}] mesh_loss: domains dead {engine.cache.health.dead_ids()}"
+          f", {sum(r.status == 'failed' for r in reqs)} of 8 in-flight and "
+          f"the late request failed "
+          f"{sorted({type(r.error).__name__ for r in reqs + [late]})}, "
+          f"late retries {late.retries}, outstanding {sched.outstanding()}, "
+          f"fault firings {faults.fired}")
+    if not ok or sched.outstanding() or not engine.cache.mesh_exhausted \
+            or late.retries > 1:
+        raise AssertionError(f"{tag} mesh_loss: "
+                             f"{[(r.status, r.error) for r in reqs + [late]]}")
+    return launches
+
+
+def trace_phase(engine, images, tag) -> None:
+    """``[trace]``: the 12 mixed-deadline requests of ``serve_trace``
+    through a scheduler with the engine's ``Tracer``: every request's
+    chain complete (queue; dispatch, device, finalize), no span open after
+    the drain, the exported file (a temporary directory) valid.  Then
+    the tracer's own cost, measured directly: the host time inside its
+    ``begin`` / ``end`` / ``event`` calls per request, over the 256
+    requests of a served run with it; and the steady-state images/s of
+    that run and of one without it (informational: the two differ by
+    less than their run-to-run spread).  The garbage collector is paused
+    for both runs."""
+    import collections
+    import tempfile
+    from repro_torch.obs.trace import request_chains, validate_chrome_trace
+    from repro_torch.serving.scheduler import Request
+
+    tracer = engine.tracer
+    sched = engine.scheduler()
+    deadlines = [60_000.0, None, 0.0] + [60_000.0, None] * 4 + [None]
+    reqs = [Request(i, images[i], deadline_ms=deadlines[i],
+                    timeout_ms=600_000.0) for i in range(12)]
+    for r in reqs:
+        sched.submit(r)
+        sched.step()
+    sched.step(drain=True)
+    sched.finalize()
+    if any(r.status != "completed" for r in reqs):
+        raise AssertionError([(r.rid, r.status, r.error) for r in reqs])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        doc = engine.export_trace(path)
+        with open(path) as f:
+            n = validate_chrome_trace(json.load(f))
+    chains = request_chains(doc)
+    broken = [rid for rid in range(12) if rid not in chains
+              or not {"queue"} <= chains[rid]["children"]
+              or not {"dispatch", "device", "finalize"}
+              <= chains[rid]["member_of"]]
+    names = dict(collections.Counter(e["name"] for e in doc["traceEvents"]
+                                     if e["ph"] == "X"))
+    print(f"[{tag}] trace: {n} spans ({names}), {len(chains)} request "
+          f"chains, {len(broken)} incomplete, {len(tracer.open_spans())} "
+          f"open after the drain, dropped {tracer.dropped}")
+    if broken or tracer.open_spans():
+        raise AssertionError(f"{tag} trace: incomplete chains {broken}, "
+                             f"open {[s.name for s in tracer.open_spans()]}")
+    spent, calls = [0.0], [0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[0] += time.perf_counter() - t
+                calls[0] += 1
+        return call
+    # the cyclic collector paused for both runs: a collection is charged
+    # to whichever allocation sets it off, tracer call or not
+    gc.collect()
+    gc.disable()
+    for name in ("begin", "end", "event"):     # span() calls begin / end
+        setattr(tracer, name, timed(getattr(tracer, name)))
+    try:
+        on = served_images_per_s(engine, images, tracer)
+    finally:
+        for name in ("begin", "end", "event"):
+            delattr(tracer, name)
+    try:
+        off = served_images_per_s(engine, images, None)
+    finally:
+        gc.enable()
+    per_req = spent[0] / 256
+    print(f"[{tag}] the tracer's host cost, the garbage collector paused: "
+          f"{per_req * 1e6:.2f} us per request inside {calls[0] / 256:.1f} "
+          f"tracer calls (256 served requests), {per_req * on:.3%} of the "
+          f"served time per request with the tracer")
+    print(f"[{tag}] steady state, 64 served requests, median of 3 runs "
+          f"(informational): {on:.1f} images/s with the tracer, {off:.1f} "
+          f"without")
+
+
+def metrics_phase(engine, tag) -> None:
+    """``[metrics]``: the engine's telemetry as Prometheus text (p99
+    latency per bucket printed); the gate: the text's unlabelled counter
+    samples parse back to the telemetry's counters."""
+    from repro_torch.obs.metrics import _sanitize
+    text = engine.metrics().prometheus_text()
+    parsed, p99 = {}, []
+    for line in text.splitlines():
+        if line.startswith("#"):
+            continue
+        name, value = line.rsplit(" ", 1)
+        if "{" not in name and name.endswith("_total"):
+            parsed[name[len("repro_"):-len("_total")]] = float(value)
+        if name.startswith("repro_bucket_latency_ms{") \
+                and 'quantile="0.99"' in name:
+            p99.append(f"{name[len('repro_bucket_latency_ms'):]} "
+                       f"{float(value):.3f} ms")
+    want = {_sanitize(k): float(v)
+            for k, v in engine.telemetry.counters.items()}
+    print(f"[{tag}] metrics: {len(text.splitlines())} lines of Prometheus "
+          f"text, {len(parsed)} counters parsed back; p99 latency per "
+          f"bucket: " + "; ".join(p99))
+    if parsed != want or not p99:
+        raise AssertionError(f"{tag} metrics: parsed {parsed} != {want}")
+
+
+class _SitesOnly:
+    """A profiler that records nothing: ``execute(profile=)`` with it
+    runs the per-site forward (groups off) with no events."""
+
+    def begin(self, site) -> None:
+        pass
+
+    def end(self, site, out):
+        return out
+
+
+def drift_phase(engine, x8, tag) -> dict:
+    """``[drift]``: ``profile_execute`` (CUDA events per site) and
+    ``drift_report`` on the batch-8 plan the engine serves, grouping off.
+    The gate: every program site recorded, every ratio finite.  Printed
+    (informational): the per-site event sum beside one eager per-site
+    forward timed by events, and the ten sites with the largest measured
+    time beside their predicted cycles.  Returns the rows."""
+    import torch
+    from repro_torch.core.program import execute
+    from repro_torch.obs.profile import drift_report, profile_execute
+
+    ex = engine.cache.get(8, int(x8.shape[1]))
+    prof = profile_execute(ex.program, engine.params, x8, plan=ex.plan,
+                           repeats=5, warmup=1)
+    rep = drift_report(ex.program, prof, plan=ex.plan)
+    missing = {s.name for s in ex.program.sites} - set(prof.records)
+    if missing or not rep.finite() or not prof.events:
+        raise AssertionError(f"{tag} drift: missing {missing}, finite "
+                             f"{rep.finite()}, events {prof.events}")
+
+    def per_site():
+        with torch.inference_mode():
+            return execute(ex.program, engine.params, x8, plan=ex.plan,
+                           profile=_SitesOnly())
+    eager = device_ms(per_site, reps=1, windows=5)
+    print(f"[{tag}] drift: {len(rep.rows)} sites, {prof.repeats} repeats "
+          f"by CUDA events; the per-site sum {rep.measured_ms:.3f} ms "
+          f"against one eager per-site forward {eager:.3f} ms by events; "
+          f"the cycle model predicts {rep.predicted_ms:.3f} ms on the "
+          f"paper's FPGA (aggregate ratio {rep.drift:.2f})")
+    kinds = {}
+    for r in rep.rows:
+        m, p = kinds.get(r["kind"], (0.0, 0.0))
+        kinds[r["kind"]] = (m + r["measured_ms"], p + r["predicted_ms"])
+    print(f"[{tag}] drift by site kind, share of the measured sum / of the "
+          f"predicted: " + "; ".join(
+              f"{k} {m / rep.measured_ms:.1%} / {p / rep.predicted_ms:.1%}"
+              for k, (m, p) in sorted(kinds.items(), key=lambda kv: -kv[1][0])))
+    top = sorted(rep.rows, key=lambda r: -r["measured_ms"])[:10]
+    for r in top:
+        print(f"[{tag}] drift site {r['site']} ({r['kind']}, "
+              f"{'fused' if r['fused'] else 'ref'}/{r['precision']}): "
+              f"{r['measured_ms']:.4f} ms measured, "
+              f"{r['predicted_cycles']:.0f} cycles predicted "
+              f"({r['predicted_ms']:.4f} ms at 200 MHz), ratio "
+              f"{r['drift']:.3f}, {r['measured_ms'] / rep.measured_ms:.1%} "
+              f"of the measured sum, {r['predicted_ms'] / rep.predicted_ms:.1%}"
+              f" of the predicted")
+    return rep.to_dict()
+
+
+def obs_phases(params, images, wrappers, expected, tag, fix8: bool, gen,
+               per_fwd, max_err):
+    """Section 5a at one precision: an unsharded engine with a tracer
+    serves ``[trace]`` and ``[metrics]`` and is the reference of
+    ``[sharded]`` (whose member kernel checks go into ``max_err``);
+    ``[drift]`` profiles its batch-8 plan.  Returns the sharded path's
+    launches."""
+    import torch
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.obs.trace import Tracer
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    def make(serve_cfg, faults=None, tracer=None):
+        if fix8:
+            return VisionEngine.quantized(params, B1, serve_cfg,
+                                          faults=faults, tracer=tracer)
+        return VisionEngine(params, B1, serve_cfg, faults=faults,
+                            tracer=tracer)
+
+    engine = make(VisionServeConfig(microbatch=8), tracer=Tracer())
+    engine.warmup()
+    trace_phase(engine, images, f"trace {tag}")
+    metrics_phase(engine, f"metrics {tag}")
+    n = torch.cuda.device_count()
+    mesh = ("cuda:0",) * 4 + (tuple(f"cuda:{i}" for i in range(n))
+                              if n > 1 else ())
+    launches = sharded_phase(make, engine, images, wrappers, expected,
+                             f"sharded {tag}", mesh, fix8, gen, per_fwd,
+                             max_err)
+    drift_phase(engine, torch.from_numpy(images[:8]).cuda(), f"drift {tag}")
+    return launches
 
 
 def main() -> int:
@@ -3024,6 +3525,14 @@ def main() -> int:
     launches_lib = library_phase(args.seed, wrappers, expected_lib, per_fwd,
                                  max_err)
 
+    # -- 5a. sharded serving, the tracer, the metrics, the drift report -
+    stamp("section 5a", t_start)
+    launches_sh = {
+        "fp32": obs_phases(params, images, wrappers, expected_fp, "fp32",
+                           False, gen, per_fwd, max_err),
+        "fix8": obs_phases(params, images, wrappers, expected_int8, "fix8",
+                           True, gen, per_fwd, max_err)}
+
     # -- 5. the main path, fp32 and FIX8: warm, serve, count -----------
     stamp("section 5", t_start)
     engine, got, launches_fp = serve_trace(
@@ -3073,7 +3582,8 @@ def main() -> int:
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": (launches_fp[name] + launches_q[name]
-                         + launches_lib[name]),
+                         + launches_sh["fp32"][name]
+                         + launches_sh["fix8"][name] + launches_lib[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

@@ -13,7 +13,8 @@ decision fuses them; with ``plan=None`` it runs the reference ops.  A
 ``quantize_efficientvit`` (FIX8) tree runs the int8 dataflow: producers
 named by the plan's epilogues hand their consumers ``QTensor``s.  A
 plan's super-site groups (``SuperSite``) run as one chain launch each.
-Per-site profiling belongs to a later slice.
+``execute(..., profile=)`` records each site's window with an
+``obs.profile.SiteProfiler`` (JAX's profiled execution; groups off).
 """
 from __future__ import annotations
 
@@ -187,6 +188,18 @@ class Program:
         return tuple(s for s in self.sites
                      if s.kind not in STRUCTURAL_KINDS)
 
+    def with_epilogues(self, plan) -> "Program":
+        """A new program whose sites carry the plan's epilogue
+        assignments (``core.fusion.plan_program``'s producer -> consumer
+        pass), so the dtype each boundary delivers is readable from the
+        program itself: the executor cache and the cycle model read it
+        here."""
+        eps = getattr(plan, "epilogues", None) or {}
+        sites = tuple(
+            dataclasses.replace(s, epilogue=eps[s.name]) if s.name in eps
+            else s for s in self.sites)
+        return Program(self.cfg, self.batch, self.image_size, sites)
+
 
 def params_at(params, path: Tuple[Any, ...]):
     """Resolve a ``Site.param_path`` against a param tree."""
@@ -350,7 +363,8 @@ def _dispatch(site: Site, p, y, plan, cfg, attention_fn, kernel_ep):
     return get_probe(site.kind).ref(p, y, site)
 
 
-def execute(program: Program, params, x, *, plan=None, attention_fn=None):
+def execute(program: Program, params, x, *, plan=None, attention_fn=None,
+            profile=None):
     """Run the lowered program.  x: (B, H, W, 3) -> (B, num_classes).
 
     ``plan`` is an optional ``core.fusion.FusionPlan`` over the same
@@ -363,14 +377,22 @@ def execute(program: Program, params, x, *, plan=None, attention_fn=None):
     run as one chain launch each, entered at the first member; the other
     members are skipped, and the last member's epilogue is the chain's
     exit.  Eager: nothing here waits on the device.
+
+    ``profile`` is an optional ``repro_torch.obs.profile.SiteProfiler``:
+    ``profile.begin(site)`` before each site and ``profile.end(site, y)``
+    after it record the site's window under its name.  Super-site groups
+    are off under ``profile`` (the drift report needs one window per
+    site), so a profiled forward launches every member on its own.
     """
     if attention_fn is not None and plan is not None:
         raise ValueError("attention_fn replaces the reference attention "
                          "core; it takes plan=None")
     attention_fn = attention_fn or relu_global_attention
     epilogues = getattr(plan, "epilogues", None) or {}
+    groups = (getattr(plan, "groups", None) or {}) if profile is None \
+        else {}
     group_entry, group_skip = {}, set()
-    for g in (getattr(plan, "groups", None) or {}).values():
+    for g in groups.values():
         group_entry[g.members[0]] = g
         group_skip.update(g.members[1:])
     y = x
@@ -384,6 +406,8 @@ def execute(program: Program, params, x, *, plan=None, attention_fn=None):
             y = get_kernel("supersite", g.precision).apply(
                 params, y, sup, g, epilogue=epilogues.get(g.members[-1]))
             continue
+        if profile is not None:
+            profile.begin(site)
         p = params_at(params, site.param_path) if site.param_path else None
         ep = epilogues.get(site.name)
         if site.kind == "conv_bn":
@@ -410,6 +434,8 @@ def execute(program: Program, params, x, *, plan=None, attention_fn=None):
                     ep is not None and ep.emits_q) else s
             else:
                 y = out     # a QTensor when the kernel ran its epilogue
+        if profile is not None:
+            y = profile.end(site, y)
     return y
 
 

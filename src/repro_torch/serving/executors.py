@@ -46,8 +46,31 @@ under the cache's lock, whichever thread or stream calls.
     its graph); degraded plans never donate, and the key is built and
     captured again on next use.
 
-Sharding and per-device fault domains (``devices=``), schedule artifacts
-and tracing are later slices of the port.
+## Sharding and per-device fault domains
+
+``ExecutorCache(devices=)`` serves every key over a batch mesh, as JAX's
+(``repro/serving/executors.py``, ``serving/sharding.py``): each build
+takes the widest shard of the bucket over the surviving domains,
+lowers and plans at the local batch and runs one member per domain
+(rows split contiguously, params replicated once per physical device).
+On the card each member holds its own CUDA graph, captured at the local
+batch on its device after an eager warm-up, on a stream of its own (so
+the domains of one card overlap) and into one graph pool per physical
+device; a member whose capture fails fails the build with a typed
+``ExecutorError``, and nothing serves the mesh eagerly or on fewer
+members.  ``device.dropout`` fires at a sharded executor's dispatch,
+before its replay; ``on_device_lost`` marks the domain dead, evicts
+every executor whose shard held it and clears the negative cache; an
+exhausted mesh raises ``MeshExhausted`` from ``get`` itself.
+
+## Tracing
+
+``tracer=`` (an ``obs.trace.Tracer``) records each build as an
+``executor.build`` span on the ``executors`` track with ``lower`` and
+``plan`` children (the warm-up and the capture fall inside it), and the
+ladder moves and mesh shrinks as zero-duration marks (``ladder.degrade``,
+``ladder.pin_fp``, ``mesh.shrink``).  Host clocks only.  Schedule
+artifacts (``artifact=``) are a later slice of the port.
 """
 from __future__ import annotations
 
@@ -62,10 +85,12 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device, to_device, tree_to
-from repro_torch.common.errors import ExecutorError, ReproError
+from repro_torch.common.errors import ExecutorError, MeshExhausted, ReproError
 from repro_torch.core.efficientvit import EfficientViTConfig
 from repro_torch.core.fusion import plan_program
 from repro_torch.core.program import execute, lower
+from repro_torch.serving.sharding import (
+    DeviceHealth, physical_device, replicate, sharded_forward)
 from repro_torch.serving.telemetry import Telemetry
 
 __all__ = ["ExecutorKey", "Executor", "ExecutorCache", "DegradeState"]
@@ -132,6 +157,25 @@ def _stop_pool_capture(device: torch.device, pool) -> None:
             return
 
 
+class _Member:
+    """One mesh member of an executor (the whole bucket when unsharded):
+    rows ``[lo, hi)`` of the bucket on ``device``, with its param tree
+    (``None``: the tree the executor is called with); on the card the
+    stream and graph pool it captures and replays on, and its graph."""
+
+    def __init__(self, device, lo: int, hi: int, *, params=None,
+                 stream=None, pool=None, domain: Optional[int] = None):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.params = params
+        self.stream, self.pool = stream, pool
+        self.domain = domain        # mesh id (None when unsharded)
+        self.graph = None
+        self.static_in = None
+        self.static_out = None
+        self.replay_launches: dict[str, int] = {}
+        self.graph_bytes: Optional[int] = None
+
+
 class Executor:
     """One (program, plan) pair for a fixed shape.
 
@@ -149,45 +193,90 @@ class Executor:
     graph reads the param tree it was captured with, so a call must pass
     that tree.  On the CPU the forward runs eagerly.
 
+    ``members`` are the ``_Member``s that run the bucket: one covering
+    it when unsharded; for a sharded executor (``shard``, a
+    ``serving.sharding.ShardSpec``, ``program`` lowered at the local
+    batch) one per mesh domain, each on its rows of the bucket.  On the
+    CPU ``sharding.sharded_forward`` runs them one after another; on the
+    card each holds one graph, captured on the member's device and
+    stream into its device's pool, replayed one after another under the
+    lock, the member streams overlapping on the device.  The outputs are
+    gathered in row order on ``device``.  ``graph`` / ``static_in`` are
+    the first member's, ``graphs`` all.
+
     A replay runs no kernel wrapper, so it adds nothing to the wrappers'
     ``launches`` counters; ``replay_launches`` records the launches the
-    capture issued, which every replay repeats on the device.
+    captures issued (summed over the members; ``member_launches`` per
+    member), which every replay repeats on the device.
 
     ``degraded`` is the key's ``DegradeState`` (None = healthy);
     ``faults`` is an optional ``serving.faults.FaultPlan`` consulted at
-    dispatch: "kernel.launch" faults only fire on executors that launch
-    fused kernels, and "epilogue.numerics" corruption only on executors
+    dispatch: "device.dropout" only on sharded executors (before the
+    replay), "kernel.launch" faults only on executors that launch fused
+    kernels, and "epilogue.numerics" corruption only on executors
     running fused int8 sites, so a degraded rebuild escapes the failure
-    it degraded away from.
+    it degraded away from.  ``program`` is the plan-annotated lowering
+    (``Program.with_epilogues``).
     """
 
-    def __init__(self, key: ExecutorKey, program, plan, device, *,
+    def __init__(self, key: ExecutorKey, program, plan, device, members, *,
                  faults=None, degraded: Optional[DegradeState] = None,
-                 pool=None, stream=None, lock=None):
-        if device.type == "cuda" and None in (pool, stream, lock):
+                 lock=None, shard=None):
+        if device.type == "cuda" and (lock is None or any(
+                m.stream is None or m.pool is None for m in members)):
             raise ValueError("an executor on the card takes its cache's "
-                             "graph pool, stream and lock")
+                             "lock and each member's graph pool and stream")
         self.key = key
-        self.program = program
+        self.program = program.with_epilogues(plan) if plan is not None \
+            else program
         self.plan = plan
         self.device = device
         self.faults = faults
         self.degraded = degraded
-        self.pool = pool
-        self.stream = stream     # warms, captures and replays the graph
+        self.shard = shard       # ShardSpec when mesh-sharded, else None
         self._lock = lock
+        self.members = list(members)
         self.calls = 0
         self.warmed = False
-        self.graph = None
-        self.static_in = None
-        self._static_out = None
         self._params = None
-        self.replay_launches: dict[str, int] = {}
-        self.graph_bytes: Optional[int] = None
         decisions = plan.decisions.values() if plan is not None else ()
         self.fused_sites = tuple(d.name for d in decisions if d.fused)
         self._runs_int8 = any(d.fused and d.precision == "int8"
                               for d in decisions)
+
+    # -- the members' state, read as one executor's ----------------------
+    @property
+    def device_ids(self) -> Tuple[int, ...]:
+        return self.shard.device_ids if self.shard is not None else ()
+
+    @property
+    def graph(self):
+        return self.members[0].graph
+
+    @property
+    def graphs(self) -> tuple:
+        return tuple(m.graph for m in self.members)
+
+    @property
+    def static_in(self):
+        return self.members[0].static_in
+
+    @property
+    def member_launches(self) -> list:
+        return [dict(m.replay_launches) for m in self.members]
+
+    @property
+    def replay_launches(self) -> dict:
+        total: dict[str, int] = {}
+        for m in self.members:
+            for name, n in m.replay_launches.items():
+                total[name] = total.get(name, 0) + n
+        return total
+
+    @property
+    def graph_bytes(self) -> Optional[int]:
+        sizes = [m.graph_bytes for m in self.members]
+        return None if None in sizes else sum(sizes)
 
     def _ctx(self) -> dict:
         k = self.key
@@ -200,6 +289,9 @@ class Executor:
         on the card: the result is a device tensor and nothing here waits
         for it."""
         self.calls += 1
+        if self.faults is not None and self.shard is not None:
+            self.faults.fire("device.dropout", **self._ctx(),
+                             devices=self.device_ids)
         if self.faults is not None and self.fused_sites:
             self.faults.fire("kernel.launch", sites=self.fused_sites,
                              **self._ctx())
@@ -217,88 +309,113 @@ class Executor:
                 if n < k.batch:
                     x = torch.cat([x, x.new_zeros((k.batch - n,)
                                                   + tuple(x.shape[1:]))])
-                out = execute(self.program, params, x, plan=self.plan)
+                out = self._eager(params, x)
         if self.faults is not None and self._runs_int8:
             out = self.faults.corrupt("epilogue.numerics", out,
                                       **self._ctx())
         return out
 
+    def _eager(self, params, x):
+        """The whole bucket's forward, eagerly (the CPU's path)."""
+        return sharded_forward(self.program, self.members, x,
+                               plan=self.plan, params=params)
+
     def _replay(self, params, x, n: int):
         caller = torch.cuda.current_stream(self.device)
+        outs = []
         with self._lock:
-            if self.graph is None:
+            if not self.warmed:
                 self.warm(params)
             if params is not self._params:
                 raise ValueError(f"executor {self.key} replays the param "
                                  f"tree it was captured with; got another "
                                  f"tree")
-            side = self.stream
-            side.wait_stream(caller)
-            with torch.cuda.stream(side):
-                self.static_in[:n].copy_(x, non_blocking=True)
-                if n < self.key.batch:
-                    self.static_in[n:].zero_()
-                self.graph.replay()
-                out = self._static_out.clone()
-            caller.wait_stream(side)
-        # the allocator must not hand either tensor's memory out again
-        # before the other stream is done with it
-        out.record_stream(caller)
+            for m in self.members:
+                side = m.stream
+                side.wait_stream(caller)
+                take = max(0, min(m.hi, n) - m.lo)
+                with torch.cuda.stream(side):
+                    if take:
+                        m.static_in[:take].copy_(x[m.lo:m.lo + take],
+                                                 non_blocking=True)
+                    if take < m.hi - m.lo:
+                        m.static_in[take:].zero_()
+                    m.graph.replay()
+                    outs.append(m.static_out.clone())
+            for m in self.members:
+                torch.cuda.current_stream(m.device).wait_stream(m.stream)
+        # the allocator must not hand a tensor's memory out again before
+        # every stream that uses it is done with it
+        for o in outs:
+            o.record_stream(torch.cuda.current_stream(o.device))
         if x.device.type == "cuda":
-            x.record_stream(side)
-        return out
+            for m in self.members:
+                if m.device == x.device:
+                    x.record_stream(m.stream)
+        if len(outs) == 1:
+            return outs[0]
+        return torch.cat([o.to(self.device) for o in outs])
 
     def warm(self, params) -> "Executor":
         """Run a zero batch once, copied in from the host as requests are,
-        outside the request loop; on the card, then capture the graph.
-        A capture that fails raises ``ExecutorError``."""
+        outside the request loop; on the card, then capture the graph of
+        each member.  A capture that fails raises ``ExecutorError``."""
         if not self.warmed:
-            k = self.key
-            x = to_device(np.zeros((k.batch, k.resolution, k.resolution, 3),
-                                   np.float32), self.device)
             if self.device.type == "cuda":
-                self._capture(params, x)
+                with self._lock:
+                    for i, m in enumerate(self.members):
+                        self._capture(i, m, params)
+                    self._params = params
             else:
+                k = self.key
+                x = to_device(np.zeros((k.batch, k.resolution,
+                                        k.resolution, 3), np.float32),
+                              self.device)
                 with torch.inference_mode():
-                    execute(self.program, params, x, plan=self.plan)
+                    self._eager(params, x)
             self.warmed = True
         return self
 
-    def _capture(self, params, x) -> None:
+    def _capture(self, i: int, m: _Member, params) -> None:
+        """Warm member ``m`` eagerly on its stream, then capture its
+        forward (at its rows' batch) into its device's pool."""
         from repro_torch.kernels.registry import kernel_wrappers
 
-        dev, side = self.device, self.stream
-        with self._lock:
-            side.wait_stream(torch.cuda.current_stream(dev))
+        k = self.key
+        dev, side = m.device, m.stream
+        tree = m.params if m.params is not None else params
+        x = to_device(np.zeros((m.hi - m.lo, k.resolution, k.resolution,
+                                3), np.float32), dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.inference_mode():
+            execute(self.program, tree, x, plan=self.plan)
+        torch.cuda.synchronize(dev)
+        wrappers = kernel_wrappers()
+        before = {name: w.launches for name, w in wrappers.items()}
+        pool0 = _pool_bytes(m.pool)
+        graph = torch.cuda.CUDAGraph()
+        try:
             with torch.cuda.stream(side), torch.inference_mode():
-                execute(self.program, params, x, plan=self.plan)
-            torch.cuda.synchronize(dev)
-            wrappers = kernel_wrappers()
-            before = {name: w.launches for name, w in wrappers.items()}
-            pool0 = _pool_bytes(self.pool)
-            graph = torch.cuda.CUDAGraph()
-            try:
-                with torch.cuda.stream(side), torch.inference_mode():
-                    graph.capture_begin(pool=self.pool,
-                                        capture_error_mode="thread_local")
-                    try:
-                        out = execute(self.program, params, x,
-                                      plan=self.plan)
-                    finally:
-                        graph.capture_end()
-            except Exception as e:
-                _stop_pool_capture(dev, self.pool)
-                raise ExecutorError(f"CUDA graph capture failed for "
-                                    f"executor {self.key}: {e}",
-                                    key=self.key) from e
-            torch.cuda.current_stream(dev).wait_stream(side)
-        self.graph, self.static_in, self._static_out = graph, x, out
-        self._params = params
-        self.replay_launches = {
+                graph.capture_begin(pool=m.pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = execute(self.program, tree, x, plan=self.plan)
+                finally:
+                    graph.capture_end()
+        except Exception as e:
+            _stop_pool_capture(dev, m.pool)
+            where = "" if m.domain is None else \
+                f" (member {i}, mesh device {m.domain}, {dev})"
+            raise ExecutorError(f"CUDA graph capture failed for "
+                                f"executor {self.key}{where}: {e}",
+                                key=self.key) from e
+        torch.cuda.current_stream(dev).wait_stream(side)
+        m.graph, m.static_in, m.static_out = graph, x, out
+        m.replay_launches = {
             name: w.launches - before[name] for name, w in wrappers.items()
             if w.launches != before[name]}
         if pool0 is not None:
-            self.graph_bytes = _pool_bytes(self.pool) - pool0
+            m.graph_bytes = _pool_bytes(m.pool) - pool0
 
 
 class ExecutorCache:
@@ -308,9 +425,16 @@ class ExecutorCache:
     ``bucket_for(n)`` picks the smallest bucket >= n.  The first plan
     built at a resolution becomes the donor for every later bucket at
     that resolution (``plan_program(..., reuse=)``).  ``device`` defaults
-    to the CUDA card; without one, and without ``device="cpu"``, the
-    constructor raises.  ``params`` move to ``device``.  On the card a
-    build ends with the executor's warm-up and capture.
+    to the CUDA card (to the first mesh device when ``devices`` is
+    given); without one, and without ``device="cpu"``, the constructor
+    raises.  ``params`` move to ``device``.  On the card a build ends
+    with the executor's warm-up and capture.
+
+    ``devices`` (names or ``torch.device``s, one fault domain each,
+    repeats allowed: ``("cuda:0",) * 4`` is four domains on one card,
+    ``("cpu",) * 4`` four on the CPU) makes every executor a batch shard
+    over the surviving domains of ``health`` (``serving.sharding``);
+    ``None`` serves each key on ``device`` alone.
 
     ``autotune`` lets each key's plan sweep the tuners' candidates on the
     card where the autotune cache has no entry (at build, before the
@@ -319,7 +443,8 @@ class ExecutorCache:
     SiteOverride}``) reach every plan the cache builds (a ladder
     demotion still wins).  ``faults`` / ``neg_ttl_s`` / ``clock`` are the
     fault-tolerance knobs (see the module docstring); all default to
-    inert.
+    inert.  ``tracer`` (an ``obs.trace.Tracer``) records builds, ladder
+    moves and mesh shrinks.
     """
 
     def __init__(self, params, cfg: EfficientViTConfig, *,
@@ -328,10 +453,25 @@ class ExecutorCache:
                  autotune: bool = True, epilogues: bool = True,
                  overrides=None, capacity: int | None = None,
                  telemetry: Telemetry | None = None, device=None,
-                 faults=None, neg_ttl_s: float = 1.0, clock=None):
+                 faults=None, neg_ttl_s: float = 1.0, clock=None,
+                 devices=None, tracer=None):
         if not buckets or any(b < 1 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets}")
-        self.device = resolve_device(device)
+        # obs.trace.Tracer (or None): build spans land on the
+        # "executors" track; ladder moves and mesh shrinks are recorded
+        # as zero-duration marks.  Host clocks only.
+        self.tracer = tracer
+        # devices=None -> one device per executor; a device list (even
+        # of one) -> every executor is a batch shard over the survivors
+        self.health = DeviceHealth.of(devices) if devices is not None \
+            else None
+        if self.health is not None:
+            self.health.tracer = tracer
+            self.device = physical_device(
+                device if device is not None
+                else self.health.devices[0].device)
+        else:
+            self.device = resolve_device(device)
         self.params = tree_to(params, self.device)
         self.cfg = cfg
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
@@ -345,15 +485,20 @@ class ExecutorCache:
         self.faults = faults
         self.neg_ttl_s = float(neg_ttl_s)
         self.clock = clock if clock is not None else time.monotonic
-        # the graphs share one memory pool and one stream (the allocator
-        # reuses a pool's free blocks only on the stream that freed them):
-        # they capture and replay one after another on that stream
-        cuda = self.device.type == "cuda"
-        self.pool = torch.cuda.graph_pool_handle() if cuda else None
-        # the executors whose graphs live in ``pool`` (None until the
-        # first capture into it)
-        self._pool_users: Optional[weakref.WeakSet] = None
-        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        # the param tree per physical device of the mesh (params itself
+        # on its own device), shared by every sharded executor
+        self._replicas: dict = {}
+        # the graphs of one physical device share one memory pool:
+        # {device: [pool handle, the executors alive in it (None until
+        # the first capture into it)]}
+        self._pools: dict = {}
+        # member i of every key on device d captures and replays on the
+        # stream (d, i) (the allocator reuses a pool's free blocks only
+        # on the stream that freed them): the unsharded graphs all share
+        # the cache's stream, (device, 0), one after another on it
+        self._member_streams: dict = {}
+        self.stream = self._member_stream(self.device, 0) \
+            if self.device.type == "cuda" else None
         # one build, capture or replay at a time, whichever thread asks
         self._lock = threading.RLock()
         self._lru: "collections.OrderedDict[ExecutorKey, Executor]" = \
@@ -382,6 +527,46 @@ class ExecutorCache:
             out.append(self.bucket_for(n))
         return out
 
+    # -- graph pools -------------------------------------------------------
+    def _pool_entry(self, device) -> list:
+        key = physical_device(device) if device.type == "cuda" else device
+        entry = self._pools.get(key)
+        if entry is None:
+            entry = self._pools[key] = [torch.cuda.graph_pool_handle(),
+                                        None]
+        return entry
+
+    @property
+    def pool(self):
+        """The graph pool of the cache's own device (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        return self._pool_entry(self.device)[0]
+
+    def _fresh_pool(self, device) -> None:
+        """Start another pool on ``device`` (the old one's memory goes
+        back at the allocator's next release of cached memory)."""
+        entry = self._pool_entry(device)
+        entry[0], entry[1] = torch.cuda.graph_pool_handle(), None
+
+    def _usable_pool(self, device):
+        """``device``'s pool, after starting a new one if a ladder move
+        or an eviction dropped the pool's last graph: PyTorch refuses a
+        capture into a pool whose graphs are all gone (an internal
+        assert) until it has freed the pool.  Returns (pool, the pool's
+        live executors, held until the capture ends)."""
+        entry = self._pool_entry(device)
+        live = list(entry[1] or ())
+        if entry[1] is not None and not live:
+            self._fresh_pool(device)
+        return entry[0], live
+
+    def _member_stream(self, device, slot: int):
+        key = (device, slot)
+        if key not in self._member_streams:
+            self._member_streams[key] = torch.cuda.Stream(device)
+        return self._member_streams[key]
+
     # -- the cache -------------------------------------------------------
     def _key(self, batch: int, resolution: int) -> ExecutorKey:
         return ExecutorKey(int(batch), int(resolution), self.precision,
@@ -409,16 +594,32 @@ class ExecutorCache:
                     raise err from cause
                 del self._neg[key]
             self.telemetry.count("executor_miss")
+            bspan = None
+            if self.tracer is not None:
+                bspan = self.tracer.begin(
+                    "executor.build", track="executors", bucket=key.batch,
+                    resolution=key.resolution, precision=key.precision)
             try:
-                ex = self._build(key)
+                ex = self._build(key, parent=bspan)
+            except MeshExhausted as e:
+                # nothing was built and no domain comes back: the typed
+                # error itself, not wrapped and not negative-cached
+                self.telemetry.count("executor_build_failed")
+                self._t_end(bspan, error=type(e).__name__)
+                raise
             except ReproError as e:
                 self._note_build_failure(key, e)
+                self._t_end(bspan, error=type(e).__name__)
                 raise
             except Exception as e:   # untyped crash inside lower/plan
                 err = ExecutorError(f"executor build failed for {key}: {e}",
                                     key=key)
                 self._note_build_failure(key, err)
+                self._t_end(bspan, error=type(e).__name__)
                 raise err from e
+            self._t_end(bspan, fused_sites=len(ex.fused_sites),
+                        degraded=ex.degraded is not None
+                        and ex.degraded.degraded)
             self._lru[key] = ex
             while self.capacity is not None \
                     and len(self._lru) > self.capacity:
@@ -429,6 +630,18 @@ class ExecutorCache:
                     self._donor_plans.pop(evicted.resolution, None)
             return ex
 
+    # -- tracing helpers (no-ops without a tracer) -----------------------
+    def _t_end(self, span, **attrs) -> None:
+        if self.tracer is not None and span is not None:
+            self.tracer.end(span, **attrs)
+
+    def _t_mark(self, name: str, **attrs) -> None:
+        """Zero-duration mark on the executors track (ladder moves, mesh
+        shrinks): a begin/end pair at one clock reading."""
+        if self.tracer is not None:
+            self.tracer.end(self.tracer.begin(name, track="executors",
+                                              **attrs))
+
     def _note_build_failure(self, key: ExecutorKey,
                             err: ReproError) -> None:
         """Count a failed build and negative-cache its key.  Nothing was
@@ -438,25 +651,42 @@ class ExecutorCache:
         if self.neg_ttl_s > 0:
             self._neg[key] = (self.clock() + self.neg_ttl_s, err)
 
-    def _build(self, key: ExecutorKey) -> Executor:
+    def _build(self, key: ExecutorKey, parent=None) -> Executor:
+        # pick the device slice first: an exhausted mesh raises its typed
+        # error before any build work (or build fault) runs
+        shard = self.health.shard_for(key.batch) \
+            if self.health is not None else None
         if self.faults is not None:
             self.faults.fire("executor.compile", batch=key.batch,
                              resolution=key.resolution,
                              precision=key.precision)
         state = self._degrade.get(key)
-        program = lower(self.cfg, batch=key.batch,
+        lspan = None
+        if self.tracer is not None:
+            lspan = self.tracer.begin("lower", parent=parent)
+        # a sharded executor lowers and plans at the LOCAL batch: each
+        # member runs its own slice of the bucket
+        program = lower(self.cfg,
+                        batch=shard.local_batch if shard is not None
+                        else key.batch,
                         image_size=key.resolution)
+        self._t_end(lspan)
         plan, donate = None, False
         if self.use_plan and not (state is not None and state.level >= 2):
             precision = "fp" if (state is not None and state.pinned_fp) \
                 else self.precision
             donor = self._donor_plans.get(key.resolution)
+            pspan = None
+            if self.tracer is not None:
+                pspan = self.tracer.begin("plan", parent=parent,
+                                          reused_donor=donor is not None)
             plan = plan_program(program, self.params, precision=precision,
                                 reuse=donor, autotune=self.autotune,
                                 epilogues=self.epilogues,
                                 overrides=self.overrides,
                                 demote=(state.demoted if state is not None
                                         else ()))
+            self._t_end(pspan)
             self.telemetry.count("plans_built")
             reused = sum(d.reused for d in plan.decisions.values())
             if reused:
@@ -464,56 +694,121 @@ class ExecutorCache:
             # degraded plans never become donors: their demotions and
             # forced precision must not leak into healthy buckets
             donate = donor is None and (state is None or not state.degraded)
-            self._warm_weight_packs(program, plan)
-        cuda = self.device.type == "cuda"
-        # the pool's live executors, held until the capture ends: PyTorch
-        # refuses a capture into a pool whose graphs are all gone (an
-        # internal assert) until it has freed the pool
-        live = list(self._pool_users or ())
-        if cuda and self._pool_users is not None and not live:
-            # a ladder move or an eviction dropped the pool's last graph:
-            # start another pool; the old one's memory goes back at the
-            # allocator's next release of cached memory
-            self._new_pool()
-        ex = Executor(key, program, plan, self.device, faults=self.faults,
-                      degraded=state, pool=self.pool, stream=self.stream,
-                      lock=self._lock)
-        if cuda:
-            try:
-                ex.warm(self.params)   # a capture that fails fails the build
-            except ExecutorError:
-                # PyTorch refuses every later capture into a pool that
-                # saw a failed one ("already recording to mempool_id"):
-                # later builds capture into a fresh pool, and the graphs
-                # already captured keep theirs
-                self._new_pool()
-                raise
-            if self._pool_users is None:
-                self._pool_users = weakref.WeakSet()
-            self._pool_users.add(ex)
+        # (device, mesh id, param tree) per member: a sharded key's params
+        # replicated once per physical device of the shard (every key
+        # reuses the trees already moved), None for the call's own tree
+        if shard is None:
+            spots = [(self.device, None, None)]
+        else:
+            replicate(self.params, shard.devices, self._replicas)
+            spots = [(d.device, d.id, self._replicas[d.device])
+                     for d in shard.devices]
+        if plan is not None:
+            # one resident pack per physical device: the domains of one
+            # card share one tree
+            trees = {id(t): t for t in (tree if tree is not None
+                                        else self.params
+                                        for _, _, tree in spots)}
+            for tree in trees.values():
+                self._warm_weight_packs(program, plan, tree)
+        ex = self._new_executor(key, program, plan, state, shard, spots)
         if donate:
             self._donor_plans[key.resolution] = plan
         return ex
 
-    def _new_pool(self) -> None:
-        self.pool = torch.cuda.graph_pool_handle()
-        self._pool_users = None
+    def _new_executor(self, key, program, plan, state, shard, spots):
+        """The executor of a built (program, plan), one member per
+        (device, mesh id, param tree) of ``spots``; on the card its
+        members warm up and capture here, and a capture that fails
+        fails the build."""
+        cuda = self.device.type == "cuda"
+        held = []        # the pools' live executors, until capture ends
+        members = []
+        for i, (dev, domain, tree) in enumerate(spots):
+            pool = stream = None
+            if cuda:
+                pool, live = self._usable_pool(dev)
+                held += live
+                stream = self._member_stream(dev, i)
+            lo, hi = shard.rows(i) if shard is not None else (0, key.batch)
+            members.append(_Member(dev, lo, hi, params=tree, stream=stream,
+                                   pool=pool, domain=domain))
+        ex = Executor(key, program, plan, self.device, members,
+                      faults=self.faults, degraded=state, lock=self._lock,
+                      shard=shard)
+        if not cuda:
+            return ex
+        try:
+            ex.warm(self.params)   # a capture that fails fails the build
+        except ExecutorError:
+            # PyTorch refuses every later capture into a pool that saw a
+            # failed one ("already recording to mempool_id"): later
+            # builds capture into fresh pools, and the graphs already
+            # captured keep theirs
+            for m in ex.members:
+                if m.pool == self._pool_entry(m.device)[0]:
+                    self._fresh_pool(m.device)
+            raise
+        for m in ex.members:
+            entry = self._pool_entry(m.device)
+            if entry[1] is None:
+                entry[1] = weakref.WeakSet()
+            entry[1].add(ex)
+        del held
+        return ex
 
-    def _warm_weight_packs(self, program, plan) -> None:
+    def _warm_weight_packs(self, program, plan, params) -> None:
         """Build (or hit) the resident weight pack of every super-site
-        group of ``plan`` at build time, so no request pays the packing,
-        and count which.  The pack cache keys on (param tree, precision,
-        chain), not on resolution or batch: every bucket after the first
-        counts a ``weight_pack_hit``."""
+        group of ``plan`` on ``params`` at build time, so no request pays
+        the packing, and count which.  The pack cache keys on (param
+        tree, precision, chain), not on resolution or batch: every
+        bucket after the first counts a ``weight_pack_hit``, and each
+        physical device of a mesh holds one pack (``weight_pack_built``
+        once per device)."""
         if not plan.groups:
             return
         from repro_torch.core.program import SuperSite
         from repro_torch.kernels.supersite.pack import get_pack
         for g in plan.groups.values():
             sup = SuperSite.of(program, g.members, name=g.name)
-            _, hit = get_pack(self.params, sup, g.precision)
+            _, hit = get_pack(params, sup, g.precision)
             self.telemetry.count(
                 "weight_pack_hit" if hit else "weight_pack_built")
+
+    # -- per-device fault domains ----------------------------------------
+    @property
+    def mesh_exhausted(self) -> bool:
+        """True when a device mesh is configured and fully dead."""
+        return self.health is not None and self.health.exhausted
+
+    def on_device_lost(self, device_id: int | None) -> bool:
+        """Shrink the mesh around a dead domain.
+
+        Marks it dead in the health registry, evicts every cached
+        executor whose shard held it (the next ``get`` replans on the
+        survivors at the new local batch; a dispatch still in flight
+        holds its own executor and graphs) and clears the negative
+        cache, whose entries may record failures the dead domain caused.
+        Donor plans survive.  Returns True when the mesh shrank (a newly
+        dead domain)."""
+        if self.health is None or device_id is None:
+            return False
+        with self._lock:
+            if not self.health.mark_dead(device_id):
+                return False
+            self.telemetry.count("device_lost")
+            self.telemetry.record_device_error(device_id, lost=True)
+            self._t_mark("mesh.shrink", device=device_id,
+                         alive=self.health.n_alive,
+                         epoch=self.health.epoch)
+            stale = [k for k, ex in self._lru.items()
+                     if ex.shard is not None and device_id in ex.device_ids]
+            for k in stale:
+                del self._lru[k]
+            self._neg.clear()
+            if not self.health.exhausted:
+                self.telemetry.count("mesh_shrunk")
+            return True
 
     # -- the degradation ladder ------------------------------------------
     def degradation(self, batch: int, resolution: int
@@ -550,6 +845,9 @@ class ExecutorCache:
                 state, demoted=state.demoted | {site})
         else:
             state = dataclasses.replace(state, level=2)
+        self._t_mark("ladder.degrade", bucket=key.batch,
+                     resolution=key.resolution, site=site,
+                     level=state.level, demoted=sorted(state.demoted))
         return self._apply_degrade(key, state, "degraded")
 
     def pin_fp(self, batch: int, resolution: int) -> DegradeState:
@@ -560,6 +858,8 @@ class ExecutorCache:
         key = self._key(batch, resolution)
         state = dataclasses.replace(
             self._degrade.get(key, DegradeState()), pinned_fp=True)
+        self._t_mark("ladder.pin_fp", bucket=key.batch,
+                     resolution=key.resolution, level=state.level)
         return self._apply_degrade(key, state, "pinned_fp")
 
     # -- introspection / lifecycle --------------------------------------

@@ -24,8 +24,11 @@ Injection points (``FAULT_POINTS``) and what firing one does:
                           finalize-time guard must catch it)
     "queue.overload"      raises ``CapacityExceeded`` at admission
     "device.dropout"      raises ``DeviceLostError`` at a sharded
-                          executor's dispatch.  No effect yet: the port
-                          has no sharded executor
+                          executor's dispatch (``ExecutorCache(devices=)``),
+                          before its replay, blaming one mesh domain
+                          (``FaultSpec.device``, default the shard's
+                          first); the health registry shrinks the mesh
+                          around it (``serving.sharding``)
 
 Every error ``fire`` raises, and every tensor ``corrupt`` returns,
 carries ``injected = True``: on the card only injected faults move the
@@ -34,7 +37,9 @@ degradation ladder (``common.errors``).
 Faults are budgeted: each ``FaultSpec`` fires ``times`` times and then
 disarms, so transient and persistent failures are modeled by the budget,
 and a chaos replay shows that it injected every class (``fired``) and
-that it stops (``exhausted``).
+that it stops (``exhausted``).  ``FaultPlan(tracer=)`` turns every
+consumed firing into a zero-duration ``fault.injected`` mark on the
+``faults`` track of an ``obs.trace.Tracer``, as JAX's does.
 """
 from __future__ import annotations
 
@@ -94,9 +99,12 @@ class FaultPlan:
     alters behavior: every ``fire`` is a no-op.
     """
 
-    def __init__(self, *specs: FaultSpec):
+    def __init__(self, *specs: FaultSpec, tracer=None):
         self.specs = list(specs)
         self.fired: dict[str, int] = {}
+        # optional obs.trace.Tracer: every consumed firing becomes a
+        # zero-duration "fault.injected" mark on the "faults" track
+        self.tracer = tracer
 
     # -- schedule state --------------------------------------------------
     def armed(self, point: str, **ctx) -> Optional[FaultSpec]:
@@ -111,9 +119,16 @@ class FaultPlan:
         """Every scheduled fault has fired its full budget."""
         return all(s.times == 0 for s in self.specs)
 
-    def _consume(self, spec: FaultSpec) -> None:
+    def _consume(self, spec: FaultSpec, **ctx) -> None:
         spec.times -= 1
         self.fired[spec.point] = self.fired.get(spec.point, 0) + 1
+        if self.tracer is not None:
+            safe = {k: (list(v) if isinstance(v, tuple) else v)
+                    for k, v in ctx.items()
+                    if isinstance(v, (bool, int, float, str, tuple))}
+            self.tracer.end(self.tracer.begin(
+                "fault.injected", track="faults", point=spec.point,
+                site=spec.site, note=spec.note, **safe))
 
     # -- injection -------------------------------------------------------
     def fire(self, point: str, **ctx) -> None:
@@ -121,7 +136,7 @@ class FaultPlan:
         spec = self.armed(point, **ctx)
         if spec is None:
             return
-        self._consume(spec)
+        self._consume(spec, **ctx)
         msg = (f"injected fault at {point} (ctx={ctx})"
                + (f": {spec.note}" if spec.note else ""))
         if point == "kernel.launch":
@@ -149,7 +164,7 @@ class FaultPlan:
         spec = self.armed(point, **ctx)
         if spec is None:
             return out
-        self._consume(spec)
+        self._consume(spec, **ctx)
         bad = out.clone()
         bad[..., 0] = float("nan")
         bad.injected = True

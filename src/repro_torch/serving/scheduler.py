@@ -45,8 +45,28 @@ would replan onto the reference path's plain PyTorch, so it retries the
 same executor and ends "failed" with its typed error (counted in
 ``real_failures``).  All of it shows in ``Telemetry``: ``shed`` /
 ``retries`` / ``failed`` / ``degraded`` / ``pinned_fp`` counters and
-per-bucket error counts.  The sharded branches (``DeviceLostError``, ``MeshExhausted``)
-are a later slice of the port.
+per-bucket error counts.
+
+Two failure classes bypass the ladder, as in JAX (``serving.sharding``):
+a ``DeviceLostError`` shrinks the executor cache's mesh instead (the
+rebuild on the survivors is the recovery, so they keep their fused
+plans) and the requests retry, and once the mesh is exhausted every
+affected request fails at once with ``MeshExhausted`` rather than
+burning its retry budget against an empty mesh.  On the card only an
+injected device loss shrinks the mesh, as only an injected fault moves
+the ladder.  Each sharded dispatch records its rows per mesh domain
+(``Telemetry.record_device_dispatch``).
+
+## Tracing
+
+``tracer=`` (an ``obs.trace.Tracer``) records JAX's spans: a
+``request`` span per request (submit -> terminal, with ``retry`` /
+``failover`` / ``degrade`` / ``pin_fp`` / ``watchdog_fired`` / ``shed``
+/ ``failed`` / ``result_cache_hit`` events), a ``queue`` child per stay
+in the queue (a fresh one after each backoff), and per batch ``form``,
+``dispatch``, ``device`` (dispatch to the host's copy of the logits,
+with the shard's domain ids) and ``finalize`` spans listing their
+requests' ids.  Host clocks only: no span boundary waits on the card.
 
 ## The async host loop
 
@@ -78,8 +98,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.errors import (
-    CapacityExceeded, DeadlineExceeded, ExecutorError, NumericsError,
-    ReproError)
+    CapacityExceeded, DeadlineExceeded, DeviceLostError, ExecutorError,
+    MeshExhausted, NumericsError, ReproError)
 from repro_torch.serving.executors import ExecutorCache
 from repro_torch.serving.telemetry import Telemetry
 
@@ -104,6 +124,11 @@ class Request:
     status: str = "pending"              # pending | completed | shed | failed
     error: Optional[ReproError] = None
     retries: int = 0                     # failed dispatch attempts so far
+    # tracing handles (obs.trace spans; None without a tracer): ``span``
+    # is the request's root span (submit -> terminal), ``qspan`` the open
+    # queue-residency child (one per stay in the queue or in backoff)
+    span: Optional[object] = dataclasses.field(default=None, repr=False)
+    qspan: Optional[object] = dataclasses.field(default=None, repr=False)
 
     @property
     def resolution(self) -> int:
@@ -208,14 +233,15 @@ class FixedMicrobatchPolicy:
 @dataclasses.dataclass
 class _InFlight:
     """One dispatched batch: its device output, requests, bucket key,
-    executor (kept alive while the batch runs), dispatch time and, on the
-    card, an event recorded after it."""
+    executor (kept alive while the batch runs), dispatch time, on the
+    card an event recorded after it, and its ``device`` span."""
     out: object
     reqs: list
     key: tuple
     ex: object
     t: float
     done: Optional[torch.cuda.Event] = None
+    devspan: Optional[object] = None
 
 
 class MicroBatchScheduler:
@@ -235,7 +261,8 @@ class MicroBatchScheduler:
     ``backoff_base`` shape the retry-with-exponential-backoff policy;
     ``faults`` is a ``serving.faults.FaultPlan`` consulted at admission
     (the "queue.overload" point); ``watchdog_ms`` bounds a batch's time
-    in flight; ``result_cache`` is the capacity of a ``ResultCache``.
+    in flight; ``result_cache`` is the capacity of a ``ResultCache``;
+    ``tracer`` an ``obs.trace.Tracer`` (None: tracing off).
     """
 
     def __init__(self, cache: ExecutorCache, params, *, policy=None,
@@ -243,9 +270,12 @@ class MicroBatchScheduler:
                  max_queue_depth: int | None = None, max_retries: int = 4,
                  backoff_ms: float = 10.0, backoff_base: float = 2.0,
                  faults=None, watchdog_ms: float | None = None,
-                 result_cache: int | None = None):
+                 result_cache: int | None = None, tracer=None):
         self.cache = cache
         self.params = params
+        # obs.trace.Tracer (or None): span recording is host-clock only,
+        # two clock reads and a deque append per boundary
+        self.tracer = tracer
         self.policy = policy if policy is not None else BucketedPolicy()
         self.telemetry = (telemetry if telemetry is not None
                           else cache.telemetry)
@@ -270,6 +300,23 @@ class MicroBatchScheduler:
     def _device(self):
         return getattr(self.cache, "device", None)
 
+    # -- tracing helpers (no-ops without a tracer) -----------------------
+    def _t_end(self, span, **attrs) -> None:
+        if self.tracer is not None and span is not None:
+            self.tracer.end(span, **attrs)
+
+    def _t_event(self, req: Request, name: str, **attrs) -> None:
+        if self.tracer is not None:
+            self.tracer.event(req.span, name, **attrs)
+
+    def _t_close(self, req: Request, status: str) -> None:
+        """Close a request's open spans at a terminal transition."""
+        if self.tracer is None:
+            return
+        self._t_end(req.qspan)
+        req.qspan = None
+        self._t_end(req.span, status=status)
+
     # -- terminal states (the no-lost / no-duplicated invariant) ---------
     def _shed(self, req: Request, err: ReproError) -> None:
         assert req.status == "pending", (req.rid, req.status)
@@ -278,11 +325,15 @@ class MicroBatchScheduler:
         self.telemetry.count(
             "shed_deadline" if isinstance(err, DeadlineExceeded)
             else "shed_capacity")
+        self._t_event(req, "shed", error=type(err).__name__)
+        self._t_close(req, "shed")
 
     def _fail(self, req: Request, err: ReproError) -> None:
         assert req.status == "pending", (req.rid, req.status)
         req.status, req.error = "failed", err
         self.telemetry.count("failed")
+        self._t_event(req, "failed", error=type(err).__name__)
+        self._t_close(req, "failed")
 
     # -- admission -------------------------------------------------------
     def submit(self, req: Request) -> bool:
@@ -293,6 +344,9 @@ class MicroBatchScheduler:
         with self._lock:
             req.arrival = self.clock()
             self.telemetry.count("submitted")
+            if self.tracer is not None:
+                req.span = self.tracer.begin(
+                    "request", rid=req.rid, resolution=req.resolution)
             if self.results is not None:
                 hit = self.results.get(req.image)
                 if hit is not None:
@@ -300,6 +354,8 @@ class MicroBatchScheduler:
                     req.status = "completed"
                     self.telemetry.count("result_cache_hit")
                     self.telemetry.count("completed")
+                    self._t_event(req, "result_cache_hit")
+                    self._t_close(req, "completed")
                     return True
                 self.telemetry.count("result_cache_miss")
             if self.faults is not None:
@@ -315,6 +371,8 @@ class MicroBatchScheduler:
                     f"admission queue full ({self.max_queue_depth}); "
                     f"request {req.rid} shed"))
                 return False
+            if self.tracer is not None:
+                req.qspan = self.tracer.begin("queue", parent=req.span)
             self._queues.setdefault(req.resolution,
                                     collections.deque()).append(req)
             self._work.notify_all()
@@ -407,6 +465,13 @@ class MicroBatchScheduler:
                     if take == 0:
                         break
                     reqs = [q.popleft() for _ in range(take)]
+                    if self.tracer is not None:
+                        with self.tracer.span(
+                                "form", resolution=res, bucket=size,
+                                rids=[r.rid for r in reqs]):
+                            for r in reqs:
+                                self._t_end(r.qspan)
+                                r.qspan = None
                     self._dispatch(res, reqs, size)
                     dispatched += take
             return dispatched
@@ -428,15 +493,23 @@ class MicroBatchScheduler:
                   bucket: int) -> None:
         now = self.clock()
         key = (bucket, resolution, self.cache.precision)
+        rids = [r.rid for r in reqs]
+        dspan = None
+        if self.tracer is not None:
+            dspan = self.tracer.begin(
+                "dispatch", rids=rids, bucket=bucket,
+                resolution=resolution, precision=self.cache.precision)
         try:
             ex = self.cache.get(bucket, resolution)
         except ReproError as e:
+            self._t_end(dspan, error=type(e).__name__)
             self._on_failure(resolution, reqs, key, e)
             return
         try:
             out = ex(self.params, self._stage(reqs, bucket, resolution))
         except ReproError as e:
-            self._on_failure(resolution, reqs, key, e)
+            self._t_end(dspan, error=type(e).__name__)
+            self._on_failure(resolution, reqs, key, e, ex=ex)
             return
         done = None
         dev = self._device()
@@ -447,11 +520,23 @@ class MicroBatchScheduler:
             key, len(reqs), bucket,
             queue_depth=len(self._queues.get(resolution, ())),
             wait_ms=[(now - r.arrival) * 1e3 for r in reqs])
-        self._pending.append(_InFlight(out, reqs, key, ex, now, done))
+        if getattr(ex, "shard", None) is not None:
+            self.telemetry.record_device_dispatch(
+                ex.device_ids, len(reqs), bucket)
+        # the "device" span is the host-observed in-flight window:
+        # dispatch -> the host's copy of the logits; nothing waits here
+        devspan = None
+        if self.tracer is not None:
+            devspan = self.tracer.begin(
+                "device", rids=rids, bucket=bucket, resolution=resolution,
+                devices=list(getattr(ex, "device_ids", ()) or ()))
+        self._pending.append(_InFlight(out, reqs, key, ex, now, done,
+                                       devspan))
+        self._t_end(dspan)
 
     # -- failure handling: retry/backoff + the degradation ladder --------
     def _on_failure(self, resolution: int, reqs: List[Request], key,
-                    err: ReproError) -> None:
+                    err: ReproError, ex=None) -> None:
         """One dispatch (or finalize) attempt failed for a whole group.
 
         Attempt 1 of a transient error retries the same executor after
@@ -461,6 +546,11 @@ class MicroBatchScheduler:
         to fp at once.  Requests whose retry budget is spent terminate as
         "failed"; the rest park in the retry buffer with exponential
         backoff.  On the card only an injected fault moves the ladder.
+
+        Two sharding branches, as JAX's: a ``DeviceLostError`` shrinks
+        the mesh instead of moving the ladder (the survivors keep their
+        fused plans) and the group retries; an exhausted mesh fails the
+        group at once, typed ``MeshExhausted``, with no retry.
         """
         self.telemetry.count("dispatch_failures")
         self.telemetry.record_error(key)
@@ -470,15 +560,48 @@ class MicroBatchScheduler:
         bucket = key[0]
         blamed = getattr(err, "site", None)
         dev = self._device()
-        if dev is not None and dev.type == "cuda" and not err.injected:
+        if dev is not None and dev.type == "cuda" and not err.injected \
+                and not isinstance(err, MeshExhausted):
             # a real failure on the card: the ladder would replan onto the
-            # reference path's plain PyTorch; retry the same executor and
-            # end "failed" instead
+            # reference path's plain PyTorch, and a shrink would drop a
+            # domain no drill named; retry the same executor and end
+            # "failed" instead
             self.telemetry.count("real_failures")
+        elif isinstance(err, DeviceLostError):
+            lost = err.device
+            health = getattr(self.cache, "health", None)
+            if lost is None and ex is not None and health is not None:
+                lost = health.attribute(err, ex.shard)
+            if getattr(self.cache, "on_device_lost", None) is not None \
+                    and self.cache.on_device_lost(lost):
+                self.telemetry.count("device_failover", len(reqs))
+                for r in reqs:
+                    self._t_event(r, "failover", device=lost,
+                                  error=type(err).__name__)
         elif isinstance(err, NumericsError):
-            self.cache.pin_fp(bucket, resolution)
-        elif not err.transient or attempt >= 2:
-            self.cache.degrade(bucket, resolution, site=blamed)
+            # fake caches in tests may return None; attrs read softly
+            state = self.cache.pin_fp(bucket, resolution)
+            for r in reqs:
+                self._t_event(r, "pin_fp", site=blamed,
+                              level=getattr(state, "level", None),
+                              error=type(err).__name__)
+        elif not isinstance(err, MeshExhausted) \
+                and (not err.transient or attempt >= 2):
+            state = self.cache.degrade(bucket, resolution, site=blamed)
+            for r in reqs:
+                self._t_event(r, "degrade", site=blamed,
+                              level=getattr(state, "level", None),
+                              demoted=sorted(getattr(state, "demoted",
+                                                     ()) or ()),
+                              error=type(err).__name__)
+        if isinstance(err, MeshExhausted) \
+                or getattr(self.cache, "mesh_exhausted", False):
+            if not isinstance(err, MeshExhausted):
+                err = MeshExhausted(
+                    f"mesh exhausted while serving {key}: {err}", key=key)
+            for r in reqs:
+                self._fail(r, err)
+            return
         if attempt > self.max_retries:
             for r in reqs:
                 self._fail(r, err)
@@ -486,6 +609,14 @@ class MicroBatchScheduler:
         self.telemetry.count("retries", len(reqs))
         not_before = self.clock() + self.backoff_ms / 1e3 \
             * self.backoff_base ** (attempt - 1)
+        if self.tracer is not None:
+            for r in reqs:
+                self._t_event(r, "retry", attempt=attempt,
+                              error=type(err).__name__, site=blamed)
+                # backoff is queue time: a fresh residency span
+                self._t_end(r.qspan)
+                r.qspan = self.tracer.begin("queue", parent=r.span,
+                                            retry=attempt)
         self._retry.append((not_before, resolution, list(reqs)))
 
     # -- completion ------------------------------------------------------
@@ -508,19 +639,28 @@ class MicroBatchScheduler:
                 try:
                     arr = _to_host(e.out)          # waits on this batch
                 except ReproError as err:
-                    self._on_failure(key[1], reqs, key, err)
+                    self._t_end(e.devspan, error=type(err).__name__)
+                    self._on_failure(key[1], reqs, key, err, ex=e.ex)
                     continue
                 except RuntimeError as err:        # untyped device error
+                    self._t_end(e.devspan, error=type(err).__name__)
                     self._on_failure(key[1], reqs, key, ExecutorError(
                         f"materializing executor {key} output failed: "
-                        f"{err}", key=key))
+                        f"{err}", key=key), ex=e.ex)
                     continue
+                self._t_end(e.devspan)
+                fspan = None
+                if self.tracer is not None:
+                    fspan = self.tracer.begin(
+                        "finalize", rids=[r.rid for r in reqs],
+                        bucket=key[0], resolution=key[1])
                 if not np.all(np.isfinite(arr[:len(reqs)])):
+                    self._t_end(fspan, error="NumericsError")
                     err = NumericsError(
                         f"non-finite logits delivered by executor {key} "
                         f"(int8 epilogue blow-up signature)", key=key)
                     err.injected = getattr(e.out, "injected", False)
-                    self._on_failure(key[1], reqs, key, err)
+                    self._on_failure(key[1], reqs, key, err, ex=e.ex)
                     continue
                 t = self.clock()
                 degraded = getattr(e.ex, "degraded", None)
@@ -533,8 +673,10 @@ class MicroBatchScheduler:
                     if self.results is not None and healthy \
                             and self.results.put(r.image, arr[i]):
                         self.telemetry.count("result_cache_store")
+                    self._t_close(r, "completed")
                 self.telemetry.record_latency(
                     key, [(t - r.arrival) * 1e3 for r in reqs])
+                self._t_end(fspan)
                 done += len(reqs)
             self.telemetry.count("completed", done)
             if done:
@@ -566,10 +708,13 @@ class MicroBatchScheduler:
         for e in hung:
             self.telemetry.count("watchdog_fired")
             self._hung.append(e)
+            self._t_end(e.devspan, error="watchdog")
+            for r in e.reqs:
+                self._t_event(r, "watchdog_fired", bucket=e.key[0])
             self._on_failure(e.key[1], e.reqs, e.key, DeadlineExceeded(
                 f"batch {e.key} in flight for {(now - e.t) * 1e3:.0f} ms "
                 f"(watchdog bound {self.watchdog_ms:g} ms): declared hung",
-                key=e.key))
+                key=e.key), ex=e.ex)
         return len(hung)
 
     # -- the async host loop ---------------------------------------------

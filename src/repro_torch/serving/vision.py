@@ -9,8 +9,13 @@ is captured there too), and exposed as ``.program`` / ``.plan``.  A
 ``serving.faults.FaultPlan`` (``faults=``) reaches the cache and every
 scheduler the engine vends; ``VisionServeConfig`` sets the schedulers'
 result cache and watchdog, and its ``autotune`` and ``epilogues``
-switches reach every plan.  Sharding, schedule artifacts and tracing are
-later slices of the port.
+switches reach every plan.  ``VisionServeConfig(devices=)`` serves every
+key over a batch mesh of fault domains (``serving.sharding``), and
+``VisionEngine(tracer=)`` threads one ``obs.trace.Tracer`` through the
+cache, every scheduler the engine vends and its fault plan
+(``export_trace`` writes the timeline; ``metrics`` renders the
+telemetry as Prometheus text).  Schedule artifacts are a later slice of
+the port.
 """
 from __future__ import annotations
 
@@ -58,17 +63,24 @@ class VisionServeConfig:
     #                                  in front of admission (None = off)
     watchdog_ms: float | None = None  # in-flight hang bound for the
     #                                   scheduler's watchdog (None = off)
+    devices: tuple | None = None   # device mesh for batch-axis sharding
+    #                                and per-device fault domains, one
+    #                                domain per entry (("cuda:0",) * 4:
+    #                                four on one card); None = one device
 
 
 class VisionEngine:
-    """``device`` defaults to the CUDA card; without a card, and without
+    """``device`` defaults to the CUDA card (the first mesh device when
+    ``serve_cfg.devices`` is set); without a card, and without
     ``device="cpu"``, the constructor raises.  ``overrides``
     (``{site: core.fusion.SiteOverride}``) reach every plan the engine's
-    cache builds."""
+    cache builds.  ``tracer`` (an ``obs.trace.Tracer``, None = tracing
+    off) reaches the cache, every scheduler the engine vends and the
+    fault plan, unless the plan already carries one."""
 
     def __init__(self, params, cfg: EfficientViTConfig,
                  serve_cfg: VisionServeConfig = VisionServeConfig(), *,
-                 device=None, faults=None, overrides=None):
+                 device=None, faults=None, overrides=None, tracer=None):
         if serve_cfg.policy not in ("bucketed", "fixed"):
             raise ValueError(f"policy must be bucketed|fixed, got "
                              f"{serve_cfg.policy!r}")
@@ -84,13 +96,17 @@ class VisionEngine:
         buckets = tuple(sorted(set(buckets) | {mb}))
         self.microbatch = mb
         self.faults = faults  # serving.faults.FaultPlan (chaos testing)
+        self.tracer = tracer
+        if faults is not None and tracer is not None \
+                and getattr(faults, "tracer", None) is None:
+            faults.tracer = tracer
         self.telemetry = Telemetry()
         self.cache = ExecutorCache(
             params, cfg, buckets=buckets, precision=serve_cfg.precision,
             use_plan=serve_cfg.use_plan, autotune=serve_cfg.autotune,
             epilogues=serve_cfg.epilogues, capacity=serve_cfg.capacity,
             telemetry=self.telemetry, device=device, faults=faults,
-            overrides=overrides)
+            overrides=overrides, devices=serve_cfg.devices, tracer=tracer)
         self.params = self.cache.params
         self.device = self.cache.device
         primary = self.cache.get(mb, cfg.image_size)
@@ -101,15 +117,17 @@ class VisionEngine:
     @classmethod
     def quantized(cls, params, cfg: EfficientViTConfig,
                   serve_cfg: VisionServeConfig = VisionServeConfig(), *,
-                  device=None, faults=None) -> "VisionEngine":
+                  device=None, faults=None, tracer=None) -> "VisionEngine":
         """FIX8 serving: quantize an fp32 param tree post-training (BN
         folded, int8 weights per output channel) on ``device`` (default:
         the card) and serve it through the int8 kernels."""
         from repro_torch.core.quantization import quantize_efficientvit
+        if device is None and serve_cfg.devices is not None:
+            device = serve_cfg.devices[0]
         dev = resolve_device(device)
         return cls(quantize_efficientvit(tree_to(params, dev)), cfg,
                    dataclasses.replace(serve_cfg, precision="int8"),
-                   device=dev, faults=faults)
+                   device=dev, faults=faults, tracer=tracer)
 
     # -- batch API -------------------------------------------------------
     def logits(self, images) -> torch.Tensor:
@@ -157,9 +175,24 @@ class VisionEngine:
         kw.setdefault("faults", self.faults)
         kw.setdefault("result_cache", self.serve_cfg.result_cache)
         kw.setdefault("watchdog_ms", self.serve_cfg.watchdog_ms)
+        kw.setdefault("tracer", self.tracer)
         return MicroBatchScheduler(self.cache, self.params, policy=policy,
                                    telemetry=self.telemetry, clock=clock,
                                    **kw)
+
+    def export_trace(self, path: str) -> dict:
+        """Write the engine's request timeline as Chrome trace JSON
+        (``chrome://tracing`` / Perfetto).  Requires a tracer."""
+        if self.tracer is None:
+            raise ValueError("VisionEngine built without tracer=; "
+                             "nothing to export")
+        return self.tracer.export(path)
+
+    def metrics(self):
+        """A ``repro_torch.obs.MetricsRegistry`` over this engine's
+        telemetry (Prometheus text / JSON export)."""
+        from repro_torch.obs.metrics import MetricsRegistry
+        return MetricsRegistry(telemetry=self.telemetry)
 
     def serve(self, requests: list[Request]) -> np.ndarray:
         """Serve ``Request``s (mixed resolutions and deadlines welcome);

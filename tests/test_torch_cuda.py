@@ -1788,6 +1788,159 @@ def test_scalar_constants_exist_before_capture(cuda, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# sharded executors: one graph per mesh member; per-site CUDA events
+# ---------------------------------------------------------------------------
+
+MESH4 = ("cuda:0",) * 4
+
+
+@pytest.mark.parametrize("precision", ["fp", "int8"])
+def test_sharded_members_capture_their_own_graphs(cuda, precision):
+    """Four fault domains on one card at bucket 8: one graph per member
+    (local batch 2), each on its own stream, all in the card's one pool;
+    each capture issued the launches of one local-batch forward; the
+    replay equals the members' eager forwards bit for bit, and the
+    unsharded executor's logits (FIX8 bit for bit, fp32 within 1e-5 of
+    max|logit|)."""
+    cache = _graph_cache(B1_SMOKE, precision, (8,), devices=MESH4)
+    single = _graph_cache(B1_SMOKE, precision, (2, 8))
+    ex = cache.get(8, 64)
+    assert ex.device_ids == (0, 1, 2, 3) and ex.shard.local_batch == 2
+    assert len({id(g) for g in ex.graphs}) == 4 and None not in ex.graphs
+    assert len({m.stream for m in ex.members}) == 4
+    assert len({m.pool for m in ex.members}) == 1
+    per = single.get(2, 64).replay_launches
+    assert ex.member_launches == [per] * 4
+    assert ex.replay_launches == {k: 4 * v for k, v in per.items()}
+    x = _rand(np.random.default_rng(30), cuda, 8, 64, 64, 3)
+    got, added = _replayed(ex, cache.params, x)
+    assert added == {}
+    with torch.inference_mode():
+        eager = torch.cat([execute(ex.program, cache.params,
+                                   x[2 * i:2 * i + 2], plan=ex.plan)
+                           for i in range(4)])
+    _same((got,), (eager,))
+    ref = single.get(8, 64)(single.params, x)
+    if precision == "int8":
+        _same((got,), (ref,))
+    else:
+        d = (got - ref).abs().max().item()
+        assert d <= 1e-5 * max(1.0, ref.abs().max().item()), d
+    partial, _ = _replayed(ex, cache.params, x[:3])
+    with torch.inference_mode():
+        padded = torch.cat([x[:3], x.new_zeros((5, 64, 64, 3))])
+        want = torch.cat([execute(ex.program, cache.params,
+                                  padded[2 * i:2 * i + 2], plan=ex.plan)
+                          for i in range(4)])
+    _same((partial,), (want,))
+
+
+def test_sharded_member_capture_failure_is_typed(cuda, monkeypatch):
+    """A capture that fails on the third member fails the build with a
+    typed ``ExecutorError`` naming it: nothing is cached and nothing
+    serves the mesh eagerly; once the fault is gone the build captures
+    every member into a fresh pool."""
+    real = port_executors.execute
+    captures = []
+
+    def spy(*a, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            captures.append(1)
+            if len(captures) == 3:
+                torch.cuda.current_stream().synchronize()
+        return real(*a, **kw)
+
+    monkeypatch.setattr(port_executors, "execute", spy)
+    clock = ManualClock()
+    cache = _graph_cache(B1_SMOKE, "fp", (4,), devices=MESH4, clock=clock)
+    pool = cache.pool
+    with pytest.raises(ExecutorError, match="member 2, mesh device 2"):
+        cache.get(4, 64)
+    assert len(cache) == 0 and cache.telemetry.counters[
+        "executor_build_failed"] == 1
+    monkeypatch.setattr(port_executors, "execute", real)
+    clock.advance(10.0)
+    ex = cache.get(4, 64)
+    assert None not in ex.graphs and cache.pool != pool
+    x = _rand(np.random.default_rng(31), cuda, 4, 64, 64, 3)
+    with torch.inference_mode():
+        eager = torch.cat([execute(ex.program, cache.params, x[i:i + 1],
+                                   plan=ex.plan) for i in range(4)])
+    _same((ex(cache.params, x),), (eager,))
+
+
+def test_sharded_dropout_on_the_card(cuda):
+    """An injected ``device.dropout`` on domain 3 before the replay: the
+    mesh shrinks 4 -> 3, bucket 4 is recaptured 2-wide, every request
+    completes with the healthy mesh's logits, the ladder never moves;
+    with all four lost, the requests fail typed ``MeshExhausted``."""
+    clock = ManualClock()
+    faults = FaultPlan(FaultSpec("device.dropout", times=1, device=3))
+    cache = _graph_cache(B1_SMOKE, "int8", (4,), devices=MESH4,
+                         clock=clock, faults=faults)
+    sched = MicroBatchScheduler(cache, cache.params, clock=clock,
+                                faults=faults, backoff_ms=0.0)
+    imgs = np.random.default_rng(32).standard_normal(
+        (4, 64, 64, 3)).astype(np.float32)
+    reqs = [Request(i, imgs[i]) for i in range(4)]
+    for r in reqs:
+        sched.submit(r)
+    for _ in range(8):
+        if not sched.outstanding():
+            break
+        sched.step(drain=True)
+        sched.finalize()
+    assert [r.status for r in reqs] == ["completed"] * 4
+    tel = cache.telemetry.counters
+    assert tel["device_lost"] == 1 and tel["mesh_shrunk"] == 1
+    assert cache.degradation(4, 64) is None
+    ex = cache.get(4, 64)
+    assert ex.device_ids == (0, 1) and None not in ex.graphs
+    healthy = _graph_cache(B1_SMOKE, "int8", (4,), devices=MESH4)
+    want = healthy.get(4, 64)(healthy.params, torch.from_numpy(imgs).cuda())
+    assert np.array_equal(np.stack([r.logits for r in reqs]),
+                          want.cpu().numpy())
+    for d in (0, 1, 2):
+        faults.specs.append(FaultSpec("device.dropout", times=1, device=d))
+    late = [Request(10 + i, imgs[i]) for i in range(2)]
+    for r in late:
+        sched.submit(r)
+    for _ in range(8):
+        if not sched.outstanding():
+            break
+        sched.step(drain=True)
+        sched.finalize()
+    assert [r.status for r in late] == ["failed"] * 2
+    assert all(type(r.error).__name__ == "MeshExhausted" for r in late)
+    assert cache.mesh_exhausted and sched.outstanding() == 0
+
+
+def test_profile_execute_times_sites_by_cuda_events(cuda):
+    """``profile_execute`` on the card times each site by a pair of CUDA
+    events (no host clock): every site of the program recorded once per
+    repeat, every window positive, every drift ratio finite."""
+    from repro_torch.obs.profile import drift_report, profile_execute
+    params = init_efficientvit(torch.Generator().manual_seed(0), DEEP,
+                               "cuda")
+    program = lower(DEEP, batch=2)
+    plan = plan_program(program, params, autotune=False)
+    assert plan.groups
+    x = _rand(np.random.default_rng(33), cuda, 2, 64, 64, 3)
+    before = _launches()
+    prof = profile_execute(program, params, x, plan=plan, repeats=2,
+                           warmup=1)
+    added = {n: v - before[n] for n, v in _launches().items()
+             if v != before[n]}
+    assert prof.events and prof.repeats == 2
+    assert set(prof.records) == {s.name for s in program.sites}
+    assert all(t > 0 for v in prof.records.values() for t in v)
+    # the warm-up ran the groups; the two profiled forwards ran none
+    assert added["supersite_fused"] == len(plan.groups)
+    rep = drift_report(program, prof, plan=plan)
+    assert rep.finite()
+
+
+# ---------------------------------------------------------------------------
 # the planner's tuners, B2 / B3 shapes
 # ---------------------------------------------------------------------------
 
