@@ -286,8 +286,39 @@
    (the cluster kernels, the tensor-core GEMMs, the attention kernel, the
    fp32 band kernel), with no memset, no zero fill and no allocation but
    its outputs (none for the attention).
+6b. ``[search fp32]`` / ``[search fix8]``: the offline schedule search
+   and its artifact, B1 at full width and depth (``search_phase``),
+   after section 6: a ``torch.profiler`` capture late in a process lost
+   device events (``tools/profiler_drift.py``), so this phase does not
+   push sections 5 and 6 later; its host seconds may carry the
+   profiler's leftover cost.  A
+   trace of 96 requests from ``--seed`` (Poisson arrivals at 400/s, 75 %
+   at 224 px, 25 % at 256 px) is saved and loaded back (the same
+   fingerprint); ``search(buckets=(1, 2, 4, 8), deadline_ms=20,
+   iters=64)`` runs on the host with a tuner cache of its own (its
+   seconds, the default and searched objectives, the buckets, demoted
+   sites and split boundaries printed; searched <= default).  Two cold
+   starts over the artifact's (bucket, resolution) keys, each on a fresh
+   tuner cache: the default engine (``autotune=True``) and the artifact's
+   (``VisionServeConfig(artifact=path)``), their seconds and sweeps; the
+   artifact engine must sweep nothing and build every plan as the
+   artifact froze it (decisions, groups, blocks).  Every launch counter
+   is set to 0 just before the artifact engine is made and read just
+   after the trace has been served through its scheduler on a
+   ``ManualClock`` (one step per arrival, then the deadline's step and
+   the drain): twice the captures' launches, every kernel of the
+   precision's path launched; every request completed, none a real
+   failure; the dispatches printed beside ``workload``'s model; logits
+   per resolution against the reference forward with 2b's fp32 gates or
+   3b's FIX8 gates; replay = eager at batch 8, 224 and 256 px.  Every
+   kernel case and chain of the artifact's smallest and largest bucket
+   at both resolutions against its plain version (as in 2a / 3a, at the
+   artifact's blocks); the batch-8 replay A/B against the tuned default
+   plan (informational); a JAX-style document (schema 1, no backend,
+   Pallas block keys) refused with ``ArtifactError`` before any tuner is
+   consulted or any kernel launched.
 7. One JSON line with every kernel's launches on its driven run(s)
-   (sections 5, 5a's sharded paths and 4),
+   (sections 5, 5a's sharded paths, 6b's artifact engines and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -374,13 +405,13 @@ def bound(nbytes: float, ops, peak_ops: float = PEAK_FP32_FLOPS
     return (max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations")
 
 
-def served_sites(cfg, batch, plan):
-    """The fusible sites of ``cfg`` at ``batch`` whose kernel a plan runs:
-    every site without a plan, else the fused ones (a site the Hopper fit
-    declined runs the reference path), and the names of those in a
-    super-site group."""
+def served_sites(cfg, batch, plan, image_size=None):
+    """The fusible sites of ``cfg`` at ``batch`` (and ``image_size``, the
+    config's by default) whose kernel a plan runs: every site without a
+    plan, else the fused ones (a site the Hopper fit declined runs the
+    reference path), and the names of those in a super-site group."""
     from repro_torch.core.program import lower
-    sites = lower(cfg, batch=batch).fusible()
+    sites = lower(cfg, batch=batch, image_size=image_size).fusible()
     if plan is None:
         return sites, GROUPED
     d = plan.decisions
@@ -392,10 +423,11 @@ def served_sites(cfg, batch, plan):
             {x.name for x in sites if d[x.name].group})
 
 
-def kernel_cases(batch: int, gen, cfg=None, plan=None):
+def kernel_cases(batch: int, gen, cfg=None, plan=None, image_size=None):
     """(kernel, site names, shape label, kernel fn, plain fn, bytes,
-    flops) for every distinct fused shape of ``cfg`` (B1) at 224 px and
-    ``batch`` (the sites ``plan`` fuses, every site without one).  The
+    flops) for every distinct fused shape of ``cfg`` (B1) at
+    ``image_size`` (the config's, 224 px for B1) and ``batch`` (the sites
+    ``plan`` fuses, every site without one).  The
     names are the sites whose per-site launch the served (grouped) plan
     makes; a shape only the super-site members have is still checked,
     with no site to its name (the per-site plan launches it)."""
@@ -414,7 +446,7 @@ def kernel_cases(batch: int, gen, cfg=None, plan=None):
         return (torch.randn(shape, generator=gen) * scale).cuda()
 
     groups: dict = {}
-    fused, grouped = served_sites(cfg or B1, batch, plan)
+    fused, grouped = served_sites(cfg or B1, batch, plan, image_size)
     for site in fused:
         groups.setdefault((site.kind, decision_shape(site)), []).append(site)
     cases = []
@@ -473,10 +505,12 @@ def kernel_cases(batch: int, gen, cfg=None, plan=None):
 
 
 
-def int8_kernel_cases(batch: int, gen, cfg=None, plan=None):
+def int8_kernel_cases(batch: int, gen, cfg=None, plan=None,
+                      image_size=None):
     """(kernel, site names, shape label, kernel fn, plain fn, bytes, int8
     ops, library fn or None) for every distinct int8 kernel shape of the
-    FIX8 path of ``cfg`` (B1) at 224 px and ``batch`` (the sites ``plan``
+    FIX8 path of ``cfg`` (B1) at ``image_size`` (the config's) and
+    ``batch`` (the sites ``plan``
     fuses; MBConvs whose epilogue emits take the emitting kernel, the
     non-residual ones without a plan), on random int8 codes, named as in
     ``kernel_cases``.  Each fn returns a tuple of tensors."""
@@ -512,7 +546,7 @@ def int8_kernel_cases(batch: int, gen, cfg=None, plan=None):
         return sum(t.numel() * t.element_size() for t in ts)
 
     groups: dict = {}
-    fused, grouped = served_sites(cfg or B1, batch, plan)
+    fused, grouped = served_sites(cfg or B1, batch, plan, image_size)
     for site in fused:
         shape = decision_shape(site)
         if site.kind == "mbconv":
@@ -903,9 +937,10 @@ def chain_macs(sup) -> int:
     return n
 
 
-def chain_cases(batch: int, gen, params, qparams, cfg=None, plans=None):
-    """(fp32 cases, int8 cases) of the super-site chains of ``cfg`` at 224
-    px and ``batch``, as ``kernel_cases`` / ``int8_kernel_cases`` give
+def chain_cases(batch: int, gen, params, qparams, cfg=None, plans=None,
+                image_size=None):
+    """(fp32 cases, int8 cases) of the super-site chains of ``cfg`` at
+    ``image_size`` (the config's) and ``batch``, as ``kernel_cases`` / ``int8_kernel_cases`` give
     them: random inputs, the weights of the served trees.  Without
     ``plans`` B1's two chains (``GROUPS``) at both precisions, the fp32
     blocks ``choose_blocks``'; with (fp plan, FIX8 plan) each plan's
@@ -918,7 +953,7 @@ def chain_cases(batch: int, gen, params, qparams, cfg=None, plans=None):
     from repro_torch.kernels.supersite.pack import pack_weights
     from repro_torch.kernels.supersite.ref import supersite_ref
 
-    program = lower(cfg or B1, batch=batch)
+    program = lower(cfg or B1, batch=batch, image_size=image_size)
     fp_cases, q_cases = [], []
     if plans is None:
         chains = [(name, members, prec, None) for name, members in
@@ -3352,6 +3387,273 @@ def obs_phases(params, images, wrappers, expected, tag, fix8: bool, gen,
     return launches
 
 
+SEARCH_RES = (224, 256)       # the [search] trace's resolutions
+SEARCH_BUCKETS = (1, 2, 4, 8)
+SEARCH_DEADLINE_MS = 20.0
+
+
+def search_trace(seed: int, n: int = 96, rate: float = 400.0):
+    """``n`` requests, Poisson arrivals at ``rate`` requests/s, 75 % at
+    224 px and 25 % at 256 px, from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    at = np.cumsum(rng.exponential(1.0 / rate, n))
+    res = np.where(rng.random(n) < 0.75, *SEARCH_RES)
+    return [(float(a), int(r)) for a, r in zip(at, res)]
+
+
+def replay_trace(engine, trace, images, deadline_ms):
+    """Serve ``trace`` through the engine's scheduler on a ManualClock as
+    ``search.workload`` models it: one step per arrival, the straggler
+    step once the deadline has passed, then the drain.  Returns the
+    requests."""
+    from repro_torch.serving.scheduler import ManualClock, Request
+    clock = ManualClock()
+    sched = engine.scheduler(clock=clock)
+    reqs = []
+    for i, (at, res) in enumerate(trace):
+        clock.advance_to(at)
+        reqs.append(Request(i, images[res][i], deadline_ms=deadline_ms))
+        sched.submit(reqs[-1])
+        sched.step()
+    clock.advance(deadline_ms / 1e3)
+    sched.step()
+    sched.step(drain=True)
+    sched.finalize()
+    drain(sched, clock)
+    return reqs
+
+
+def search_phase(params, seed, wrappers, expected, gen, max_err,
+                 fix8: bool) -> dict:
+    """``[search]`` at one precision, B1 at full width and depth: the
+    trace (``search_trace``) saved and loaded back; the offline search on
+    the host; two cold starts on fresh tuner caches over the artifact's
+    (bucket, resolution) keys, the default engine (``autotune=True``) and
+    the artifact's (``VisionServeConfig(artifact=path)``), which must run
+    no sweep and build every plan as the artifact froze it; the trace
+    served through the artifact engine's scheduler; every kernel case
+    and chain of its smallest and largest bucket at both resolutions
+    against its plain version; replay = eager at batch 8; the batch-8
+    replay A/B against the tuned default plan; a JAX-style artifact
+    refused.  The launch counters are set to 0 just before the artifact
+    engine is made and read just after the trace is served (the path's
+    launches, returned).  The run's tuner cache is in use again after."""
+    import numpy as np
+    import torch
+    from repro_torch.common.errors import ArtifactError
+    from repro_torch.core.efficientvit import B1
+    from repro_torch.core.program import execute, lower
+    from repro_torch.core.quantization import quantize_efficientvit
+    from repro_torch.kernels import autotune
+    from repro_torch.search import (config_hash, load_trace, save_trace,
+                                    search, trace_fingerprint, workload)
+    from repro_torch.serving.vision import VisionEngine, VisionServeConfig
+
+    tag = f"search {'fix8' if fix8 else 'fp32'}"
+    prec = "int8" if fix8 else "auto"
+    main_cache = os.environ["REPRO_TORCH_AUTOTUNE_CACHE"]
+    out_dir = os.path.join(ROOT, "build", "search")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def make(serve_cfg):
+        if fix8:
+            return VisionEngine.quantized(params, B1, serve_cfg)
+        return VisionEngine(params, B1, serve_cfg)
+
+    # 1. the trace, through its file
+    trace = search_trace(seed)
+    tpath = os.path.join(out_dir, f"trace-{os.getpid()}.json")
+    fp = save_trace(tpath, trace, spec={"n": len(trace), "rate": 400.0,
+                                        "resolutions": SEARCH_RES})
+    if load_trace(tpath) != trace or trace_fingerprint(load_trace(tpath)) \
+            != fp:
+        raise AssertionError(f"{tag}: the trace changed through its file")
+    wl = workload(trace, SEARCH_BUCKETS, deadline_ms=SEARCH_DEADLINE_MS)
+    print(f"[{tag}] trace: {len(trace)} requests over "
+          f"{trace[-1][0] * 1e3:.1f} ms, {sum(r == 256 for _, r in trace)} "
+          f"at 256 px, fingerprint {fp}; workload {sorted(wl.items())}")
+
+    # 2. the search, on the host, with a tuner cache of its own
+    tree = quantize_efficientvit(params) if fix8 else params
+    fresh_cache(f"search-host-{prec}")
+    t0 = time.perf_counter()
+    art = search(B1, tree, trace, buckets=SEARCH_BUCKETS, precision=prec,
+                 deadline_ms=SEARCH_DEADLINE_MS, seed=seed, iters=64)
+    search_s = time.perf_counter() - t0
+    apath = art.save(os.path.join(out_dir, f"{prec}-{os.getpid()}.json"))
+    print(f"[{tag}] search: {search_s:.3f} s on the host, objective "
+          f"{art.default_objective:.1f} -> {art.objective:.1f} cycles "
+          f"({art.objective / art.default_objective:.4f}x); buckets "
+          f"{list(art.buckets)}, demoted {list(art.demoted)}, split "
+          f"{list(art.breaks)}; {len(art.entries)} keys, tuner entries "
+          f"{len(art.tuner_cache)}")
+    if not art.objective <= art.default_objective:
+        raise AssertionError(f"{tag}: searched objective above the "
+                             f"default one")
+    keys = [(b, r) for r in art.resolutions for b in art.buckets]
+    for b, r in ((min(art.buckets), 224), (max(art.buckets), 256)):
+        print(f"[{tag}] artifact {b}x{r}: " + "; ".join(
+            f"{d['name']} {fmt_blocks(d['blocks'])}"
+            for d in art.decisions_for(b, r) if d["fused"]
+            and d["blocks"]) + "; groups " + "; ".join(
+            f"{g['name']} {fmt_blocks(g['blocks'])}"
+            for g in art.groups_for(b, r)))
+
+    # 3. cold starts, each on a fresh tuner cache
+    fresh_cache(f"search-default-{prec}")
+    n0 = autotune.SWEEP_COUNT
+    t0 = time.perf_counter()
+    default = make(VisionServeConfig(microbatch=max(art.buckets),
+                                     buckets=art.buckets))
+    default.warmup(art.resolutions)
+    cold_default = time.perf_counter() - t0
+    sweeps_default = autotune.SWEEP_COUNT - n0
+    fresh_cache(f"search-artifact-{prec}")
+    for w in wrappers.values():
+        w.launches = 0
+    autotune.SWEEP_LAUNCHES.clear()
+    n0 = autotune.SWEEP_COUNT
+    t0 = time.perf_counter()
+    engine = make(VisionServeConfig(artifact=apath))
+    engine.warmup(art.resolutions)
+    cold_art = time.perf_counter() - t0
+    sweeps_art = autotune.SWEEP_COUNT - n0
+    print(f"[{tag}] cold start over {len(keys)} keys: default engine "
+          f"(autotune=True) {cold_default:.3f} s, {sweeps_default} sweeps; "
+          f"artifact engine {cold_art:.3f} s, {sweeps_art} sweeps")
+    if sweeps_art:
+        raise AssertionError(f"{tag}: the artifact engine swept "
+                             f"{sweeps_art} times at cold start")
+    if engine.microbatch != max(art.buckets) \
+            or engine.cache.buckets != art.buckets:
+        raise AssertionError(f"{tag}: buckets {engine.cache.buckets}, "
+                             f"microbatch {engine.microbatch}")
+    for b, r in keys:
+        plan = engine.cache.get(b, r).plan
+        got = [d.to_dict() for d in plan.decisions.values()]
+        groups = [g.to_dict() for g in plan.groups.values()]
+        if got != art.decisions_for(b, r) or groups != art.groups_for(b, r):
+            diff = [(x["name"], x["fused"], x["reason"], x["blocks"])
+                    for x, y in zip(got, art.decisions_for(b, r)) if x != y]
+            raise AssertionError(f"{tag} {b}x{r}: the plan differs from the "
+                                 f"artifact: {diff}; groups {groups}")
+    print(f"[{tag}] every plan of the {len(keys)} keys equals the "
+          f"artifact decision for decision, groups and blocks included")
+
+    # 4. the trace served through the artifact engine's scheduler
+    images = {r: np.random.default_rng(seed + r).standard_normal(
+        (len(trace), r, r, 3)).astype(np.float32) for r in art.resolutions}
+    t0 = time.perf_counter()
+    reqs = replay_trace(engine, trace, images, SEARCH_DEADLINE_MS)
+    serve_s = time.perf_counter() - t0
+    swept = dict(autotune.SWEEP_LAUNCHES)
+    launches = {k: w.launches - swept.get(k, 0) for k, w in wrappers.items()}
+    c = engine.telemetry.counters
+    bad = [(r.rid, r.status, r.error) for r in reqs
+           if r.status != "completed"]
+    dispatched = {(k[0], k[1]): s.dispatches
+                  for k, s in engine.telemetry.buckets.items()
+                  if s.dispatches}
+    print(f"[{tag}] main path: counters at 0, the artifact engine made and "
+          f"warmed ({len(keys)} keys) and {len(reqs)} requests served in "
+          f"{serve_s:.3f} s: launches "
+          f"{ {k: v for k, v in launches.items() if v} }; dispatches "
+          f"{sorted(dispatched.items())} (the workload model: "
+          f"{sorted(workload(trace, art.buckets, deadline_ms=SEARCH_DEADLINE_MS).items())}); "
+          f"real_failures {c.get('real_failures', 0)}")
+    if bad or c.get("real_failures", 0):
+        raise AssertionError(f"{tag}: requests not completed: {bad}")
+    check_healthy(engine, tag)
+    captured: dict = {}
+    for b, r in keys:
+        for k, v in engine.cache.get(b, r).replay_launches.items():
+            captured[k] = captured.get(k, 0) + v
+    if launches != {k: 2 * captured.get(k, 0) for k in wrappers}:
+        raise AssertionError(f"{tag}: launches {launches}, expected twice "
+                             f"the captures' {captured}")
+    for name, per in expected.items():
+        if per and not launches[name]:
+            raise AssertionError(f"{tag}: {name} never launched")
+    for r in art.resolutions:
+        idx = [i for i, (_, res) in enumerate(trace) if res == r]
+        got = torch.from_numpy(np.stack([reqs[i].logits for i in idx]))
+        x = torch.from_numpy(images[r][idx]).cuda()
+        with torch.inference_mode():
+            ref = torch.cat([execute(lower(B1, batch=len(x[i:i + 8]),
+                                           image_size=r),
+                                     engine.params, x[i:i + 8])
+                             for i in range(0, len(x), 8)])
+        check_logits(got, ref, f"{tag} {r} px", fix8=fix8)
+        ex = engine.cache.get(max(art.buckets), r)
+        xb = x[:max(art.buckets)]
+        with torch.inference_mode():
+            eager = execute(ex.program, engine.params, xb, plan=ex.plan)
+        if not torch.equal(ex(engine.params, xb), eager):
+            raise AssertionError(f"{tag} {r} px: replay differs from eager")
+    print(f"[{tag}] replay equals eager bit for bit at batch "
+          f"{max(art.buckets)}, {' and '.join(map(str, art.resolutions))} px")
+
+    # 5. every kernel case and chain the artifact's plans serve
+    scratch = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bytes_s": 0.0, "ops_s": 0.0} for k in wrappers}
+    cases_fn = int8_kernel_cases if fix8 else kernel_cases
+    for r in art.resolutions:
+        for b in sorted({min(art.buckets), max(art.buckets)}):
+            plan = engine.cache.get(b, r).plan
+            chains = chain_cases(b, gen, engine.params, engine.params, B1,
+                                 (plan,), image_size=r)
+            check_kernels(cases_fn(b, gen, B1, plan, image_size=r)
+                          + chains[1 if fix8 else 0], b, scratch, max_err,
+                          exact=fix8, tag=f"{tag} {r} px kernels")
+
+    # 6. the artifact's plan against the tuned default plan (informational)
+    for r in art.resolutions:
+        b = max(art.buckets)
+        xb = torch.from_numpy(images[r][:b]).cuda()
+        ea, ed = engine.cache.get(b, r), default.cache.get(b, r)
+        differ = [n for n, d in ed.plan.decisions.items()
+                  if dict(d.blocks) != dict(ea.plan.decisions[n].blocks)]
+        print(f"[{tag} {r} px] sites whose blocks differ from the tuned "
+              f"default plan: {differ}")
+        replay_ab({"artifact": lambda e=ea, x=xb: e(engine.params, x),
+                   "tuned": lambda e=ed, x=xb: e(default.params, x)},
+                  f"{tag} {r} px")
+    del default
+
+    # 7. a JAX-style document (schema 1, no backend, Pallas block keys)
+    jdoc = {"schema": 1, "config_hash": config_hash(B1), "precision": prec,
+            "trace_fingerprint": fp, "buckets": list(art.buckets),
+            "resolutions": list(art.resolutions),
+            "entries": {"8x224": [{"name": "S1.mb0", "kind": "mbconv",
+                                   "fused": True, "reason": "ok",
+                                   "blocks": {"block_f": 64}}]},
+            "tuner_cache": {"mbconv|b=8": {"block_f": 64}},
+            "objective": 1.0, "default_objective": 1.0, "seed": seed,
+            "config_name": B1.name}
+    jpath = os.path.join(out_dir, f"jax-style-{prec}-{os.getpid()}.json")
+    with open(jpath, "w") as f:
+        json.dump(jdoc, f)
+    consults: list = []
+    autotune.set_fault_hook(lambda kind, key: consults.append(kind))
+    before = {k: w.launches for k, w in wrappers.items()}
+    try:
+        make(VisionServeConfig(artifact=jpath))
+        raise AssertionError(f"{tag}: a JAX-style artifact was adopted")
+    except ArtifactError as e:
+        print(f"[{tag}] a JAX-style artifact refused before any plan: {e}")
+    finally:
+        autotune.set_fault_hook(None)
+    if consults or any(w.launches != before[k]
+                       for k, w in wrappers.items()):
+        raise AssertionError(f"{tag}: the refused artifact planned or "
+                             f"launched: {consults}")
+    del engine
+    gc.collect()
+    use_cache(main_cache)
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3572,6 +3874,14 @@ def main() -> int:
             kernel_profile(*fwd, f"{name} {prec}")
     one_launch_per_site(gen)
 
+    # -- 6b. [search]: a searched schedule, served from its artifact ---
+    stamp("section 6b", t_start)
+    launches_se = {
+        "fp32": search_phase(params, args.seed, wrappers, expected_fp, gen,
+                             max_err, False),
+        "fix8": search_phase(params, args.seed, wrappers, expected_int8,
+                             gen, max_err, True)}
+
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
     rows = []
@@ -3583,7 +3893,9 @@ def main() -> int:
             "replaces": replaces,
             "launches": (launches_fp[name] + launches_q[name]
                          + launches_sh["fp32"][name]
-                         + launches_sh["fix8"][name] + launches_lib[name]),
+                         + launches_sh["fix8"][name]
+                         + launches_se["fp32"][name]
+                         + launches_se["fix8"][name] + launches_lib[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

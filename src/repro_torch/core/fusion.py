@@ -107,6 +107,9 @@ class SiteOverride:
     chooses among launchable schedules only (one that does not fit gets
     ``"vmem"``).  ``group_break=True`` stops the super-site pass from
     extending a chain across this site (a chain may still start here).
+    An override keyed by a super-site group's name (``"S1.ss0"``) with
+    ``blocks`` freezes that chain's blocks (the port's fp chain tuner
+    sweeps on the card; a schedule artifact pins its choice).
     """
     fused: bool | None = None
     precision: str | None = None      # None -> the plan-level request
@@ -279,7 +282,8 @@ def plan_program(program, params, *, fuse_dsconv: bool = True,
     grouping pass last (``_group_supersites``); ``False`` keeps per-site
     launches.  ``overrides``: ``{site name: SiteOverride}``, consulted
     before the planner's own policy (see ``SiteOverride``); a
-    ``group_break`` splits a chain at its site.  ``demote``: site names
+    ``group_break`` splits a chain at its site, and an entry under a
+    group's name freezes that chain's blocks.  ``demote``: site names
     forced to the reference path with reason ``"fault"`` before any
     decision runs (the degradation ladder's lever); it wins over an
     override, and the grouping pass runs after it, so a demoted member
@@ -351,18 +355,25 @@ def build_plan(params, cfg, *, batch: int = 1, image_size: int | None = None,
                         epilogues=epilogues)
 
 
-def _group_blocks(sup, prec, reuse, gname, autotune, device):
+def _group_blocks(sup, prec, reuse, gname, autotune, device,
+                  override=None):
     """(blocks, reused) of a chain, or None when the chain fits no CTA.
-    A donor group qualifies when it has the same name, members and
-    precision and the exact shape: the fp band height follows the
-    batch."""
+    An override under the group's name with ``blocks`` freezes them
+    verbatim (the tuner is not consulted; the fit still runs).  A donor
+    group qualifies when it has the same name, members and precision and
+    the exact shape: the fp band height follows the batch."""
     from repro_torch.kernels.registry import get_kernel
 
+    impl = get_kernel("supersite", prec)
+    if override is not None and override.blocks is not None:
+        blocks = dict(override.blocks)
+        if impl.smem_bytes(sup, blocks) > impl.smem_budget:
+            return None
+        return blocks, False
     g = reuse.groups.get(gname) if reuse is not None else None
     if (g is not None and g.members == sup.members and g.precision == prec
             and tuple(g.shape) == tuple(sup.in_shape) + tuple(sup.out_shape)):
         return dict(g.blocks), True
-    impl = get_kernel("supersite", prec)
     try:
         blocks = impl.tune(sup, autotune=autotune, device=device)
     except Exception as e:
@@ -417,7 +428,8 @@ def _group_supersites(program, decisions, reuse=None, overrides=None, *,
         stage = names[0].split(".", 1)[0]
         gname = f"{stage}.ss{counters.get(stage, 0)}"
         sup = SuperSite.of(program, names, name=gname)
-        fit = _group_blocks(sup, prec, reuse, gname, autotune, device)
+        fit = _group_blocks(sup, prec, reuse, gname, autotune, device,
+                            overrides.get(gname))
         if fit is None:
             return
         counters[stage] = counters.get(stage, 0) + 1

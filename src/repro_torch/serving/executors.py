@@ -69,8 +69,21 @@ exhausted mesh raises ``MeshExhausted`` from ``get`` itself.
 ``executor.build`` span on the ``executors`` track with ``lower`` and
 ``plan`` children (the warm-up and the capture fall inside it), and the
 ladder moves and mesh shrinks as zero-duration marks (``ladder.degrade``,
-``ladder.pin_fp``, ``mesh.shrink``).  Host clocks only.  Schedule
-artifacts (``artifact=``) are a later slice of the port.
+``ladder.pin_fp``, ``mesh.shrink``), as is the adoption of a schedule
+artifact (``artifact.adopt``).  Host clocks only.
+
+## Schedule artifacts
+
+``ExecutorCache(artifact=)`` adopts an offline-searched
+``search.ScheduleArtifact`` as JAX's does: ``validate_for`` first (a
+typed ``ArtifactError`` before anything is built), then the artifact's
+buckets replace the constructor's and its tuner entries are imported.
+Each build pins its plan through ``artifact.overrides_for(batch, or the
+local batch when sharded; resolution)``, so a covered shape plans with
+no tuner consulted and no sweep.  A degraded key plans without the
+artifact (the ladder's ``demote=`` wins), and a shape the artifact does
+not cover plans normally.  ``overrides=`` and ``artifact=`` together are
+refused: one source pins a plan.
 """
 from __future__ import annotations
 
@@ -444,7 +457,8 @@ class ExecutorCache:
     demotion still wins).  ``faults`` / ``neg_ttl_s`` / ``clock`` are the
     fault-tolerance knobs (see the module docstring); all default to
     inert.  ``tracer`` (an ``obs.trace.Tracer``) records builds, ladder
-    moves and mesh shrinks.
+    moves and mesh shrinks.  ``artifact`` (a ``search.ScheduleArtifact``)
+    is adopted as the module docstring says.
     """
 
     def __init__(self, params, cfg: EfficientViTConfig, *,
@@ -454,9 +468,27 @@ class ExecutorCache:
                  overrides=None, capacity: int | None = None,
                  telemetry: Telemetry | None = None, device=None,
                  faults=None, neg_ttl_s: float = 1.0, clock=None,
-                 devices=None, tracer=None):
+                 devices=None, tracer=None, artifact=None):
         if not buckets or any(b < 1 for b in buckets):
             raise ValueError(f"buckets must be positive, got {buckets}")
+        if artifact is not None and overrides:
+            raise ValueError("ExecutorCache takes overrides= or artifact=, "
+                             "not both: one source pins a plan")
+        if artifact is not None:
+            # a mismatched artifact is refused before anything is built;
+            # then the searched buckets replace the constructor's, and
+            # the tuner entries seed the cache for the shapes the pins
+            # do not cover
+            from repro_torch.kernels.autotune import import_entries
+            artifact.validate_for(cfg, precision)
+            buckets = artifact.buckets
+            n_entries = import_entries(artifact.tuner_cache)
+            if tracer is not None:
+                tracer.end(tracer.begin(
+                    "artifact.adopt", track="executors",
+                    config=artifact.config_name or artifact.config_hash,
+                    buckets=list(artifact.buckets), entries=n_entries))
+        self.artifact = artifact
         # obs.trace.Tracer (or None): build spans land on the
         # "executors" track; ladder moves and mesh shrinks are recorded
         # as zero-duration marks.  Host clocks only.
@@ -680,10 +712,19 @@ class ExecutorCache:
             if self.tracer is not None:
                 pspan = self.tracer.begin("plan", parent=parent,
                                           reused_donor=donor is not None)
+            overrides = self.overrides
+            if self.artifact is not None \
+                    and (state is None or not state.degraded):
+                # the searched plan, pinned; None for a shape the
+                # artifact does not cover (a sharded local batch it
+                # lacks), which plans normally
+                overrides = self.artifact.overrides_for(
+                    shard.local_batch if shard is not None else key.batch,
+                    key.resolution)
             plan = plan_program(program, self.params, precision=precision,
                                 reuse=donor, autotune=self.autotune,
                                 epilogues=self.epilogues,
-                                overrides=self.overrides,
+                                overrides=overrides,
                                 demote=(state.demoted if state is not None
                                         else ()))
             self._t_end(pspan)

@@ -14,12 +14,16 @@ key over a batch mesh of fault domains (``serving.sharding``), and
 ``VisionEngine(tracer=)`` threads one ``obs.trace.Tracer`` through the
 cache, every scheduler the engine vends and its fault plan
 (``export_trace`` writes the timeline; ``metrics`` renders the
-telemetry as Prometheus text).  Schedule artifacts are a later slice of
-the port.
+telemetry as Prometheus text).  ``VisionServeConfig(artifact=)`` (a
+``search.ScheduleArtifact`` or a path to one) serves an offline-searched
+schedule: the buckets come from the artifact, the microbatch is its
+largest bucket, and every covered plan is pinned, so a cold start runs
+no autotune sweep (``serving.executors``).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -67,6 +71,10 @@ class VisionServeConfig:
     #                                and per-device fault domains, one
     #                                domain per entry (("cuda:0",) * 4:
     #                                four on one card); None = one device
+    artifact: object | None = None  # an offline-searched ScheduleArtifact
+    #                                 (or a path to one): buckets and
+    #                                 per-site decisions come from the
+    #                                 search (repro_torch.search)
 
 
 class VisionEngine:
@@ -86,14 +94,26 @@ class VisionEngine:
                              f"{serve_cfg.policy!r}")
         self.cfg = cfg
         self.serve_cfg = serve_cfg
-        mb = serve_cfg.microbatch
-        buckets = serve_cfg.buckets
-        if buckets is None:
-            buckets = (mb,) if serve_cfg.policy == "fixed" \
-                else _default_buckets(mb)
-        # the microbatch is always a bucket: chunking must never hand an
-        # n-row batch to an executor built for fewer rows
-        buckets = tuple(sorted(set(buckets) | {mb}))
+        artifact = serve_cfg.artifact
+        if isinstance(artifact, (str, os.PathLike)):
+            from repro_torch.search.artifact import ScheduleArtifact
+            artifact = ScheduleArtifact.load(os.fspath(artifact))
+        self.artifact = artifact
+        if artifact is not None:
+            # the searched bucket set replaces the configured one, and
+            # the microbatch (the primary shape, the chunking unit)
+            # becomes its largest bucket
+            mb = max(artifact.buckets)
+            buckets = artifact.buckets
+        else:
+            mb = serve_cfg.microbatch
+            buckets = serve_cfg.buckets
+            if buckets is None:
+                buckets = (mb,) if serve_cfg.policy == "fixed" \
+                    else _default_buckets(mb)
+            # the microbatch is always a bucket: chunking must never
+            # hand an n-row batch to an executor built for fewer rows
+            buckets = tuple(sorted(set(buckets) | {mb}))
         self.microbatch = mb
         self.faults = faults  # serving.faults.FaultPlan (chaos testing)
         self.tracer = tracer
@@ -106,7 +126,8 @@ class VisionEngine:
             use_plan=serve_cfg.use_plan, autotune=serve_cfg.autotune,
             epilogues=serve_cfg.epilogues, capacity=serve_cfg.capacity,
             telemetry=self.telemetry, device=device, faults=faults,
-            overrides=overrides, devices=serve_cfg.devices, tracer=tracer)
+            overrides=overrides, devices=serve_cfg.devices, tracer=tracer,
+            artifact=artifact)
         self.params = self.cache.params
         self.device = self.cache.device
         primary = self.cache.get(mb, cfg.image_size)

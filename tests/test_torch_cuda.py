@@ -2087,3 +2087,43 @@ def test_group_agg_int8_at_d32(cuda, batch, H, C):
     _same((group_agg_int8(*args, pw, *tail),), (ref,))
     assert group_agg_int8.launches == n + 1
     _same((_group_agg(*args, pw, *tail, path="two-launch"),), (ref,))
+
+
+@pytest.mark.parametrize("precision", ["fp", "int8"])
+def test_artifact_warm_cache_runs_no_sweep(cuda, precision, tmp_path,
+                                           monkeypatch):
+    """B1 searched on the host for bucket 8 and a 224 / 256 px trace,
+    then served from a fresh tuner cache: building every (bucket, resolution) executor of
+    the artifact sweeps nothing, each plan equals the artifact decision
+    for decision, and the batch-8 replay equals its eager forward bit for
+    bit at both resolutions."""
+    from repro_torch.kernels import autotune
+    from repro_torch.search import search
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE",
+                       str(tmp_path / "fresh.json"))
+    autotune.clear_memory_cache()
+    params = init_efficientvit(torch.Generator().manual_seed(0), B1, "cuda")
+    tree = params if precision == "fp" else quantize_efficientvit(params)
+    prec = "auto" if precision == "fp" else "int8"
+    rng = np.random.default_rng(0)
+    trace = [(0.002 * i, 224 if rng.random() < 0.75 else 256)
+             for i in range(32)]
+    art = search(B1, tree, trace, buckets=(8,), precision=prec,
+                 deadline_ms=20.0, seed=0, iters=8)
+    assert art.objective <= art.default_objective
+    assert art.buckets == (8,) and art.resolutions == (224, 256)
+    n = autotune.SWEEP_COUNT
+    cache = ExecutorCache(tree, B1, precision=prec, device="cuda",
+                          artifact=art)
+    for b in art.buckets:
+        for r in art.resolutions:
+            assert [d.to_dict() for d in cache.get(b, r).plan.decisions
+                    .values()] == art.decisions_for(b, r), (b, r)
+    assert autotune.SWEEP_COUNT == n
+    for r in (224, 256):
+        ex = cache.get(8, r)
+        x = _rand(np.random.default_rng(r), cuda, 8, r, r, 3)
+        got = ex(cache.params, x)
+        with torch.inference_mode():
+            want = execute(ex.program, cache.params, x, plan=ex.plan)
+        _same((got,), (want,))
