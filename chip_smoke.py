@@ -317,8 +317,41 @@
    plan (informational); a JAX-style document (schema 1, no backend,
    Pallas block keys) refused with ``ArtifactError`` before any tuner is
    consulted or any kernel launched.
+6c. ``[lm zamba2 fp32]``, ``[lm zamba2 bf16]``, ``[lm mamba2]``: the LM
+   serving path (``lm_phase``), after 6b and with no profiler.  Each
+   model at its published widths and depth, random weights from
+   ``--seed``: Zamba2-1.2B under ``attn_backend="relu_linear"`` (38
+   Mamba-2 layers, the shared attention + MLP block called 6 times) at
+   fp32 and at its config's bf16, and Mamba2-1.3B (48 layers, state
+   128) at fp32.  Each is served by a new ``ServingEngine`` (greedy, 32
+   tokens a request): Zamba2 from 8 slots, prompts of 8, 17, 64, 255,
+   256, 257, 1000, 2048, 4096 and 100 tokens (bf16: and 32768);
+   Mamba2 from 2 slots, prompts of 100, 1000, 2048 and 4096.  Every
+   launch counter is set to 0 just before the engine is made and read
+   just after the run: ``ssd_chunked`` once per Mamba-2 layer and
+   ``relu_attn_causal`` once per call of the shared block, per admitted
+   request (38 and 6; 48 and 0), decode neither, every other kernel
+   never.  Every request ends with 32 tokens.  fp32: each prefill's
+   logits within 1e-3 * max(1, max|logit|) of the reference forward
+   (``build_model(cfg, reference=True)``: the two scans' plain versions
+   on the card), top-1 equal, and the served tokens equal a reference
+   engine's wherever the reference's top-2 margin exceeds that
+   tolerance (each flip printed with its margin; a request is compared
+   up to its first flip).  bf16: every logit finite, each prefill's
+   logits within 0.1 * max|logit| of the bf16 reference forward (the
+   gaps printed).  Printed, informational: the peak allocated memory
+   while serving; decode tokens/s over the served run and one decode
+   step at every slot (host time to enqueue; device time, its launches
+   captured into a CUDA graph and the replay timed by events); prefill
+   tokens/s per prompt length (the served admission's host seconds);
+   at 8, 100, 257, 4096 and 32768 tokens (``LM_PROFILED``) the host time
+   to enqueue a prefill, its device time (its launches captured into a
+   CUDA graph, the replay timed by events), the two scans' share of it
+   and its peak memory, and each scan call held against its plain
+   version and timed (``[lm kernel]`` lines, as ``[library]``).
 7. One JSON line with every kernel's launches on its driven run(s)
-   (sections 5, 5a's sharded paths, 6b's artifact engines and 4),
+   (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's served
+   LM runs and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -641,6 +674,19 @@ def int8_kernel_cases(batch: int, gen, cfg=None, plan=None,
         cases.append((name, names, label, kfn, pfn, nbytes, ops, lib))
     return cases
 
+def causal_ops(n, c, mix, state):
+    """Products of one row of a chunked causal scan over ``n`` tokens in
+    chunks of ``c``: per chunk of L tokens, ``mix`` multiply-adds per
+    causal (query, key) pair (the L(L+1)/2 of the triangle, the masked
+    half never needed), ``state`` per token to read the state (none in
+    the first chunk, whose state is zero) and ``state`` per token to
+    update it (none in the last, whose state no output reads).  ->
+    (triangle flops, read flops, update flops)."""
+    ls = [min(c, n - i) for i in range(0, n, c)]
+    return (sum(L * (L + 1) for L in ls) * mix,
+            2 * state * (n - ls[0]), 2 * state * (n - ls[-1]))
+
+
 def library_cases(seed: int):
     """The kernel-library phase: the four kernels off the vision path,
     each reached through the JAX package's public op at the full width
@@ -694,18 +740,6 @@ def library_cases(seed: int):
                 and torch.equal(out.scale, ref[1])
                 and (not keep or torch.equal(out.fp.reshape(ref[2].shape),
                                              ref[2])))
-
-    def causal_ops(n, c, mix, state):
-        """Products of one row of a chunked causal scan over ``n`` tokens
-        in chunks of ``c``: per chunk of L tokens, ``mix`` multiply-adds
-        per causal (query, key) pair (the L(L+1)/2 of the triangle, the
-        masked half never needed), ``state`` per token to read the state
-        (none in the first chunk, whose state is zero) and ``state`` per
-        token to update it (none in the last, whose state no output
-        reads).  -> (triangle flops, read flops, update flops)."""
-        ls = [min(c, n - i) for i in range(0, n, c)]
-        return (sum(L * (L + 1) for L in ls) * mix,
-                2 * state * (n - ls[0]), 2 * state * (n - ls[-1]))
 
     cases = []
     # int8_matmul_emit: the MSA QKV and output projections of B1@224,
@@ -3654,6 +3688,408 @@ def search_phase(params, seed, wrappers, expected, gen, max_err,
     return launches
 
 
+# the [lm] phase: Zamba2-1.2B (relu_linear) and Mamba2-1.3B served by the
+# LM ServingEngine (prompt lengths, tokens per request)
+LM_PROMPTS = (8, 17, 64, 255, 256, 257, 1000, 2048, 4096, 100)
+LM_MAMBA_PROMPTS = (100, 1000, 2048, 4096)
+LM_LONG = 32768
+LM_TOKENS = 32
+LM_TOL = 1e-3                 # fp32 served vs reference logits, relative
+LM_BF16_TOL = 0.1             # bf16 served vs bf16 reference, of max|logit|
+LM_SCANS = ("ssd_chunked", "relu_attn_causal")
+# prompt lengths profiled on the device, their scan calls held and timed
+LM_PROFILED = (8, 100, 257, 4096, LM_LONG)
+
+
+def lm_scan_calls(cfg) -> dict:
+    """Launches of each scan per served prefill: one ``ssd_chunked`` per
+    Mamba-2 layer, one ``relu_attn_causal`` per call of zamba2's shared
+    block."""
+    attn = (cfg.n_layers // cfg.shared_attn_every
+            if cfg.family == "zamba2" else 0)
+    return {"ssd_chunked": cfg.n_layers, "relu_attn_causal": attn}
+
+
+def lm_engine(cfg, params, slots, max_len, reference=False):
+    """A ``ServingEngine`` whose model records every prefill's logits and
+    host seconds (a synchronize on each side) and every decode step's
+    logits with the request in each slot.  ``reference=True`` gives the
+    engine the reference forward's model (``build_model(cfg,
+    reference=True)``: the scans' plain versions), as a yardstick."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import ServeConfig, ServingEngine
+    eng = ServingEngine(cfg, params, ServeConfig(max_slots=slots,
+                                                 max_len=max_len))
+    rec = {"prefill": [], "prefill_s": [], "decode": []}
+    model = build_model(cfg, reference=True) if reference else eng.model
+
+    def prefill(p, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = model.prefill(p, batch)
+        torch.cuda.synchronize()
+        rec["prefill_s"].append(time.perf_counter() - t0)
+        rec["prefill"].append(logits[0])
+        return logits, caches
+
+    def decode(p, c, t, pos):
+        logits, caches = model.decode(p, c, t, pos)
+        rec["decode"].append(([r.rid if r is not None else None
+                               for r in eng.slot_req], logits))
+        return logits, caches
+
+    eng.model = dataclasses.replace(model, prefill=prefill, decode=decode)
+    return eng, rec
+
+
+def lm_logits_by_request(rec, rids) -> dict:
+    """rid -> the (V,) logits that chose each of its tokens: its
+    prefill's (admissions in ``rids`` order), then each decode step it
+    was active in."""
+    out = {rid: [rec["prefill"][i]] for i, rid in enumerate(rids)}
+    for slots, logits in rec["decode"]:
+        for i, rid in enumerate(slots):
+            if rid is not None:
+                out[rid].append(logits[i])
+    return out
+
+
+def lm_serve(tag, cfg, params, prompts, slots, max_len, wrappers,
+             reference=False):
+    """Serve ``prompts`` (``LM_TOKENS`` each, greedy) through a new
+    engine; the launch counters are set to 0 just before the engine is
+    made and read just after the run, and each scan must have launched
+    ``lm_scan_calls`` times per admitted request (none for the
+    reference engine), every other kernel never.  -> (tokens by rid,
+    logits by rid, launches, record, seconds, engine)."""
+    import torch
+    from repro_torch.serving.engine import Request
+    for w in wrappers.values():
+        w.launches = 0
+    eng, rec = lm_engine(cfg, params, slots, max_len, reference)
+    reqs = [Request(rid=i, prompt=p, max_tokens=LM_TOKENS)
+            for i, p in enumerate(prompts)]
+    t0 = time.perf_counter()
+    done = eng.run(reqs)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if sorted(r.rid for r in done) != list(range(len(prompts))) or any(
+            len(r.out_tokens) != LM_TOKENS for r in done):
+        raise AssertionError(f"[{tag}] {len(done)} of {len(prompts)} "
+                             f"requests finished, tokens "
+                             f"{[len(r.out_tokens) for r in done]}")
+    per = lm_scan_calls(cfg)
+    n = 0 if reference else len(prompts)
+    want = dict.fromkeys(wrappers, 0) | {k: per[k] * n for k in LM_SCANS}
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected "
+                             f"{want}")
+    tokens = {r.rid: r.out_tokens for r in done}
+    return (tokens, lm_logits_by_request(rec, range(len(prompts))),
+            launches, rec, secs, eng)
+
+
+def lm_check_tokens(tag, served, ref_tokens, ref_logits) -> None:
+    """The served tokens equal the reference engine's wherever the
+    reference's top-2 margin exceeds ``LM_TOL`` * max(1, max|logit|),
+    up to each request's first flip (after it the contexts differ).
+    Every flip is printed with its margin."""
+    import torch
+    flips = 0
+    for rid, want in ref_tokens.items():
+        for i, (got, tok) in enumerate(zip(served[rid], want)):
+            if got == tok:
+                continue
+            lg = ref_logits[rid][i].float()
+            top2 = torch.topk(lg, 2).values
+            margin = (top2[0] - top2[1]).item()
+            tol = LM_TOL * max(1.0, lg.abs().max().item())
+            print(f"[{tag}] flip: request {rid} token {i}: served {got}, "
+                  f"reference {tok}, reference margin {margin:.3e} "
+                  f"(tolerance {tol:.3e})")
+            if margin > tol:
+                raise AssertionError(f"[{tag}] request {rid} token {i} "
+                                     f"differs at margin {margin:.3e}")
+            flips += 1
+            break
+    print(f"[{tag}] tokens: {sum(map(len, served.values()))} served, "
+          f"{flips} flips at margins within the tolerance, every other "
+          f"token equal to the reference engine's")
+
+
+def lm_prefill_gate(tag, got, ref, rel, top1: bool) -> float:
+    """One prefill's logits against the reference's: within ``rel`` *
+    max(1, max|ref|) (fp32) or ``rel`` * max|ref| (bf16, ``top1``
+    False), finite, and for fp32 the same top-1.  -> max|d| / max|ref|."""
+    import torch
+    got, ref = got.float(), ref.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"[{tag}] non-finite served logits")
+    d, top = (got - ref).abs().max().item(), ref.abs().max().item()
+    lim = rel * (max(1.0, top) if top1 else top)
+    if not d <= lim:
+        raise AssertionError(f"[{tag}] logits {d:.3e} from the reference "
+                             f"(max|ref| {top:.3e}), above {lim:.3e}")
+    if top1 and int(got.argmax()) != int(ref.argmax()):
+        raise AssertionError(f"[{tag}] top-1 differs from the reference")
+    return d / top
+
+
+def lm_scan_case(name, args, kw, label):
+    """A ``measure`` case of one scan call captured on the served
+    prefill: the wrapper on those inputs against its plain version; the
+    bytes (inputs read once, the fp32 output written once) and products
+    as the library cases count them."""
+    from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
+    from repro_torch.kernels.relu_attn.ref import relu_attn_causal_scan
+    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.ref import ssd_scan_ref
+    import torch
+    C = kw["chunk"]
+    if name == "relu_attn_causal":
+        q = args[0]
+        BH, N, D = q.shape
+        tri, read, update = (BH * t for t in causal_ops(N, C, 2 * D,
+                                                        D * D))
+        ops = (((tri / 2 + update, PEAK_BF16_FLOPS),
+                (tri / 2 + read, PEAK_FP32_FLOPS))
+               if q.dtype == torch.bfloat16 else tri + read + update)
+        nbytes = 3 * q.numel() * q.element_size() + 4 * q.numel()
+        kfn = lambda: relu_attn_causal(*args, **kw)        # noqa: E731
+        pfn = lambda: relu_attn_causal_scan(*args, **kw)   # noqa: E731
+    else:
+        x, Bm = args[0], args[3]
+        BH, S, P = x.shape
+        n = Bm.shape[-1]
+        ops = BH * sum(causal_ops(S, C, n + P, n * P))
+        nbytes = 4 * sum(t.numel() for t in args) + 4 * x.numel()
+        kfn = lambda: ssd_chunked(*args, **kw)             # noqa: E731
+        pfn = lambda: ssd_scan_ref(*args, **kw)            # noqa: E731
+    return (name, [], label, kfn, pfn, nbytes, ops, None)
+
+
+@contextlib.contextmanager
+def lm_scan_probe():
+    """While open, the first scan call from the LM layers at each
+    (kernel, tokens) keeps its inputs: -> {(name, tokens): (args,
+    kwargs)}."""
+    from repro_torch.kernels.relu_attn import ops as relu_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    calls = {}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in (
+        (relu_ops, "relu_attn_causal"), (ssd_ops, "ssd_chunked"))]
+    for mod, name, fn in saved:
+        def probe(*a, _fn=fn, _name=name, **k):
+            calls.setdefault((_name, a[0].shape[1]), (a, k))
+            return _fn(*a, **k)
+        setattr(mod, name, probe)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def graph_ms(fn, reps: int = 1, windows: int = 3) -> float:
+    """Device time of one call of ``fn``, its launches captured into a
+    CUDA graph (after a warm-up call on a side stream) and the replay
+    timed by ``device_ms``.  An eager call of thousands of launches
+    cannot be timed by events behind a sleep kernel: the launch queue
+    fills, the host blocks until the sleep ends, and the window then
+    times the host."""
+    import torch
+    torch.cuda.empty_cache()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = device_ms(graph.replay, reps, windows)
+    del graph
+    return ms
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Host time to enqueue one call of ``fn`` (the card synchronized
+    before, not waited for inside)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def lm_prefill_profile(tag, cfg, model, params, prompts, prefill_s,
+                       max_err, card) -> None:
+    """Informational: per prompt length, prefill tokens/s over the served
+    admission (host seconds, synchronized); at the ``LM_PROFILED``
+    lengths also the host time to enqueue one prefill, its device time
+    (``graph_ms``), the two scans' share of it (each scan call at that
+    length timed alone, times its calls per prefill) and its peak
+    memory, and each scan call held against its plain version and timed
+    (``[lm kernel]`` lines)."""
+    import torch
+    per = lm_scan_calls(cfg)
+    cases = []
+    for p, secs in zip(prompts, prefill_s):
+        line = (f"[{tag}] prefill {len(p)} tokens: {len(p) / secs:.1f} "
+                f"tokens/s served ({secs * 1e3:.3f} ms)")
+        if len(p) not in LM_PROFILED:
+            print(f"{line} [{card}]")
+            continue
+        toks = {"tokens": torch.as_tensor(p, device="cuda")[None]}
+        run = lambda: model.prefill(params, toks)          # noqa: E731
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        with lm_scan_probe() as calls:
+            run()
+        h_ms, d_ms = host_ms(run, 1), graph_ms(run)
+        scans = {}
+        for (name, n), (a, k) in calls.items():
+            case = lm_scan_case(name, a, k, f"{tag} prefill {n} tokens "
+                                f"{tuple(a[0].shape)} {str(a[0].dtype)[6:]}")
+            scans[name] = per[name] * device_ms(case[3], 5, 3)
+            cases.append(case)
+        scan_ms = sum(scans.values())
+        print(f"{line}; host {h_ms:.3f} ms to enqueue, device {d_ms:.3f} "
+              f"ms (graph replay); scans "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in scans.items())
+              + f" ({scan_ms / d_ms:.3f} of the device time); "
+              f"{peak / 2**30:.3f} GiB allocated at its peak beyond the "
+              f"params and caches [{card}]")
+    for case in cases:
+        err, ref_max, *times = measure(case, False, 5, 3)
+        max_err[case[0]] = max(max_err[case[0]], err)
+        kernel_line("lm kernel", case, "", err, ref_max, *times)
+
+
+def lm_decode_profile(tag, eng, decode_tokens, decode_s, card) -> None:
+    """Informational: decode tokens/s over the served run, and one decode
+    step at every slot: the host time to enqueue it and its device time
+    (``graph_ms``), and an estimate of the share of an eager step the
+    card idles: 1 - device / host, which assumes the eager step keeps
+    the card busy as long as the graph replay does (not traced)."""
+    import torch
+    B = eng.cfg.max_slots
+    tokens = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((B,), 300, device="cuda")
+    model, params, caches = eng.model, eng.params, eng.caches
+    step = lambda: model.decode(params, caches, tokens, pos)  # noqa: E731
+    h_ms, d_ms = host_ms(step), graph_ms(step)
+    print(f"[{tag}] decode: {decode_tokens / decode_s:.1f} tokens/s "
+          f"served ({decode_tokens} tokens in {decode_s:.3f} s of decode "
+          f"steps); one step at {B} slots: host {h_ms:.3f} ms to enqueue, "
+          f"device {d_ms:.3f} ms (graph replay): the card idles an "
+          f"estimated {max(0.0, 1 - d_ms / h_ms):.3f} of an eager step "
+          f"(1 - device / host, not traced) [{card}]")
+
+
+def lm_run(tag, cfg, seed, prompts, slots, wrappers, max_err, card, *,
+           fp32: bool) -> dict:
+    """One ``[lm ...]`` sub-phase: random params from ``seed`` on the
+    card, the served run (``lm_serve``), its gates against the reference
+    forward / engine, then the informational timings.  -> the served
+    run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import build_model
+    params = build_model(cfg).init(seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in prompts]
+    max_len = max(map(len, prompts)) + 64      # 4160 at 4096 tokens
+    # warm-up (cuBLAS handles, first allocations): before any counter
+    build_model(cfg).prefill(params, {"tokens": torch.as_tensor(
+        prompts[0][:8], device="cuda")[None]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served, logits, launches, rec, secs, eng = lm_serve(
+        tag, cfg, params, prompts, slots, max_len, wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"[{tag}] {cfg.name} {cfg.param_dtype}/{cfg.compute_dtype} "
+          f"{sum(t.numel() for t in _leaves(params))} params: "
+          f"{len(prompts)} requests x {LM_TOKENS} tokens in {secs:.3f} s "
+          f"from {slots} slots; launches per prefill "
+          f"{lm_scan_calls(cfg)}, run {dict((k, launches[k]) for k in LM_SCANS)}; "
+          f"peak allocated while serving {peak / 2**30:.3f} GiB "
+          f"(params {param_bytes / 2**30:.3f}) [{card}]")
+    ref_model = build_model(cfg, reference=True)
+    gaps = []
+    if fp32:
+        ref_tokens, ref_logits, *_ = lm_serve(
+            tag + " reference", cfg, params, prompts, slots, max_len,
+            wrappers, reference=True)
+        for i, p in enumerate(prompts):
+            gaps.append(lm_prefill_gate(tag, logits[i][0],
+                                        ref_logits[i][0], LM_TOL, True))
+        lm_check_tokens(tag, served, ref_tokens, ref_logits)
+    else:
+        for i, p in enumerate(prompts):
+            ref, _ = ref_model.prefill(params, {"tokens": torch.as_tensor(
+                p, device="cuda")[None]})
+            gaps.append(lm_prefill_gate(tag, logits[i][0], ref[0],
+                                        LM_BF16_TOL, False))
+        for rid, lgs in logits.items():
+            if not all(bool(torch.isfinite(lg.float()).all())
+                       for lg in lgs):
+                raise AssertionError(f"[{tag}] request {rid}: non-finite "
+                                     f"decode logits")
+    print(f"[{tag}] prefill logits vs the reference forward (plain "
+          f"scans), max|d| / max|ref| per prompt: "
+          + ", ".join(f"{len(p)}: {g:.3e}" for p, g in zip(prompts, gaps))
+          + (" (top-1 equal)" if fp32 else " (every logit finite)"))
+    decode_tokens = sum(len(t) - 1 for t in served.values())
+    eng.model = build_model(cfg)        # no recording from here on
+    lm_decode_profile(tag, eng, decode_tokens,
+                      secs - sum(rec["prefill_s"]), card)
+    lm_prefill_profile(tag, cfg, eng.model, params, prompts,
+                       rec["prefill_s"], max_err, card)
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def lm_phase(seed, wrappers, max_err, card) -> dict:
+    """``[lm zamba2 fp32]``, ``[lm zamba2 bf16]`` and ``[lm mamba2]``:
+    the LM serving path at full width and depth.  -> the launches of the
+    three served runs, summed."""
+    from repro_torch.configs import get_arch
+    zamba = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+    fp32 = dict(param_dtype="float32", compute_dtype="float32")
+    runs = [
+        lm_run("lm zamba2 fp32", zamba.scaled(**fp32), seed, LM_PROMPTS, 8,
+               wrappers, max_err, card, fp32=True),
+        lm_run("lm zamba2 bf16", zamba, seed + 1, LM_PROMPTS + (LM_LONG,),
+               8, wrappers, max_err, card, fp32=False),
+        lm_run("lm mamba2", get_arch("mamba2-1.3b").scaled(**fp32),
+               seed + 2, LM_MAMBA_PROMPTS, 2, wrappers, max_err, card,
+               fp32=True)]
+    return {k: sum(r[k] for r in runs) for k in wrappers}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3882,6 +4318,10 @@ def main() -> int:
         "fix8": search_phase(params, args.seed, wrappers, expected_int8,
                              gen, max_err, True)}
 
+    # -- 6c. [lm]: the LM serving path, Zamba2-1.2B and Mamba2-1.3B -----
+    stamp("section 6c", t_start)
+    launches_lm = lm_phase(args.seed, wrappers, max_err, card)
+
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
     rows = []
@@ -3895,7 +4335,8 @@ def main() -> int:
                          + launches_sh["fp32"][name]
                          + launches_sh["fix8"][name]
                          + launches_se["fp32"][name]
-                         + launches_se["fix8"][name] + launches_lib[name]),
+                         + launches_se["fix8"][name] + launches_lib[name]
+                         + launches_lm[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

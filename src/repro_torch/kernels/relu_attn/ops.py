@@ -30,6 +30,8 @@ from repro_torch.kernels.autotune import (
 from repro_torch.kernels.registry import SMEM_LIMIT, KernelBase, register
 from repro_torch.kernels.relu_attn.kernel import (
     relu_attn_causal, relu_attn_noncausal, relu_attn_plan)
+from repro_torch.kernels.relu_attn.ref import (
+    relu_attn_causal_scan, relu_attn_noncausal_ref)
 
 __all__ = ["relu_linear_attention", "msa_attention_fn", "msa_fused_apply",
            "MsaKernel", "MSA_DEFAULT_BLOCK_N", "BLOCK_N_CANDIDATES",
@@ -92,18 +94,22 @@ def _unfold_heads(x, B, H):
 
 
 def relu_linear_attention(q, k, v, *, causal: bool = False,
-                          block_n: int = 256):
+                          block_n: int = 256, reference: bool = False):
     """Fused ReLU linear attention.  q, k, v: (B, N, H, D) -> (B, N, H, D)
     fp32.  Non-causal: one ``relu_attn_noncausal`` launch over the heads
     in place (token tile ``block_n``); causal: the heads fold into rows
     of ``relu_attn_causal`` (chunk ``block_n``), which takes fp32 or bf16
-    as it is."""
+    as it is.  ``reference=True`` runs the kernel's plain version on the
+    same inputs instead, on any device (the LM's reference forward)."""
     if not causal:
+        if reference:
+            return relu_attn_noncausal_ref(q.float(), k.float(), v.float())
         return relu_attn_noncausal(q.float(), k.float(), v.float(),
                                    block_n=block_n)
     B, _, H, _ = q.shape
-    out = relu_attn_causal(_fold_heads(q), _fold_heads(k), _fold_heads(v),
-                           chunk=block_n)
+    scan = relu_attn_causal_scan if reference else relu_attn_causal
+    out = scan(_fold_heads(q), _fold_heads(k), _fold_heads(v),
+               chunk=block_n)
     return _unfold_heads(out, B, H)
 
 

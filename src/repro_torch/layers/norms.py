@@ -1,10 +1,12 @@
-"""Inference-form BatchNorm (channel-last), counterpart of
-``repro/layers/norms.py``.  Reductions and the affine run in fp32."""
+"""Normalization layers, counterpart of ``repro/layers/norms.py``:
+inference-form BatchNorm (channel-last) for EfficientViT, RMSNorm and
+LayerNorm for the LM archs.  Reductions and the affine run in fp32."""
 from __future__ import annotations
 
 import torch
 
-__all__ = ["init_batchnorm", "batchnorm", "bn_fold_scale_bias"]
+__all__ = ["init_batchnorm", "batchnorm", "bn_fold_scale_bias",
+           "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm"]
 
 
 def init_batchnorm(dim: int, dtype=torch.float32, device=None):
@@ -32,3 +34,33 @@ def bn_fold_scale_bias(bn_params, eps: float = 1e-5):
     gamma = bn_params["scale"].float() * inv
     beta = bn_params["bias"].float() - bn_params["mean"].float() * gamma
     return gamma, beta
+
+
+# -- LM norms: RMSNorm and LayerNorm ---------------------------------------
+
+def init_rmsnorm(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params, x, eps: float = 1e-6):
+    """x * rsqrt(mean(x^2) + eps) * scale, in fp32, cast back."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].float()).to(x.dtype)
+
+
+def init_layernorm(dim: int, dtype=torch.float32, device=None):
+    return {"scale": torch.ones((dim,), dtype=dtype, device=device),
+            "bias": torch.zeros((dim,), dtype=dtype, device=device)}
+
+
+def layernorm(params, x, eps: float = 1e-5):
+    """(x - mean) * rsqrt(var + eps) * scale + bias, in fp32, cast
+    back."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)

@@ -1,0 +1,326 @@
+"""Decoder-only LM, counterpart of ``repro/models/lm.py``, for the
+families whose mixers are ported:
+
+  mamba2  — a uniform [Mamba-2] stack (attention-free)
+  zamba2  — a Mamba-2 backbone with ONE shared [attention + MLP] block
+            invoked after every ``shared_attn_every`` Mamba layers
+            (weights reused), on the ``relu_linear`` attention backend
+
+The param and cache trees keep JAX's stacked layout leaf for leaf: a
+uniform stack's leaves are (L, ...); zamba2's Mamba layers are
+(groups, every, ...) under ``mamba_groups`` plus (rem, ...) under
+``mamba_tail``, and the shared block's caches are (groups, ...).  Where
+JAX scans over the stacked axis, the port loops over it in Python.
+
+``reference=True`` (prefill only: decode runs no scan) routes both scans
+to their plain versions on any device; the served path never takes it.
+
+The dense, moe, gemma3 and vlm families (softmax / sliding attention,
+MoE) are not ported yet (ROADMAP A8b, A8c); nor are ``lm_loss`` and
+``chunked_ce_loss`` (training, A8f).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.layers.attention import (
+    AttnConfig, attention, attention_decode, init_attention, init_kv_cache)
+from repro_torch.layers.linear import (
+    embed, init_embedding, init_linear, linear)
+from repro_torch.layers.mamba2 import (
+    Mamba2Config, init_mamba2, init_mamba2_cache, mamba2, mamba2_decode)
+from repro_torch.layers.mlp import MlpConfig, init_mlp, mlp
+from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+
+__all__ = ["attn_cfg", "mlp_cfg", "mamba_cfg", "check_supported",
+           "tree_map", "init_block", "block_apply", "block_decode",
+           "init_block_cache", "init_lm", "forward_hidden", "lm_logits_head",
+           "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step"]
+
+PORTED_FAMILIES = ("mamba2", "zamba2")
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise ``NotImplementedError`` for a family or backend the port
+    does not have yet."""
+    if cfg.family not in PORTED_FAMILIES:
+        item = {"moe": "A8c", "encdec": "A8d"}.get(cfg.family, "A8b")
+        raise NotImplementedError(
+            f"the {cfg.family!r} family ({cfg.name}) is not ported to "
+            f"repro_torch yet (ROADMAP {item})")
+    if cfg.family == "zamba2" and cfg.attn_backend != "relu_linear":
+        raise NotImplementedError(
+            f"{cfg.name}'s shared block with attn_backend="
+            f"{cfg.attn_backend!r} is not ported to repro_torch yet "
+            f"(ROADMAP A8b); scaled(attn_backend='relu_linear') is")
+
+
+# ---------------------------------------------------------------------------
+# sub-config builders
+# ---------------------------------------------------------------------------
+
+def attn_cfg(cfg: ArchConfig, backend: Optional[str] = None) -> AttnConfig:
+    return AttnConfig(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
+        head_dim=cfg.head_dim, backend=backend or cfg.attn_backend,
+        qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
+        fused_qkv=cfg.fused_qkv, dtype=cfg.pdtype)
+
+
+def mlp_cfg(cfg: ArchConfig) -> MlpConfig:
+    return MlpConfig(cfg.d_model, cfg.d_ff, "silu", True, cfg.fused_mlp,
+                     cfg.pdtype)
+
+
+def mamba_cfg(cfg: ArchConfig) -> Mamba2Config:
+    return Mamba2Config(cfg.d_model, cfg.ssm_state, cfg.ssm_conv,
+                        cfg.ssm_expand, cfg.ssm_head_dim,
+                        chunk=cfg.ssm_chunk, dtype=cfg.pdtype)
+
+
+# ---------------------------------------------------------------------------
+# trees
+# ---------------------------------------------------------------------------
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts (and the same keys of
+    ``rest``)."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def _stack(trees):
+    """A list of equal trees -> one tree of leaves stacked on a new axis
+    0."""
+    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+
+
+def _at(tree, i: int):
+    """Entry ``i`` of every leaf's leading (stacked) axis."""
+    return tree_map(lambda a: a[i], tree)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
+               device=None):
+    if kind == "mamba":
+        return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+                "mixer": init_mamba2(generator, mamba_cfg(cfg), device)}
+    if kind != "attn_mlp":
+        raise NotImplementedError(f"block kind {kind!r} is not ported to "
+                                  f"repro_torch yet (ROADMAP A8b, A8c)")
+    return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "attn": init_attention(generator, attn_cfg(cfg), device),
+            "ln2": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "mlp": init_mlp(generator, mlp_cfg(cfg), device)}
+
+
+def block_apply(p, x, cfg: ArchConfig, kind: str, positions, *,
+                reference: bool = False):
+    """x: (B, S, D) -> (x', aux): ``block_prefill`` without its cache."""
+    return block_prefill(p, x, cfg, kind, positions,
+                         reference=reference)[0], 0.0
+
+
+def block_prefill(p, x, cfg: ArchConfig, kind: str, positions, *,
+                  reference: bool = False):
+    """x: (B, S, D) -> (x', the block's decode cache)."""
+    if kind == "mamba":
+        y, cache = mamba2(p["mixer"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                          mamba_cfg(cfg), return_cache=True,
+                          reference=reference)
+        return x + y, cache
+    y, cache = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                         attn_cfg(cfg), positions, return_cache=True,
+                         reference=reference)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h, mlp_cfg(cfg)), cache
+
+
+def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
+    if kind == "mamba":
+        y, cache = mamba2_decode(p["mixer"],
+                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 cache, mamba_cfg(cfg))
+        return x + y, cache
+    y, cache = attention_decode(p["attn"],
+                                rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                cache, pos, attn_cfg(cfg))
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h, mlp_cfg(cfg)), cache
+
+
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, device=None):
+    if kind == "mamba":
+        return init_mamba2_cache(mamba_cfg(cfg), batch, device=device)
+    return init_kv_cache(attn_cfg(cfg), batch, device)
+
+
+# ---------------------------------------------------------------------------
+# the layer stacks
+# ---------------------------------------------------------------------------
+
+def _stacked_init(generator, cfg: ArchConfig, kind: str, n: int, device):
+    return _stack([init_block(generator, cfg, kind, device)
+                   for _ in range(n)])
+
+
+def _zamba_split(cfg: ArchConfig) -> tuple[int, int]:
+    """(groups, tail layers) of zamba2's Mamba stack."""
+    return divmod(cfg.n_layers, cfg.shared_attn_every)
+
+
+def init_lm(generator: torch.Generator, cfg: ArchConfig, device=None):
+    """Random params drawn from ``generator`` (on its device), placed on
+    ``device``."""
+    check_supported(cfg)
+    params = {
+        "embed": init_embedding(generator, cfg.vocab, cfg.d_model,
+                                cfg.pdtype, device),
+        "final_norm": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = init_linear(generator, cfg.d_model, cfg.vocab,
+                                        dtype=cfg.pdtype, device=device)
+    if cfg.family == "mamba2":
+        params["blocks"] = _stacked_init(generator, cfg, "mamba",
+                                         cfg.n_layers, device)
+    else:
+        g, rem = _zamba_split(cfg)
+        params["mamba_groups"] = _stack([
+            _stacked_init(generator, cfg, "mamba", cfg.shared_attn_every,
+                          device) for _ in range(g)])
+        if rem:
+            params["mamba_tail"] = _stacked_init(generator, cfg, "mamba",
+                                                 rem, device)
+        params["shared_attn"] = init_block(generator, cfg, "attn_mlp",
+                                           device)
+    return params
+
+
+def _layer_order(params, cfg: ArchConfig):
+    """The blocks in the order they run: (kind, params, cache path), the
+    path being the keys and indices of the block's cache in the stacked
+    cache tree."""
+    check_supported(cfg)
+    if cfg.family == "mamba2":
+        return [("mamba", _at(params["blocks"], i), ("blocks", i))
+                for i in range(cfg.n_layers)]
+    g, rem = _zamba_split(cfg)
+    order = []
+    for gi in range(g):
+        grp = _at(params["mamba_groups"], gi)
+        order += [("mamba", _at(grp, j), ("mamba_groups", gi, j))
+                  for j in range(cfg.shared_attn_every)]
+        order.append(("attn_mlp", params["shared_attn"],
+                      ("shared_attn", gi)))
+    order += [("mamba", _at(params["mamba_tail"], j), ("mamba_tail", j))
+              for j in range(rem)]
+    return order
+
+
+def _stack_caches(cfg: ArchConfig, flat: dict):
+    """{cache path: block cache} -> the stacked cache tree of
+    ``init_lm_caches``."""
+    if cfg.family == "mamba2":
+        return {"blocks": _stack([flat["blocks", i]
+                                  for i in range(cfg.n_layers)])}
+    g, rem = _zamba_split(cfg)
+    out = {"mamba_groups": _stack([
+        _stack([flat["mamba_groups", gi, j]
+                for j in range(cfg.shared_attn_every)]) for gi in range(g)]),
+        "shared_attn": _stack([flat["shared_attn", gi] for gi in range(g)])}
+    if rem:
+        out["mamba_tail"] = _stack([flat["mamba_tail", j]
+                                    for j in range(rem)])
+    return out
+
+
+def _cache_at(caches, path):
+    node = caches[path[0]]
+    for i in path[1:]:
+        node = _at(node, i)
+    return node
+
+
+# ---------------------------------------------------------------------------
+# forward, prefill, decode
+# ---------------------------------------------------------------------------
+
+def forward_hidden(params, x, cfg: ArchConfig, positions, *,
+                   reference: bool = False):
+    """Embedded input (B, S, D) -> (final hidden states (B, S, D),
+    aux)."""
+    aux = 0.0
+    for kind, p, _ in _layer_order(params, cfg):
+        x, a = block_apply(p, x, cfg, kind, positions, reference=reference)
+        aux = aux + a
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def lm_logits_head(params, h, cfg: ArchConfig):
+    if cfg.tie_embeddings:
+        e = params["embed"]
+        if "qt" in e:
+            w = e["qt"].to(h.dtype) * e["scale"].to(h.dtype)
+        else:
+            w = e["table"].to(h.dtype)                      # (V, D)
+        return torch.matmul(h, w.T)
+    return linear(params["lm_head"], h)
+
+
+def lm_prefill(params, tokens, cfg: ArchConfig, *, reference: bool = False):
+    """(B, S) tokens -> (last-token logits (B, V), caches), the caches
+    stacked as ``init_lm_caches`` lays them out, so decode continues at
+    position S."""
+    x = embed(params["embed"], tokens, cfg.cdtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    flat = {}
+    for kind, p, path in _layer_order(params, cfg):
+        x, flat[path] = block_prefill(p, x, cfg, kind, positions,
+                                      reference=reference)
+    h = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
+    return lm_logits_head(params, h, cfg)[:, 0, :], _stack_caches(cfg, flat)
+
+
+def init_lm_caches(cfg: ArchConfig, batch: int, device=None):
+    """Zero caches for ``batch`` rows (``device="meta"`` allocates
+    nothing).  No ported family's cache has a sequence axis."""
+    check_supported(cfg)
+
+    def stacked(kind, *lead):
+        c = init_block_cache(cfg, kind, batch, device)
+        return tree_map(lambda a: a.new_zeros(lead + tuple(a.shape)), c)
+
+    if cfg.family == "mamba2":
+        return {"blocks": stacked("mamba", cfg.n_layers)}
+    g, rem = _zamba_split(cfg)
+    out = {"mamba_groups": stacked("mamba", g, cfg.shared_attn_every),
+           "shared_attn": stacked("attn_mlp", g)}
+    if rem:
+        out["mamba_tail"] = stacked("mamba", rem)
+    return out
+
+
+def lm_decode_step(params, caches, tokens, pos, cfg: ArchConfig):
+    """One decode step.  tokens: (B, 1); ``pos``: the 0-based position of
+    each row's token, one int for every row or a (B,) tensor (each slot
+    at its own position).  -> (logits (B, V), new caches); the input
+    caches are not written."""
+    x = embed(params["embed"], tokens, cfg.cdtype)
+    flat = {}
+    for kind, p, path in _layer_order(params, cfg):
+        x, flat[path] = block_decode(p, x, _cache_at(caches, path), pos,
+                                     cfg, kind)
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits_head(params, h, cfg)[:, 0, :], _stack_caches(cfg, flat)

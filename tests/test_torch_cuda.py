@@ -2127,3 +2127,116 @@ def test_artifact_warm_cache_runs_no_sweep(cuda, precision, tmp_path,
         with torch.inference_mode():
             want = execute(ex.program, cache.params, x, plan=ex.plan)
         _same((got,), (want,))
+
+
+# ---------------------------------------------------------------------------
+# the LM serving path: the layers and the engine on the card, the two
+# scans' kernels against the reference forward's plain scans
+# ---------------------------------------------------------------------------
+
+def _lm_close(got, ref, tol):
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= tol * max(1.0, ref.float().abs().max().item()), err
+
+
+@pytest.mark.parametrize("S,dtype", [(768, torch.float32),
+                                     (300, torch.float32),
+                                     (768, torch.bfloat16)])
+def test_lm_relu_linear_attention_layer_on_the_card(cuda, S, dtype):
+    """GQA (4 kv heads under 8 heads of 64): the causal prefill launches
+    ``relu_attn_causal`` once and matches the plain scan (fp32 within
+    1e-4; bf16 within one bf16 step, 2^-7, of max|y|); the cache is the
+    same plain computation on both paths."""
+    from repro_torch.layers import attention as ta
+    cfg = ta.AttnConfig(d_model=256, n_heads=8, n_kv=4, head_dim=64,
+                        backend="relu_linear", dtype=dtype)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = ta.init_attention(gen, cfg, cuda)
+    x = torch.randn((2, S, 256), generator=gen, device=cuda).to(dtype)
+    relu_attn_causal.launches = 0
+    y, cache = ta.attention(p, x, cfg, return_cache=True)
+    assert relu_attn_causal.launches == 1
+    yr, cr = ta.attention(p, x, cfg, return_cache=True, reference=True)
+    assert relu_attn_causal.launches == 1
+    _lm_close(y, yr, 1e-4 if dtype == torch.float32 else 2.0 ** -7)
+    for k in cache:
+        assert torch.equal(cache[k], cr[k])
+
+
+@pytest.mark.parametrize("S", [512, 600, 2])
+def test_lm_mamba2_layer_on_the_card(cuda, S):
+    """The Mamba-2 prefill (64 heads of 64, state 64, chunk 256) launches
+    ``ssd_chunked`` once and matches the plain scan within 1e-4; then a
+    decode step from its cache on the card."""
+    from repro_torch.layers import mamba2 as tm
+    cfg = tm.Mamba2Config(d_model=2048, d_state=64, head_dim=64,
+                          chunk=256)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    p = tm.init_mamba2(gen, cfg, cuda)
+    x = torch.randn((1, S + 1, 2048), generator=gen, device=cuda)
+    ssd_chunked.launches = 0
+    y, cache = tm.mamba2(p, x[:, :S], cfg, return_cache=True)
+    assert ssd_chunked.launches == 1
+    yr, cr = tm.mamba2(p, x[:, :S], cfg, return_cache=True, reference=True)
+    assert ssd_chunked.launches == 1
+    _lm_close(y, yr, 1e-4)
+    for k in cache:
+        assert torch.equal(cache[k], cr[k])
+    yd, _ = tm.mamba2_decode(p, x[:, S:], cache, cfg)
+    yf = tm.mamba2(p, x, cfg, reference=True)
+    _lm_close(yd, yf[:, S:], 1e-4)
+
+
+def test_lm_engine_two_slots_on_the_card(cuda):
+    """A narrow zamba2 (relu_linear; 4 Mamba layers, the shared block
+    twice) served from 2 slots: every admission launches ``ssd_chunked``
+    4 times and ``relu_attn_causal`` twice, decode neither; the served
+    tokens equal the reference engine's (plain scans) wherever the
+    reference's top-2 margin exceeds 1e-3 * max|logit|."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import (
+        Request, ServeConfig, ServingEngine)
+    cfg = get_arch("zamba2-1.2b").scaled(
+        attn_backend="relu_linear", n_layers=4, shared_attn_every=2,
+        d_model=256, n_heads=4, n_kv=4, head_dim=64, d_ff=512, vocab=1000,
+        param_dtype="float32", compute_dtype="float32")
+    params = build_model(cfg).init(0, device=cuda)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (300, 17, 600)]
+
+    def reqs():
+        return [Request(rid=i, prompt=p, max_tokens=5)
+                for i, p in enumerate(prompts)]
+
+    served = {}
+    for reference in (False, True):
+        eng = ServingEngine(cfg, params, ServeConfig(max_slots=2,
+                                                     max_len=1024),
+                            device=cuda)
+        if reference:
+            eng.model = build_model(cfg, reference=True)
+        relu_attn_causal.launches = ssd_chunked.launches = 0
+        done = eng.run(reqs())
+        torch.cuda.synchronize()
+        n = 0 if reference else len(prompts)
+        assert (ssd_chunked.launches, relu_attn_causal.launches) == \
+            (4 * n, 2 * n)
+        served[reference] = {r.rid: r.out_tokens for r in done}
+        assert all(len(r.out_tokens) == 5 for r in done)
+    model, ref_model = build_model(cfg), build_model(cfg, reference=True)
+    for rid, toks in served[True].items():
+        prompt = prompts[rid]
+        ctx = torch.as_tensor(np.concatenate([prompt, toks[:-1]]),
+                              device=cuda)
+        for i, tok in enumerate(toks):
+            t = ctx[None, :len(prompt) + i]
+            lg, _ = model.prefill(params, {"tokens": t})
+            lr, _ = ref_model.prefill(params, {"tokens": t})
+            _lm_close(lg, lr, 1e-3)
+            top2 = torch.topk(lr[0], 2).values
+            if (top2[0] - top2[1]).item() <= 1e-3 * max(
+                    1.0, lr.abs().max().item()):
+                break
+            assert served[False][rid][i] == tok, (rid, i)
