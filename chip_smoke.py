@@ -349,9 +349,43 @@
    CUDA graph, the replay timed by events), the two scans' share of it
    and its peak memory, and each scan call held against its plain
    version and timed (``[lm kernel]`` lines, as ``[library]``).
+6d. ``[lm softmax ...]``: softmax and sliding-window attention with
+   their KV caches (``lm_softmax_phase``), after 6c.  Each model at its
+   published widths (random weights from ``--seed``), served by a new
+   ``ServingEngine`` from 8 slots, 32 greedy tokens a request,
+   ``max_len`` the longest prompt + 64; prompts of 8, 17, 255, 1024,
+   1025, 2048 and 4096 tokens (chunk 1024: on and off it), gemma3 also
+   1020 (its 1024-slot rings wrap while decoding; 2048 and 4096 take the
+   block-local sliding path), the bf16 runs cut to 8, 1025 and 4096
+   (gemma3: and 1020): Granite-3-2B at fp32 (fp32 KV) and bf16;
+   Zamba2-1.2B as published (the shared block on softmax) at fp32 and
+   bf16; Gemma3-12B at fp32 cut to 12 layers (two groups) and at bf16
+   full depth; Gemma3-12B under ``attn_backend="relu_linear"`` (its 8
+   global layers on ``relu_attn_causal`` at d = 240) with prompts of 8,
+   1025 and 32768 tokens; InternVL2-1B at bf16 (text prompts).  Counters
+   as in 6c: per admission 38 ``ssd_chunked`` (Zamba2) and 8
+   ``relu_attn_causal`` (Gemma3 relu_linear), none for the others, none
+   in decode.  Gates: decode = re-prefill (``lm_decode_gate``: each
+   request's logits at its first, second and last decode step against a
+   fresh batch-1 prefill of its prompt and the tokens chosen before;
+   fp32 within 1e-3 * max(1, max|logit|) with top-1 equal where the
+   margin exceeds that, bf16 within 0.1 * max|logit|, all finite; the
+   32768-token prompt only finite: a re-prefill of 32769 tokens takes
+   the sliding fallback's 64 GiB score block); where
+   a scan runs, each prefill's logits against the reference forward as
+   in 6c.  ``[lm softmax internvl2 fp32]``: a prefill of 256 random patch
+   embeddings + 64 tokens equals ``lm_logits_head`` over
+   ``forward_hidden`` of the concatenation within 1e-3.  ``[lm softmax
+   launch]``: ``launch.serve.main`` at its defaults (granite-3-2b, bf16)
+   finishes 12 requests of 16 tokens.  Printed as in 6c, and also the
+   plain attention cores' share of a prefill's device time (each core's
+   first call at that length captured into a graph and replayed, times
+   its calls: ``lm_core_probe``) and the KV cache's bytes, written at
+   least twice a decode step (the row write and the re-stack), with the
+   device time of two copies of it.
 7. One JSON line with every kernel's launches on its driven run(s)
-   (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's served
-   LM runs and 4),
+   (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's and
+   6d's served LM runs and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -3699,15 +3733,31 @@ LM_BF16_TOL = 0.1             # bf16 served vs bf16 reference, of max|logit|
 LM_SCANS = ("ssd_chunked", "relu_attn_causal")
 # prompt lengths profiled on the device, their scan calls held and timed
 LM_PROFILED = (8, 100, 257, 4096, LM_LONG)
+# the [lm softmax] phase (6d): on- and off-chunk prompt lengths (chunk
+# 1024); gemma3 also 1020 (its ring wraps while decoding); gemma3 under
+# relu_linear one 32768-token prompt beside two short ones
+LM_SOFTMAX_PROMPTS = (8, 17, 255, 1024, 1025, 2048, 4096)
+LM_GEMMA_PROMPTS = (8, 17, 255, 1020, 1024, 1025, 2048, 4096)
+LM_RELU_PROMPTS = (8, 1025, LM_LONG)
+# the bf16 runs, cut to keep the phase near two minutes: a short prompt,
+# one off the chunk and the longest (gemma3: its ring wrap too)
+LM_SOFTMAX_BF16_PROMPTS = (8, 1025, 4096)
+LM_GEMMA_BF16_PROMPTS = (8, 1020, 1025, 4096)
+LM_CORES = ("softmax_attention", "sliding_attention")
 
 
 def lm_scan_calls(cfg) -> dict:
     """Launches of each scan per served prefill: one ``ssd_chunked`` per
-    Mamba-2 layer, one ``relu_attn_causal`` per call of zamba2's shared
-    block."""
-    attn = (cfg.n_layers // cfg.shared_attn_every
-            if cfg.family == "zamba2" else 0)
-    return {"ssd_chunked": cfg.n_layers, "relu_attn_causal": attn}
+    Mamba-2 layer, one ``relu_attn_causal`` per relu_linear attention
+    layer (zamba2's shared block per call, gemma3's global layers) under
+    ``attn_backend="relu_linear"``."""
+    attn = {"zamba2": cfg.n_layers // cfg.shared_attn_every,
+            "gemma3": cfg.n_layers // cfg.global_every}.get(cfg.family, 0)
+    return {"ssd_chunked": (cfg.n_layers if cfg.family in ("mamba2",
+                                                            "zamba2")
+                            else 0),
+            "relu_attn_causal": (attn if cfg.attn_backend == "relu_linear"
+                                 else 0)}
 
 
 def lm_engine(cfg, params, slots, max_len, reference=False):
@@ -3894,6 +3944,34 @@ def lm_scan_probe():
             setattr(mod, name, fn)
 
 
+@contextlib.contextmanager
+def lm_core_probe():
+    """While open, the plain attention cores of the LM layers
+    (``LM_CORES``): -> {(name, tokens): [function, args, kwargs, calls]},
+    the first call's inputs at each length and the number of top-level
+    calls (a sliding fallback's inner softmax call is part of its
+    sliding call)."""
+    from repro_torch.layers import attention as ta
+    calls, depth = {}, [0]
+    saved = [(name, getattr(ta, name)) for name in LM_CORES]
+    for name, fn in saved:
+        def probe(*a, _fn=fn, _name=name, **k):
+            if depth[0] == 0:
+                calls.setdefault((_name, a[0].shape[1]),
+                                 [_fn, a, k, 0])[3] += 1
+            depth[0] += 1
+            try:
+                return _fn(*a, **k)
+            finally:
+                depth[0] -= 1
+        setattr(ta, name, probe)
+    try:
+        yield calls
+    finally:
+        for name, fn in saved:
+            setattr(ta, name, fn)
+
+
 def graph_ms(fn, reps: int = 1, windows: int = 3) -> float:
     """Device time of one call of ``fn``, its launches captured into a
     CUDA graph (after a warm-up call on a side stream) and the replay
@@ -3930,21 +4008,23 @@ def host_ms(fn, reps: int = 3) -> float:
 
 
 def lm_prefill_profile(tag, cfg, model, params, prompts, prefill_s,
-                       max_err, card) -> None:
+                       max_err, card, profiled=LM_PROFILED) -> None:
     """Informational: per prompt length, prefill tokens/s over the served
-    admission (host seconds, synchronized); at the ``LM_PROFILED``
-    lengths also the host time to enqueue one prefill, its device time
+    admission (host seconds, synchronized); at the ``profiled`` lengths
+    also the host time to enqueue one prefill, its device time
     (``graph_ms``), the two scans' share of it (each scan call at that
-    length timed alone, times its calls per prefill) and its peak
-    memory, and each scan call held against its plain version and timed
-    (``[lm kernel]`` lines)."""
+    length timed alone, times its calls per prefill), the plain softmax /
+    sliding attention cores' share (each core's first call at that
+    length, its launches captured and replayed, times its calls) and its
+    peak memory, and each scan call held against its plain version and
+    timed (``[lm kernel]`` lines)."""
     import torch
     per = lm_scan_calls(cfg)
     cases = []
     for p, secs in zip(prompts, prefill_s):
         line = (f"[{tag}] prefill {len(p)} tokens: {len(p) / secs:.1f} "
                 f"tokens/s served ({secs * 1e3:.3f} ms)")
-        if len(p) not in LM_PROFILED:
+        if len(p) not in profiled:
             print(f"{line} [{card}]")
             continue
         toks = {"tokens": torch.as_tensor(p, device="cuda")[None]}
@@ -3952,25 +4032,39 @@ def lm_prefill_profile(tag, cfg, model, params, prompts, prefill_s,
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
         run()
+        h_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() - base
-        with lm_scan_probe() as calls:
+        with lm_scan_probe() as calls, lm_core_probe() as cores:
             run()
-        h_ms, d_ms = host_ms(run, 1), graph_ms(run)
+        d_ms = graph_ms(run, 1, 1)
         scans = {}
         for (name, n), (a, k) in calls.items():
             case = lm_scan_case(name, a, k, f"{tag} prefill {n} tokens "
                                 f"{tuple(a[0].shape)} {str(a[0].dtype)[6:]}")
             scans[name] = per[name] * device_ms(case[3], 5, 3)
             cases.append(case)
-        scan_ms = sum(scans.values())
+        attn = {}
+        for (name, n), (fn, a, k, count) in cores.items():
+            one = graph_ms(lambda: fn(*a, **k))            # noqa: B023
+            attn[name] = (count, count * one)
+        del cores
+        parts = []
+        if scans:
+            parts.append("scans " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in scans.items())
+                + f" ({sum(scans.values()) / d_ms:.3f} of the device time)")
+        if attn:
+            parts.append("plain attention " + ", ".join(
+                f"{k} {v[1]:.3f} ms ({v[0]} calls)" for k, v in attn.items())
+                + f" ({sum(v[1] for v in attn.values()) / d_ms:.3f} of the "
+                f"device time)")
         print(f"{line}; host {h_ms:.3f} ms to enqueue, device {d_ms:.3f} "
-              f"ms (graph replay); scans "
-              + ", ".join(f"{k} {v:.3f} ms" for k, v in scans.items())
-              + f" ({scan_ms / d_ms:.3f} of the device time); "
-              f"{peak / 2**30:.3f} GiB allocated at its peak beyond the "
-              f"params and caches [{card}]")
+              f"ms (graph replay); " + "; ".join(parts + [
+                  f"{peak / 2**30:.3f} GiB allocated at its peak beyond the "
+                  f"params and caches [{card}]"]))
     for case in cases:
         err, ref_max, *times = measure(case, False, 5, 3)
         max_err[case[0]] = max(max_err[case[0]], err)
@@ -3990,12 +4084,33 @@ def lm_decode_profile(tag, eng, decode_tokens, decode_s, card) -> None:
     model, params, caches = eng.model, eng.params, eng.caches
     step = lambda: model.decode(params, caches, tokens, pos)  # noqa: E731
     h_ms, d_ms = host_ms(step), graph_ms(step)
+    kv = list(lm_kv_leaves(caches))
+    copies = ""
+    if kv:
+        # the step writes each KV leaf anew (the row write) and stacks
+        # the layers' leaves again: two copies of the cache
+        nbytes = sum(t.numel() * t.element_size() for t in kv)
+        c_ms = graph_ms(lambda: [torch.stack(list(t.clone()))
+                                 for t in kv])
+        copies = (f"; KV cache {nbytes / 2**30:.3f} GiB, written at least "
+                  f"twice a step ({2 * nbytes / 2**30:.3f} GiB: the row "
+                  f"write and the re-stack), two copies alone {c_ms:.3f} "
+                  f"ms on the device")
     print(f"[{tag}] decode: {decode_tokens / decode_s:.1f} tokens/s "
           f"served ({decode_tokens} tokens in {decode_s:.3f} s of decode "
           f"steps); one step at {B} slots: host {h_ms:.3f} ms to enqueue, "
           f"device {d_ms:.3f} ms (graph replay): the card idles an "
           f"estimated {max(0.0, 1 - d_ms / h_ms):.3f} of an eager step "
-          f"(1 - device / host, not traced) [{card}]")
+          f"(1 - device / host, not traced){copies} [{card}]")
+
+
+def lm_kv_leaves(tree):
+    """The KV cache leaves (``k``, ``v``) of a stacked cache tree."""
+    for key, v in tree.items():
+        if isinstance(v, dict):
+            yield from lm_kv_leaves(v)
+        elif key in ("k", "v"):
+            yield v
 
 
 def lm_run(tag, cfg, seed, prompts, slots, wrappers, max_err, card, *,
@@ -4087,6 +4202,225 @@ def lm_phase(seed, wrappers, max_err, card) -> dict:
         lm_run("lm mamba2", get_arch("mamba2-1.3b").scaled(**fp32),
                seed + 2, LM_MAMBA_PROMPTS, 2, wrappers, max_err, card,
                fp32=True)]
+    return {k: sum(r[k] for r in runs) for k in wrappers}
+
+
+def lm_decode_gate(tag, model, params, prompts, served, logits, rel,
+                   fp32: bool) -> None:
+    """Decode = re-prefill: each request's logits at its first, second
+    and last decode step against the last-row logits of a fresh batch-1
+    prefill of its prompt and the tokens chosen before that step: finite,
+    within ``rel`` * max(1, max|ref|) (fp32) or ``rel`` * max|ref|
+    (bf16), and at fp32 the same top-1 wherever the re-prefill's top-2
+    margin exceeds the tolerance.  This holds the KV caches (the ring,
+    the slot padding, the slot writes, each slot's positions) on the
+    card against the cache-free prefill."""
+    import numpy as np
+    import torch
+    worst, flips, n = 0.0, 0, 0
+    for rid, p in enumerate(prompts):
+        toks = served[rid]
+        last = len(toks) - 1
+        for j in sorted({1, 2, last}):
+            ctx = np.concatenate([p, np.asarray(toks[:j])])
+            ref, _ = model.prefill(params, {"tokens": torch.as_tensor(
+                ctx, device="cuda")[None]})
+            got, ref = logits[rid][j].float(), ref[0].float()
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"[{tag}] request {rid} step {j}: "
+                                     f"non-finite decode logits")
+            d, top = (got - ref).abs().max().item(), ref.abs().max().item()
+            lim = rel * (max(1.0, top) if fp32 else top)
+            if not d <= lim:
+                raise AssertionError(
+                    f"[{tag}] request {rid} ({len(p)} tokens) decode step "
+                    f"{j}: logits {d:.3e} from the re-prefill (max|ref| "
+                    f"{top:.3e}), above {lim:.3e}")
+            if fp32 and int(got.argmax()) != int(ref.argmax()):
+                top2 = torch.topk(ref, 2).values
+                margin = (top2[0] - top2[1]).item()
+                print(f"[{tag}] top-1 flip: request {rid} step {j}, "
+                      f"re-prefill margin {margin:.3e} (tolerance "
+                      f"{lim:.3e})")
+                if margin > lim:
+                    raise AssertionError(f"[{tag}] request {rid} step {j}: "
+                                         f"top-1 differs at margin "
+                                         f"{margin:.3e}")
+                flips += 1
+            worst = max(worst, d / top)
+            n += 1
+    print(f"[{tag}] decode = re-prefill: {n} steps (1, 2 and the last of "
+          f"each request), max|d| / max|ref| {worst:.3e}, limit {rel:g} of "
+          f"{'max(1, max|ref|)' if fp32 else 'max|ref|'}"
+          + (f", top-1 equal but {flips} within the margin" if fp32
+             else ", every logit finite"))
+
+
+def lm_softmax_run(tag, cfg, seed, prompts, slots, wrappers, max_err, card,
+                   *, fp32: bool, profiled) -> dict:
+    """One ``[lm softmax ...]`` sub-phase: random params from ``seed`` on
+    the card, the served run (``lm_serve``: launches per admission
+    exact), decode = re-prefill (``lm_decode_gate``), and where a scan
+    runs the served prefill logits against the reference forward (the
+    scans' plain versions); then the informational timings.  -> the
+    served run's launches."""
+    import numpy as np
+    import torch
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    params = model.init(seed, device="cuda")
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in prompts]
+    max_len = max(map(len, prompts)) + 64
+    # warm-up (cuBLAS handles, first allocations): before any counter
+    model.prefill(params, {"tokens": torch.as_tensor(
+        prompts[0][:8], device="cuda")[None]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    served, logits, launches, rec, secs, eng = lm_serve(
+        tag, cfg, params, prompts, slots, max_len, wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    leaves = list(_leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in lm_kv_leaves(eng.caches))
+    print(f"[{tag}] {cfg.name} {cfg.family} {cfg.n_layers} layers "
+          f"{cfg.param_dtype}/{cfg.compute_dtype}, KV {cfg.kv_dtype}, "
+          f"{sum(t.numel() for t in leaves)} params: {len(prompts)} "
+          f"requests x {LM_TOKENS} tokens in {secs:.3f} s from {slots} "
+          f"slots (max_len {max_len}); launches per prefill "
+          f"{lm_scan_calls(cfg)}, run "
+          f"{dict((k, launches[k]) for k in LM_SCANS)}; peak allocated "
+          f"while serving {peak / 2**30:.3f} GiB (params "
+          f"{param_bytes / 2**30:.3f}, KV caches {kv_bytes / 2**30:.3f}) "
+          f"[{card}]")
+    rel = LM_TOL if fp32 else LM_BF16_TOL
+    if any(lm_scan_calls(cfg).values()):
+        ref_model = build_model(cfg, reference=True)
+        gaps = []
+        for i, p in enumerate(prompts):
+            ref, _ = ref_model.prefill(params, {"tokens": torch.as_tensor(
+                p, device="cuda")[None]})
+            gaps.append(lm_prefill_gate(tag, logits[i][0], ref[0], rel,
+                                        fp32))
+        print(f"[{tag}] prefill logits vs the reference forward (plain "
+              f"scans), max|d| / max|ref| per prompt: "
+              + ", ".join(f"{len(p)}: {g:.3e}"
+                          for p, g in zip(prompts, gaps))
+              + (" (top-1 equal)" if fp32 else " (every logit finite)"))
+    lm_decode_gate(tag, model, params, prompts, served, logits, rel, fp32)
+    decode_tokens = sum(len(t) - 1 for t in served.values())
+    eng.model = model                   # no recording from here on
+    lm_decode_profile(tag, eng, decode_tokens,
+                      secs - sum(rec["prefill_s"]), card)
+    lm_prefill_profile(tag, cfg, model, params, prompts, rec["prefill_s"],
+                       max_err, card, profiled)
+    del eng, params, logits, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def lm_vlm_check(tag, cfg, seed, card) -> None:
+    """vlm at fp32: a prefill of ``cfg.n_patches`` random patch
+    embeddings (the stub frontend's) and 64 text tokens gives the
+    last-row logits of ``lm_logits_head`` over ``forward_hidden`` of
+    [patches | text embeddings], within ``LM_TOL`` * max(1, max|logit|),
+    and caches of P + S positions."""
+    import torch
+    from repro_torch.layers.linear import embed
+    from repro_torch.models import lm as tlm
+    from repro_torch.models.registry import build_model
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = build_model(cfg)
+    params = model.init(gen, device="cuda")
+    patches = torch.randn((1, cfg.n_patches, cfg.d_model), generator=gen,
+                          device="cuda")
+    toks = torch.randint(0, cfg.vocab, (1, 64), generator=gen,
+                         device="cuda")
+    logits, caches = model.prefill(params, {"tokens": toks,
+                                            "patches": patches})
+    x = torch.cat([patches, embed(params["embed"], toks, cfg.cdtype)], 1)
+    h, _ = tlm.forward_hidden(params, x, cfg, torch.arange(
+        x.shape[1], device="cuda"))
+    ref = tlm.lm_logits_head(params, h[:, -1:], cfg)[:, 0]
+    d, top = (logits - ref).abs().max().item(), ref.abs().max().item()
+    if not d <= LM_TOL * max(1.0, top):
+        raise AssertionError(f"[{tag}] patch prefill {d:.3e} from the "
+                             f"forward (max|ref| {top:.3e})")
+    length = caches["blocks"]["k"].shape[2]
+    if length != cfg.n_patches + 64:
+        raise AssertionError(f"[{tag}] caches of {length} positions")
+    print(f"[{tag}] {cfg.name} fp32: prefill of {cfg.n_patches} patch "
+          f"embeddings + 64 tokens vs lm_logits_head(forward_hidden) of "
+          f"the concatenation: max|d| {d:.3e} (max|ref| {top:.3e}); caches "
+          f"hold {length} positions [{card}]")
+    del params, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_launch_check(tag, card) -> None:
+    """``launch.serve.main`` at its defaults (granite-3-2b, bf16, 12
+    requests of 16 tokens from 4 slots) on the card."""
+    import torch
+    from repro_torch.launch import serve
+    t0 = time.perf_counter()
+    done = serve.main([])
+    torch.cuda.synchronize()
+    if sorted(r.rid for r in done) != list(range(12)) or any(
+            len(r.out_tokens) != 16 for r in done):
+        raise AssertionError(f"[{tag}] {len(done)} of 12 requests "
+                             f"finished")
+    print(f"[{tag}] python -m repro_torch.launch.serve (defaults): 12 "
+          f"requests x 16 tokens in {time.perf_counter() - t0:.3f} s with "
+          f"the set-up [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_softmax_phase(seed, wrappers, max_err, card) -> dict:
+    """``[lm softmax ...]``: softmax and sliding-window attention with
+    their KV caches at full width, served from 8 slots.  -> the launches
+    of the served runs, summed."""
+    from repro_torch.configs import get_arch
+    fp32 = dict(param_dtype="float32", compute_dtype="float32",
+                kv_dtype="float32")
+    granite, zamba, gemma, vlm = (get_arch(n) for n in (
+        "granite-3-2b", "zamba2-1.2b", "gemma3-12b", "internvl2-1b"))
+    runs = [
+        lm_softmax_run("lm softmax granite fp32", granite.scaled(**fp32),
+                       seed, LM_SOFTMAX_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=True, profiled=(8, 4096)),
+        lm_softmax_run("lm softmax granite bf16", granite, seed + 1,
+                       LM_SOFTMAX_BF16_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=False, profiled=(4096,)),
+        lm_softmax_run("lm softmax zamba2 fp32", zamba.scaled(**fp32),
+                       seed + 2, LM_SOFTMAX_PROMPTS, 8, wrappers, max_err,
+                       card, fp32=True, profiled=(8, 4096)),
+        lm_softmax_run("lm softmax zamba2 bf16", zamba, seed + 3,
+                       LM_SOFTMAX_BF16_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=False, profiled=()),
+        lm_softmax_run("lm softmax gemma3 fp32 12 layers",
+                       gemma.scaled(n_layers=12, **fp32), seed + 4,
+                       LM_GEMMA_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=True, profiled=(1020, 4096)),
+        lm_softmax_run("lm softmax gemma3 bf16", gemma, seed + 5,
+                       LM_GEMMA_BF16_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=False, profiled=(8, 4096)),
+        lm_softmax_run("lm softmax gemma3 relu_linear bf16",
+                       gemma.scaled(attn_backend="relu_linear"), seed + 6,
+                       LM_RELU_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=False, profiled=(8, 1025, LM_LONG)),
+        lm_softmax_run("lm softmax internvl2 bf16", vlm, seed + 7,
+                       LM_SOFTMAX_BF16_PROMPTS, 8, wrappers, max_err, card,
+                       fp32=False, profiled=(4096,)),
+    ]
+    lm_vlm_check("lm softmax internvl2 fp32", vlm.scaled(**fp32), seed + 8,
+                 card)
+    lm_launch_check("lm softmax launch", card)
     return {k: sum(r[k] for r in runs) for k in wrappers}
 
 
@@ -4322,6 +4656,11 @@ def main() -> int:
     stamp("section 6c", t_start)
     launches_lm = lm_phase(args.seed, wrappers, max_err, card)
 
+    # -- 6d. [lm softmax]: softmax and sliding attention, their caches --
+    stamp("section 6d", t_start)
+    launches_lm_softmax = lm_softmax_phase(args.seed, wrappers, max_err,
+                                           card)
+
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
     rows = []
@@ -4336,7 +4675,7 @@ def main() -> int:
                          + launches_sh["fix8"][name]
                          + launches_se["fp32"][name]
                          + launches_se["fix8"][name] + launches_lib[name]
-                         + launches_lm[name]),
+                         + launches_lm[name] + launches_lm_softmax[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

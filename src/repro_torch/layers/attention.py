@@ -1,20 +1,31 @@
 """LM attention, counterpart of ``repro/layers/attention.py``: the GQA
-projections and RoPE every backend shares, and the ``relu_linear``
-backend, the paper's ReLU linear attention in causal LM form.
+projections and RoPE every backend shares, and three backends.
 
-The causal prefill runs ``kernels/relu_attn/ops.py::relu_linear_attention``
-in chunks of 256 tokens: on a CUDA tensor that is the hand-written
-``relu_attn_causal`` kernel, on a CPU tensor its plain version
-(``reference=True`` takes the plain version on any device).  JAX runs a
-``lax.scan`` here; the kernel computes the same function.  Decode keeps
-the O(1) recurrent state, a (kv_heads, d, d) state and a (kv_heads, d)
-normalizer per row, in plain torch.
+``softmax``      GQA full attention: the chunked online softmax over kv
+                 chunks, looped over q blocks in Python (JAX's
+                 ``lax.scan`` / ``lax.map``), so no S x S score matrix is
+                 held at once.
+``sliding``      causal sliding-window attention (gemma3's local
+                 layers): each block of ``window`` queries against its
+                 own block and the previous one, or the masked chunked
+                 softmax where S is no multiple of the window.
+``relu_linear``  the paper's ReLU linear attention in causal LM form.
+                 The causal prefill runs
+                 ``kernels/relu_attn/ops.py::relu_linear_attention`` in
+                 chunks of 256 tokens: on a CUDA tensor that is the
+                 hand-written ``relu_attn_causal`` kernel, on a CPU tensor
+                 its plain version (``reference=True`` takes the plain
+                 version on any device).  JAX runs a ``lax.scan`` here;
+                 the kernel computes the same function.
 
-The ``softmax`` and ``sliding`` backends and ``cross_attention`` are not
-ported yet (ROADMAP A8b): they raise ``NotImplementedError``.
+The softmax and sliding backends are plain torch ops, as JAX leaves them
+to XLA.  Decode: softmax and sliding keep a KV cache (sliding a ring of
+``window`` slots), each row writing its own slot and masking its own
+keys at its own position; relu_linear keeps the O(1) recurrent state, a
+(kv_heads, d, d) state and a (kv_heads, d) normalizer per row.
 
 Layout: prefill computes in flat-head (B, S, H, Dh) layout with K/V
-repeated to full heads; the decode state keeps the compact GQA layout.
+repeated to full heads; the caches keep the compact GQA layout.
 """
 from __future__ import annotations
 
@@ -28,16 +39,13 @@ from repro_torch.layers.rope import apply_rope
 
 __all__ = ["AttnConfig", "init_attention", "attention", "attention_decode",
            "init_kv_cache", "relu_linear_state", "cross_attention",
-           "softmax_attention", "sliding_attention", "RELU_CHUNK", "EPS"]
+           "softmax_attention", "sliding_attention", "to_cache_dtype",
+           "RELU_CHUNK", "EPS", "NEG_INF"]
 
 RELU_CHUNK = 256     # chunk of the causal scan (JAX's default chunk)
 EPS = 1e-6           # floor of the normalizer
-
-
-def _unported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to repro_torch yet (ROADMAP A8b: softmax "
-        f"and sliding attention with flash.py)")
+NEG_INF = -1e30      # a masked score
+F8_LIMIT = 464.0     # float8_e4m3fn: larger magnitudes round past 448
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,10 +55,18 @@ class AttnConfig:
     n_kv: int
     head_dim: int
     backend: str = "softmax"        # softmax | sliding | relu_linear
+    window: int = 1024               # sliding backend only
     qkv_bias: bool = False           # qwen2.5
     rope_theta: float = 10000.0
     causal: bool = True
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+    flash_vjp: bool = False          # training only (ROADMAP A8f)
     fused_qkv: bool = False          # one QKV matmul
+    score_dtype: str = "float32"     # bfloat16: p and v rounded to bf16
+    # JAX pads zero heads up to this count for a TPU model axis; they
+    # change no output, and on one card the port computes none
+    pad_heads_to: int = 0
     dtype: torch.dtype = torch.float32   # param dtype
 
     @property
@@ -125,54 +141,244 @@ def relu_linear_state(k, v):
     return state, pk.sum(dim=1)
 
 
-def softmax_attention(*args, **kwargs):
-    raise _unported("softmax attention")
+def to_cache_dtype(t, dtype: torch.dtype):
+    """``t`` cast to a cache's dtype as JAX's ``astype`` casts it: for
+    ``float8_e4m3fn`` a magnitude past the last value that rounds to 448
+    (and inf) becomes NaN, where torch's cast saturates."""
+    if dtype == torch.float8_e4m3fn:
+        t = torch.where(t.abs() > F8_LIMIT, float("nan"), t)
+    return t.to(dtype)
 
 
-def sliding_attention(*args, **kwargs):
-    raise _unported("sliding-window attention")
+def _bits(t):
+    """A 1-byte tensor as uint8 (the same bits), others as they are:
+    index and select ops that torch lacks for float8 work on the bits."""
+    return t.view(torch.uint8) if t.element_size() == 1 else t
 
 
-def cross_attention(*args, **kwargs):
-    raise _unported("cross attention")
+# ---------------------------------------------------------------------------
+# softmax backend: chunked online softmax
+# ---------------------------------------------------------------------------
+
+def _flash_chunk_scan(q, k, v, q_pos, kv_pos, *, causal: bool, window,
+                      kv_chunk: int, score_dtype=torch.float32):
+    """Online-softmax attention of one q block against every kv chunk, in
+    order.  q: (B, Sq, H, Dh); k, v: (B, Skv, H, Dh); q_pos (Sq,), kv_pos
+    (Skv,) absolute positions.  -> (B, Sq, H, Dh) fp32."""
+    B, Sq, H, Dh = q.shape
+    Skv = k.shape[1]
+    assert Skv % kv_chunk == 0, (Skv, kv_chunk)
+    qf = (q.float() * Dh ** -0.5).permute(0, 2, 1, 3)      # (B, H, Sq, Dh)
+    m = q.new_full((B, H, Sq), NEG_INF, dtype=torch.float32)
+    l = q.new_zeros((B, H, Sq), dtype=torch.float32)
+    acc = q.new_zeros((B, H, Sq, Dh), dtype=torch.float32)
+    for c0 in range(0, Skv, kv_chunk):
+        k_i = k[:, c0:c0 + kv_chunk].float().permute(0, 2, 3, 1)
+        v_i = v[:, c0:c0 + kv_chunk].permute(0, 2, 1, 3)
+        p_i = kv_pos[c0:c0 + kv_chunk]
+        s = torch.matmul(qf, k_i)                             # (B, H, Sq, C)
+        mask = None
+        if causal:
+            mask = p_i[None, :] <= q_pos[:, None]
+        if window is not None:
+            w = p_i[None, :] > (q_pos[:, None] - window)
+            mask = w if mask is None else mask & w
+        if mask is not None:
+            s = s.masked_fill(~mask, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        del s
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        # JAX: einsum of p, v in score_dtype accumulated in fp32
+        pv = torch.matmul(p.to(score_dtype).float(),
+                          v_i.to(score_dtype).float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.permute(0, 2, 1, 3)
+
+
+def softmax_attention(q, k, v, q_pos, kv_pos, *, causal=True, window=None,
+                      q_chunk=1024, kv_chunk=1024, score_dtype="float32"):
+    """Full (optionally windowed) attention, chunked over q and kv.
+    q, k, v: flat-head (B, S, H, Dh) -> (B, Sq, H, Dh) fp32.  As JAX's:
+    one kv chunk when ``Skv % kv_chunk != 0``.  Where ``Sq % q_chunk !=
+    0`` JAX takes one q block; rows are independent, so this runs that
+    block ``q_chunk`` rows at a time (the last one ragged), each row's
+    arithmetic unchanged, and holds H x q_chunk x kv_chunk scores, not
+    H x Sq x kv_chunk."""
+    B, Sq, H, Dh = q.shape
+    Skv = k.shape[1]
+    if isinstance(score_dtype, str):
+        score_dtype = getattr(torch, score_dtype)
+    q_chunk = min(q_chunk, Sq)
+    kv_chunk = min(kv_chunk, Skv)
+    if Skv % kv_chunk != 0:
+        kv_chunk = Skv
+    kw = dict(causal=causal, window=window, kv_chunk=kv_chunk,
+              score_dtype=score_dtype)
+    if q_chunk == Sq:
+        return _flash_chunk_scan(q, k, v, q_pos, kv_pos, **kw)
+    out = q.new_empty((B, Sq, H, Dh), dtype=torch.float32)
+    for q0 in range(0, Sq, q_chunk):
+        out[:, q0:q0 + q_chunk] = _flash_chunk_scan(
+            q[:, q0:q0 + q_chunk], k, v, q_pos[q0:q0 + q_chunk], kv_pos,
+            **kw)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sliding backend: block-local attention
+# ---------------------------------------------------------------------------
+
+def sliding_attention(q, k, v, q_pos, kv_pos, *, window: int):
+    """Causal sliding-window attention: each query attends the keys in
+    [p - window + 1, p].  q, k, v: flat-head (B, S, H, Dh) -> fp32;
+    q_pos = kv_pos, consecutive.  Where ``S % window == 0`` and ``S >
+    window``, each block of ``window`` queries against its own block and
+    the previous one (zeros before block 0, masked); otherwise JAX's
+    masked chunked softmax, past ``window`` tokens ``_sliding_rows``."""
+    B, S, H, Dh = q.shape
+    block = window
+    if S <= block:
+        return softmax_attention(q, k, v, q_pos, kv_pos, causal=True,
+                                 window=window)
+    if S % block != 0:
+        return _sliding_rows(q, k, v, q_pos, kv_pos, window)
+    nb = S // block
+    qb = (q.float() * Dh ** -0.5).reshape(B, nb, block, H, Dh)
+
+    def with_prev(t):
+        tb = t.float().reshape(B, nb, block, H, Dh)
+        prev = torch.cat([torch.zeros_like(tb[:, :1]), tb[:, :-1]], dim=1)
+        return torch.cat([prev, tb], dim=2)              # (B, nb, 2W, H, Dh)
+
+    s = torch.einsum("bnqhd,bnchd->bnhqc", qb, with_prev(k))
+    qi = torch.arange(block, device=q.device)
+    ci = torch.arange(2 * block, device=q.device)
+    diff = qi[:, None] - ci[None, :] + block        # query minus key position
+    s.masked_fill_(~((diff >= 0) & (diff < window)), NEG_INF)
+    s[:, 0, :, :, :block] = NEG_INF     # block 0's "previous block" is zeros
+    p = torch.softmax(s, dim=-1)
+    del s
+    out = torch.einsum("bnhqc,bnchd->bnqhd", p, with_prev(v))
+    return out.reshape(B, S, H, Dh)
+
+
+def _sliding_rows(q, k, v, q_pos, kv_pos, window: int):
+    """JAX's sliding fallback (the masked softmax over every key, in one
+    kv chunk where S is off the 1024 chunk), ``window`` queries at a time
+    against only the keys they can see, [q0 - window + 1, q1).  A key
+    outside the window scores ``NEG_INF`` and adds an exact 0, so each
+    row's softmax is JAX's; the scores held are H x window x 2 window,
+    where JAX's one block holds H x S x S (64 GiB at gemma3's 16 heads
+    and 32769 tokens)."""
+    B, S, H, Dh = q.shape
+    out = q.new_empty((B, S, H, Dh), dtype=torch.float32)
+    for q0 in range(0, S, window):
+        q1, k0 = min(q0 + window, S), max(0, q0 - window + 1)
+        out[:, q0:q1] = _flash_chunk_scan(
+            q[:, q0:q1], k[:, k0:q1], v[:, k0:q1], q_pos[q0:q1],
+            kv_pos[k0:q1], causal=True, window=window, kv_chunk=q1 - k0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# prefill, cross attention, caches, decode
+# ---------------------------------------------------------------------------
+
+def _ring(t, S: int, window: int, dtype):
+    """The sliding cache after a prefill of S tokens: the last min(window,
+    S) of t (B, S, KV, Dh), token S - w + i at slot (S - w + i) %
+    window, of length min(window, S)."""
+    if S < window:
+        return to_cache_dtype(t, dtype)
+    return to_cache_dtype(torch.roll(t[:, S - window:], S % window, dims=1),
+                          dtype)
 
 
 def attention(params, x, cfg: AttnConfig, positions=None, *,
-              return_cache: bool = False, reference: bool = False):
+              return_cache: bool = False, cache_dtype=torch.bfloat16,
+              reference: bool = False):
     """Prefill forward.  x: (B, S, D) -> (B, S, D), and with
-    ``return_cache=True`` the decode cache as of the end of the sequence
-    (the relu_linear state).  ``reference=True`` runs the scan's plain
-    version."""
+    ``return_cache=True`` the decode cache as of the end of the sequence:
+    softmax the whole K/V, sliding the ring (``_ring``), both in
+    ``cache_dtype``; relu_linear the fp32 state.  ``reference=True`` runs
+    the relu_linear scan's plain version."""
     B, S, _ = x.shape
-    if cfg.backend in ("softmax", "sliding"):
-        raise _unported(f"the {cfg.backend!r} attention backend")
-    if cfg.backend != "relu_linear":
+    if cfg.backend not in ("softmax", "sliding", "relu_linear"):
         raise ValueError(f"unknown attention backend {cfg.backend!r}")
+    if cfg.flash_vjp and cfg.backend != "relu_linear":
+        raise NotImplementedError(
+            "flash_vjp=True (the custom-VJP flash attention of training) "
+            "is not ported to repro_torch yet (ROADMAP A8f)")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
     g = cfg.n_heads // cfg.n_kv
     cache = None
-    if cfg.causal and return_cache:
-        cache = dict(zip(("state", "zsum"), relu_linear_state(k, v)))
-    out = relu_linear_attention(q, _repeat_kv(k, g), _repeat_kv(v, g),
-                                causal=cfg.causal, block_n=RELU_CHUNK,
-                                reference=reference)
+    kh, vh = _repeat_kv(k, g), _repeat_kv(v, g)
+    if cfg.backend == "softmax":
+        out = softmax_attention(q, kh, vh, positions, positions,
+                                causal=cfg.causal, window=None,
+                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+                                score_dtype=cfg.score_dtype)
+        if return_cache:
+            cache = {"k": to_cache_dtype(k, cache_dtype),
+                     "v": to_cache_dtype(v, cache_dtype)}
+    elif cfg.backend == "sliding":
+        out = sliding_attention(q, kh, vh, positions, positions,
+                                window=cfg.window)
+        if return_cache:
+            cache = {"k": _ring(k, S, cfg.window, cache_dtype),
+                     "v": _ring(v, S, cfg.window, cache_dtype)}
+    else:
+        if cfg.causal and return_cache:
+            cache = dict(zip(("state", "zsum"), relu_linear_state(k, v)))
+        out = relu_linear_attention(q, kh, vh, causal=cfg.causal,
+                                    block_n=RELU_CHUNK, reference=reference)
+    del q, kh, vh           # freed before the output projection
     out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
     y = linear(params["wo"], out)
     return (y, cache) if return_cache else y
 
 
-def init_kv_cache(cfg: AttnConfig, batch: int, device=None):
-    """relu_linear: the zero state and normalizer, fp32."""
-    if cfg.backend != "relu_linear":
-        raise _unported(f"the {cfg.backend!r} decode cache")
-    return {
-        "state": torch.zeros((batch, cfg.n_kv, cfg.head_dim, cfg.head_dim),
-                             dtype=torch.float32, device=device),
-        "zsum": torch.zeros((batch, cfg.n_kv, cfg.head_dim),
-                            dtype=torch.float32, device=device),
-    }
+def cross_attention(params, x, memory, cfg: AttnConfig):
+    """Encoder-decoder cross attention: queries from x (B, S, D), keys
+    and values from ``memory`` (B, Sm, D), non-causal softmax, no RoPE."""
+    B, S, _ = x.shape
+    Sm = memory.shape[1]
+    g = cfg.n_heads // cfg.n_kv
+    q, _, _ = _raw_qkv(params, x, cfg)
+    _, k, v = _raw_qkv(params, memory, cfg)
+    kh, vh = _repeat_kv(k, g), _repeat_kv(v, g)
+    out = softmax_attention(
+        q, kh, vh, torch.arange(S, device=x.device),
+        torch.arange(Sm, device=x.device), causal=False,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
+    return linear(params["wo"], out)
+
+
+def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
+                  dtype=torch.bfloat16, device=None):
+    """Zero decode cache for ``batch`` rows: relu_linear the fp32 state
+    and normalizer; softmax K/V of ``max_len`` slots, sliding of
+    ``min(max_len, window)``, in ``dtype``."""
+    if cfg.backend == "relu_linear":
+        return {
+            "state": torch.zeros((batch, cfg.n_kv, cfg.head_dim,
+                                  cfg.head_dim), dtype=torch.float32,
+                                 device=device),
+            "zsum": torch.zeros((batch, cfg.n_kv, cfg.head_dim),
+                                dtype=torch.float32, device=device),
+        }
+    length = (min(max_len, cfg.window) if cfg.backend == "sliding"
+              else max_len)
+    shape = (batch, length, cfg.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
 def decode_positions(pos, batch: int, device) -> torch.Tensor:
@@ -183,24 +389,60 @@ def decode_positions(pos, batch: int, device) -> torch.Tensor:
     return p.reshape(-1, 1).expand(batch, 1)
 
 
+def _write_rows(cache, slot, new):
+    """A copy of ``cache`` (B, L, KV, Dh) with row b's slot ``slot[b]``
+    set to ``new[b]`` (B, KV, Dh), cast to the cache's dtype; the input
+    is not written."""
+    L = cache.shape[1]
+    hit = torch.arange(L, device=cache.device)[None, :] == slot[:, None]
+    new = _bits(to_cache_dtype(new, cache.dtype))[:, None]
+    return torch.where(hit[:, :, None, None], new,
+                       _bits(cache)).view(cache.dtype)
+
+
 def attention_decode(params, x, cache, pos, cfg: AttnConfig):
     """One-token decode.  x: (B, 1, D); ``pos``: each row's position (see
-    ``decode_positions``).  relu_linear: the O(1) recurrent update."""
-    if cfg.backend != "relu_linear":
-        raise _unported(f"{cfg.backend!r} decode")
+    ``decode_positions``).  softmax / sliding: each row writes its K/V at
+    its own slot (``pos``; sliding ``pos % length``, a ring) of a copy of
+    the cache and attends the keys valid at its position; relu_linear:
+    the O(1) recurrent update."""
     B = x.shape[0]
     g = cfg.n_heads // cfg.n_kv
     positions = decode_positions(pos, B, x.device)
     q, k, v = _raw_qkv(params, x, cfg)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    pq = torch.relu(q.float()).reshape(B, cfg.n_kv, g, cfg.head_dim)
-    pk = torch.relu(k.float()).reshape(B, cfg.n_kv, cfg.head_dim)
-    vf = v.float().reshape(B, cfg.n_kv, cfg.head_dim)
-    state = cache["state"] + torch.einsum("bkd,bke->bkde", pk, vf)
-    zsum = cache["zsum"] + pk
-    num = torch.einsum("bkgd,bkde->bkge", pq, state)
-    den = torch.einsum("bkgd,bkd->bkg", pq, zsum)[..., None]
-    out = (num / torch.clamp(den, min=EPS)).reshape(B, 1, cfg.q_dim)
-    return (linear(params["wo"], out.to(x.dtype)),
-            {"state": state, "zsum": zsum})
+    if cfg.backend == "relu_linear":
+        pq = torch.relu(q.float()).reshape(B, cfg.n_kv, g, cfg.head_dim)
+        pk = torch.relu(k.float()).reshape(B, cfg.n_kv, cfg.head_dim)
+        vf = v.float().reshape(B, cfg.n_kv, cfg.head_dim)
+        state = cache["state"] + torch.einsum("bkd,bke->bkde", pk, vf)
+        zsum = cache["zsum"] + pk
+        num = torch.einsum("bkgd,bkde->bkge", pq, state)
+        den = torch.einsum("bkgd,bkd->bkg", pq, zsum)[..., None]
+        out = (num / torch.clamp(den, min=EPS)).reshape(B, 1, cfg.q_dim)
+        return (linear(params["wo"], out.to(x.dtype)),
+                {"state": state, "zsum": zsum})
+    if cfg.backend not in ("softmax", "sliding"):
+        raise ValueError(f"unknown attention backend {cfg.backend!r}")
+    length = cache["k"].shape[1]
+    p = positions[:, 0]
+    slot = p % length if cfg.backend == "sliding" else p
+    ck = _write_rows(cache["k"], slot, k[:, 0])
+    cv = _write_rows(cache["v"], slot, v[:, 0])
+    kv_idx = torch.arange(length, device=x.device)[None, :]
+    pc = p[:, None]
+    if cfg.backend == "sliding":
+        # slot i of the ring holds the latest position congruent to it
+        kv_pos = pc - torch.remainder(pc - kv_idx, length)
+        valid = (kv_pos >= 0) & (kv_pos >= pc - cfg.window + 1)
+    else:
+        valid = kv_idx <= pc
+    qf = q.float().reshape(B, cfg.n_kv, g, cfg.head_dim)
+    s = torch.einsum("bkgd,bckd->bkgc", qf * cfg.head_dim ** -0.5,
+                     ck.float())
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgc,bckd->bkgd", w, cv.float())
+    out = out.reshape(B, 1, cfg.q_dim).to(x.dtype)
+    return linear(params["wo"], out), {"k": ck, "v": cv}

@@ -1,26 +1,35 @@
-"""Decoder-only LM, counterpart of ``repro/models/lm.py``, for the
-families whose mixers are ported:
+"""Decoder-only LM, counterpart of ``repro/models/lm.py``:
 
+  dense   — a uniform [attention + MLP] stack (stablelm, granite,
+            qwen2.5)
+  vlm     — the dense stack over [patch embeddings | text embeddings]
+            (internvl2; the vision frontend is a stub, as in JAX)
+  gemma3  — groups of (global_every - 1) sliding-window layers and one
+            global layer (softmax, or the paper's relu_linear attention
+            when the arch's backend is relu_linear: DESIGN §6)
   mamba2  — a uniform [Mamba-2] stack (attention-free)
   zamba2  — a Mamba-2 backbone with ONE shared [attention + MLP] block
             invoked after every ``shared_attn_every`` Mamba layers
-            (weights reused), on the ``relu_linear`` attention backend
+            (weights reused)
 
 The param and cache trees keep JAX's stacked layout leaf for leaf: a
-uniform stack's leaves are (L, ...); zamba2's Mamba layers are
-(groups, every, ...) under ``mamba_groups`` plus (rem, ...) under
-``mamba_tail``, and the shared block's caches are (groups, ...).  Where
-JAX scans over the stacked axis, the port loops over it in Python.
+uniform stack's leaves are (L, ...); gemma3's ``local`` leaves are
+(groups, global_every - 1, ...) and its ``global`` leaves (groups, ...);
+zamba2's Mamba layers are (groups, every, ...) under ``mamba_groups``
+plus (rem, ...) under ``mamba_tail``, and the shared block's caches are
+(groups, ...).  Where JAX scans over the stacked axis, the port loops
+over it in Python.
 
 ``reference=True`` (prefill only: decode runs no scan) routes both scans
 to their plain versions on any device; the served path never takes it.
 
-The dense, moe, gemma3 and vlm families (softmax / sliding attention,
-MoE) are not ported yet (ROADMAP A8b, A8c); nor are ``lm_loss`` and
-``chunked_ce_loss`` (training, A8f).
+The moe family (ROADMAP A8c), enc-dec (A8d) and ``flash_vjp=True``
+(training, A8f) are not ported yet; nor are ``lm_loss`` and
+``chunked_ce_loss`` (A8f).
 """
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import torch
@@ -40,22 +49,25 @@ __all__ = ["attn_cfg", "mlp_cfg", "mamba_cfg", "check_supported",
            "init_block_cache", "init_lm", "forward_hidden", "lm_logits_head",
            "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step"]
 
-PORTED_FAMILIES = ("mamba2", "zamba2")
+UNIFORM = {"dense": "attn_mlp", "vlm": "attn_mlp", "mamba2": "mamba"}
+FAMILIES = tuple(UNIFORM) + ("gemma3", "zamba2")
+UNPORTED = {"moe": "A8c", "encdec": "A8d"}
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family or backend the port
-    does not have yet."""
-    if cfg.family not in PORTED_FAMILIES:
-        item = {"moe": "A8c", "encdec": "A8d"}.get(cfg.family, "A8b")
+    """Raise ``NotImplementedError`` for what the port does not have yet:
+    the moe (ROADMAP A8c) and encdec (A8d) families and ``flash_vjp``
+    (A8f)."""
+    if cfg.family in UNPORTED:
         raise NotImplementedError(
             f"the {cfg.family!r} family ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP {item})")
-    if cfg.family == "zamba2" and cfg.attn_backend != "relu_linear":
+            f"repro_torch yet (ROADMAP {UNPORTED[cfg.family]})")
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if cfg.flash_vjp:
         raise NotImplementedError(
-            f"{cfg.name}'s shared block with attn_backend="
-            f"{cfg.attn_backend!r} is not ported to repro_torch yet "
-            f"(ROADMAP A8b); scaled(attn_backend='relu_linear') is")
+            f"{cfg.name}: flash_vjp=True (training's custom-VJP flash "
+            f"attention) is not ported to repro_torch yet (ROADMAP A8f)")
 
 
 # ---------------------------------------------------------------------------
@@ -66,8 +78,11 @@ def attn_cfg(cfg: ArchConfig, backend: Optional[str] = None) -> AttnConfig:
     return AttnConfig(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv=cfg.n_kv,
         head_dim=cfg.head_dim, backend=backend or cfg.attn_backend,
-        qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
-        fused_qkv=cfg.fused_qkv, dtype=cfg.pdtype)
+        window=cfg.window, qkv_bias=cfg.qkv_bias, rope_theta=cfg.rope_theta,
+        q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
+        flash_vjp=cfg.flash_vjp, fused_qkv=cfg.fused_qkv,
+        score_dtype=cfg.score_dtype, pad_heads_to=cfg.pad_heads_to,
+        dtype=cfg.pdtype)
 
 
 def mlp_cfg(cfg: ArchConfig) -> MlpConfig:
@@ -79,6 +94,18 @@ def mamba_cfg(cfg: ArchConfig) -> Mamba2Config:
     return Mamba2Config(cfg.d_model, cfg.ssm_state, cfg.ssm_conv,
                         cfg.ssm_expand, cfg.ssm_head_dim,
                         chunk=cfg.ssm_chunk, dtype=cfg.pdtype)
+
+
+def _block_backend(cfg: ArchConfig, kind: str) -> Optional[str]:
+    """gemma3's ``local`` layers slide; its ``global`` layers switch to
+    the paper's linear attention under an arch backend of relu_linear
+    (DESIGN §6), else softmax.  Other kinds take the arch's backend."""
+    if kind == "local":
+        return "sliding"
+    if kind == "global":
+        return ("relu_linear" if cfg.attn_backend == "relu_linear"
+                else "softmax")
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -114,36 +141,48 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
     if kind == "mamba":
         return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
                 "mixer": init_mamba2(generator, mamba_cfg(cfg), device)}
-    if kind != "attn_mlp":
+    if kind not in ("attn_mlp", "local", "global"):
         raise NotImplementedError(f"block kind {kind!r} is not ported to "
-                                  f"repro_torch yet (ROADMAP A8b, A8c)")
+                                  f"repro_torch yet (ROADMAP A8c)")
+    acfg = attn_cfg(cfg, _block_backend(cfg, kind))
     return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
-            "attn": init_attention(generator, attn_cfg(cfg), device),
+            "attn": init_attention(generator, acfg, device),
             "ln2": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
             "mlp": init_mlp(generator, mlp_cfg(cfg), device)}
 
 
+def _block(p, x, cfg: ArchConfig, kind: str, positions, *, cache: bool,
+           cache_dtype, reference: bool):
+    """x: (B, S, D) -> (x', the block's decode cache or None)."""
+    if kind == "mamba":
+        out = mamba2(p["mixer"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                     mamba_cfg(cfg), return_cache=cache,
+                     reference=reference)
+        y, c = out if cache else (out, None)
+        return x + y, c
+    out = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                    attn_cfg(cfg, _block_backend(cfg, kind)), positions,
+                    return_cache=cache, cache_dtype=cache_dtype,
+                    reference=reference)
+    y, c = out if cache else (out, None)
+    x = x + y
+    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
+    return x + mlp(p["mlp"], h, mlp_cfg(cfg)), c
+
+
 def block_apply(p, x, cfg: ArchConfig, kind: str, positions, *,
                 reference: bool = False):
-    """x: (B, S, D) -> (x', aux): ``block_prefill`` without its cache."""
-    return block_prefill(p, x, cfg, kind, positions,
-                         reference=reference)[0], 0.0
+    """x: (B, S, D) -> (x', aux): the block without its cache."""
+    return _block(p, x, cfg, kind, positions, cache=False, cache_dtype=None,
+                  reference=reference)[0], 0.0
 
 
 def block_prefill(p, x, cfg: ArchConfig, kind: str, positions, *,
-                  reference: bool = False):
-    """x: (B, S, D) -> (x', the block's decode cache)."""
-    if kind == "mamba":
-        y, cache = mamba2(p["mixer"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                          mamba_cfg(cfg), return_cache=True,
-                          reference=reference)
-        return x + y, cache
-    y, cache = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
-                         attn_cfg(cfg), positions, return_cache=True,
-                         reference=reference)
-    x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, mlp_cfg(cfg)), cache
+                  cache_dtype=torch.bfloat16, reference: bool = False):
+    """x: (B, S, D) -> (x', the block's decode cache, KV in
+    ``cache_dtype``)."""
+    return _block(p, x, cfg, kind, positions, cache=True,
+                  cache_dtype=cache_dtype, reference=reference)
 
 
 def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
@@ -154,30 +193,51 @@ def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
         return x + y, cache
     y, cache = attention_decode(p["attn"],
                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                cache, pos, attn_cfg(cfg))
+                                cache, pos,
+                                attn_cfg(cfg, _block_backend(cfg, kind)))
     x = x + y
     h = rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + mlp(p["mlp"], h, mlp_cfg(cfg)), cache
 
 
-def init_block_cache(cfg: ArchConfig, kind: str, batch: int, device=None):
+def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                     dtype=torch.bfloat16, device=None):
     if kind == "mamba":
         return init_mamba2_cache(mamba_cfg(cfg), batch, device=device)
-    return init_kv_cache(attn_cfg(cfg), batch, device)
+    return init_kv_cache(attn_cfg(cfg, _block_backend(cfg, kind)), batch,
+                         max_len, dtype, device)
 
 
 # ---------------------------------------------------------------------------
 # the layer stacks
 # ---------------------------------------------------------------------------
 
-def _stacked_init(generator, cfg: ArchConfig, kind: str, n: int, device):
-    return _stack([init_block(generator, cfg, kind, device)
-                   for _ in range(n)])
+def _stacked_init(generator, cfg: ArchConfig, kind: str, lead: tuple,
+                  device):
+    """Blocks of ``kind`` stacked on leading axes ``lead``, drawn in
+    row-major order, each written into the stacked leaves as it is made
+    (one block's params beside the stack, not a list of them)."""
+    out = None
+    for idx in itertools.product(*map(range, lead)):
+        blk = init_block(generator, cfg, kind, device)
+        if out is None:
+            out = tree_map(lambda a: a.new_empty(lead + tuple(a.shape)),
+                           blk)
+        tree_map(lambda o, a: o[idx].copy_(a), out, blk)
+    return out
 
 
 def _zamba_split(cfg: ArchConfig) -> tuple[int, int]:
     """(groups, tail layers) of zamba2's Mamba stack."""
     return divmod(cfg.n_layers, cfg.shared_attn_every)
+
+
+def _gemma_split(cfg: ArchConfig) -> tuple[int, int]:
+    """(groups, local layers per group) of gemma3's stack."""
+    if cfg.n_layers % cfg.global_every:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is no "
+                         f"multiple of global_every {cfg.global_every}")
+    return cfg.n_layers // cfg.global_every, cfg.global_every - 1
 
 
 def init_lm(generator: torch.Generator, cfg: ArchConfig, device=None):
@@ -192,17 +252,22 @@ def init_lm(generator: torch.Generator, cfg: ArchConfig, device=None):
     if not cfg.tie_embeddings:
         params["lm_head"] = init_linear(generator, cfg.d_model, cfg.vocab,
                                         dtype=cfg.pdtype, device=device)
-    if cfg.family == "mamba2":
-        params["blocks"] = _stacked_init(generator, cfg, "mamba",
-                                         cfg.n_layers, device)
+    if cfg.family in UNIFORM:
+        params["blocks"] = _stacked_init(generator, cfg, UNIFORM[cfg.family],
+                                         (cfg.n_layers,), device)
+    elif cfg.family == "gemma3":
+        g, nl = _gemma_split(cfg)
+        params["local"] = _stacked_init(generator, cfg, "local", (g, nl),
+                                        device)
+        params["global"] = _stacked_init(generator, cfg, "global", (g,),
+                                         device)
     else:
         g, rem = _zamba_split(cfg)
-        params["mamba_groups"] = _stack([
-            _stacked_init(generator, cfg, "mamba", cfg.shared_attn_every,
-                          device) for _ in range(g)])
+        params["mamba_groups"] = _stacked_init(
+            generator, cfg, "mamba", (g, cfg.shared_attn_every), device)
         if rem:
             params["mamba_tail"] = _stacked_init(generator, cfg, "mamba",
-                                                 rem, device)
+                                                 (rem,), device)
         params["shared_attn"] = init_block(generator, cfg, "attn_mlp",
                                            device)
     return params
@@ -213,11 +278,21 @@ def _layer_order(params, cfg: ArchConfig):
     path being the keys and indices of the block's cache in the stacked
     cache tree."""
     check_supported(cfg)
-    if cfg.family == "mamba2":
-        return [("mamba", _at(params["blocks"], i), ("blocks", i))
+    if cfg.family in UNIFORM:
+        kind = UNIFORM[cfg.family]
+        return [(kind, _at(params["blocks"], i), ("blocks", i))
                 for i in range(cfg.n_layers)]
-    g, rem = _zamba_split(cfg)
     order = []
+    if cfg.family == "gemma3":
+        g, nl = _gemma_split(cfg)
+        for gi in range(g):
+            grp = _at(params["local"], gi)
+            order += [("local", _at(grp, j), ("local", gi, j))
+                      for j in range(nl)]
+            order.append(("global", _at(params["global"], gi),
+                          ("global", gi)))
+        return order
+    g, rem = _zamba_split(cfg)
     for gi in range(g):
         grp = _at(params["mamba_groups"], gi)
         order += [("mamba", _at(grp, j), ("mamba_groups", gi, j))
@@ -232,9 +307,15 @@ def _layer_order(params, cfg: ArchConfig):
 def _stack_caches(cfg: ArchConfig, flat: dict):
     """{cache path: block cache} -> the stacked cache tree of
     ``init_lm_caches``."""
-    if cfg.family == "mamba2":
+    if cfg.family in UNIFORM:
         return {"blocks": _stack([flat["blocks", i]
                                   for i in range(cfg.n_layers)])}
+    if cfg.family == "gemma3":
+        g, nl = _gemma_split(cfg)
+        return {"local": _stack([_stack([flat["local", gi, j]
+                                         for j in range(nl)])
+                                 for gi in range(g)]),
+                "global": _stack([flat["global", gi] for gi in range(g)])}
     g, rem = _zamba_split(cfg)
     out = {"mamba_groups": _stack([
         _stack([flat["mamba_groups", gi, j]
@@ -279,31 +360,42 @@ def lm_logits_head(params, h, cfg: ArchConfig):
     return linear(params["lm_head"], h)
 
 
-def lm_prefill(params, tokens, cfg: ArchConfig, *, reference: bool = False):
+def lm_prefill(params, tokens, cfg: ArchConfig, *, patches=None,
+               cache_dtype=torch.bfloat16, reference: bool = False):
     """(B, S) tokens -> (last-token logits (B, V), caches), the caches
-    stacked as ``init_lm_caches`` lays them out, so decode continues at
-    position S."""
+    stacked as ``init_lm_caches`` lays them out (KV in ``cache_dtype``),
+    so decode continues at position S.  vlm: ``patches`` (B, P, D), the
+    stub frontend's embeddings, go before the text, and decode continues
+    at P + S."""
     x = embed(params["embed"], tokens, cfg.cdtype)
+    if cfg.family == "vlm" and patches is not None:
+        x = torch.cat([patches.to(cfg.cdtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     flat = {}
     for kind, p, path in _layer_order(params, cfg):
         x, flat[path] = block_prefill(p, x, cfg, kind, positions,
+                                      cache_dtype=cache_dtype,
                                       reference=reference)
     h = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return lm_logits_head(params, h, cfg)[:, 0, :], _stack_caches(cfg, flat)
 
 
-def init_lm_caches(cfg: ArchConfig, batch: int, device=None):
-    """Zero caches for ``batch`` rows (``device="meta"`` allocates
-    nothing).  No ported family's cache has a sequence axis."""
+def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int,
+                   dtype=torch.bfloat16, device=None):
+    """Zero caches for ``batch`` rows of ``max_len`` positions, KV in
+    ``dtype`` (``device="meta"`` allocates nothing)."""
     check_supported(cfg)
 
     def stacked(kind, *lead):
-        c = init_block_cache(cfg, kind, batch, device)
+        c = init_block_cache(cfg, kind, batch, max_len, dtype, device)
         return tree_map(lambda a: a.new_zeros(lead + tuple(a.shape)), c)
 
-    if cfg.family == "mamba2":
-        return {"blocks": stacked("mamba", cfg.n_layers)}
+    if cfg.family in UNIFORM:
+        return {"blocks": stacked(UNIFORM[cfg.family], cfg.n_layers)}
+    if cfg.family == "gemma3":
+        g, nl = _gemma_split(cfg)
+        return {"local": stacked("local", g, nl),
+                "global": stacked("global", g)}
     g, rem = _zamba_split(cfg)
     out = {"mamba_groups": stacked("mamba", g, cfg.shared_attn_every),
            "shared_attn": stacked("attn_mlp", g)}

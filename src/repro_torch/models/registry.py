@@ -3,16 +3,18 @@ interface over the LM families the port has (``models/lm.py``).
 
 ``Model.init(generator or seed, device=None)`` draws random params (a
 seed makes a generator on ``device``); ``prefill(params, {"tokens": (B,
-S)})`` -> (last-token logits (B, V), caches); ``decode(params, caches,
-tokens (B, 1), pos)`` -> (logits (B, V), caches), ``pos`` one int or a
-(B,) tensor; ``init_caches(batch, device=None)`` (no ported family's
-cache has a sequence axis, so no length sizes it).  Entry points run on
-the CUDA card unless ``device="cpu"`` is asked for.
+S)[, "patches": (B, P, D)]})`` -> (last-token logits (B, V), caches),
+the KV caches in ``cfg.kv_dtype``; ``decode(params, caches, tokens (B,
+1), pos)`` -> (logits (B, V), caches), ``pos`` one int or a (B,) tensor;
+``init_caches(batch, max_len, device=None)``: zero caches whose KV
+leaves hold ``max_len`` positions (sliding: ``min(max_len, window)``)
+in ``cfg.kv_dtype``.  Entry points run on the CUDA card unless
+``device="cpu"`` is asked for.
 
 ``build_model(cfg, reference=True)`` gives the reference forward: its
-prefill runs the two scans' plain versions on any device.  ``loss``
-(training) and ``input_specs`` (the dry-run's) are not ported yet
-(ROADMAP A8f, A8h).
+prefill runs the two scans' plain versions on any device (softmax and
+sliding attention are plain torch either way).  ``loss`` (training) and
+``input_specs`` (the dry-run's) are not ported yet (ROADMAP A8f, A8h).
 """
 from __future__ import annotations
 
@@ -35,7 +37,7 @@ class Model:
     prefill: Callable        # (params, batch) -> (logits, caches)
     decode: Callable         # (params, caches, tokens, pos) -> (logits,
                              #   caches)
-    init_caches: Callable    # (batch, device=None) -> caches
+    init_caches: Callable    # (batch, max_len, device=None) -> caches
 
 
 def _init(cfg: ArchConfig, generator, device=None):
@@ -45,10 +47,15 @@ def _init(cfg: ArchConfig, generator, device=None):
     return _lm.init_lm(generator, cfg, dev)
 
 
-def _caches(cfg: ArchConfig, batch: int, device=None):
+def _caches(cfg: ArchConfig, batch: int, max_len: int, device=None):
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
-    return _lm.init_lm_caches(cfg, batch, device=dev)
+    return _lm.init_lm_caches(cfg, batch, max_len, _kv_dtype(cfg),
+                              device=dev)
+
+
+def _kv_dtype(cfg: ArchConfig) -> torch.dtype:
+    return getattr(torch, cfg.kv_dtype)
 
 
 def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
@@ -56,8 +63,10 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator, device=None: _init(cfg, generator, device),
-        prefill=lambda p, b: _lm.lm_prefill(p, b["tokens"], cfg,
-                                            reference=reference),
+        prefill=lambda p, b: _lm.lm_prefill(
+            p, b["tokens"], cfg, patches=b.get("patches"),
+            cache_dtype=_kv_dtype(cfg), reference=reference),
         decode=lambda p, c, t, pos: _lm.lm_decode_step(p, c, t, pos, cfg),
-        init_caches=lambda batch, device=None: _caches(cfg, batch, device),
+        init_caches=lambda batch, max_len, device=None: _caches(
+            cfg, batch, max_len, device),
     )

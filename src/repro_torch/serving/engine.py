@@ -10,17 +10,19 @@ finished sequence (EOS or budget) frees its slot at once.
 
 Which axis of each cache leaf is the batch axis is found by
 construction: ``init_caches`` at batch 2 and 3 on the ``meta`` device
-(nothing allocated), and the axis whose size differs.  No ported
-family's cache has a sequence axis (the Mamba-2 state and the
-relu_linear state are O(1) in length), so ``ServeConfig.max_len`` sizes
-no cache: it bounds a request's prompt plus ``max_tokens``, and
-``admit`` refuses a request beyond it.  JAX's ``_pad_seq_dims``, which
-pads a prefill's KV cache to the engine's, returns with the KV caches of
-the softmax and sliding backends (ROADMAP A8b).
+(nothing allocated), and the axis whose size differs.
+``ServeConfig.max_len`` sizes the KV caches (softmax: ``max_len``
+positions, sliding: a ring of ``min(max_len, window)``), and ``admit``
+refuses a request whose prompt plus ``max_tokens`` exceeds it.  A
+prefill's KV leaves are zero-padded to the engine's lengths
+(``_pad_seq_dims``, as JAX's) before they are written into the slot, so
+no key of the slot's previous request survives past the prompt.
 
 On the card the prefill of a Mamba-2 layer launches ``ssd_chunked`` and
-the shared relu_linear attention ``relu_attn_causal``; decode runs
-neither.
+a relu_linear attention layer ``relu_attn_causal``; softmax and sliding
+attention are plain torch ops; decode launches no kernel of the port.
+Decode does not write its input caches: each step makes new ones (a
+copy of every KV leaf per step).
 """
 from __future__ import annotations
 
@@ -45,7 +47,7 @@ GREEDY = SamplerConfig()      # a prompt's first token is its argmax
 @dataclasses.dataclass
 class ServeConfig:
     max_slots: int = 8
-    max_len: int = 512            # prompt + max_tokens, at most
+    max_len: int = 512            # KV positions, prompt + max_tokens
     eos_token: int = -1           # -1: never; else stop token
     sampler: SamplerConfig = dataclasses.field(default_factory=SamplerConfig)
     seed: int = 0
@@ -59,10 +61,10 @@ class Request:
     out_tokens: Optional[list] = None
 
 
-def _batch_axes(model: Model):
+def _batch_axes(model: Model, max_len: int):
     """Tree of ints: which axis of each cache leaf is the batch axis."""
-    s2 = model.init_caches(2, device="meta")
-    s3 = model.init_caches(3, device="meta")
+    s2 = model.init_caches(2, max_len, device="meta")
+    s3 = model.init_caches(3, max_len, device="meta")
 
     def diff(a, b):
         for i, (x, y) in enumerate(zip(a.shape, b.shape)):
@@ -87,8 +89,8 @@ class ServingEngine:
         self.model: Model = build_model(arch)
         self.params = tree_to(params, self.device)
         B = cfg.max_slots
-        self.caches = self.model.init_caches(B, self.device)
-        self.axes = _batch_axes(self.model)
+        self.caches = self.model.init_caches(B, cfg.max_len, self.device)
+        self.axes = _batch_axes(self.model, cfg.max_len)
         self.slot_req: list = [None] * B
         self.slot_pos = np.zeros(B, np.int64)      # position of next token
         self.slot_budget = np.zeros(B, np.int64)
@@ -116,6 +118,7 @@ class ServingEngine:
         with torch.no_grad():
             logits, cache1 = self.model.prefill(self.params,
                                                 {"tokens": toks})
+            cache1 = _pad_seq_dims(cache1, self.caches, self.axes)
             tree_map(lambda big, one, ax: _write_slot(big, one, ax, slot),
                       self.caches, cache1, self.axes)
         first = int(sample(logits, self.generator, GREEDY)[0])
@@ -181,3 +184,27 @@ def _write_slot(big, one, ax: int, slot: int):
     big.narrow(ax, slot, 1).copy_(one.to(big.dtype))
     return big
 
+
+def _pad_seq_dims(one, template, axes):
+    """Zero-pad a prefill cache's sequence axes (every axis but the batch
+    axis whose size differs from the engine cache's) up to the engine's;
+    a leaf longer than the engine's raises."""
+    def pad(a, t, ax: int):
+        shape = list(a.shape)
+        for i, (sa, st) in enumerate(zip(a.shape, t.shape)):
+            if i == ax or sa == st:
+                continue
+            if sa > st:
+                raise ValueError(f"cache leaf exceeds max_len: "
+                                 f"{tuple(a.shape)} vs {tuple(t.shape)}")
+            shape[i] = st
+        if shape == list(a.shape):
+            return a
+        out = a.new_zeros(shape)
+        region = out
+        for i, n in enumerate(a.shape):
+            region = region.narrow(i, 0, n)
+        region.copy_(a)
+        return out
+
+    return tree_map(pad, one, template, axes)

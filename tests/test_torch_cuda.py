@@ -2240,3 +2240,66 @@ def test_lm_engine_two_slots_on_the_card(cuda):
                     1.0, lr.abs().max().item()):
                 break
             assert served[False][rid][i] == tok, (rid, i)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [1, 257, 4096])
+def test_relu_attn_causal_at_gemma3_head_width(cuda, N, dtype):
+    """Gemma3-12B's global layers under relu_linear: 16 heads of 240 at
+    batch 1 in chunks of 256 (one launch for one token, three past a
+    chunk), against the plain version in the kernel's stages."""
+    rng = np.random.default_rng(N)
+    q, k, v = (_rand(rng, cuda, 16, N, 240).to(dtype) for _ in range(3))
+    n = relu_attn_causal.launches
+    got = relu_attn_causal(q, k, v, chunk=256)
+    assert relu_attn_causal.launches == n + 1
+    _close(got, relu_attn_causal_scan(q, k, v, chunk=256))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("granite-3-2b", {}), ("gemma3-12b", {}),
+    ("gemma3-12b", {"attn_backend": "relu_linear"}), ("internvl2-1b", {}),
+    ("zamba2-1.2b", {})])
+def test_lm_decode_equals_reprefill_on_the_card(cuda, name, kw):
+    """Each family with KV caches at its smoke size (gemma3: window 32),
+    fp32 with fp32 caches, served from 2 slots with 3 ragged prompts (45
+    and 33 tokens wrap gemma3's rings): every decode step's logits equal
+    the last row of a fresh prefill of the prompt and the tokens chosen
+    before it within 1e-4 * max(1, max|logit|)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import (
+        Request, ServeConfig, ServingEngine)
+    cfg = smoke_variant(get_arch(name)).scaled(kv_dtype="float32", **kw)
+    model = build_model(cfg)
+    params = model.init(0, device=cuda)
+    eng = ServingEngine(cfg, params, ServeConfig(max_slots=2, max_len=64),
+                        device=cuda)
+    steps = []
+
+    def decode(p, c, t, pos):
+        logits, c = model.decode(p, c, t, pos)
+        steps.append(([r.rid if r is not None else None
+                       for r in eng.slot_req], logits))
+        return logits, c
+
+    eng.model = dataclasses.replace(model, decode=decode)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (20, 45, 33)]
+    done = eng.run([Request(rid=i, prompt=p, max_tokens=6)
+                    for i, p in enumerate(prompts)])
+    assert sorted(len(r.out_tokens) for r in done) == [6, 6, 6]
+    toks = {r.rid: r.out_tokens for r in done}
+    seen = {rid: 0 for rid in toks}
+    for rids, logits in steps:
+        for i, rid in enumerate(rids):
+            if rid is None:
+                continue
+            seen[rid] += 1
+            ctx = np.concatenate([prompts[rid], toks[rid][:seen[rid]]])
+            ref, _ = model.prefill(params, {"tokens": torch.as_tensor(
+                ctx, device=cuda)[None]})
+            _lm_close(logits[i], ref[0], 1e-4)
+    assert seen == {rid: 5 for rid in toks}

@@ -234,7 +234,7 @@ def test_relu_linear_decode_positions_are_per_row():
     own."""
     jc, tc, p, tp, x = _attn_case(1, seed=8, B=3)
     xt = torch.from_numpy(x)
-    cache = ta.init_kv_cache(tc, 3)
+    cache = ta.init_kv_cache(tc, 3, 64)
     cache = {k: torch.rand(v.shape, generator=torch.Generator()
                            .manual_seed(1)) for k, v in cache.items()}
     pos = torch.tensor([3, 17, 40])
@@ -250,23 +250,6 @@ def test_relu_linear_decode_positions_are_per_row():
                                  for k, v in cache.items()},
         jnp.int32(17), jc)
     close(y[1:2], yj)
-
-
-def test_unported_attention_backends_raise():
-    x = torch.zeros((1, 4, 32))
-    for backend in ("softmax", "sliding"):
-        _, tc = _attn_cfgs(backend=backend)
-        tp = ta.init_attention(torch.Generator().manual_seed(0), tc)
-        with pytest.raises(NotImplementedError, match="A8b"):
-            ta.attention(tp, x, tc)
-        with pytest.raises(NotImplementedError, match="A8b"):
-            ta.init_kv_cache(tc, 1)
-        with pytest.raises(NotImplementedError, match="A8b"):
-            ta.attention_decode(tp, x[:, :1], {}, 0, tc)
-    for fn in (ta.cross_attention, ta.softmax_attention,
-               ta.sliding_attention):
-        with pytest.raises(NotImplementedError, match="A8b"):
-            fn(x, x, x)
 
 
 # ---------------------------------------------------------------------------
