@@ -383,9 +383,44 @@
    its calls: ``lm_core_probe``) and the KV cache's bytes, written at
    least twice a decode step (the row write and the re-stack), with the
    device time of two copies of it.
+6e. ``[lm moe ...]``, ``[lm encdec ...]``: the MoE layer and family, the
+   W8 transform and the encoder-decoder (``lm_moe_phase``), after 6d.
+   No kernel of the port runs here (the expert products are
+   ``torch.bmm``, as JAX leaves them to XLA): every counter is set to 0
+   before each driven run and read after it, and must stay 0.  Random
+   weights from ``--seed``, 8 slots, 32 greedy tokens a request, prompts
+   of 8, 255, 1024 and 4096 tokens: Grok-1 at its published width (6144,
+   48 / 8 heads of 128, 8 experts of 32768, top-2) at fp32 cut to 2 of
+   its 64 layers (fp32 KV), and at bf16 cut to 4; Kimi-K2 (7168, 64 / 8
+   heads of 112, 384 experts of 2048, top-8) at bf16 cut to 1 of 61.
+   Each served run prints the share of prefill assignments its
+   published capacity factor dropped per prompt length, and decode must
+   drop none (a group per slot); every logit finite.  Decode =
+   re-prefill (``lm_decode_gate``, fp32 within ``LM_TOL``, bf16 within
+   ``LM_BF16_TOL``) on a second served run at capacity factor
+   ``n_experts / top_k`` (capacity >= every length, so a re-prefill
+   drops nothing decode kept; Grok-1 up to 1024 tokens, Kimi-K2 up to
+   255).  The bf16 runs then take ``quantize_lm_params`` on the card, free
+   the bf16 params and serve the W8 params on the same requests; the W8
+   decode logits, teacher-forced on the bf16 tokens and routed as the
+   bf16 run routed (``lm_route_probe``), must lie within relative L2
+   ``LM_W8_TOL`` of the bf16 ones; the same with each run routing its
+   own, and the share of (token, layer) whose top-k differs, printed
+   (a random router at these widths flips a few per cent of them under
+   W8's ~1 % perturbation, and a flipped route moves its token's logits
+   far more than the quantization does).
+   ``[lm moe slots]``: a smoke-width Kimi-K2 from 16 slots with one
+   prompt in every slot gives every slot a batch-1 engine's tokens, no
+   decode MoE row zero.  ``[lm encdec fp32|bf16]``: Seamless-M4T-large-v2
+   whole (24 + 24 layers), frames B = 4 of 512 and 4096 positions, 32
+   greedy decode steps against ``decode_train`` (``lm_encdec_run``).
+   Printed: init and serving peaks, params and KV bytes, W8 bytes and
+   dequant temporaries, prefill tokens/s, decode host / device time and
+   idle, the expert products' and plain attention's share of a step, the
+   encoder's time, cross-K/V bytes.
 7. One JSON line with every kernel's launches on its driven run(s)
-   (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's and
-   6d's served LM runs and 4),
+   (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's, 6d's
+   and 6e's served LM runs and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -4051,7 +4086,8 @@ def lm_prefill_profile(tag, cfg, model, params, prompts, prefill_s,
             one = graph_ms(lambda: fn(*a, **k))            # noqa: B023
             attn[name] = (count, count * one)
         del cores
-        parts = []
+        experts = lm_expert_share(run, d_ms)
+        parts = [experts] if experts else []
         if scans:
             parts.append("scans " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in scans.items())
@@ -4084,15 +4120,16 @@ def lm_decode_profile(tag, eng, decode_tokens, decode_s, card) -> None:
     model, params, caches = eng.model, eng.params, eng.caches
     step = lambda: model.decode(params, caches, tokens, pos)  # noqa: E731
     h_ms, d_ms = host_ms(step), graph_ms(step)
+    experts = lm_expert_share(step, d_ms)
     kv = list(lm_kv_leaves(caches))
-    copies = ""
+    copies = f"; {experts}" if experts else ""
     if kv:
         # the step writes each KV leaf anew (the row write) and stacks
         # the layers' leaves again: two copies of the cache
         nbytes = sum(t.numel() * t.element_size() for t in kv)
         c_ms = graph_ms(lambda: [torch.stack(list(t.clone()))
                                  for t in kv])
-        copies = (f"; KV cache {nbytes / 2**30:.3f} GiB, written at least "
+        copies += (f"; KV cache {nbytes / 2**30:.3f} GiB, written at least "
                   f"twice a step ({2 * nbytes / 2**30:.3f} GiB: the row "
                   f"write and the re-stack), two copies alone {c_ms:.3f} "
                   f"ms on the device")
@@ -4424,6 +4461,580 @@ def lm_softmax_phase(seed, wrappers, max_err, card) -> dict:
     return {k: sum(r[k] for r in runs) for k in wrappers}
 
 
+# the [lm moe] / [lm encdec] phase (6e): the MoE models' prompt lengths,
+# the lengths their no-drop re-prefill gates take (Kimi-K2: the (384,
+# T + 1, 7168) dispatch buffer of a no-drop prefill is 1.4 GB at T =
+# 256), and Seamless's encoder lengths, batch and decode steps
+LM_MOE_PROMPTS = (8, 255, 1024, 4096)
+LM_GROK_GATE = (8, 255, 1024)
+LM_KIMI_GATE = (8, 255)
+LM_W8_TOL = 0.12              # W8 vs bf16 logits, relative L2 (JAX's bound)
+LM_ENCDEC_FRAMES = (512, 4096)
+LM_ENCDEC_BATCH = 4
+LM_ENCDEC_STEPS = 32
+
+
+@contextlib.contextmanager
+def lm_moe_probe():
+    """While open, every MoE call's slotting (``layers/moe.py::
+    _slot_assign``): -> [(groups, tokens per group, valid mask)]."""
+    from repro_torch.layers import moe as tmoe
+    calls, fn = [], tmoe._slot_assign
+
+    def probe(idx, n_experts, capacity):
+        slot_c, valid = fn(idx, n_experts, capacity)
+        calls.append((idx.shape[0], idx.shape[1], valid))
+        return slot_c, valid
+
+    tmoe._slot_assign = probe
+    try:
+        yield calls
+    finally:
+        tmoe._slot_assign = fn
+
+
+@contextlib.contextmanager
+def lm_expert_probe():
+    """While open, the expert products of every MoE call (``layers/
+    moe.py::_expert_ffn``): -> {buffer shape: [args, calls]}."""
+    from repro_torch.layers import moe as tmoe
+    calls, fn = {}, tmoe._expert_ffn
+
+    def probe(*a):
+        calls.setdefault(tuple(a[0].shape), [a, 0])[1] += 1
+        return fn(*a)
+
+    tmoe._expert_ffn = probe
+    try:
+        yield calls
+    finally:
+        tmoe._expert_ffn = fn
+
+
+def lm_expert_share(run, d_ms) -> str:
+    """The expert products' device time in one call of ``run`` (each
+    shape's first call captured into a graph and replayed, times its
+    calls) and its share of ``d_ms``; "" where ``run`` calls none."""
+    from repro_torch.layers import moe as tmoe
+    with lm_expert_probe() as calls:
+        run()
+    if not calls:
+        return ""
+    total, n = 0.0, 0
+    for a, count in calls.values():
+        total += count * graph_ms(lambda: tmoe._expert_ffn(*a))  # noqa: B023
+        n += count
+    del calls
+    return (f"expert products {total:.3f} ms ({n} calls, "
+            f"{total / d_ms:.3f} of the device time)")
+
+
+def lm_drops(tag, cfg, calls) -> None:
+    """Print the share of prefill assignments the capacity dropped per
+    prompt length (the engine's prefills are batch-1 groups); every
+    decode call (one group per slot) must drop none."""
+    pre, dec = {}, [0, 0]
+    for groups, tokens, valid in calls:
+        n, kept = valid.numel(), int(valid.sum())
+        acc = pre.setdefault(tokens, [0, 0]) if groups == 1 else dec
+        acc[0] += n - kept
+        acc[1] += n
+    if dec[0]:
+        raise AssertionError(f"[{tag}] decode dropped {dec[0]} of {dec[1]} "
+                             f"assignments")
+    print(f"[{tag}] capacity factor {cfg.capacity_factor:g}: share of "
+          f"prefill assignments dropped per prompt length (all layers) "
+          + ", ".join(f"{t}: {d / n:.4f}" for t, (d, n) in sorted(
+              pre.items()))
+          + f"; decode dropped 0 of {dec[1]} (one group per slot)")
+
+
+def lm_forced(cfg, params, prompts, max_len, tokens) -> dict:
+    """Each request's logits through a new engine from 8 slots, every
+    token forced to ``tokens[rid]`` (teacher-forced): -> rid -> [prefill
+    logits, each decode step's]."""
+    import torch
+    from repro_torch.serving import engine as teng
+    from repro_torch.serving.engine import Request
+    eng, rec = lm_engine(cfg, params, 8, max_len)
+    reqs = [Request(rid=i, prompt=p, max_tokens=LM_TOKENS)
+            for i, p in enumerate(prompts)]
+    order, real = iter(reqs), teng.sample
+
+    def forced(logits, generator, scfg):
+        if logits.shape[0] == 1:                  # an admission
+            return torch.tensor([tokens[next(order).rid][0]])
+        return torch.tensor([tokens[r.rid][len(r.out_tokens)]
+                             if r is not None else 0 for r in eng.slot_req])
+
+    teng.sample = forced
+    try:
+        eng.run(reqs)
+    finally:
+        teng.sample = real
+    del eng
+    return lm_logits_by_request(rec, range(len(prompts)))
+
+
+@contextlib.contextmanager
+def lm_route_probe(replay=None):
+    """While open, every MoE routing (``layers/moe.py::_route``): -> the
+    list of each call's top-k expert indices.  With ``replay`` (such a
+    list, of a run with the same calls) each call takes the recorded
+    experts instead of its own top-k, the gates their probabilities
+    renormalized as ``_route`` does: the run keeps another run's routes
+    and drops, and only the numbers it routes change."""
+    import torch
+    from repro_torch.layers import moe as tmoe
+    calls, fn = [], tmoe._route
+
+    def probe(xf, router_w, cfg):
+        gates, idx, probs = fn(xf, router_w, cfg)
+        if replay is not None:
+            idx = replay[len(calls)]
+            gates = torch.gather(probs, -1, idx)
+            gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True),
+                                            1e-9)
+        calls.append(idx)
+        return gates, idx, probs
+
+    tmoe._route = probe
+    try:
+        yield calls
+    finally:
+        tmoe._route = fn
+
+
+def lm_w8_rel(tag, ref, got) -> tuple:
+    """W8 against bf16 logits of the same requests and tokens: the
+    relative L2 of every request's decode-step logits (steps 1..,
+    stacked), the largest of one step's requests stacked, and the
+    prefill logits'; all finite."""
+    import torch
+
+    def rel(j0, j1):
+        a = torch.stack([torch.stack([lg.float() for lg in ref[r][j0:j1]])
+                         for r in ref])
+        b = torch.stack([torch.stack([lg.float() for lg in got[r][j0:j1]])
+                         for r in ref])
+        if not bool(torch.isfinite(b).all()):
+            raise AssertionError(f"[{tag}] non-finite W8 logits")
+        return ((b - a).norm() / a.norm()).item()
+
+    return (rel(1, LM_TOKENS), max(rel(j, j + 1)
+                                   for j in range(1, LM_TOKENS)), rel(0, 1))
+
+
+def lm_route_flips(ref, got) -> tuple:
+    """The share of (token, MoE layer) whose top-k expert set differs
+    between two runs of the same calls: (prefill, decode)."""
+    out = {True: [0, 0], False: [0, 0]}
+    for a, b in zip(ref, got):
+        d = (a.sort(-1).values != b.sort(-1).values).any(-1)
+        acc = out[a.shape[0] == 1]
+        acc[0] += int(d.sum())
+        acc[1] += d.numel()
+    return tuple(v[0] / max(1, v[1]) for v in (out[True], out[False]))
+
+
+def lm_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
+def lm_moe_run(tag, cfg, seed, gate_prompts, wrappers, max_err, card, *,
+               fp32: bool, w8: bool) -> dict:
+    """One ``[lm moe ...]`` sub-phase: random params from ``seed`` on the
+    card; the served run at the published capacity factor (launches
+    counted, drop shares printed, decode dropping none, every logit
+    finite); the no-drop served run (``capacity_factor = n_experts /
+    top_k``: capacity >= every length) of the ``gate_prompts`` held
+    decode = re-prefill (``lm_decode_gate``); the timings; with ``w8``
+    the W8 twin: ``quantize_lm_params`` on the card, the bf16 params
+    freed, the W8 engine served on the same requests and teacher-forced
+    on the bf16 tokens, routed as the bf16 run routed (gated) and on its
+    own routes (printed).  -> the served runs' launches, summed."""
+    import numpy as np
+    import torch
+    from repro_torch.core.quantization import quantize_lm_params
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(seed, device="cuda")
+    torch.cuda.synchronize()
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in LM_MOE_PROMPTS]
+    max_len = max(map(len, prompts)) + 64
+    # warm-up (cuBLAS handles, first allocations): before any counter
+    model.prefill(params, {"tokens": torch.as_tensor(
+        prompts[0][:8], device="cuda")[None]})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with lm_moe_probe() as calls, lm_route_probe() as routes:
+        served, logits, launches, rec, secs, eng = lm_serve(
+            tag, cfg, params, prompts, 8, max_len, wrappers)
+    peak = torch.cuda.max_memory_allocated()
+    param_bytes = lm_bytes(params)
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for t in lm_kv_leaves(eng.caches))
+    print(f"[{tag}] {cfg.name} {cfg.n_layers} layers at full width "
+          f"({cfg.n_experts} experts top-{cfg.top_k}, d_ff {cfg.d_ff}) "
+          f"{cfg.param_dtype}/{cfg.compute_dtype}, KV {cfg.kv_dtype}, "
+          f"{sum(t.numel() for t in _leaves(params))} params: "
+          f"{len(prompts)} requests x {LM_TOKENS} tokens in {secs:.3f} s "
+          f"from 8 slots (max_len {max_len}); launches of the port's "
+          f"kernels {sum(launches.values())}; peak allocated at init "
+          f"{init_peak / 2**30:.3f} GiB, while serving {peak / 2**30:.3f} "
+          f"GiB (params {param_bytes / 2**30:.3f}, KV caches "
+          f"{kv_bytes / 2**30:.3f}) [{card}]")
+    lm_drops(tag, cfg, calls)
+    del calls
+    for rid, lgs in logits.items():
+        if not all(bool(torch.isfinite(lg.float()).all()) for lg in lgs):
+            raise AssertionError(f"[{tag}] request {rid}: non-finite "
+                                 f"logits")
+    rel = LM_TOL if fp32 else LM_BF16_TOL
+    nd = cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
+    gp = [p for p in prompts if len(p) in gate_prompts]
+    with lm_moe_probe() as calls:
+        nd_served, nd_logits, nd_launches, *rest = lm_serve(
+            tag + " no-drop", nd, params, gp, 8,
+            max(map(len, gp)) + 64, wrappers)
+        del rest                        # its engine holds the params
+        dropped = sum(int((~v).sum()) for _, _, v in calls)
+    if dropped:
+        raise AssertionError(f"[{tag} no-drop] {dropped} assignments "
+                             f"dropped at capacity factor "
+                             f"{nd.capacity_factor:g}")
+    del calls
+    print(f"[{tag} no-drop] capacity factor {nd.capacity_factor:g} "
+          f"(capacity >= every length): none dropped; prompts "
+          f"{[len(p) for p in gp]}")
+    lm_decode_gate(tag + " no-drop", build_model(nd), params, gp,
+                   nd_served, nd_logits, rel, fp32)
+    del nd_logits
+    launches = {k: launches[k] + nd_launches[k] for k in launches}
+    decode_tokens = sum(len(t) - 1 for t in served.values())
+    eng.model = model                   # no recording from here on
+    lm_decode_profile(tag, eng, decode_tokens,
+                      secs - sum(rec["prefill_s"]), card)
+    lm_prefill_profile(tag, cfg, model, params, prompts, rec["prefill_s"],
+                       max_err, card, (4096,))
+    if w8:
+        t1 = time.perf_counter()
+        qparams = quantize_lm_params(params)
+        torch.cuda.synchronize()
+        q_s = time.perf_counter() - t1
+        q_bytes = lm_bytes(qparams)
+        del params, eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[{tag} w8] quantize_lm_params on the card in {q_s:.3f} s: "
+              f"params {param_bytes / 2**30:.3f} GiB ({cfg.param_dtype}) "
+              f"-> {q_bytes / 2**30:.3f} GiB (W8), "
+              f"{param_bytes / q_bytes:.3f}x fewer bytes; the "
+              f"{cfg.param_dtype} params freed [{card}]")
+        torch.cuda.reset_peak_memory_stats()
+        q_served, q_logits, q_launches, q_rec, q_secs, q_eng = lm_serve(
+            tag + " w8", cfg, qparams, prompts, 8, max_len, wrappers)
+        q_peak = torch.cuda.max_memory_allocated()
+        for rid, lgs in q_logits.items():
+            if not all(bool(torch.isfinite(lg.float()).all())
+                       for lg in lgs):
+                raise AssertionError(f"[{tag} w8] request {rid}: "
+                                     f"non-finite logits")
+        same = sum(a == b for rid in served
+                   for a, b in zip(served[rid], q_served[rid]))
+        print(f"[{tag} w8] served {len(prompts)} requests x {LM_TOKENS} "
+              f"tokens in {q_secs:.3f} s, {same} of "
+              f"{len(prompts) * LM_TOKENS} tokens equal to the "
+              f"{cfg.param_dtype} run's; peak allocated "
+              f"{q_peak / 2**30:.3f} GiB [{card}]")
+        launches = {k: launches[k] + q_launches[k] for k in launches}
+        with lm_route_probe() as q_routes:
+            forced = lm_forced(cfg, qparams, prompts, max_len, served)
+        free = lm_w8_rel(tag + " w8", logits, forced)
+        flips = lm_route_flips(routes, q_routes)
+        del forced, q_routes
+        with lm_route_probe(routes):
+            forced = lm_forced(cfg, qparams, prompts, max_len, served)
+        held = lm_w8_rel(tag + " w8", logits, forced)
+        del forced, routes
+        print(f"[{tag} w8] W8 vs {cfg.param_dtype} logits teacher-forced "
+              f"on the {cfg.param_dtype} tokens, relative L2 of the "
+              f"{LM_TOKENS - 1} decode steps of the {len(prompts)} requests "
+              f"(largest single step; prefill): each run routing its own "
+              f"{free[0]:.4f} ({free[1]:.4f}; {free[2]:.4f}), with "
+              f"{flips[0]:.4f} of the prefill's and {flips[1]:.4f} of the "
+              f"decode's (token, layer) top-{cfg.top_k} sets differing; "
+              f"the W8 run on the {cfg.param_dtype} run's routes "
+              f"{held[0]:.4f} ({held[1]:.4f}; {held[2]:.4f}), limit "
+              f"{LM_W8_TOL} [{card}]")
+        if not held[0] < LM_W8_TOL:
+            raise AssertionError(f"[{tag} w8] W8 decode logits on the "
+                                 f"{cfg.param_dtype} routes {held[0]:.4f} "
+                                 f"from {cfg.param_dtype} (relative L2), "
+                                 f"limit {LM_W8_TOL}")
+        E, D, F = cfg.n_experts, cfg.d_model, cfg.d_ff
+        tmp = E * D * F * torch.empty((), dtype=cfg.cdtype).element_size()
+        q_eng.model = model
+        B = q_eng.cfg.max_slots
+        tokens = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+        pos = torch.full((B,), 300, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        model.decode(qparams, q_eng.caches, tokens, pos)
+        torch.cuda.synchronize()
+        step_peak = torch.cuda.max_memory_allocated() - base
+        print(f"[{tag} w8] dequant-on-use temporaries: each expert tensor "
+              f"({E}, {D}, {F}) dequantized whole on every call, "
+              f"{tmp / 2**30:.3f} GiB in {cfg.compute_dtype} (cast, then "
+              f"scaled: two), 3 tensors a layer; one decode step peaks "
+              f"{step_peak / 2**30:.3f} GiB beyond the params and caches "
+              f"[{card}]")
+        lm_decode_profile(tag + " w8", q_eng, decode_tokens,
+                          q_secs - sum(q_rec["prefill_s"]), card)
+        lm_prefill_profile(tag + " w8", cfg, model, qparams, prompts,
+                           q_rec["prefill_s"], max_err, card, ())
+        del qparams, q_eng, q_logits
+    else:
+        del params, eng, routes
+    del logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def lm_slot_isolation(tag, seed, card) -> None:
+    """A smoke-width Kimi-K2 (4 experts top-2, capacity factor 1.0) on the
+    card from 16 slots, one prompt in every slot: each slot's tokens equal
+    a batch-1 engine's on that prompt alone (up to the first token whose
+    batch-1 top-2 margin is within ``LM_TOL``), and no row of a decode
+    step's MoE output is zero.  JAX's batched call on 16 equal rows (one
+    group: capacity 8 for 32 assignments) zeroes rows 8-15; one group per
+    row keeps every row, equal to the batch-1 call."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.layers import moe as tmoe
+    from repro_torch.models.lm import moe_cfg
+    from repro_torch.models.registry import build_model
+    from repro_torch.serving.engine import Request
+    cfg = smoke_variant(get_arch("kimi-k2-1t-a32b"))
+    params = build_model(cfg).init(seed, device="cuda")
+    prompt = np.random.default_rng(seed).integers(0, cfg.vocab, 24)
+    real, rows = tmoe.moe_dense, []
+
+    def probe(p, x, c, groups=1):
+        y, aux = real(p, x, c, groups)
+        if groups > 1:
+            rows.append(y.reshape(-1, y.shape[-1]).abs().amax(-1).min())
+        return y, aux
+
+    out = {}
+    tmoe.moe_dense = probe
+    try:
+        for slots in (16, 1):
+            eng, rec = lm_engine(cfg, params, slots, 64)
+            done = eng.run([Request(rid=i, prompt=prompt,
+                                    max_tokens=LM_TOKENS)
+                            for i in range(slots)])
+            out[slots] = ({r.rid: r.out_tokens for r in done},
+                          lm_logits_by_request(rec, range(slots)))
+    finally:
+        tmoe.moe_dense = real
+    one, one_logits = out[1][0][0], out[1][1][0]
+    n = len(one)
+    for i, lg in enumerate(one_logits):
+        top2 = torch.topk(lg.float(), 2).values
+        if (top2[0] - top2[1]).item() <= LM_TOL * max(
+                1.0, lg.float().abs().max().item()):
+            n = i + 1
+            break
+    for rid, toks in out[16][0].items():
+        if toks[:n] != one[:n]:
+            raise AssertionError(f"[{tag}] slot {rid}: tokens {toks} "
+                                 f"differ from the batch-1 engine's {one}")
+    smallest = min(r.item() for r in rows)
+    if not smallest > 0:
+        raise AssertionError(f"[{tag}] a decode step's MoE output has a "
+                             f"zero row")
+    mcfg = moe_cfg(cfg)
+    p0 = {k: ({kk: vv[0] for kk, vv in v.items()} if isinstance(v, dict)
+              else v[0])
+          for k, v in params["blocks"]["moe"].items()}
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((1, 1, cfg.d_model), generator=gen,
+                    device="cuda").expand(16, 1, -1)
+    y1, _ = tmoe.moe_dense(p0, x, mcfg)
+    yg, _ = tmoe.moe_dense(p0, x, mcfg, groups=16)
+    y_one, _ = tmoe.moe_dense(p0, x[:1], mcfg)
+    z1 = [i for i in range(16) if not bool(y1[i].any())]
+    zg = [i for i in range(16) if not bool(yg[i].any())]
+    d = (yg - y_one).abs().max().item()
+    if zg or not d <= 1e-5 * max(1.0, y_one.abs().max().item()):
+        raise AssertionError(f"[{tag}] grouped rows {zg} zero, {d:.3e} "
+                             f"from the batch-1 call")
+    print(f"[{tag}] {cfg.name} smoke (4 experts top-2, capacity factor "
+          f"{cfg.capacity_factor:g}) from 16 slots, one prompt of 24 "
+          f"tokens in each: every slot's {LM_TOKENS} tokens equal the "
+          f"batch-1 engine's (compared up to token {n}); the smallest "
+          f"row max of a decode MoE output {smallest:.3e} (no zero row); "
+          f"one MoE on 16 equal rows: one group (JAX's batched call) "
+          f"zeroes rows {z1}, a group per row zeroes {zg} and is {d:.3e} "
+          f"from the batch-1 call [{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def lm_encdec_run(tag, cfg, seed, wrappers, card, *, fp32: bool) -> dict:
+    """``[lm encdec ...]``: Seamless-M4T-large-v2 whole on the card,
+    random params and frames from ``seed``.  At each encoder length, B =
+    ``LM_ENCDEC_BATCH``, the encoder timed, then 32 greedy decode steps
+    from a BOS of 0 against ``decode_train`` + ``lm_logits_head`` over the
+    tokens so far: at fp32 with the state's caches in fp32
+    (``init_encdec_state(..., dtype=torch.float32)``) within ``LM_TOL`` *
+    max(1, max|logit|), top-1 equal past that margin; the registry's
+    prefill (bf16 state) within ``LM_BF16_TOL`` * max|logit|; all finite.
+    The counters are 0 before the params are made and must be 0 after
+    (the path runs no kernel of the port).  -> the launches."""
+    import torch
+    from repro_torch.models import encdec as ted
+    from repro_torch.models.lm import lm_logits_head
+    from repro_torch.models.registry import build_model
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(gen, device="cuda")
+    B, T = LM_ENCDEC_BATCH, LM_ENCDEC_STEPS
+    print(f"[{tag}] {cfg.name} whole ({cfg.n_layers} + {cfg.dec_layers} "
+          f"layers, d_model {cfg.d_model}, vocab {cfg.vocab}) "
+          f"{cfg.param_dtype}/{cfg.compute_dtype}: "
+          f"{sum(t.numel() for t in _leaves(params))} params, "
+          f"{lm_bytes(params) / 2**30:.3f} GiB [{card}]")
+    for S in LM_ENCDEC_FRAMES:
+        frames = torch.randn((B, S, cfg.d_model), generator=gen,
+                             device="cuda")
+        ted.encode(params, frames, cfg)                  # warm-up
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        memory = ted.encode(params, frames, cfg)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t1
+        enc_ms = graph_ms(lambda: ted.encode(params, frames, cfg))  # noqa: B023
+        paths = [("registry bf16 state", lambda: model.prefill(  # noqa: B023
+            params, {"frames": frames, "tokens": torch.zeros(  # noqa: B023
+                (B, T), dtype=torch.long, device="cuda")}),
+            LM_BF16_TOL, False)]
+        if fp32:
+            paths.insert(0, ("fp32 state", lambda: ted.init_encdec_state(
+                params, frames, cfg, T, dtype=torch.float32),  # noqa: B023
+                LM_TOL, True))
+        for name, make, rel, tight in paths:
+            state = make()
+            cross = sum(t.numel() * t.element_size()
+                        for t in _leaves(state["cross"]))
+            seq = [torch.zeros((B, 1), dtype=torch.long, device="cuda")]
+            worst, flips = 0.0, 0
+            for t in range(T):
+                logits, state = model.decode(params, state, seq[-1], t)
+                h = ted.decode_train(params, torch.cat(seq, 1), memory, cfg)
+                ref = lm_logits_head(params, h[:, -1:], cfg)[:, 0].float()
+                got = logits.float()
+                if not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"[{tag}] {S} frames, {name}, "
+                                         f"step {t}: non-finite logits")
+                d = (got - ref).abs().max().item()
+                top = ref.abs().max().item()
+                lim = rel * (max(1.0, top) if tight else top)
+                if not d <= lim:
+                    raise AssertionError(
+                        f"[{tag}] {S} frames, {name}, step {t}: logits "
+                        f"{d:.3e} from decode_train (max|ref| {top:.3e}), "
+                        f"above {lim:.3e}")
+                for b in range(B if tight else 0):
+                    if int(got[b].argmax()) == int(ref[b].argmax()):
+                        continue
+                    top2 = torch.topk(ref[b], 2).values
+                    if (top2[0] - top2[1]).item() > lim:
+                        raise AssertionError(
+                            f"[{tag}] {S} frames, step {t}, row {b}: "
+                            f"top-1 differs past the margin")
+                    flips += 1
+                worst = max(worst, d / top)
+                seq.append(logits.argmax(-1, keepdim=True))
+
+            pos = torch.full((B,), T - 1, device="cuda")
+
+            def step():
+                return model.decode(params, state, seq[-1], pos)  # noqa: B023
+            h_ms, d_ms = host_ms(step), graph_ms(step)
+            print(f"[{tag}] {S} frames x {B}, {name} (cross K/V "
+                  f"{cross / 2**30:.3f} GiB): {T} greedy steps vs "
+                  f"decode_train, max|d| / max|ref| {worst:.3e} (limit "
+                  f"{rel:g} of {'max(1, max|ref|)' if tight else 'max|ref|'}"
+                  + (f", top-1 equal but {flips} within the margin"
+                     if tight else ", every logit finite")
+                  + f"); one decode step: host {h_ms:.3f} ms to enqueue, "
+                  f"device {d_ms:.3f} ms (graph replay) [{card}]")
+            del state
+        print(f"[{tag}] {S} frames x {B}: encoder {enc_s * 1e3:.3f} ms "
+              f"(host, synchronized), {enc_ms:.3f} ms (graph replay) "
+              f"[{card}]")
+        del frames, memory
+    launches = {k: w.launches for k, w in wrappers.items()}
+    if any(launches.values()):
+        raise AssertionError(f"[{tag}] launches {launches}, expected none")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] peak allocated {peak / 2**30:.3f} GiB; launches of the "
+          f"port's kernels 0; {time.perf_counter() - t0:.1f} s [{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_moe_phase(seed, wrappers, max_err, card) -> dict:
+    """``[lm moe ...]`` and ``[lm encdec ...]``: Grok-1 and Kimi-K2 at
+    their published widths (depth cut to fit the card), their W8 twins,
+    slot isolation, and Seamless-M4T-large-v2 whole.  -> the launches of
+    the driven runs, summed (the path runs no kernel of the port)."""
+    import torch
+    from repro_torch.configs import get_arch
+    print(f"[lm moe] {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated as the phase starts [{card}]")
+    fp32 = dict(param_dtype="float32", compute_dtype="float32",
+                kv_dtype="float32")
+    grok, kimi, seamless = (get_arch(n) for n in (
+        "grok-1-314b", "kimi-k2-1t-a32b", "seamless-m4t-large-v2"))
+    runs = [
+        lm_moe_run("lm moe grok fp32 2 layers",
+                   grok.scaled(n_layers=2, **fp32), seed, LM_GROK_GATE,
+                   wrappers, max_err, card, fp32=True, w8=False),
+        lm_moe_run("lm moe grok bf16 4 layers", grok.scaled(n_layers=4),
+                   seed + 1, LM_GROK_GATE, wrappers, max_err, card,
+                   fp32=False, w8=True),
+        lm_moe_run("lm moe kimi bf16 1 layer", kimi.scaled(n_layers=1),
+                   seed + 2, LM_KIMI_GATE, wrappers, max_err, card,
+                   fp32=False, w8=True)]
+    lm_slot_isolation("lm moe slots", seed + 3, card)
+    runs += [lm_encdec_run("lm encdec fp32", seamless.scaled(
+                 param_dtype="float32", compute_dtype="float32"),
+                 seed + 4, wrappers, card, fp32=True),
+             lm_encdec_run("lm encdec bf16", seamless, seed + 5, wrappers,
+                           card, fp32=False)]
+    return {k: sum(r[k] for r in runs) for k in wrappers}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4661,6 +5272,10 @@ def main() -> int:
     launches_lm_softmax = lm_softmax_phase(args.seed, wrappers, max_err,
                                            card)
 
+    # -- 6e. [lm moe], [lm encdec]: MoE, W8, the encoder-decoder --------
+    stamp("section 6e", t_start)
+    launches_lm_moe = lm_moe_phase(args.seed, wrappers, max_err, card)
+
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
     rows = []
@@ -4675,7 +5290,8 @@ def main() -> int:
                          + launches_sh["fix8"][name]
                          + launches_se["fp32"][name]
                          + launches_se["fix8"][name] + launches_lib[name]
-                         + launches_lm[name] + launches_lm_softmax[name]),
+                         + launches_lm[name] + launches_lm_softmax[name]
+                         + launches_lm_moe[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

@@ -14,7 +14,10 @@ convolution with an int32 accumulator, so they run in float64 on the
 int8 values (every sum here is far below 2**53) and are rounded to fp32
 once, as JAX's ``int32 -> float32`` conversion rounds them.
 
-The LM weight-only part (``quantize_lm_params``) belongs to the LM slice.
+``quantize_lm_params`` is the LM weight-only int8 (W8) transform: JAX's
+tree walk leaf for leaf, each stacked weight quantized one leading index
+(layer, expert) at a time, which gives the same bits with one slice's
+fp32 copy in memory instead of the whole tensor's.
 """
 from __future__ import annotations
 
@@ -29,7 +32,8 @@ from repro_torch.layers.norms import bn_fold_scale_bias
 __all__ = ["QTensor", "act_fp", "quantize_act", "quantize_tensor",
            "quantize_with_scale", "calibrate_act_scale", "dequantize",
            "fold_bn_into_conv", "quantize_conv_bn", "quantize_linear",
-           "quantize_efficientvit", "conv2d_int8", "matmul_int8", "int_sums"]
+           "quantize_efficientvit", "conv2d_int8", "matmul_int8", "int_sums",
+           "quantize_lm_params"]
 
 QMAX = 127
 
@@ -216,6 +220,69 @@ def quantize_efficientvit(params):
             return {k: walk(v) for k, v in node.items()}
         if isinstance(node, list):
             return [walk(v) for v in node]
+        return node
+
+    return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# LM weight-only int8 (W8)
+# ---------------------------------------------------------------------------
+
+_W8_SKIP = ("norm", "ln1", "ln2", "ln3", "final_norm", "enc_norm", "router",
+            "conv_w", "conv_b", "A_log", "dt_bias", "D", "proj_bn", "bn")
+
+
+def _q_per_out_channel(w):
+    """int8 per (stack..., out channel): the scale reduces the in dim
+    (axis -2) only -> (q int8, scale fp32 (..., 1, out))."""
+    wf = w.float()
+    scale = _scale_of(torch.amax(wf.abs(), dim=-2, keepdim=True))
+    return _quantize(wf, scale), scale
+
+
+def _q_sliced(w):
+    """``_q_per_out_channel`` one leading index at a time: the same bits
+    (each scale reduces within its own (in, out) slice), with one slice's
+    fp32 copy alive instead of the whole tensor's."""
+    if w.dim() <= 2:
+        return _q_per_out_channel(w)
+    q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+    scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),
+                        dtype=torch.float32, device=w.device)
+    for i in range(w.shape[0]):
+        q[i], scale[i] = _q_sliced(w[i])
+    return q, scale
+
+
+def quantize_lm_params(params):
+    """Weight-only int8 transform of an LM (or enc-dec) param tree, as
+    JAX's: matmul weights ``{"w": (..., in, out)}`` become ``{"qw" int8,
+    "scale" (..., 1, out)}`` (a bias ``"b"`` kept); embedding tables
+    ``{"qt" int8, "scale" (V, 1)}``; MoE expert tensors (stacked or not)
+    ``{"q" int8, "scale"}``.  Norms, biases, routers and SSM scalars stay
+    as they are (the same substring tests on the path as JAX's).
+    ``layers.linear`` and ``layers.moe`` dequantize on use."""
+
+    def walk(node, path=""):
+        if isinstance(node, dict):
+            if any(s in path.rsplit("/", 1)[-1] for s in _W8_SKIP):
+                return node
+            if "table" in node and node["table"].dim() == 2:
+                q, scale = quantize_tensor(node["table"], axis=0)
+                return {"qt": q, "scale": scale.float()}
+            if "w" in node and node["w"].dim() >= 2 \
+                    and not any(s in path for s in _W8_SKIP):
+                q, scale = _q_sliced(node["w"])
+                out = {"qw": q, "scale": scale}
+                if "b" in node:
+                    out["b"] = node["b"]
+                return out
+            return {k: walk(v, f"{path}/{k}") for k, v in node.items()}
+        if isinstance(node, torch.Tensor) and node.dim() >= 3 and \
+                path.rsplit("/", 1)[-1] in ("w_in", "w_gate", "w_out"):
+            q, scale = _q_sliced(node)
+            return {"q": q, "scale": scale}
         return node
 
     return walk(params)

@@ -1,0 +1,170 @@
+"""Encoder-decoder transformer (the seamless-m4t backbone), counterpart
+of ``repro/models/encdec.py`` for serving.
+
+The encoder takes precomputed frame embeddings (the modality frontend is
+a stub, as in JAX) and runs non-causal softmax attention; the decoder is
+a causal LM with cross attention into the encoder's memory.  Both
+stacks keep JAX's stacked layout ((L, ...) leaves under ``enc_blocks``
+and ``dec_blocks``); where JAX scans over the stacked axis, the port
+loops over it in Python, as ``models/lm.py`` does.
+
+Serving: ``init_encdec_state`` runs the encoder once and keeps each
+decoder layer's cross K/V beside zero self-attention caches;
+``encdec_decode_step`` decodes one token against them.  ``decode_train``
+is the cache-free forward (the oracle of the tests and of the chip
+gate).  ``encdec_loss`` needs ``chunked_ce_loss`` and waits for
+training (ROADMAP A8f); JAX's ``_maybe_remat`` does nothing when
+serving.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.layers.attention import (
+    _raw_qkv, attention, attention_decode, cross_attention, init_attention,
+    init_kv_cache)
+from repro_torch.layers.linear import embed, init_embedding, init_linear, linear
+from repro_torch.layers.mlp import init_mlp, mlp
+from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.models.lm import (
+    _at, _stack, _stacked_init, attn_cfg, lm_logits_head, mlp_cfg,
+    tree_map)
+
+__all__ = ["init_enc_block", "init_dec_block", "init_encdec", "encode",
+           "decode_train", "init_encdec_state", "encdec_decode_step"]
+
+
+def init_enc_block(generator: torch.Generator, cfg: ArchConfig,
+                   device=None):
+    return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "attn": init_attention(generator, attn_cfg(cfg, "softmax"),
+                                   device),
+            "ln2": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "mlp": init_mlp(generator, mlp_cfg(cfg), device)}
+
+
+def init_dec_block(generator: torch.Generator, cfg: ArchConfig,
+                   device=None):
+    acfg = attn_cfg(cfg, "softmax")
+    return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "self_attn": init_attention(generator, acfg, device),
+            "ln2": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "cross_attn": init_attention(generator, acfg, device),
+            "ln3": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+            "mlp": init_mlp(generator, mlp_cfg(cfg), device)}
+
+
+def init_encdec(generator: torch.Generator, cfg: ArchConfig, device=None):
+    """Random params drawn from ``generator`` (on its device), placed on
+    ``device``."""
+    return {
+        "embed": init_embedding(generator, cfg.vocab, cfg.d_model,
+                                cfg.pdtype, device),
+        "enc_blocks": _stacked_init(generator, cfg, "enc", (cfg.n_layers,),
+                                    device, init_enc_block),
+        "enc_norm": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+        "dec_blocks": _stacked_init(generator, cfg, "dec",
+                                    (cfg.dec_layers,), device,
+                                    init_dec_block),
+        "final_norm": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+        "lm_head": init_linear(generator, cfg.d_model, cfg.vocab,
+                               dtype=cfg.pdtype, device=device),
+    }
+
+
+def encode(params, frames, cfg: ArchConfig):
+    """frames: (B, S_enc, D) stub embeddings -> encoder memory (B, S_enc,
+    D)."""
+    x = frames.to(cfg.cdtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    acfg = dataclasses.replace(attn_cfg(cfg, "softmax"), causal=False)
+    for i in range(cfg.n_layers):
+        p = _at(params["enc_blocks"], i)
+        x = x + attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                          acfg, positions)
+        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+                    mlp_cfg(cfg))
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+def decode_train(params, dec_tokens, memory, cfg: ArchConfig):
+    """The cache-free decoder forward: tokens (B, S) over ``memory`` ->
+    final hidden states (B, S, D)."""
+    x = embed(params["embed"], dec_tokens, cfg.cdtype)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    acfg = attn_cfg(cfg, "softmax")
+    for i in range(cfg.dec_layers):
+        p = _at(params["dec_blocks"], i)
+        x = x + attention(p["self_attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+                          acfg, positions)
+        x = x + cross_attention(p["cross_attn"],
+                                rmsnorm(p["ln2"], x, cfg.norm_eps), memory,
+                                acfg)
+        x = x + mlp(p["mlp"], rmsnorm(p["ln3"], x, cfg.norm_eps),
+                    mlp_cfg(cfg))
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# decode (serving): the cross K/V computed once per request batch
+# ---------------------------------------------------------------------------
+
+def init_encdec_state(params, frames, cfg: ArchConfig, max_len: int,
+                      dtype=torch.bfloat16):
+    """Run the encoder; each decoder layer's cross K/V (L, B, S_enc, KV,
+    Dh) and zero self-attention caches (L, B, ``max_len``, KV, Dh), all in
+    ``dtype``."""
+    memory = encode(params, frames, cfg)
+    acfg = attn_cfg(cfg, "softmax")
+    B = memory.shape[0]
+    cross = []
+    for i in range(cfg.dec_layers):
+        _, k, v = _raw_qkv(_at(params["dec_blocks"], i)["cross_attn"],
+                           memory, acfg)
+        cross.append({"ck": k.to(dtype), "cv": v.to(dtype)})
+    self_caches = tree_map(
+        lambda a: a.new_zeros((cfg.dec_layers,) + tuple(a.shape)),
+        init_kv_cache(acfg, B, max_len, dtype, memory.device))
+    return {"cross": _stack(cross), "self": self_caches}
+
+
+def _cross_decode(p, x, ck, cv, acfg):
+    """One token's cross attention against the cached memory K/V."""
+    B = x.shape[0]
+    g = acfg.n_heads // acfg.n_kv
+    q, _, _ = _raw_qkv(p, x, acfg)
+    q = q.reshape(B, acfg.n_kv, g, acfg.head_dim)
+    qf = q.float() * acfg.head_dim ** -0.5
+    s = torch.einsum("bkgd,bckd->bkgc", qf, ck.float())
+    pr = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgc,bckd->bkgd", pr, cv.float())
+    o = o.reshape(B, 1, acfg.q_dim).to(x.dtype)
+    return linear(p["wo"], o)
+
+
+def encdec_decode_step(params, state, tokens, pos, cfg: ArchConfig):
+    """tokens: (B, 1); ``pos`` one int or a (B,) tensor -> (logits (B, V),
+    new state); the input state is not written."""
+    x = embed(params["embed"], tokens, cfg.cdtype)
+    acfg = attn_cfg(cfg, "softmax")
+    new_self = []
+    for i in range(cfg.dec_layers):
+        p = _at(params["dec_blocks"], i)
+        y, sc = attention_decode(p["self_attn"],
+                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
+                                 _at(state["self"], i), pos, acfg)
+        new_self.append(sc)
+        x = x + y
+        x = x + _cross_decode(p["cross_attn"],
+                              rmsnorm(p["ln2"], x, cfg.norm_eps),
+                              state["cross"]["ck"][i],
+                              state["cross"]["cv"][i], acfg)
+        x = x + mlp(p["mlp"], rmsnorm(p["ln3"], x, cfg.norm_eps),
+                    mlp_cfg(cfg))
+    h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = lm_logits_head(params, h, cfg)
+    return logits[:, 0, :], {"cross": state["cross"],
+                             "self": _stack(new_self)}

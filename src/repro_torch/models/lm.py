@@ -2,6 +2,7 @@
 
   dense   — a uniform [attention + MLP] stack (stablelm, granite,
             qwen2.5)
+  moe     — a uniform [attention + MoE] stack (grok-1, kimi-k2)
   vlm     — the dense stack over [patch embeddings | text embeddings]
             (internvl2; the vision frontend is a stub, as in JAX)
   gemma3  — groups of (global_every - 1) sliding-window layers and one
@@ -23,9 +24,13 @@ over it in Python.
 ``reference=True`` (prefill only: decode runs no scan) routes both scans
 to their plain versions on any device; the served path never takes it.
 
-The moe family (ROADMAP A8c), enc-dec (A8d) and ``flash_vjp=True``
-(training, A8f) are not ported yet; nor are ``lm_loss`` and
-``chunked_ce_loss`` (A8f).
+``forward_hidden`` sums the MoE layers' aux losses, as JAX's scan
+does (only training reads it).  Decode runs each row's MoE as a group of
+its own (``layers/moe.py``: the capacity of one token, as JAX's engine
+``vmap``s a batch-1 step over its slots); prefill routes the batch as
+one group, as JAX's.  The encoder-decoder is ``models/encdec.py``.
+``flash_vjp=True`` (training, ROADMAP A8f) is not ported yet; nor are
+``lm_loss`` and ``chunked_ce_loss`` (A8f).
 """
 from __future__ import annotations
 
@@ -42,27 +47,24 @@ from repro_torch.layers.linear import (
 from repro_torch.layers.mamba2 import (
     Mamba2Config, init_mamba2, init_mamba2_cache, mamba2, mamba2_decode)
 from repro_torch.layers.mlp import MlpConfig, init_mlp, mlp
+from repro_torch.layers.moe import MoeConfig, init_moe, moe
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 
-__all__ = ["attn_cfg", "mlp_cfg", "mamba_cfg", "check_supported",
+__all__ = ["attn_cfg", "mlp_cfg", "moe_cfg", "mamba_cfg", "check_supported",
            "tree_map", "init_block", "block_apply", "block_decode",
            "init_block_cache", "init_lm", "forward_hidden", "lm_logits_head",
            "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step"]
 
-UNIFORM = {"dense": "attn_mlp", "vlm": "attn_mlp", "mamba2": "mamba"}
+UNIFORM = {"dense": "attn_mlp", "vlm": "attn_mlp", "moe": "attn_moe",
+           "mamba2": "mamba"}
 FAMILIES = tuple(UNIFORM) + ("gemma3", "zamba2")
-UNPORTED = {"moe": "A8c", "encdec": "A8d"}
 
 
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port does not have yet:
-    the moe (ROADMAP A8c) and encdec (A8d) families and ``flash_vjp``
-    (A8f)."""
-    if cfg.family in UNPORTED:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family ({cfg.name}) is not ported to "
-            f"repro_torch yet (ROADMAP {UNPORTED[cfg.family]})")
-    if cfg.family not in FAMILIES:
+def check_supported(cfg: ArchConfig, families=FAMILIES) -> None:
+    """Raise ``ValueError`` for a family outside ``families`` and
+    ``NotImplementedError`` for ``flash_vjp=True``, which the port does
+    not have yet (training, ROADMAP A8f)."""
+    if cfg.family not in families:
         raise ValueError(f"unknown family {cfg.family!r}")
     if cfg.flash_vjp:
         raise NotImplementedError(
@@ -88,6 +90,11 @@ def attn_cfg(cfg: ArchConfig, backend: Optional[str] = None) -> AttnConfig:
 def mlp_cfg(cfg: ArchConfig) -> MlpConfig:
     return MlpConfig(cfg.d_model, cfg.d_ff, "silu", True, cfg.fused_mlp,
                      cfg.pdtype)
+
+
+def moe_cfg(cfg: ArchConfig) -> MoeConfig:
+    return MoeConfig(cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.top_k,
+                     cfg.capacity_factor, dtype=cfg.pdtype)
 
 
 def mamba_cfg(cfg: ArchConfig) -> Mamba2Config:
@@ -141,40 +148,53 @@ def init_block(generator: torch.Generator, cfg: ArchConfig, kind: str,
     if kind == "mamba":
         return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
                 "mixer": init_mamba2(generator, mamba_cfg(cfg), device)}
-    if kind not in ("attn_mlp", "local", "global"):
-        raise NotImplementedError(f"block kind {kind!r} is not ported to "
-                                  f"repro_torch yet (ROADMAP A8c)")
+    if kind not in ("attn_mlp", "attn_moe", "local", "global"):
+        raise ValueError(f"unknown block kind {kind!r}")
     acfg = attn_cfg(cfg, _block_backend(cfg, kind))
-    return {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
-            "attn": init_attention(generator, acfg, device),
-            "ln2": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
-            "mlp": init_mlp(generator, mlp_cfg(cfg), device)}
+    p = {"ln1": init_rmsnorm(cfg.d_model, cfg.pdtype, device),
+         "attn": init_attention(generator, acfg, device),
+         "ln2": init_rmsnorm(cfg.d_model, cfg.pdtype, device)}
+    if kind == "attn_moe":
+        p["moe"] = init_moe(generator, moe_cfg(cfg), device)
+    else:
+        p["mlp"] = init_mlp(generator, mlp_cfg(cfg), device)
+    return p
+
+
+def _ffn(p, h, cfg: ArchConfig, kind: str, groups: int = 1):
+    """The block's feed-forward half: -> (y, aux); the MoE's tokens in
+    ``groups`` groups (decode: one per row)."""
+    if kind == "attn_moe":
+        return moe(p["moe"], h, moe_cfg(cfg), groups)
+    return mlp(p["mlp"], h, mlp_cfg(cfg)), 0.0
 
 
 def _block(p, x, cfg: ArchConfig, kind: str, positions, *, cache: bool,
            cache_dtype, reference: bool):
-    """x: (B, S, D) -> (x', the block's decode cache or None)."""
+    """x: (B, S, D) -> (x', the block's decode cache or None, aux)."""
     if kind == "mamba":
         out = mamba2(p["mixer"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                      mamba_cfg(cfg), return_cache=cache,
                      reference=reference)
         y, c = out if cache else (out, None)
-        return x + y, c
+        return x + y, c, 0.0
     out = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                     attn_cfg(cfg, _block_backend(cfg, kind)), positions,
                     return_cache=cache, cache_dtype=cache_dtype,
                     reference=reference)
     y, c = out if cache else (out, None)
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, mlp_cfg(cfg)), c
+    y, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
+    return x + y, c, aux
 
 
 def block_apply(p, x, cfg: ArchConfig, kind: str, positions, *,
                 reference: bool = False):
-    """x: (B, S, D) -> (x', aux): the block without its cache."""
-    return _block(p, x, cfg, kind, positions, cache=False, cache_dtype=None,
-                  reference=reference)[0], 0.0
+    """x: (B, S, D) -> (x', aux): the block without its cache; aux is
+    the MoE's load-balancing loss (0.0 for other kinds)."""
+    x, _, aux = _block(p, x, cfg, kind, positions, cache=False,
+                       cache_dtype=None, reference=reference)
+    return x, aux
 
 
 def block_prefill(p, x, cfg: ArchConfig, kind: str, positions, *,
@@ -182,10 +202,12 @@ def block_prefill(p, x, cfg: ArchConfig, kind: str, positions, *,
     """x: (B, S, D) -> (x', the block's decode cache, KV in
     ``cache_dtype``)."""
     return _block(p, x, cfg, kind, positions, cache=True,
-                  cache_dtype=cache_dtype, reference=reference)
+                  cache_dtype=cache_dtype, reference=reference)[:2]
 
 
 def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
+    """x: (B, 1, D) -> (x', cache); an MoE routes each row as a group of
+    its own (see the module docstring)."""
     if kind == "mamba":
         y, cache = mamba2_decode(p["mixer"],
                                  rmsnorm(p["ln1"], x, cfg.norm_eps),
@@ -196,8 +218,9 @@ def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
                                 cache, pos,
                                 attn_cfg(cfg, _block_backend(cfg, kind)))
     x = x + y
-    h = rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + mlp(p["mlp"], h, mlp_cfg(cfg)), cache
+    y, _ = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind,
+                groups=x.shape[0])
+    return x + y, cache
 
 
 def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
@@ -213,17 +236,27 @@ def init_block_cache(cfg: ArchConfig, kind: str, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 
 def _stacked_init(generator, cfg: ArchConfig, kind: str, lead: tuple,
-                  device):
-    """Blocks of ``kind`` stacked on leading axes ``lead``, drawn in
+                  device, init=None):
+    """Blocks of ``kind`` (``init(generator, cfg, device)``, default
+    ``init_block`` of ``kind``) stacked on leading axes ``lead``, drawn in
     row-major order, each written into the stacked leaves as it is made
-    (one block's params beside the stack, not a list of them)."""
+    (one block's params beside the stack, not a list of them); a stack
+    of one block is that block's leaves, viewed with the leading axes
+    (no copy: one Kimi-K2 layer's experts are 33.8 GB in bf16)."""
+    if init is None:
+        def init(g, c, d):
+            return init_block(g, c, kind, d)
+    if all(n == 1 for n in lead):
+        return tree_map(lambda a: a.view(lead + tuple(a.shape)),
+                        init(generator, cfg, device))
     out = None
     for idx in itertools.product(*map(range, lead)):
-        blk = init_block(generator, cfg, kind, device)
+        blk = init(generator, cfg, device)
         if out is None:
             out = tree_map(lambda a: a.new_empty(lead + tuple(a.shape)),
                            blk)
         tree_map(lambda o, a: o[idx].copy_(a), out, blk)
+        del blk                     # freed before the next block is drawn
     return out
 
 

@@ -1,5 +1,6 @@
 """Model registry, counterpart of ``repro/models/registry.py``: one
-interface over the LM families the port has (``models/lm.py``).
+interface over every LM family (``models/lm.py``) and the
+encoder-decoder (``models/encdec.py``).
 
 ``Model.init(generator or seed, device=None)`` draws random params (a
 seed makes a generator on ``device``); ``prefill(params, {"tokens": (B,
@@ -10,6 +11,13 @@ the KV caches in ``cfg.kv_dtype``; ``decode(params, caches, tokens (B,
 leaves hold ``max_len`` positions (sliding: ``min(max_len, window)``)
 in ``cfg.kv_dtype``.  Entry points run on the CUDA card unless
 ``device="cpu"`` is asked for.
+
+Enc-dec, as JAX's: ``prefill(params, {"frames": (B, S_enc, D),
+"tokens": (B, S)})`` runs the encoder and returns the serve STATE only
+(``init_encdec_state``: cross K/V, zero self caches of ``S`` positions,
+bf16); ``decode(params, state, tokens, pos)`` -> (logits (B, V),
+state); ``init_caches(batch, max_len)`` the zero state, its cross K/V
+``ENC_MEMORY_LEN`` positions long, bf16.
 
 ``build_model(cfg, reference=True)`` gives the reference forward: its
 prefill runs the two scans' plain versions on any device (softmax and
@@ -25,9 +33,14 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import encdec as _ed
 from repro_torch.models import lm as _lm
 
-__all__ = ["Model", "build_model"]
+__all__ = ["Model", "build_model", "ENC_MEMORY_LEN"]
+
+# encoder memory length of the enc-dec serve state's cross K/V (JAX's:
+# precomputed frontend frames, ~100 s of audio at a 40 ms hop)
+ENC_MEMORY_LEN = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,14 +57,36 @@ def _init(cfg: ArchConfig, generator, device=None):
     dev = resolve_device(device)
     if not isinstance(generator, torch.Generator):
         generator = torch.Generator(device=dev).manual_seed(int(generator))
+    if cfg.family == "encdec":
+        return _ed.init_encdec(generator, cfg, dev)
     return _lm.init_lm(generator, cfg, dev)
 
 
+def _cache_device(device):
+    return (torch.device("meta") if str(device) == "meta"
+            else resolve_device(device))
+
+
 def _caches(cfg: ArchConfig, batch: int, max_len: int, device=None):
-    dev = (torch.device("meta") if str(device) == "meta"
-           else resolve_device(device))
     return _lm.init_lm_caches(cfg, batch, max_len, _kv_dtype(cfg),
-                              device=dev)
+                              device=_cache_device(device))
+
+
+def _encdec_cache_zeros(cfg: ArchConfig, batch: int, max_len: int,
+                        device=None):
+    """The zero enc-dec serve state: cross K/V of ``ENC_MEMORY_LEN``
+    positions and self caches of ``max_len``, bf16."""
+    acfg = _lm.attn_cfg(cfg, "softmax")
+    dev = _cache_device(device)
+    L = cfg.dec_layers
+    kvshape = (L, batch, ENC_MEMORY_LEN, acfg.n_kv, acfg.head_dim)
+    self_kv = (L, batch, max_len, acfg.n_kv, acfg.head_dim)
+
+    def zeros(shape):
+        return torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+
+    return {"cross": {"ck": zeros(kvshape), "cv": zeros(kvshape)},
+            "self": {"k": zeros(self_kv), "v": zeros(self_kv)}}
 
 
 def _kv_dtype(cfg: ArchConfig) -> torch.dtype:
@@ -59,7 +94,19 @@ def _kv_dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
-    _lm.check_supported(cfg)
+    _lm.check_supported(cfg, _lm.FAMILIES + ("encdec",))
+    if cfg.family == "encdec":
+        return Model(
+            cfg=cfg,
+            init=lambda generator, device=None: _init(cfg, generator,
+                                                      device),
+            prefill=lambda p, b: _ed.init_encdec_state(
+                p, b["frames"], cfg, b["tokens"].shape[1]),
+            decode=lambda p, st, t, pos: _ed.encdec_decode_step(
+                p, st, t, pos, cfg),
+            init_caches=lambda batch, max_len, device=None:
+                _encdec_cache_zeros(cfg, batch, max_len, device),
+        )
     return Model(
         cfg=cfg,
         init=lambda generator, device=None: _init(cfg, generator, device),

@@ -21,6 +21,9 @@ no key of the slot's previous request survives past the prompt.
 On the card the prefill of a Mamba-2 layer launches ``ssd_chunked`` and
 a relu_linear attention layer ``relu_attn_causal``; softmax and sliding
 attention are plain torch ops; decode launches no kernel of the port.
+An MoE layer's decode routes each slot's token as a group of its own
+(the capacity of one token), as JAX's ``vmap`` over batch-1 slots does:
+no slot's token is dropped for what the other slots hold.
 Decode does not write its input caches: each step makes new ones (a
 copy of every KV leaf per step).
 """
@@ -78,10 +81,16 @@ def _batch_axes(model: Model, max_len: int):
 class ServingEngine:
     """``device`` defaults to the CUDA card (``params`` are moved there);
     without a card, and without ``device="cpu"``, the constructor
-    raises."""
+    raises, as it does for an enc-dec arch."""
 
     def __init__(self, arch: ArchConfig, params, cfg: ServeConfig, *,
                  telemetry: Telemetry | None = None, device=None):
+        if arch.family == "encdec":
+            raise ValueError(
+                f"{arch.name}: the ServingEngine serves decoder-only LMs; "
+                f"an enc-dec prefill returns its serve state, not (logits, "
+                f"caches) (JAX's engine fails inside admit): prefill and "
+                f"decode it through models.registry.build_model")
         self.arch = arch
         self.cfg = cfg
         self.device = resolve_device(device)

@@ -2259,13 +2259,16 @@ def test_relu_attn_causal_at_gemma3_head_width(cuda, N, dtype):
 @pytest.mark.parametrize("name,kw", [
     ("granite-3-2b", {}), ("gemma3-12b", {}),
     ("gemma3-12b", {"attn_backend": "relu_linear"}), ("internvl2-1b", {}),
-    ("zamba2-1.2b", {})])
+    ("zamba2-1.2b", {}), ("grok-1-314b", {"capacity_factor": 2.0}),
+    ("kimi-k2-1t-a32b", {"capacity_factor": 2.0})])
 def test_lm_decode_equals_reprefill_on_the_card(cuda, name, kw):
     """Each family with KV caches at its smoke size (gemma3: window 32),
     fp32 with fp32 caches, served from 2 slots with 3 ragged prompts (45
     and 33 tokens wrap gemma3's rings): every decode step's logits equal
     the last row of a fresh prefill of the prompt and the tokens chosen
-    before it within 1e-4 * max(1, max|logit|)."""
+    before it within 1e-4 * max(1, max|logit|).  The MoE smoke models
+    (4 experts top-2) run at capacity factor 2 = n_experts / top_k, so
+    no prefill drops a token that decode keeps."""
     import dataclasses
 
     from repro_torch.configs import get_arch, smoke_variant
@@ -2303,3 +2306,111 @@ def test_lm_decode_equals_reprefill_on_the_card(cuda, name, kw):
                 ctx, device=cuda)[None]})
             _lm_close(logits[i], ref[0], 1e-4)
     assert seen == {rid: 5 for rid in toks}
+
+
+# ---------------------------------------------------------------------------
+# the MoE layer, the W8 transform and the encoder-decoder on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("E,k,cf,B,S,groups", [
+    (4, 2, 2.0, 2, 16, 1), (64, 1, 1e-9, 1, 2048, 1), (8, 2, 1.25, 4, 300, 1),
+    (4, 2, 1.0, 16, 1, 16), (4, 2, 1.0, 16, 1, 1), (384, 8, 1.0, 8, 1, 8)])
+def test_lm_moe_dense_on_the_card(cuda, E, k, cf, B, S, groups):
+    """``moe_dense`` on the card against itself on the CPU, fp32: the same
+    routes and dropped rows, y within 1e-5 * max(1, max|y|), aux within
+    1e-5 of it; with capacity drops (one expert of 64 per token at the
+    capacity floor of 8) and the 16-row slot isolation (one group per
+    row: no row zero; one group: rows 8-15 zero)."""
+    from repro_torch.layers import moe as tmoe
+    cfg = tmoe.MoeConfig(d_model=64, d_ff=128, n_experts=E, top_k=k,
+                         capacity_factor=cf)
+    gen = torch.Generator().manual_seed(E + B)
+    p = tmoe.init_moe(gen, cfg, "cpu")
+    x = torch.randn((B, S, 64), generator=gen)
+    if S == 1:
+        x = x[:1].expand(B, 1, 64).contiguous()    # one prompt per slot
+    yc, ac = tmoe.moe_dense(p, x, cfg, groups)
+    pg = {key: (v.to(cuda) if not isinstance(v, dict)
+                else {kk: vv.to(cuda) for kk, vv in v.items()})
+          for key, v in p.items()}
+    yg, ag = tmoe.moe_dense(pg, x.to(cuda), cfg, groups)
+    _, ic, _ = tmoe._route(x.reshape(groups, -1, 64), p["router"]["w"], cfg)
+    _, ig, _ = tmoe._route(x.to(cuda).reshape(groups, -1, 64),
+                           pg["router"]["w"], cfg)
+    assert torch.equal(ic, ig.cpu())
+    zc = (yc.reshape(B * S, -1) == 0).all(-1)
+    assert torch.equal(zc, (yg.cpu().reshape(B * S, -1) == 0).all(-1))
+    _lm_close(yg.cpu(), yc, 1e-5)
+    assert torch.allclose(ag.cpu(), ac, rtol=1e-5, atol=0)
+    if S == 1 and E == 4:
+        assert list(torch.nonzero(zc).flatten()) == (
+            [] if groups == 16 else list(range(8, 16)))
+
+
+def test_lm_quantize_lm_params_on_the_card_is_bit_equal(cuda):
+    """``quantize_lm_params`` of a kimi-k2 smoke tree (stacked experts,
+    an embedding table, attention weights) on the card: bit-equal to the
+    CPU's, leaf for leaf; the same on a bf16 stacked expert tensor of
+    (2, 8, 512, 1024)."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.core.quantization import quantize_lm_params
+    from repro_torch.models.registry import build_model
+    cfg = smoke_variant(get_arch("kimi-k2-1t-a32b"))
+    params = build_model(cfg).init(0, device="cpu")
+    big = (torch.randn((2, 8, 512, 1024),
+                       generator=torch.Generator().manual_seed(1)) * 0.02
+           ).to(torch.bfloat16)
+    params["extra"] = {"w_in": big}        # quantized as an expert tensor
+    cpu = quantize_lm_params(params)
+    card = quantize_lm_params(_tree_to(params, cuda))
+    assert set(cpu["extra"]["w_in"]) == {"q", "scale"}
+
+    def walk(a, b, path=""):
+        if isinstance(a, dict):
+            assert set(a) == set(b), path
+            for key in a:
+                walk(a[key], b[key], f"{path}/{key}")
+            return
+        assert a.dtype == b.dtype, path
+        assert torch.equal(a, b.cpu()), path
+
+    walk(cpu, card)
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_lm_seamless_decode_step_on_the_card(cuda):
+    """One smoke Seamless (2 + 2 layers) prefill through the registry and
+    a decode step on the card against the same on the CPU: the state's
+    leaves within one bf16 step (2^-7) of max|leaf|, the logits within
+    1e-2 * max(1, max|logit|) (bf16 state); and with fp32 state
+    (``init_encdec_state(..., dtype=torch.float32)``) within 1e-4."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import encdec as ted
+    from repro_torch.models.registry import build_model
+    cfg = smoke_variant(get_arch("seamless-m4t-large-v2"))
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    frames = torch.randn((2, 40, cfg.d_model),
+                         generator=torch.Generator().manual_seed(2))
+    tok = torch.tensor([[3], [5]])
+    batch = {"frames": frames, "tokens": torch.zeros((2, 8),
+                                                      dtype=torch.long)}
+    pc = _tree_to(params, cuda)
+    sc = model.prefill(params, batch)
+    sg = model.prefill(pc, _tree_to(batch, cuda))
+    for key in ("ck", "cv"):
+        _lm_close(sg["cross"][key].cpu(), sc["cross"][key], 2.0 ** -7)
+    lc, _ = model.decode(params, sc, tok, 0)
+    lg, _ = model.decode(pc, sg, tok.to(cuda), 0)
+    _lm_close(lg.cpu(), lc, 1e-2)
+    fc = ted.init_encdec_state(params, frames, cfg, 8, torch.float32)
+    fg = ted.init_encdec_state(pc, frames.to(cuda), cfg, 8, torch.float32)
+    lc, _ = ted.encdec_decode_step(params, fc, tok, 0, cfg)
+    lg, _ = ted.encdec_decode_step(pc, fg, tok.to(cuda), 0, cfg)
+    _lm_close(lg.cpu(), lc, 1e-4)
+

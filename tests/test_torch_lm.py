@@ -116,7 +116,6 @@ def test_configs_equal_jax_field_for_field():
 
 
 @pytest.mark.parametrize("name,kw,item", [
-    ("grok-1-314b", {}, "A8c"), ("seamless-m4t-large-v2", {}, "A8d"),
     ("granite-3-2b", {"flash_vjp": True}, "A8f")])
 def test_unported_families_and_backends_raise(name, kw, item):
     cfg = smoke_variant(get_arch(name)).scaled(**kw)

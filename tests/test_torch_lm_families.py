@@ -1,7 +1,8 @@
-"""The port's dense, vlm and gemma3 LM families, zamba2 as published
-(its shared block on softmax attention), the KV caches through the
-registry and the ``ServingEngine``, and ``launch/serve.py``, on the CPU,
-held against the JAX package at ``smoke_variant`` sizes.
+"""The port's dense, vlm, gemma3 and moe LM families (grok-1 and kimi-k2:
+their smoke MoE of 4 experts top-2), zamba2 as published (its shared
+block on softmax attention), the KV caches through the registry and the
+``ServingEngine``, and ``launch/serve.py``, on the CPU, held against the
+JAX package at ``smoke_variant`` sizes.
 
 Weights are JAX's init carried over by ``params_from_jax``; JAX's
 prefill and decode run jitted.  The tight cases cache K/V in fp32
@@ -13,7 +14,8 @@ case holds cache leaves to one bf16 step (2^-7) of max|leaf| and logits
 to 1e-2 * max(1, max|logit|).  The engine is compared teacher-forced on
 JAX's engine's tokens: every admission's and decode step's logits
 against JAX's batch-1 prefill of the request and its decode steps from
-the cache padded as JAX's engine pads it.
+the cache padded as JAX's engine pads it.  The MoE's aux loss: within
+1e-5 of |aux| of JAX's (0 for the other families).
 """
 import jax
 import jax.numpy as jnp
@@ -47,6 +49,8 @@ CASES = {
     "gemma3": ("gemma3-12b", FP32_KV),
     "gemma3-relu": ("gemma3-12b", dict(FP32_KV, attn_backend="relu_linear")),
     "zamba2": ("zamba2-1.2b", FP32_KV),
+    "grok": ("grok-1-314b", FP32_KV),
+    "kimi": ("kimi-k2-1t-a32b", FP32_KV),
 }
 
 
@@ -168,18 +172,15 @@ def test_init_lm_tree_matches_jax_leaf_for_leaf(name, dtype):
 
 
 def test_build_model_raises_only_for_moe_encdec_and_flash_vjp():
-    """Every config builds but the moe (A8c) and enc-dec (A8d) families;
-    ``flash_vjp=True`` raises (A8f) on any family."""
+    """Every one of the ten LM configs builds (the moe and enc-dec
+    families too), also under ``attn_backend="relu_linear"``;
+    ``flash_vjp=True`` raises (training, ROADMAP A8f) on any family."""
+    assert {cfg.family for cfg in ARCHS.values()} >= {"moe", "encdec"}
     for name, cfg in ARCHS.items():
-        item = {"moe": "A8c", "encdec": "A8d"}.get(cfg.family)
-        if item:
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                build_model(cfg)
-        else:
-            build_model(cfg)
-            build_model(cfg.scaled(attn_backend="relu_linear"))
-            with pytest.raises(NotImplementedError, match="ROADMAP A8f"):
-                build_model(cfg.scaled(flash_vjp=True))
+        build_model(cfg)
+        build_model(cfg.scaled(attn_backend="relu_linear"))
+        with pytest.raises(NotImplementedError, match="ROADMAP A8f"):
+            build_model(cfg.scaled(flash_vjp=True))
 
 
 # ---------------------------------------------------------------------------
@@ -190,17 +191,19 @@ def test_build_model_raises_only_for_moe_encdec_and_flash_vjp():
 def test_forward_hidden_matches_jax(case, S):
     """The no-cache forward on an embedded batch of 2 against JAX's
     ``forward_hidden`` (gemma3 smoke: window 32, so S = 64 takes the
-    block path and 40 the fallback), and the served prefill's
-    last-token logits equal to ``lm_logits_head`` of it."""
+    block path and 40 the fallback) with its aux loss (the MoE layers'
+    summed, 0 elsewhere), and the served prefill's last-token logits
+    equal to ``lm_logits_head`` of it."""
     _, jc, tc, jp, tp = case
     x = np.random.default_rng(S + 1).standard_normal(
         (2, S, jc.d_model)).astype(np.float32)
-    hj, _ = jax.jit(lambda p, x: jlm.forward_hidden(
+    hj, aj = jax.jit(lambda p, x: jlm.forward_hidden(
         p, x, jc, jnp.arange(S)))(jp, jnp.asarray(x))
     ht, aux = tlm.forward_hidden(tp, torch.from_numpy(x), tc,
                                  torch.arange(S))
     close(ht, hj, LOGIT_TOL)
-    assert float(aux) == 0.0
+    assert abs(float(aux) - float(aj)) <= 1e-5 * abs(float(aj))
+    assert (float(aux) > 0) == (jc.family == "moe")
     toks = torch.as_tensor(np.random.default_rng(S).integers(
         0, tc.vocab, (2, S)))
     h, _ = tlm.forward_hidden(tp, embed(tp["embed"], toks, tc.cdtype), tc,
@@ -336,7 +339,7 @@ def test_vlm_prefill_puts_the_patches_before_the_text():
 # the serving engine
 # ---------------------------------------------------------------------------
 
-ENGINE_CASES = ("granite", "gemma3", "zamba2")
+ENGINE_CASES = ("granite", "gemma3", "zamba2", "grok", "kimi")
 
 
 def _requests(vocab, mod):
@@ -424,6 +427,63 @@ def test_serving_engine_matches_jax(name, monkeypatch):
             close(g, w, LOGIT_TOL)
 
 
+@pytest.mark.parametrize("name", ["grok", "kimi"])
+def test_engine_sixteen_slots_one_prompt_matches_jax_vmapped_engine(
+        name, monkeypatch):
+    """16 slots, one prompt in every slot (the smoke MoE: 4 experts
+    top-2, 32 decode assignments a step beside a batched capacity of 8):
+    JAX's engine ``vmap``s a batch-1 decode over the slots, so every slot
+    keeps its tokens; the port's batched step routes each row as its own
+    group and must give every slot the tokens of JAX's engine, and,
+    teacher-forced on them, every slot's logits equal JAX's batch-1
+    logits of the prompt (no row dropped, none depending on another)."""
+    jc, tc = configs(name, {})
+    jp = jbuild(jc).init(jax.random.PRNGKey(2))
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+    prompt = np.random.default_rng(3).integers(0, jc.vocab, 20)
+    cfg = dict(max_slots=16, max_len=40)
+
+    def reqs(mod):
+        return [mod.Request(rid=i, prompt=prompt, max_tokens=6)
+                for i in range(16)]
+
+    jdone = jeng.ServingEngine(jc, jp, jeng.ServeConfig(
+        **cfg, sampler=JSamplerConfig())).run(reqs(jeng))
+    jtok = {r.rid: r.out_tokens for r in jdone}
+    assert all(t == jtok[0] for t in jtok.values())
+    ref = _jax_logits(jc, jp, prompt, jtok[0], 40)
+    eng = teng.ServingEngine(tc, tp, teng.ServeConfig(**cfg), device="cpu")
+    done = eng.run(reqs(teng))
+    for r in done:
+        for i, (got, want) in enumerate(zip(r.out_tokens, jtok[r.rid])):
+            if _margin(ref[i]) <= LOGIT_TOL * max(1.0,
+                                                  np.abs(ref[i]).max()):
+                break
+            assert got == want, (r.rid, i)
+
+    eng = teng.ServingEngine(tc, tp, teng.ServeConfig(**cfg), device="cpu")
+    seen = {i: [] for i in range(16)}
+    order = iter(range(16))                 # admissions in rid order
+
+    def forced(logits, generator, scfg):
+        if logits.shape[0] == 1:                       # an admission
+            seen[next(order)].append(logits[0])
+            return torch.tensor([jtok[0][0]])
+        out = torch.zeros(16, dtype=torch.long)
+        for i, r in enumerate(eng.slot_req):
+            if r is not None:
+                seen[r.rid].append(logits[i])
+                out[i] = jtok[r.rid][len(r.out_tokens)]
+        return out
+
+    monkeypatch.setattr(teng, "sample", forced)
+    eng.run(reqs(teng))
+    for rid, got in seen.items():
+        assert len(got) == len(ref), rid
+        for g, w in zip(got, ref):
+            close(g, w, LOGIT_TOL)
+
+
 def test_engine_caches_are_sized_by_max_len_and_axes_found():
     """``max_len`` sizes the KV caches (sliding: a ring of min(max_len,
     window)); the batch axes are found by construction."""
@@ -474,6 +534,26 @@ def test_launch_serve_smoke_on_the_cpu(capsys):
     assert sorted(r.rid for r in done) == list(range(12))
     assert all(len(r.out_tokens) == 16 for r in done)
     assert "served 12 requests, 192 tokens" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+def test_launch_serve_moe_smoke_on_the_cpu(arch, capsys):
+    """``--arch grok-1-314b`` / ``kimi-k2-1t-a32b --smoke --device cpu``:
+    the MoE smoke variants serve the launcher's 12 requests of 16
+    tokens."""
+    done = tserve.main(["--arch", arch, "--smoke", "--device", "cpu"])
+    assert sorted(r.rid for r in done) == list(range(12))
+    assert all(len(r.out_tokens) == 16 for r in done)
+    assert "served 12 requests, 192 tokens" in capsys.readouterr().out
+
+
+def test_launch_serve_encdec_raises_the_engine_error():
+    """``--arch seamless-m4t-large-v2 --smoke --device cpu``: the
+    engine's ``ValueError`` (an enc-dec prefill returns its serve state;
+    JAX's launcher fails inside ``admit``)."""
+    with pytest.raises(ValueError, match="enc-dec"):
+        tserve.main(["--arch", "seamless-m4t-large-v2", "--smoke",
+                     "--device", "cpu"])
 
 
 def test_launch_serve_flags_and_defaults(monkeypatch):
