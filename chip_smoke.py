@@ -272,9 +272,11 @@
    replay by kernel name, fp32 and FIX8, after every timed phase: CUPTI
    may stay attached once the profiler has run and slow the host's
    launches.  The port's own kernels' CUDA launches, the memsets and the
-   zero fills are counted apart, and the port's kernels of a replay must
-   equal those of one eager forward of the same plan in the same
-   capture, by name and count; the same for the ``epilogues=False``
+   zero fills are counted apart, and the port's kernels of each of two
+   replays must equal those of one eager forward of the same plan in the
+   same capture, by name and count (a warm replay before them, which
+   takes what the capture loses at its start, is printed, not counted);
+   the same for the ``epilogues=False``
    FIX8 engine and for B2 and B3 at both precisions.  Then one call of
    each served FIX8 MBConv shape, each
    MSA projection GEMM, the library's emitting GEMM at each projection
@@ -418,9 +420,53 @@
    dequant temporaries, prefill tokens/s, decode host / device time and
    idle, the expert products' and plain attention's share of a step, the
    encoder's time, cross-K/V bytes.
+6f. ``[train ...]``: LM training on the card (``train_phase``), after
+   6e.  Every launch counter is set to 0 just before each driven pass
+   and read just after; a training step launches each scan once per
+   layer in the forward and once more in the backward's recompute of
+   the block (remat; the backward itself recomputes through the plain
+   versions: ``train_scan_calls``), exactly.  ``[train grad zamba2]``:
+   one Zamba2-1.2B group (6 Mamba-2 layers and the shared block,
+   relu_linear) at published width, fp32, B = 2, S = 512: ``lm_loss``'s
+   gradients through the kernels against ``build_model(cfg,
+   reference=True)``'s (autograd through the plain scans), every leaf
+   and the loss within 1e-4 * max(1, max|ref|); 12 ``ssd_chunked``, 2
+   ``relu_attn_causal``; printed: the worst leaf with its max|ref|, and
+   the worst leaf over its own max|ref|.  ``[train grad zamba2
+   control]``: each scan in turn made wrong, its output times (1 +
+   eps) for eps 1e-3, 1e-2, 1e-1, and its launch outside its autograd
+   Function (a bare launch: no gradient back through the scan).  The
+   same gate must fail the bare launch, or the pass raise (a param that
+   reaches the loss only through the scan gets no gradient), and fail
+   from eps 1e-2 on for ``ssd_chunked``, 1e-1 for ``relu_attn_causal``;
+   below that the result is printed, not gated: the gate does not
+   resolve it (the fp32 SSD kernel's own rounding moves the gradients
+   by about as much).  ``[train flash granite-3-2b]``: published width,
+   fp32, 4 of 40 layers, B = 1: ``flash_vjp=True`` against ``False``,
+   loss and every gradient within the same bound, at S = 2048 and 1536
+   (off the 1024 chunk: one chunk), the peak memory of each.
+   ``[train zamba2 relu_linear]``: Zamba2-1.2B under
+   relu_linear at published width and depth (bf16 params, the default
+   AdamW: fp32 master, bf16 moments), the port's ``SyntheticLMDataset``
+   (V = 32000, transition logits on the card), B = 8, S = 1024, a
+   cosine schedule with 10 warmup steps, trained by ``Trainer`` for 30
+   steps with checkpoints of the whole state every 10 steps into a
+   temporary directory and one injected failure at step 25: steps 0-24,
+   then 20-29 again from the step-20 checkpoint.  Gates: 76
+   ``ssd_chunked`` and 12 ``relu_attn_causal`` a step over the 35 steps
+   run, every loss finite, the last-5 mean (steps 25-29) below the
+   first-5 mean by at least 0.1, the latest checkpoint at step 30, and
+   steps 20-24's losses after the resume equal to theirs before the
+   failure, bit for bit.  Printed: tokens/s per step over steps 0-24
+   (median), one more step's host enqueue time and device span, the
+   peak memory, the losses.  ``[train kernel]``: one more step keeps
+   each scan's first call's inputs (bf16 (256, 1024, 64) for
+   ``relu_attn_causal``, fp32 (512, 1024, 64) for ``ssd_chunked``); each
+   is held against its plain version there within 1e-4 * max(1,
+   max|ref|) and timed, its error feeding the kernels line.
 7. One JSON line with every kernel's launches on its driven run(s)
    (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's, 6d's
-   and 6e's served LM runs and 4),
+   and 6e's served LM runs, 6f's training passes and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -431,9 +477,11 @@ Any failure raises and the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -2820,6 +2868,11 @@ def port_kernel_names(csrc: str | None = None) -> set:
     return names
 
 
+# host sleep between and around ``kernel_profile``'s forwards: half of it
+# is far above the host / device clock offset of a capture late in a run
+PROFILE_PAD_S = 0.1
+
+
 @contextlib.contextmanager
 def profiled(host: bool = True):
     """A ``torch.profiler`` capture of the device (and the host) whose
@@ -2999,15 +3052,23 @@ def one_launch_per_site(gen) -> None:
 
 
 def kernel_profile(fwd, eager, tag, n: int = 2,
-                   csrc: str | None = None) -> None:
-    """One ``torch.profiler`` capture: ``n`` graph replays of the batch-8
-    forward, a synchronize, then one eager forward of the same (program,
-    plan).  Kernel time and launches per replay by kernel name (the sum
-    is the device's busy time; the gaps between kernels are not in it);
-    the port's own kernels' launches (the kernels of ``csrc``, by default
-    this tree's sources), the memsets and the zero fills counted apart.
-    The port's kernels in a replay must be those of the eager forward, by
-    name and count: the graph launches what the wrappers launched."""
+                   csrc: str | None = None) -> list:
+    """One ``torch.profiler`` capture: ``n`` replays of the batch-8
+    forward, then one eager forward of the same (program, plan), each in
+    a range of its own and followed by a synchronize and
+    ``PROFILE_PAD_S`` of host sleep (one more before the first).  The
+    capture's device times run off its host times by an offset that
+    grows as the process ages (milliseconds late in a run), and the
+    capture drops device events that fall outside its window: the pads
+    keep the forwards off the window's ends, and a kernel belongs to the
+    last range whose host start, less half a pad, is before it.  Kernel
+    time and launches per replay by kernel name (the sum is the device's
+    busy time; the gaps between kernels are not in it); the port's own
+    kernels' launches (the kernels of ``csrc``, by default this tree's
+    sources), the memsets and the zero fills counted apart.  The port's
+    kernels in each replay must be those of the eager forward, by name
+    and count: the graph launches what the wrappers launched.  -> each
+    range's first kernel's start less the range's host start, in µs."""
     import collections
     import re
 
@@ -3018,27 +3079,41 @@ def kernel_profile(fwd, eager, tag, n: int = 2,
     fwd()
     eager()
     torch.cuda.synchronize()
+    ranges = [f"chip_smoke.replay.{i}" for i in range(n)] + [
+        "chip_smoke.eager"]
     with profiled() as prof:
-        with record_function("chip_smoke.replays"):
-            for _ in range(n):
-                fwd()
-            torch.cuda.synchronize()
-        with record_function("chip_smoke.eager"):
-            eager()
-            torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+        for name in ranges:
+            with record_function(name):
+                (eager if name == "chip_smoke.eager" else fwd)()
+                torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
     events = prof.events()
-    split = min(e.time_range.start for e in events
-                if e.name == "chip_smoke.eager")
+    host = [min(e.time_range.start for e in events
+                if e.name == name and e.device_type == DeviceType.CPU)
+            for name in ranges]
+    bounds = [h - PROFILE_PAD_S * 5e5 for h in host[1:]]
     ours = port_kernel_names(csrc)
-    by_name = [collections.defaultdict(lambda: [0.0, 0]) for _ in range(2)]
+    # windows: 0..n - 1 the replays, n eager
+    by_name = [collections.defaultdict(lambda: [0.0, 0])
+               for _ in range(n + 1)]
+    first = [math.inf] * (n + 1)
     for e in events:
         if e.device_type != DeviceType.CUDA or is_range(e.name):
             continue
-        row = by_name[int(e.time_range.start >= split)][e.name]
-        row[0] += e.time_range.elapsed_us() / 1e3
+        t = e.time_range
+        w = bisect.bisect_right(bounds, t.start)
+        first[w] = min(first[w], t.start)
+        row = by_name[w][e.name]
+        row[0] += t.elapsed_us() / 1e3
         row[1] += 1
+    replays = collections.defaultdict(lambda: [0.0, 0])
+    for window in by_name[:n]:
+        for name, (ms, cnt) in window.items():
+            replays[name][0] += ms
+            replays[name][1] += cnt
     rows = sorted(((ms / n, cnt / n, name)
-                   for name, (ms, cnt) in by_name[0].items()), reverse=True)
+                   for name, (ms, cnt) in replays.items()), reverse=True)
     kname = lambda name: re.match(r"(?:void\s+)?(\w+)", name).group(1)
     port = [r for r in rows if kname(r[2]) in ours]
     memsets = sum(r[1] for r in rows if "Memset" in r[2])
@@ -3053,21 +3128,26 @@ def kernel_profile(fwd, eager, tag, n: int = 2,
           f"{sum(r[0] for r in port):.3f} ms; memsets {memsets:g}; zero "
           f"fills {fills:g}; by kernel: " + "; ".join(
               f"{name[:40]} {ms:.4f} ms x{cnt:g}" for ms, cnt, name in port))
-    def count(side, k):
+    def count(window):
         out = collections.Counter()
-        for name, (_, c) in by_name[side].items():
+        for name, (_, c) in window.items():
             if kname(name) in ours:
-                out[kname(name)] += c / k
+                out[kname(name)] += c
         return out
-    replayed, eager_port = count(0, n), count(1, 1)
-    eager_all = sum(c for _, c in by_name[1].values())
-    print(f"[{tag}] profiler, the eager forward: {eager_all:g} kernel "
-          f"launches; the port's kernels per replay equal the eager "
-          f"forward's: {replayed == eager_port} "
-          f"({sum(eager_port.values()):g} CUDA launches)")
-    if not eager_port or replayed != eager_port:
-        raise AssertionError(f"port kernels per replay {dict(replayed)}, "
-                             f"eager {dict(eager_port)}")
+    *replayed, eager_port = [count(w) for w in by_name]
+    offset = [f - h for f, h in zip(first, host)]
+    print(f"[{tag}] profiler, the eager forward: "
+          f"{sum(c for _, c in by_name[n].values()):g} kernel launches; the "
+          f"port's kernels in each of the {n} replays equal the eager "
+          f"forward's: {all(r == eager_port for r in replayed)} "
+          f"({sum(eager_port.values()):g} CUDA launches); each range's "
+          f"first kernel starts {', '.join(f'{x:.1f}' for x in offset)} us "
+          f"after its host start")
+    if not eager_port or any(r != eager_port for r in replayed):
+        raise AssertionError(f"[{tag}] port kernels per replay "
+                             f"{[dict(r) for r in replayed]}, eager "
+                             f"{dict(eager_port)}")
+    return offset
 
 
 def logits_gate(got, ref, tag, fix8: bool) -> None:
@@ -3925,8 +4005,8 @@ def lm_prefill_gate(tag, got, ref, rel, top1: bool) -> float:
 
 
 def lm_scan_case(name, args, kw, label):
-    """A ``measure`` case of one scan call captured on the served
-    prefill: the wrapper on those inputs against its plain version; the
+    """A ``measure`` case of one scan call captured from the LM layers
+    (a served prefill, a training step): the wrapper on those inputs against its plain version; the
     bytes (inputs read once, the fp32 output written once) and products
     as the library cases count them."""
     from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
@@ -5035,6 +5115,369 @@ def lm_moe_phase(seed, wrappers, max_err, card) -> dict:
     return {k: sum(r[k] for r in runs) for k in wrappers}
 
 
+# the [train] phase (6f): Zamba2-1.2B (relu_linear) trained at published
+# width and depth on the port's synthetic data; the gradient and flash
+# gates at published width with depth cut
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 30
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 10, 25
+TRAIN_WARMUP = 10
+TRAIN_DROP = 0.1              # last-5 mean loss below the first-5 mean by
+TRAIN_GRAD_SEQ = 512          # [train grad]: one Zamba2 group, S = 512
+TRAIN_FLASH_SEQS = (2048, 1536)   # [train flash]: on and off the 1024 chunk
+TRAIN_GRAD_TOL = 1e-4         # per leaf, of max(1, max|g|)
+# [train grad control]: a scan's output times (1 + eps) for each eps, the
+# gate required to fail from the scan's own eps on (below it, printed)
+TRAIN_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
+TRAIN_CONTROL = {"ssd_chunked": 1e-2, "relu_attn_causal": 1e-1}
+
+
+def train_scan_calls(cfg) -> dict:
+    """Launches of each scan per training step: ``lm_scan_calls`` once in
+    the forward and, under ``remat``, once more in the backward's
+    recompute of each block (the backward itself recomputes through the
+    plain versions and launches nothing)."""
+    per = 2 if cfg.remat else 1
+    return {k: v * per for k, v in lm_scan_calls(cfg).items()}
+
+
+def train_batch(cfg, seed, batch, seq):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {k: torch.randint(0, cfg.vocab, (batch, seq), generator=g,
+                             device="cuda") for k in ("tokens", "targets")}
+
+
+def train_grads(model, params, batch):
+    """-> (loss, {path: gradient}) of ``model.loss``, and the peak memory
+    of the pass, in GiB."""
+    import torch
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.launch.steps import value_and_grad
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loss, grads = value_and_grad(model.loss)(params, batch)
+    torch.cuda.synchronize()
+    return (loss, dict(flatten_with_paths(grads)),
+            torch.cuda.max_memory_allocated() / 2**30)
+
+
+def train_grad_err(loss, grads, ref_loss, ref_grads) -> dict:
+    """The distances the gradient gate reads: the loss's, over max(1,
+    |ref|); per leaf max|d| over max(1, max|ref|) (``gate``, the worst
+    leaf) and over its own max|ref| (``own``, the worst leaf), each with
+    its leaf and that leaf's max|ref|; and whether every leaf is
+    finite."""
+    import torch
+    out = {"loss": abs(loss.item() - ref_loss.item())
+           / max(1.0, abs(ref_loss.item())),
+           "gate": (0.0, None, 0.0), "own": (0.0, None, 0.0),
+           "finite": True}
+    for path, ref in ref_grads.items():
+        g = grads[path]
+        out["finite"] &= bool(torch.isfinite(g).all())
+        d = (g.float() - ref.float()).abs().max().item()
+        top = ref.float().abs().max().item()
+        for key, r in (("gate", d / max(1.0, top)),
+                       ("own", d / top if top else (math.inf if d else 0.0))):
+            if r > out[key][0]:
+                out[key] = (r, path, top)
+    return out
+
+
+def train_grad_fails(err) -> bool:
+    return not (err["finite"] and err["loss"] <= TRAIN_GRAD_TOL
+                and err["gate"][0] <= TRAIN_GRAD_TOL)
+
+
+def train_grad_text(err) -> str:
+    return (f"loss {err['loss']:.3e} of max(1, |ref|); worst leaf "
+            f"{err['gate'][0]:.3e} of max(1, max|ref|) at {err['gate'][1]} "
+            f"(max|ref| {err['gate'][2]:.3e}); worst of its own max|ref| "
+            f"{err['own'][0]:.3e} at {err['own'][1]} (max|ref| "
+            f"{err['own'][2]:.3e})")
+
+
+def train_grad_gate(tag, loss, grads, ref_loss, ref_grads) -> dict:
+    """Every leaf's gradient finite and within ``TRAIN_GRAD_TOL`` *
+    max(1, max|ref|) of the reference's, the losses within it of max(1,
+    |ref|) too; -> ``train_grad_err``."""
+    err = train_grad_err(loss, grads, ref_loss, ref_grads)
+    print(f"[{tag}] loss {loss.item():.6f} vs {ref_loss.item():.6f}; "
+          f"{len(ref_grads)} gradient leaves; {train_grad_text(err)}")
+    if train_grad_fails(err):
+        raise AssertionError(f"[{tag}] gradients from the reference beyond "
+                             f"{TRAIN_GRAD_TOL} of max(1, max|ref|)")
+    return err
+
+
+@contextlib.contextmanager
+def scan_broken(name: str, eps=None):
+    """While open, the LM layers' calls of scan ``name`` are made wrong:
+    the kernel's output times (1 + ``eps``), or with ``eps`` None the
+    kernel launched outside its autograd Function (no gradient flows
+    back through the scan: what a bare launch gives)."""
+    from repro_torch.kernels.relu_attn import ops as relu_ops
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    mod = relu_ops if name == "relu_attn_causal" else ssd_ops
+    attr = name if eps is not None else "with_recompute_grad"
+    fn = getattr(mod, attr)
+    setattr(mod, attr, (lambda *a, **k: fn(*a, **k) * (1 + eps))
+            if eps is not None else
+            (lambda kernel, plain, *a, **k: kernel(*a, **k)))
+    try:
+        yield
+    finally:
+        setattr(mod, attr, fn)
+
+
+def train_grad_check(tag, seed, wrappers, card) -> dict:
+    """``[train grad zamba2]``: one Zamba2 group (6 Mamba-2 layers and
+    the shared block, relu_linear) at published width, fp32, S =
+    ``TRAIN_GRAD_SEQ``: ``lm_loss``'s gradients through the two kernels
+    (their autograd Functions) against ``build_model(cfg,
+    reference=True)``'s (the plain scans, autograd through them).  The
+    counters are set to 0 just before the kernels' pass and read just
+    after: each scan exactly ``train_scan_calls``.  Then the controls,
+    each scan in turn made wrong (``scan_broken``): its output off by
+    each of ``TRAIN_CONTROL_EPS`` and its launch outside the autograd
+    Function; the same gate must fail (or the pass raise) for the bare
+    launch and from ``TRAIN_CONTROL[name]`` on, and below it the result
+    is printed only.  -> the kernels' pass's launches."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    cfg = get_arch("zamba2-1.2b").scaled(
+        attn_backend="relu_linear", n_layers=6, param_dtype="float32",
+        compute_dtype="float32")
+    params = build_model(cfg).init(seed, device="cuda")
+    batch = train_batch(cfg, seed, 2, TRAIN_GRAD_SEQ)
+    ref_loss, ref_grads, ref_peak = train_grads(
+        build_model(cfg, reference=True), params, batch)
+    model = build_model(cfg)
+    for w in wrappers.values():
+        w.launches = 0
+    loss, grads, peak = train_grads(model, params, batch)
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0) | train_scan_calls(cfg)
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected {want}")
+    print(f"[{tag}] {cfg.name} relu_linear fp32, 6 + 1 blocks, B = 2, S = "
+          f"{TRAIN_GRAD_SEQ}: launches {train_scan_calls(cfg)} "
+          f"(remat: each block's forward twice); peak {peak:.3f} GiB, "
+          f"plain scans {ref_peak:.3f} GiB [{card}]")
+    train_grad_gate(tag, loss, grads, ref_loss, ref_grads)
+    del grads
+    for name in LM_SCANS:
+        for eps in TRAIN_CONTROL_EPS + (None,):
+            what = (f"output * (1 + {eps})" if eps is not None else
+                    "launched outside its autograd Function")
+            try:
+                with scan_broken(name, eps):
+                    loss, grads, _ = train_grads(model, params, batch)
+            except RuntimeError as e:
+                # a param that reaches the loss only through the scan
+                # gets no gradient: ``value_and_grad`` raises
+                print(f"[{tag} control] {name} {what}: the pass raises "
+                      f"({str(e).splitlines()[0]})")
+                continue
+            err = train_grad_err(loss, grads, ref_loss, ref_grads)
+            fails = train_grad_fails(err)
+            print(f"[{tag} control] {name} {what}: {train_grad_text(err)}; "
+                  f"the gate {'fails' if fails else 'passes'} it")
+            if not fails and (eps is None or eps >= TRAIN_CONTROL[name]):
+                raise AssertionError(f"[{tag} control] the gradient gate "
+                                     f"passes {name} {what}")
+            del grads
+    del params, ref_grads
+    return launches
+
+
+def train_flash_check(tag, seed, card) -> None:
+    """``[train flash granite-3-2b]``: published width, fp32, depth cut
+    to 4 of 40: ``flash_vjp=True`` against ``False`` on one step's loss
+    and every gradient, at S in ``TRAIN_FLASH_SEQS`` (1536: one chunk,
+    as JAX's); the peak memory of each pass printed."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.registry import build_model
+    cfg = get_arch("granite-3-2b").scaled(
+        n_layers=4, param_dtype="float32", compute_dtype="float32")
+    params = build_model(cfg).init(seed, device="cuda")
+    for seq in TRAIN_FLASH_SEQS:
+        batch = train_batch(cfg, seed + seq, 1, seq)
+        ref_loss, ref_grads, ref_peak = train_grads(build_model(cfg),
+                                                    params, batch)
+        loss, grads, peak = train_grads(
+            build_model(cfg.scaled(flash_vjp=True)), params, batch)
+        print(f"[{tag}] {cfg.name} fp32, 4 layers, B = 1, S = {seq}: peak "
+              f"{peak:.3f} GiB with flash_vjp, {ref_peak:.3f} GiB without "
+              f"[{card}]")
+        train_grad_gate(f"{tag} S={seq}", loss, grads, ref_loss, ref_grads)
+        del grads, ref_grads
+    del params
+
+
+def train_run(tag, cfg, seed, ckpt_dir, wrappers):
+    """The ``Trainer`` run of ``cfg`` on the port's synthetic data
+    (``TRAIN_BATCH`` x ``TRAIN_SEQ``, V = the arch's vocab), cosine
+    schedule with ``TRAIN_WARMUP`` warmup steps over ``TRAIN_STEPS``,
+    checkpoints every ``TRAIN_CKPT_EVERY`` steps and one failure at
+    ``TRAIN_FAIL_AT``.  The counters are set to 0 just before ``run``
+    and read just after.  -> (trainer, its result, launches, peak GiB,
+    seconds)."""
+    import torch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.trainer import (
+        Trainer, TrainerConfig, make_failure_hook)
+    data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=seed)
+    tcfg = TrainerConfig(
+        total_steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        ckpt_dir=ckpt_dir, ckpt_keep=2, log_every=10, seed=seed,
+        schedule=ScheduleConfig(kind="cosine", warmup_steps=TRAIN_WARMUP,
+                                total_steps=TRAIN_STEPS))
+    tr = Trainer(cfg, data, tcfg, device="cuda",
+                 failure_hook=make_failure_hook((TRAIN_FAIL_AT,)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    out = tr.run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(x) for x in out["losses"]):
+        raise AssertionError(f"[{tag}] non-finite loss: {out['losses']}")
+    return tr, out, launches, peak, secs
+
+
+def train_step_times(tag, tr, out, card) -> dict:
+    """Two more steps from the run's final state, outside the trainer
+    and its counted run.  The first keeps the inputs of each scan's
+    first call (``lm_scan_probe``); the second is timed: the host's time
+    to enqueue it, its span on the device (CUDA events recorded before
+    its first launch and after its last: any idle gap while the host
+    enqueues is inside), and its wall time to a synchronize.  -> the
+    probe's calls."""
+    import torch
+    params, opt = out["params"], out["opt"]
+    batch = tr.data.host_batch(TRAIN_STEPS, 0, 1)
+    with lm_scan_probe() as calls:
+        tr._step_fn(params, opt, batch, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    res = tr._step_fn(params, opt, batch, TRAIN_STEPS)
+    end.record()
+    host = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    del res
+    print(f"[{tag}] one step outside the trainer: host enqueue "
+          f"{host:.3f} ms, device span {start.elapsed_time(end):.3f} ms, "
+          f"wall {wall:.3f} ms [{card}]")
+    return calls
+
+
+def train_phase(seed, wrappers, max_err, card) -> dict:
+    """``[train ...]``: the gradient gate and its control, the flash
+    gate, then Zamba2-1.2B (relu_linear, bf16 params, the default AdamW)
+    trained at published width and depth for ``TRAIN_STEPS`` steps with
+    checkpoints every ``TRAIN_CKPT_EVERY`` steps and one failure at
+    ``TRAIN_FAIL_AT``, and each scan call of a step held against its
+    plain version at the step's shapes (``[train kernel]``).  -> the
+    launches of the driven runs, summed."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpoint import latest_step
+    from repro_torch.common.tree import param_count
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.steps import default_opt_cfg
+    print(f"[train] {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+          f"allocated as the phase starts [{card}]")
+    runs = [train_grad_check("train grad zamba2", seed, wrappers, card)]
+    train_flash_check("train flash granite-3-2b", seed + 1, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tag = "train zamba2 relu_linear"
+    cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+    per_step = train_scan_calls(cfg)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        tr, out, launches, peak, secs = train_run(tag, cfg, seed + 2, root,
+                                                  wrappers)
+        runs.append(launches)
+        # steps 0..24, the failure, steps 20..29 again from the checkpoint
+        losses = out["losses"]
+        resumed = TRAIN_FAIL_AT // TRAIN_CKPT_EVERY * TRAIN_CKPT_EVERY
+        ran = TRAIN_FAIL_AT + TRAIN_STEPS - resumed
+        want = dict.fromkeys(wrappers, 0) | {
+            k: v * ran for k, v in per_step.items()}
+        if len(losses) != ran or launches != want:
+            raise AssertionError(f"[{tag}] {len(losses)} steps run, "
+                                 f"launches {launches}, expected {ran} "
+                                 f"steps, {want} ({per_step} a step)")
+        first5, last5 = (statistics.mean(losses[:5]),
+                         statistics.mean(losses[-5:]))
+        tok_s = [TRAIN_BATCH * TRAIN_SEQ / s
+                 for s in tr.step_seconds[:TRAIN_FAIL_AT]]
+        n = param_count(out["params"])
+        print(f"[{tag}] {cfg.name} {cfg.param_dtype}/{cfg.compute_dtype}, "
+              f"{n} params, AdamW {default_opt_cfg(cfg)}, B = "
+              f"{TRAIN_BATCH}, S = {TRAIN_SEQ}, V = {cfg.vocab}: {ran} "
+              f"steps run in {secs:.3f} s, {sum(tr.step_seconds):.3f} s of "
+              f"it in the steps (the rest: two inits, 3 checkpoints of the "
+              f"full state and one restore); tokens/s per step over steps "
+              f"0..{TRAIN_FAIL_AT - 1}: median "
+              f"{statistics.median(tok_s):.1f} (steps 1+: min "
+              f"{min(tok_s[1:]):.1f}, max {max(tok_s[1:]):.1f}); peak "
+              f"{peak:.3f} GiB; launches a step {per_step} [{card}]")
+        print(f"[{tag}] losses: first-5 mean {first5:.4f}, last-5 mean "
+              f"{last5:.4f} (steps {TRAIN_STEPS - 5}..{TRAIN_STEPS - 1}; "
+              f"optimal estimate {tr.data.optimal_loss_estimate():.4f}); "
+              + " ".join(f"{x:.4f}" for x in losses))
+        if not last5 < first5 - TRAIN_DROP:
+            raise AssertionError(f"[{tag}] last-5 mean {last5:.4f} not "
+                                 f"below first-5 {first5:.4f} - "
+                                 f"{TRAIN_DROP}")
+        last = latest_step(root)
+        again = losses[TRAIN_FAIL_AT:TRAIN_FAIL_AT + TRAIN_FAIL_AT - resumed]
+        before = losses[resumed:TRAIN_FAIL_AT]
+        print(f"[{tag}] failure at step {TRAIN_FAIL_AT}: resumed from step "
+              f"{resumed}, latest checkpoint {last}; steps {resumed}.."
+              f"{TRAIN_FAIL_AT - 1} after the resume against before the "
+              f"failure: " + " ".join(f"{a:.6f}/{b:.6f}"
+                                      for a, b in zip(again, before)))
+        if last != TRAIN_STEPS or again != before:
+            raise AssertionError(f"[{tag}] latest checkpoint {last}; the "
+                                 f"resumed steps' losses differ from the "
+                                 f"same steps' before the failure")
+        calls = train_step_times(tag, tr, out, card)
+        del tr, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        for (name, _), (a, k) in sorted(calls.items()):
+            case = lm_scan_case(name, a, k, f"{tag} step "
+                                f"{tuple(a[0].shape)} {str(a[0].dtype)[6:]}")
+            err, ref_max, *times = measure(case, False, 5, 3)
+            max_err[name] = max(max_err[name], err)
+            kernel_line("train kernel", case, "", err, ref_max, *times)
+        if {name for name, _ in calls} != set(LM_SCANS):
+            raise AssertionError(f"[{tag}] a step called {sorted(calls)}")
+        del calls
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(r[k] for r in runs) for k in wrappers}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5276,6 +5719,10 @@ def main() -> int:
     stamp("section 6e", t_start)
     launches_lm_moe = lm_moe_phase(args.seed, wrappers, max_err, card)
 
+    # -- 6f. [train]: the gradients, flash, Zamba2-1.2B trained ---------
+    stamp("section 6f", t_start)
+    launches_train = train_phase(args.seed, wrappers, max_err, card)
+
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
     rows = []
@@ -5291,7 +5738,7 @@ def main() -> int:
                          + launches_se["fp32"][name]
                          + launches_se["fix8"][name] + launches_lib[name]
                          + launches_lm[name] + launches_lm_softmax[name]
-                         + launches_lm_moe[name]),
+                         + launches_lm_moe[name] + launches_train[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

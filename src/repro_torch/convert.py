@@ -5,7 +5,10 @@ The caller converts the JAX tree's leaves to numpy first
 Dicts and lists keep their keys and order, so ``Site.param_path``
 resolves unchanged, and weights keep their HWIO layout; an LM tree's
 stacked leaves ((L, ...), zamba2's (groups, every, ...)) keep their
-shape, and bf16 leaves their bits.
+shape, and bf16 leaves their bits.  The same holds for an AdamW state
+tree (``{"step": 0-dim int32, "m", "v"[, "master"]}``, JAX's
+``adamw_init`` / ``adamw_update``), so a JAX state and the port's start
+a step from the same numbers.
 """
 from __future__ import annotations
 

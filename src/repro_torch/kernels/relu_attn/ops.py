@@ -27,6 +27,7 @@ from repro_torch.core.relu_attention import (
 from repro_torch.kernels.autotune import (
     autotune, backend_tag, bench_randn, fault_point, on_card, shape_key,
     tile_work)
+from repro_torch.kernels.recompute import with_recompute_grad
 from repro_torch.kernels.registry import SMEM_LIMIT, KernelBase, register
 from repro_torch.kernels.relu_attn.kernel import (
     relu_attn_causal, relu_attn_noncausal, relu_attn_plan)
@@ -100,16 +101,22 @@ def relu_linear_attention(q, k, v, *, causal: bool = False,
     in place (token tile ``block_n``); causal: the heads fold into rows
     of ``relu_attn_causal`` (chunk ``block_n``), which takes fp32 or bf16
     as it is.  ``reference=True`` runs the kernel's plain version on the
-    same inputs instead, on any device (the LM's reference forward)."""
+    same inputs instead, on any device (the LM's reference forward).
+    The causal form is differentiable: its backward recomputes through
+    the plain version (``kernels/recompute.py``; no backward kernel, as
+    JAX has none)."""
     if not causal:
         if reference:
             return relu_attn_noncausal_ref(q.float(), k.float(), v.float())
         return relu_attn_noncausal(q.float(), k.float(), v.float(),
                                    block_n=block_n)
     B, _, H, _ = q.shape
-    scan = relu_attn_causal_scan if reference else relu_attn_causal
-    out = scan(_fold_heads(q), _fold_heads(k), _fold_heads(v),
-               chunk=block_n)
+    qf, kf, vf = _fold_heads(q), _fold_heads(k), _fold_heads(v)
+    if reference:
+        out = relu_attn_causal_scan(qf, kf, vf, chunk=block_n)
+    else:
+        out = with_recompute_grad(relu_attn_causal, relu_attn_causal_scan,
+                                  qf, kf, vf, chunk=block_n)
     return _unfold_heads(out, B, H)
 
 

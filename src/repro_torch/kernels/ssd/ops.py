@@ -7,6 +7,7 @@ groups to heads and applies the D skip.
 """
 from __future__ import annotations
 
+from repro_torch.kernels.recompute import with_recompute_grad
 from repro_torch.kernels.ssd.kernel import ssd_chunked
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
@@ -18,7 +19,10 @@ def ssd_op(x, dt, A, B, C, *, chunk: int = 256, D_skip=None,
     """x: (b, s, h, p); dt: (b, s, h); A: (h,); B, C: (b, s, g, n) -> y
     (b, s, h, p) fp32.  ``reference=True`` runs the kernel's plain
     version on the same folded inputs instead, on any device (the LM's
-    reference forward)."""
+    reference forward).  Differentiable: the kernel's backward recomputes
+    through its plain version (``kernels/recompute.py``) and gives x, dt,
+    dA, B and C their gradients; dA = dt A is formed outside it, so A
+    (``A_log``) and dt (``dt_bias``) get theirs through autograd."""
     b, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
@@ -29,8 +33,11 @@ def ssd_op(x, dt, A, B, C, *, chunk: int = 256, D_skip=None,
           .reshape(b * h, s, n).contiguous())
     Cf = (C.float().repeat_interleave(rep, dim=2).transpose(1, 2)
           .reshape(b * h, s, n).contiguous())
-    scan = ssd_scan_ref if reference else ssd_chunked
-    y = scan(xf, dtf, dA, Bf, Cf, chunk=chunk)
+    if reference:
+        y = ssd_scan_ref(xf, dtf, dA, Bf, Cf, chunk=chunk)
+    else:
+        y = with_recompute_grad(ssd_chunked, ssd_scan_ref, xf, dtf, dA, Bf,
+                                Cf, chunk=chunk)
     y = y.reshape(b, h, s, p).transpose(1, 2)
     if D_skip is not None:
         y = y + D_skip.float()[None, None, :, None] * x.float()

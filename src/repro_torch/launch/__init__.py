@@ -1,3 +1,4 @@
 """Launchers, counterpart of ``repro/launch/``: ``serve`` (the LM
-serving launcher).  The rest of ``launch/`` is not ported yet (ROADMAP
+serving launcher), ``train`` (the training launcher) and ``steps`` (the
+step functions).  The rest of ``launch/`` is not ported yet (ROADMAP
 A8h)."""

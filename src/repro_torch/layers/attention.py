@@ -19,10 +19,15 @@ projections and RoPE every backend shares, and three backends.
                  the kernel computes the same function.
 
 The softmax and sliding backends are plain torch ops, as JAX leaves them
-to XLA.  Decode: softmax and sliding keep a KV cache (sliding a ring of
-``window`` slots), each row writing its own slot and masking its own
-keys at its own position; relu_linear keeps the O(1) recurrent state, a
-(kv_heads, d, d) state and a (kv_heads, d) normalizer per row.
+to XLA; with ``flash_vjp=True`` both run ``layers/flash.py``'s
+``flash_attention``, whose backward recomputes the probabilities chunk
+by chunk (training), as JAX's do.  The relu_linear scan's backward
+recomputes through the kernel's plain version
+(``kernels/relu_attn/ops.py``).  Decode: softmax and sliding keep a
+KV cache (sliding a ring of ``window`` slots), each row writing its own
+slot and masking its own keys at its own position; relu_linear keeps
+the O(1) recurrent state, a (kv_heads, d, d) state and a (kv_heads, d)
+normalizer per row.
 
 Layout: prefill computes in flat-head (B, S, H, Dh) layout with K/V
 repeated to full heads; the caches keep the compact GQA layout.
@@ -34,6 +39,7 @@ import dataclasses
 import torch
 
 from repro_torch.kernels.relu_attn.ops import relu_linear_attention
+from repro_torch.layers.flash import flash_attention
 from repro_torch.layers.linear import init_linear, linear
 from repro_torch.layers.rope import apply_rope
 
@@ -61,7 +67,7 @@ class AttnConfig:
     causal: bool = True
     q_chunk: int = 1024
     kv_chunk: int = 1024
-    flash_vjp: bool = False          # training only (ROADMAP A8f)
+    flash_vjp: bool = False          # softmax / sliding: layers/flash.py
     fused_qkv: bool = False          # one QKV matmul
     score_dtype: str = "float32"     # bfloat16: p and v rounded to bf16
     # JAX pads zero heads up to this count for a TPU model axis; they
@@ -309,10 +315,6 @@ def attention(params, x, cfg: AttnConfig, positions=None, *,
     B, S, _ = x.shape
     if cfg.backend not in ("softmax", "sliding", "relu_linear"):
         raise ValueError(f"unknown attention backend {cfg.backend!r}")
-    if cfg.flash_vjp and cfg.backend != "relu_linear":
-        raise NotImplementedError(
-            "flash_vjp=True (the custom-VJP flash attention of training) "
-            "is not ported to repro_torch yet (ROADMAP A8f)")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
     q, k, v = _project_qkv(params, x, cfg, positions)
@@ -320,16 +322,26 @@ def attention(params, x, cfg: AttnConfig, positions=None, *,
     cache = None
     kh, vh = _repeat_kv(k, g), _repeat_kv(v, g)
     if cfg.backend == "softmax":
-        out = softmax_attention(q, kh, vh, positions, positions,
-                                causal=cfg.causal, window=None,
-                                q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk,
-                                score_dtype=cfg.score_dtype)
+        if cfg.flash_vjp:
+            out = flash_attention(q, kh, vh, positions, positions,
+                                  cfg.causal, None, cfg.q_chunk,
+                                  cfg.kv_chunk)
+        else:
+            out = softmax_attention(q, kh, vh, positions, positions,
+                                    causal=cfg.causal, window=None,
+                                    q_chunk=cfg.q_chunk,
+                                    kv_chunk=cfg.kv_chunk,
+                                    score_dtype=cfg.score_dtype)
         if return_cache:
             cache = {"k": to_cache_dtype(k, cache_dtype),
                      "v": to_cache_dtype(v, cache_dtype)}
     elif cfg.backend == "sliding":
-        out = sliding_attention(q, kh, vh, positions, positions,
-                                window=cfg.window)
+        if cfg.flash_vjp:
+            out = flash_attention(q, kh, vh, positions, positions, True,
+                                  cfg.window, cfg.q_chunk, cfg.kv_chunk)
+        else:
+            out = sliding_attention(q, kh, vh, positions, positions,
+                                    window=cfg.window)
         if return_cache:
             cache = {"k": _ring(k, S, cfg.window, cache_dtype),
                      "v": _ring(v, S, cfg.window, cache_dtype)}

@@ -12,9 +12,10 @@ Serving: ``init_encdec_state`` runs the encoder once and keeps each
 decoder layer's cross K/V beside zero self-attention caches;
 ``encdec_decode_step`` decodes one token against them.  ``decode_train``
 is the cache-free forward (the oracle of the tests and of the chip
-gate).  ``encdec_loss`` needs ``chunked_ce_loss`` and waits for
-training (ROADMAP A8f); JAX's ``_maybe_remat`` does nothing when
-serving.
+gate).  Training: ``encdec_loss``, ``chunked_ce_loss`` over
+``decode_train`` of ``encode``; each encoder and decoder block runs
+under ``_maybe_remat`` (a checkpoint only when ``cfg.remat`` is set and
+grad is enabled), as JAX's.
 """
 from __future__ import annotations
 
@@ -29,12 +30,14 @@ from repro_torch.layers.attention import (
 from repro_torch.layers.linear import embed, init_embedding, init_linear, linear
 from repro_torch.layers.mlp import init_mlp, mlp
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
+from repro_torch.common.tree import tree_map
 from repro_torch.models.lm import (
-    _at, _stack, _stacked_init, attn_cfg, lm_logits_head, mlp_cfg,
-    tree_map)
+    _at, _maybe_remat, _stack, _stacked_init, _unstack, attn_cfg,
+    chunked_ce_loss, lm_logits_head, mlp_cfg)
 
 __all__ = ["init_enc_block", "init_dec_block", "init_encdec", "encode",
-           "decode_train", "init_encdec_state", "encdec_decode_step"]
+           "decode_train", "encdec_loss", "init_encdec_state",
+           "encdec_decode_step"]
 
 
 def init_enc_block(generator: torch.Generator, cfg: ArchConfig,
@@ -81,12 +84,16 @@ def encode(params, frames, cfg: ArchConfig):
     x = frames.to(cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     acfg = dataclasses.replace(attn_cfg(cfg, "softmax"), causal=False)
-    for i in range(cfg.n_layers):
-        p = _at(params["enc_blocks"], i)
-        x = x + attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+
+    def block(p, h):
+        h = h + attention(p["attn"], rmsnorm(p["ln1"], h, cfg.norm_eps),
                           acfg, positions)
-        x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps),
-                    mlp_cfg(cfg))
+        return h + mlp(p["mlp"], rmsnorm(p["ln2"], h, cfg.norm_eps),
+                       mlp_cfg(cfg))
+
+    block = _maybe_remat(block, cfg)
+    for p in _unstack(params["enc_blocks"]):
+        x = block(p, x)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -96,16 +103,29 @@ def decode_train(params, dec_tokens, memory, cfg: ArchConfig):
     x = embed(params["embed"], dec_tokens, cfg.cdtype)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     acfg = attn_cfg(cfg, "softmax")
-    for i in range(cfg.dec_layers):
-        p = _at(params["dec_blocks"], i)
-        x = x + attention(p["self_attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+
+    def block(p, h, memory):
+        h = h + attention(p["self_attn"], rmsnorm(p["ln1"], h, cfg.norm_eps),
                           acfg, positions)
-        x = x + cross_attention(p["cross_attn"],
-                                rmsnorm(p["ln2"], x, cfg.norm_eps), memory,
+        h = h + cross_attention(p["cross_attn"],
+                                rmsnorm(p["ln2"], h, cfg.norm_eps), memory,
                                 acfg)
-        x = x + mlp(p["mlp"], rmsnorm(p["ln3"], x, cfg.norm_eps),
-                    mlp_cfg(cfg))
+        return h + mlp(p["mlp"], rmsnorm(p["ln3"], h, cfg.norm_eps),
+                       mlp_cfg(cfg))
+
+    block = _maybe_remat(block, cfg)
+    for p in _unstack(params["dec_blocks"]):
+        x = block(p, x, memory)
     return rmsnorm(params["final_norm"], x, cfg.norm_eps)
+
+
+def encdec_loss(params, batch, cfg: ArchConfig):
+    """batch: {"frames": (B, S_enc, D), "tokens": (B, S_dec), "targets":
+    (B, S_dec)[, "mask"]} -> the scalar fp32 cross-entropy."""
+    memory = encode(params, batch["frames"], cfg)
+    h = decode_train(params, batch["tokens"], memory, cfg)
+    return chunked_ce_loss(params, h, batch["targets"], cfg,
+                           batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

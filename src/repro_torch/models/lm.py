@@ -29,8 +29,16 @@ does (only training reads it).  Decode runs each row's MoE as a group of
 its own (``layers/moe.py``: the capacity of one token, as JAX's engine
 ``vmap``s a batch-1 step over its slots); prefill routes the batch as
 one group, as JAX's.  The encoder-decoder is ``models/encdec.py``.
-``flash_vjp=True`` (training, ROADMAP A8f) is not ported yet; nor are
-``lm_loss`` and ``chunked_ce_loss`` (A8f).
+Training: ``lm_loss`` (the chunked cross-entropy ``chunked_ce_loss``
+plus the MoE aux loss, as JAX's) is differentiable end to end: the two
+scan kernels through ``kernels/recompute.py``, softmax and sliding
+attention through autograd or, with ``flash_vjp=True``,
+``layers/flash.py``.  With ``cfg.remat`` and grad enabled every block
+runs under ``torch.utils.checkpoint`` (JAX's ``jax.checkpoint``: the
+stacks' blocks, gemma3's global block, zamba2's shared block), so its
+forward, kernel launches included, runs again in the backward; serving
+runs no grad and is unchanged.  A stacked leaf is unbound once per
+forward, so its blocks' gradients come back as one stacked tensor.
 """
 from __future__ import annotations
 
@@ -38,7 +46,9 @@ import itertools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.configs.base import ArchConfig
 from repro_torch.layers.attention import (
     AttnConfig, attention, attention_decode, init_attention, init_kv_cache)
@@ -53,7 +63,8 @@ from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 __all__ = ["attn_cfg", "mlp_cfg", "moe_cfg", "mamba_cfg", "check_supported",
            "tree_map", "init_block", "block_apply", "block_decode",
            "init_block_cache", "init_lm", "forward_hidden", "lm_logits_head",
-           "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step"]
+           "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step",
+           "chunked_ce_loss", "lm_loss"]
 
 UNIFORM = {"dense": "attn_mlp", "vlm": "attn_mlp", "moe": "attn_moe",
            "mamba2": "mamba"}
@@ -61,15 +72,9 @@ FAMILIES = tuple(UNIFORM) + ("gemma3", "zamba2")
 
 
 def check_supported(cfg: ArchConfig, families=FAMILIES) -> None:
-    """Raise ``ValueError`` for a family outside ``families`` and
-    ``NotImplementedError`` for ``flash_vjp=True``, which the port does
-    not have yet (training, ROADMAP A8f)."""
+    """Raise ``ValueError`` for a family outside ``families``."""
     if cfg.family not in families:
         raise ValueError(f"unknown family {cfg.family!r}")
-    if cfg.flash_vjp:
-        raise NotImplementedError(
-            f"{cfg.name}: flash_vjp=True (training's custom-VJP flash "
-            f"attention) is not ported to repro_torch yet (ROADMAP A8f)")
 
 
 # ---------------------------------------------------------------------------
@@ -119,15 +124,6 @@ def _block_backend(cfg: ArchConfig, kind: str) -> Optional[str]:
 # trees
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree, *rest):
-    """``fn`` over the leaves of nested dicts (and the same keys of
-    ``rest``)."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    return fn(tree, *rest)
-
-
 def _stack(trees):
     """A list of equal trees -> one tree of leaves stacked on a new axis
     0."""
@@ -137,6 +133,31 @@ def _stack(trees):
 def _at(tree, i: int):
     """Entry ``i`` of every leaf's leading (stacked) axis."""
     return tree_map(lambda a: a[i], tree)
+
+
+def _unstack(tree) -> list:
+    """The entries of every leaf's leading (stacked) axis, as a list of
+    trees of views: one ``unbind`` a leaf, whose backward stacks the
+    entries' gradients once (indexing each entry apart would give every
+    entry a leaf-sized gradient of its own)."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
+
+
+def _maybe_remat(fn, cfg: ArchConfig):
+    """``fn`` under ``torch.utils.checkpoint`` (its activations dropped
+    and recomputed in the backward) when ``cfg.remat`` is set and grad
+    is enabled; as it is otherwise."""
+    if not cfg.remat:
+        return fn
+
+    def run(*args, **kw):
+        if not torch.is_grad_enabled():
+            return fn(*args, **kw)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False, **kw)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -313,27 +334,24 @@ def _layer_order(params, cfg: ArchConfig):
     check_supported(cfg)
     if cfg.family in UNIFORM:
         kind = UNIFORM[cfg.family]
-        return [(kind, _at(params["blocks"], i), ("blocks", i))
-                for i in range(cfg.n_layers)]
+        return [(kind, p, ("blocks", i)) for i, p in
+                enumerate(_unstack(params["blocks"]))]
     order = []
     if cfg.family == "gemma3":
-        g, nl = _gemma_split(cfg)
-        for gi in range(g):
-            grp = _at(params["local"], gi)
-            order += [("local", _at(grp, j), ("local", gi, j))
-                      for j in range(nl)]
-            order.append(("global", _at(params["global"], gi),
-                          ("global", gi)))
+        for gi, (grp, gp) in enumerate(zip(_unstack(params["local"]),
+                                           _unstack(params["global"]))):
+            order += [("local", p, ("local", gi, j))
+                      for j, p in enumerate(_unstack(grp))]
+            order.append(("global", gp, ("global", gi)))
         return order
-    g, rem = _zamba_split(cfg)
-    for gi in range(g):
-        grp = _at(params["mamba_groups"], gi)
-        order += [("mamba", _at(grp, j), ("mamba_groups", gi, j))
-                  for j in range(cfg.shared_attn_every)]
+    for gi, grp in enumerate(_unstack(params["mamba_groups"])):
+        order += [("mamba", p, ("mamba_groups", gi, j))
+                  for j, p in enumerate(_unstack(grp))]
         order.append(("attn_mlp", params["shared_attn"],
                       ("shared_attn", gi)))
-    order += [("mamba", _at(params["mamba_tail"], j), ("mamba_tail", j))
-              for j in range(rem)]
+    if "mamba_tail" in params:
+        order += [("mamba", p, ("mamba_tail", j)) for j, p in
+                  enumerate(_unstack(params["mamba_tail"]))]
     return order
 
 
@@ -374,10 +392,11 @@ def _cache_at(caches, path):
 def forward_hidden(params, x, cfg: ArchConfig, positions, *,
                    reference: bool = False):
     """Embedded input (B, S, D) -> (final hidden states (B, S, D),
-    aux)."""
+    aux); each block under ``_maybe_remat``."""
     aux = 0.0
+    block = _maybe_remat(block_apply, cfg)
     for kind, p, _ in _layer_order(params, cfg):
-        x, a = block_apply(p, x, cfg, kind, positions, reference=reference)
+        x, a = block(p, x, cfg, kind, positions, reference=reference)
         aux = aux + a
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
@@ -391,6 +410,52 @@ def lm_logits_head(params, h, cfg: ArchConfig):
             w = e["table"].to(h.dtype)                      # (V, D)
         return torch.matmul(h, w.T)
     return linear(params["lm_head"], h)
+
+
+def chunked_ce_loss(params, hidden, targets, cfg: ArchConfig, mask=None):
+    """The mean cross-entropy of ``targets`` (B, S) under the logits of
+    ``hidden`` (B, S, D), without the whole (B, S, V) logits at once: the
+    vocab projection and logsumexp run over chunks of ``cfg.loss_chunk``
+    tokens (one chunk where S is no multiple of it), in fp32.  ``mask``
+    (B, S) weights each token; the mean is over its sum (at least 1).
+    Under autograd each chunk's fp32 logits are kept for the backward,
+    as JAX's scan keeps them."""
+    B, S, _ = hidden.shape
+    C = min(cfg.loss_chunk, S)
+    if S % C != 0:
+        C = S
+    m = (torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+         if mask is None else mask.to(torch.float32))
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, S, C):
+        logits = lm_logits_head(params, hidden[:, c0:c0 + C], cfg).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              targets[:, c0:c0 + C, None].long())[..., 0]
+        mc = m[:, c0:c0 + C]
+        tot = tot + ((lse - picked) * mc).sum()
+        cnt = cnt + mc.sum()
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def lm_loss(params, batch, cfg: ArchConfig, *, reference: bool = False):
+    """batch: {"tokens": (B, S), "targets": (B, S)[, "mask": (B, S)]}
+    (vlm: also "patches" (B, P, D), the stub frontend's embeddings, and
+    the targets are read off the hidden states from position P - 1) ->
+    the scalar fp32 loss: ``chunked_ce_loss`` plus the MoE layers' aux
+    loss.  ``reference=True`` runs the scans' plain versions."""
+    x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+    if cfg.family == "vlm":
+        x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    h, aux = forward_hidden(params, x, cfg, positions, reference=reference)
+    if cfg.family == "vlm":
+        P = batch["patches"].shape[1]
+        h = h[:, P - 1: P - 1 + batch["targets"].shape[1]]
+    ce = chunked_ce_loss(params, h, batch["targets"], cfg,
+                         batch.get("mask"))
+    return ce + (aux.float() if torch.is_tensor(aux) else aux)
 
 
 def lm_prefill(params, tokens, cfg: ArchConfig, *, patches=None,

@@ -19,10 +19,15 @@ bf16); ``decode(params, state, tokens, pos)`` -> (logits (B, V),
 state); ``init_caches(batch, max_len)`` the zero state, its cross K/V
 ``ENC_MEMORY_LEN`` positions long, bf16.
 
+``loss(params, batch)`` -> the scalar fp32 training loss (JAX's
+``lm_loss`` / ``encdec_loss``: batch ``{"tokens", "targets"[, "mask"]}``,
+vlm with ``"patches"``, enc-dec with ``"frames"``), differentiable with
+``torch.autograd``.
+
 ``build_model(cfg, reference=True)`` gives the reference forward: its
-prefill runs the two scans' plain versions on any device (softmax and
-sliding attention are plain torch either way).  ``loss`` (training) and
-``input_specs`` (the dry-run's) are not ported yet (ROADMAP A8f, A8h).
+prefill and loss run the two scans' plain versions on any device
+(softmax and sliding attention are plain torch either way).
+``input_specs`` (the dry-run's) is not ported yet (ROADMAP A8h).
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ ENC_MEMORY_LEN = 4096
 class Model:
     cfg: ArchConfig
     init: Callable           # (generator or seed, device=None) -> params
+    loss: Callable           # (params, batch) -> scalar fp32
     prefill: Callable        # (params, batch) -> (logits, caches)
     decode: Callable         # (params, caches, tokens, pos) -> (logits,
                              #   caches)
@@ -100,6 +106,7 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
             cfg=cfg,
             init=lambda generator, device=None: _init(cfg, generator,
                                                       device),
+            loss=lambda p, b: _ed.encdec_loss(p, b, cfg),
             prefill=lambda p, b: _ed.init_encdec_state(
                 p, b["frames"], cfg, b["tokens"].shape[1]),
             decode=lambda p, st, t, pos: _ed.encdec_decode_step(
@@ -110,6 +117,7 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
     return Model(
         cfg=cfg,
         init=lambda generator, device=None: _init(cfg, generator, device),
+        loss=lambda p, b: _lm.lm_loss(p, b, cfg, reference=reference),
         prefill=lambda p, b: _lm.lm_prefill(
             p, b["tokens"], cfg, patches=b.get("patches"),
             cache_dtype=_kv_dtype(cfg), reference=reference),

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch.common.device import resolve_device, tree_to
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.lm import tree_map
+from repro_torch.common.tree import tree_map
 from repro_torch.models.registry import Model, build_model
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.telemetry import Telemetry

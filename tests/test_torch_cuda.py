@@ -2414,3 +2414,97 @@ def test_lm_seamless_decode_step_on_the_card(cuda):
     lg, _ = ted.encdec_decode_step(pc, fg, tok.to(cuda), 0, cfg)
     _lm_close(lg.cpu(), lc, 1e-4)
 
+
+
+# ---------------------------------------------------------------------------
+# training: the two scans under autograd on the card, flash attention,
+# one train step of a narrow zamba2
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("S,dtype", [(768, torch.float32),
+                                     (300, torch.float32),
+                                     (768, torch.bfloat16)])
+def test_train_scan_gradients_on_the_card(cuda, S, dtype):
+    """The relu_linear attention layer and the Mamba-2 layer launch their
+    kernel once forward and none in the backward, and every input's and
+    param's gradient matches autograd through the plain scan (fp32
+    within 1e-4 * max(1, max|g|); bf16 inputs within 2^-6 of it): a
+    launch has no ``grad_fn`` of its own, so a zero or missing gradient
+    here means the autograd Function is not in the graph."""
+    from repro_torch.common.tree import flatten_with_paths, map_with_path
+    from repro_torch.layers import attention as ta
+    from repro_torch.layers import mamba2 as tm
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    acfg = ta.AttnConfig(d_model=256, n_heads=8, n_kv=4, head_dim=64,
+                         backend="relu_linear", dtype=dtype)
+    mcfg = tm.Mamba2Config(d_model=256, d_state=64, head_dim=64, chunk=256,
+                           dtype=dtype)
+    layers = ((relu_attn_causal, ta.init_attention(gen, acfg, cuda),
+               lambda p, x, **kw: ta.attention(p, x, acfg, **kw)),
+              (ssd_chunked, tm.init_mamba2(gen, mcfg, cuda),
+               lambda p, x, **kw: tm.mamba2(p, x, mcfg, **kw)))
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    for kernel, params, fn in layers:
+        x = torch.randn((2, S, 256), generator=gen, device=cuda).to(dtype)
+        grads = []
+        for reference in (False, True):
+            leaves = {k: v.detach().requires_grad_() for k, v in
+                      flatten_with_paths(params) if v.is_floating_point()}
+            xi = x.clone().requires_grad_()
+            kernel.launches = 0
+            y = fn(map_with_path(leaves.get, params), xi,
+                   reference=reference)
+            g = torch.autograd.grad((y.float() ** 2).sum(),
+                                    [xi] + list(leaves.values()))
+            assert kernel.launches == (0 if reference else 1)
+            grads.append(g)
+        for a, b in zip(*grads):
+            assert bool(torch.isfinite(a).all())
+            _lm_close(a, b, tol)
+
+
+@pytest.mark.parametrize("S,window", [(2048, None), (1536, None),
+                                      (2048, 512)])
+def test_train_flash_attention_on_the_card(cuda, S, window):
+    """``flash_attention`` forward and (dq, dk, dv) against autograd of
+    the chunked softmax (``softmax_attention``) on the card, within 1e-4
+    * max(1, max|.|): causal, a ragged S (one chunk) and a window."""
+    from repro_torch.layers.attention import softmax_attention
+    from repro_torch.layers.flash import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, S, 8, 64), generator=gen, device=cuda)
+               .requires_grad_() for _ in range(3))
+    pos = torch.arange(S, device=cuda)
+    cot = torch.randn((1, S, 8, 64), generator=gen, device=cuda)
+    out = flash_attention(q, k, v, pos, pos, True, window, 1024, 1024)
+    ref = softmax_attention(q, k, v, pos, pos, causal=True, window=window)
+    _lm_close(out, ref, 1e-4)
+    for a, b in zip(torch.autograd.grad(out, (q, k, v), cot),
+                    torch.autograd.grad(ref, (q, k, v), cot)):
+        _lm_close(a, b, 1e-4)
+
+
+def test_train_step_on_the_card(cuda, tmp_path):
+    """A narrow zamba2 (relu_linear, bf16 params; 7 layers: a group and a
+    tail) trains 12 steps through the ``Trainer`` with a failure at step
+    7: finite losses, resumed from step 5, its latest checkpoint at 10,
+    and each scan launched twice a layer a step (remat)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.runtime.trainer import (
+        Trainer, TrainerConfig, make_failure_hook)
+    cfg = get_arch("zamba2-1.2b").scaled(
+        attn_backend="relu_linear", n_layers=7, d_model=256, n_heads=4,
+        n_kv=4, d_ff=512, vocab=512)
+    tcfg = TrainerConfig(total_steps=12, ckpt_every=5,
+                         ckpt_dir=str(tmp_path), log_every=100)
+    tr = Trainer(cfg, DataConfig(vocab=512, seq_len=300, global_batch=4),
+                 tcfg, failure_hook=make_failure_hook([7]))
+    relu_attn_causal.launches = ssd_chunked.launches = 0
+    out = tr.run()
+    assert len(out["losses"]) == 7 + 7
+    assert all(np.isfinite(out["losses"]))
+    assert ssd_chunked.launches == 14 * 7 * 2
+    assert relu_attn_causal.launches == 14 * 1 * 2
+    from repro_torch.checkpoint.checkpoint import latest_step
+    assert latest_step(str(tmp_path)) == 10

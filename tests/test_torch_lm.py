@@ -115,16 +115,6 @@ def test_configs_equal_jax_field_for_field():
         get_arch("no-such-arch")
 
 
-@pytest.mark.parametrize("name,kw,item", [
-    ("granite-3-2b", {"flash_vjp": True}, "A8f")])
-def test_unported_families_and_backends_raise(name, kw, item):
-    cfg = smoke_variant(get_arch(name)).scaled(**kw)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        build_model(cfg)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tlm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
-
-
 # ---------------------------------------------------------------------------
 # init, prefill, decode
 # ---------------------------------------------------------------------------

@@ -224,12 +224,6 @@ def test_pad_heads_to_matches_jax_and_changes_nothing():
         close(yt, ta.attention(tp, xt, tc0), 1e-6)
 
 
-def test_flash_vjp_raises_naming_a8f():
-    _, tc, _, tp = layer(flash_vjp=True)
-    with pytest.raises(NotImplementedError, match="A8f"):
-        ta.attention(tp, torch.zeros((1, 4, 32)), tc)
-
-
 @pytest.mark.parametrize("backend", ["softmax", "sliding", "relu_linear"])
 @pytest.mark.parametrize("max_len", [8, 40])
 def test_init_kv_cache_matches_jax(backend, max_len):

@@ -173,14 +173,16 @@ def test_init_lm_tree_matches_jax_leaf_for_leaf(name, dtype):
 
 def test_build_model_raises_only_for_moe_encdec_and_flash_vjp():
     """Every one of the ten LM configs builds (the moe and enc-dec
-    families too), also under ``attn_backend="relu_linear"``;
-    ``flash_vjp=True`` raises (training, ROADMAP A8f) on any family."""
+    families too), also under ``attn_backend="relu_linear"`` and with
+    ``flash_vjp=True`` (training's flash attention, ``layers/flash.py``),
+    each with a ``loss``; an unknown family raises."""
     assert {cfg.family for cfg in ARCHS.values()} >= {"moe", "encdec"}
     for name, cfg in ARCHS.items():
         build_model(cfg)
         build_model(cfg.scaled(attn_backend="relu_linear"))
-        with pytest.raises(NotImplementedError, match="ROADMAP A8f"):
-            build_model(cfg.scaled(flash_vjp=True))
+        assert callable(build_model(cfg.scaled(flash_vjp=True)).loss)
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(ARCHS["granite-3-2b"].scaled(family="rnn"))
 
 
 # ---------------------------------------------------------------------------
