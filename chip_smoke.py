@@ -464,9 +464,23 @@
    ``relu_attn_causal``, fp32 (512, 1024, 64) for ``ssd_chunked``); each
    is held against its plain version there within 1e-4 * max(1,
    max|ref|) and timed, its error feeding the kernels line.
+6g. ``[dist ...]``: the distributed layer on a world of one NCCL rank
+   in this process (``dist_phase``), after 6f: ``[dist collectives]``
+   each collective at axis size 1 on CUDA tensors against its
+   ``jax.lax`` meaning there, ``compressed_psum`` of a (4096, 4096) fp32
+   tensor against its formula, bit for bit; ``[dist zamba2 1x1]`` 6f's
+   Zamba2-1.2B run (same config, data, seed, schedule) for 5 steps
+   through ``Trainer(mesh=)`` on a (1, 1) mesh, the sharded step on the
+   rank's blocks.  Gates: each loss within 1e-5 * |loss| of 6f's step,
+   exactly 12 ``relu_attn_causal`` and 76 ``ssd_chunked`` launches a
+   step (the counters at 0 just before the run, read just after), and
+   ``[dist kernel]``: one more step's scan calls held against their
+   plain versions at the step's shapes.  Printed beside 6f's: tokens/s,
+   peak memory, whether the losses are bit-equal.
 7. One JSON line with every kernel's launches on its driven run(s)
    (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's, 6d's
-   and 6e's served LM runs, 6f's training passes and 4),
+   and 6e's served LM runs, 6f's training passes, 6g's sharded run and
+   4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -5129,6 +5143,10 @@ TRAIN_GRAD_TOL = 1e-4         # per leaf, of max(1, max|g|)
 # gate required to fail from the scan's own eps on (below it, printed)
 TRAIN_CONTROL_EPS = (1e-3, 1e-2, 1e-1)
 TRAIN_CONTROL = {"ssd_chunked": 1e-2, "relu_attn_causal": 1e-1}
+# the [dist] phase (6g): 6f's Zamba2 run through the sharded Trainer on a
+# world of one NCCL rank, its first DIST_STEPS steps
+DIST_STEPS = 5
+DIST_LOSS_TOL = 1e-5          # of |loss|, against 6f's same steps
 
 
 def train_scan_calls(cfg) -> dict:
@@ -5383,14 +5401,15 @@ def train_step_times(tag, tr, out, card) -> dict:
     return calls
 
 
-def train_phase(seed, wrappers, max_err, card) -> dict:
+def train_phase(seed, wrappers, max_err, card, ref=None) -> dict:
     """``[train ...]``: the gradient gate and its control, the flash
     gate, then Zamba2-1.2B (relu_linear, bf16 params, the default AdamW)
     trained at published width and depth for ``TRAIN_STEPS`` steps with
     checkpoints every ``TRAIN_CKPT_EVERY`` steps and one failure at
     ``TRAIN_FAIL_AT``, and each scan call of a step held against its
     plain version at the step's shapes (``[train kernel]``).  -> the
-    launches of the driven runs, summed."""
+    launches of the driven runs, summed; ``ref`` (a dict) gets the
+    run's first losses, median tokens/s and peak (6g's reference)."""
     import shutil
     import tempfile
     import torch
@@ -5427,6 +5446,9 @@ def train_phase(seed, wrappers, max_err, card) -> dict:
                          statistics.mean(losses[-5:]))
         tok_s = [TRAIN_BATCH * TRAIN_SEQ / s
                  for s in tr.step_seconds[:TRAIN_FAIL_AT]]
+        if ref is not None:
+            ref.update(losses=losses[:DIST_STEPS], peak=peak,
+                       tok_s=statistics.median(tok_s))
         n = param_count(out["params"])
         print(f"[{tag}] {cfg.name} {cfg.param_dtype}/{cfg.compute_dtype}, "
               f"{n} params, AdamW {default_opt_cfg(cfg)}, B = "
@@ -5476,6 +5498,157 @@ def train_phase(seed, wrappers, max_err, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {k: sum(r[k] for r in runs) for k in wrappers}
+
+
+def dist_collectives(mesh, card) -> None:
+    """``[dist collectives]``: each collective of
+    ``distributed/collectives.py`` at axis size 1 on CUDA tensors returns
+    what its ``jax.lax`` counterpart returns there (its input), and
+    ``compressed_psum`` of a (4096, 4096) fp32 tensor equals its formula
+    bit for bit."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    from repro_torch.optim.compression import compressed_psum
+    g = torch.Generator(device="cuda").manual_seed(11)
+    x = torch.randn((8, 12), generator=g, device="cuda")
+    checked = []
+    for axes in ("data", "model", ("data", "model")):
+        if C.axis_index(axes, mesh) != 0 or C.axis_size(axes, mesh) != 1:
+            raise AssertionError(f"[dist collectives] axis {axes}: index "
+                                 f"{C.axis_index(axes, mesh)}, size "
+                                 f"{C.axis_size(axes, mesh)}")
+        outs = {"psum": C.psum(x, axes, mesh), "pmean": C.pmean(x, axes, mesh),
+                "pmax": C.pmax(x, axes, mesh)}
+        for ax in (0, 1):
+            outs[f"all_gather axis {ax}"] = C.all_gather(x, axes, axis=ax,
+                                                         mesh=mesh)
+        for name, y in outs.items():
+            if not torch.equal(y, x):
+                raise AssertionError(f"[dist collectives] {name} over "
+                                     f"{axes} is not its input")
+            checked.append(f"{name}/{axes}")
+    for name, y in (("all_to_all", C.all_to_all(x, "model", 0, 1,
+                                                mesh=mesh)),
+                    ("ppermute [(0, 0)]", C.ppermute(x, "model", [(0, 0)],
+                                                     mesh=mesh))):
+        if not torch.equal(y, x):
+            raise AssertionError(f"[dist collectives] {name} is not its "
+                                 f"input")
+        checked.append(name)
+    big = torch.randn((4096, 4096), generator=g, device="cuda")
+    one = torch.ones((), device="cuda")
+    scale = torch.clamp(big.abs().amax() / (127.0 * one), min=1e-30)
+    want = (torch.round(big / scale).to(torch.int32).float() * scale) / one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = compressed_psum(big, "data", mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got, want):
+        raise AssertionError("[dist collectives] compressed_psum differs "
+                             "from its formula")
+    print(f"[dist collectives] world 1 on NCCL: {len(checked)} collective "
+          f"calls equal their input ({', '.join(checked)}); compressed_psum "
+          f"(4096, 4096) fp32 = its formula bit for bit, max|err| vs g "
+          f"{float((got - big).abs().max()):.3e} (scale "
+          f"{float(scale):.3e}), {ms:.3f} ms host to a sync [{card}]")
+
+
+def dist_phase(seed, wrappers, max_err, card, ref) -> dict:
+    """``[dist ...]``: a world of one NCCL rank in this process (a
+    ``HashStore``), its (1, 1) ``("data", "model")`` mesh; the
+    collectives at axis size 1, then 6f's Zamba2-1.2B run (the same
+    config, data, seed and schedule) for ``DIST_STEPS`` steps through
+    ``Trainer(mesh=)``: the sharded step (``make_train_step(ctx=)``) on
+    the rank's blocks.  Gates: each loss within ``DIST_LOSS_TOL`` *
+    |loss| of 6f's same step, exactly 12 ``relu_attn_causal`` and 76
+    ``ssd_chunked`` launches a step, and each scan's call of one more
+    step held against its plain version at the step's shapes (``[dist
+    kernel]``).  Printed beside 6f's: tokens/s, peak memory, whether the
+    losses are bit-equal.  -> the launches of the driven run."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        dist_collectives(mesh, card)
+        tag = "dist zamba2 1x1"
+        cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+        per_step = train_scan_calls(cfg)
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=TRAIN_BATCH, seed=seed + 2)
+        tcfg = TrainerConfig(
+            total_steps=DIST_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=root,
+            log_every=10, seed=seed + 2,
+            schedule=ScheduleConfig(kind="cosine",
+                                    warmup_steps=TRAIN_WARMUP,
+                                    total_steps=TRAIN_STEPS))
+        tr = Trainer(cfg, data, tcfg, device="cuda", mesh=mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        out = tr.run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = dict.fromkeys(wrappers, 0) | {
+            k: v * DIST_STEPS for k, v in per_step.items()}
+        losses = out["losses"]
+        if launches != want or len(losses) != DIST_STEPS:
+            raise AssertionError(f"[{tag}] {len(losses)} steps, launches "
+                                 f"{launches}, expected {want}")
+        tok_s = statistics.median(TRAIN_BATCH * TRAIN_SEQ / s
+                                  for s in tr.step_seconds)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        print(f"[{tag}] {cfg.name} on a {tuple(mesh.shape)} "
+              f"{mesh.mesh_dim_names} NCCL mesh, sharded step, B = "
+              f"{TRAIN_BATCH}, S = {TRAIN_SEQ}: {DIST_STEPS} steps in "
+              f"{secs:.3f} s; tokens/s per step median {tok_s:.1f} (6f: "
+              f"{ref['tok_s']:.1f}); peak {peak:.3f} GiB (6f's run: "
+              f"{ref['peak']:.3f}); launches a step {per_step} [{card}]")
+        print(f"[{tag}] losses against 6f's steps 0..{DIST_STEPS - 1}: "
+              + " ".join(f"{a:.6f}/{b:.6f}"
+                         for a, b in zip(losses, ref["losses"]))
+              + f"; max relative {max(rel):.3e}; bit-equal "
+              f"{losses == ref['losses']}")
+        if max(rel) > DIST_LOSS_TOL:
+            raise AssertionError(f"[{tag}] losses off 6f's by {max(rel)}")
+        params, opt = out["params"], out["opt"]
+        batch = tr.data.host_batch(DIST_STEPS, 0, 1)
+        with lm_scan_probe() as calls:
+            tr._step_fn(params, opt, batch, DIST_STEPS)
+        torch.cuda.synchronize()
+        del tr, out, params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        for (name, _), (a, k) in sorted(calls.items()):
+            case = lm_scan_case(name, a, k, f"{tag} step "
+                                f"{tuple(a[0].shape)} {str(a[0].dtype)[6:]}")
+            err, ref_max, *times = measure(case, False, 5, 3)
+            max_err[name] = max(max_err[name], err)
+            kernel_line("dist kernel", case, "", err, ref_max, *times)
+        if {name for name, _ in calls} != set(LM_SCANS):
+            raise AssertionError(f"[{tag}] a step called {sorted(calls)}")
+        del calls
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -5721,7 +5894,14 @@ def main() -> int:
 
     # -- 6f. [train]: the gradients, flash, Zamba2-1.2B trained ---------
     stamp("section 6f", t_start)
-    launches_train = train_phase(args.seed, wrappers, max_err, card)
+    train_ref: dict = {}
+    launches_train = train_phase(args.seed, wrappers, max_err, card,
+                                 train_ref)
+
+    # -- 6g. [dist]: the sharded trainer on a world of one NCCL rank ----
+    stamp("section 6g", t_start)
+    launches_dist = dist_phase(args.seed, wrappers, max_err, card,
+                               train_ref)
 
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
@@ -5738,7 +5918,8 @@ def main() -> int:
                          + launches_se["fp32"][name]
                          + launches_se["fix8"][name] + launches_lib[name]
                          + launches_lm[name] + launches_lm_softmax[name]
-                         + launches_lm_moe[name] + launches_train[name]),
+                         + launches_lm_moe[name] + launches_train[name]
+                         + launches_dist[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

@@ -23,6 +23,13 @@ Guarantees, as JAX's:
   * async save: ``CheckpointManager.save_async`` copies the tree to host
     memory at once and writes it on a background thread while training
     goes on.
+
+Sharded trees (``shardings=``, a tree of ``NamedSharding``: each leaf
+the rank's block): ``save`` gathers the full values over the mesh, the
+mesh's first rank writes the same files as a single-device save of those
+values, and the other ranks wait for it; ``restore`` loads each leaf and
+keeps the rank's block, so a checkpoint moves onto any mesh, as JAX's
+``restore(shardings=)`` does.
 """
 from __future__ import annotations
 
@@ -37,9 +44,11 @@ import numpy as np
 import torch
 
 from repro_torch.common.tree import flatten_with_paths, map_with_path, tree_map
+from repro_torch.distributed import collectives
+from repro_torch.distributed.ctx import mesh_axes
 
-__all__ = ["MANIFEST", "save", "latest_step", "restore",
-           "CheckpointManager"]
+__all__ = ["MANIFEST", "save", "latest_step", "restore", "barrier",
+           "is_writer", "CheckpointManager"]
 
 MANIFEST = "MANIFEST.json"
 
@@ -82,8 +91,36 @@ def _read_leaf(fname: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def save(root: str, step: int, tree: Any, *, extra: Optional[dict] = None):
-    """Synchronous atomic checkpoint write; -> the step's directory."""
+def is_writer(mesh) -> bool:
+    """Whether this rank writes ``mesh``'s checkpoints (its first)."""
+    return torch.distributed.get_rank() == int(mesh.mesh.reshape(-1)[0])
+
+
+def barrier(mesh):
+    """Every rank of ``mesh`` waits for the others (a psum over every
+    axis, on any backend)."""
+    x = torch.zeros((), device=mesh.device_type)
+    collectives.psum(x, tuple(mesh_axes(mesh)), mesh).item()
+
+
+@torch.no_grad()
+def _gather(tree, shardings):
+    """The rank's blocks -> (the full tree, on every rank; the mesh)."""
+    mesh = flatten_with_paths(shardings)[0][1].mesh
+    return tree_map(lambda x, s: s.gather(x), tree, shardings), mesh
+
+
+def save(root: str, step: int, tree: Any, *, extra: Optional[dict] = None,
+         shardings: Any = None):
+    """Synchronous atomic checkpoint write; -> the step's directory.
+    With ``shardings`` every rank of their mesh calls it with its blocks
+    (see the module docstring)."""
+    if shardings is not None:
+        full, mesh = _gather(tree, shardings)
+        final = (save(root, step, full, extra=extra) if is_writer(mesh)
+                 else _step_dir(root, step))
+        barrier(mesh)
+        return final
     os.makedirs(root, exist_ok=True)
     final = _step_dir(root, step)
     tmp = final + ".tmp"
@@ -122,12 +159,14 @@ def latest_step(root: str) -> Optional[int]:
 
 
 def restore(root: str, tree_template: Any, *, step: Optional[int] = None,
-            device=None):
+            device=None, shardings: Any = None):
     """Load a checkpoint into the structure of ``tree_template`` ->
     (tree, step, extra).  Each leaf keeps the checkpoint's dtype and
-    goes to ``device``, by default its template leaf's device.  Raises
-    ``KeyError`` for a leaf the checkpoint lacks and ``ValueError`` for
-    a shape that differs from the template's."""
+    goes to ``device``, by default its template leaf's device; with
+    ``shardings`` (a matching tree of ``NamedSharding``) only the rank's
+    block does.  Raises ``KeyError`` for a leaf the checkpoint lacks and
+    ``ValueError`` for a shape that differs from the template's (the
+    full shape: a ``meta`` template will do)."""
     if step is None:
         step = latest_step(root)
         if step is None:
@@ -136,7 +175,7 @@ def restore(root: str, tree_template: Any, *, step: Optional[int] = None,
     with open(os.path.join(d, MANIFEST)) as f:
         manifest = json.load(f)
 
-    def load(path, tmpl):
+    def load(path, tmpl, sharding=None):
         info = manifest["leaves"].get(path)
         if info is None:
             raise KeyError(f"checkpoint missing leaf {path!r}")
@@ -147,10 +186,14 @@ def restore(root: str, tree_template: Any, *, step: Optional[int] = None,
                              f"{tuple(t.shape)} vs template {shape}")
         dev = device if device is not None else (
             tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu")
+        if sharding is not None:
+            return sharding.shard(t).to(dev, copy=True)
         return t.to(dev)
 
-    return map_with_path(load, tree_template), step, manifest.get("extra",
-                                                                   {})
+    by_path = dict(flatten_with_paths(shardings)) if shardings else {}
+    tree = map_with_path(lambda p, t: load(p, t, by_path.get(p)),
+                         tree_template)
+    return tree, step, manifest.get("extra", {})
 
 
 class CheckpointManager:
@@ -162,6 +205,7 @@ class CheckpointManager:
         self.keep = keep
         self._q: queue.Queue = queue.Queue(maxsize=1)
         self._error: Optional[BaseException] = None
+        self._mesh = None       # of the sharded saves: ``wait`` joins it
         self._worker = threading.Thread(target=self._run, daemon=True)
         self._worker.start()
 
@@ -195,16 +239,26 @@ class CheckpointManager:
             raise e
 
     def save_async(self, step: int, tree: Any, *,
-                   extra: Optional[dict] = None):
+                   extra: Optional[dict] = None, shardings: Any = None):
         """Copy ``tree`` to host memory now; write it in the background
-        (waits while an earlier save is still queued)."""
+        (waits while an earlier save is still queued).  With
+        ``shardings`` every rank of their mesh calls it with its blocks,
+        as ``save``'s: the full values are gathered now, the mesh's
+        first rank writes them, and ``wait`` waits for that rank."""
         self._raise()
+        if shardings is not None:
+            tree, self._mesh = _gather(tree, shardings)
+            if not is_writer(self._mesh):
+                return
         self._q.put((step, tree_map(_host, tree), extra))
 
     def wait(self):
-        """Block until every queued checkpoint is on disk."""
+        """Block until every queued checkpoint is on disk (on every rank
+        of a sharded save's mesh)."""
         self._q.join()
         self._raise()
+        if self._mesh is not None:
+            barrier(self._mesh)
 
     def close(self):
         self._q.join()

@@ -9,12 +9,13 @@ is a leaf (a tensor, a number, a tuple).
 """
 from __future__ import annotations
 
-from typing import Any, Callable
+import re
+from typing import Any, Callable, Iterable
 
 import torch
 
 __all__ = ["tree_map", "tree_leaves", "flatten_with_paths",
-           "map_with_path", "param_count", "global_norm"]
+           "map_with_path", "param_count", "global_norm", "match_first"]
 
 
 def tree_map(fn: Callable, tree, *rest):
@@ -69,3 +70,12 @@ def global_norm(tree) -> torch.Tensor:
     leaves summed in JAX's order."""
     sq = sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree))
     return torch.sqrt(sq)
+
+
+def match_first(patterns: Iterable[tuple[str, Any]], path: str, default=None):
+    """The value of the first regex in ``patterns`` that matches
+    ``path``."""
+    for pat, val in patterns:
+        if re.search(pat, path):
+            return val
+    return default

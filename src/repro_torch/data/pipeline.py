@@ -6,7 +6,11 @@ Sequences are drawn from a fixed random first-order Markov chain
 it shows a real, decreasing loss.  As in JAX:
   * the GLOBAL batch of step ``t`` is a pure function of (seed, t), so
     any host can compute any shard and no coordinator is needed;
-  * ``host_shard`` slices the global batch for (host_id, n_hosts).
+  * ``host_shard`` slices the global batch for (host_id, n_hosts);
+  * ``make_batch_specs`` gives each leaf's ``NamedSharding`` under a
+    sharding context (``dp`` on the batch dim), whose ``shard`` is the
+    rank's slice: every rank draws the same global batch and keeps its
+    own rows.
 
 The bits are torch's, not ``jax.random``'s (the port cannot reproduce
 those without JAX): the (V, V) fp32 transition logits come from a
@@ -23,8 +27,10 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
+from repro_torch.distributed.ctx import NamedSharding
 
-__all__ = ["DataConfig", "SyntheticLMDataset", "host_shard"]
+__all__ = ["DataConfig", "SyntheticLMDataset", "host_shard",
+           "make_batch_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,3 +104,13 @@ def host_shard(batch: dict, host_id: int, n_hosts: int) -> dict:
         return x[host_id * per:(host_id + 1) * per]
 
     return tree_map(slc, batch)
+
+
+def make_batch_specs(batch: dict, ctx, *logical) -> dict:
+    """Each leaf's ``NamedSharding`` under ``ctx``: ``logical`` names its
+    leading dims (``"dp"``: the batch), the rest unsplit."""
+    def spec(x):
+        axes = list(logical) + [None] * (x.ndim - len(logical))
+        return NamedSharding(ctx.mesh, ctx.resolve(axes[: x.ndim]))
+
+    return tree_map(spec, batch)

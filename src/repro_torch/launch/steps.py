@@ -5,18 +5,42 @@
 update, as one function; ``make_serve_step`` / ``make_prefill_step``:
 the model's decode and prefill.  Each is a plain function of trees of
 tensors (params and state in, new params and state out), as JAX's.
+
+With a ``ShardingCtx`` the train step is JAX's GSPMD step in explicit
+SPMD, one process per rank: params and AdamW state are the rank's
+blocks of their specs; the batch is the rank's ``dp`` slice.  The step
+gathers the dense params (the expert weights stay the rank's blocks:
+the MoE layers move them inside, ``layers/moe.py``), runs the loss
+under ``use_sharding``, and weights the rank's objective so that the
+sum over every rank is the global loss: the cross-entropy sum over the
+GLOBAL token count (a masked batch too), shared by the ``model`` ranks
+that computed it (1/ep each), and the (replicated) aux loss shared by
+every rank.  The collectives' backward is the gradient of that sum.  So
+a gathered leaf's gradient summed over the mesh is the global one (for
+the dense layers: summed over ``dp``, one ``model`` rank's) and is cut
+to the rank's block; an expert block's comes back from the collectives
+summed over the ranks that split it, and is summed over the axes that
+hold it replicated.  The clip's norm sums each element's square once (a
+block's over its replicas, 1/replicas each), and AdamW updates the
+blocks.  ``sharded_value_and_grad`` is the step's gradient alone.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.common.device import scalar
-from repro_torch.common.tree import tree_map
+from repro_torch.common.tree import map_with_path, tree_leaves, tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed.ctx import ShardingCtx, mesh_axes, use_sharding
+from repro_torch.distributed.partition import (
+    gather_leaf, local_block, replication)
+from repro_torch.layers.moe import EXPERT_LEAF
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
-__all__ = ["default_opt_cfg", "value_and_grad", "make_train_step",
+__all__ = ["default_opt_cfg", "value_and_grad", "sharded_value_and_grad",
+           "make_train_step",
            "make_serve_step", "make_prefill_step", "init_train_state"]
 
 
@@ -51,12 +75,21 @@ def value_and_grad(loss_fn):
 
 
 def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, ctx: ShardingCtx = None,
+                    specs=None):
     """-> ``train_step(params, opt_state, batch, lr_scale=1.0)`` ->
     (new params, new state, fp32 loss).  ``grad_accum > 1`` splits the
     batch's leading axis into that many microbatches and sums their
     gradients in fp32 (JAX's scan; the peak activation bytes traded for
-    passes), then averages them back to each param's dtype."""
+    passes), then averages them back to each param's dtype.  With
+    ``ctx`` the step is the sharded one (see the module docstring):
+    ``specs`` is the params' spec tree, the loss is the global one."""
+    if ctx is not None:
+        if grad_accum > 1:
+            raise ValueError("grad_accum > 1 is not supported with a ctx")
+        if specs is None:
+            raise ValueError("a sharded step needs the params' specs")
+        return _sharded_train_step(model, opt_cfg, ctx, specs)
     vg = value_and_grad(model.loss)
 
     if grad_accum <= 1:
@@ -84,6 +117,70 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig, *,
         new_params, new_opt = adamw_update(grads, opt_state, params, opt_cfg,
                                            lr_scale)
         return new_params, new_opt, loss_sum / n
+
+    return train_step
+
+
+def sharded_value_and_grad(model: Model, ctx: ShardingCtx, specs):
+    """The sharded step's gradient (see the module docstring):
+    ``fn(params, batch)`` on the rank's param blocks and ``dp`` slice ->
+    (the global loss, the gradient's blocks in the params' dtypes, the
+    global gradient norm, fp32)."""
+    mesh = ctx.mesh
+    sizes = mesh_axes(mesh)
+    every = tuple(sizes)
+    split = tuple(a for a in every if sizes[a] > 1)   # axes that split
+    dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
+    ep = sizes.get("model", 1)
+    world = collectives.axis_size(every, mesh)
+    reps = tree_map(lambda s: replication(s, mesh), specs)
+    local = map_with_path(lambda p, _: bool(EXPERT_LEAF.search(p)), specs)
+
+    def objective(params, batch):
+        tot, cnt, aux = model.loss_terms(params, batch)
+        total = torch.clamp(collectives.psum(cnt.detach(), dp_axes, mesh),
+                            min=1.0)
+        return tot / (total * ep) + aux / world
+
+    vg = value_and_grad(objective)
+
+    @torch.no_grad()
+    def reduce(g, s, keep):
+        if keep:    # a block already: summed over the ranks holding it
+            axes = tuple(a for a in split
+                         if all(a not in s.axes(d) for d in range(len(s))))
+            return (collectives.psum(g.float(), axes, mesh).to(g.dtype)
+                    if axes else g)
+        if not split:
+            return g
+        return local_block(collectives.psum(g.float(), split, mesh), s,
+                           mesh).to(g.dtype)
+
+    def fn(params, batch):
+        with torch.no_grad():
+            full = tree_map(lambda x, s, keep: x if keep else
+                            gather_leaf(x, s, mesh), params, specs, local)
+        with use_sharding(ctx):
+            share, grads = vg(full, batch)
+        del full
+        grads = tree_map(reduce, grads, specs, local)
+        sq = sum(torch.sum(torch.square(g.float())) / r
+                 for g, r in zip(tree_leaves(grads), tree_leaves(reps)))
+        return (collectives.psum(share, every, mesh), grads,
+                torch.sqrt(collectives.psum(sq, every, mesh)))
+
+    return fn
+
+
+def _sharded_train_step(model: Model, opt_cfg: AdamWConfig,
+                        ctx: ShardingCtx, specs):
+    grad_fn = sharded_value_and_grad(model, ctx, specs)
+
+    def train_step(params, opt_state, batch, lr_scale=1.0):
+        loss, grads, gnorm = grad_fn(params, batch)
+        new_params, new_opt = adamw_update(grads, opt_state, params,
+                                           opt_cfg, lr_scale, gnorm=gnorm)
+        return new_params, new_opt, loss.float()
 
     return train_step
 

@@ -33,10 +33,11 @@ from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.common.tree import tree_map
 from repro_torch.models.lm import (
     _at, _maybe_remat, _stack, _stacked_init, _unstack, attn_cfg,
-    chunked_ce_loss, lm_logits_head, mlp_cfg)
+    chunked_ce_terms, lm_logits_head, mlp_cfg)
 
 __all__ = ["init_enc_block", "init_dec_block", "init_encdec", "encode",
-           "decode_train", "encdec_loss", "init_encdec_state",
+           "decode_train", "encdec_loss", "encdec_loss_terms",
+           "init_encdec_state",
            "encdec_decode_step"]
 
 
@@ -122,10 +123,17 @@ def decode_train(params, dec_tokens, memory, cfg: ArchConfig):
 def encdec_loss(params, batch, cfg: ArchConfig):
     """batch: {"frames": (B, S_enc, D), "tokens": (B, S_dec), "targets":
     (B, S_dec)[, "mask"]} -> the scalar fp32 cross-entropy."""
+    tot, cnt, _ = encdec_loss_terms(params, batch, cfg)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def encdec_loss_terms(params, batch, cfg: ArchConfig):
+    """``encdec_loss``'s terms: (cross-entropy sum, token weight sum,
+    0.0 for the aux loss it does not have)."""
     memory = encode(params, batch["frames"], cfg)
     h = decode_train(params, batch["tokens"], memory, cfg)
-    return chunked_ce_loss(params, h, batch["targets"], cfg,
-                           batch.get("mask"))
+    return chunked_ce_terms(params, h, batch["targets"], cfg,
+                            batch.get("mask")) + (0.0,)
 
 
 # ---------------------------------------------------------------------------

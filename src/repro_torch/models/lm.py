@@ -64,7 +64,8 @@ __all__ = ["attn_cfg", "mlp_cfg", "moe_cfg", "mamba_cfg", "check_supported",
            "tree_map", "init_block", "block_apply", "block_decode",
            "init_block_cache", "init_lm", "forward_hidden", "lm_logits_head",
            "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step",
-           "chunked_ce_loss", "lm_loss"]
+           "chunked_ce_loss", "chunked_ce_terms", "lm_loss",
+           "lm_loss_terms"]
 
 UNIFORM = {"dense": "attn_mlp", "vlm": "attn_mlp", "moe": "attn_moe",
            "mamba2": "mamba"}
@@ -420,6 +421,13 @@ def chunked_ce_loss(params, hidden, targets, cfg: ArchConfig, mask=None):
     (B, S) weights each token; the mean is over its sum (at least 1).
     Under autograd each chunk's fp32 logits are kept for the backward,
     as JAX's scan keeps them."""
+    tot, cnt = chunked_ce_terms(params, hidden, targets, cfg, mask)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def chunked_ce_terms(params, hidden, targets, cfg: ArchConfig, mask=None):
+    """``chunked_ce_loss``'s (weighted cross-entropy sum, weight sum):
+    a sharded step divides the sum by the global weight sum."""
     B, S, _ = hidden.shape
     C = min(cfg.loss_chunk, S)
     if S % C != 0:
@@ -436,7 +444,7 @@ def chunked_ce_loss(params, hidden, targets, cfg: ArchConfig, mask=None):
         mc = m[:, c0:c0 + C]
         tot = tot + ((lse - picked) * mc).sum()
         cnt = cnt + mc.sum()
-    return tot / torch.clamp(cnt, min=1.0)
+    return tot, cnt
 
 
 def lm_loss(params, batch, cfg: ArchConfig, *, reference: bool = False):
@@ -445,6 +453,14 @@ def lm_loss(params, batch, cfg: ArchConfig, *, reference: bool = False):
     the targets are read off the hidden states from position P - 1) ->
     the scalar fp32 loss: ``chunked_ce_loss`` plus the MoE layers' aux
     loss.  ``reference=True`` runs the scans' plain versions."""
+    tot, cnt, aux = lm_loss_terms(params, batch, cfg, reference=reference)
+    return tot / torch.clamp(cnt, min=1.0) + aux
+
+
+def lm_loss_terms(params, batch, cfg: ArchConfig, *,
+                  reference: bool = False):
+    """``lm_loss``'s terms: (cross-entropy sum, token weight sum, the
+    MoE aux loss as fp32 or 0.0)."""
     x = embed(params["embed"], batch["tokens"], cfg.cdtype)
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
@@ -453,9 +469,9 @@ def lm_loss(params, batch, cfg: ArchConfig, *, reference: bool = False):
     if cfg.family == "vlm":
         P = batch["patches"].shape[1]
         h = h[:, P - 1: P - 1 + batch["targets"].shape[1]]
-    ce = chunked_ce_loss(params, h, batch["targets"], cfg,
-                         batch.get("mask"))
-    return ce + (aux.float() if torch.is_tensor(aux) else aux)
+    tot, cnt = chunked_ce_terms(params, h, batch["targets"], cfg,
+                                batch.get("mask"))
+    return tot, cnt, (aux.float() if torch.is_tensor(aux) else aux)
 
 
 def lm_prefill(params, tokens, cfg: ArchConfig, *, patches=None,

@@ -22,7 +22,9 @@ state); ``init_caches(batch, max_len)`` the zero state, its cross K/V
 ``loss(params, batch)`` -> the scalar fp32 training loss (JAX's
 ``lm_loss`` / ``encdec_loss``: batch ``{"tokens", "targets"[, "mask"]}``,
 vlm with ``"patches"``, enc-dec with ``"frames"``), differentiable with
-``torch.autograd``.
+``torch.autograd``; ``loss_terms(params, batch)`` -> its terms (the
+cross-entropy sum, the token weight sum, the aux loss), which a sharded
+step normalizes over the global batch.
 
 ``build_model(cfg, reference=True)`` gives the reference forward: its
 prefill and loss run the two scans' plain versions on any device
@@ -53,6 +55,7 @@ class Model:
     cfg: ArchConfig
     init: Callable           # (generator or seed, device=None) -> params
     loss: Callable           # (params, batch) -> scalar fp32
+    loss_terms: Callable     # (params, batch) -> (CE sum, weight sum, aux)
     prefill: Callable        # (params, batch) -> (logits, caches)
     decode: Callable         # (params, caches, tokens, pos) -> (logits,
                              #   caches)
@@ -107,6 +110,7 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
             init=lambda generator, device=None: _init(cfg, generator,
                                                       device),
             loss=lambda p, b: _ed.encdec_loss(p, b, cfg),
+            loss_terms=lambda p, b: _ed.encdec_loss_terms(p, b, cfg),
             prefill=lambda p, b: _ed.init_encdec_state(
                 p, b["frames"], cfg, b["tokens"].shape[1]),
             decode=lambda p, st, t, pos: _ed.encdec_decode_step(
@@ -118,6 +122,8 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
         cfg=cfg,
         init=lambda generator, device=None: _init(cfg, generator, device),
         loss=lambda p, b: _lm.lm_loss(p, b, cfg, reference=reference),
+        loss_terms=lambda p, b: _lm.lm_loss_terms(p, b, cfg,
+                                                  reference=reference),
         prefill=lambda p, b: _lm.lm_prefill(
             p, b["tokens"], cfg, patches=b.get("patches"),
             cache_dtype=_kv_dtype(cfg), reference=reference),

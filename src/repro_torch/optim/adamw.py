@@ -61,13 +61,16 @@ def adamw_init(params, cfg: AdamWConfig):
 
 
 @torch.no_grad()
-def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0):
+def adamw_update(grads, state, params, cfg: AdamWConfig, lr_scale=1.0,
+                 gnorm=None):
     """-> (new params, new state).  ``lr_scale`` (a number or a 0-dim
     fp32 tensor, the schedule's) multiplies ``cfg.lr``.  The global
-    gradient norm is clipped to ``grad_clip``; moments are
-    bias-corrected."""
+    gradient norm (``global_norm(grads)`` unless ``gnorm`` gives it: a
+    sharded step's, reduced over the ranks) is clipped to
+    ``grad_clip``; moments are bias-corrected."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = (torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0) if cfg.grad_clip else 1.0)
     b1, b2 = cfg.b1, cfg.b2

@@ -1,4 +1,4 @@
-"""The fault-tolerant training loop on one device, counterpart of
+"""The fault-tolerant training loop, counterpart of
 ``repro/runtime/trainer.py``.
 
 One class ties the pieces together: the step function of
@@ -7,8 +7,18 @@ with auto-resume from the newest complete one; a failure (injected by
 ``failure_hook`` in tests and in ``chip_smoke.py``) restores from the
 last checkpoint, up to ``max_restarts`` times; the straggler monitor
 takes each step's time.  All fault handling happens at step
-granularity.  JAX's mesh installation and state sharding, and its
-elastic re-mesh, go with ``distributed/`` (ROADMAP A8g).
+granularity.
+
+With a process group (``torch.distributed``) the trainer runs on a mesh,
+as JAX's: ``mesh=`` (default: ``(world, 1)`` over ``("data",
+"model")``) is installed with ``make_ctx``, params and AdamW state are
+sharded by ``LM_RULES`` (each rank holds its blocks), every rank draws
+the same global batch and keeps its ``dp`` slice, and the step is
+``make_train_step(ctx=)``'s.  Checkpoints go through the checkpoint
+module's sharded API: ``save_async(shardings=)`` gathers the state and
+the mesh's first rank writes it; a resume restores each rank's blocks
+(``restore(shardings=)``).  Without a process group it is the
+single-device trainer.  The elastic re-mesh is ``runtime/elastic.py``.
 """
 from __future__ import annotations
 
@@ -19,12 +29,20 @@ import tempfile
 import time
 from typing import Callable, Optional
 
+import torch.distributed as dist
+
 from repro_torch.checkpoint.checkpoint import (
     CheckpointManager, latest_step, restore)
 from repro_torch.common.device import resolve_device
-from repro_torch.common.tree import param_count
+from repro_torch.common.tree import param_count, tree_map
 from repro_torch.configs.base import ArchConfig
-from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+from repro_torch.data.pipeline import (
+    DataConfig, SyntheticLMDataset, make_batch_specs)
+from repro_torch.distributed.ctx import P
+from repro_torch.distributed.partition import (
+    make_ctx, match_partition_rules, named_shardings, shard_tree)
+from repro_torch.distributed.rules import LM_RULES
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.steps import default_opt_cfg, make_train_step
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
@@ -53,17 +71,21 @@ class TrainerConfig:
 
 class Trainer:
     """Trains ``arch`` on ``SyntheticLMDataset(data_cfg)`` on ``device``
-    (default: the CUDA card).  ``run()`` -> {"params", "opt",
-    "final_loss", "losses"}; ``losses`` holds every step run, a step
-    redone after a restart once more; ``step_seconds`` each step's
-    host time (ending in the loss's copy to the host)."""
+    (default: the CUDA card, ``cuda:$LOCAL_RANK`` in a process group).
+    ``run()`` -> {"params", "opt", "final_loss", "losses"} (on a mesh
+    the rank's blocks; ``state_specs`` their specs); ``losses``
+    holds every step run, a step redone after a restart once more;
+    ``step_seconds`` each step's host time (ending in the loss's copy to
+    the host)."""
 
     def __init__(self, arch: ArchConfig, data_cfg: DataConfig,
-                 cfg: TrainerConfig, *, device=None,
+                 cfg: TrainerConfig, *, device=None, mesh=None,
                  opt_cfg: Optional[AdamWConfig] = None,
                  failure_hook: Optional[Callable[[int], None]] = None):
         self.arch = arch
         self.cfg = cfg
+        if device is None and dist.is_initialized():
+            device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
         self.device = resolve_device(device)
         self.data = SyntheticLMDataset(data_cfg, self.device)
         self.model = build_model(arch)
@@ -74,6 +96,34 @@ class Trainer:
         self.losses: list = []
         self.step_seconds: list = []
         self._train_step = make_train_step(self.model, self.opt_cfg)
+        self.mesh = self.ctx = self.state_specs = self._shardings = None
+        if mesh is None and dist.is_initialized():
+            mesh = make_mesh((dist.get_world_size(), 1), ("data", "model"),
+                             device=self.device)
+        if mesh is not None:
+            self._install_mesh(mesh)
+
+    # -- mesh / sharding -------------------------------------------------
+    def _install_mesh(self, mesh):
+        self.mesh = mesh
+        self.ctx = make_ctx(mesh)
+
+    def _state_specs(self, params, opt_state):
+        """The state's specs under ``LM_RULES`` (``state_specs``); the
+        step is built for them."""
+        specs = match_partition_rules(LM_RULES, params, self.ctx)
+        opt_specs = {"step": P(), "m": specs, "v": specs}
+        if "master" in opt_state:
+            opt_specs["master"] = specs
+        self.state_specs = {"params": specs, "opt": opt_specs}
+        self._shardings = named_shardings(self.state_specs, self.mesh)
+        self._train_step = make_train_step(self.model, self.opt_cfg,
+                                           ctx=self.ctx, specs=specs)
+
+    def _shard_state(self, params, opt_state):
+        """Full state -> the rank's blocks under ``state_specs``."""
+        return (shard_tree(params, self.state_specs["params"], self.mesh),
+                shard_tree(opt_state, self.state_specs["opt"], self.mesh))
 
     def _step_fn(self, params, opt_state, batch, step: int):
         return self._train_step(params, opt_state, batch,
@@ -93,7 +143,8 @@ class Trainer:
             return None
         state, step, _ = restore(self.cfg.ckpt_dir,
                                  {"params": params_tmpl, "opt": opt_tmpl},
-                                 step=step, device=self.device)
+                                 step=step, device=self.device,
+                                 shardings=self._shardings)
         log.info("resumed from step %d", step)
         return state["params"], state["opt"], step
 
@@ -106,9 +157,14 @@ class Trainer:
             try:
                 if params is None:
                     params, opt_state = self._fresh_state()
+                    if self.mesh is not None:
+                        self._state_specs(params, opt_state)
                     resumed = self._try_resume(params, opt_state)
                     if resumed is not None:
                         params, opt_state, start_step = resumed
+                    elif self.mesh is not None:
+                        params, opt_state = self._shard_state(params,
+                                                              opt_state)
                 return self._run_from(params, opt_state, start_step)
             except _SimulatedFailure as e:
                 restarts += 1
@@ -126,6 +182,9 @@ class Trainer:
             if self.failure_hook is not None:
                 self.failure_hook(step)   # may raise _SimulatedFailure
             batch = self.data.host_batch(step, 0, 1)
+            if self.mesh is not None:
+                batch = tree_map(lambda x, s: s.shard(x), batch,
+                                 make_batch_specs(batch, self.ctx, "dp"))
             t0 = time.perf_counter()
             params, opt_state, loss = self._step_fn(params, opt_state,
                                                     batch, step)
@@ -139,7 +198,8 @@ class Trainer:
             if (step + 1) % cfg.ckpt_every == 0:
                 self.ckpt.save_async(step + 1,
                                      {"params": params, "opt": opt_state},
-                                     extra={"loss": loss})
+                                     extra={"loss": loss},
+                                     shardings=self._shardings)
         self.ckpt.wait()
         return {"params": params, "opt": opt_state,
                 "final_loss": self.losses[-1] if self.losses else None,

@@ -2508,3 +2508,96 @@ def test_train_step_on_the_card(cuda, tmp_path):
     assert relu_attn_causal.launches == 14 * 1 * 2
     from repro_torch.checkpoint.checkpoint import latest_step
     assert latest_step(str(tmp_path)) == 10
+
+
+@pytest.fixture
+def nccl_world(cuda):
+    """A world of one rank on NCCL, in process, and its (1, 1) mesh; the
+    group is destroyed after the test (a live group would put every later
+    ``Trainer`` on a mesh)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_dist_collectives_at_world_1(nccl_world):
+    """Each collective at axis size 1 returns what its ``jax.lax``
+    counterpart does there: its input (``ppermute`` [(0, 0)] too)."""
+    from repro_torch.distributed import collectives as C
+    mesh = nccl_world
+    x = torch.randn(8, 12, device="cuda")
+    for axes in ("data", "model", ("data", "model")):
+        assert C.axis_index(axes, mesh) == 0
+        assert C.axis_size(axes, mesh) == 1
+        for op in (C.psum, C.pmean, C.pmax):
+            assert torch.equal(op(x, axes, mesh), x)
+        for ax in (0, 1):
+            assert torch.equal(C.all_gather(x, axes, axis=ax, mesh=mesh), x)
+    for s, c in ((0, 1), (1, 0)):
+        assert torch.equal(C.all_to_all(x, "model", s, c, mesh=mesh), x)
+    assert torch.equal(C.ppermute(x, "model", [(0, 0)], mesh=mesh), x)
+    xg = x.clone().requires_grad_()
+    (g,) = torch.autograd.grad(C.all_gather(xg, "data", axis=0,
+                                            mesh=mesh).sum(), xg)
+    assert torch.equal(g, torch.ones_like(x))
+
+
+def test_dist_compressed_psum_formula(nccl_world):
+    """At world 1 ``compressed_psum`` is its formula, bit for bit."""
+    from repro_torch.optim.compression import compressed_psum
+    g = torch.randn(4096, 4096, device="cuda")
+    out = compressed_psum(g, "data", nccl_world)
+    one = torch.ones((), device="cuda")
+    scale = torch.clamp(g.abs().amax() / (127.0 * one), min=1e-30)
+    want = (torch.round(g / scale).to(torch.int32).float() * scale) / one
+    assert out.dtype == g.dtype and torch.equal(out, want)
+
+
+def test_dist_sharded_step_at_world_1(nccl_world):
+    """A smoke zamba2 (relu_linear: both scans) step through the sharded
+    ``make_train_step`` on a (1, 1) NCCL mesh equals the single-device
+    step: the loss within 1e-6 relative, every param within 1e-5 *
+    max(1, max|p|); the scans launch in both."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.distributed.ctx import P
+    from repro_torch.distributed.partition import (
+        make_ctx, match_partition_rules, shard_tree)
+    from repro_torch.distributed.rules import LM_RULES
+    from repro_torch.launch.steps import default_opt_cfg, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    cfg = smoke_variant(get_arch("zamba2-1.2b")).scaled(
+        attn_backend="relu_linear")
+    model = build_model(cfg)
+    opt_cfg = default_opt_cfg(cfg)
+    params = model.init(0, "cuda")
+    opt = adamw_init(params, opt_cfg)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                              device="cuda") for k in ("tokens", "targets")}
+    ctx = make_ctx(nccl_world)
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    opt_specs = {"step": P(), "m": specs, "v": specs, "master": specs}
+    ssd_chunked.launches = relu_attn_causal.launches = 0
+    p1, _, l1 = make_train_step(model, opt_cfg)(params, opt, batch)
+    single = (ssd_chunked.launches, relu_attn_causal.launches)
+    step = make_train_step(model, opt_cfg, ctx=ctx, specs=specs)
+    p2, _, l2 = step(shard_tree(params, specs, nccl_world),
+                     shard_tree(opt, {k: opt_specs[k] for k in opt},
+                                nccl_world), batch)
+    assert single[0] > 0 and single[1] > 0
+    assert (ssd_chunked.launches, relu_attn_causal.launches) == (
+        2 * single[0], 2 * single[1])
+    assert abs(float(l1) - float(l2)) <= 1e-6 * abs(float(l1))
+    for (path, a), (_, b) in zip(flatten_with_paths(p1),
+                                 flatten_with_paths(p2)):
+        assert a.shape == b.shape, path
+        assert float((a - b).abs().max()) <= 1e-5 * max(
+            1.0, float(a.abs().max())), path
