@@ -477,10 +477,37 @@
    ``[dist kernel]``: one more step's scan calls held against their
    plain versions at the step's shapes.  Printed beside 6f's: tokens/s,
    peak memory, whether the losses are bit-equal.
+6h. ``[dryrun ...]``: the dry-run (``launch/dryrun.py``, ``cost.py``)
+   against the card, after 6g (``dryrun_phase``).  ``[dryrun predict
+   zamba2 1x1]``: a child process (a fake process group of one rank,
+   every tensor on meta) builds 6f's Zamba2-1.2B (relu_linear) train
+   cell, B = 8, S = 1024, on a (1, 1) mesh with ``dryrun.build_cell``
+   and counts its sharded step with ``cost.measure_step``: argument and
+   peak bytes, FLOPs, bytes, collective bytes, the kernel calls and the
+   roofline terms with the H100 constants (computed, not measured).
+   ``[dryrun check zamba2 1x1]``: on a world of one NCCL rank, as 6g's,
+   the same params, AdamW state and batch, then 3 steps of
+   ``make_train_step(ctx=, specs=)`` (the first a warm-up).  Gates: the
+   argument bytes (requested of the caching allocator, which hands out
+   a cached block whole when under 1 MiB of it would be left) equal the
+   prediction up to the allocator's rounding of each tensor to 512 B; ``max_memory_allocated`` over steps 2-3
+   within 10 % of the predicted peak; ``analysis.HBM_BYTES`` the card's
+   ``total_memory``; 12 ``relu_attn_causal`` and 76 ``ssd_chunked``
+   launches a step, as predicted.  Printed: the step time and the
+   predicted bound over it.  ``[dryrun serve zamba2 1x1]``: the sharded
+   ``make_prefill_step`` on 8 prompts of 4096 tokens (38 ``ssd_chunked``
+   and 6 ``relu_attn_causal`` launches, gated) and 8 sharded
+   ``make_serve_step`` steps, logits and every cache leaf bit-equal to
+   the unsharded steps'.  ``[dryrun serve grok-1 1x1]``: 6e's 2-layer
+   Grok-1 cut (published width, bf16), 8 prompts of 256 tokens, 32
+   decode steps: the MoE's per-row groups and the softmax combine over
+   KV blocks under a ctx; each step's logits within 1e-2 * max|logit|
+   of the unsharded decode's, both fed the unsharded run's tokens, and
+   no decode assignment dropped.
 7. One JSON line with every kernel's launches on its driven run(s)
    (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's, 6d's
-   and 6e's served LM runs, 6f's training passes, 6g's sharded run and
-   4),
+   and 6e's served LM runs, 6f's training passes, 6g's sharded run,
+   6h's sharded train steps and prefill, and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -805,18 +832,6 @@ def int8_kernel_cases(batch: int, gen, cfg=None, plan=None,
         cases.append((name, names, label, kfn, pfn, nbytes, ops, lib))
     return cases
 
-def causal_ops(n, c, mix, state):
-    """Products of one row of a chunked causal scan over ``n`` tokens in
-    chunks of ``c``: per chunk of L tokens, ``mix`` multiply-adds per
-    causal (query, key) pair (the L(L+1)/2 of the triangle, the masked
-    half never needed), ``state`` per token to read the state (none in
-    the first chunk, whose state is zero) and ``state`` per token to
-    update it (none in the last, whose state no output reads).  ->
-    (triangle flops, read flops, update flops)."""
-    ls = [min(c, n - i) for i in range(0, n, c)]
-    return (sum(L * (L + 1) for L in ls) * mix,
-            2 * state * (n - ls[0]), 2 * state * (n - ls[-1]))
-
 
 def library_cases(seed: int):
     """The kernel-library phase: the four kernels off the vision path,
@@ -842,10 +857,11 @@ def library_cases(seed: int):
     from repro_torch.kernels.int8_matmul.ops import conv1x1_w8a8
     from repro_torch.kernels.int8_matmul.ref import int8_matmul_emit_ref
     from repro_torch.kernels.relu_attn.kernel import (
-        relu_attn_causal, relu_attn_causal_plan)
+        relu_attn_causal, relu_attn_causal_cost, relu_attn_causal_plan)
     from repro_torch.kernels.relu_attn.ops import relu_linear_attention
     from repro_torch.kernels.relu_attn.ref import relu_attn_causal_scan
-    from repro_torch.kernels.ssd.kernel import ssd_chunked, ssd_plan
+    from repro_torch.kernels.ssd.kernel import (
+        ssd_chunked, ssd_cost, ssd_plan)
     from repro_torch.kernels.ssd.ops import ssd_op
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
@@ -974,7 +990,8 @@ def library_cases(seed: int):
         # ReLU(Q).state and the ReLU(K)^T.V update; with bf16 inputs the
         # first and the last take bf16 operands (tensor-core rate), the
         # other two an fp32 one (S and the state are fp32)
-        tri, read, update = (heads * t for t in causal_ops(N, C, 2 * D, D * D))
+        cost = relu_attn_causal_cost(heads, N, D, C)
+        tri, read, update = cost["triangle"], cost["read"], cost["update"]
         ops = (((tri / 2 + update, PEAK_BF16_FLOPS),
                 (tri / 2 + read, PEAK_FP32_FLOPS))
                if dt == torch.bfloat16 else tri + read + update)
@@ -1016,7 +1033,7 @@ def library_cases(seed: int):
             lambda a=args: ssd_chunked(*a, chunk=C),
             lambda a=args: ssd_scan_ref(*a, chunk=C),
             4 * sum(t.numel() for t in args) + 4 * xf.numel(),
-            h * sum(causal_ops(S, C, n + P, n * P)), None)
+            ssd_cost(h, S, P, n, C)["flops"], None)
         cases.append((
             kcase,
             lambda a=(x, dt, A, B, Cm), D=D: ssd_op(*a, chunk=C, D_skip=D),
@@ -4023,17 +4040,18 @@ def lm_scan_case(name, args, kw, label):
     (a served prefill, a training step): the wrapper on those inputs against its plain version; the
     bytes (inputs read once, the fp32 output written once) and products
     as the library cases count them."""
-    from repro_torch.kernels.relu_attn.kernel import relu_attn_causal
+    from repro_torch.kernels.relu_attn.kernel import (
+        relu_attn_causal, relu_attn_causal_cost)
     from repro_torch.kernels.relu_attn.ref import relu_attn_causal_scan
-    from repro_torch.kernels.ssd.kernel import ssd_chunked
+    from repro_torch.kernels.ssd.kernel import ssd_chunked, ssd_cost
     from repro_torch.kernels.ssd.ref import ssd_scan_ref
     import torch
     C = kw["chunk"]
     if name == "relu_attn_causal":
         q = args[0]
         BH, N, D = q.shape
-        tri, read, update = (BH * t for t in causal_ops(N, C, 2 * D,
-                                                        D * D))
+        cost = relu_attn_causal_cost(BH, N, D, C)
+        tri, read, update = cost["triangle"], cost["read"], cost["update"]
         ops = (((tri / 2 + update, PEAK_BF16_FLOPS),
                 (tri / 2 + read, PEAK_FP32_FLOPS))
                if q.dtype == torch.bfloat16 else tri + read + update)
@@ -4044,7 +4062,7 @@ def lm_scan_case(name, args, kw, label):
         x, Bm = args[0], args[3]
         BH, S, P = x.shape
         n = Bm.shape[-1]
-        ops = BH * sum(causal_ops(S, C, n + P, n * P))
+        ops = ssd_cost(BH, S, P, n, C)["flops"]
         nbytes = 4 * sum(t.numel() for t in args) + 4 * x.numel()
         kfn = lambda: ssd_chunked(*args, **kw)             # noqa: E731
         pfn = lambda: ssd_scan_ref(*args, **kw)            # noqa: E731
@@ -5651,6 +5669,370 @@ def dist_phase(seed, wrappers, max_err, card, ref) -> dict:
     return launches
 
 
+# the [dryrun] phase (6h): the dry-run's prediction for 6f's Zamba2 step
+# against the card, and the sharded prefill / decode steps on a (1, 1)
+# mesh against the unsharded ones
+DRYRUN_STEPS = 3              # the first a warm-up
+DRYRUN_PEAK_TOL = 0.10        # measured peak within this share of the
+DRYRUN_ALLOC = 512            # prediction; the allocator's rounding
+DRYRUN_PROMPT = 4096          # Zamba2's prefill: 8 prompts of this length
+DRYRUN_DECODE = 8             # Zamba2's decode steps
+DRYRUN_GROK_PROMPT = 256      # Grok-1's prompts (8 of them)
+DRYRUN_GROK_DECODE = 32
+DRYRUN_GROK_TOL = 1e-2        # of max|logit|, Grok-1's decode
+
+DRYRUN_PREDICT = """
+import json, sys, time
+sys.path.insert(0, {src!r})
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.launch.analysis import RooflineTerms
+from repro_torch.launch.cost import _tensors, measure_step
+from repro_torch.launch.dryrun import build_cell, fake_world
+from repro_torch.launch.mesh import make_mesh
+t0 = time.perf_counter()
+cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+with fake_world(1):
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+    fn, args, ctx, meta = build_cell(
+        cfg, ShapeSpec("train", {seq}, {batch}, "train"), mesh)
+    ts = _tensors(args)
+    c = measure_step(fn, *args, mesh=mesh)
+t = RooflineTerms(c.flops, c.bytes, c.collective_bytes)
+print(json.dumps({{"args": c.argument_bytes, "n_args": len(ts),
+                  "args_rounded": sum(-(-t.numel() * t.element_size()
+                                        // {alloc}) * {alloc} for t in ts),
+                  "temp": c.peak_bytes, "flops": c.flops,
+                  "dot_flops": c.dot_flops, "bytes": c.bytes,
+                  "coll": c.collective_bytes, "coll_by_kind": c.coll_by_kind,
+                  "kernels": c.kernels, "roofline": t.to_dict(),
+                  "bound_s": t.bound_s, "off_meta_ops": c.off_meta_ops,
+                  "off_meta": c.off_meta,
+                  "seconds": time.perf_counter() - t0}}))
+"""
+
+
+def dryrun_predict(card) -> dict:
+    """``[dryrun predict zamba2 1x1]``: a child process (a fake process
+    group of one rank, every tensor on meta) builds 6f's Zamba2 train
+    cell with ``dryrun.build_cell`` on a (1, 1) mesh and counts its
+    sharded step with ``cost.measure_step``.  -> its numbers."""
+    code = DRYRUN_PREDICT.format(src=SRC, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                                 alloc=DRYRUN_ALLOC)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=False)
+    if run.returncode != 0:
+        raise AssertionError(f"[dryrun predict] the child failed: "
+                             f"{run.stderr[-3000:]}")
+    pred = json.loads(run.stdout.strip().splitlines()[-1])
+    r = pred["roofline"]
+    print(f"[dryrun predict zamba2 1x1] computed on meta in a child process "
+          f"({pred['seconds']:.1f} s in the child, "
+          f"{time.perf_counter() - t0:.1f} s with its start), not measured: "
+          f"B = {TRAIN_BATCH}, S = {TRAIN_SEQ}: argument bytes "
+          f"{pred['args']} ({pred['n_args']} tensors, {pred['args_rounded']} "
+          f"rounded to {DRYRUN_ALLOC} B each), peak of the step's own "
+          f"tensors {pred['temp']} (peak {pred['args'] + pred['temp']} "
+          f"with the arguments), FLOPs {pred['flops']:.6e} (matmuls "
+          f"{pred['dot_flops']:.6e}), bytes {pred['bytes']:.6e}, "
+          f"collective bytes {pred['coll']:.6e} {pred['coll_by_kind']}, "
+          f"kernel calls {pred['kernels']}, ops off meta "
+          f"{pred['off_meta_ops']}")
+    print(f"[dryrun predict zamba2 1x1] H100 roofline: compute "
+          f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
+          f"collective {r['collective_s']:.6f} s, dominant {r['dominant']}, "
+          f"bound {pred['bound_s']:.6f} s [{card}]")
+    if pred["off_meta_ops"]:
+        raise AssertionError(f"[dryrun predict] ops ran off the meta "
+                             f"device: {pred['off_meta']}")
+    return pred
+
+
+def dryrun_check(seed, wrappers, card, mesh, pred) -> dict:
+    """``[dryrun check zamba2 1x1]``: the predicted step on the card, on
+    ``mesh`` (the NCCL (1, 1) mesh): params, AdamW state and one batch
+    built as the dry-run builds them, then ``DRYRUN_STEPS`` steps of
+    ``make_train_step(ctx=, specs=)``, the first a warm-up.  Gates: the
+    argument bytes (requested of the allocator) equal the prediction up
+    to the allocator's rounding of each tensor to 512 B;
+    ``max_memory_allocated`` over the steps
+    within ``DRYRUN_PEAK_TOL`` of the predicted peak; ``HBM_BYTES`` the
+    card's memory; 12 ``relu_attn_causal`` and 76 ``ssd_chunked``
+    launches a step, as the prediction's kernel calls.  -> the steps'
+    launches and the trained blocks."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.partition import (
+        make_ctx, match_partition_rules, shard_tree)
+    from repro_torch.distributed.rules import LM_RULES
+    from repro_torch.launch.analysis import HBM_BYTES
+    from repro_torch.launch.steps import default_opt_cfg, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    tag = "dryrun check zamba2 1x1"
+    cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+    per_step = train_scan_calls(cfg)
+    if {k: v["calls"] for k, v in pred["kernels"].items()} != per_step:
+        raise AssertionError(f"[{tag}] predicted kernel calls "
+                             f"{pred['kernels']}, a step launches "
+                             f"{per_step}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    if HBM_BYTES != total:
+        raise AssertionError(f"[{tag}] analysis.HBM_BYTES {HBM_BYTES}, the "
+                             f"card has {total}")
+    model = build_model(cfg)
+    ctx = make_ctx(mesh, {"sp": ("model",)})
+    opt_cfg = default_opt_cfg(cfg)
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    r0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    params = model.init(seed, "cuda")
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    blocks = shard_tree(params, specs, mesh)
+    del params
+    opt = adamw_init(blocks, opt_cfg)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    batch = {k: torch.randint(0, cfg.vocab, (TRAIN_BATCH, TRAIN_SEQ),
+                              generator=g, device="cuda",
+                              dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    torch.cuda.synchronize()
+    # the bytes asked for: the allocator hands out a cached block whole
+    # when less than 1 MiB of it would be left, so the allocated bytes
+    # can exceed them by up to that much a tensor
+    args = torch.cuda.memory_stats()["requested_bytes.all.current"] - r0
+    args_alloc = torch.cuda.memory_allocated() - m0
+    step = make_train_step(model, opt_cfg, ctx=ctx, specs=specs)
+    for w in wrappers.values():
+        w.launches = 0
+    secs, losses = [], []
+    for i in range(DRYRUN_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        blocks, opt, loss = step(blocks, opt, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - m0
+    peak_req = torch.cuda.memory_stats()["requested_bytes.all.peak"] - r0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0) | {
+        k: v * DRYRUN_STEPS for k, v in per_step.items()}
+    pred_peak = pred["args"] + pred["temp"]
+    step_s = statistics.median(secs[1:])
+    print(f"[{tag}] measured on the card: {DRYRUN_STEPS} steps of the "
+          f"sharded step (B = {TRAIN_BATCH}, S = {TRAIN_SEQ}), losses "
+          f"{' '.join(f'{x:.6f}' for x in losses)}; argument bytes "
+          f"requested {args}, allocated {args_alloc} (predicted "
+          f"{pred['args']}, {pred['args_rounded']} rounded; requested "
+          f"{args - pred['args']:+d} B over {pred['n_args']} tensors); "
+          f"peak allocated {peak} B = {peak / 2**30:.3f} GiB over steps "
+          f"2-{DRYRUN_STEPS}, requested {peak_req} (predicted {pred_peak} "
+          f"B = {pred_peak / 2**30:.3f} GiB: measured / predicted "
+          f"{peak / pred_peak:.4f}, requested {peak_req / pred_peak:.4f}); "
+          f"launches {launches}; HBM_BYTES = total_memory = {total} "
+          f"[{card}]")
+    print(f"[{tag}] step time median {step_s * 1e3:.3f} ms over steps "
+          f"2-{DRYRUN_STEPS} (host to a sync; {[round(x, 4) for x in secs]}"
+          f" s); the predicted H100 bound {pred['bound_s'] * 1e3:.3f} ms "
+          f"({pred['roofline']['dominant']}): bound / step "
+          f"{pred['bound_s'] / step_s:.4f} [{card}]")
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches}, expected "
+                             f"{want}")
+    if abs(args - pred["args"]) > DRYRUN_ALLOC * pred["n_args"]:
+        raise AssertionError(f"[{tag}] argument bytes {args} vs the "
+                             f"prediction {pred['args']}")
+    if abs(peak - pred_peak) > DRYRUN_PEAK_TOL * pred_peak:
+        raise AssertionError(f"[{tag}] peak {peak} off the prediction "
+                             f"{pred_peak} by more than "
+                             f"{DRYRUN_PEAK_TOL:.0%}")
+    del opt, batch
+    return launches, blocks
+
+
+def dryrun_pad(tree, template):
+    """Zero-pad every leaf of a prefill's caches up to ``template``'s
+    shape (the decode's room), as the engine's ``_pad_seq_dims``."""
+    import torch
+    from repro_torch.common.tree import tree_map
+
+    def pad(a, t):
+        if a.shape == t.shape:
+            return a
+        out = torch.zeros(t.shape, dtype=a.dtype, device=a.device)
+        region = out
+        for i, n in enumerate(a.shape):
+            region = region.narrow(i, 0, n)
+        region.copy_(a)
+        return out
+
+    return tree_map(pad, tree, template)
+
+
+def dryrun_serve(tag, cfg, params, mesh, prompt, steps, wrappers, card, *,
+                 exact: bool) -> dict:
+    """The sharded ``make_prefill_step`` on 8 prompts of ``prompt``
+    tokens, then ``steps`` sharded ``make_serve_step`` decode steps, on
+    ``mesh``, each held against the unsharded step, both decoding the
+    unsharded run's greedy tokens from the prefill's caches (padded to
+    ``prompt + steps`` positions) and on its MoE routes (as 6e holds W8:
+    a bf16 ulp at a router's input flips near-tied top-k sets, and a
+    flipped expert moves a logit by far more than the combine's
+    rounding; the run on its own routes is printed).  ``exact``: logits
+    and every cache leaf bit-equal; else each step's logits within
+    ``DRYRUN_GROK_TOL`` * max|logit|.  Every MoE decode call drops
+    nothing.  -> the sharded prefill's launches."""
+    import torch
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.distributed.partition import (
+        make_ctx, match_partition_rules)
+    from repro_torch.distributed.rules import CACHE_RULES, LM_RULES
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    ctx = make_ctx(mesh, {"sp": ("model",)})
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    g = torch.Generator(device="cuda").manual_seed(17)
+    tokens = torch.randint(0, cfg.vocab, (8, prompt), generator=g,
+                           device="cuda")
+    with torch.no_grad():
+        logits1, caches1 = model.prefill(params, {"tokens": tokens})
+    c_specs = match_partition_rules(CACHE_RULES, caches1, ctx)
+    prefill = make_prefill_step(model, ctx=ctx, specs=specs,
+                                cache_specs=c_specs)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    logits2, caches2 = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    want = dict.fromkeys(wrappers, 0) | lm_scan_calls(cfg)
+    if launches != want:
+        raise AssertionError(f"[{tag}] a sharded prefill launched "
+                             f"{launches}, expected {want}")
+    same = torch.equal(logits1, logits2) and all(
+        torch.equal(a, b) for a, b in zip(tree_leaves(caches1),
+                                          tree_leaves(caches2)))
+    pre_d = float((logits1.float() - logits2.float()).abs().max())
+    if exact and not same:
+        raise AssertionError(f"[{tag}] the sharded prefill differs from "
+                             f"the unsharded one (max|d logits| {pre_d})")
+    del caches2
+    room = model.init_caches(8, prompt + steps, "cuda")
+    c1 = dryrun_pad(caches1, room)
+    del caches1, room
+    d_specs = match_partition_rules(CACHE_RULES, c1, ctx)
+    serve = make_serve_step(model, ctx=ctx, specs=specs, cache_specs=d_specs)
+    tok = torch.argmax(logits1, -1)[:, None]
+    ref, toks = [], []
+    with lm_route_probe() as routes, torch.no_grad():
+        c = c1
+        for t in range(steps):
+            toks.append(tok)
+            lg, c = model.decode(params, c, tok, prompt + t)
+            ref.append(lg)
+            tok = torch.argmax(lg, -1)[:, None]
+    ref_caches = c
+
+    def sharded(replay):
+        """The sharded decode on the unsharded run's tokens (and, with
+        ``replay``, its MoE routes) -> (each step's logits, caches)."""
+        out, c = [], c1
+        with lm_route_probe(replay) as got:
+            for t in range(steps):
+                lg, c = serve(params, c, toks[t], prompt + t)
+                out.append(lg)
+        return out, c, got
+
+    with lm_moe_probe() as calls:
+        held, c2, _ = sharded(routes)
+    dropped = sum(int((~v).sum()) for _, _, v in calls)
+    rel = [float((a.float() - b.float()).abs().max())
+           / float(a.float().abs().max()) for a, b in zip(ref, held)]
+    equal = all(torch.equal(a, b) for a, b in zip(ref, held))
+    caches_equal = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(ref_caches), tree_leaves(c2)))
+    free = ""
+    if routes:           # the MoE routing its own (informational)
+        own, _, got = sharded(None)
+        own_rel = max(float((a.float() - b.float()).abs().max())
+                      / float(a.float().abs().max())
+                      for a, b in zip(ref, own))
+        free = (f"; routing its own: largest |d| / max|logit| "
+                f"{own_rel:.3e}, {lm_route_flips(routes, got)[1]:.4f} of "
+                f"(row, layer) top-k sets flipped (printed, not gated)")
+        del own
+    torch.cuda.synchronize()
+    print(f"[{tag}] {cfg.name} {cfg.n_layers} layers {cfg.param_dtype} on "
+          f"a (1, 1) NCCL mesh: the sharded prefill of 8 x {prompt} tokens "
+          f"({pre_s:.3f} s, launches {launches}) "
+          f"{'bit-equal' if same else 'differs'} to the unsharded one "
+          f"(max|d logits| {pre_d:.3e}); {steps} sharded decode steps on the "
+          f"unsharded run's tokens{' and MoE routes' if routes else ''}: "
+          f"logits bit-equal {equal}, largest |d| / max|logit| "
+          f"{max(rel):.3e} (by step: {' '.join(f'{x:.1e}' for x in rel)}), "
+          f"caches bit-equal {caches_equal}; MoE decode calls {len(calls)}, "
+          f"dropped {dropped}{free} [{card}]")
+    if dropped:
+        raise AssertionError(f"[{tag}] decode dropped {dropped} "
+                             f"assignments")
+    if exact and not (equal and caches_equal):
+        raise AssertionError(f"[{tag}] the sharded decode differs from the "
+                             f"unsharded one")
+    if max(rel) > DRYRUN_GROK_TOL:
+        raise AssertionError(f"[{tag}] decode logits off by {max(rel):.3e} "
+                             f"of max|logit|")
+    return launches
+
+
+def dryrun_phase(seed, wrappers, card) -> dict:
+    """``[dryrun ...]``: the dry-run's prediction for 6f's Zamba2 train
+    step (a child process on meta) against the card on a world of one
+    NCCL rank, as 6g's, and the sharded prefill / decode steps on its
+    (1, 1) mesh: Zamba2-1.2B (relu_linear) bit-equal to the unsharded
+    steps, Grok-1 (6e's 2-layer cut, bf16) within ``DRYRUN_GROK_TOL``.
+    -> the launches of the sharded runs (the train steps and Zamba2's
+    sharded prefill)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    t0 = time.perf_counter()
+    pred = dryrun_predict(card)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        launches, blocks = dryrun_check(seed, wrappers, card, mesh, pred)
+        zamba = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+        pre = dryrun_serve("dryrun serve zamba2 1x1", zamba, blocks, mesh,
+                           DRYRUN_PROMPT, DRYRUN_DECODE, wrappers, card,
+                           exact=True)
+        launches = {k: launches[k] + pre[k] for k in wrappers}
+        del blocks
+        gc.collect()
+        torch.cuda.empty_cache()
+        from repro_torch.models.registry import build_model
+        grok = get_arch("grok-1-314b").scaled(n_layers=2)
+        params = build_model(grok).init(seed + 1, "cuda")
+        dryrun_serve("dryrun serve grok-1 1x1", grok, params, mesh,
+                     DRYRUN_GROK_PROMPT, DRYRUN_GROK_DECODE, wrappers, card,
+                     exact=False)
+        del params
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[dryrun] phase in {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5903,6 +6285,10 @@ def main() -> int:
     launches_dist = dist_phase(args.seed, wrappers, max_err, card,
                                train_ref)
 
+    # -- 6h. [dryrun]: the dry-run's prediction and the sharded serving --
+    stamp("section 6h", t_start)
+    launches_dryrun = dryrun_phase(args.seed, wrappers, card)
+
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
     rows = []
@@ -5919,7 +6305,7 @@ def main() -> int:
                          + launches_se["fix8"][name] + launches_lib[name]
                          + launches_lm[name] + launches_lm_softmax[name]
                          + launches_lm_moe[name] + launches_train[name]
-                         + launches_dist[name]),
+                         + launches_dist[name] + launches_dryrun[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

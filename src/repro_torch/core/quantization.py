@@ -245,7 +245,7 @@ def _q_sliced(w):
     """``_q_per_out_channel`` one leading index at a time: the same bits
     (each scale reduces within its own (in, out) slice), with one slice's
     fp32 copy alive instead of the whole tensor's."""
-    if w.dim() <= 2:
+    if w.dim() <= 2 or w.device.type == "meta":   # meta: shapes only
         return _q_per_out_channel(w)
     q = torch.empty(w.shape, dtype=torch.int8, device=w.device)
     scale = torch.empty(w.shape[:-2] + (1, w.shape[-1]),

@@ -10,7 +10,8 @@ it shows a real, decreasing loss.  As in JAX:
   * ``make_batch_specs`` gives each leaf's ``NamedSharding`` under a
     sharding context (``dp`` on the batch dim), whose ``shard`` is the
     rank's slice: every rank draws the same global batch and keeps its
-    own rows.
+    own rows; ``microbatch_shard`` is the rank's rows of each global
+    microbatch (the sharded step with ``grad_accum > 1``).
 
 The bits are torch's, not ``jax.random``'s (the port cannot reproduce
 those without JAX): the (V, V) fp32 transition logits come from a
@@ -28,9 +29,10 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.common.tree import tree_map
 from repro_torch.distributed.ctx import NamedSharding
+from repro_torch.distributed.partition import local_block
 
 __all__ = ["DataConfig", "SyntheticLMDataset", "host_shard",
-           "make_batch_specs"]
+           "make_batch_specs", "microbatch_shard"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,3 +116,20 @@ def make_batch_specs(batch: dict, ctx, *logical) -> dict:
         return NamedSharding(ctx.mesh, ctx.resolve(axes[: x.ndim]))
 
     return tree_map(spec, batch)
+
+
+def microbatch_shard(batch: dict, ctx, grad_accum: int) -> dict:
+    """The rank's rows of each of ``grad_accum`` global microbatches, in
+    microbatch order: global microbatch i is rows [i B / ga, (i + 1) B /
+    ga) of the batch (JAX's reshape of the global batch), and the rank
+    keeps its ``dp`` share of each -> (B / dp, ...) leaves, which the
+    sharded step splits back into ``grad_accum`` microbatches.  With
+    ``grad_accum=1`` it is ``make_batch_specs``'s ``shard``."""
+    def cut(x):
+        mb = x.reshape((grad_accum, x.shape[0] // grad_accum)
+                       + tuple(x.shape[1:]))
+        spec = ctx.resolve([None, "dp"] + [None] * (x.ndim - 1))
+        return local_block(mb, spec, ctx.mesh).reshape(
+            (-1,) + tuple(x.shape[1:]))
+
+    return tree_map(cut, batch)

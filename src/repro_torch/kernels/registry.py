@@ -37,7 +37,8 @@ their path rules and tune nothing, as in JAX.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Protocol, Tuple
+import contextlib
+from typing import Any, Callable, Dict, Optional, Protocol, Tuple
 
 __all__ = ["KernelImpl", "KernelBase", "register", "get_kernel",
            "get_probe", "conv_block_precision", "resolve_conv_precision",
@@ -65,6 +66,42 @@ CLUSTERS = {1: {1: 132, 2: 66, 4: 30, 8: 15, 16: 7},
 SCAN_TILE = 64
 SCAN_SCORE_PITCH = 68
 SCAN_MAX_WIDTH = 256
+
+
+def causal_ops(n: int, c: int, mix: int, state: int) -> tuple:
+    """Products of one row of a chunked causal scan over ``n`` tokens in
+    chunks of ``c``: per chunk of L tokens, ``mix`` multiply-adds per
+    causal (query, key) pair (the L(L+1)/2 of the triangle, the masked
+    half never needed), ``state`` per token to read the state (none in
+    the first chunk, whose state is zero) and ``state`` per token to
+    update it (none in the last, whose state no output reads).  ->
+    (triangle flops, read flops, update flops)."""
+    ls = [min(c, n - i) for i in range(0, n, c)]
+    return (sum(L * (L + 1) for L in ls) * mix,
+            2 * state * (n - ls[0]), 2 * state * (n - ls[-1]))
+
+
+# A wrapper called on meta tensors launches nothing: it allocates its
+# output and workspace on meta and reports the work the kernel would do
+# to the sinks installed here (``launch/cost.py``'s counters).
+_META_SINKS: list = []
+
+
+@contextlib.contextmanager
+def meta_cost_sink(fn: Callable):
+    """Install ``fn(name, flops, nbytes)`` for the block: every wrapper
+    called on meta tensors inside it reports its kernel's cost."""
+    _META_SINKS.append(fn)
+    try:
+        yield fn
+    finally:
+        _META_SINKS.remove(fn)
+
+
+def note_meta_cost(name: str, flops: float, nbytes: float) -> None:
+    """A wrapper's report of the kernel it stands in for on meta."""
+    for fn in list(_META_SINKS):
+        fn(name, flops, nbytes)
 
 
 def scan_pitch(n: int) -> int:

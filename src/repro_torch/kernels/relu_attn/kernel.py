@@ -3,7 +3,10 @@ CUDA kernels (``csrc/relu_attn.cu``, ``csrc/relu_attn_causal.cu``).
 
 Replace ``repro/kernels/relu_attn/kernel.py::relu_attn_noncausal`` and
 ``::relu_attn_causal``.  A CUDA tensor launches the kernel (or raises);
-a CPU tensor takes the plain version in ``ref``.
+a CPU tensor takes the plain version in ``ref``.  ``relu_attn_causal``
+on meta tensors launches nothing: its output and workspace are
+allocated on meta and its work (``relu_attn_causal_cost``) goes to
+``registry.note_meta_cost`` (the dry-run's counters).
 """
 from __future__ import annotations
 
@@ -13,11 +16,13 @@ import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
 from repro_torch.kernels.registry import (
-    SCAN_MAX_WIDTH, SCAN_SCORE_PITCH, SCAN_TILE, SMEM_LIMIT, scan_pitch)
+    SCAN_MAX_WIDTH, SCAN_SCORE_PITCH, SCAN_TILE, SMEM_LIMIT, causal_ops,
+    note_meta_cost, scan_pitch)
 from repro_torch.kernels.relu_attn.ref import (
     EPS, relu_attn_causal_scan, relu_attn_noncausal_ref)
 
 __all__ = ["relu_attn_noncausal", "relu_attn_smem_bytes", "relu_attn_plan",
+           "relu_attn_causal_cost",
            "relu_attn_causal", "relu_attn_causal_smem_bytes",
            "relu_attn_causal_plan"]
 
@@ -170,6 +175,21 @@ def relu_attn_causal_plan(bh: int, n: int, d: int, chunk: int = 256
             "smem": relu_attn_causal_smem_bytes(d)}
 
 
+def relu_attn_causal_cost(bh: int, n: int, d: int, chunk: int = 256,
+                          itemsize: int = 4) -> dict:
+    """The work of one ``relu_attn_causal`` call on (BH, N, D) inputs of
+    ``itemsize`` bytes: ``flops`` = ``triangle`` (ReLU(Q)ReLU(K)^T and
+    its product with V, over each chunk's causal pairs) + ``read``
+    (ReLU(Q) times the state) + ``update`` (ReLU(K)^T V into the state),
+    from ``registry.causal_ops``; ``bytes``, q, k, v read once and the
+    fp32 output written once."""
+    tri, read, update = (bh * t for t in causal_ops(n, min(chunk, n),
+                                                     2 * d, d * d))
+    return {"flops": tri + read + update, "triangle": tri, "read": read,
+            "update": update,
+            "bytes": 3 * bh * n * d * itemsize + 4 * bh * n * d}
+
+
 def relu_attn_causal(q, k, v, *, chunk: int = 256, eps: float = EPS):
     """q, k, v: (BH, N, D), all fp32 or all bf16 -> (BH, N, D) fp32,
     causal, in chunks of ``min(chunk, N)`` tokens (ragged N as if
@@ -181,9 +201,9 @@ def relu_attn_causal(q, k, v, *, chunk: int = 256, eps: float = EPS):
     (``relu_attn_causal_scan``)."""
     if q.device.type == "cpu":
         return relu_attn_causal_scan(q, k, v, chunk=chunk, eps=eps)
-    if q.device.type != "cuda":
-        raise ValueError(f"relu_attn_causal runs on cuda or cpu, not "
-                         f"{q.device}")
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"relu_attn_causal runs on cuda, cpu or meta, "
+                         f"not {q.device}")
     if q.dim() != 3:
         raise ValueError(f"q must be (BH, N, D), got {tuple(q.shape)}")
     if q.dtype not in (torch.float32, torch.bfloat16):
@@ -199,6 +219,10 @@ def relu_attn_causal(q, k, v, *, chunk: int = 256, eps: float = EPS):
     out = torch.empty((BH, N, D), dtype=torch.float32, device=q.device)
     ws = torch.empty(plan["workspace"] // 4, dtype=torch.float32,
                      device=q.device)
+    if q.device.type == "meta":
+        cost = relu_attn_causal_cost(BH, N, D, chunk, q.element_size())
+        note_meta_cost("relu_attn_causal", cost["flops"], cost["bytes"])
+        return out
     lib = library("relu_attn_causal")
     fn = (lib.relu_attn_causal_f32 if q.dtype == torch.float32
           else lib.relu_attn_causal_bf16)

@@ -2,7 +2,10 @@
 
 Replaces ``repro/kernels/ssd/kernel.py::ssd_chunked_pallas``.  A CUDA
 tensor launches the kernel (or raises); a CPU tensor takes the plain
-version ``ref.ssd_scan_ref``.
+version ``ref.ssd_scan_ref``; a meta tensor launches nothing: the
+output and the workspace are allocated on meta and the kernel's work
+(``ssd_cost``) goes to ``registry.note_meta_cost`` (the dry-run's
+counters).
 """
 from __future__ import annotations
 
@@ -12,10 +15,11 @@ import torch
 
 from repro_torch.kernels.build import check, check_input, library, stream_of
 from repro_torch.kernels.registry import (
-    SCAN_MAX_WIDTH, SCAN_SCORE_PITCH, SCAN_TILE, SMEM_LIMIT, scan_pitch)
+    SCAN_MAX_WIDTH, SCAN_SCORE_PITCH, SCAN_TILE, SMEM_LIMIT, causal_ops,
+    note_meta_cost, scan_pitch)
 from repro_torch.kernels.ssd.ref import ssd_scan_ref
 
-__all__ = ["ssd_chunked", "ssd_smem_bytes", "ssd_plan"]
+__all__ = ["ssd_chunked", "ssd_smem_bytes", "ssd_plan", "ssd_cost"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,6 +50,15 @@ def ssd_plan(bh: int, s: int, p: int, n: int, chunk: int = 256) -> dict:
             "smem": ssd_smem_bytes(n, p, C)}
 
 
+def ssd_cost(bh: int, s: int, p: int, n: int, chunk: int = 256) -> dict:
+    """The work of one ``ssd_chunked`` call: ``flops``, the products of
+    every row's triangle (C.B^T and its product with x), state reads and
+    state updates (``registry.causal_ops``); ``bytes``, the fp32 inputs
+    read once and the output written once."""
+    return {"flops": bh * sum(causal_ops(s, min(chunk, s), n + p, n * p)),
+            "bytes": 4 * bh * s * (p + 2 + 2 * n) + 4 * bh * s * p}
+
+
 def ssd_chunked(x, dt, dA, Bm, Cm, *, chunk: int = 256):
     """x: (BH, S, P); dt, dA: (BH, S); Bm, Cm: (BH, S, N), fp32 -> y (BH,
     S, P) fp32, in chunks of ``min(chunk, S)`` tokens; a ragged S runs as
@@ -57,10 +70,19 @@ def ssd_chunked(x, dt, dA, Bm, Cm, *, chunk: int = 256):
     On the CPU: the same stages in plain PyTorch (``ssd_scan_ref``)."""
     if x.device.type == "cpu":
         return ssd_scan_ref(x, dt, dA, Bm, Cm, chunk=chunk)
-    if x.device.type != "cuda":
-        raise ValueError(f"ssd_chunked runs on cuda or cpu, not {x.device}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"ssd_chunked runs on cuda, cpu or meta, not "
+                         f"{x.device}")
     BH, S, P = x.shape
     N = Bm.shape[-1]
+    if x.device.type == "meta":     # the card's allocations, no launch
+        y = torch.empty((BH, S, P), dtype=torch.float32, device="meta")
+        ws = torch.empty(ssd_plan(BH, S, P, N, chunk)["workspace"] // 4,
+                         dtype=torch.float32, device="meta")
+        cost = ssd_cost(BH, S, P, N, chunk)
+        note_meta_cost("ssd_chunked", cost["flops"], cost["bytes"])
+        del ws
+        return y
     for t, name, shape in ((x, "x", (BH, S, P)), (dt, "dt", (BH, S)),
                            (dA, "dA", (BH, S)), (Bm, "Bm", (BH, S, N)),
                            (Cm, "Cm", (BH, S, N))):

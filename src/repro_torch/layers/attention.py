@@ -29,6 +29,17 @@ slot and masking its own keys at its own position; relu_linear keeps
 the O(1) recurrent state, a (kv_heads, d, d) state and a (kv_heads, d)
 normalizer per row.
 
+Sharded decode (``spec=``: the cache's ``CACHE_RULES`` specs under the
+installed ``ShardingCtx``; the batch is the rank's rows): a K/V cache
+whose sequence dim is split (``sp_kv``) is the rank's block of
+positions, and the softmax is combined over the blocks (``pmax`` of the
+row max, ``psum`` of the exponentials' sum and of the weighted values);
+only the rank whose block holds a row's slot writes that row's K/V (the
+sliding ring's slots likewise).  A cache whose head dim is split holds
+the rank's KV heads: the rank attends with their query groups and the
+heads are all-gathered for the output projection.  relu_linear states
+split over heads the same way.  No whole cache is ever gathered.
+
 Layout: prefill computes in flat-head (B, S, H, Dh) layout with K/V
 repeated to full heads; the caches keep the compact GQA layout.
 """
@@ -38,6 +49,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.relu_attn.ops import relu_linear_attention
 from repro_torch.layers.flash import flash_attention
 from repro_torch.layers.linear import init_linear, linear
@@ -46,7 +58,7 @@ from repro_torch.layers.rope import apply_rope
 __all__ = ["AttnConfig", "init_attention", "attention", "attention_decode",
            "init_kv_cache", "relu_linear_state", "cross_attention",
            "softmax_attention", "sliding_attention", "to_cache_dtype",
-           "RELU_CHUNK", "EPS", "NEG_INF"]
+           "block_softmax", "RELU_CHUNK", "EPS", "NEG_INF"]
 
 RELU_CHUNK = 256     # chunk of the causal scan (JAX's default chunk)
 EPS = 1e-6           # floor of the normalizer
@@ -412,12 +424,38 @@ def _write_rows(cache, slot, new):
                        _bits(cache)).view(cache.dtype)
 
 
-def attention_decode(params, x, cache, pos, cfg: AttnConfig):
+def _block_of(spec, dim: int, n: int) -> tuple:
+    """(axes, first index) of the rank's block of ``n`` entries on cache
+    dim ``dim`` under ``spec`` (None: unsharded, ((), 0))."""
+    axes = spec.axes(dim) if spec is not None else ()
+    return axes, (coll.axis_index(axes) * n if axes else 0)
+
+
+def block_softmax(s, cv, seq_axes):
+    """Softmax over the keys of ``s`` (..., C) times ``cv`` (B, C, KV,
+    Dh), fp32 -> (B, KV, G, Dh).  With ``seq_axes`` the keys are the
+    rank's block of the sequence and the result is combined over the
+    blocks: the row max by ``pmax``, the sum of the exponentials by
+    ``psum``, each block's weights normalized by the global sum (as
+    ``torch.softmax`` normalizes before the product) and the weighted
+    values by ``psum``."""
+    if not seq_axes:
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgc,bckd->bkgd", w, cv.float())
+    m = coll.pmax(s.amax(dim=-1), seq_axes)
+    e = torch.exp(s - m[..., None])
+    w = e / coll.psum(e.sum(dim=-1), seq_axes)[..., None]
+    return coll.psum(torch.einsum("bkgc,bckd->bkgd", w, cv.float()),
+                     seq_axes)
+
+
+def attention_decode(params, x, cache, pos, cfg: AttnConfig, spec=None):
     """One-token decode.  x: (B, 1, D); ``pos``: each row's position (see
     ``decode_positions``).  softmax / sliding: each row writes its K/V at
     its own slot (``pos``; sliding ``pos % length``, a ring) of a copy of
     the cache and attends the keys valid at its position; relu_linear:
-    the O(1) recurrent update."""
+    the O(1) recurrent update.  ``spec``: the cache leaves' specs, the
+    cache the rank's blocks (see the module docstring)."""
     B = x.shape[0]
     g = cfg.n_heads // cfg.n_kv
     positions = decode_positions(pos, B, x.device)
@@ -425,24 +463,40 @@ def attention_decode(params, x, cache, pos, cfg: AttnConfig):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if cfg.backend == "relu_linear":
+        kv = cache["state"].shape[1]
+        head_axes, h0 = _block_of(spec and spec["state"], 1, kv)
         pq = torch.relu(q.float()).reshape(B, cfg.n_kv, g, cfg.head_dim)
         pk = torch.relu(k.float()).reshape(B, cfg.n_kv, cfg.head_dim)
         vf = v.float().reshape(B, cfg.n_kv, cfg.head_dim)
+        if spec is not None:
+            pq, pk, vf = (t.narrow(1, h0, kv) for t in (pq, pk, vf))
         state = cache["state"] + torch.einsum("bkd,bke->bkde", pk, vf)
         zsum = cache["zsum"] + pk
         num = torch.einsum("bkgd,bkde->bkge", pq, state)
         den = torch.einsum("bkgd,bkd->bkg", pq, zsum)[..., None]
-        out = (num / torch.clamp(den, min=EPS)).reshape(B, 1, cfg.q_dim)
+        out = num / torch.clamp(den, min=EPS)
+        if spec is not None:
+            out = coll.all_gather(out, head_axes, axis=1)
+        out = out.reshape(B, 1, cfg.q_dim)
         return (linear(params["wo"], out.to(x.dtype)),
                 {"state": state, "zsum": zsum})
     if cfg.backend not in ("softmax", "sliding"):
         raise ValueError(f"unknown attention backend {cfg.backend!r}")
-    length = cache["k"].shape[1]
+    L, kv = cache["k"].shape[1], cache["k"].shape[2]
+    kspec = spec and spec["k"]
+    seq_axes, off = _block_of(kspec, 1, L)
+    length = L * (coll.axis_size(seq_axes) if seq_axes else 1)
+    head_axes, h0 = _block_of(kspec, 2, kv)
+    qf = q.float().reshape(B, cfg.n_kv, g, cfg.head_dim)
+    k, v = k[:, 0], v[:, 0]
+    if spec is not None:
+        qf, k, v = qf.narrow(1, h0, kv), k.narrow(1, h0, kv), \
+            v.narrow(1, h0, kv)
     p = positions[:, 0]
-    slot = p % length if cfg.backend == "sliding" else p
-    ck = _write_rows(cache["k"], slot, k[:, 0])
-    cv = _write_rows(cache["v"], slot, v[:, 0])
-    kv_idx = torch.arange(length, device=x.device)[None, :]
+    slot = (p % length if cfg.backend == "sliding" else p) - off
+    ck = _write_rows(cache["k"], slot, k)
+    cv = _write_rows(cache["v"], slot, v)
+    kv_idx = off + torch.arange(L, device=x.device)[None, :]
     pc = p[:, None]
     if cfg.backend == "sliding":
         # slot i of the ring holds the latest position congruent to it
@@ -450,11 +504,11 @@ def attention_decode(params, x, cache, pos, cfg: AttnConfig):
         valid = (kv_pos >= 0) & (kv_pos >= pc - cfg.window + 1)
     else:
         valid = kv_idx <= pc
-    qf = q.float().reshape(B, cfg.n_kv, g, cfg.head_dim)
     s = torch.einsum("bkgd,bckd->bkgc", qf * cfg.head_dim ** -0.5,
                      ck.float())
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgc,bckd->bkgd", w, cv.float())
+    out = block_softmax(s, cv, seq_axes)
+    if spec is not None:
+        out = coll.all_gather(out, head_axes, axis=1)
     out = out.reshape(B, 1, cfg.q_dim).to(x.dtype)
     return linear(params["wo"], out), {"k": ck, "v": cv}

@@ -20,6 +20,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import collectives as coll
 from repro_torch.kernels.ssd.ops import ssd_op
 from repro_torch.layers.linear import init_linear, linear
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
@@ -155,21 +156,35 @@ def init_mamba2_cache(cfg: Mamba2Config, batch: int, dtype=torch.float32,
     }
 
 
-def mamba2_decode(params, x, cache, cfg: Mamba2Config):
+def mamba2_decode(params, x, cache, cfg: Mamba2Config, spec=None):
     """One-token recurrent step.  x: (B, 1, D) -> (B, 1, D), new cache.
     The conv window is computed in the promoted dtype of the cache and
     the input (fp32 for the fp32 cache), as JAX's concatenation
-    promotes."""
+    promotes.  ``spec``: the cache leaves' ``CACHE_RULES`` specs under
+    the installed ``ShardingCtx``, the cache the rank's blocks: the rank
+    convolves its conv channels and updates its SSM heads; the conv
+    output and the heads' outputs are all-gathered (activations, not
+    the cache) for the SSM and the output projection."""
     Bsz = x.shape[0]
     H, P, N, G = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
     proj = linear(params["in_proj"], x)
     z, xbc, dt = _split_zxbcdt(proj, cfg)
+    C, Hl = cache["conv"].shape[-1], cache["ssm"].shape[1]
+    conv_axes = spec["conv"].axes(2) if spec is not None else ()
+    head_axes = spec["ssm"].axes(1) if spec is not None else ()
+    c0 = coll.axis_index(conv_axes) * C if conv_axes else 0
+    h0 = coll.axis_index(head_axes) * Hl if head_axes else 0
+    conv_w, conv_b = params["conv_w"], params["conv_b"]
+    if spec is not None:
+        xbc = xbc.narrow(-1, c0, C)
+        conv_w, conv_b = conv_w.narrow(-1, c0, C), conv_b.narrow(-1, c0, C)
     wd = torch.promote_types(cache["conv"].dtype, xbc.dtype)
     win = torch.cat([cache["conv"].to(wd), xbc.to(wd)], dim=1)   # (B, K, C)
-    w = params["conv_w"].to(x.dtype).to(wd)
-    conv_out = (torch.einsum("bkc,kc->bc", win, w)
-                + params["conv_b"].to(x.dtype))
+    w = conv_w.to(x.dtype).to(wd)
+    conv_out = (torch.einsum("bkc,kc->bc", win, w) + conv_b.to(x.dtype))
     xbc1 = F.silu(conv_out)
+    if spec is not None:
+        xbc1 = coll.all_gather(xbc1, conv_axes, axis=-1)
     xin = xbc1[..., : cfg.d_inner].reshape(Bsz, H, P)
     Bssm = xbc1[..., cfg.d_inner: cfg.d_inner + G * N].reshape(Bsz, G, N)
     Cssm = xbc1[..., cfg.d_inner + G * N:].reshape(Bsz, G, N)
@@ -178,12 +193,18 @@ def mamba2_decode(params, x, cache, cfg: Mamba2Config):
     Ch = torch.repeat_interleave(Cssm, rep, dim=1).float()
     dtv = F.softplus(dt.float()[:, 0, :] + params["dt_bias"][None, :])
     A = -torch.exp(params["A_log"])
-    decay = torch.exp(dtv * A[None, :])                          # (B, H)
+    D = params["D"]
     xf = xin.float()
+    if spec is not None:
+        Bh, Ch, dtv, xf = (t.narrow(1, h0, Hl) for t in (Bh, Ch, dtv, xf))
+        A, D = A.narrow(0, h0, Hl), D.narrow(0, h0, Hl)
+    decay = torch.exp(dtv * A[None, :])                          # (B, H)
     new_ssm = (cache["ssm"] * decay[..., None, None]
                + dtv[..., None, None] * xf[..., :, None] * Bh[..., None, :])
     y = torch.einsum("bhn,bhpn->bhp", Ch, new_ssm)
-    y = y + params["D"][None, :, None] * xf
+    y = y + D[None, :, None] * xf
+    if spec is not None:
+        y = coll.all_gather(y, head_axes, axis=1)
     y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype)
     y = rmsnorm(params["norm"], y * F.silu(z))
     return linear(params["out_proj"], y), {"conv": win[:, 1:, :],

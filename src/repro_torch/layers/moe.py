@@ -36,9 +36,12 @@ slotted and dropped against its own capacity ``_capacity(cfg, T / G)``
 -- exactly what ``jax.vmap`` of ``moe_dense`` over the groups computes
 -- and the experts still run once over every group's slots.  The
 decode step passes its batch size, so no row shares capacity with
-another row.  ``groups=1`` is JAX's batched call.  Groups stay on one
-device (JAX's serving installs no mesh): ``moe`` under a context
-refuses them.
+another row.  ``groups=1`` is JAX's batched call.  Under a context (the
+sharded serve step) the rank's groups route the same way: every rank
+routes its rows, ``repl`` / ``tp`` serve its experts or its d_ff slice
+(each group's slots at its own offset in the buffer), and where no mode
+applies the rank runs ``moe_dense(groups=)`` on its rows with every
+expert gathered whole (``_moe_rows``).
 
 W8 expert weights (``{"q", "scale"}`` from ``quantize_lm_params``)
 dequantize whole on every call (``_deq``), as JAX's do: at Kimi-K2's
@@ -347,11 +350,14 @@ def _moe_global(params, x, cfg: MoeConfig, ctx):
     return y.reshape(B, S, D), aux
 
 
-def moe_shard_map(params, x, cfg: MoeConfig, ctx):
+def moe_shard_map(params, x, cfg: MoeConfig, ctx, groups: int = 1):
     """Distributed MoE on the rank's tokens: x (B/dp, S, D), replicated
     over ``model`` -> (y (B/dp, S, D), aux).  Each expert weight is the
     whole weight or the rank's block under ``MOE_RULES``.  See the
-    module docstring."""
+    module docstring.  ``groups`` > 1 (the decode's rows) route, slot
+    and drop each group of the rank's tokens against its own capacity,
+    as ``moe_dense(groups=)``: ``repl`` or ``tp``, never ``a2a``; the
+    aux is then each group's own, (G,)."""
     mesh = ctx.mesh
     sizes = mesh_axes(mesh)
     ep_axis = "model"
@@ -361,16 +367,18 @@ def moe_shard_map(params, x, cfg: MoeConfig, ctx):
     E = cfg.n_experts
     cd = x.dtype
 
-    seq_sharded = S % ep == 0 and S > 1
+    seq_sharded = S % ep == 0 and S > 1 and groups == 1
     if E % ep == 0:
         mode = "a2a" if seq_sharded else "repl"
     elif ep % E == 0:
         mode = "tp"
+    elif groups != 1:
+        return _moe_rows(params, x, cfg, groups, ctx)
     else:
         return _moe_global(params, x, cfg, ctx)
 
     t_loc = B * (S // ep if mode == "a2a" else S)
-    C = _capacity(cfg, t_loc)
+    C = _capacity(cfg, t_loc // groups)
     E_loc = E // ep if E % ep == 0 else E
     if mode == "tp":   # every expert on every rank, d_ff on model
         w_in, w_gate, w_out = _expert_weights(
@@ -383,11 +391,16 @@ def moe_shard_map(params, x, cfg: MoeConfig, ctx):
     if mode == "a2a":    # this model rank's slice of the sequence
         s_loc = S // ep
         x = x.narrow(1, coll.axis_index(ep_axis, mesh) * s_loc, s_loc)
-    xt = x.reshape(1, -1, D)
+    G = groups
+    xt = x.reshape(G, -1, D)
     gates, idx, probs = _route(xt, params["router"]["w"], cfg)
-    me = _pmean(torch.mean(probs, dim=1), token_axes, mesh)
-    frac = _pmean(_assign_frac(idx, E), token_axes, mesh)
-    aux = _aux_from_stats(me, frac, cfg)[0]
+    if G == 1:
+        me = _pmean(torch.mean(probs, dim=1), token_axes, mesh)
+        frac = _pmean(_assign_frac(idx, E), token_axes, mesh)
+        aux = _aux_from_stats(me, frac, cfg)[0]
+    else:                # each group (a row) its own statistics
+        aux = _aux_from_stats(torch.mean(probs, dim=1),
+                              _assign_frac(idx, E), cfg)
 
     if mode == "repl":
         # every rank sees every token; it serves only its expert slice
@@ -398,12 +411,14 @@ def moe_shard_map(params, x, cfg: MoeConfig, ctx):
         valid = valid & own
         slot_c = torch.where(own, slot_c, C)
         e_idx = torch.where(own, idx_own, 0)
-        buf = _dispatch(xt, e_idx, slot_c, E_loc, C)[:, :C]
+        col = _buffer_slot(slot_c, C)
+        buf = _dispatch(xt, e_idx, col, E_loc, C)[:, :G * C]
         out = _expert_ffn(buf, w_in, w_gate, w_out, cfg, cd)
     else:
         e_idx = idx
         slot_c, valid = _slot_assign(idx, E, C)
-        buf = _dispatch(xt, idx, slot_c, E, C)[:, :C]             # (E, C, D)
+        col = _buffer_slot(slot_c, C)
+        buf = _dispatch(xt, idx, col, E, C)[:, :G * C]         # (E, GC, D)
         if mode == "a2a":
             # send expert block j to rank j -> (E_loc, ep*C, D), and back
             buf = coll.all_to_all(buf, ep_axis, 0, 1, mesh=mesh)
@@ -412,7 +427,7 @@ def moe_shard_map(params, x, cfg: MoeConfig, ctx):
         else:
             out = _expert_ffn(buf, w_in, w_gate, w_out, cfg, cd)
     out_pad = torch.cat([out, out.new_zeros((out.shape[0], 1, D))], dim=1)
-    y = _combine(out_pad, e_idx, slot_c, gates, valid, out.dtype)
+    y = _combine(out_pad, e_idx, col, gates, valid, out.dtype)
     y = y.reshape(x.shape)
     if mode == "a2a":
         y = coll.all_gather(y, ep_axis, axis=1, mesh=mesh)
@@ -421,18 +436,35 @@ def moe_shard_map(params, x, cfg: MoeConfig, ctx):
     return y, aux
 
 
+def _moe_rows(params, x, cfg: MoeConfig, groups: int, ctx):
+    """``moe_dense(groups=)`` on the rank's tokens with every expert
+    whole (gathered from the rank's blocks): each group routes against
+    its own capacity, so no group needs another rank's tokens."""
+    whole = P(None, None, None)
+    w_in, w_gate, w_out = _expert_weights(params, whole, whole, cfg, ctx)
+    p = {"router": params["router"], "w_in": w_in, "w_out": w_out}
+    if w_gate is not None:
+        p["w_gate"] = w_gate
+    return moe_dense(p, x, cfg, groups)
+
+
 def moe(params, x, cfg: MoeConfig, groups: int = 1):
     """Dispatcher (see the module docstring): ``moe_dense`` without a
-    ``ShardingCtx``, the sharded paths under one."""
+    ``ShardingCtx``, the sharded paths under one; ``groups`` > 1 under a
+    ctx routes as ``moe_dense(groups=)`` does (``moe_shard_map``'s
+    ``repl`` / ``tp`` with per-group capacity, else ``_moe_rows``)."""
     ctx = current_ctx()
     if ctx is None:
         return moe_dense(params, x, cfg, groups)
-    if groups != 1:
-        raise ValueError("MoE token groups run on one device; no "
-                         "ShardingCtx may be installed")
+    B, S, _ = x.shape
+    if (B * S) % groups:
+        raise ValueError(f"{B * S} tokens do not split into {groups} "
+                         f"groups")
     sizes = mesh_axes(ctx.mesh)
     if sizes.get("model", 1) > 1:
-        return moe_shard_map(params, x, cfg, ctx)
+        return moe_shard_map(params, x, cfg, ctx, groups)
+    if groups != 1:
+        return _moe_rows(params, x, cfg, groups, ctx)
     dp_axes = tuple(a for a in ("pod", "data") if a in sizes)
     if coll.axis_size(dp_axes, ctx.mesh) > 1:
         return _moe_global(params, x, cfg, ctx)

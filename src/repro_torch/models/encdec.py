@@ -24,16 +24,17 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as coll
 from repro_torch.layers.attention import (
-    _raw_qkv, attention, attention_decode, cross_attention, init_attention,
-    init_kv_cache)
+    _raw_qkv, attention, attention_decode, block_softmax, cross_attention,
+    init_attention, init_kv_cache)
 from repro_torch.layers.linear import embed, init_embedding, init_linear, linear
 from repro_torch.layers.mlp import init_mlp, mlp
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.common.tree import tree_map
 from repro_torch.models.lm import (
     _at, _maybe_remat, _stack, _stacked_init, _unstack, attn_cfg,
-    chunked_ce_terms, lm_logits_head, mlp_cfg)
+    chunked_ce_terms, lm_logits_head, mlp_cfg, spec_at)
 
 __all__ = ["init_enc_block", "init_dec_block", "init_encdec", "encode",
            "decode_train", "encdec_loss", "encdec_loss_terms",
@@ -159,37 +160,50 @@ def init_encdec_state(params, frames, cfg: ArchConfig, max_len: int,
     return {"cross": _stack(cross), "self": self_caches}
 
 
-def _cross_decode(p, x, ck, cv, acfg):
-    """One token's cross attention against the cached memory K/V."""
+def _cross_decode(p, x, ck, cv, acfg, spec=None):
+    """One token's cross attention against the cached memory K/V;
+    ``spec``: ck's spec when ck, cv are the rank's blocks (the softmax
+    combined over sequence blocks, heads gathered, as
+    ``attention_decode``'s)."""
     B = x.shape[0]
     g = acfg.n_heads // acfg.n_kv
     q, _, _ = _raw_qkv(p, x, acfg)
     q = q.reshape(B, acfg.n_kv, g, acfg.head_dim)
     qf = q.float() * acfg.head_dim ** -0.5
+    seq_axes = head_axes = ()
+    if spec is not None:
+        seq_axes, head_axes = spec.axes(1), spec.axes(2)
+        kv = ck.shape[2]
+        if head_axes:
+            qf = qf.narrow(1, coll.axis_index(head_axes) * kv, kv)
     s = torch.einsum("bkgd,bckd->bkgc", qf, ck.float())
-    pr = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgc,bckd->bkgd", pr, cv.float())
+    o = block_softmax(s, cv, seq_axes)
+    o = coll.all_gather(o, head_axes, axis=1) if head_axes else o
     o = o.reshape(B, 1, acfg.q_dim).to(x.dtype)
     return linear(p["wo"], o)
 
 
-def encdec_decode_step(params, state, tokens, pos, cfg: ArchConfig):
+def encdec_decode_step(params, state, tokens, pos, cfg: ArchConfig,
+                       specs=None):
     """tokens: (B, 1); ``pos`` one int or a (B,) tensor -> (logits (B, V),
-    new state); the input state is not written."""
+    new state); the input state is not written.  ``specs``: the state's
+    spec tree when it is the rank's blocks under the installed
+    ``ShardingCtx``."""
     x = embed(params["embed"], tokens, cfg.cdtype)
     acfg = attn_cfg(cfg, "softmax")
     new_self = []
     for i in range(cfg.dec_layers):
         p = _at(params["dec_blocks"], i)
-        y, sc = attention_decode(p["self_attn"],
-                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                 _at(state["self"], i), pos, acfg)
+        y, sc = attention_decode(
+            p["self_attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
+            _at(state["self"], i), pos, acfg,
+            None if specs is None else spec_at(specs, ("self", i)))
         new_self.append(sc)
         x = x + y
-        x = x + _cross_decode(p["cross_attn"],
-                              rmsnorm(p["ln2"], x, cfg.norm_eps),
-                              state["cross"]["ck"][i],
-                              state["cross"]["cv"][i], acfg)
+        x = x + _cross_decode(
+            p["cross_attn"], rmsnorm(p["ln2"], x, cfg.norm_eps),
+            state["cross"]["ck"][i], state["cross"]["cv"][i], acfg,
+            None if specs is None else spec_at(specs, ("cross", i))["ck"])
         x = x + mlp(p["mlp"], rmsnorm(p["ln3"], x, cfg.norm_eps),
                     mlp_cfg(cfg))
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)

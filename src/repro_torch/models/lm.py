@@ -65,7 +65,7 @@ __all__ = ["attn_cfg", "mlp_cfg", "moe_cfg", "mamba_cfg", "check_supported",
            "init_block_cache", "init_lm", "forward_hidden", "lm_logits_head",
            "block_prefill", "lm_prefill", "init_lm_caches", "lm_decode_step",
            "chunked_ce_loss", "chunked_ce_terms", "lm_loss",
-           "lm_loss_terms"]
+           "lm_loss_terms", "spec_at"]
 
 UNIFORM = {"dense": "attn_mlp", "vlm": "attn_mlp", "moe": "attn_moe",
            "mamba2": "mamba"}
@@ -227,18 +227,21 @@ def block_prefill(p, x, cfg: ArchConfig, kind: str, positions, *,
                   cache_dtype=cache_dtype, reference=reference)[:2]
 
 
-def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str):
+def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str, spec=None):
     """x: (B, 1, D) -> (x', cache); an MoE routes each row as a group of
-    its own (see the module docstring)."""
+    its own (see the module docstring).  ``spec``: the cache's specs
+    when it is the rank's blocks (``attention_decode``,
+    ``mamba2_decode``)."""
     if kind == "mamba":
         y, cache = mamba2_decode(p["mixer"],
                                  rmsnorm(p["ln1"], x, cfg.norm_eps),
-                                 cache, mamba_cfg(cfg))
+                                 cache, mamba_cfg(cfg), spec)
         return x + y, cache
     y, cache = attention_decode(p["attn"],
                                 rmsnorm(p["ln1"], x, cfg.norm_eps),
                                 cache, pos,
-                                attn_cfg(cfg, _block_backend(cfg, kind)))
+                                attn_cfg(cfg, _block_backend(cfg, kind)),
+                                spec)
     x = x + y
     y, _ = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind,
                 groups=x.shape[0])
@@ -386,6 +389,15 @@ def _cache_at(caches, path):
     return node
 
 
+def spec_at(specs, path):
+    """The cache specs of the block at ``path`` (``_cache_at`` on a spec
+    tree: each stacked index drops a spec's leading entry)."""
+    node = specs[path[0]]
+    for _ in path[1:]:
+        node = tree_map(lambda s: type(s)(*s[1:]), node)
+    return node
+
+
 # ---------------------------------------------------------------------------
 # forward, prefill, decode
 # ---------------------------------------------------------------------------
@@ -518,15 +530,19 @@ def init_lm_caches(cfg: ArchConfig, batch: int, max_len: int,
     return out
 
 
-def lm_decode_step(params, caches, tokens, pos, cfg: ArchConfig):
+def lm_decode_step(params, caches, tokens, pos, cfg: ArchConfig,
+                   specs=None):
     """One decode step.  tokens: (B, 1); ``pos``: the 0-based position of
     each row's token, one int for every row or a (B,) tensor (each slot
     at its own position).  -> (logits (B, V), new caches); the input
-    caches are not written."""
+    caches are not written.  ``specs``: the caches' spec tree when they
+    are the rank's blocks under the installed ``ShardingCtx`` (the
+    sharded serve step)."""
     x = embed(params["embed"], tokens, cfg.cdtype)
     flat = {}
     for kind, p, path in _layer_order(params, cfg):
-        x, flat[path] = block_decode(p, x, _cache_at(caches, path), pos,
-                                     cfg, kind)
+        x, flat[path] = block_decode(
+            p, x, _cache_at(caches, path), pos, cfg, kind,
+            None if specs is None else spec_at(specs, path))
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits_head(params, h, cfg)[:, 0, :], _stack_caches(cfg, flat)

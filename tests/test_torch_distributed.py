@@ -161,6 +161,9 @@ def test_shard_checks_rank_under_a_ctx():
 
 
 def test_moe_groups_refused_under_a_ctx():
+    """Token groups run under a ctx too (the sharded decode's rows; the
+    gloo world holds them against one device), but groups that do not
+    split the rank's tokens are refused there, before any collective."""
     from repro_torch.distributed.ctx import use_sharding
     from repro_torch.layers.moe import MoeConfig, init_moe, moe
     cfg = MoeConfig(d_model=8, d_ff=16, n_experts=4, top_k=2)
@@ -168,8 +171,8 @@ def test_moe_groups_refused_under_a_ctx():
     x = torch.zeros((2, 1, 8))
     moe(params, x, cfg, groups=2)                 # one device: fine
     with use_sharding(tpart.make_ctx(_StubMesh((1, 2), ("data", "model")))):
-        with pytest.raises(ValueError, match="one device"):
-            moe(params, x, cfg, groups=2)
+        with pytest.raises(ValueError, match="do not split"):
+            moe(params, x, cfg, groups=3)
 
 
 def test_meshes_need_a_process_group():

@@ -25,6 +25,20 @@ module fixture) on ``("data", "model")`` meshes.
     reference, forward within 2e-5 and the stage gradients within 2e-4
     (JAX's bounds), alone and with the microbatches split over ``data``
     inside a stage (the gradients summed over ``data``).
+  * The sharded step with ``grad_accum=2`` (granite-3-2b on (2, 2), the
+    rank's rows of each global microbatch, a mask whose token counts
+    differ between the microbatches) against the single-device
+    ``grad_accum=2`` step on the global batch, at the bounds above.
+  * The sharded prefill and 4 sharded decode steps
+    (``make_prefill_step`` / ``make_serve_step(ctx=)``) against the
+    single-device ones on the global batch of 4 rows, for granite-3-2b
+    (softmax, the KV sequence on ``model``), gemma3-12b (the sliding
+    ring, wrapping during the decode), zamba2-1.2b (relu_linear and
+    Mamba states split over heads) and grok-1-314b (``a2a`` prefill and
+    per-row decode groups on (2, 2); ``_moe_global`` on (4, 1) at
+    capacity factor 0.5, where the prefill drops tokens): each rank's
+    logits block and cache blocks within 1e-5 * max(1, max|ref|), fp32
+    smoke weights and fp32 caches.
 """
 import os
 import subprocess
@@ -41,7 +55,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "..", "src")
 sys.path.insert(0, HERE)
 
-from torch_dist_world import TRAIN_CASES, train_arch  # noqa: E402
+from torch_dist_world import (  # noqa: E402
+    SERVE_CASES, TRAIN_CASES, serve_arch, train_arch)
 
 WORLD_TIMEOUT_S = 300
 
@@ -187,3 +202,84 @@ def test_pipeline_backward(world, name):
     _, g = _seq_reference(*PIPES[name])
     for r in range(4):
         assert np.abs(world[r]["pipeline"][name]["grad"] - g).max() < 2e-4
+
+
+def test_grad_accum_step_loss(world):
+    for r in range(4):
+        a = world[r]["accum"]
+        l1, l2 = a["loss"]
+        assert abs(l1 - l2) <= 1e-6 * abs(l1), (r, l1, l2)
+        assert a["counts"][0] != a["counts"][1]     # the mask matters
+        assert a["local_batch"] == (4, 32)
+
+
+def test_grad_accum_step_grads_and_norm(world):
+    for r in range(4):
+        a = world[r]["accum"]
+        for path, (diff, top, same) in a["grads"].items():
+            assert same, (r, path)
+            assert diff <= 1e-5 * max(1.0, top), (r, path, diff, top)
+        want, got = a["gnorm"]
+        assert abs(got - want) <= 1e-5 * want, (r, want, got)
+
+
+def test_grad_accum_step_params(world):
+    for r in range(4):
+        for path, (diff, top, same) in world[r]["accum"]["params"].items():
+            assert same, (r, path)
+            assert diff <= 1e-5 * max(1.0, top), (r, path, diff, top)
+
+
+def _within(entry):
+    diff, top, _ = entry
+    return diff <= 1e-5 * max(1.0, top)
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_sharded_prefill(world, case):
+    for r in range(4):
+        e = world[r]["serve"][case]
+        assert _within(e["prefill"]), (r, e["prefill"])
+        for path, entry in e["prefill_caches"].items():
+            assert _within(entry), (r, path, entry)
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_sharded_decode(world, case):
+    for r in range(4):
+        e = world[r]["serve"][case]
+        assert len(e["decode"]) == 4
+        for t, entry in enumerate(e["decode"]):
+            assert _within(entry), (r, t, entry)
+        for path, entry in e["decode_caches"].items():
+            assert _within(entry), (r, path, entry)
+
+
+def test_sharded_decode_splits_the_caches(world):
+    """Every cache is the rank's block: the KV sequence (softmax and the
+    sliding ring) and the relu_linear / Mamba heads on ``model``, the
+    rows on ``data``; the logits' vocab on ``model``."""
+    split = {c: world[0]["serve"][c]["split"] for c in SERVE_CASES}
+    assert split["granite-3-2b"]["blocks/k"] == \
+        "PartitionSpec(None, 'data', 'model', None, None)"
+    assert split["gemma3-12b"]["local/k"] == \
+        "PartitionSpec(None, None, 'data', 'model', None, None)"
+    assert split["zamba2-1.2b"]["shared_attn/state"] == \
+        "PartitionSpec(None, 'data', 'model', None, None)"
+    assert split["zamba2-1.2b"]["mamba_groups/ssm"] == \
+        "PartitionSpec(None, None, 'data', 'model', None, None)"
+    assert split["zamba2-1.2b"]["mamba_groups/conv"] == \
+        "PartitionSpec(None, None, 'data', None, 'model')"
+    for c in SERVE_CASES:
+        rows = 1 if c.endswith("@4x1") else 2
+        vocab = serve_arch(c).vocab // (1 if c.endswith("@4x1") else 2)
+        assert world[0]["serve"][c]["prefill"][2] == (rows, vocab)
+
+
+def test_sharded_prefill_drops_like_one_device(world):
+    """At capacity factor 0.5 the global batch's prefill drops
+    assignments; the sharded prefill's logits equal the single-device
+    ones (above), so it drops the same ones.  Decode's per-row groups
+    hold every token (capacity 8 a row)."""
+    assert world[0]["serve"]["grok-1-314b@4x1"]["dropped"] > 0
+    assert world[0]["serve"]["grok-1-314b"]["dropped"] == 0

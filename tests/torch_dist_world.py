@@ -369,6 +369,201 @@ def _pipeline(rank, mesh):
     return res
 
 
+def _grad_accum(rank, mesh):
+    """granite-3-2b's sharded step with ``grad_accum=2`` on (2, 2), the
+    batch the rank's rows of each global microbatch
+    (``microbatch_shard``), a mask whose token counts differ between the
+    microbatches, against the single-device ``grad_accum=2`` step on the
+    global batch: the loss, the averaged gradient's blocks, its norm and
+    the updated params."""
+    from repro_torch.common.tree import flatten_with_paths, global_norm, \
+        tree_map
+    from repro_torch.data.pipeline import microbatch_shard
+    from repro_torch.distributed.ctx import P
+    from repro_torch.distributed.partition import (
+        gather_tree, local_block, make_ctx, match_partition_rules,
+        shard_tree)
+    from repro_torch.distributed.rules import LM_RULES
+    from repro_torch.launch.steps import (
+        default_opt_cfg, make_train_step, sharded_value_and_grad,
+        value_and_grad)
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+
+    ctx = make_ctx(mesh)
+    cfg = train_arch("granite-3-2b")
+    model = build_model(cfg)
+    opt_cfg = default_opt_cfg(cfg)
+    params = model.init(0, "cpu")
+    opt = adamw_init(params, opt_cfg)
+    rng = np.random.default_rng(11)
+    batch = {"tokens": torch.tensor(rng.integers(0, cfg.vocab, (8, 32))),
+             "targets": torch.tensor(rng.integers(0, cfg.vocab, (8, 32)))}
+    mask = rng.random((8, 32)) < np.linspace(0.1, 0.95, 8)[:, None]
+    batch["mask"] = torch.tensor(mask.astype(np.float32))
+    counts = [float(batch["mask"][i * 4:(i + 1) * 4].sum()) for i in (0, 1)]
+    p1, _, l1 = make_train_step(model, opt_cfg, grad_accum=2)(params, opt,
+                                                             batch)
+    vg = value_and_grad(model.loss)
+    g1 = [vg(params, tree_map(lambda x: x[i * 4:(i + 1) * 4], batch))[1]
+          for i in (0, 1)]
+    g1 = tree_map(lambda a, b, p: ((a.float() + b.float()) / 2).to(p.dtype),
+                  g1[0], g1[1], params)
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    opt_specs = {"step": P(), "m": specs, "v": specs}
+    if "master" in opt:
+        opt_specs["master"] = specs
+    local = microbatch_shard(batch, ctx, 2)
+    blocks = shard_tree(params, specs, mesh)
+    _, g2, gnorm2 = sharded_value_and_grad(model, ctx, specs, 2)(blocks,
+                                                                 local)
+    step = make_train_step(model, opt_cfg, grad_accum=2, ctx=ctx,
+                           specs=specs)
+    p2, _, l2 = step(blocks, shard_tree(opt, opt_specs, mesh), local)
+
+    def diffs(a_tree, b_tree):
+        return {p: (float((a - b).abs().max()), float(a.abs().max()),
+                    a.shape == b.shape)
+                for (p, a), (_, b) in zip(flatten_with_paths(a_tree),
+                                          flatten_with_paths(b_tree))}
+
+    return {"loss": (float(l1), float(l2)), "counts": counts,
+            "grads": diffs(tree_map(lambda g, s: local_block(g, s, mesh),
+                                    g1, specs), g2),
+            "gnorm": (float(global_norm(g1)), float(gnorm2)),
+            "params": diffs(p1, gather_tree(p2, specs, mesh)),
+            "local_batch": tuple(local["tokens"].shape)}
+
+
+# arch[@mesh]: the sharded prefill and decode cases, (2, 2) unless named
+SERVE_CASES = ("granite-3-2b", "gemma3-12b", "zamba2-1.2b", "grok-1-314b",
+               "grok-1-314b@4x1")
+SERVE_PROMPT = 30          # tokens a row; gemma3's ring (32) wraps at 32
+SERVE_STEPS = 4
+SERVE_MAX_LEN = 36
+
+
+def serve_arch(case):
+    """The smoke config with fp32 caches; relu_linear for zamba2; grok on
+    (4, 1) at capacity factor 0.5, where the prefill drops tokens (its
+    path, ``_moe_global``, is the global batch's ``moe_dense``); on (2,
+    2) the capacity holds every token (``a2a`` routes each rank's slice
+    against its own capacity, as JAX's does)."""
+    name, _, mesh_name = case.partition("@")
+    cfg = train_arch(name).scaled(kv_dtype="float32")
+    if name == "zamba2-1.2b":
+        cfg = cfg.scaled(attn_backend="relu_linear")
+    if mesh_name == "4x1":
+        cfg = cfg.scaled(capacity_factor=0.5)
+    return cfg
+
+
+def _pad_to(tree, template):
+    """Zero-pad every leaf of ``tree`` up to ``template``'s shape."""
+    from repro_torch.common.tree import tree_map
+
+    def pad(a, t):
+        out = a.new_zeros(t.shape)
+        region = out
+        for i, n in enumerate(a.shape):
+            region = region.narrow(i, 0, n)
+        region.copy_(a)
+        return out
+
+    return tree_map(pad, tree, template)
+
+
+def _serve(rank):
+    """The sharded prefill (``make_prefill_step(ctx=)``) and
+    ``SERVE_STEPS`` sharded decode steps (``make_serve_step(ctx=)``)
+    against the single-device ones on the global batch, both decoding
+    the same tokens from the prefill's caches zero-padded to
+    ``SERVE_MAX_LEN``: each rank's logits block and cache blocks against
+    the single-device ones' blocks."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.partition import (
+        local_block, make_ctx, match_partition_rules, shard_tree)
+    from repro_torch.distributed.rules import CACHE_RULES, LM_RULES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.layers import moe as M
+    from repro_torch.models.registry import build_model
+
+    res = {}
+    for case in SERVE_CASES:
+        _, _, mesh_name = case.partition("@")
+        mesh = make_mesh(TRAIN_MESHES[mesh_name or "2x2"], ("data", "model"),
+                         device="cpu")
+        ctx = make_ctx(mesh)
+        cfg = serve_arch(case)
+        model = build_model(cfg)
+        params = model.init(0, "cpu")
+        rng = np.random.default_rng(5)
+        B = 4
+        tokens = torch.tensor(rng.integers(0, cfg.vocab, (B, SERVE_PROMPT)))
+        steps = torch.tensor(rng.integers(0, cfg.vocab,
+                                          (SERVE_STEPS, B, 1)))
+        dropped = []
+        slot_assign = M._slot_assign
+
+        def counting(idx, n, c):
+            out = slot_assign(idx, n, c)
+            dropped.append(int((~out[1]).sum()))
+            return out
+
+        M._slot_assign = counting
+        try:
+            logits1, caches1 = model.prefill(params, {"tokens": tokens})
+        finally:
+            M._slot_assign = slot_assign
+        padded = _pad_to(caches1, model.init_caches(B, SERVE_MAX_LEN,
+                                                    "cpu"))
+        specs = match_partition_rules(LM_RULES, params, ctx)
+        c_specs = match_partition_rules(CACHE_RULES, caches1, ctx)
+        d_specs = match_partition_rules(CACHE_RULES, padded, ctx)
+        blocks = shard_tree(params, specs, mesh)
+        dp = C.axis_size("data", mesh)
+        rows = slice(C.axis_index("data", mesh) * B // dp,
+                     (C.axis_index("data", mesh) + 1) * B // dp)
+        logits2, caches2 = make_prefill_step(
+            model, ctx=ctx, specs=specs, cache_specs=c_specs)(
+            blocks, {"tokens": tokens[rows]})
+        vocab = logits2.shape[1]
+        v0 = C.axis_index("model", mesh) * vocab \
+            if vocab < cfg.vocab else 0
+
+        def err(want, got):
+            return (float((want - got).abs().max()),
+                    float(want.abs().max()), tuple(got.shape))
+
+        entry = {"prefill": err(logits1[rows, v0:v0 + vocab], logits2),
+                 "prefill_caches": {
+                     p: err(local_block(a, s, mesh), b)
+                     for (p, a), (_, s), (_, b) in zip(
+                         flatten_with_paths(caches1),
+                         flatten_with_paths(c_specs),
+                         flatten_with_paths(caches2))},
+                 "dropped": sum(dropped), "decode": [], "decode_caches": {}}
+        serve = make_serve_step(model, ctx=ctx, specs=specs,
+                                cache_specs=d_specs)
+        c1, c2 = padded, shard_tree(padded, d_specs, mesh)
+        for t in range(SERVE_STEPS):
+            pos = SERVE_PROMPT + t
+            l1, c1 = model.decode(params, c1, steps[t], pos)
+            l2, c2 = serve(blocks, c2, steps[t][rows], pos)
+            entry["decode"].append(err(l1[rows, v0:v0 + vocab], l2))
+        entry["decode_caches"] = {
+            p: err(local_block(a, s, mesh), b)
+            for (p, a), (_, s), (_, b) in zip(
+                flatten_with_paths(c1), flatten_with_paths(d_specs),
+                flatten_with_paths(c2))}
+        entry["split"] = {p: str(s) for p, s in
+                          flatten_with_paths(d_specs)}
+        res[case] = entry
+    return res
+
+
 def suite_train(rank, out):
     from repro_torch.launch.mesh import make_mesh
 
@@ -376,7 +571,9 @@ def suite_train(rank, out):
     pipe = make_mesh((2, 2), ("pod", "data"), device="cpu")
     return {"steps": _train_steps(rank),
             "trainer": _trainer(rank, mesh, out),
-            "pipeline": _pipeline(rank, pipe)}
+            "pipeline": _pipeline(rank, pipe),
+            "accum": _grad_accum(rank, mesh),
+            "serve": _serve(rank)}
 
 
 SUITES = {"dist": suite_dist, "train": suite_train}
