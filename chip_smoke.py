@@ -504,10 +504,37 @@
    KV blocks under a ctx; each step's logits within 1e-2 * max|logit|
    of the unsharded decode's, both fed the unsharded run's tokens, and
    no decode assignment dropped.
+6i. ``[tp ...]``: dense tensor parallelism (``distributed/tp.py``) on
+   the card, after 6h (``tp_phase``): two processes (this script with
+   ``--tp-rank``) on ``cuda:0`` meeting on gloo (NCCL refuses two ranks
+   on one GPU), a (1, 2) ``("data", "model")`` mesh; the parent frees
+   its cache and prints ``mem_get_info`` first.  ``[tp predict zamba2
+   1x2]``: 6h's child on a fake group of two ranks counts rank 0's
+   arguments and step peak; B halves from 8 until both ranks' peaks,
+   the synthetic data and two contexts fit.  Each rank:
+   ``TP_CHECK_STEPS`` steps of ``make_train_step(ctx=, specs=)`` on
+   blocks built as the dry-run builds them (argument bytes equal to the
+   prediction up to 512 B a tensor, measured / predicted peak within
+   ``TP_PEAK_RANGE``, the blocks of ``LM_RULES``' shapes, every param
+   leaf that ``loss_terms`` is handed its ``model`` block: 0 B beyond
+   them); 6f's run for ``TP_STEPS`` steps through ``Trainer(mesh=,
+   device="cuda:0")`` (step 1's loss within ``TP_LOSS_TOL`` of 6f's; 12
+   ``relu_attn_causal`` at B x 16 heads and 76 ``ssd_chunked`` at B x
+   32 a step, the first step's scan calls probed; tokens/s printed as
+   two ranks sharing one card); 6h's Zamba2 serving on its trained
+   params, the sharded prefill (6 / 38 launches) of the first
+   ``TP_PROMPT`` tokens of 6h's prompts and decode on the unsharded
+   run's tokens in fp32 (6h's params cast: a bf16 Zamba2's logits move
+   ~5e-2 under any reordering of its sums), each logits block within
+   ``TP_SERVE_TOL`` * max|logit| of the fp32 (1, 1) sharded steps' on a
+   world of one NCCL rank in the parent (``tp_serve_ref``).  ``[tp
+   kernel]``: rank 0's scan calls at the rank's heads held against their
+   plain versions and timed beside the full head count.
 7. One JSON line with every kernel's launches on its driven run(s)
    (sections 5, 5a's sharded paths, 6b's artifact engines, 6c's, 6d's
    and 6e's served LM runs, 6f's training passes, 6g's sharded run,
-   6h's sharded train steps and prefill, and 4),
+   6h's sharded train steps and prefill, 6i's ranks' steps, Trainer
+   runs and prefills, and 4),
    error and times (ms are per B1@224 batch-8 forward, the sum over that
    forward's calls; for the four library kernels, the sum over the
    library phase's cases, one call each).
@@ -5692,8 +5719,8 @@ from repro_torch.launch.dryrun import build_cell, fake_world
 from repro_torch.launch.mesh import make_mesh
 t0 = time.perf_counter()
 cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
-with fake_world(1):
-    mesh = make_mesh((1, 1), ("data", "model"), device="cpu")
+with fake_world({world}):
+    mesh = make_mesh({mesh}, ("data", "model"), device="cpu")
     fn, args, ctx, meta = build_cell(
         cfg, ShapeSpec("train", {seq}, {batch}, "train"), mesh)
     ts = _tensors(args)
@@ -5718,7 +5745,7 @@ def dryrun_predict(card) -> dict:
     cell with ``dryrun.build_cell`` on a (1, 1) mesh and counts its
     sharded step with ``cost.measure_step``.  -> its numbers."""
     code = DRYRUN_PREDICT.format(src=SRC, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
-                                 alloc=DRYRUN_ALLOC)
+                                 alloc=DRYRUN_ALLOC, world=1, mesh=(1, 1))
     t0 = time.perf_counter()
     run = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, check=False)
@@ -5873,7 +5900,7 @@ def dryrun_pad(tree, template):
 
 
 def dryrun_serve(tag, cfg, params, mesh, prompt, steps, wrappers, card, *,
-                 exact: bool) -> dict:
+                 exact: bool, keep=None) -> dict:
     """The sharded ``make_prefill_step`` on 8 prompts of ``prompt``
     tokens, then ``steps`` sharded ``make_serve_step`` decode steps, on
     ``mesh``, each held against the unsharded step, both decoding the
@@ -5884,7 +5911,9 @@ def dryrun_serve(tag, cfg, params, mesh, prompt, steps, wrappers, card, *,
     rounding; the run on its own routes is printed).  ``exact``: logits
     and every cache leaf bit-equal; else each step's logits within
     ``DRYRUN_GROK_TOL`` * max|logit|.  Every MoE decode call drops
-    nothing.  -> the sharded prefill's launches."""
+    nothing.  ``keep``: a dict that gets the prompts and the unsharded
+    run's tokens (on the host, for 6i).  -> the sharded prefill's
+    launches."""
     import torch
     from repro_torch.common.tree import tree_leaves
     from repro_torch.distributed.partition import (
@@ -5987,6 +6016,8 @@ def dryrun_serve(tag, cfg, params, mesh, prompt, steps, wrappers, card, *,
     if max(rel) > DRYRUN_GROK_TOL:
         raise AssertionError(f"[{tag}] decode logits off by {max(rel):.3e} "
                              f"of max|logit|")
+    if keep is not None:
+        keep.update(tokens=tokens.cpu(), toks=[t.cpu() for t in toks])
     return launches
 
 
@@ -5996,8 +6027,9 @@ def dryrun_phase(seed, wrappers, card) -> dict:
     NCCL rank, as 6g's, and the sharded prefill / decode steps on its
     (1, 1) mesh: Zamba2-1.2B (relu_linear) bit-equal to the unsharded
     steps, Grok-1 (6e's 2-layer cut, bf16) within ``DRYRUN_GROK_TOL``.
-    -> the launches of the sharded runs (the train steps and Zamba2's
-    sharded prefill)."""
+    -> (the launches of the sharded runs (the train steps and Zamba2's
+    sharded prefill), Zamba2's serving for 6i: its params on the host
+    and ``dryrun_serve``'s ``keep``)."""
     import torch
     import torch.distributed as dist
     from repro_torch.configs import get_arch
@@ -6011,10 +6043,13 @@ def dryrun_phase(seed, wrappers, card) -> dict:
         mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
         launches, blocks = dryrun_check(seed, wrappers, card, mesh, pred)
         zamba = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+        serve_ref: dict = {}
         pre = dryrun_serve("dryrun serve zamba2 1x1", zamba, blocks, mesh,
                            DRYRUN_PROMPT, DRYRUN_DECODE, wrappers, card,
-                           exact=True)
+                           exact=True, keep=serve_ref)
         launches = {k: launches[k] + pre[k] for k in wrappers}
+        from repro_torch.common.tree import tree_map
+        serve_ref["params"] = tree_map(lambda t: t.cpu(), blocks)
         del blocks
         gc.collect()
         torch.cuda.empty_cache()
@@ -6030,12 +6065,513 @@ def dryrun_phase(seed, wrappers, card) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     print(f"[dryrun] phase in {time.perf_counter() - t0:.1f} s [{card}]")
+    return launches, serve_ref
+
+
+# the [tp] phase (6i): Zamba2-1.2B trained and served on a (1, 2) mesh,
+# two ranks on the one card meeting on gloo (NCCL refuses two ranks on
+# one GPU), the dense layers split over ``model`` (``distributed/tp.py``)
+TP_STEPS = 5
+TP_CHECK_STEPS = 2            # the memory check's steps, the first a warm-up
+TP_LOSS_TOL = 1e-3            # step 1's loss, of |loss|, against 6f's
+TP_PEAK_RANGE = (1.00, 1.05)  # each rank's measured / predicted peak
+TP_SERVE_TOL = 3e-5           # fp32 logits, of max|logit|, against (1, 1)
+                              # (PERF.md, 6i: read 5.7e-6 - 1.6e-5; the
+                              # bf16 model's 4.5e-2)
+TP_PROMPT = 1024              # the served prompts: 6h's first tokens
+TP_HEADS = {"relu_attn_causal": 16, "ssd_chunked": 32}   # a rank's heads
+TP_DATASET = 32000 * 32000 * 4   # the synthetic data's transition logits
+TP_CONTEXT = 2**30            # a CUDA context and its workspaces, a rank
+
+
+def tp_predict(card, batch) -> dict:
+    """``[tp predict zamba2 1x2]``: ``DRYRUN_PREDICT`` for rank 0 of a
+    (1, 2) mesh (a fake group of two ranks, every tensor on meta); rank
+    1's blocks and step are the same size."""
+    code = DRYRUN_PREDICT.format(src=SRC, seq=TRAIN_SEQ, batch=batch,
+                                 alloc=DRYRUN_ALLOC, world=2, mesh=(1, 2))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, check=False)
+    if run.returncode != 0:
+        raise AssertionError(f"[tp predict] the child failed: "
+                             f"{run.stderr[-3000:]}")
+    pred = json.loads(run.stdout.strip().splitlines()[-1])
+    print(f"[tp predict zamba2 1x2] computed on meta for rank 0 of a (1, 2) "
+          f"mesh, not measured: B = {batch}, S = {TRAIN_SEQ}: argument "
+          f"bytes {pred['args']} ({pred['n_args']} tensors), the step's own "
+          f"peak {pred['temp']} (peak {pred['args'] + pred['temp']} = "
+          f"{(pred['args'] + pred['temp']) / 2**30:.3f} GiB with the "
+          f"arguments), collective bytes {pred['coll']:.6e} "
+          f"{pred['coll_by_kind']}, kernel calls {pred['kernels']} [{card}]")
+    if pred["off_meta_ops"]:
+        raise AssertionError(f"[tp predict] ops ran off the meta device: "
+                             f"{pred['off_meta']}")
+    return pred
+
+
+def tp_rank(rank: int, tmp: str) -> int:
+    """One rank of 6i's world (``chip_smoke.py --tp-rank R --tp-dir D``):
+    the rank's dry-run check, ``Trainer`` run and sharded serving on the
+    (1, 2) mesh, its numbers written to ``D/rank<R>.json`` (rank 0 also
+    saves the Trainer run's scan inputs for ``[tp kernel]``)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, SRC)
+    from repro_torch.kernels.registry import kernel_wrappers
+    from repro_torch.launch.mesh import make_mesh
+    spec = json.load(open(os.path.join(tmp, "spec.json")))
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(tmp, 'store')}",
+        rank=rank, world_size=2)
+    try:
+        wrappers = kernel_wrappers()
+        mesh = make_mesh((1, 2), ("data", "model"), device="cuda")
+        out = {"rank": rank}
+        out.update(tp_check(spec, wrappers, mesh))
+        dist.barrier()
+        out.update(tp_train(rank, spec, wrappers, mesh, tmp))
+        dist.barrier()
+        out.update(tp_serve(rank, spec, wrappers, mesh, tmp))
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_check(spec, wrappers, mesh) -> dict:
+    """The rank's blocks built as the dry-run builds them and
+    ``TP_CHECK_STEPS`` steps of ``make_train_step(ctx=, specs=)``: the
+    argument bytes requested of the allocator and the peak over steps
+    2..; the blocks' shapes against ``LM_RULES``' on the global (meta)
+    tree; the param leaves ``loss_terms`` is handed (after
+    ``_gather_dense``) against their ``model`` blocks: the bytes beyond
+    them, gathered over ``model``."""
+    import dataclasses
+    import torch
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.ctx import P
+    from repro_torch.distributed.partition import (
+        local_block, make_ctx, match_partition_rules, shard_tree)
+    from repro_torch.distributed.rules import LM_RULES
+    from repro_torch.launch import steps as st
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init
+    cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+    B = spec["batch"]
+    model = build_model(cfg)
+    handed = {}
+
+    def loss_terms(params, *a, _fn=model.loss_terms, **k):
+        handed.update((p, (tuple(x.shape), x.numel(), x.element_size()))
+                      for p, x in flatten_with_paths(params))
+        return _fn(params, *a, **k)
+
+    model = dataclasses.replace(model, loss_terms=loss_terms)
+    ctx = make_ctx(mesh, {"sp": ("model",)})
+    opt_cfg = st.default_opt_cfg(cfg)
+    meta = model.init(0, "meta")
+    specs = match_partition_rules(LM_RULES, meta, ctx)
+    want, model_block = {}, {}
+    for (p, x), (_, s) in zip(flatten_with_paths(meta),
+                              flatten_with_paths(specs)):
+        want[p] = tuple(local_block(x, s, mesh).shape)
+        only = P(*(("model" if "model" in s.axes(d) else None)
+                   for d in range(len(s))))
+        model_block[p] = local_block(x, only, mesh)
+    torch.cuda.synchronize()
+    r0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+    m0 = torch.cuda.memory_allocated()
+    params = model.init(spec["seed"], "cuda")
+    blocks = shard_tree(params, specs, mesh)
+    del params
+    opt = adamw_init(blocks, opt_cfg)
+    g = torch.Generator(device="cuda").manual_seed(spec["seed"])
+    batch = {k: torch.randint(0, cfg.vocab, (B, TRAIN_SEQ), generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "targets")}
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_stats()["requested_bytes.all.current"] - r0
+    shapes_ok = all(tuple(b.shape) == want[p]
+                    for p, b in flatten_with_paths(blocks))
+    split = sum(tuple(x.shape) != want[p]
+                for p, x in flatten_with_paths(meta))
+    step = st.make_train_step(model, opt_cfg, ctx=ctx, specs=specs)
+    for w in wrappers.values():
+        w.launches = 0
+    secs, losses = [], []
+    for i in range(TP_CHECK_STEPS):
+        if i == 1:
+            # the first step's lazy imports (checkpoint's first call
+            # imports torch._dynamo; torch.fx keeps its own frame) leave
+            # a cycle through the step's frames that holds its tensors
+            # until the collector runs, at a point that varies by run
+            gc.collect()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        blocks, opt, loss = step(blocks, opt, batch)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - m0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    over = [(p, shape, tuple(model_block[p].shape))
+            for p, (shape, _, _) in handed.items()
+            if shape != tuple(model_block[p].shape)]
+    beyond = sum((n - model_block[p].numel()) * size
+                 for p, (_, n, size) in handed.items())
+    n_model = sum(tuple(model_block[p].shape) != tuple(x.shape)
+                  for p, x in flatten_with_paths(meta))
+    del blocks, opt, batch, step, handed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"args": args, "peak": peak, "check_losses": losses,
+            "check_secs": secs, "check_launches": launches,
+            "shapes_ok": shapes_ok, "split_leaves": split,
+            "n_leaves": len(want), "model_split": n_model,
+            "model_beyond": beyond, "model_over": over}
+
+
+def tp_train(rank, spec, wrappers, mesh, tmp) -> dict:
+    """6f's Zamba2 run (config, data, seed, schedule) for ``TP_STEPS``
+    steps through ``Trainer(mesh=, device="cuda:0")``; the counters set
+    to 0 just before ``run`` and read just after; the first step's scan
+    calls probed (their shapes; rank 0 saves their inputs)."""
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim.schedule import ScheduleConfig
+    from repro_torch.runtime.trainer import Trainer, TrainerConfig
+    cfg = get_arch("zamba2-1.2b").scaled(attn_backend="relu_linear")
+    root = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        data = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                          global_batch=spec["batch"], seed=spec["seed"] + 2)
+        tcfg = TrainerConfig(
+            total_steps=TP_STEPS, ckpt_every=TRAIN_STEPS, ckpt_dir=root,
+            log_every=10, seed=spec["seed"] + 2,
+            schedule=ScheduleConfig(kind="cosine",
+                                    warmup_steps=TRAIN_WARMUP,
+                                    total_steps=TRAIN_STEPS))
+        tr = Trainer(cfg, data, tcfg, device="cuda:0", mesh=mesh)
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.perf_counter()
+        with lm_scan_probe() as calls:
+            res = tr.run()
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k: w.launches for k, w in wrappers.items()}
+        shapes = {name: [list(a[0].shape), str(a[0].dtype)]
+                  for (name, _), (a, _) in calls.items()}
+        if rank == 0:
+            torch.save({key: (tuple(t.cpu() if torch.is_tensor(t) else t
+                                    for t in a), k)
+                        for key, (a, k) in calls.items()},
+                       os.path.join(tmp, "calls.pt"))
+        losses, step_secs = res["losses"], tr.step_seconds
+        del tr, res, calls
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"losses": losses, "train_secs": secs, "step_secs": step_secs,
+            "launches": launches, "call_shapes": shapes}
+
+
+def tp_serve_cfg():
+    """6h's Zamba2 (relu_linear) in fp32 for 6i's serve check: a bf16
+    Zamba2's logits move by ~5e-2 of max|logit| under any reordering of
+    its sums (6c: the kernels against the plain scans, 3.8e-2 - 5.3e-2),
+    so the split is held in fp32 (``TP_SERVE_TOL``)."""
+    from repro_torch.configs import get_arch
+    return get_arch("zamba2-1.2b").scaled(
+        attn_backend="relu_linear", param_dtype="float32",
+        compute_dtype="float32", kv_dtype="float32")
+
+
+def tp_serve_run(ref, mesh, wrappers):
+    """The sharded prefill of ``ref``'s prompts and a decode step on each
+    of its tokens on ``mesh``, in fp32 (``tp_serve_cfg``) from 6h's
+    params: -> (each step's logits block on the host, the prefill's
+    launches, its seconds)."""
+    import torch
+    from repro_torch.common.tree import tree_map
+    from repro_torch.distributed.partition import (
+        make_ctx, match_partition_rules, shard_tree)
+    from repro_torch.distributed.rules import CACHE_RULES, LM_RULES
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model
+    model = build_model(tp_serve_cfg())
+    ctx = make_ctx(mesh, {"sp": ("model",)})
+    params = tree_map(lambda t: t.to("cuda", torch.float32), ref["params"])
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    blocks = shard_tree(params, specs, mesh)
+    del params
+    tokens = ref["tokens"].to("cuda")
+    B, S = tokens.shape
+    c_specs = match_partition_rules(
+        CACHE_RULES, model.init_caches(B, S + len(ref["toks"]), "meta"), ctx)
+    prefill = make_prefill_step(model, ctx=ctx, specs=specs,
+                                cache_specs=c_specs)
+    serve = make_serve_step(model, ctx=ctx, specs=specs,
+                            cache_specs=c_specs)
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    logits, caches = prefill(blocks, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in wrappers.items()}
+    out = [logits.cpu()]
+    for t, tok in enumerate(ref["toks"]):
+        logits, caches = serve(blocks, caches, tok.to("cuda"), S + t)
+        out.append(logits.cpu())
+    del blocks, caches, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches, pre_s
+
+
+def tp_serve_ref(serve_ref, wrappers, card):
+    """The fp32 (1, 1) sharded steps on 6h's params, prompts and tokens,
+    on a world of one NCCL rank in this process, as 6h's: -> each step's
+    logits, the reference of ``[tp serve zamba2 1x2]``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda")
+        out, _, secs = tp_serve_run(serve_ref, mesh, wrappers)
+    finally:
+        dist.destroy_process_group()
+    print(f"[tp serve zamba2 1x1] the fp32 reference: 6h's params in fp32, "
+          f"the first {TP_PROMPT} tokens of its "
+          f"{tuple(serve_ref['tokens'].shape[:1])} prompts and "
+          f"{len(serve_ref['toks'])} tokens through the (1, 1) sharded "
+          f"steps (prefill {secs:.3f} s) [{card}]")
+    return out
+
+
+def tp_serve(rank, spec, wrappers, mesh, tmp) -> dict:
+    """``[tp serve zamba2 1x2]`` on the rank: ``tp_serve_run`` on the
+    (1, 2) mesh, each logits block against the parent's fp32 (1, 1)
+    steps' (``tp_serve_ref``) cut to the rank's vocab block."""
+    import torch
+    from repro_torch.distributed import collectives as C
+    ref = torch.load(os.path.join(tmp, "serve.pt"), weights_only=False)
+    out, launches, pre_s = tp_serve_run(ref, mesh, wrappers)
+    i = C.axis_index("model", mesh)
+    errs = []
+    for want, got in zip(ref["logits"], out):
+        v = got.shape[1]
+        v0 = i * v if v < want.shape[1] else 0
+        errs.append([float((want[:, v0:v0 + v] - got).abs().max())
+                     / float(want.abs().max()), list(got.shape)])
+    return {"serve_errs": errs, "serve_launches": launches,
+            "prefill_s": pre_s}
+
+
+def tp_phase(seed, wrappers, max_err, card, ref, serve_ref) -> dict:
+    """``[tp ...]`` (see the module docstring, 6i): the prediction, then
+    two ranks (``--tp-rank``) on the card on gloo, their gates, and
+    ``[tp kernel]`` on rank 0's scan inputs in this process.  ``ref``:
+    6f's losses; ``serve_ref``: 6h's Zamba2 serving (its params, prompts
+    and tokens).  -> the ranks' launches on their driven runs
+    (the train steps, the Trainer run, the sharded prefill)."""
+    import shutil
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"[tp] before the ranks: mem_get_info free {free} of {total} B "
+          f"({free / 2**30:.3f} / {total / 2**30:.3f} GiB) [{card}]")
+    batch = TRAIN_BATCH
+    while True:
+        pred = tp_predict(card, batch)
+        need = 2 * (pred["args"] + pred["temp"] + TP_DATASET + TP_CONTEXT)
+        print(f"[tp predict zamba2 1x2] B = {batch}: two ranks need about "
+              f"{need / 2**30:.3f} GiB (each its predicted peak, the "
+              f"synthetic data's {TP_DATASET / 2**30:.3f} GiB and a "
+              f"{TP_CONTEXT / 2**30:.0f} GiB context) of {free / 2**30:.3f} "
+              f"GiB free [{card}]")
+        if need <= 0.9 * free or batch == 1:
+            break
+        batch //= 2
+        print(f"[tp] halving B to {batch}: B = {batch * 2} does not fit")
+    serve_ref = dict(serve_ref, tokens=serve_ref["tokens"][:, :TP_PROMPT])
+    serve_ref["logits"] = tp_serve_ref(serve_ref, wrappers, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump({"seed": seed, "batch": batch}, f)
+        torch.save(serve_ref, os.path.join(tmp, "serve.pt"))
+        # each rank's output to a file: a rank blocked on a full pipe
+        # would stall the other in a collective
+        logs = [os.path.join(tmp, f"rank{r}.log") for r in range(2)]
+        procs = []
+        try:
+            for r in range(2):
+                with open(logs[r], "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         "--tp-rank", str(r), "--tp-dir", tmp],
+                        stdout=f, stderr=subprocess.STDOUT))
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            if p.returncode != 0:
+                with open(logs[r]) as f:
+                    raise AssertionError(f"[tp] rank {r} exited "
+                                         f"{p.returncode}: "
+                                         f"{f.read()[-4000:]}")
+        ranks = [json.load(open(os.path.join(tmp, f"rank{r}.json")))
+                 for r in range(2)]
+        calls = torch.load(os.path.join(tmp, "calls.pt"),
+                           weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = tp_gates(ranks, pred, batch, wrappers, ref, card)
+    tp_kernels(calls, wrappers, max_err, card)
+    print(f"[tp] phase in {time.perf_counter() - t0:.1f} s [{card}]")
     return launches
+
+
+def tp_gates(ranks, pred, batch, wrappers, ref, card) -> dict:
+    """6i's gates on both ranks' numbers (see the module docstring) ->
+    the launches of their driven runs, summed."""
+    per_step = {"relu_attn_causal": 12, "ssd_chunked": 76}
+    pred_peak = pred["args"] + pred["temp"]
+    launches = dict.fromkeys(wrappers, 0)
+    for o in ranks:
+        r = o["rank"]
+        tag = f"tp zamba2 1x2 rank {r}"
+        want_check = dict.fromkeys(wrappers, 0) | {
+            k: v * TP_CHECK_STEPS for k, v in per_step.items()}
+        want_train = dict.fromkeys(wrappers, 0) | {
+            k: v * TP_STEPS for k, v in per_step.items()}
+        want_serve = dict.fromkeys(wrappers, 0) | {
+            "relu_attn_causal": 6, "ssd_chunked": 38}
+        losses = o["losses"]
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref["losses"])]
+        tok_s = statistics.median(batch * TRAIN_SEQ / s
+                                  for s in o["step_secs"])
+        print(f"[{tag}] Trainer(mesh=(1, 2), device cuda:0) on gloo, B = "
+              f"{batch}, S = {TRAIN_SEQ}: {TP_STEPS} steps in "
+              f"{o['train_secs']:.3f} s; tokens/s per step median "
+              f"{tok_s:.1f} (two ranks sharing one card: no speed); "
+              f"losses against 6f's steps 0..{TP_STEPS - 1}: "
+              + " ".join(f"{a:.6f}/{b:.6f}" for a, b in
+                         zip(losses, ref["losses"]))
+              + f"; relative {' '.join(f'{x:.3e}' for x in rel)}; "
+              f"launches {o['launches']} [{card}]")
+        ratio = o["peak"] / pred_peak
+        print(f"[{tag}] memory: argument bytes requested {o['args']} "
+              f"(predicted {pred['args']}, {o['args'] - pred['args']:+d} B "
+              f"over {pred['n_args']} tensors); peak allocated over steps "
+              f"after the first {o['peak']} B = {o['peak'] / 2**30:.3f} "
+              f"GiB (predicted {pred_peak} B: measured / predicted "
+              f"{ratio:.4f}); {TP_CHECK_STEPS} steps {o['check_secs']} s, "
+              f"losses {o['check_losses']}; blocks of LM_RULES' shapes "
+              f"{o['shapes_ok']} ({o['split_leaves']} of {o['n_leaves']} "
+              f"leaves split); the param leaves loss_terms is handed: "
+              f"{o['model_split']} split over model, each handed beyond "
+              f"its model block by {o['model_beyond']} B in all (gathered "
+              f"over model); scan calls {o['call_shapes']} [{card}]")
+        errs = o["serve_errs"]
+        print(f"[{tag}] serve fp32: sharded prefill of 6h's prompts in "
+              f"{o['prefill_s']:.3f} s (launches {o['serve_launches']}); "
+              f"logits block {errs[0][1]} against the (1, 1) steps': "
+              f"|d| / max|logit| prefill {errs[0][0]:.3e}, decode "
+              + " ".join(f"{e:.3e}" for e, _ in errs[1:])
+              + f" (gate {TP_SERVE_TOL}) [{card}]")
+        if len(losses) != TP_STEPS or rel[0] > TP_LOSS_TOL:
+            raise AssertionError(f"[{tag}] step 1's loss off 6f's by "
+                                 f"{rel[0]} (or {len(losses)} steps)")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"[{tag}] non-finite loss {losses}")
+        for got, want, what in ((o["check_launches"], want_check, "steps"),
+                                (o["launches"], want_train, "Trainer"),
+                                (o["serve_launches"], want_serve,
+                                 "prefill")):
+            if got != want:
+                raise AssertionError(f"[{tag}] {what} launched {got}, "
+                                     f"expected {want}")
+        for name, heads in TP_HEADS.items():
+            shape = o["call_shapes"][name][0]
+            if shape[0] != batch * heads:
+                raise AssertionError(f"[{tag}] {name} ran at {shape}, not "
+                                     f"{batch} x {heads} heads")
+        if abs(o["args"] - pred["args"]) > DRYRUN_ALLOC * pred["n_args"]:
+            raise AssertionError(f"[{tag}] argument bytes {o['args']} vs "
+                                 f"the prediction {pred['args']}")
+        if not TP_PEAK_RANGE[0] <= ratio <= TP_PEAK_RANGE[1]:
+            raise AssertionError(f"[{tag}] peak / prediction {ratio:.4f} "
+                                 f"outside {TP_PEAK_RANGE}")
+        if not o["shapes_ok"] or o["model_over"] or not o["model_split"]:
+            raise AssertionError(f"[{tag}] blocks off LM_RULES' shapes, or "
+                                 f"leaves gathered over model "
+                                 f"{o['model_over']} ({o['model_split']} "
+                                 f"split)")
+        if max(e for e, _ in errs) > TP_SERVE_TOL:
+            raise AssertionError(f"[{tag}] serve logits off (1, 1)'s by "
+                                 f"{max(e for e, _ in errs):.3e}, above "
+                                 f"{TP_SERVE_TOL}")
+        for k in wrappers:
+            launches[k] += (o["check_launches"][k] + o["launches"][k]
+                            + o["serve_launches"][k])
+    return launches
+
+
+def tp_kernels(calls, wrappers, max_err, card) -> None:
+    """``[tp kernel]``: each scan's call of rank 0's probed step at the
+    rank's heads, held against its plain version (``measure``: 6f's
+    bound) and timed beside the same call at the full head count (its
+    inputs twice)."""
+    import torch
+    for (name, _), (a, k) in sorted(calls.items()):
+        a = tuple(t.to("cuda") if torch.is_tensor(t) else t for t in a)
+        full = tuple(torch.cat([t, t]) if torch.is_tensor(t) else t
+                     for t in a)
+        case = lm_scan_case(name, a, k, f"tp rank heads "
+                            f"{tuple(a[0].shape)} {str(a[0].dtype)[6:]}")
+        err, ref_max, *times = measure(case, False, 5, 3)
+        max_err[name] = max(max_err[name], err)
+        kernel_line("tp kernel", case, "", err, ref_max, *times)
+        fcase = lm_scan_case(name, full, k, f"tp full heads "
+                             f"{tuple(full[0].shape)} {str(a[0].dtype)[6:]}")
+        ferr, fmax, *ftimes = measure(fcase, False, 5, 3)
+        print(f"[tp kernel] {name}: {times[0]:.4f} ms a call at the rank's "
+              f"{tuple(a[0].shape)}, {ftimes[0]:.4f} ms at the full head "
+              f"count {tuple(full[0].shape)} (ratio "
+              f"{times[0] / ftimes[0]:.3f}; max|d| there {ferr:.3e}, max|ref| "
+              f"{fmax:.3e}) [{card}]")
+        del a, full
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tp-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)    # one rank of 6i's world
+    ap.add_argument("--tp-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -6045,6 +6581,8 @@ def main() -> int:
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         return fail(f"the port's package is not at {SRC}/repro_torch")
     sys.path.insert(0, SRC)
+    if args.tp_rank is not None:
+        return tp_rank(args.tp_rank, args.tp_dir)
     import numpy as np
 
     from repro_torch.core.efficientvit import B1, B2, B3, init_efficientvit
@@ -6287,7 +6825,13 @@ def main() -> int:
 
     # -- 6h. [dryrun]: the dry-run's prediction and the sharded serving --
     stamp("section 6h", t_start)
-    launches_dryrun = dryrun_phase(args.seed, wrappers, card)
+    launches_dryrun, serve_ref = dryrun_phase(args.seed, wrappers, card)
+
+    # -- 6i. [tp]: Zamba2-1.2B on a (1, 2) mesh, two ranks on the card --
+    stamp("section 6i", t_start)
+    launches_tp = tp_phase(args.seed, wrappers, max_err, card, train_ref,
+                           serve_ref)
+    del serve_ref
 
     # -- 7. the kernels line --------------------------------------------
     stamp("section 7", t_start)
@@ -6305,7 +6849,8 @@ def main() -> int:
                          + launches_se["fix8"][name] + launches_lib[name]
                          + launches_lm[name] + launches_lm_softmax[name]
                          + launches_lm_moe[name] + launches_train[name]
-                         + launches_dist[name] + launches_dryrun[name]),
+                         + launches_dist[name] + launches_dryrun[name]
+                         + launches_tp[name]),
             "max_abs_err": max_err[name], "ms": acc["ms"],
             "plain_ms": acc["plain_ms"], "bound_ms": acc["bound_ms"],
             "bound_by": ("bytes" if acc["bytes_s"] >= acc["ops_s"]

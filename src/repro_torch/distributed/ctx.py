@@ -10,9 +10,9 @@ layer runs unchanged on one device.
 JAX runs GSPMD from one controller, and ``shard`` there constrains a
 global array's layout.  The port runs one process per rank on the rank's
 own blocks (explicit SPMD), so ``shard`` checks the annotation's rank and
-returns its local tensor unchanged: the port's dense layers run
-replicated over ``model`` (GSPMD's split of heads and ``d_ff`` is ROADMAP
-A8i).
+returns its local tensor unchanged: the layers split their work over
+``model`` themselves (``distributed/tp.py``: GSPMD's split of the heads,
+``d_ff`` and the vocab, where JAX's annotations put it).
 
 The port keeps its own :class:`PartitionSpec`, whose ``str()`` reads as
 JAX's (``PartitionSpec('data', 'model')``), and its own

@@ -26,10 +26,11 @@ JAX's keys where the meaning carries: ``memory`` has
 ``argument_size_in_bytes``; ``hlo_cost`` is ``cost`` (without
 ``n_while`` / ``unknown_loops``: eager torch runs every loop); JAX's
 ``xla_cost`` has no counterpart.  The numbers are computed for a 256- or
-512-H100 mesh, not measured.  The port's dense layers are replicated
-over ``model`` (GSPMD's split of heads and d_ff is ROADMAP A8i), so a
-rank holds the dense params whole during a step: per-rank bytes exceed
-JAX's in many cells.
+512-H100 mesh, not measured.  The port's dense layers split over
+``model`` as GSPMD's (``distributed/tp.py``), but a step gathers each
+dense param whole over ``data`` at its start (``_gather_dense``, where
+GSPMD gathers layer by layer), so per-rank bytes exceed JAX's in some
+cells.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --list
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch granite-3-2b \\
@@ -346,8 +347,8 @@ def summarize(out_dir: str = ARTIFACT_DIR) -> dict:
     step does not fit the card (``fits_hbm`` false) split by whether the
     rank's blocks alone (the arguments, what JAX's specs give a device)
     fit: where they do, the port's own peak (the dense params gathered
-    whole, the full caches of the rank's rows; ROADMAP A8i) is what does
-    not fit.  Printed and returned."""
+    over ``data`` for the whole step, the activations; ROADMAP C) is
+    what does not fit.  Printed and returned."""
     recs = []
     for name in sorted(os.listdir(out_dir)):
         if name.endswith(".json"):

@@ -9,18 +9,22 @@ tensors (params and state in, new params and state out), as JAX's.
 With a ``ShardingCtx`` the train step is JAX's GSPMD step in explicit
 SPMD, one process per rank: params and AdamW state are the rank's
 blocks of their specs; the batch is the rank's ``dp`` slice.  The step
-gathers the dense params (the expert weights stay the rank's blocks:
-the MoE layers move them inside, ``layers/moe.py``), runs the loss
-under ``use_sharding``, and weights the rank's objective so that the
-sum over every rank is the global loss: the cross-entropy sum over the
-GLOBAL token count (a masked batch too), shared by the ``model`` ranks
-that computed it (1/ep each), and the (replicated) aux loss shared by
-every rank.  The collectives' backward is the gradient of that sum.  So
-a gathered leaf's gradient summed over the mesh is the global one (for
-the dense layers: summed over ``dp``, one ``model`` rank's) and is cut
-to the rank's block; an expert block's comes back from the collectives
-summed over the ranks that split it, and is summed over the axes that
-hold it replicated.  The clip's norm sums each element's square once (a
+gathers each dense param over its data axes only (``_gather_dense``:
+the ``fsdp`` dim; a dim split over ``model`` stays the rank's block,
+and the layers compute on it, ``distributed/tp.py``; the expert weights
+stay the rank's blocks whole: the MoE layers move them inside,
+``layers/moe.py``), runs the loss under ``use_sharding``, and weights
+the rank's objective so that the sum over every rank is the global
+loss: the cross-entropy sum over the GLOBAL token count (a masked batch
+too), which every ``model`` rank holds once its vocab-parallel terms
+are summed (1/ep each), and the (replicated) aux loss shared by every
+rank.  The collectives' backward is the gradient of that sum.  So a
+gathered leaf's gradient summed over the ranks that hold the same
+gathered tensor (every axis but the ``model`` axes that split it) is
+the global one and is cut to the rank's block along the gathered dims;
+an expert block's comes back from the collectives summed over the
+ranks that split it, and is summed over the axes that hold it
+replicated.  The clip's norm sums each element's square once (a
 block's over its replicas, 1/replicas each), and AdamW updates the
 blocks.  ``sharded_value_and_grad`` is the step's gradient alone.
 With ``grad_accum > 1`` the batch is the rank's rows of each global
@@ -30,8 +34,10 @@ all-to-all in the step, gives each rank its share of every microbatch.
 
 With a ``ShardingCtx`` the prefill and serve steps are JAX's prefill
 and decode cells in explicit SPMD: the rank's param blocks (the dense
-ones gathered), its ``dp`` rows and its ``CACHE_RULES`` cache blocks;
-each returns the rank's block of the logits under (``dp``, ``vocab``).
+ones gathered over their data axes, as the train step's), its ``dp``
+rows and its ``CACHE_RULES`` cache blocks; each returns the rank's
+block of the logits under (``dp``, ``vocab``), which the vocab-parallel
+head computes.
 """
 from __future__ import annotations
 
@@ -44,12 +50,14 @@ from repro_torch.distributed import collectives
 from repro_torch.distributed.ctx import (
     PartitionSpec, ShardingCtx, mesh_axes, use_sharding)
 from repro_torch.distributed.partition import (
-    gather_leaf, local_block, replication, resolve_param_spec)
+    gather_leaf, local_block, replication)
+from repro_torch.distributed.tp import DATA_AXES
 from repro_torch.layers.moe import EXPERT_LEAF
 from repro_torch.models.registry import Model
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
 __all__ = ["default_opt_cfg", "value_and_grad", "sharded_value_and_grad",
+           "data_spec",
            "make_train_step",
            "make_serve_step", "make_prefill_step", "init_train_state"]
 
@@ -135,12 +143,27 @@ def _microbatches(batch, grad_accum: int):
         (grad_accum, x.shape[0] // grad_accum) + tuple(x.shape[1:])), batch)
 
 
+def data_spec(spec: PartitionSpec) -> PartitionSpec:
+    """``spec`` with only its data axes (``tp.DATA_AXES``): the split
+    that ``_gather_dense`` undoes."""
+    def keep(d):
+        axes = tuple(a for a in spec.axes(d) if a in DATA_AXES)
+        if axes and len(axes) != len(spec.axes(d)):
+            raise ValueError(f"dim {d} of {spec} mixes data and other "
+                             f"axes")
+        return axes[0] if len(axes) == 1 else (axes or None)
+
+    return PartitionSpec(*(keep(d) for d in range(len(spec))))
+
+
 def _gather_dense(params, specs, local, mesh):
-    """The params whole, the expert blocks (``local``) kept as they are
-    (the MoE layers move them inside)."""
+    """Each dense param gathered over its data axes (``data_spec``), a
+    dim split over ``model`` kept as the rank's block; the expert blocks
+    (``local``) kept as they are (the MoE layers move them inside)."""
     with torch.no_grad():
         return tree_map(lambda x, s, keep: x if keep else
-                        gather_leaf(x, s, mesh), params, specs, local)
+                        gather_leaf(x, data_spec(s), mesh), params, specs,
+                        local)
 
 
 def sharded_value_and_grad(model: Model, ctx: ShardingCtx, specs,
@@ -174,15 +197,19 @@ def sharded_value_and_grad(model: Model, ctx: ShardingCtx, specs,
 
     @torch.no_grad()
     def reduce(g, s, keep):
-        if keep:    # a block already: summed over the ranks holding it
-            axes = tuple(a for a in split
-                         if all(a not in s.axes(d) for d in range(len(s))))
-            return (collectives.psum(g.float(), axes, mesh).to(g.dtype)
-                    if axes else g)
-        if not split:
+        """A leaf's gradient summed over the ranks that hold the same
+        tensor (an expert block: every axis that does not split it; a
+        gathered leaf: every axis but its ``model`` split) and cut to
+        the rank's block along the gathered dims."""
+        held = {a for d in range(len(s)) for a in s.axes(d)}
+        if not keep:
+            held -= set(DATA_AXES)
+        axes = tuple(a for a in split if a not in held)
+        if axes:
+            g = collectives.psum(g.float(), axes, mesh).to(g.dtype)
+        if keep:
             return g
-        return local_block(collectives.psum(g.float(), split, mesh), s,
-                           mesh).to(g.dtype)
+        return local_block(g, data_spec(s), mesh)
 
     def norm(grads):
         sq = sum(torch.sum(torch.square(g.float())) / r
@@ -228,47 +255,18 @@ def _sharded_train_step(model: Model, opt_cfg: AdamWConfig,
     return train_step
 
 
-def _rows_local(spec, dp_axes) -> PartitionSpec:
-    """``spec`` with the data-parallel axes taken out: a tensor computed
-    on the rank's rows is already cut along them."""
-    return PartitionSpec(*(None if set(spec.axes(d)) & set(dp_axes)
-                           else spec[d] for d in range(len(spec))))
-
-
-def _blocks(tree, specs, ctx: ShardingCtx):
-    """Each leaf of ``tree`` (computed on the rank's rows) cut to the
-    rank's block under its spec (a copy where it is cut, so the whole
-    leaf can be freed)."""
-    dp_axes = tuple(a for a in ("pod", "data") if a in mesh_axes(ctx.mesh))
-
-    def cut(x, s):
-        b = local_block(x, _rows_local(s, dp_axes), ctx.mesh)
-        return b if b.numel() == x.numel() else b.clone()
-
-    return tree_map(cut, tree, specs)
-
-
-def _logits_block(logits, ctx: ShardingCtx):
-    """The rank's block of its rows' logits under JAX's out sharding,
-    (``dp``, ``vocab``): the vocab dim cut where ``vocab``'s axes divide
-    it."""
-    return _blocks(logits, resolve_param_spec(ctx, ("dp", "vocab"),
-                                              tuple(logits.shape)), ctx)
-
-
 def make_prefill_step(model: Model, *, ctx: ShardingCtx = None, specs=None,
                       cache_specs=None):
     """-> ``prefill_step(params, batch)`` = ``model.prefill``.  With
     ``ctx`` it is JAX's prefill cell in explicit SPMD: ``params`` are the
     rank's ``LM_RULES`` blocks (``specs``), ``batch`` the rank's ``dp``
-    rows.  The dense params are gathered (the expert weights stay
-    blocks), the prefill runs under
-    ``use_sharding``, and it returns the rank's block of the logits
-    under (``dp``, ``vocab``) and each cache leaf cut to the rank's block
-    under ``cache_specs`` (``CACHE_RULES`` on the global cache tree; the
-    whole caches of the rank's rows are computed first: the dense layers
-    are replicated over ``model``, ROADMAP C).  Enc-dec prefill returns
-    the state alone, cut the same way."""
+    rows.  The dense params are gathered over their data axes (the
+    expert weights stay blocks), the prefill runs under ``use_sharding``
+    with ``cache_specs`` (``CACHE_RULES`` on the global cache tree), and
+    it returns the rank's block of the logits under (``dp``, ``vocab``)
+    and of each cache leaf: a layer computes its heads' caches under the
+    split and cuts only what is still whole (``distributed/tp.py``).
+    Enc-dec prefill returns the state alone, the same way."""
     if ctx is None:
         def prefill_step(params, batch):
             return model.prefill(params, batch)
@@ -282,12 +280,9 @@ def make_prefill_step(model: Model, *, ctx: ShardingCtx = None, specs=None,
     def prefill_step(params, batch):
         full = _gather_dense(params, specs, local, ctx.mesh)
         with use_sharding(ctx):
-            out = model.prefill(full, batch)
+            out = model.prefill(full, batch, specs=cache_specs)
         del full
-        if model.cfg.family == "encdec":
-            return _blocks(out, cache_specs, ctx)
-        logits, caches = out
-        return _logits_block(logits, ctx), _blocks(caches, cache_specs, ctx)
+        return out
 
     return prefill_step
 
@@ -297,7 +292,8 @@ def make_serve_step(model: Model, *, ctx: ShardingCtx = None, specs=None,
     """-> ``serve_step(params, caches, tokens, pos)`` = one
     ``model.decode`` step.  With ``ctx`` it is JAX's decode cell in
     explicit SPMD: the rank's ``LM_RULES`` param blocks (``specs``; the
-    dense params gathered), the rank's ``dp`` rows of a global batch of
+    dense params gathered over their data axes), the rank's ``dp`` rows
+    of a global batch of
     ``batch`` rows (``pos`` one position or the rank's rows'), and each
     cache the rank's ``CACHE_RULES`` block (``cache_specs``), updated in
     place of the whole: a sequence-split KV cache's softmax is combined
@@ -321,7 +317,7 @@ def make_serve_step(model: Model, *, ctx: ShardingCtx = None, specs=None,
             logits, caches = model.decode(full, caches, tokens, pos,
                                           specs=cache_specs)
         del full
-        return _logits_block(logits, ctx), caches
+        return logits, caches
 
     return serve_step
 

@@ -40,6 +40,16 @@ the rank's KV heads: the rank attends with their query groups and the
 heads are all-gathered for the output projection.  relu_linear states
 split over heads the same way.  No whole cache is ever gathered.
 
+Tensor parallelism (``distributed/tp.py``): under a context whose
+``model`` axis splits them, ``wq`` / ``wk`` / ``wv`` / ``wqkv`` are the
+rank's columns and ``wo`` its rows.  The backends run on the rank's
+flat heads under JAX's ``heads`` annotation (``_head_block``: zero
+heads padded up to ``pad_heads_to``, every head where ``model``
+divides neither count); q, k and v are taken from the rank's columns
+where they hold the rank's heads and gathered where not (GQA kv heads
+off the split, 1.5 heads a rank, the fused ``wqkv``), and the output
+reaches ``wo``'s rows the same way (``_wo``, a row-parallel product).
+
 Layout: prefill computes in flat-head (B, S, H, Dh) layout with K/V
 repeated to full heads; the caches keep the compact GQA layout.
 """
@@ -50,13 +60,17 @@ import dataclasses
 import torch
 
 from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.tp import (
+    Block, held_block, model_axes, param_block, spec_block, take, to_spec,
+    whole)
 from repro_torch.kernels.relu_attn.ops import relu_linear_attention
 from repro_torch.layers.flash import flash_attention
-from repro_torch.layers.linear import init_linear, linear
+from repro_torch.layers.linear import init_linear, linear, row_linear
 from repro_torch.layers.rope import apply_rope
 
 __all__ = ["AttnConfig", "init_attention", "attention", "attention_decode",
            "init_kv_cache", "relu_linear_state", "cross_attention",
+           "cross_kv",
            "softmax_attention", "sliding_attention", "to_cache_dtype",
            "block_softmax", "RELU_CHUNK", "EPS", "NEG_INF"]
 
@@ -117,21 +131,34 @@ def init_attention(generator: torch.Generator, cfg: AttnConfig,
     }
 
 
-def _raw_qkv(params, x, cfg: AttnConfig):
-    """x (B, S, D) -> q (B, S, H, Dh), k, v (B, S, KV, Dh), pre-RoPE."""
-    B, S, _ = x.shape
+def _qkv_blocks(params, x, cfg: AttnConfig, names=("q", "k", "v")):
+    """x (B, S, D) -> {name: (the product's columns the rank holds,
+    (B, S, cols), their ``tp.Block`` of q_dim or kv_dim)}.  A fused
+    ``wqkv`` block is a contiguous block of ``[q | k | v]``, not a block
+    of each: its product is gathered whole first."""
+    D, qd, kd = cfg.d_model, cfg.q_dim, cfg.kv_dim
     if "wqkv" in params:
-        qkv = linear(params["wqkv"], x)
-        q = qkv[..., : cfg.q_dim]
-        k = qkv[..., cfg.q_dim: cfg.q_dim + cfg.kv_dim]
-        v = qkv[..., cfg.q_dim + cfg.kv_dim:]
-    else:
-        q = linear(params["wq"], x)
-        k = linear(params["wk"], x)
-        v = linear(params["wv"], x)
-    return (q.reshape(B, S, cfg.n_heads, cfg.head_dim),
-            k.reshape(B, S, cfg.n_kv, cfg.head_dim),
-            v.reshape(B, S, cfg.n_kv, cfg.head_dim))
+        n = qd + 2 * kd
+        y = take(linear(params["wqkv"], x), -1,
+                 param_block(("fsdp", "tp"), (D, n)), whole(n))
+        out = {"q": (y[..., :qd], whole(qd)),
+               "k": (y[..., qd:qd + kd], whole(kd)),
+               "v": (y[..., qd + kd:], whole(kd))}
+        return {k: out[k] for k in names}
+    return {k: (linear(params["w" + k], x),
+                param_block(("fsdp", "tp"), (D, qd if k == "q" else kd)))
+            for k in names}
+
+
+def _heads_of(proj, heads: Block, head_dim: int):
+    """The heads ``heads`` (a ``tp.Block`` of heads) of a
+    ``_qkv_blocks`` entry -> (B, S, their count, Dh)."""
+    t, blk = proj
+    n = heads.stop - heads.start
+    t = take(t, -1, blk, Block(heads.size * head_dim,
+                               heads.start * head_dim,
+                               heads.stop * head_dim, heads.axes))
+    return t.reshape(t.shape[:2] + (n, head_dim))
 
 
 def _repeat_kv(k, groups: int):
@@ -141,13 +168,75 @@ def _repeat_kv(k, groups: int):
     return torch.repeat_interleave(k, groups, dim=2)
 
 
-def _project_qkv(params, x, cfg: AttnConfig, positions):
-    """x: (B, S, D) -> q (B, S, H, Dh); k, v (B, S, KV, Dh); q and k
-    rotated at ``positions`` ((S,) or (B, S))."""
-    q, k, v = _raw_qkv(params, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    return q, k, v
+def _head_block(cfg: AttnConfig) -> Block:
+    """The rank's range of the flat heads, zero-padded to
+    ``pad_heads_to`` where ``model`` splits, under JAX's ``heads``
+    annotation (divisibility-aware: every head where ``model`` divides
+    neither count); every head on one device."""
+    H = cfg.n_heads
+    Hp = max(H, cfg.pad_heads_to) if model_axes() else H
+    return param_block(("heads",), (Hp,))
+
+
+def _real(hb: Block, cfg: AttnConfig) -> tuple:
+    """The real (unpadded) heads [h0, hr) of the rank's range ``hb``."""
+    return hb.start, max(hb.start, min(hb.stop, cfg.n_heads))
+
+
+def _q_heads(hb: Block, cfg: AttnConfig) -> Block:
+    """The real q heads of ``hb`` as a Block of the ``n_heads`` (an even
+    split where nothing is padded)."""
+    if hb.size == cfg.n_heads:
+        return hb
+    return Block(cfg.n_heads, *_real(hb, cfg))
+
+
+def _kv_heads(hb: Block, cfg: AttnConfig) -> Block:
+    """The kv heads that the real heads of ``hb`` use, as a Block of the
+    ``n_kv``: an even split over ``hb``'s axes where the unpadded heads
+    split and their split divides ``n_kv``."""
+    g = cfg.n_heads // cfg.n_kv
+    h0, hr = _real(hb, cfg)
+    kv0, kv1 = (h0 // g, (hr - 1) // g + 1) if hr > h0 else (0, 0)
+    n = (hb.size // (hb.stop - hb.start)) if hb.axes else 1
+    aligned = hb.axes and hb.size == cfg.n_heads and cfg.n_kv % n == 0
+    return Block(cfg.n_kv, kv0, kv1, hb.axes if aligned else ())
+
+
+def _rank_heads(q, k, v, hb: Block, cfg: AttnConfig):
+    """The rank's flat heads ``hb`` (padded): q (B, S, the real heads of
+    hb, Dh), k, v the kv heads they use (``_kv_heads``) -> q, kh, vh (B,
+    S, hb's heads, Dh), each q head beside its kv head (``h // g``, as
+    ``_repeat_kv``), the padding heads zeros (JAX's: they change no
+    output and are dropped before ``wo``)."""
+    g = cfg.n_heads // cfg.n_kv
+    h0, hr = _real(hb, cfg)
+    if (h0, hr) == (0, cfg.n_heads):
+        kh, vh = _repeat_kv(k, g), _repeat_kv(v, g)
+    else:
+        idx = torch.arange(h0, hr, device=k.device) // g - h0 // g
+        kh, vh = k.index_select(2, idx), v.index_select(2, idx)
+    npad = (hb.stop - hb.start) - (hr - h0)
+    if npad:
+        def pad(t):
+            return torch.cat([t, t.new_zeros(t.shape[:2] + (
+                npad, t.shape[3]))], 2)
+        q, kh, vh = pad(q), pad(kh), pad(vh)
+    return q, kh, vh
+
+
+def _wo(params, out, hb: Block, cfg: AttnConfig, dtype):
+    """The attention output on the rank's heads ``hb`` (B, S, heads, Dh)
+    -> ``wo``: the padding dropped and the rows of ``wo``'s block taken
+    (a gather of the heads where they are not that block), then the
+    row-parallel product."""
+    B, S = out.shape[:2]
+    Dh = cfg.head_dim
+    rows = param_block(("tp", "fsdp"), (cfg.q_dim, cfg.d_model), dim=0)
+    out = out.reshape(B, S, -1).to(dtype)
+    out = take(out, -1, Block(hb.size * Dh, hb.start * Dh, hb.stop * Dh,
+                              hb.axes), rows)
+    return row_linear(params["wo"], out, rows, cfg.d_model)
 
 
 def relu_linear_state(k, v):
@@ -318,21 +407,53 @@ def _ring(t, S: int, window: int, dtype):
 
 def attention(params, x, cfg: AttnConfig, positions=None, *,
               return_cache: bool = False, cache_dtype=torch.bfloat16,
-              reference: bool = False):
+              reference: bool = False, cache_spec=None):
     """Prefill forward.  x: (B, S, D) -> (B, S, D), and with
     ``return_cache=True`` the decode cache as of the end of the sequence:
     softmax the whole K/V, sliding the ring (``_ring``), both in
     ``cache_dtype``; relu_linear the fp32 state.  ``reference=True`` runs
-    the relu_linear scan's plain version."""
+    the relu_linear scan's plain version.  Under a context whose
+    ``model`` axis splits them the backend runs on the rank's heads
+    (``_head_block``), and ``cache_spec`` (the cache leaves'
+    ``CACHE_RULES`` specs, the rows the rank's) gives the rank's block
+    of each cache leaf."""
     B, S, _ = x.shape
     if cfg.backend not in ("softmax", "sliding", "relu_linear"):
         raise ValueError(f"unknown attention backend {cfg.backend!r}")
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
-    q, k, v = _project_qkv(params, x, cfg, positions)
-    g = cfg.n_heads // cfg.n_kv
+    Dh = cfg.head_dim
+    hb = _head_block(cfg)
+    kvb = _kv_heads(hb, cfg)
+    proj = _qkv_blocks(params, x, cfg)
+    q = apply_rope(_heads_of(proj["q"], _q_heads(hb, cfg), Dh), positions,
+                   cfg.rope_theta)
+    k = apply_rope(_heads_of(proj["k"], kvb, Dh), positions, cfg.rope_theta)
+    v = _heads_of(proj["v"], kvb, Dh)
     cache = None
-    kh, vh = _repeat_kv(k, g), _repeat_kv(v, g)
+    if return_cache:
+        leaf, dim = ("state", 1) if cfg.backend == "relu_linear" else ("k", 2)
+        cb = spec_block(cache_spec and cache_spec[leaf], dim, cfg.n_kv)
+        kc, vc = k, v
+        if hb.axes or cb.axes:      # every rank takes its cache's heads
+            kc = apply_rope(_heads_of(proj["k"], cb, Dh), positions,
+                            cfg.rope_theta)
+            vc = _heads_of(proj["v"], cb, Dh)
+        if cfg.backend == "softmax":
+            cache = {"k": to_cache_dtype(kc, cache_dtype),
+                     "v": to_cache_dtype(vc, cache_dtype)}
+        elif cfg.backend == "sliding":
+            cache = {"k": _ring(kc, S, cfg.window, cache_dtype),
+                     "v": _ring(vc, S, cfg.window, cache_dtype)}
+        elif cfg.causal:
+            cache = dict(zip(("state", "zsum"), relu_linear_state(kc, vc)))
+        if cache is not None and cache_spec is not None:
+            cache = {n: to_spec(t, cache_spec[n], {dim: cb})
+                     for n, t in cache.items()}
+        del kc, vc
+    del proj
+    q, kh, vh = _rank_heads(q, k, v, hb, cfg)
+    del k, v
     if cfg.backend == "softmax":
         if cfg.flash_vjp:
             out = flash_attention(q, kh, vh, positions, positions,
@@ -344,9 +465,6 @@ def attention(params, x, cfg: AttnConfig, positions=None, *,
                                     q_chunk=cfg.q_chunk,
                                     kv_chunk=cfg.kv_chunk,
                                     score_dtype=cfg.score_dtype)
-        if return_cache:
-            cache = {"k": to_cache_dtype(k, cache_dtype),
-                     "v": to_cache_dtype(v, cache_dtype)}
     elif cfg.backend == "sliding":
         if cfg.flash_vjp:
             out = flash_attention(q, kh, vh, positions, positions, True,
@@ -354,35 +472,47 @@ def attention(params, x, cfg: AttnConfig, positions=None, *,
         else:
             out = sliding_attention(q, kh, vh, positions, positions,
                                     window=cfg.window)
-        if return_cache:
-            cache = {"k": _ring(k, S, cfg.window, cache_dtype),
-                     "v": _ring(v, S, cfg.window, cache_dtype)}
     else:
-        if cfg.causal and return_cache:
-            cache = dict(zip(("state", "zsum"), relu_linear_state(k, v)))
         out = relu_linear_attention(q, kh, vh, causal=cfg.causal,
                                     block_n=RELU_CHUNK, reference=reference)
     del q, kh, vh           # freed before the output projection
-    out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
-    y = linear(params["wo"], out)
+    y = _wo(params, out, hb, cfg, x.dtype)
     return (y, cache) if return_cache else y
 
 
 def cross_attention(params, x, memory, cfg: AttnConfig):
     """Encoder-decoder cross attention: queries from x (B, S, D), keys
-    and values from ``memory`` (B, Sm, D), non-causal softmax, no RoPE."""
-    B, S, _ = x.shape
+    and values from ``memory`` (B, Sm, D), non-causal softmax, no RoPE;
+    on the rank's heads, as ``attention``'s."""
+    S = x.shape[1]
     Sm = memory.shape[1]
-    g = cfg.n_heads // cfg.n_kv
-    q, _, _ = _raw_qkv(params, x, cfg)
-    _, k, v = _raw_qkv(params, memory, cfg)
-    kh, vh = _repeat_kv(k, g), _repeat_kv(v, g)
+    Dh = cfg.head_dim
+    hb = _head_block(cfg)
+    kvb = _kv_heads(hb, cfg)
+    q = _heads_of(_qkv_blocks(params, x, cfg, ("q",))["q"],
+                  _q_heads(hb, cfg), Dh)
+    kv = _qkv_blocks(params, memory, cfg, ("k", "v"))
+    q, kh, vh = _rank_heads(q, _heads_of(kv["k"], kvb, Dh),
+                            _heads_of(kv["v"], kvb, Dh), hb, cfg)
+    del kv
     out = softmax_attention(
         q, kh, vh, torch.arange(S, device=x.device),
         torch.arange(Sm, device=x.device), causal=False,
         q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    out = out.reshape(B, S, cfg.q_dim).to(x.dtype)
-    return linear(params["wo"], out)
+    return _wo(params, out, hb, cfg, x.dtype)
+
+
+def cross_kv(params, memory, cfg: AttnConfig, dtype, spec=None):
+    """A decoder layer's cross K/V over ``memory`` (B, Sm, D) in
+    ``dtype``: {"ck", "cv"} (B, Sm, KV, Dh), or the rank's blocks under
+    ``spec`` (their ``CACHE_RULES`` specs)."""
+    cb = spec_block(spec and spec["ck"], 2, cfg.n_kv)
+    kv = _qkv_blocks(params, memory, cfg, ("k", "v"))
+    out = {}
+    for n, src in (("ck", "k"), ("cv", "v")):
+        t = _heads_of(kv[src], cb, cfg.head_dim).to(dtype)
+        out[n] = to_spec(t, spec[n], {2: cb}) if spec is not None else t
+    return out
 
 
 def init_kv_cache(cfg: AttnConfig, batch: int, max_len: int,
@@ -424,13 +554,6 @@ def _write_rows(cache, slot, new):
                        _bits(cache)).view(cache.dtype)
 
 
-def _block_of(spec, dim: int, n: int) -> tuple:
-    """(axes, first index) of the rank's block of ``n`` entries on cache
-    dim ``dim`` under ``spec`` (None: unsharded, ((), 0))."""
-    axes = spec.axes(dim) if spec is not None else ()
-    return axes, (coll.axis_index(axes) * n if axes else 0)
-
-
 def block_softmax(s, cv, seq_axes):
     """Softmax over the keys of ``s`` (..., C) times ``cv`` (B, C, KV,
     Dh), fp32 -> (B, KV, G, Dh).  With ``seq_axes`` the keys are the
@@ -455,43 +578,43 @@ def attention_decode(params, x, cache, pos, cfg: AttnConfig, spec=None):
     its own slot (``pos``; sliding ``pos % length``, a ring) of a copy of
     the cache and attends the keys valid at its position; relu_linear:
     the O(1) recurrent update.  ``spec``: the cache leaves' specs, the
-    cache the rank's blocks (see the module docstring)."""
+    cache the rank's blocks (see the module docstring): the rank
+    projects q, k and v for the cache's kv heads (every head where the
+    cache splits the sequence), and their output reaches ``wo``'s
+    rows."""
     B = x.shape[0]
     g = cfg.n_heads // cfg.n_kv
+    Dh = cfg.head_dim
     positions = decode_positions(pos, B, x.device)
-    q, k, v = _raw_qkv(params, x, cfg)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-    if cfg.backend == "relu_linear":
-        kv = cache["state"].shape[1]
-        head_axes, h0 = _block_of(spec and spec["state"], 1, kv)
-        pq = torch.relu(q.float()).reshape(B, cfg.n_kv, g, cfg.head_dim)
-        pk = torch.relu(k.float()).reshape(B, cfg.n_kv, cfg.head_dim)
-        vf = v.float().reshape(B, cfg.n_kv, cfg.head_dim)
-        if spec is not None:
-            pq, pk, vf = (t.narrow(1, h0, kv) for t in (pq, pk, vf))
+    relu = cfg.backend == "relu_linear"
+    if not relu and cfg.backend not in ("softmax", "sliding"):
+        raise ValueError(f"unknown attention backend {cfg.backend!r}")
+    leaf, dim = ("state", 1) if relu else ("k", 2)
+    kvb = spec_block(spec and spec[leaf], dim, cfg.n_kv)
+    kv = kvb.stop - kvb.start
+    proj = _qkv_blocks(params, x, cfg)
+    heads = Block(cfg.n_heads, kvb.start * g, kvb.stop * g, kvb.axes)
+    q = apply_rope(_heads_of(proj["q"], heads, Dh), positions,
+                   cfg.rope_theta)
+    k = apply_rope(_heads_of(proj["k"], kvb, Dh), positions, cfg.rope_theta)
+    v = _heads_of(proj["v"], kvb, Dh)
+    del proj
+    if relu:
+        pq = torch.relu(q.float()).reshape(B, kv, g, Dh)
+        pk = torch.relu(k.float()).reshape(B, kv, Dh)
+        vf = v.float().reshape(B, kv, Dh)
         state = cache["state"] + torch.einsum("bkd,bke->bkde", pk, vf)
         zsum = cache["zsum"] + pk
         num = torch.einsum("bkgd,bkde->bkge", pq, state)
         den = torch.einsum("bkgd,bkd->bkg", pq, zsum)[..., None]
         out = num / torch.clamp(den, min=EPS)
-        if spec is not None:
-            out = coll.all_gather(out, head_axes, axis=1)
-        out = out.reshape(B, 1, cfg.q_dim)
-        return (linear(params["wo"], out.to(x.dtype)),
-                {"state": state, "zsum": zsum})
-    if cfg.backend not in ("softmax", "sliding"):
-        raise ValueError(f"unknown attention backend {cfg.backend!r}")
-    L, kv = cache["k"].shape[1], cache["k"].shape[2]
-    kspec = spec and spec["k"]
-    seq_axes, off = _block_of(kspec, 1, L)
-    length = L * (coll.axis_size(seq_axes) if seq_axes else 1)
-    head_axes, h0 = _block_of(kspec, 2, kv)
-    qf = q.float().reshape(B, cfg.n_kv, g, cfg.head_dim)
+        return (_wo(params, out.reshape(B, 1, kv * g, Dh), heads, cfg,
+                    x.dtype), {"state": state, "zsum": zsum})
+    L = cache["k"].shape[1]
+    sb = held_block(spec and spec["k"], 1, L)
+    seq_axes, off, length = sb.axes, sb.start, sb.size
+    qf = q.float().reshape(B, kv, g, Dh)
     k, v = k[:, 0], v[:, 0]
-    if spec is not None:
-        qf, k, v = qf.narrow(1, h0, kv), k.narrow(1, h0, kv), \
-            v.narrow(1, h0, kv)
     p = positions[:, 0]
     slot = (p % length if cfg.backend == "sliding" else p) - off
     ck = _write_rows(cache["k"], slot, k)
@@ -504,11 +627,8 @@ def attention_decode(params, x, cache, pos, cfg: AttnConfig, spec=None):
         valid = (kv_pos >= 0) & (kv_pos >= pc - cfg.window + 1)
     else:
         valid = kv_idx <= pc
-    s = torch.einsum("bkgd,bckd->bkgc", qf * cfg.head_dim ** -0.5,
-                     ck.float())
+    s = torch.einsum("bkgd,bckd->bkgc", qf * Dh ** -0.5, ck.float())
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     out = block_softmax(s, cv, seq_axes)
-    if spec is not None:
-        out = coll.all_gather(out, head_axes, axis=1)
-    out = out.reshape(B, 1, cfg.q_dim).to(x.dtype)
-    return linear(params["wo"], out), {"k": ck, "v": cv}
+    return (_wo(params, out.reshape(B, 1, kv * g, Dh), heads, cfg, x.dtype),
+            {"k": ck, "v": cv})

@@ -11,6 +11,14 @@ runs a jnp chunked scan here that also returns the final state; the
 kernel returns y only, so the final state that prefill hands to decode
 is computed here in plain torch (``_final_state``).  Decode is the
 one-step recurrence, in plain torch.
+
+Tensor parallelism (``distributed/tp.py``): under a context whose
+``model`` axis splits them, ``in_proj`` is the rank's columns, whose
+product is gathered whole (a column block of ``z | x | B | C | dt``
+does not follow the heads); the rank convolves its ``conv_w`` channels
+and gathers their output; the scan runs on the rank's heads (JAX's
+``shard(xin, "dp", "sp", "tp", None)``), the gated RMSNorm sums its
+squares over the split, and ``out_proj`` is a row-parallel product.
 """
 from __future__ import annotations
 
@@ -20,9 +28,10 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.tp import (
+    Block, param_block, spec_block, take, to_spec, whole)
 from repro_torch.kernels.ssd.ops import ssd_op
-from repro_torch.layers.linear import init_linear, linear
+from repro_torch.layers.linear import init_linear, linear, row_linear
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 
 __all__ = ["Mamba2Config", "init_mamba2", "mamba2", "init_mamba2_cache",
@@ -96,6 +105,46 @@ def _split_zxbcdt(proj, cfg: Mamba2Config):
             proj[..., 2 * di + 2 * gs:])
 
 
+def _in_proj(params, x, cfg: Mamba2Config):
+    """``in_proj`` -> (z, x | B | C, dt), every column: a contiguous
+    column block of ``z | x | B | C | dt`` does not follow the heads, so
+    the rank's block of the product is gathered whole."""
+    n = 2 * cfg.d_inner + 2 * cfg.n_groups * cfg.d_state + cfg.n_heads
+    proj = take(linear(params["in_proj"], x), -1,
+                param_block(("fsdp", "tp"), (cfg.d_model, n)), whole(n))
+    return _split_zxbcdt(proj, cfg)
+
+
+def _head_block(cfg: Mamba2Config) -> Block:
+    """The rank's SSD heads, JAX's ``shard(xin, "dp", "sp", "tp",
+    None)``."""
+    return param_block(("tp",), (cfg.n_heads,))
+
+
+def _groups_of(t, hb: Block, cfg: Mamba2Config, dim: int):
+    """The B / C groups (along ``dim``) that the heads ``hb`` read."""
+    rep = cfg.n_heads // cfg.n_groups
+    g0, g1 = hb.start // rep, (hb.stop - 1) // rep + 1
+    n = hb.stop - hb.start
+    if (g0, g1) != (0, cfg.n_groups) and n % (g1 - g0):
+        raise ValueError(f"heads [{hb.start}, {hb.stop}) straddle the SSM "
+                         f"groups of {rep} heads")
+    return t.narrow(dim, g0, g1 - g0)
+
+
+def _out(params, y, z, hb: Block, cfg: Mamba2Config, eps: float = 1e-6):
+    """The heads ``hb``'s y (B, S, their d_inner) -> the gated RMSNorm
+    over ``d_inner`` and ``out_proj``: each on the rank's block of
+    ``d_inner`` under ``norm/scale`` and ``out_proj``'s rows (one
+    block), the norm's sum of squares ``psum``'d over the split."""
+    P, di = cfg.head_dim, cfg.d_inner
+    rows = param_block(("tp", "fsdp"), (di, cfg.d_model), dim=0)
+    have = Block(di, hb.start * P, hb.stop * P, hb.axes)
+    yz = take(y * F.silu(take(z, -1, whole(di), have)), -1, have, rows)
+    yz = rmsnorm(params["norm"], yz, eps, axes=rows.axes)
+    return row_linear(params["out_proj"], yz, rows, cfg.d_model)
+
+
 def _final_state(x, dt, A, B):
     """The SSM state after the last token, (b, h, p, n) fp32:
     sum_s exp(sum_{t > s} dt_t A) dt_s x_s B_s^T.  The decay exponent is
@@ -115,27 +164,37 @@ def _final_state(x, dt, A, B):
 
 
 def mamba2(params, x, cfg: Mamba2Config, *, return_cache: bool = False,
-           reference: bool = False):
+           reference: bool = False, cache_spec=None):
     """Prefill forward.  x: (B, S, D) -> (B, S, D), and with
     ``return_cache=True`` the decode cache (the conv tail in x's dtype
     and the final SSM state, fp32).  ``reference=True`` runs the scan's
-    plain version."""
+    plain version.  Under a context whose ``model`` axis splits them
+    (see the module docstring) the rank convolves its ``conv_w``
+    channels, scans its heads and returns, with ``cache_spec`` (the
+    leaves' ``CACHE_RULES`` specs, the rows the rank's), the rank's
+    ``/conv`` block and its heads' ``/ssm`` state."""
     Bsz, S, _ = x.shape
     H, P, N, G = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
-    proj = linear(params["in_proj"], x)
-    z, xbc_raw, dt = _split_zxbcdt(proj, cfg)
-    xbc = F.silu(_causal_conv1d(xbc_raw, params["conv_w"].to(x.dtype),
-                                params["conv_b"].to(x.dtype)))
-    xin = xbc[..., : cfg.d_inner].reshape(Bsz, S, H, P)
-    Bssm = xbc[..., cfg.d_inner: cfg.d_inner + G * N].reshape(Bsz, S, G, N)
-    Cssm = xbc[..., cfg.d_inner + G * N:].reshape(Bsz, S, G, N)
-    dt = F.softplus(dt.float() + params["dt_bias"][None, None, :])
-    A = -torch.exp(params["A_log"])
-    y = ssd_op(xin, dt, A, Bssm, Cssm, chunk=cfg.chunk, D_skip=params["D"],
-               reference=reference)
-    y = y.reshape(Bsz, S, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    out = linear(params["out_proj"], y)
+    z, xbc_raw, dt = _in_proj(params, x, cfg)
+    cb = param_block((None, "tp"), (cfg.d_conv, cfg.conv_dim))
+    xbc = F.silu(_causal_conv1d(
+        xbc_raw[..., cb.start:cb.stop], params["conv_w"].to(x.dtype),
+        params["conv_b"][cb.start:cb.stop].to(x.dtype)))
+    xbc = take(xbc, -1, cb, whole(cfg.conv_dim))
+    hb = _head_block(cfg)
+    xin = xbc[..., hb.start * P: hb.stop * P].reshape(
+        Bsz, S, hb.stop - hb.start, P)
+    Bssm = _groups_of(xbc[..., cfg.d_inner: cfg.d_inner + G * N].reshape(
+        Bsz, S, G, N), hb, cfg, 2)
+    Cssm = _groups_of(xbc[..., cfg.d_inner + G * N:].reshape(
+        Bsz, S, G, N), hb, cfg, 2)
+    dt = F.softplus(dt[..., hb.start:hb.stop].float()
+                    + params["dt_bias"][None, None, hb.start:hb.stop])
+    A = -torch.exp(params["A_log"][hb.start:hb.stop])
+    y = ssd_op(xin, dt, A, Bssm, Cssm, chunk=cfg.chunk,
+               D_skip=params["D"][hb.start:hb.stop], reference=reference)
+    y = y.reshape(Bsz, S, -1).to(x.dtype)
+    out = _out(params, y, z, hb, cfg)
     if not return_cache:
         return out
     K = cfg.d_conv - 1
@@ -143,7 +202,11 @@ def mamba2(params, x, cfg: Mamba2Config, *, return_cache: bool = False,
     # cache (0.55 GB a layer at 32k tokens)
     tail = (xbc_raw[:, S - K:, :].clone() if S >= K
             else F.pad(xbc_raw, (0, 0, K - S, 0)))
-    return out, {"conv": tail, "ssm": _final_state(xin, dt, A, Bssm)}
+    ssm = _final_state(xin, dt, A, Bssm)
+    if cache_spec is not None:
+        tail = to_spec(tail, cache_spec["conv"])
+        ssm = to_spec(ssm, cache_spec["ssm"], {1: hb})
+    return out, {"conv": tail, "ssm": ssm}
 
 
 def init_mamba2_cache(cfg: Mamba2Config, batch: int, dtype=torch.float32,
@@ -162,50 +225,45 @@ def mamba2_decode(params, x, cache, cfg: Mamba2Config, spec=None):
     the input (fp32 for the fp32 cache), as JAX's concatenation
     promotes.  ``spec``: the cache leaves' ``CACHE_RULES`` specs under
     the installed ``ShardingCtx``, the cache the rank's blocks: the rank
-    convolves its conv channels and updates its SSM heads; the conv
-    output and the heads' outputs are all-gathered (activations, not
-    the cache) for the SSM and the output projection."""
+    convolves its conv channels (``conv_w``'s block, the same split)
+    and updates its SSM heads; the conv output is all-gathered (an
+    activation, not the cache) for the heads' x and B / C, and the
+    heads' outputs reach the gated norm and ``out_proj`` as the
+    prefill's."""
     Bsz = x.shape[0]
     H, P, N, G = cfg.n_heads, cfg.head_dim, cfg.d_state, cfg.n_groups
-    proj = linear(params["in_proj"], x)
-    z, xbc, dt = _split_zxbcdt(proj, cfg)
+    z, xbc, dt = _in_proj(params, x, cfg)
     C, Hl = cache["conv"].shape[-1], cache["ssm"].shape[1]
-    conv_axes = spec["conv"].axes(2) if spec is not None else ()
-    head_axes = spec["ssm"].axes(1) if spec is not None else ()
-    c0 = coll.axis_index(conv_axes) * C if conv_axes else 0
-    h0 = coll.axis_index(head_axes) * Hl if head_axes else 0
-    conv_w, conv_b = params["conv_w"], params["conv_b"]
-    if spec is not None:
-        xbc = xbc.narrow(-1, c0, C)
-        conv_w, conv_b = conv_w.narrow(-1, c0, C), conv_b.narrow(-1, c0, C)
+    cs = spec_block(spec and spec["conv"], 2, cfg.conv_dim)
+    hb = spec_block(spec and spec["ssm"], 1, H)
+    if (cs.stop - cs.start, hb.stop - hb.start) != (C, Hl):
+        raise ValueError(f"cache blocks {C}, {Hl} against the specs' "
+                         f"{cs}, {hb}")
+    xbc = xbc[..., cs.start:cs.stop]
+    conv_w = take(params["conv_w"], -1,
+                  param_block((None, "tp"), (cfg.d_conv, cfg.conv_dim)), cs)
+    conv_b = params["conv_b"][cs.start:cs.stop]
     wd = torch.promote_types(cache["conv"].dtype, xbc.dtype)
     win = torch.cat([cache["conv"].to(wd), xbc.to(wd)], dim=1)   # (B, K, C)
     w = conv_w.to(x.dtype).to(wd)
     conv_out = (torch.einsum("bkc,kc->bc", win, w) + conv_b.to(x.dtype))
-    xbc1 = F.silu(conv_out)
-    if spec is not None:
-        xbc1 = coll.all_gather(xbc1, conv_axes, axis=-1)
-    xin = xbc1[..., : cfg.d_inner].reshape(Bsz, H, P)
+    xbc1 = take(F.silu(conv_out), -1, cs, whole(cfg.conv_dim))
+    xf = xbc1[..., hb.start * P: hb.stop * P].reshape(Bsz, Hl, P).float()
     Bssm = xbc1[..., cfg.d_inner: cfg.d_inner + G * N].reshape(Bsz, G, N)
     Cssm = xbc1[..., cfg.d_inner + G * N:].reshape(Bsz, G, N)
     rep = H // G
-    Bh = torch.repeat_interleave(Bssm, rep, dim=1).float()      # (B, H, N)
-    Ch = torch.repeat_interleave(Cssm, rep, dim=1).float()
-    dtv = F.softplus(dt.float()[:, 0, :] + params["dt_bias"][None, :])
-    A = -torch.exp(params["A_log"])
-    D = params["D"]
-    xf = xin.float()
-    if spec is not None:
-        Bh, Ch, dtv, xf = (t.narrow(1, h0, Hl) for t in (Bh, Ch, dtv, xf))
-        A, D = A.narrow(0, h0, Hl), D.narrow(0, h0, Hl)
-    decay = torch.exp(dtv * A[None, :])                          # (B, H)
+    Bh = torch.repeat_interleave(Bssm, rep, dim=1)[:, hb.start:hb.stop]
+    Ch = torch.repeat_interleave(Cssm, rep, dim=1)[:, hb.start:hb.stop]
+    Bh, Ch = Bh.float(), Ch.float()                              # (B, Hl, N)
+    dtv = F.softplus(dt.float()[:, 0, hb.start:hb.stop]
+                     + params["dt_bias"][None, hb.start:hb.stop])
+    A = -torch.exp(params["A_log"][hb.start:hb.stop])
+    D = params["D"][hb.start:hb.stop]
+    decay = torch.exp(dtv * A[None, :])                          # (B, Hl)
     new_ssm = (cache["ssm"] * decay[..., None, None]
                + dtv[..., None, None] * xf[..., :, None] * Bh[..., None, :])
     y = torch.einsum("bhn,bhpn->bhp", Ch, new_ssm)
     y = y + D[None, :, None] * xf
-    if spec is not None:
-        y = coll.all_gather(y, head_axes, axis=1)
-    y = y.reshape(Bsz, 1, cfg.d_inner).to(x.dtype)
-    y = rmsnorm(params["norm"], y * F.silu(z))
-    return linear(params["out_proj"], y), {"conv": win[:, 1:, :],
-                                           "ssm": new_ssm}
+    y = y.reshape(Bsz, 1, Hl * P).to(x.dtype)
+    return _out(params, y, z, hb, cfg), {"conv": win[:, 1:, :],
+                                         "ssm": new_ssm}

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed import collectives as coll
+
 __all__ = ["init_batchnorm", "batchnorm", "bn_fold_scale_bias",
            "init_rmsnorm", "rmsnorm", "init_layernorm", "layernorm"]
 
@@ -42,10 +44,18 @@ def init_rmsnorm(dim: int, dtype=torch.float32, device=None):
     return {"scale": torch.ones((dim,), dtype=dtype, device=device)}
 
 
-def rmsnorm(params, x, eps: float = 1e-6):
-    """x * rsqrt(mean(x^2) + eps) * scale, in fp32, cast back."""
+def rmsnorm(params, x, eps: float = 1e-6, axes: tuple = ()):
+    """x * rsqrt(mean(x^2) + eps) * scale, in fp32, cast back.
+    ``axes``: ``x``'s last dim (and ``scale``) is the rank's block of an
+    even split over these mesh axes (Mamba's gated norm over ``d_inner``
+    under tensor parallelism): the sum of squares is ``psum``'d over
+    them and divided by the global width."""
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    if axes:
+        sq = coll.psum(torch.sum(xf * xf, dim=-1, keepdim=True), axes)
+        var = sq / (xf.shape[-1] * coll.axis_size(axes))
+    else:
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * params["scale"].float()).to(x.dtype)
 

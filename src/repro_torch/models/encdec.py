@@ -24,11 +24,11 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.tp import Block, held_block, spec_block, to_spec
 from repro_torch.layers.attention import (
-    _raw_qkv, attention, attention_decode, block_softmax, cross_attention,
-    init_attention, init_kv_cache)
-from repro_torch.layers.linear import embed, init_embedding, init_linear, linear
+    _heads_of, _qkv_blocks, _wo, attention, attention_decode,
+    block_softmax, cross_attention, cross_kv, init_attention, init_kv_cache)
+from repro_torch.layers.linear import embed, init_embedding, init_linear
 from repro_torch.layers.mlp import init_mlp, mlp
 from repro_torch.layers.norms import init_rmsnorm, rmsnorm
 from repro_torch.common.tree import tree_map
@@ -102,7 +102,7 @@ def encode(params, frames, cfg: ArchConfig):
 def decode_train(params, dec_tokens, memory, cfg: ArchConfig):
     """The cache-free decoder forward: tokens (B, S) over ``memory`` ->
     final hidden states (B, S, D)."""
-    x = embed(params["embed"], dec_tokens, cfg.cdtype)
+    x = embed(params["embed"], dec_tokens, cfg.cdtype, cfg.vocab)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     acfg = attn_cfg(cfg, "softmax")
 
@@ -142,45 +142,45 @@ def encdec_loss_terms(params, batch, cfg: ArchConfig):
 # ---------------------------------------------------------------------------
 
 def init_encdec_state(params, frames, cfg: ArchConfig, max_len: int,
-                      dtype=torch.bfloat16):
+                      dtype=torch.bfloat16, specs=None):
     """Run the encoder; each decoder layer's cross K/V (L, B, S_enc, KV,
     Dh) and zero self-attention caches (L, B, ``max_len``, KV, Dh), all in
-    ``dtype``."""
+    ``dtype``.  ``specs``: the state's spec tree under the installed
+    ``ShardingCtx`` (the sharded prefill step): each leaf is the rank's
+    block."""
     memory = encode(params, frames, cfg)
     acfg = attn_cfg(cfg, "softmax")
     B = memory.shape[0]
-    cross = []
-    for i in range(cfg.dec_layers):
-        _, k, v = _raw_qkv(_at(params["dec_blocks"], i)["cross_attn"],
-                           memory, acfg)
-        cross.append({"ck": k.to(dtype), "cv": v.to(dtype)})
+    cross = [cross_kv(_at(params["dec_blocks"], i)["cross_attn"], memory,
+                      acfg, dtype,
+                      None if specs is None else spec_at(specs, ("cross", i)))
+             for i in range(cfg.dec_layers)]
     self_caches = tree_map(
         lambda a: a.new_zeros((cfg.dec_layers,) + tuple(a.shape)),
         init_kv_cache(acfg, B, max_len, dtype, memory.device))
+    if specs is not None:
+        self_caches = tree_map(to_spec, self_caches, specs["self"])
     return {"cross": _stack(cross), "self": self_caches}
 
 
 def _cross_decode(p, x, ck, cv, acfg, spec=None):
     """One token's cross attention against the cached memory K/V;
     ``spec``: ck's spec when ck, cv are the rank's blocks (the softmax
-    combined over sequence blocks, heads gathered, as
+    combined over sequence blocks; the rank's heads where the heads are
+    split, their output reaching ``wo``'s rows, as
     ``attention_decode``'s)."""
     B = x.shape[0]
     g = acfg.n_heads // acfg.n_kv
-    q, _, _ = _raw_qkv(p, x, acfg)
-    q = q.reshape(B, acfg.n_kv, g, acfg.head_dim)
-    qf = q.float() * acfg.head_dim ** -0.5
-    seq_axes = head_axes = ()
-    if spec is not None:
-        seq_axes, head_axes = spec.axes(1), spec.axes(2)
-        kv = ck.shape[2]
-        if head_axes:
-            qf = qf.narrow(1, coll.axis_index(head_axes) * kv, kv)
+    Dh = acfg.head_dim
+    kvb = spec_block(spec, 2, acfg.n_kv)
+    kv = kvb.stop - kvb.start
+    seq_axes = held_block(spec, 1, ck.shape[1]).axes
+    heads = Block(acfg.n_heads, kvb.start * g, kvb.stop * g, kvb.axes)
+    q = _heads_of(_qkv_blocks(p, x, acfg, ("q",))["q"], heads, Dh)
+    qf = q.reshape(B, kv, g, Dh).float() * Dh ** -0.5
     s = torch.einsum("bkgd,bckd->bkgc", qf, ck.float())
     o = block_softmax(s, cv, seq_axes)
-    o = coll.all_gather(o, head_axes, axis=1) if head_axes else o
-    o = o.reshape(B, 1, acfg.q_dim).to(x.dtype)
-    return linear(p["wo"], o)
+    return _wo(p, o.reshape(B, 1, kv * g, Dh), heads, acfg, x.dtype)
 
 
 def encdec_decode_step(params, state, tokens, pos, cfg: ArchConfig,
@@ -189,7 +189,7 @@ def encdec_decode_step(params, state, tokens, pos, cfg: ArchConfig,
     new state); the input state is not written.  ``specs``: the state's
     spec tree when it is the rank's blocks under the installed
     ``ShardingCtx``."""
-    x = embed(params["embed"], tokens, cfg.cdtype)
+    x = embed(params["embed"], tokens, cfg.cdtype, cfg.vocab)
     acfg = attn_cfg(cfg, "softmax")
     new_self = []
     for i in range(cfg.dec_layers):

@@ -50,6 +50,9 @@ import torch.utils.checkpoint
 
 from repro_torch.common.tree import tree_leaves, tree_map
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.ctx import current_ctx, use_sharding
+from repro_torch.distributed.tp import param_block
 from repro_torch.layers.attention import (
     AttnConfig, attention, attention_decode, init_attention, init_kv_cache)
 from repro_torch.layers.linear import (
@@ -149,14 +152,22 @@ def _unstack(tree) -> list:
 def _maybe_remat(fn, cfg: ArchConfig):
     """``fn`` under ``torch.utils.checkpoint`` (its activations dropped
     and recomputed in the backward) when ``cfg.remat`` is set and grad
-    is enabled; as it is otherwise."""
+    is enabled; as it is otherwise.  The recomputation runs under the
+    ``ShardingCtx`` of the forward: autograd runs a CUDA backward on a
+    thread of its own, where the thread-local context is not set."""
     if not cfg.remat:
         return fn
 
     def run(*args, **kw):
         if not torch.is_grad_enabled():
             return fn(*args, **kw)
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        ctx = current_ctx()
+
+        def under_ctx(*a, **k):
+            with use_sharding(ctx):
+                return fn(*a, **k)
+
+        return torch.utils.checkpoint.checkpoint(under_ctx, *args,
                                                  use_reentrant=False, **kw)
     return run
 
@@ -192,18 +203,19 @@ def _ffn(p, h, cfg: ArchConfig, kind: str, groups: int = 1):
 
 
 def _block(p, x, cfg: ArchConfig, kind: str, positions, *, cache: bool,
-           cache_dtype, reference: bool):
-    """x: (B, S, D) -> (x', the block's decode cache or None, aux)."""
+           cache_dtype, reference: bool, spec=None):
+    """x: (B, S, D) -> (x', the block's decode cache or None, aux);
+    ``spec``: the cache's specs, for the rank's blocks of it."""
     if kind == "mamba":
         out = mamba2(p["mixer"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                      mamba_cfg(cfg), return_cache=cache,
-                     reference=reference)
+                     reference=reference, cache_spec=spec)
         y, c = out if cache else (out, None)
         return x + y, c, 0.0
     out = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps),
                     attn_cfg(cfg, _block_backend(cfg, kind)), positions,
                     return_cache=cache, cache_dtype=cache_dtype,
-                    reference=reference)
+                    reference=reference, cache_spec=spec)
     y, c = out if cache else (out, None)
     x = x + y
     y, aux = _ffn(p, rmsnorm(p["ln2"], x, cfg.norm_eps), cfg, kind)
@@ -220,11 +232,14 @@ def block_apply(p, x, cfg: ArchConfig, kind: str, positions, *,
 
 
 def block_prefill(p, x, cfg: ArchConfig, kind: str, positions, *,
-                  cache_dtype=torch.bfloat16, reference: bool = False):
+                  cache_dtype=torch.bfloat16, reference: bool = False,
+                  spec=None):
     """x: (B, S, D) -> (x', the block's decode cache, KV in
-    ``cache_dtype``)."""
+    ``cache_dtype``; with ``spec``, the cache's specs under the installed
+    ``ShardingCtx``, the rank's blocks of it)."""
     return _block(p, x, cfg, kind, positions, cache=True,
-                  cache_dtype=cache_dtype, reference=reference)[:2]
+                  cache_dtype=cache_dtype, reference=reference,
+                  spec=spec)[:2]
 
 
 def block_decode(p, x, cache, pos, cfg: ArchConfig, kind: str, spec=None):
@@ -414,7 +429,16 @@ def forward_hidden(params, x, cfg: ArchConfig, positions, *,
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), aux
 
 
+def _vocab_block(cfg: ArchConfig):
+    """The rank's block of the vocab (``tp.Block``): the logits' under
+    (``dp``, ``vocab``), the table's rows and ``lm_head``'s columns (one
+    resolution of ``vocab`` on the same size)."""
+    return param_block(("vocab",), (cfg.vocab,))
+
+
 def lm_logits_head(params, h, cfg: ArchConfig):
+    """h (..., D) -> the logits (..., V), the rank's ``_vocab_block`` of
+    them where ``model`` splits the vocab."""
     if cfg.tie_embeddings:
         e = params["embed"]
         if "qt" in e:
@@ -448,15 +472,36 @@ def chunked_ce_terms(params, hidden, targets, cfg: ArchConfig, mask=None):
          if mask is None else mask.to(torch.float32))
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    vb = _vocab_block(cfg)
     for c0 in range(0, S, C):
         logits = lm_logits_head(params, hidden[:, c0:c0 + C], cfg).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              targets[:, c0:c0 + C, None].long())[..., 0]
+        t = targets[:, c0:c0 + C].long()
+        if vb.axes:
+            lse, picked = _vocab_parallel_terms(logits, t, vb)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(logits, -1, t[..., None])[..., 0]
         mc = m[:, c0:c0 + C]
         tot = tot + ((lse - picked) * mc).sum()
         cnt = cnt + mc.sum()
     return tot, cnt
+
+
+def _vocab_parallel_terms(logits, targets, vb):
+    """The logsumexp and the target's logit of vocab-split logits (the
+    rank's block ``vb``), as GSPMD computes them under JAX's ``shard(
+    logits, "dp", None, "vocab")``: the shift is the ``pmax`` of the
+    blocks' maxima (held constant: the logsumexp does not depend on
+    it), the exponentials' sums are ``psum``'d, and the rank holding a
+    target contributes its logit to a ``psum``."""
+    m = coll.pmax(logits.detach().amax(dim=-1), vb.axes)
+    se = coll.psum(torch.exp(logits - m[..., None]).sum(dim=-1), vb.axes)
+    local = targets - vb.start
+    hit = (local >= 0) & (local < vb.stop - vb.start)
+    pk = torch.gather(logits, -1, torch.where(
+        hit, local, torch.zeros_like(local))[..., None])[..., 0]
+    picked = coll.psum(torch.where(hit, pk, torch.zeros_like(pk)), vb.axes)
+    return m + torch.log(se), picked
 
 
 def lm_loss(params, batch, cfg: ArchConfig, *, reference: bool = False):
@@ -473,7 +518,7 @@ def lm_loss_terms(params, batch, cfg: ArchConfig, *,
                   reference: bool = False):
     """``lm_loss``'s terms: (cross-entropy sum, token weight sum, the
     MoE aux loss as fp32 or 0.0)."""
-    x = embed(params["embed"], batch["tokens"], cfg.cdtype)
+    x = embed(params["embed"], batch["tokens"], cfg.cdtype, cfg.vocab)
     if cfg.family == "vlm":
         x = torch.cat([batch["patches"].to(cfg.cdtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
@@ -487,21 +532,25 @@ def lm_loss_terms(params, batch, cfg: ArchConfig, *,
 
 
 def lm_prefill(params, tokens, cfg: ArchConfig, *, patches=None,
-               cache_dtype=torch.bfloat16, reference: bool = False):
+               cache_dtype=torch.bfloat16, reference: bool = False,
+               specs=None):
     """(B, S) tokens -> (last-token logits (B, V), caches), the caches
     stacked as ``init_lm_caches`` lays them out (KV in ``cache_dtype``),
     so decode continues at position S.  vlm: ``patches`` (B, P, D), the
     stub frontend's embeddings, go before the text, and decode continues
-    at P + S."""
-    x = embed(params["embed"], tokens, cfg.cdtype)
+    at P + S.  ``specs``: the caches' spec tree under the installed
+    ``ShardingCtx`` (the sharded prefill step): each cache leaf is the
+    rank's block of it, the logits the rank's vocab block."""
+    x = embed(params["embed"], tokens, cfg.cdtype, cfg.vocab)
     if cfg.family == "vlm" and patches is not None:
         x = torch.cat([patches.to(cfg.cdtype), x], dim=1)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     flat = {}
     for kind, p, path in _layer_order(params, cfg):
-        x, flat[path] = block_prefill(p, x, cfg, kind, positions,
-                                      cache_dtype=cache_dtype,
-                                      reference=reference)
+        x, flat[path] = block_prefill(
+            p, x, cfg, kind, positions, cache_dtype=cache_dtype,
+            reference=reference,
+            spec=None if specs is None else spec_at(specs, path))
     h = rmsnorm(params["final_norm"], x[:, -1:, :], cfg.norm_eps)
     return lm_logits_head(params, h, cfg)[:, 0, :], _stack_caches(cfg, flat)
 
@@ -537,8 +586,8 @@ def lm_decode_step(params, caches, tokens, pos, cfg: ArchConfig,
     at its own position).  -> (logits (B, V), new caches); the input
     caches are not written.  ``specs``: the caches' spec tree when they
     are the rank's blocks under the installed ``ShardingCtx`` (the
-    sharded serve step)."""
-    x = embed(params["embed"], tokens, cfg.cdtype)
+    sharded serve step; the logits are then the rank's vocab block)."""
+    x = embed(params["embed"], tokens, cfg.cdtype, cfg.vocab)
     flat = {}
     for kind, p, path in _layer_order(params, cfg):
         x, flat[path] = block_decode(

@@ -67,7 +67,8 @@ class Model:
     init: Callable           # (generator or seed, device=None) -> params
     loss: Callable           # (params, batch) -> scalar fp32
     loss_terms: Callable     # (params, batch) -> (CE sum, weight sum, aux)
-    prefill: Callable        # (params, batch) -> (logits, caches)
+    prefill: Callable        # (params, batch, specs=None)
+                             #   -> (logits, caches)
     decode: Callable         # (params, caches, tokens, pos, specs=None)
                              #   -> (logits, caches)
     init_caches: Callable    # (batch, max_len, device=None) -> caches
@@ -138,8 +139,8 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
                                                       device),
             loss=lambda p, b: _ed.encdec_loss(p, b, cfg),
             loss_terms=lambda p, b: _ed.encdec_loss_terms(p, b, cfg),
-            prefill=lambda p, b: _ed.init_encdec_state(
-                p, b["frames"], cfg, b["tokens"].shape[1]),
+            prefill=lambda p, b, specs=None: _ed.init_encdec_state(
+                p, b["frames"], cfg, b["tokens"].shape[1], specs=specs),
             decode=lambda p, st, t, pos, specs=None: _ed.encdec_decode_step(
                 p, st, t, pos, cfg, specs),
             init_caches=lambda batch, max_len, device=None:
@@ -151,9 +152,9 @@ def build_model(cfg: ArchConfig, *, reference: bool = False) -> Model:
         loss=lambda p, b: _lm.lm_loss(p, b, cfg, reference=reference),
         loss_terms=lambda p, b: _lm.lm_loss_terms(p, b, cfg,
                                                   reference=reference),
-        prefill=lambda p, b: _lm.lm_prefill(
+        prefill=lambda p, b, specs=None: _lm.lm_prefill(
             p, b["tokens"], cfg, patches=b.get("patches"),
-            cache_dtype=_kv_dtype(cfg), reference=reference),
+            cache_dtype=_kv_dtype(cfg), reference=reference, specs=specs),
         decode=lambda p, c, t, pos, specs=None: _lm.lm_decode_step(
             p, c, t, pos, cfg, specs),
         init_caches=lambda batch, max_len, device=None: _caches(

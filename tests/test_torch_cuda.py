@@ -2601,3 +2601,72 @@ def test_dist_sharded_step_at_world_1(nccl_world):
         assert a.shape == b.shape, path
         assert float((a - b).abs().max()) <= 1e-5 * max(
             1.0, float(a.abs().max())), path
+
+
+@pytest.mark.parametrize("arch", ["granite-3-2b", "zamba2-1.2b"])
+def test_tp_split_path_at_world_1_bit_equal(nccl_world, arch):
+    """The tensor-parallel path (``distributed/tp.py``) on a (1, 1) NCCL
+    mesh, where ``model`` splits nothing, equals the unsharded steps bit
+    for bit: the sharded gradient's loss and every gradient leaf against
+    ``value_and_grad(model.loss)``, the sharded prefill's logits and
+    caches and two sharded decode steps' against ``model.prefill`` /
+    ``model.decode``.  Smoke widths, fp32 caches; zamba2 on relu_linear
+    (both scans launch)."""
+    from repro_torch.common.tree import tree_leaves
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.distributed.partition import (
+        make_ctx, match_partition_rules, shard_tree)
+    from repro_torch.distributed.rules import CACHE_RULES, LM_RULES
+    from repro_torch.launch.steps import (
+        make_prefill_step, make_serve_step, sharded_value_and_grad,
+        value_and_grad)
+    from repro_torch.models.registry import build_model
+    cfg = smoke_variant(get_arch(arch)).scaled(kv_dtype="float32")
+    if arch == "zamba2-1.2b":
+        cfg = cfg.scaled(attn_backend="relu_linear")
+    model = build_model(cfg)
+    params = model.init(0, "cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 64), generator=g,
+                              device="cuda") for k in ("tokens", "targets")}
+    ctx = make_ctx(nccl_world)
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    blocks = shard_tree(params, specs, nccl_world)
+    ssd_chunked.launches = relu_attn_causal.launches = 0
+    l1, g1 = value_and_grad(model.loss)(params, batch)
+    l2, g2, _ = sharded_value_and_grad(model, ctx, specs)(blocks, batch)
+    assert torch.equal(l1, l2)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1),
+                                                 tree_leaves(g2)))
+    if arch == "zamba2-1.2b":
+        assert ssd_chunked.launches > 0 and relu_attn_causal.launches > 0
+    tokens = batch["tokens"][:, :30]
+    with torch.no_grad():
+        lg1, c1 = model.prefill(params, {"tokens": tokens})
+    c_specs = match_partition_rules(CACHE_RULES, c1, ctx)
+    lg2, c2 = make_prefill_step(model, ctx=ctx, specs=specs,
+                                cache_specs=c_specs)(blocks,
+                                                     {"tokens": tokens})
+    assert torch.equal(lg1, lg2)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(c1),
+                                                 tree_leaves(c2)))
+    room = model.init_caches(4, 32, "cuda")
+
+    def pad(a, t):
+        out = t.new_zeros(t.shape)
+        out[tuple(slice(0, n) for n in a.shape)] = a
+        return out
+
+    from repro_torch.common.tree import tree_map
+    c1 = c2 = tree_map(pad, c1, room)
+    serve = make_serve_step(model, ctx=ctx, specs=specs,
+                            cache_specs=match_partition_rules(
+                                CACHE_RULES, c1, ctx))
+    for t in range(2):
+        tok = batch["tokens"][:, 30 + t:31 + t]
+        with torch.no_grad():
+            lg1, c1 = model.decode(params, c1, tok, 30 + t)
+        lg2, c2 = serve(blocks, c2, tok, 30 + t)
+        assert torch.equal(lg1, lg2)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(c1),
+                                                     tree_leaves(c2)))

@@ -4,7 +4,8 @@ tests (``tests/test_torch_distributed*.py``).
     PYTHONPATH=src python tests/torch_dist_world.py SUITE OUT_DIR
 
 starts 4 processes (``torch.multiprocessing``, spawn) that meet through
-a ``file://`` store in OUT_DIR; each runs SUITE (``dist`` or ``train``)
+a ``file://`` store in OUT_DIR; each runs SUITE (``dist``, ``train`` or
+``tp``)
 and writes its results to ``OUT_DIR/SUITE_rank<r>.pt``.  Inputs that the
 tests share with JAX are read from ``OUT_DIR/inputs.pt``.  Every
 collective times out after ``TIMEOUT_S`` seconds, so a hung rank fails
@@ -473,20 +474,72 @@ def _pad_to(tree, template):
     return tree_map(pad, tree, template)
 
 
-def _serve(rank):
-    """The sharded prefill (``make_prefill_step(ctx=)``) and
-    ``SERVE_STEPS`` sharded decode steps (``make_serve_step(ctx=)``)
-    against the single-device ones on the global batch, both decoding
-    the same tokens from the prefill's caches zero-padded to
-    ``SERVE_MAX_LEN``: each rank's logits block and cache blocks against
-    the single-device ones' blocks."""
+def _serve_one(model, params, mesh, tokens, steps, max_len):
+    """The sharded prefill (``make_prefill_step(ctx=)``) and the decode
+    steps ``steps`` (``make_serve_step(ctx=)``) against the
+    single-device ones on the global batch, both decoding the same
+    tokens from the prefill's caches zero-padded to ``max_len``: each
+    rank's logits block and cache blocks against the single-device
+    ones' blocks (``err``: max|d|, max|ref|, the block's shape)."""
     from repro_torch.common.tree import flatten_with_paths
     from repro_torch.distributed import collectives as C
     from repro_torch.distributed.partition import (
         local_block, make_ctx, match_partition_rules, shard_tree)
     from repro_torch.distributed.rules import CACHE_RULES, LM_RULES
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    ctx = make_ctx(mesh)
+    cfg = model.cfg
+    B = tokens.shape[0]
+    logits1, caches1 = model.prefill(params, {"tokens": tokens})
+    padded = _pad_to(caches1, model.init_caches(B, max_len, "cpu"))
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    c_specs = match_partition_rules(CACHE_RULES, caches1, ctx)
+    d_specs = match_partition_rules(CACHE_RULES, padded, ctx)
+    blocks = shard_tree(params, specs, mesh)
+    dp = C.axis_size("data", mesh)
+    rows = slice(C.axis_index("data", mesh) * B // dp,
+                 (C.axis_index("data", mesh) + 1) * B // dp)
+    logits2, caches2 = make_prefill_step(
+        model, ctx=ctx, specs=specs, cache_specs=c_specs)(
+        blocks, {"tokens": tokens[rows]})
+    vocab = logits2.shape[1]
+    v0 = C.axis_index("model", mesh) * vocab if vocab < cfg.vocab else 0
+
+    def err(want, got):
+        return (float((want - got).abs().max()),
+                float(want.abs().max()), tuple(got.shape))
+
+    entry = {"prefill": err(logits1[rows, v0:v0 + vocab], logits2),
+             "prefill_caches": {
+                 p: err(local_block(a, s, mesh), b)
+                 for (p, a), (_, s), (_, b) in zip(
+                     flatten_with_paths(caches1),
+                     flatten_with_paths(c_specs),
+                     flatten_with_paths(caches2))},
+             "decode": [], "decode_caches": {}}
+    serve = make_serve_step(model, ctx=ctx, specs=specs,
+                            cache_specs=d_specs)
+    c1, c2 = padded, shard_tree(padded, d_specs, mesh)
+    for t in range(steps.shape[0]):
+        pos = tokens.shape[1] + t
+        l1, c1 = model.decode(params, c1, steps[t], pos)
+        l2, c2 = serve(blocks, c2, steps[t][rows], pos)
+        entry["decode"].append(err(l1[rows, v0:v0 + vocab], l2))
+    entry["decode_caches"] = {
+        p: err(local_block(a, s, mesh), b)
+        for (p, a), (_, s), (_, b) in zip(
+            flatten_with_paths(c1), flatten_with_paths(d_specs),
+            flatten_with_paths(c2))}
+    entry["split"] = {p: str(s) for p, s in flatten_with_paths(d_specs)}
+    return entry
+
+
+def _serve(rank):
+    """Every ``SERVE_CASES`` case through ``_serve_one`` on a global
+    batch of 4 rows, ``SERVE_STEPS`` decode steps; the prefill's MoE
+    drops counted."""
+    from repro_torch.launch.mesh import make_mesh
     from repro_torch.layers import moe as M
     from repro_torch.models.registry import build_model
 
@@ -495,7 +548,6 @@ def _serve(rank):
         _, _, mesh_name = case.partition("@")
         mesh = make_mesh(TRAIN_MESHES[mesh_name or "2x2"], ("data", "model"),
                          device="cpu")
-        ctx = make_ctx(mesh)
         cfg = serve_arch(case)
         model = build_model(cfg)
         params = model.init(0, "cpu")
@@ -514,52 +566,12 @@ def _serve(rank):
 
         M._slot_assign = counting
         try:
-            logits1, caches1 = model.prefill(params, {"tokens": tokens})
+            model.prefill(params, {"tokens": tokens})
         finally:
             M._slot_assign = slot_assign
-        padded = _pad_to(caches1, model.init_caches(B, SERVE_MAX_LEN,
-                                                    "cpu"))
-        specs = match_partition_rules(LM_RULES, params, ctx)
-        c_specs = match_partition_rules(CACHE_RULES, caches1, ctx)
-        d_specs = match_partition_rules(CACHE_RULES, padded, ctx)
-        blocks = shard_tree(params, specs, mesh)
-        dp = C.axis_size("data", mesh)
-        rows = slice(C.axis_index("data", mesh) * B // dp,
-                     (C.axis_index("data", mesh) + 1) * B // dp)
-        logits2, caches2 = make_prefill_step(
-            model, ctx=ctx, specs=specs, cache_specs=c_specs)(
-            blocks, {"tokens": tokens[rows]})
-        vocab = logits2.shape[1]
-        v0 = C.axis_index("model", mesh) * vocab \
-            if vocab < cfg.vocab else 0
-
-        def err(want, got):
-            return (float((want - got).abs().max()),
-                    float(want.abs().max()), tuple(got.shape))
-
-        entry = {"prefill": err(logits1[rows, v0:v0 + vocab], logits2),
-                 "prefill_caches": {
-                     p: err(local_block(a, s, mesh), b)
-                     for (p, a), (_, s), (_, b) in zip(
-                         flatten_with_paths(caches1),
-                         flatten_with_paths(c_specs),
-                         flatten_with_paths(caches2))},
-                 "dropped": sum(dropped), "decode": [], "decode_caches": {}}
-        serve = make_serve_step(model, ctx=ctx, specs=specs,
-                                cache_specs=d_specs)
-        c1, c2 = padded, shard_tree(padded, d_specs, mesh)
-        for t in range(SERVE_STEPS):
-            pos = SERVE_PROMPT + t
-            l1, c1 = model.decode(params, c1, steps[t], pos)
-            l2, c2 = serve(blocks, c2, steps[t][rows], pos)
-            entry["decode"].append(err(l1[rows, v0:v0 + vocab], l2))
-        entry["decode_caches"] = {
-            p: err(local_block(a, s, mesh), b)
-            for (p, a), (_, s), (_, b) in zip(
-                flatten_with_paths(c1), flatten_with_paths(d_specs),
-                flatten_with_paths(c2))}
-        entry["split"] = {p: str(s) for p, s in
-                          flatten_with_paths(d_specs)}
+        entry = _serve_one(model, params, mesh, tokens, steps,
+                           SERVE_MAX_LEN)
+        entry["dropped"] = sum(dropped)
         res[case] = entry
     return res
 
@@ -576,7 +588,212 @@ def suite_train(rank, out):
             "serve": _serve(rank)}
 
 
-SUITES = {"dist": suite_dist, "train": suite_train}
+# ---------------------------------------------------------------------------
+# suite "tp": the dense layers split over ``model`` (tensor parallelism)
+# ---------------------------------------------------------------------------
+
+TP_MESHES = {"1x4": (1, 4), "2x2": (2, 2)}
+TP_SERVE_PROMPT = 28     # tokens a row; the decode's caches hold 32
+TP_SERVE_STEPS = 4
+
+
+def _seen(model, record):
+    """``model`` with its loss, prefill and decode recording, when they
+    run under a ``ShardingCtx`` (the sharded steps), the shape of every
+    param leaf they are handed (``record``: {call: {path: shape}})."""
+    import dataclasses
+
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.distributed.ctx import current_ctx
+
+    def wrap(name, fn):
+        def run(params, *a, **k):
+            if current_ctx() is not None:
+                record[name] = {p: tuple(x.shape)
+                                for p, x in flatten_with_paths(params)}
+            return fn(params, *a, **k)
+        return run
+
+    return dataclasses.replace(
+        model, loss_terms=wrap("train", model.loss_terms),
+        prefill=wrap("prefill", model.prefill),
+        decode=wrap("decode", model.decode))
+
+
+def _model_gathered(params, specs, mesh, seen):
+    """The dense leaves a step was handed (``seen``: {path: shape}) that
+    are not their ``model`` block (gathered over ``model``), and how
+    many leaves ``model`` splits."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.distributed.ctx import P
+    from repro_torch.distributed.partition import local_block
+    from repro_torch.layers.moe import EXPERT_LEAF
+
+    over, split = [], 0
+    for (p, x), (_, s) in zip(flatten_with_paths(params),
+                              flatten_with_paths(specs)):
+        if EXPERT_LEAF.search(p):
+            continue
+        model_only = P(*(("model" if "model" in s.axes(d) else None)
+                         for d in range(len(s))))
+        want = tuple(local_block(x, model_only, mesh).shape)
+        split += want != tuple(x.shape)
+        if seen[p] != want:
+            over.append((p, seen[p], want))
+    return over, split
+
+
+def _tp_case(rank, case):
+    """One ``tp`` case on its mesh: the sharded step's loss, gradient
+    blocks, norm and updated params against the single-device step's,
+    the leaves the layers were handed against their ``model`` blocks,
+    and the sharded prefill / decode against the single-device ones."""
+    from repro_torch.common.tree import flatten_with_paths, global_norm, \
+        tree_map
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import smoke_variant
+    from repro_torch.convert import params_from_jax
+    from repro_torch.data.pipeline import make_batch_specs
+    from repro_torch.distributed.ctx import P
+    from repro_torch.distributed.partition import (
+        gather_tree, local_block, make_ctx, match_partition_rules,
+        shard_tree)
+    from repro_torch.distributed.rules import LM_RULES
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        default_opt_cfg, make_train_step, sharded_value_and_grad,
+        value_and_grad)
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim.adamw import adamw_init, adamw_update
+
+    mesh = make_mesh(TP_MESHES[case["mesh"]], ("data", "model"),
+                     device="cpu")
+    ctx = make_ctx(mesh)
+    # fp32 caches: the serve gates compare them at fp32 rounding
+    cfg = smoke_variant(get_arch(case["arch"])).scaled(
+        kv_dtype="float32", **case["kw"])
+    params = params_from_jax(case["params"], "cpu")
+    if case["w8"]:
+        from repro_torch.core.quantization import quantize_lm_params
+        params = quantize_lm_params(params)
+    seen: dict = {}
+    model = _seen(build_model(cfg), seen)
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    res = {}
+
+    def diffs(a_tree, b_tree):
+        return {p: (float((a - b).abs().max()), float(a.abs().max()),
+                    a.shape == b.shape)
+                for (p, a), (_, b) in zip(flatten_with_paths(a_tree),
+                                          flatten_with_paths(b_tree))}
+
+    if not case["w8"]:
+        batch = {k: torch.tensor(v) for k, v in case["batch"].items()}
+        opt_cfg = default_opt_cfg(cfg)
+        opt = adamw_init(params, opt_cfg)
+        l1, g1 = value_and_grad(model.loss)(params, batch)
+        opt_specs = {"step": P(), "m": specs, "v": specs}
+        if "master" in opt:
+            opt_specs["master"] = specs
+        local = tree_map(lambda x, s: s.shard(x), batch,
+                         make_batch_specs(batch, ctx, "dp"))
+        blocks = shard_tree(params, specs, mesh)
+        _, g2, gnorm2 = sharded_value_and_grad(model, ctx, specs)(blocks,
+                                                                  local)
+        step = make_train_step(model, opt_cfg, ctx=ctx, specs=specs)
+        p2, _, l2 = step(blocks, shard_tree(opt, opt_specs, mesh), local)
+        p_ref, _ = adamw_update(gather_tree(g2, specs, mesh), opt, params,
+                                opt_cfg, gnorm=gnorm2)
+        res.update({
+            "loss": (float(l1), float(l2)),
+            "grads": diffs(tree_map(lambda g, s: local_block(g, s, mesh),
+                                    g1, specs), g2),
+            "gnorm": (float(global_norm(g1)), float(gnorm2)),
+            "params": diffs(p_ref, gather_tree(p2, specs, mesh))})
+    if case["serve"]:
+        rng = np.random.default_rng(9)
+        B = 4
+        tokens = torch.tensor(rng.integers(0, cfg.vocab,
+                                           (B, TP_SERVE_PROMPT)))
+        steps = torch.tensor(rng.integers(0, cfg.vocab,
+                                          (TP_SERVE_STEPS, B, 1)))
+        if cfg.family == "encdec":
+            frames = torch.tensor(rng.standard_normal(
+                (B, 16, cfg.d_model)).astype(np.float32))
+            res["serve"] = _serve_encdec(model, params, mesh, frames,
+                                         tokens, steps)
+        else:
+            res["serve"] = _serve_one(model, params, mesh, tokens, steps,
+                                      TP_SERVE_PROMPT + TP_SERVE_STEPS)
+    res["over"], res["split"] = {}, {}
+    for call, shapes in seen.items():
+        res["over"][call], res["split"][call] = _model_gathered(
+            params, specs, mesh, shapes)
+    return res
+
+
+def _serve_encdec(model, params, mesh, frames, tokens, steps):
+    """The enc-dec's sharded prefill (its state) and decode steps
+    against the single-device ones, as ``_serve_one``'s; both decodes
+    start from the sharded prefill's state (gathered for the single
+    device)."""
+    from repro_torch.common.tree import flatten_with_paths
+    from repro_torch.distributed import collectives as C
+    from repro_torch.distributed.partition import (
+        gather_tree, local_block, make_ctx, match_partition_rules,
+        shard_tree)
+    from repro_torch.distributed.rules import CACHE_RULES, LM_RULES
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+
+    ctx = make_ctx(mesh)
+    B, S = tokens.shape[0], steps.shape[0]
+    batch = {"frames": frames, "tokens": tokens[:, :S]}
+    state1 = model.prefill(params, batch)
+    specs = match_partition_rules(LM_RULES, params, ctx)
+    s_specs = match_partition_rules(CACHE_RULES, state1, ctx)
+    blocks = shard_tree(params, specs, mesh)
+    dp = C.axis_size("data", mesh)
+    i = C.axis_index("data", mesh)
+    rows = slice(i * B // dp, (i + 1) * B // dp)
+    state2 = make_prefill_step(model, ctx=ctx, specs=specs,
+                               cache_specs=s_specs)(
+        blocks, {k: v[rows] for k, v in batch.items()})
+
+    def err(want, got):
+        return (float((want.float() - got.float()).abs().max()),
+                float(want.float().abs().max()), tuple(got.shape),
+                str(got.dtype))
+
+    def tree_err(a_tree, b_tree):
+        return {p: err(local_block(a, s, mesh), b)
+                for (p, a), (_, s), (_, b) in zip(
+                    flatten_with_paths(a_tree), flatten_with_paths(s_specs),
+                    flatten_with_paths(b_tree))}
+
+    entry = {"prefill_caches": tree_err(state1, state2), "decode": []}
+    # the decode from the sharded prefill's state on both sides: its
+    # bf16 K/V can sit a rounding away from the single-device prefill's
+    state1 = gather_tree(state2, s_specs, mesh)
+    serve = make_serve_step(model, ctx=ctx, specs=specs,
+                            cache_specs=s_specs)
+    vocab = model.cfg.vocab
+    for t in range(S):
+        l1, state1 = model.decode(params, state1, steps[t], t)
+        l2, state2 = serve(blocks, state2, steps[t][rows], t)
+        v = l2.shape[1]
+        v0 = C.axis_index("model", mesh) * v if v < vocab else 0
+        entry["decode"].append(err(l1[rows, v0:v0 + v], l2))
+    entry["decode_caches"] = tree_err(state1, state2)
+    return entry
+
+
+def suite_tp(rank, out):
+    inputs = torch.load(os.path.join(out, "inputs.pt"), weights_only=False)
+    return {f"{c['name']}@{c['mesh']}": _tp_case(rank, c)
+            for c in inputs["tp"]}
+
+
+SUITES = {"dist": suite_dist, "train": suite_train, "tp": suite_tp}
 
 
 def _rank_main(rank, suite, out):
